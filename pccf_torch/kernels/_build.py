@@ -1,0 +1,130 @@
+"""Build and load the hand-written CUDA kernels.
+
+At first use on a CUDA tensor, ``nvcc`` compiles every ``pccf_torch/csrc/*.cu``
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+which ``ctypes`` loads.  The library lands in ``pccf_torch/_build/``
+(git-ignored), named by a hash of the sources and flags, so an edited kernel
+is rebuilt and an unchanged one is reused within a checkout.
+
+Each C entry point enqueues its kernel(s) on the stream it is given and
+returns ``cudaGetLastError()``; :func:`check` raises on anything but 0, so a
+launch the CUDA runtime refuses (too many threads, too much shared memory) never
+passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / '_build'
+NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a',
+    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C entry point -> argument types; every entry point takes the stream last
+SIGNATURES: dict[str, tuple] = {
+    'pccf_knn': (P, P, I, I, I, I, P),
+    'pccf_graph_max_pool': (P, P, P, I, I, I, I, P),
+    'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P),
+    'pccf_gemm': (P, P, P, P, P, I, I, I, I, I, P),
+    'pccf_layer_norm': (P, P, P, P, I, I, F, P),
+    'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),
+}
+
+CUDA_ERROR_INVALID_VALUE = 1
+
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which('nvcc'), '/usr/local/cuda/bin/nvcc'):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found: the CUDA kernels are built from pccf_torch/csrc on first use')
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob('*.cu'))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources() + sorted(CSRC.glob('*.cuh')):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libpccf_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the kernels unless an up-to-date library exists; returns its path."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
+    if verbose:
+        cmd.insert(1, '-Xptxas=-v')
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}')
+    if verbose and proc.stderr:
+        print(proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+@functools.cache
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    dll = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(dll, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return dll
+
+
+def check(name: str, err: int, shapes: str) -> None:
+    """Raise unless a C entry point returned 0.  The guard at the top of each
+    entry point is the one statement of the shapes its kernel covers; it
+    returns ``cudaErrorInvalidValue`` for any other, as the runtime does for a
+    shared-memory request the card cannot meet."""
+    if err == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f'{name}: the kernel does not cover {shapes} (cudaErrorInvalidValue)')
+    if err != 0:
+        raise RuntimeError(f'{name}: CUDA error {err} at launch ({shapes})')
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """Validate a tensor handed to a kernel: on CUDA, dtype, shape, contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
+    if t.dtype != dtype:
+        raise ValueError(f'{name}: expected {dtype}, got {t.dtype}')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}')
+    if not t.is_contiguous():
+        raise ValueError(f'{name}: expected a contiguous tensor')
