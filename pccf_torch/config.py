@@ -1,15 +1,13 @@
-"""Flagship configuration of the counterfactual serving slice, as plain dataclasses.
+"""Flagship configuration of the port's slices, as plain dataclasses.
 
 The JAX package composes its configuration from ``configs/experiment/**`` with
-pydantic and pyyaml; the machine that serves the port has neither, so the
-values the slice needs are restated here, each field citing the yaml it comes
+pydantic and pyyaml; the machine that runs the port has neither, so the
+values the port needs are restated here, each field citing the yaml it comes
 from.  ``tests/test_torch_port_modules.py`` holds these defaults against
-``pccf.config.get_config_all(['autoencoder.model.decoder.filter=false'])`` so
-the two cannot drift apart.
+``pccf.config.get_config_all([])`` so the two cannot drift apart.
 
-The slice runs the flagship model with graph filtering off
-(``configs/experiment/autoencoder/model/decoder/pcgen.yaml:8``): filtering and
-its neighbour-gather kernel are not ported yet.
+The slices cover the flagship unmodified: counterfactual serving with graph
+filtering on, and the stage-1 VQ-VAE training step with the ChamferEMD loss.
 """
 
 from __future__ import annotations
@@ -50,7 +48,7 @@ class DecoderConfig:
     conv_dims: tuple[int, ...] = (1024, 256, 16)  # autoencoder/model/decoder/pcgen.yaml:5
     tau: float = 5.0  # autoencoder/model/decoder/pcgen.yaml:6
     act_name: str = 'ReLU'  # autoencoder/model/decoder/pcgen.yaml:7
-    filter: bool = False  # pcgen.yaml:8 says true; this slice serves filter=false
+    filter: bool = True  # autoencoder/model/decoder/pcgen.yaml:8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +73,33 @@ class WAutoEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """autoencoder/train/learn/scheduler/cosine.yaml"""
+
+    restart_interval: int = 100
+    restart_fraction: float = 1.0
+    warmup_steps: int = 0
+    min_decay: float = 0.01
+    decay_steps: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoEncoderTrainConfig:
+    batch_size: int = 8  # autoencoder/train/default_train.yaml:6
+    learning_rate: float = 0.004  # autoencoder/train/learn/default_learn.yaml:6
+    weight_decay: float = 0.001  # autoencoder/train/learn/default_learn.yaml:10 (AdamW, :5)
+    scheduler: SchedulerConfig = SchedulerConfig()
+    c_embedding: float = 8.0  # autoencoder/objective/chamfer_emd.yaml:4 (recon_loss ChamferEMD, :3)
+
+
+@dataclasses.dataclass(frozen=True)
 class AutoEncoderConfig:
     book_size: int = 16  # autoencoder/model/vqvae.yaml:8
     embedding_dim: int = 4  # autoencoder/model/vqvae.yaml:9
     w_dim: int = 1024  # autoencoder/model/vqvae.yaml:10
     encoder: EncoderConfig = EncoderConfig()
     decoder: DecoderConfig = DecoderConfig()
+    train: AutoEncoderTrainConfig = AutoEncoderTrainConfig()
 
     @property
     def n_codes(self) -> int:
@@ -89,8 +108,10 @@ class AutoEncoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SliceConfig:
-    """Everything the counterfactual serving path reads; the defaults are the
-    flagship model."""
+    """Everything the serving and training slices read; the defaults are the
+    flagship model.  The training step decodes ``data.n_input_points``
+    points (``autoencoder/autoencoder_exp.yaml:9``), serving
+    ``data.n_target_points``."""
 
     data: DataConfig = DataConfig()
     classifier: ClassifierConfig = ClassifierConfig()

@@ -2,7 +2,11 @@
 
 Input: the nested dict of numpy arrays a flax model carries (``params`` and
 ``batch_stats`` collections, e.g. ``jax.tree.map(np.asarray, variables)``).
-No JAX import is needed here.  The port's module attributes follow the flax
+Any tree shaped like ``params`` converts the same way under the ``params``
+key, so JAX gradients and updated parameters of a training step land on the
+port's parameter names; the training step touches every parameter outside
+the frozen ``w_autoencoder`` and every running statistic.  No JAX import is
+needed here.  The port's module attributes follow the flax
 submodule names, so the mapping is:
 
 - submodule names: ``edge_conv_i``, ``layer_i``, ``map_i``, ``conv_i`` become

@@ -1,3 +1,3 @@
-from pccf_torch.data.structures import Inputs, Outputs, WInputs
+from pccf_torch.data.structures import Inputs, Outputs, Targets, WInputs
 
-__all__ = ['Inputs', 'Outputs', 'WInputs']
+__all__ = ['Inputs', 'Outputs', 'Targets', 'WInputs']

@@ -23,6 +23,14 @@ class Inputs:
 
 
 @dataclasses.dataclass
+class Targets:
+    """Targets of the outer autoencoder: the reference cloud ``(B, M, 3)``
+    (``pccf`` also carries the scale and label, which stage 1 does not read)."""
+
+    ref_cloud: torch.Tensor
+
+
+@dataclasses.dataclass
 class WInputs:
     """Inputs of the inner (W) autoencoder."""
 
@@ -33,7 +41,8 @@ class WInputs:
 @dataclasses.dataclass
 class Outputs:
     """Outputs of the inner and outer autoencoder, filled along the path
-    (the fields the counterfactual path sets; ``pccf`` has more)."""
+    (the fields the serving and stage-1 training paths set; ``pccf`` has
+    more)."""
 
     recon: torch.Tensor | None = None
     w: torch.Tensor | None = None
@@ -42,6 +51,7 @@ class Outputs:
     w_recon: torch.Tensor | None = None
     w_dist_2: torch.Tensor | None = None
     idx: torch.Tensor | None = None
+    one_hot_idx: torch.Tensor | None = None
     probs: torch.Tensor | None = None
 
     def replace(self, **changes) -> 'Outputs':

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 At first use on a CUDA tensor, ``nvcc`` compiles every ``pccf_torch/csrc/*.cu``
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-which ``ctypes`` loads.  The library lands in ``pccf_torch/_build/``
+for Hopper (``sm_90a``), one process per source, all started together, and
+links the objects into one shared library with a plain C interface, which
+``ctypes`` loads.  The library lands in ``pccf_torch/_build/``
 (git-ignored), named by a hash of the sources and flags, so an edited kernel
 is rebuilt and an unchanged one is reused within a checkout.
 
@@ -27,10 +28,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / '_build'
-NVCC_FLAGS = (
-    '-gencode', 'arch=compute_90a,code=sm_90a',
-    '-std=c++17', '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',
-)
+ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
+COMPILE_FLAGS = (*ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo')
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -44,6 +43,12 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_gemm': (P, P, P, P, P, I, I, I, I, I, P),
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),
     'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),
+    'pccf_gather_neighbors': (P, P, P, I, I, I, I, P),
+    'pccf_scatter_add_rows': (P, P, P, I, I, I, I, I, P),
+    'pccf_graph_max_pool_src': (P, P, P, P, I, I, I, I, P),
+    'pccf_scatter_add_slots': (P, P, P, P, I, I, I, I, I, P),
+    'pccf_graph_sum_pool': (P, P, P, I, I, I, I, P),
+    'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
 }
 
 CUDA_ERROR_INVALID_VALUE = 1
@@ -63,7 +68,7 @@ def _sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(COMPILE_FLAGS).encode())
     for src in _sources() + sorted(CSRC.glob('*.cuh')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -76,18 +81,39 @@ def build(verbose: bool = False) -> pathlib.Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, '-Xptxas=-v')
+    work = BUILD_DIR / f'tmp-{os.getpid()}'
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc, sources = _nvcc(), _sources()
+    objects = [work / f'{src.stem}.o' for src in sources]
+    extra = ['-Xptxas=-v'] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}')
-    if verbose and proc.stderr:
-        print(proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    procs: list[subprocess.Popen] = []
+    try:
+        for src, obj in zip(sources, objects):
+            procs.append(subprocess.Popen([nvcc, *COMPILE_FLAGS, *extra, '-c', '-o', str(obj), str(src)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        logs, failed = [], []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f'{src.name} ({proc.returncode}):\n{err[-8000:]}')
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        tmp = work / out.name
+        link = subprocess.run([nvcc, *ARCH, '-shared', '-o', str(tmp), *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}')
+        if verbose:
+            print(''.join(logs))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -112,6 +138,16 @@ def check(name: str, err: int, shapes: str) -> None:
         raise ValueError(f'{name}: the kernel does not cover {shapes} (cudaErrorInvalidValue)')
     if err != 0:
         raise RuntimeError(f'{name}: CUDA error {err} at launch ({shapes})')
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor (run
+    the plain version); any other device has neither and raises."""
+    if t.is_cuda:
+        return True
+    if t.device.type == 'cpu':
+        return False
+    raise ValueError(f'no kernel or plain version for device {t.device}')
 
 
 def stream() -> int:

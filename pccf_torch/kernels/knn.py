@@ -14,7 +14,8 @@ plain = ops.knn
 
 def knn_cuda(x: torch.Tensor, k: int) -> torch.Tensor:
     """``(B, N, C)`` float32 on the card -> ``(B, N, k)`` int32 indices;
-    ``1 <= k <= min(32, N)`` (the guard of ``pccf_knn``)."""
+    ``1 <= k <= min(32, N)`` (the guard of ``pccf_knn``): the encoder's 25,
+    the classifier's 20 and graph filtering's 4."""
     _build.require(x, 'x', torch.float32)
     if x.dim() != 3:
         raise ValueError(f'x: expected (B, N, C), got {tuple(x.shape)}')

@@ -49,8 +49,167 @@ def gather_neighbors(x: Tensor, idx: Tensor) -> Tensor:
 
 def graph_max_pool(x: Tensor, idx: Tensor) -> Tensor:
     """Max over the k neighbours of each point, ``(B, N, C)``
-    (``pccf/kernels/ops.py:110``; forward only)."""
+    (``pccf/kernels/ops.py:110``; the eval forward).  Its training gradient
+    goes to the first winning slot: :func:`graph_max_pool_slots` and
+    :func:`scatter_add_slots`."""
     return torch.amax(gather_neighbors(x, idx), dim=2)
+
+
+def graph_max_pool_slots(x: Tensor, idx: Tensor) -> tuple[Tensor, Tensor]:
+    """Max over the k neighbours and the slot ``j`` that wins each channel,
+    ``(B, N, C)`` float and ``(B, N, C)`` uint8; ties keep the earliest slot
+    (``argmax`` first, ``pccf/kernels/ops.py:124-127``, the strict ``>`` of
+    ``pallas_gather.py:111``)."""
+    gathered = gather_neighbors(x, idx)
+    slots = torch.argmax(gathered, dim=2, keepdim=True)  # first maximum
+    return torch.gather(gathered, 2, slots)[:, :, 0, :], slots[:, :, 0, :].to(torch.uint8)
+
+
+def scatter_add_slots(g: Tensor, idx: Tensor, slots: Tensor, n: int) -> Tensor:
+    """Max-pool backward ``dx[b, idx[b, i, slot], c] += g[b, i, c]`` where
+    ``slot = slots[b, i, c]``, ``(B, n, C)`` (``pccf/kernels/ops.py:130-140``)."""
+    rows = torch.gather(idx.long(), 2, slots.long())  # (B, M, C): winning row per channel
+    return torch.zeros((g.shape[0], n, g.shape[2]), dtype=g.dtype, device=g.device).scatter_add_(1, rows, g)
+
+
+def graph_sum_pool(x: Tensor, idx: Tensor) -> Tensor:
+    """Sum over the k neighbours of each point, ``(B, N, C)``
+    (``pccf/kernels/ops.py:164``)."""
+    return torch.sum(gather_neighbors(x, idx), dim=2)
+
+
+def scatter_add_rows(g: Tensor, idx: Tensor, n: int) -> Tensor:
+    """Transpose of the row gather: ``dx[b, idx[b, i, j]] += g[b, i]``,
+    ``g (B, M, C)``, ``idx (B, M, k)`` -> ``(B, n, C)``
+    (``pallas_gather.py:182``; the backward of sum-pool and gather)."""
+    b, m, c = g.shape
+    k = idx.shape[-1]
+    rows = (idx.long() + n * torch.arange(b, device=g.device)[:, None, None]).reshape(-1)
+    src = g[:, :, None, :].expand(b, m, k, c).reshape(-1, c)
+    return torch.zeros((b * n, c), dtype=g.dtype, device=g.device).index_add_(0, rows, src).reshape(b, n, c)
+
+
+def graph_filtering_with_idx(x: Tensor, idx: Tensor, gather_fn=None) -> Tensor:
+    """Gaussian-weighted sharpening of a decoded cloud from its kNN graph
+    (``pccf/kernels/ops.py:207-219``): slot 0 is dropped as the point itself,
+    ``sqrt(|d²| + 1e-12)`` guards the gradient of duplicates, and the
+    per-cloud bandwidth is clamped at 0.005."""
+    neigh = (gather_fn or gather_neighbors)(x, idx)[:, :, 1:, :]
+    diff = x[:, :, None, :] - neigh
+    dist = torch.sqrt(torch.abs(torch.sum(diff * diff, dim=-1)) + 1e-12)
+    sigma = torch.clamp_min(torch.mean(dist[:, :, 0:1], dim=1, keepdim=True), 0.005)
+    weights = torch.exp(-dist / sigma)
+    w_sum = torch.sum(weights, dim=-1, keepdim=True)
+    weighted = torch.sum(weights[..., None] * neigh, dim=2)
+    return (1.0 + w_sum) * x - weighted
+
+
+# ---------------------------------------------------- Chamfer, ApproxMatch EMD
+
+# ApproxMatch relaxation levels -4^j, j = 7 .. -1 (pccf/kernels/ops.py:30)
+APPROX_MATCH_LEVELS = tuple(-float(4.0**j) for j in range(7, -2, -1))
+
+
+def square_distance(t1: Tensor, t2: Tensor) -> Tensor:
+    """``|x|² − 2 x·y + |y|²``, ``(B, N, M)`` (``pccf/kernels/ops.py:33``)."""
+    d = -2.0 * torch.matmul(t1, t2.transpose(-1, -2))
+    d = d + torch.sum(t1 * t1, dim=-1, keepdim=True)
+    return d + torch.sum(t2 * t2, dim=-1, keepdim=True).transpose(-1, -2)
+
+
+def pair_square_distance(t1: Tensor, t2: Tensor) -> Tensor:
+    """Squared distances from coordinate differences, ``((dx² + dy²) + dz²)``
+    in float32: what the EMD kernels (``pallas_emd.py:137-142`` and
+    ``csrc/emd.cu``) compute, never negative."""
+    diff = t1[:, :, None, :] - t2[:, None, :, :]
+    d = diff[..., 0] * diff[..., 0]
+    for c in range(1, t1.shape[-1]):
+        d = d + diff[..., c] * diff[..., c]
+    return d
+
+
+def nn_distance(x: Tensor, y: Tensor, d: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Bidirectional nearest neighbours ``dist1 (B, N), idx1 (B, N), dist2
+    (B, M), idx2 (B, M)``, the lowest index on ties
+    (``pccf/kernels/ops.py:227``).  ``d`` overrides the distance matrix."""
+    d = square_distance(x, y) if d is None else d
+    dist1, idx1 = _first_min(d, -1)
+    dist2, idx2 = _first_min(d, -2)
+    return dist1, idx1, dist2, idx2
+
+
+def _first_min(d: Tensor, dim: int) -> tuple[Tensor, Tensor]:
+    """Min and the lowest index attaining it (``jnp.argmin``); ``torch.min``
+    leaves the index of ties unspecified."""
+    val = torch.amin(d, dim=dim, keepdim=True)
+    pos = torch.arange(d.shape[dim], device=d.device).view([-1 if i == d.dim() + dim else 1 for i in range(d.dim())])
+    idx = torch.where(d == val, pos, d.shape[dim]).amin(dim=dim)
+    return val.squeeze(dim), idx.to(torch.int32)
+
+
+def chamfer(x: Tensor, y: Tensor) -> Tensor:
+    """Chamfer distance per sample ``(B,)``, the mean over the points of each
+    direction, gradients through the gathered nearest neighbours
+    (``pccf/kernels/ops.py:242``, ``reduction='mean'``)."""
+    with torch.no_grad():
+        _, idx1, _, idx2 = nn_distance(x, y)
+    near_y = torch.gather(y, 1, idx1.long()[..., None].expand(-1, -1, y.shape[-1]))
+    near_x = torch.gather(x, 1, idx2.long()[..., None].expand(-1, -1, x.shape[-1]))
+    forward = torch.mean(torch.sum((x - near_y) ** 2, dim=-1), dim=1)
+    return forward + torch.mean(torch.sum((y - near_x) ** 2, dim=-1), dim=1)
+
+
+def emd_marginal_multipliers(n: int, m: int) -> tuple[float, float]:
+    """ApproxMatch marginals by C integer division (``ops.py:268``)."""
+    if n >= m:
+        return 1.0, float(n // m)
+    return float(m // n), 1.0
+
+
+def approx_match(x1: Tensor, x2: Tensor, d: Tensor | None = None) -> Tensor:
+    """ApproxMatch transport plan ``(B, N, M)``, level by level as
+    ``pccf/kernels/ops.py:277-321``: phase 1 row ratios, phase 2 column
+    demand and consumption, phase 3 assignment and remains."""
+    b, n, m = x1.shape[0], x1.shape[1], x2.shape[1]
+    mult_l, mult_r = emd_marginal_multipliers(n, m)
+    d = square_distance(x1, x2) if d is None else d
+    remain_l = torch.full((b, n), mult_l, dtype=x1.dtype, device=x1.device)
+    remain_r = torch.full((b, m), mult_r, dtype=x1.dtype, device=x1.device)
+    match = torch.zeros_like(d)
+    for level in APPROX_MATCH_LEVELS:
+        kernel = torch.exp(level * d)
+        suml = torch.einsum('bnm,bm->bn', kernel, remain_r) + 1e-9
+        ratio_l = remain_l / suml
+        demand = torch.einsum('bnm,bn->bm', kernel, ratio_l) * remain_r
+        consumption = torch.clamp_max(remain_r / (demand + 1e-9), 1.0)
+        ratio_r = consumption * remain_r
+        w = kernel * ratio_l[:, :, None] * ratio_r[:, None, :]
+        match = match + w
+        remain_l = torch.clamp_min(remain_l - torch.sum(w, dim=2), 0.0)
+        remain_r = torch.clamp_min(remain_r - demand, 0.0)
+    return match
+
+
+def match_cost_grads(x1: Tensor, x2: Tensor, match: Tensor) -> tuple[Tensor, Tensor]:
+    """Gradients of the match cost with the plan held constant
+    (``pccf/kernels/ops.py:330-342``, ``rsqrt(max(d², 1e-20))``)."""
+    diff = x1[:, :, None, :] - x2[:, None, :, :]
+    w = match * torch.rsqrt(torch.clamp_min(torch.sum(diff * diff, dim=-1), 1e-20))
+    return torch.einsum('bnm,bnmc->bnc', w, diff), -torch.einsum('bnm,bnmc->bmc', w, diff)
+
+
+def emd_forward(x1: Tensor, x2: Tensor, d: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """ApproxMatch EMD ``cost (B,)`` and its two gradients with the plan held
+    constant, the forward and saved residuals of ``match_cost``
+    (``pccf/kernels/ops.py:345-370``); the autograd function is
+    :class:`pccf_torch.kernels.emd.MatchCost`."""
+    d = square_distance(x1, x2) if d is None else d
+    match = approx_match(x1, x2, d)
+    cost = torch.sum(match * torch.sqrt(torch.clamp_min(d, 0.0)), dim=(1, 2))
+    return (cost, *match_cost_grads(x1, x2, match))
+
+
+# ------------------------------------------------------------------ layers
 
 
 def interleave_residual(x: Tensor, out_features: int) -> Tensor:
@@ -93,6 +252,28 @@ def vq_lookup(idx: Tensor, codebook: Tensor) -> Tensor:
     slots = torch.arange(n_codes, device=idx.device)
     emb = codebook[slots[None, :], idx.long()]  # (B, n_codes, d)
     return emb.reshape(idx.shape[0], -1)
+
+
+def one_hot_idx(idx: Tensor, book_size: int) -> Tensor:
+    """One-hot VQ selections ``(B, n_codes, book_size)`` float32
+    (``pccf/kernels/ops.py:480``)."""
+    return F.one_hot(idx.long(), book_size).to(torch.float32)
+
+
+class _StraightThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_e, w_q):
+        return w_e.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g), g
+
+
+def straight_through(w_e: Tensor, w_q: Tensor) -> Tensor:
+    """Forward ``w_e``, the whole gradient to ``w_q`` and none to ``w_e``
+    (``pccf/kernels/ops.py:485-501``)."""
+    return _StraightThrough.apply(w_e, w_q)
 
 
 def leaky(x: Tensor, slope: float) -> Tensor:

@@ -1,4 +1,5 @@
-"""Counterfactual VQ-VAE, serving path (``pccf/models/autoencoders.py``)."""
+"""Counterfactual VQ-VAE (``pccf/models/autoencoders.py``): the serving path
+and the stage-1 reconstruction path that training differentiates."""
 
 from __future__ import annotations
 
@@ -27,11 +28,14 @@ class VQVAE(nn.Module):
         n_codes: int,
         book_size: int,
         embedding_dim: int,
+        n_training_output_points: int,
         n_inference_output_points: int,
     ) -> None:
         super().__init__()
         self.encoder, self.decoder, self.w_autoencoder = encoder, decoder, w_autoencoder
         self.codebook = nn.Parameter(torch.zeros(n_codes, book_size, embedding_dim))
+        self.book_size = book_size
+        self.n_training_output_points = n_training_output_points  # the trainer's decoder sampling size
         self.n_inference_output_points = n_inference_output_points  # the server's decoder sampling size
 
     @torch.no_grad()
@@ -43,8 +47,20 @@ class VQVAE(nn.Module):
         if self.decoder.fused_ok():
             self.decoder.packed = self.decoder.pack()
 
+    def forward(self, inputs: Inputs, gumbel_uniform: torch.Tensor | None = None) -> Outputs:
+        """Encode, quantise with the straight-through gradient, decode
+        (``autoencoders.py:60-79``); ``inputs.initial_sampling`` and, in
+        training, the decoder's Gumbel noise are passed in."""
+        return self.decode(self.encode(inputs), inputs, gumbel_uniform)
+
     def encode(self, inputs: Inputs) -> Outputs:
         return Outputs(w_q=self.encoder(inputs.cloud, inputs.indices))
+
+    def decode(self, data: Outputs, inputs: Inputs, gumbel_uniform: torch.Tensor | None = None) -> Outputs:
+        w_e, idx, _ = ops.vq_assign(data.w_q, self.codebook)
+        w = ops.straight_through(w_e, data.w_q)
+        recon = self.decoder(w, inputs.initial_sampling, gumbel_uniform)
+        return data.replace(w_e=w_e, idx=idx, one_hot_idx=ops.one_hot_idx(idx, self.book_size), w=w, recon=recon)
 
     def generate_counterfactual(
         self,
@@ -76,5 +92,6 @@ def build_vqvae(cfg: SliceConfig) -> VQVAE:
         n_codes=ae.n_codes,
         book_size=ae.book_size,
         embedding_dim=ae.embedding_dim,
+        n_training_output_points=cfg.data.n_input_points,
         n_inference_output_points=cfg.data.n_target_points,
     )

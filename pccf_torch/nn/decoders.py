@@ -1,11 +1,14 @@
-"""PCGen point-cloud decoder, eval (``pccf/nn/decoders.py``).
+"""PCGen point-cloud decoder (``pccf/nn/decoders.py``).
 
-The map MLP up to its penultimate layer stays ``torch.matmul`` (it lies
-outside the Pallas kernel in JAX too); the Hardtanh map head, the
-``w ⊙ map`` join, the component stacks, their heads and the tempered-softmax
-mix run in the ``pcgen_mix`` kernel when the structural gate of
-``pallas_pcgen.py:68-72`` holds.  Graph filtering is not ported yet: the
-slice serves ``filter=false``.
+Eval: the map MLP up to its penultimate layer stays ``torch.matmul`` (it lies
+outside the Pallas kernel in JAX too); the Hardtanh map head, the ``w ⊙ map``
+join, the component stacks, their heads and the tempered-softmax mix run in
+the ``pcgen_mix`` kernel when the structural gate of ``pallas_pcgen.py:68-72``
+holds.  Training (``module.train()``) runs module by module with batch-stat
+BatchNorm and Gumbel-softmax attention, whose products are plain
+``torch.matmul`` as in JAX.  Either way graph filtering (kNN with k=4, then
+the neighbour gather kernel) sharpens the mixed cloud when ``filtering`` is
+on, as the flagship configuration has it.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from torch import nn
 from pccf_torch.config import AutoEncoderConfig
 from pccf_torch.kernels import api, ops
 from pccf_torch.kernels.pcgen import PCGenPack
-from pccf_torch.nn.layers import Act, BatchNorm, DenseBlock, StackedLinear, act_slope, get_act, hard_tanh, relu
+from pccf_torch.nn.layers import (Act, BatchNorm, DenseBlock, StackedLinear, act_slope, get_act, gumbel_softmax,
+                                  hard_tanh, relu)
 
 OUT_CHAN = 3
 
@@ -38,10 +42,7 @@ class StackedDenseBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.dense(x)
         if self.bn is not None:
-            shape = (y.shape[0],) + (1,) * (y.dim() - 2) + (self.features,)
-            bn = self.bn
-            a = (bn.weight * torch.rsqrt(bn.running_var + bn.eps)).view(shape)
-            y = (y - bn.running_mean.view(shape)) * a + bn.bias.view(shape)
+            y = self.bn(y)
         if self.act is not None:
             y = self.act(y)
         if self.residual:
@@ -69,7 +70,8 @@ class ComponentStack(nn.Module):
 class PCGenDecoder(nn.Module):
     """Map per-point Gaussian samples through an MLP, join with the latent by
     elementwise product, mix ``n_components`` residual stacks with tempered
-    softmax attention (``decoders.py:43-132``, eval)."""
+    (eval) or Gumbel (training) softmax attention, and sharpen the result with
+    graph filtering (``decoders.py:43-132``)."""
 
     def __init__(
         self,
@@ -83,14 +85,13 @@ class PCGenDecoder(nn.Module):
         filtering: bool = False,
     ) -> None:
         super().__init__()
-        if filtering:
-            raise NotImplementedError('graph filtering (filter=true) is not ported yet')
         self.w_dim = w_dim
         self.sample_dim = sample_dim
         self.n_components = n_components
         self.conv_dims = conv_dims
         self.tau = tau
         self.act = act
+        self.filtering = filtering
         widths = (sample_dim, *map_dims)
         self.map = nn.ModuleList(
             DenseBlock(widths[i], widths[i + 1], act=relu, batch_norm=False) for i in range(len(map_dims))
@@ -133,30 +134,47 @@ class PCGenDecoder(nn.Module):
             att_w=self.att.dense.weight.detach(), att_b=self.att.dense.bias.detach(),
         )
 
-    def forward(self, w: torch.Tensor, initial_sampling: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, w: torch.Tensor, initial_sampling: torch.Tensor, gumbel_uniform: torch.Tensor | None = None
+    ) -> torch.Tensor:
         """``w (B, w_dim)`` and the per-point Gaussian samples
         ``(B, n_out, sample_dim)`` -> ``(B, n_out, 3)``.  The sampling is always
-        passed in, drawn by the caller's ``torch.Generator``."""
+        passed in, drawn by the caller's ``torch.Generator``; so is the
+        training attention's uniform noise ``(B, n_out, n_components)``
+        (:func:`pccf_torch.nn.layers.gumbel_uniform`)."""
         x = initial_sampling
         for block in self.map:
             x = block(x)
-        if self.fused_ok():
+        if self.training:
+            x = self._mix_modules(x, w, gumbel_uniform)
+        elif self.fused_ok():
             pack = self.packed if self.packed is not None else self.pack()
-            return api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
-        if x.is_cuda:
+            x = api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
+        elif x.is_cuda:
             raise NotImplementedError(
                 'PCGenDecoder: the pcgen_mix gate failed ((leaky) ReLU, at least two components, non-expanding '
                 'layers after the first); the module-by-module path runs on CPU tensors only'
             )
+        else:
+            x = self._mix_modules(x, w, None)
+        return api.graph_filtering(x.contiguous()) if self.filtering else x
 
-        x = w[:, None, :] * self.map_out(x)  # join (decoders.py:92)
+    def _mix_modules(self, m: torch.Tensor, w: torch.Tensor, gumbel_uniform: torch.Tensor | None) -> torch.Tensor:
+        """Map head, join, components, heads and the attention mix, module by
+        module (``decoders.py:87-128``)."""
+        x = w[:, None, :] * self.map_out(m)  # join (decoders.py:92)
         g = self.n_components
         feats = self.components(x.expand(g, *x.shape))  # (G, B, N, D_last)
         comps = self.component_heads(feats)  # (G, B, N, 3)
         if g == 1:
             return comps[0]
         att = self.att(torch.cat(list(feats), dim=-1))
-        att = ops.temperature_softmax(att, self.tau)
+        if self.training:
+            if gumbel_uniform is None:
+                raise ValueError('PCGenDecoder: training needs the Gumbel noise (gumbel_uniform)')
+            att = gumbel_softmax(att, self.tau, gumbel_uniform)
+        else:
+            att = ops.temperature_softmax(att, self.tau)
         return torch.einsum('bng,gbnc->bnc', att, comps)
 
 

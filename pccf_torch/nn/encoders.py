@@ -1,4 +1,5 @@
-"""DGCNN encoder, eval (``pccf/nn/encoders.py``), channels-last."""
+"""DGCNN encoder (``pccf/nn/encoders.py``), channels-last; ``module.train()``
+selects the streaming-BN training path."""
 
 from __future__ import annotations
 
@@ -12,14 +13,17 @@ IN_CHAN = 3
 
 
 class EdgeConvBlock(nn.Module):
-    """EdgeConv on the eval streaming path (``encoders.py:62-126``).
+    """EdgeConv on the streaming path (``encoders.py:62-126``).
 
     With ``W = [W_diff; W_self]`` the edge dense ``concat(nbr − x, x) · W``
-    is ``(x · W_diff)[nbr] + x · (W_self − W_diff)``.  The running-stat
-    BatchNorm is a per-channel affine ``a, b`` that folds into the gathered
-    term before the max (the per-centre term is constant over neighbours),
-    and a monotone activation commutes with the max:
-    ``act(graph_max_pool(u · a, idx) + s · a + b)``.
+    is ``(x · W_diff)[nbr] + x · (W_self − W_diff)``.  BatchNorm is a
+    per-channel affine ``a, b`` that folds into the gathered term before the
+    max (the per-centre term is constant over neighbours), and a monotone
+    activation commutes with the max:
+    ``act(graph_max_pool(u · a, idx) + s · a + b)``.  In training ``a, b``
+    come from the batch statistics of the never-materialised edge tensor:
+    one sum-pool of ``[u, u²]`` gives both u-moments, and
+    ``var = E[u²] + 2 E[u·s] + E[s²] − mean²`` (unclamped, as in JAX).
 
     ``weight`` is ``(F, 2C)``: the transpose of the flax ``kernel``."""
 
@@ -43,9 +47,28 @@ class EdgeConvBlock(nn.Module):
         w_diff = self.weight[:, :c]
         u = torch.matmul(x, w_diff.T)  # gathered per neighbour
         s = torch.matmul(x, (self.weight[:, c:] - w_diff).T)  # per-centre term
-        a, b = self.bn.affine()
+        if self.training:
+            a, b = self._batch_affine(u, s, idx)
+        else:
+            a, b = self.bn.affine()
         out = api.graph_max_pool((u * a).contiguous(), idx) + s * a + b
         return self.act(out) if self.act is not None else out
+
+    def _batch_affine(self, u: torch.Tensor, s: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """BatchNorm affine from the edge tensor's batch statistics
+        (``encoders.py:89-123``); updates the running statistics."""
+        f, k = u.shape[-1], idx.shape[-1]
+        sums = api.graph_sum_pool(torch.cat([u, u * u], dim=-1), idx)
+        usum, u2sum = sums[..., :f], sums[..., f:]
+
+        def mean(t):
+            return torch.mean(t, dim=(0, 1))
+
+        batch_mean = mean(usum) / k + mean(s)
+        batch_var = mean(u2sum) / k + 2.0 * (mean(s * usum) / k) + mean(s * s) - batch_mean * batch_mean
+        self.bn.update_running(batch_mean, batch_var)
+        a = self.bn.weight * torch.rsqrt(batch_var + self.bn.eps)
+        return a, self.bn.bias - batch_mean * a
 
 
 class DGCNNEncoder(nn.Module):

@@ -1,4 +1,8 @@
-"""Layer library, eval mode (``pccf/nn/layers.py``), channels-last.
+"""Layer library (``pccf/nn/layers.py``), channels-last.
+
+``module.train()`` selects the JAX ``train=True`` path: BatchNorm normalises
+with batch statistics and updates its running statistics.  Dropout is not
+ported: the stage-1 VQ-VAE has none.
 
 Parameter layouts are torch's (``weight`` is ``(out, in)``);
 :mod:`pccf_torch.convert` maps the flax variable tree onto them.  Module
@@ -68,10 +72,19 @@ def act_slope(act: Act | None) -> float | None:
     return None
 
 
-class BatchNorm(nn.Module):
-    """Running-stat BatchNorm over the last axis, eval only.
+BN_MOMENTUM = 0.9  # flax's momentum: running = 0.9 * running + 0.1 * batch
 
-    ``shape`` may carry leading stack axes (the vmapped PCGen components)."""
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis (flax ``nn.BatchNorm``, one statistics
+    group: ``PCCF_BN_GROUPS`` is not ported).
+
+    ``shape`` may carry leading stack axes (the vmapped PCGen components); in
+    training the statistics are then taken per stack entry, over every axis
+    between the stack axes and the features.  Training normalises with the
+    batch mean and the biased variance ``max(E[x²] − E[x]², 0)`` and moves
+    the running statistics towards them with momentum 0.9 — the biased
+    variance, unlike ``torch.nn.BatchNorm1d``'s unbiased update."""
 
     def __init__(self, *shape: int, eps: float = BN_EPS) -> None:
         super().__init__()
@@ -82,11 +95,26 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(shape))
 
     def forward(self, x: Tensor) -> Tensor:
+        stack = self.weight.dim() - 1
+        view = x.shape[:stack] + (1,) * (x.dim() - stack - 1) + x.shape[-1:]
+        if self.training:
+            axes = tuple(range(stack, x.dim() - 1))
+            mean = torch.mean(x, dim=axes)
+            var = torch.clamp_min(torch.mean(x * x, dim=axes) - mean * mean, 0.0)
+            self.update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
         # flax order: (x − μ) · (γ · rsqrt(σ² + ε)) + β
-        return (x - self.running_mean) * (self.weight * torch.rsqrt(self.running_var + self.eps)) + self.bias
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return (x - mean.view(view)) * a.view(view) + self.bias.view(view)
+
+    @torch.no_grad()
+    def update_running(self, mean: Tensor, var: Tensor) -> None:
+        self.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
+        self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
 
     def affine(self) -> tuple[Tensor, Tensor]:
-        """``(a, b)`` with ``bn(x) = x · a + b``."""
+        """``(a, b)`` with ``bn(x) = x · a + b`` under the running statistics."""
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         return a, self.bias - self.running_mean * a
 
@@ -159,6 +187,19 @@ class DenseBlock(nn.Module):
         if self.residual:
             y = y + ops.interleave_residual(x, self.features)
         return y
+
+
+def gumbel_softmax(logits: Tensor, tau: float, uniform: Tensor, dim: int = -1) -> Tensor:
+    """Soft Gumbel-softmax sample (``pccf/nn/layers.py:200-203``) from
+    uniform noise in ``[1e-20, 1)`` drawn by the caller's generator."""
+    gumbel = -torch.log(-torch.log(uniform + 1e-20) + 1e-20)
+    return torch.softmax((logits + gumbel) / tau, dim=dim)
+
+
+def gumbel_uniform(shape: tuple[int, ...], generator: torch.Generator, device: torch.device) -> Tensor:
+    """``U[1e-20, 1)`` noise for :func:`gumbel_softmax` (``jax.random.uniform``
+    with ``minval=1e-20``), from an explicit generator on ``device``."""
+    return torch.rand(shape, generator=generator, device=device).clamp_min_(1e-20)
 
 
 class MLPHead(nn.Module):

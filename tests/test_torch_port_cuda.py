@@ -9,14 +9,19 @@ conftest helpers, so it runs on a machine that has only PyTorch:
 Tolerances: kNN neighbour sets equal up to near-ties (a differing neighbour
 must be as near, in float64, within 1e-5 of the squared distance scale),
 with the lowest index first on exact duplicates; max-pool bit-exact; pcgen_mix
-rel-L2 1e-2 (bf16 weights); the CVAE chain rel-L2 1e-4 (3xTF32 products).
+rel-L2 1e-2 (bf16 weights); the CVAE chain rel-L2 1e-4 (3xTF32 products);
+gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
+addition (1e-5); the scatter-adds 1e-5 of the largest entry (fp32 atomics
+add in an order that changes from run to run); EMD cost 1e-4 relative and
+gradients rel-L2 1e-3 (exp and the row and column sums recomputed in another
+order), Chamfer minima and argmins exact (same float32 squared distances).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pccf_torch.kernels import api, cvae, gather, knn, ops, pcgen
+from pccf_torch.kernels import api, cvae, emd, gather, knn, ops, pcgen
 
 pytestmark = pytest.mark.cuda
 
@@ -192,3 +197,93 @@ def test_wrappers_reject_bad_inputs(dev):
         gather.graph_max_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32, device=dev))  # F % 4
     with pytest.raises(ValueError):
         knn.knn_cuda(x.double(), 4)
+
+
+def _graph(b, n, k, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, n, (b, n, k), generator=gen, dtype=torch.int32).to(dev)
+
+
+def _max_rel(got, want):
+    return float((got - want).abs().max() / (want.abs().max() + 1e-30))
+
+
+@pytest.mark.parametrize('c,k', [(3, 4), (128, 25)])
+def test_gather_and_row_scatter_match_plain(dev, c, k):
+    x = _randn((2, 2048, c), 10, dev)
+    idx = _graph(2, 2048, k, dev, 11)
+    assert torch.equal(gather.gather_neighbors_cuda(x, idx), ops.gather_neighbors(x, idx))
+    g = _randn((2, 2048, c), 12, dev)
+    assert _max_rel(gather.scatter_add_rows_cuda(g, idx, 2048), ops.scatter_add_rows(g, idx, 2048)) <= 1e-5
+
+
+@pytest.mark.parametrize('f', [64, 256])
+def test_pool_with_slot_and_slot_scatter_match_plain(dev, f):
+    x = _randn((2, 2048, f), 13, dev)
+    x[:, 40] = x[:, 7]  # exact ties between rows
+    idx = _graph(2, 2048, 25, dev, 14)
+    idx[..., 3], idx[..., 9] = 7, 40
+    out, slots = gather.graph_max_pool_src_cuda(x, idx)
+    want, want_slots = ops.graph_max_pool_slots(x, idx)
+    assert torch.equal(out, want) and torch.equal(slots, want_slots)
+    assert torch.equal(out, gather.graph_max_pool_cuda(x, idx))
+    g = _randn((2, 2048, f), 15, dev)
+    assert _max_rel(gather.scatter_add_slots_cuda(g, idx, slots, 2048), ops.scatter_add_slots(g, idx, slots, 2048)) <= 1e-5
+
+
+def test_sum_pool_matches_plain(dev):
+    x = _randn((2, 2048, 256), 16, dev)
+    idx = _graph(2, 2048, 25, dev, 17)
+    assert _max_rel(gather.graph_sum_pool_cuda(x, idx), ops.graph_sum_pool(x, idx)) <= 1e-5
+
+
+@pytest.mark.parametrize('n,m', [(1024, 1024), (512, 768)])
+def test_chamfer_match_cost_matches_plain(dev, n, m):
+    x1 = _randn((2, n, 3), 18, dev) * 0.5
+    x2 = _randn((2, m, 3), 19, dev) * 0.5
+    got, want = emd.chamfer_match_cost_cuda(x1, x2), emd.plain(x1, x2)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
+    assert _rel_l2(got[1], want[1]) <= 1e-3 and _rel_l2(got[2], want[2]) <= 1e-3
+    for a, b in zip(got[3:], want[3:]):
+        assert torch.equal(a, b)
+    alone = emd.chamfer_match_cost_cuda(x1, x2, with_chamfer=False)
+    assert len(alone) == 3 and torch.equal(alone[0], got[0])
+
+
+def test_autograd_on_cuda_never_runs_plain(dev, monkeypatch):
+    """Forward and backward of every new autograd function launch kernels on
+    CUDA tensors; the plain versions are not called."""
+    def boom(*args, **kwargs):
+        raise AssertionError('a plain version ran on CUDA tensors')
+
+    for name in ('gather_neighbors', 'graph_max_pool_slots', 'scatter_add_slots', 'graph_sum_pool',
+                 'scatter_add_rows', 'emd_forward', 'nn_distance'):
+        monkeypatch.setattr(ops, name, boom)
+    api.reset_launch_counts()
+    x = _randn((2, 512, 64), 20, dev).requires_grad_(True)
+    idx = api.knn(x, 8)
+    y = api.graph_max_pool(x, idx).sum() + api.graph_sum_pool(x, idx).sum()
+    cloud = _randn((2, 512, 3), 21, dev).requires_grad_(True)
+    cham, cost = api.chamfer_match_cost(api.graph_filtering(cloud), _randn((2, 512, 3), 22, dev))
+    (y + cham.sum() + cost.sum() + api.match_cost(cloud, _randn((2, 512, 3), 23, dev)).sum()).backward()
+    torch.cuda.synchronize()
+    counts = api.launch_counts()
+    for name in ('gather_neighbors', 'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
+                 'graph_sum_pool'):
+        assert counts[name] >= 1, name
+    assert counts['chamfer_match_cost'] == 2 and counts['graph_max_pool'] == 0
+    assert bool(torch.isfinite(x.grad).all()) and bool(torch.isfinite(cloud.grad).all())
+
+
+def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
+    x = _randn((1, 64, 6), 24, dev)
+    idx = _graph(1, 64, 4, dev, 25)
+    for call in (lambda: gather.graph_max_pool_src_cuda(x, idx), lambda: gather.graph_sum_pool_cuda(x, idx)):
+        with pytest.raises(ValueError, match='does not cover'):  # F % 4
+            call()
+    with pytest.raises(ValueError, match='does not cover'):  # slots are uint8
+        gather.graph_max_pool_src_cuda(_randn((1, 300, 8), 26, dev), _graph(1, 300, 256, dev, 27))
+    with pytest.raises(ValueError):
+        gather.gather_neighbors_cuda(x, idx.long())
+    with pytest.raises(ValueError):
+        emd.chamfer_match_cost_cuda(x, x)  # not 3-D points

@@ -76,15 +76,16 @@ def t(a) -> torch.Tensor:
 
 
 def test_config_matches_composed_yaml():
-    """The port's flagship dataclasses equal the composed JAX config with the
-    slice's one switch, filter=false."""
+    """The port's flagship dataclasses equal the composed JAX config,
+    unmodified: graph filtering on, and the stage-1 training settings."""
     from pccf.config import get_config_all
+    from pccf.config.options import ReconLosses, Schedulers
     from pccf_torch.config import SliceConfig
 
-    cfg = get_config_all(['autoencoder.model.decoder.filter=false'])
+    cfg = get_config_all([])
     port = SliceConfig()
     ae, dec, wae = cfg.autoencoder.model, cfg.autoencoder.model.decoder, cfg.w_autoencoder.model
-    assert port.data.n_input_points == cfg.data.n_input_points
+    assert port.data.n_input_points == cfg.data.n_input_points == cfg.autoencoder.n_training_output_points
     assert port.data.n_target_points == cfg.autoencoder.objective.n_inference_output_points
     assert port.data.n_neighbors == ae.encoder.n_neighbors == cfg.data.n_neighbors
     assert port.data.n_classes == cfg.data.dataset.n_classes
@@ -98,7 +99,17 @@ def test_config_matches_composed_yaml():
     pd = pa.decoder
     assert (pd.sample_dim, pd.n_components, pd.map_dims, pd.conv_dims) == (
         dec.sample_dim, dec.n_components, tuple(dec.map_dims), tuple(dec.conv_dims))
-    assert (pd.tau, pd.act_name, pd.filter) == (dec.tau, dec.act_name, dec.filter) == (5.0, 'ReLU', False)
+    assert (pd.tau, pd.act_name, pd.filter) == (dec.tau, dec.act_name, dec.filter) == (5.0, 'ReLU', True)
+    pt, train, obj = pa.train, cfg.autoencoder.train, cfg.autoencoder.objective
+    assert obj.recon_loss == ReconLosses.ChamferEMD and pt.c_embedding == obj.c_embedding
+    assert (pt.batch_size, pt.learning_rate) == (train.batch_size, train.learn.learning_rate)
+    assert train.learn.optimizer_name == 'AdamW' and train.learn.opt_settings == {'weight_decay': pt.weight_decay}
+    assert train.learn.grad_op is None
+    sch = train.learn.scheduler
+    assert sch.function == Schedulers.Cosine
+    assert (pt.scheduler.restart_interval, pt.scheduler.restart_fraction, pt.scheduler.warmup_steps) == (
+        sch.restart_interval, sch.restart_fraction, sch.warmup_steps)
+    assert sch.settings == {'min_decay': pt.scheduler.min_decay, 'decay_steps': pt.scheduler.decay_steps}
     pw = port.w_autoencoder
     assert (pw.z1_dim, pw.z2_dim, pw.cf_temperature) == (wae.z1_dim, wae.z2_dim, wae.cf_temperature)
     for mine, theirs in ((pw.w_encoder, wae.w_encoder), (pw.w_decoder, wae.w_decoder),

@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from pccf.kernels import ops as jops
-from pccf_torch.kernels import _build, api, cvae, gather, knn as tknn, ops, pcgen
+from pccf_torch.kernels import _build, api, cvae, emd, gather, knn as tknn, ops, pcgen
 
 torch.set_num_threads(1)
 
@@ -200,7 +200,13 @@ def test_cpu_tensors_take_the_plain_versions():
     x = torch.from_numpy(_cloud((1, 64, 4), seed=11))
     idx = api.knn(x, 5)
     api.graph_max_pool(x, idx)
-    assert api.launch_counts() == {'knn': 0, 'graph_max_pool': 0, 'pcgen_mix': 0, 'cvae_cf': 0}
+    xg = x.clone().requires_grad_(True)
+    (api.graph_max_pool(xg, idx).sum() + api.graph_sum_pool(xg, idx).sum() + api.graph_filtering(xg[..., :3]).sum()
+     + sum(api.chamfer_match_cost(xg[..., :3], x[..., 1:])).sum()).backward()
+    assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors',
+                                        'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
+                                        'graph_sum_pool', 'chamfer_match_cost'}
+    assert set(api.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize(
@@ -210,6 +216,13 @@ def test_cpu_tensors_take_the_plain_versions():
         lambda x: gather.graph_max_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32)),
         lambda x: cvae.cvae_cf_cuda(x, torch.zeros((1, 2)), None),
         lambda x: pcgen.pcgen_mix_cuda(x, torch.zeros((1, 4)), None, tau=1.0, act_slope=0.0),
+        lambda x: gather.gather_neighbors_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32)),
+        lambda x: gather.scatter_add_rows_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32), 64),
+        lambda x: gather.graph_max_pool_src_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32)),
+        lambda x: gather.scatter_add_slots_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32),
+                                                torch.zeros((1, 64, 4), dtype=torch.uint8), 64),
+        lambda x: gather.graph_sum_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32)),
+        lambda x: emd.chamfer_match_cost_cuda(x[..., :3].contiguous(), x[..., :3].contiguous()),
     ],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):

@@ -1,7 +1,7 @@
 """The whole counterfactual slice, port against JAX, on the CPU.
 
 A small CounterfactualVQVAE and classifier (N=256 points, T=128 code tokens
-of width 128, PCGen (512, 512, 64, 16) with G=2, filter=false) are built by
+of width 128, PCGen (512, 512, 64, 16) with G=2, graph filtering on) are built by
 the JAX package from a seed, converted, and driven with the same numpy
 clouds, logits and decoder sampling.  The port's CPU path runs every kernel's
 plain version; the JAX side runs its jnp path.
@@ -53,7 +53,6 @@ OVERRIDES = [
     'autoencoder.model.decoder.conv_dims=[512,64,16]',
     'autoencoder.model.decoder.n_components=2',
     'autoencoder.model.decoder.sample_dim=4',
-    'autoencoder.model.decoder.filter=false',
     'w_autoencoder.model.w_encoder.proj_dim=128',
     'w_autoencoder.model.w_encoder.n_heads=2',
     'w_autoencoder.model.w_encoder.mlp_dims=[256,128]',
