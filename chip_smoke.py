@@ -2,17 +2,27 @@
 
 Builds the hand-written CUDA kernels of ``pccf_torch`` from
 ``pccf_torch/csrc`` and holds each against its plain PyTorch version on the
-card at every shape the main path gives it (and times both).  Then it drives
-the two halves of the main path with the flagship model (random weights from
-``--seed``, the composed configuration unmodified, graph filtering on):
+card at every shape the main path gives it, and times both beside the least
+time the card could take for the same work (``pccf_torch.kernels.roofline``)
+and, where one PyTorch call computes the same function, that call.  Then it
+drives the three parts of the main path with the flagship model (random
+weights from ``--seed``, the composed configuration unmodified, graph
+filtering on):
 
 - serving: counterfactual requests through
   ``pccf_torch.serve.CounterfactualServer``, checked for shapes,
   finiteness, batch invariance and agreement with the same model on the CPU;
-- training: stage-1 VQ-VAE steps through ``pccf_torch.train.Trainer``
+- stage-1 training: VQ-VAE steps through ``pccf_torch.train.Trainer``
   (batch 8, 2048 points, ChamferEMD + embedding loss, AdamW at lr 0.004) on
   a fixed batch of synthetic clouds, checked for finite and falling losses,
-  and one step at batch 2 and 512 points against the same step on the CPU.
+  and one step at batch 2 and 512 points against the same step on the CPU;
+- stage-2 training: ``pccf_torch.train.w_autoencoder.train_w_autoencoder``
+  for one epoch on codes derived from 64 clouds (derived dataset, two steps
+  of batch 32, validation, final test, merge back), then W-autoencoder steps
+  on one derived batch (finite losses, falling MSE) and a validation pass
+  over two batches, whose W-nets run their transformer stacks through the
+  ``wformer`` kernels; one step at a small width against the CPU; and the
+  counterfactual route with the fused CVAE gate failing, against the CPU.
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after).
@@ -20,9 +30,10 @@ just before the path and read just after).
     python3 chip_smoke.py [--seed 0]
 
 It also prints the compiler's register and spill report for every kernel, a
-``torch.profiler`` table of one batch-16 request and of one training step,
-the warm request latency at batch 1 and 16, and the training step time,
-samples/s and peak memory, the numbers PERF.md quotes.
+``torch.profiler`` table of one batch-16 request, of one training step of
+each stage and of one validation batch, the warm request latency at batch 1
+and 16, the step time, samples/s and peak memory of both stages and the
+validation time per batch, the numbers PERF.md quotes.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,24 +74,39 @@ EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
 STEP_LOSS_RTOL = 1e-3
 STEP_GRAD_REL_L2 = 1e-2  # per parameter
 STEP_UPDATE_REL_L2 = 1e-2  # the AdamW update of all trained parameters together
+# one stage-2 step at a small width, card against CPU: no discrete choice
+# feeds the loss, so the losses and gradients differ by GEMM summation order
+# only; the quantisation accuracy counts argmin choices, which a near-tie may
+# flip; AdamW's first step moves each element by about lr * sign(g)
+W_STEP_LOSS_RTOL = 1e-4
+W_STEP_ACCURACY_ATOL = 0.01  # 1% of the code slots
+W_STEP_GRAD_REL_L2 = 1e-3  # per parameter
+# attention key biases shift every score of a row by the same amount, so
+# their gradient is zero but for rounding and its sign is noise: left out of
+# the per-parameter gradient, update and clipper comparisons
+ZERO_GRADIENT_SUFFIX = 'key.bias'
 
 KERNEL_INFO = {
     'knn': ('pccf_torch/csrc/knn.cu', 'pccf/kernels/pallas_knn.py:183'),
     'graph_max_pool': ('pccf_torch/csrc/graph_max_pool.cu', 'pccf/kernels/pallas_gather.py:218'),
     'pcgen_mix': ('pccf_torch/csrc/pcgen_mix.cu', 'pccf/kernels/pallas_pcgen.py:133'),
-    'cvae_cf': ('pccf_torch/csrc/cvae_cf.cu', 'pccf/kernels/pallas_cvae.py:203'),
+    'cvae_cf': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_cvae.py:203'),
     'gather_neighbors': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:309'),
     'scatter_add_rows': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:182'),
     'graph_max_pool_src': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:121'),
     'scatter_add_slots': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:200'),
     'graph_sum_pool': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:256'),
     'chamfer_match_cost': ('pccf_torch/csrc/emd.cu', 'pccf/kernels/pallas_emd.py:218'),
+    'wformer_encoder': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:335'),
+    'wformer_decoder': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:365'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors')
 TRAINING_KERNELS = ('knn', 'gather_neighbors', 'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                     'graph_sum_pool', 'chamfer_match_cost')
+STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
-STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 throughout
+STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 (stage 1), 0.0014 / 6 (stage 2, warmup)
+VALIDATION_REPS = 3
 
 
 def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -119,6 +146,54 @@ def rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-30))
 
 
+@torch.no_grad()
+def library_stack(pack: list[dict], n_heads: int, decoder: bool) -> torch.nn.Module:
+    """The same stack as PyTorch's own ``nn.TransformerEncoder`` /
+    ``nn.TransformerDecoder`` (pre-norm, exact GELU, eps 1e-6, no dropout),
+    every layer's FF zero-padded to the widest: the yardstick timed as
+    ``library_ms``, which the port never calls."""
+    from torch import nn
+
+    d = pack[0]['wo'].shape[0]
+    f_max = max(p['w1'].shape[0] for p in pack)
+    dev = pack[0]['wo'].device
+    layer_cls = nn.TransformerDecoderLayer if decoder else nn.TransformerEncoderLayer
+    layer = layer_cls(d, n_heads, f_max, dropout=0.0, activation='gelu', layer_norm_eps=1e-6, batch_first=True,
+                      norm_first=True)
+    stack = nn.TransformerDecoder(layer, len(pack)) if decoder else nn.TransformerEncoder(
+        layer, len(pack), enable_nested_tensor=False)
+
+    def load_attn(attn, p, prefix):
+        attn.in_proj_weight.copy_(torch.cat([p[f'w{prefix}{n}'] for n in 'qkv']))
+        attn.in_proj_bias.copy_(torch.cat([p[f'b{prefix}{n}'] for n in 'qkv']))
+        attn.out_proj.weight.copy_(p[f'w{prefix}o'])
+        attn.out_proj.bias.copy_(p[f'b{prefix}o'])
+
+    def load_norm(norm, p, name):
+        norm.weight.copy_(p[f'{name}_w'])
+        norm.bias.copy_(p[f'{name}_b'])
+
+    stack = stack.to(dev)
+    for mod, p in zip(stack.layers, pack):
+        load_attn(mod.self_attn, p, '')
+        load_norm(mod.norm1, p, 'ln1')
+        if decoder:
+            load_attn(mod.multihead_attn, p, 'x')
+            load_norm(mod.norm2, p, 'lnx')
+            load_norm(mod.norm3, p, 'ln2')
+        else:
+            load_norm(mod.norm2, p, 'ln2')
+        f = p['w1'].shape[0]
+        for lin in (mod.linear1, mod.linear2):
+            lin.weight.zero_()
+        mod.linear1.bias.zero_()
+        mod.linear1.weight[:f].copy_(p['w1'])
+        mod.linear1.bias[:f].copy_(p['b1'])
+        mod.linear2.weight[:, :f].copy_(p['w2'])
+        mod.linear2.bias.copy_(p['b2'])
+    return stack.eval()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -127,15 +202,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    from pccf_torch import config as pc
     from pccf_torch.config import SliceConfig
     from pccf_torch.data import synthetic
-    from pccf_torch.data.structures import Inputs, Targets
-    from pccf_torch.kernels import _build, api, cvae, emd, gather, knn, ops, pcgen
-    from pccf_torch.models import build_vqvae
+    from pccf_torch.data.processed import WDatasetWithLogits
+    from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
+    from pccf_torch.kernels import _build, api, cvae, emd, gather, knn, ops, pcgen, roofline, wformer
+    from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
     from pccf_torch.nn import build_classifier
     from pccf_torch.nn.layers import gumbel_uniform, init_from_seed
     from pccf_torch.serve import CounterfactualServer
-    from pccf_torch.train import Trainer, get_autoencoder_loss
+    from pccf_torch.train import Test, Trainer, get_autoencoder_loss, get_w_autoencoder_loss
+    from pccf_torch.train.w_autoencoder import WLoader, build_w_train_model, train_w_autoencoder
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,42 +247,56 @@ def main() -> int:
     b, n = 16, cfg.data.n_input_points
     kernels: dict[str, dict] = {}
 
+    def bound(work: roofline.Work) -> dict:
+        ms, by = roofline.bound_ms(work)
+        return {'bound_ms': ms, 'bound_by': by}
+
     # ---- each kernel against its plain version at the flagship shapes ----
     with torch.inference_mode():
         # every (C, k) the main path gives kNN: the encoder's k=25 and the
         # classifier's k=20 at C = 3, 64, 128 (C=64 twice per model), and
-        # graph filtering's k=4 on the decoded cloud
+        # graph filtering's k=4 on the decoded cloud; at serving's batch 16
+        # and at stage 2's 32, the derived dataset's chunk
+        # no single PyTorch call computes kNN indices (cdist, then topk) or a
+        # max over gathered rows (indexing, then amax): library_ms is null
+        batches = (b, cfg.w_autoencoder.train.batch_size)
         knn_errs, knn_ms = [], {}
-        for c in (3, 64, 128):
-            for k in (25, 20, 4) if c == 3 else (25, 20):
-                x = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(dev)
-                got, want = knn.knn_cuda(x, k), knn.plain(x, k)
-                torch.cuda.synchronize()
-                agree, err = knn_check(x, k, got, want)
-                knn_errs.append(err)
-                self_first = bool((got[..., 0] == torch.arange(n, device=dev)).float().mean() > 0.999)
-                knn_ms[c, k] = (time_ms(lambda: knn.knn_cuda(x, k), REPS), time_ms(lambda: knn.plain(x, k), REPS))
-                check(agree >= KNN_SET_AGREEMENT and self_first,
-                      f'knn C={c} k={k}: neighbour-set agreement {agree:.6f}, self first, max |kth-distance diff| '
-                      f'{err:.2e}; {knn_ms[c, k][0]:.3f} ms (plain {knn_ms[c, k][1]:.3f} ms)')
-        kernels['knn'] = {'max_abs_err': max(knn_errs), 'ms': knn_ms[128, 25][0], 'plain_ms': knn_ms[128, 25][1],
-                          'shape': '(16, 2048, 128) k=25'}
+        for bb in batches:
+            for c in (3, 64, 128):
+                for k in (25, 20, 4) if c == 3 else (25, 20):
+                    x = torch.from_numpy(rng.standard_normal((bb, n, c)).astype(np.float32)).to(dev)
+                    got, want = knn.knn_cuda(x, k), knn.plain(x, k)
+                    torch.cuda.synchronize()
+                    agree, err = knn_check(x, k, got, want)
+                    knn_errs.append(err)
+                    self_first = bool((got[..., 0] == torch.arange(n, device=dev)).float().mean() > 0.999)
+                    row = knn_ms[bb, c, k] = (time_ms(lambda: knn.knn_cuda(x, k), REPS),
+                                              time_ms(lambda: knn.plain(x, k), REPS), bound(roofline.knn_work(x, k)))
+                    check(agree >= KNN_SET_AGREEMENT and self_first,
+                          f'knn B={bb} C={c} k={k}: neighbour-set agreement {agree:.6f}, self first, max |kth-distance '
+                          f'diff| {err:.2e}; {row[0]:.3f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms)')
+        head = knn_ms[b, 128, 25]
+        kernels['knn'] = {'max_abs_err': max(knn_errs), 'ms': head[0], 'plain_ms': head[1], **head[2],
+                          'library_ms': None, 'shape': '(16, 2048, 128) k=25'}
 
         # every (F, k) the main path gives max-pool: F = 64, 128, 256 at the
-        # encoder's k=25 and the classifier's k=20
+        # encoder's k=25 and the classifier's k=20, at both batches
         pool_errs, pool_ms = [], {}
-        for f in (64, 128, 256):
-            for k in (25, 20):
-                x = torch.from_numpy(rng.standard_normal((b, n, f)).astype(np.float32)).to(dev)
-                idx = knn.knn_cuda(torch.from_numpy(rng.standard_normal((b, n, 8)).astype(np.float32)).to(dev), k)
-                err = float((gather.graph_max_pool_cuda(x, idx) - gather.plain(x, idx)).abs().max())
-                pool_errs.append(err)
-                pool_ms[f, k] = (time_ms(lambda: gather.graph_max_pool_cuda(x, idx), REPS),
-                                 time_ms(lambda: gather.plain(x, idx), REPS))
-                check(err == 0.0, f'graph_max_pool F={f} k={k}: bit-exact (max |diff| {err}); '
-                      f'{pool_ms[f, k][0]:.3f} ms (plain {pool_ms[f, k][1]:.3f} ms)')
-        kernels['graph_max_pool'] = {'max_abs_err': max(pool_errs), 'ms': pool_ms[256, 25][0],
-                                     'plain_ms': pool_ms[256, 25][1], 'shape': '(16, 2048, 256) k=25'}
+        for bb in batches:
+            for f in (64, 128, 256):
+                for k in (25, 20):
+                    x = torch.from_numpy(rng.standard_normal((bb, n, f)).astype(np.float32)).to(dev)
+                    idx = knn.knn_cuda(torch.from_numpy(rng.standard_normal((bb, n, 8)).astype(np.float32)).to(dev), k)
+                    err = float((gather.graph_max_pool_cuda(x, idx) - gather.plain(x, idx)).abs().max())
+                    pool_errs.append(err)
+                    row = pool_ms[bb, f, k] = (time_ms(lambda: gather.graph_max_pool_cuda(x, idx), REPS),
+                                               time_ms(lambda: gather.plain(x, idx), REPS),
+                                               bound(roofline.pool_work(x, idx)))
+                    check(err == 0.0, f'graph_max_pool B={bb} F={f} k={k}: bit-exact (max |diff| {err}); '
+                          f'{row[0]:.3f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms)')
+        head = pool_ms[b, 256, 25]
+        kernels['graph_max_pool'] = {'max_abs_err': max(pool_errs), 'ms': head[0], 'plain_ms': head[1], **head[2],
+                                     'library_ms': None, 'shape': '(16, 2048, 256) k=25'}
 
         dec = vqvae.decoder
         pack = dec.pack()
@@ -215,8 +307,10 @@ def main() -> int:
         got, want = run_k(), run_p()
         r = rel_l2(got, want)
         check(r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()), f'pcgen_mix: rel L2 {r:.3e} <= {PCGEN_REL_L2}')
+        # the chain and the fused PCGen have no single PyTorch call either
         kernels['pcgen_mix'] = {'max_abs_err': float((got - want).abs().max()), 'rel_l2': r,
                                 'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
+                                **bound(roofline.pcgen_work(m, w, pack)), 'library_ms': None,
                                 'shape': '(16, 2048, 64) -> (16, 2048, 3), G=8, 1024-1024-256-16'}
 
         wae = vqvae.w_autoencoder
@@ -231,6 +325,7 @@ def main() -> int:
         check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()), f'cvae_cf: rel L2 {r:.3e} <= {CVAE_REL_L2}')
         kernels['cvae_cf'] = {'max_abs_err': float((got - want).abs().max()), 'rel_l2': r,
                               'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
+                              **bound(roofline.cvae_work(tokens, probs, cpack)), 'library_ms': None,
                               'shape': '(16, 256, 4), d=512, 8 heads, 2+2+4 layers'}
 
         # ---- the training path's kernels at its shapes, batch 8 ----------
@@ -242,13 +337,27 @@ def main() -> int:
         def randn(*shape: int) -> torch.Tensor:
             return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
-        def timed(name: str, shape: str, run_k, run_p, err: float, ok: bool, what: str) -> None:
-            ms, plain_ms = time_ms(run_k, REPS), time_ms(run_p, REPS)
-            check(ok, f'{name} {shape}: {what}; {ms:.3f} ms (plain {plain_ms:.3f} ms)')
+        def timed(name: str, shape: str, run_k, run_p, err: float, ok: bool, what: str, work: roofline.Work,
+                  run_lib=None) -> None:
+            """Time the kernel, its plain version and, where one exists, the
+            single PyTorch call that computes the same function."""
+            row = {'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS), **bound(work),
+                   'library_ms': time_ms(run_lib, REPS) if run_lib is not None else None}
+            lib = f', library {row["library_ms"]:.3f}' if run_lib is not None else ''
+            check(ok, f'{name} {shape}: {what}; {row["ms"]:.3f} ms (plain {row["plain_ms"]:.3f}{lib}, bound '
+                      f'{row["bound_ms"]:.4f} ms, {row["bound_by"]})')
             entry = kernels.setdefault(name, {'max_abs_err': 0.0, 'shapes': {}})
             entry['max_abs_err'] = max(entry['max_abs_err'], err)
-            entry['shapes'][shape] = [round(ms, 4), round(plain_ms, 4)]
-            entry.update(ms=ms, plain_ms=plain_ms, shape=shape)  # the last (largest) shape is the headline
+            entry['shapes'][shape] = row
+            entry.update(row, shape=shape)  # the last (largest) shape is the headline
+
+        def index_add_rows(g: torch.Tensor, idx: torch.Tensor):
+            """``index_add_`` over the flattened rows, the yardstick of the row
+            scatter (its index and expanded source made beforehand)."""
+            bb, m, c = g.shape
+            rows = (idx.long() + n * torch.arange(bb, device=dev)[:, None, None]).reshape(-1)
+            src = g[:, :, None, :].expand(bb, m, idx.shape[-1], c).reshape(-1, c)
+            return lambda: torch.zeros((bb * n, c), device=dev).index_add_(0, rows, src)
 
         # pool with slot and its slot scatter at every encoder width, k=25
         idx25 = graph(25)
@@ -260,13 +369,15 @@ def main() -> int:
             eval_equal = torch.equal(out, gather.graph_max_pool_cuda(x, idx25))
             timed('graph_max_pool_src', f'({bt}, {n}, {f}) k=25', lambda: gather.graph_max_pool_src_cuda(x, idx25),
                   lambda: ops.graph_max_pool_slots(x, idx25), float((out - want).abs().max()), exact and eval_equal,
-                  f'max and slots bit-exact {exact}, bit-equal to graph_max_pool {eval_equal}')
+                  f'max and slots bit-exact {exact}, bit-equal to graph_max_pool {eval_equal}',
+                  roofline.pool_work(x, idx25, slots=True))
             g = randn(bt, n, f)
             got, want = gather.scatter_add_slots_cuda(g, idx25, slots, n), ops.scatter_add_slots(g, idx25, slots, n)
             r = rel_max(got, want)
             timed('scatter_add_slots', f'({bt}, {n}, {f}) k=25', lambda: gather.scatter_add_slots_cuda(g, idx25, slots, n),
                   lambda: ops.scatter_add_slots(g, idx25, slots, n), float((got - want).abs().max()),
-                  r <= SCATTER_REL_MAX, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}')
+                  r <= SCATTER_REL_MAX, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}',
+                  roofline.scatter_slots_work(g, idx25, slots, n))
         # sum-pool of [u, u^2] and its row scatter at every encoder width, k=25
         for f2 in (128, 256, 512):
             x = randn(bt, n, f2)
@@ -274,30 +385,34 @@ def main() -> int:
             r = rel_max(got, want)
             timed('graph_sum_pool', f'({bt}, {n}, {f2}) k=25', lambda: gather.graph_sum_pool_cuda(x, idx25),
                   lambda: ops.graph_sum_pool(x, idx25), float((got - want).abs().max()), r <= SUM_POOL_REL_MAX,
-                  f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}')
+                  f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}', roofline.pool_work(x, idx25))
             got, want = gather.scatter_add_rows_cuda(x, idx25, n), ops.scatter_add_rows(x, idx25, n)
             r = rel_max(got, want)
             timed('scatter_add_rows', f'({bt}, {n}, {f2}) k=25', lambda: gather.scatter_add_rows_cuda(x, idx25, n),
                   lambda: ops.scatter_add_rows(x, idx25, n), float((got - want).abs().max()), r <= SCATTER_REL_MAX,
-                  f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}')
+                  f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}', roofline.scatter_rows_work(x, idx25, n),
+                  index_add_rows(x, idx25))
         # graph filtering's gather on the decoded cloud, k=4: serving (batch
-        # 16) and training (batch 8, with its scatter: N*4 rows of one neighbour)
+        # 16) and training (batch 8, with its scatter: N*4 rows of one
+        # neighbour); the yardstick is one advanced-indexing call
         for bb in (b, bt):
             cloud = torch.from_numpy(rng.standard_normal((bb, n, 3)).astype(np.float32)).to(dev)
             idx4 = knn.knn_cuda(cloud, 4)
             exact = torch.equal(gather.gather_neighbors_cuda(cloud, idx4), ops.gather_neighbors(cloud, idx4))
+            rows4, batch_rows = idx4.long(), torch.arange(bb, device=dev)[:, None, None]
             timed('gather_neighbors', f'({bb}, {n}, 3) k=4', lambda: gather.gather_neighbors_cuda(cloud, idx4),
                   lambda: ops.gather_neighbors(cloud, idx4), 0.0 if exact else float('inf'), exact,
-                  f'bit-exact {exact}')
+                  f'bit-exact {exact}', roofline.gather_work(cloud, idx4), lambda: cloud[batch_rows, rows4])
         g = randn(bt, n * 4, 3)
         flat = idx4.reshape(bt, n * 4, 1)
         got, want = gather.scatter_add_rows_cuda(g, flat, n), ops.scatter_add_rows(g, flat, n)
         r = rel_max(got, want)
         timed('scatter_add_rows', f'({bt}, {n}*4, 3) k=1', lambda: gather.scatter_add_rows_cuda(g, flat, n),
               lambda: ops.scatter_add_rows(g, flat, n), float((got - want).abs().max()), r <= SCATTER_REL_MAX,
-              f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}')
-        kernels['scatter_add_rows'].update(zip(('ms', 'plain_ms', 'shape'), (
-            *kernels['scatter_add_rows']['shapes'][f'({bt}, {n}, 512) k=25'], f'({bt}, {n}, 512) k=25')))
+              f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}', roofline.scatter_rows_work(g, flat, n),
+              index_add_rows(g, flat))
+        headline = f'({bt}, {n}, 512) k=25'
+        kernels['scatter_add_rows'].update(kernels['scatter_add_rows']['shapes'][headline], shape=headline)
         # the ChamferEMD loss on a decoded cloud against its reference
         x1 = torch.from_numpy(synthetic.batch(args.seed, bt, n)).to(dev)
         x2 = (x1 + 0.05 * randn(bt, n, 3)).contiguous()
@@ -309,7 +424,45 @@ def main() -> int:
               lambda: emd.plain(x1, x2), float((got[0] - want[0]).abs().max()),
               cost_err <= EMD_COST_RTOL and max(g1, g2) <= EMD_GRAD_REL_L2 and nn_exact,
               f'cost rel err {cost_err:.2e} <= {EMD_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
-              f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}')
+              f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}', roofline.emd_work(x1, x2))
+
+        # ---- the stage-2 stacks at the flagship shapes, batch 32 ----------
+        # the W-encoder and the posterior (2 layers, FF 1024) and the
+        # W-decoder (4 layers, FF 1024, 1024, 1024, 512), packed from a
+        # W-autoencoder's live weights as the eval forward packs them
+        wae = build_w_autoencoder(cfg)
+        init_from_seed(wae, args.seed + 6)
+        wae = wae.to(dev)
+        bw, t, d = cfg.w_autoencoder.train.batch_size, wae.n_codes, wae.decoder.proj_dim
+        stacks = [('wformer_encoder', 'W-encoder', wae.encoder), ('wformer_encoder', 'posterior', wae.z2_posterior),
+                  ('wformer_decoder', 'W-decoder', wae.decoder)]
+        for name, net_name, net in reversed(stacks):  # the W-encoder last: the headline
+            decoder = name == 'wformer_decoder'
+            heads = net.n_heads
+            x = randn(bw, t, d)
+            ff = ', '.join(str(layer.dense_0.out_features) for layer in net.layers)
+            shape = f'{net_name} ({bw}, {t}, {d}), {heads} heads, FF {ff}'
+            if decoder:
+                memory = randn(bw, t, d)
+                spack = wformer.pack_decoder(net.layers)
+                run_k = lambda: wformer.wformer_decoder_cuda(x, memory, spack, heads)  # noqa: E731
+                run_p = lambda: wformer.plain_decoder(x, memory, spack, heads)  # noqa: E731
+                lib_stack = library_stack(spack, heads, True)
+                run_l = lambda: lib_stack(x, memory)  # noqa: E731
+                work = roofline.decoder_stack_work(x, memory, spack)
+            else:
+                spack = wformer.pack_encoder(net.layers)
+                run_k = lambda: wformer.wformer_encoder_cuda(x, spack, heads)  # noqa: E731
+                run_p = lambda: wformer.plain_encoder(x, spack, heads)  # noqa: E731
+                lib_stack = library_stack(spack, heads, False)
+                run_l = lambda: lib_stack(x)  # noqa: E731
+                work = roofline.encoder_stack_work(x, spack)
+            got, want, lib_out = run_k(), run_p(), run_l()
+            r, r_lib = rel_l2(got, want), rel_l2(lib_out, want)
+            timed(name, shape, run_k, run_p, float((got - want).abs().max()),
+                  r <= CVAE_REL_L2 and r_lib <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'rel L2 {r:.3e} <= {CVAE_REL_L2} (the library stack against the plain version {r_lib:.3e}); '
+                  f'{work.ops / 1e9:.1f} GFLOP', work, run_l)
 
     # ---- the main path, serving: a server answering requests -------------
     server = CounterfactualServer(vqvae, classifier, buckets=(1, 2, 4, 8, 16), seed=args.seed)
@@ -395,6 +548,7 @@ def main() -> int:
     for step in range(WARM_STEPS + TIMED_STEPS):
         if step == WARM_STEPS:
             torch.cuda.reset_peak_memory_stats()
+            held_gib = torch.cuda.memory_allocated() / 2**30
         api.reset_launch_counts()
         t0 = time.perf_counter()
         metrics = trainer.run_step(inputs, targets)
@@ -419,7 +573,8 @@ def main() -> int:
     q1, med, q3 = np.percentile(timed_ms, [25, 50, 75])
     print(f'training step (batch {TRAIN_BATCH}, {n} points): median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms '
           f'over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '
-          f'peak memory {peak_gib:.3f} GiB (max_memory_allocated)', flush=True)
+          f'peak memory {peak_gib:.3f} GiB (max_memory_allocated; {held_gib:.3f} GiB held before the timed steps)',
+          flush=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.run_step(inputs, targets)
         torch.cuda.synchronize()
@@ -465,11 +620,202 @@ def main() -> int:
           f'card vs CPU step: AdamW update rel L2 {upd:.2e} <= {STEP_UPDATE_REL_L2}; frozen inner CVAE unmoved '
           f'{frozen_still}')
 
-    print(f'launches: serving {json.dumps(launches)}; training ({len(losses)} steps) {json.dumps(train_launches)}',
+    # ---- the main path, stage 2: the entry point for one epoch ------------
+    wcfg = cfg.w_autoencoder.train
+    w_train = torch.from_numpy(synthetic.batch(args.seed + 7, 2 * bw, n))
+    w_test = torch.from_numpy(synthetic.batch(args.seed + 8, 2 * bw, n))
+    stage2_launches = dict.fromkeys(KERNEL_INFO, 0)
+
+    def add_launches(what: str) -> dict[str, int]:
+        """Read the counts of one run of the stage-2 path into its total."""
+        counts = api.launch_counts()
+        for name, count in counts.items():
+            stage2_launches[name] += count
+        print(f'launches, {what}: {json.dumps(counts)}', flush=True)
+        return counts
+
+    api.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_w_autoencoder(cfg, copy.deepcopy(vqvae), classifier, w_train, w_test, n_epochs=1, seed=args.seed,
+                                 device=dev)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    counts = add_launches('stage-2 entry point')
+    w_trainer = result['trainer']
+    check(w_trainer.step == 2 and len(w_trainer.validation_log) == 1 and bool(np.isfinite(result['loss'])),
+          f'stage 2 entry point, 1 epoch of {2 * bw} clouds in {entry_s:.1f} s: {w_trainer.step} steps, '
+          f'validation {json.dumps(w_trainer.validation_log)}, test loss {result["loss"]:.4f}')
+    for name in STAGE2_KERNELS:
+        check(counts[name] > 0, f'{name}: {counts[name]} launches in the stage-2 entry point')
+    # a validation pass and the final test, two batches each: the W-encoder
+    # and the posterior are encoder stacks, the W-decoder a decoder stack
+    check((counts['wformer_encoder'], counts['wformer_decoder']) == (8, 4),
+          f'stage 2 entry point: wformer launches {counts["wformer_encoder"]} / {counts["wformer_decoder"]} == 8 / 4')
+
+    # ---- stage-2 steps on one derived batch of 32 -------------------------
+    api.reset_launch_counts()
+    w_loader = WLoader(WDatasetWithLogits(w_train.to(dev), vqvae, classifier), bw, args.seed)
+    w_batches = list(w_loader.batches())
+    w_model = build_w_train_model(cfg, vqvae, seed=args.seed + 9)
+    w_loss = get_w_autoencoder_loss(wcfg)
+    trainer = Trainer(w_model, w_loss, wcfg, STEPS_PER_EPOCH, seed=args.seed)
+    winputs, wtargets = w_batches[0]
+    w_losses, w_step_ms = [], []
+    for step in range(WARM_STEPS + TIMED_STEPS):
+        if step == WARM_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+            w_held_gib = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        metrics = trainer.run_step(winputs, wtargets)
+        torch.cuda.synchronize()
+        w_step_ms.append((time.perf_counter() - t0) * 1e3)
+        w_losses.append({k: float(v) for k, v in metrics.items()})
+    w_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    add_launches(f'deriving {len(w_batches)} batches and {len(w_losses)} stage-2 steps')
+    check(all(np.isfinite(list(m.values())).all() for m in w_losses),
+          f'stage 2: every loss finite over {len(w_losses)} steps')
+    first, last = w_losses[0]['MSE'], w_losses[-1]['MSE']
+    check(last < first, f'stage 2: MSE {first:.4f} at step 1 -> {last:.4f} at step {len(w_losses)} on the same batch')
+    print('stage-2 losses per step: ' + json.dumps([{k: round(v, 6) for k, v in m.items()} for m in w_losses]),
           flush=True)
+    q1, med, q3 = np.percentile(w_step_ms[WARM_STEPS:], [25, 50, 75])
+    print(f'stage-2 step (batch {bw}, {t} codes, d {d}): median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms '
+          f'over {TIMED_STEPS} (host clock, synchronised); {bw / med * 1e3:.1f} samples/s; '
+          f'peak memory {w_peak_gib:.3f} GiB (max_memory_allocated; {w_held_gib:.3f} GiB held before the timed '
+          f'steps, earlier phases included)', flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run_step(winputs, wtargets)
+        torch.cuda.synchronize()
+    print('profile of one stage-2 step:', flush=True)
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=20, max_name_column_width=60), flush=True)
+
+    # ---- the stage-2 validation pass over two derived batches -------------
+    validation = Test(w_model, w_loader, w_loss, 'Validation', seed=args.seed)
+    api.reset_launch_counts()
+    val_metrics = validation(trainer.epoch)
+    torch.cuda.synchronize()
+    counts = add_launches('one validation pass')
+    check((counts['wformer_encoder'], counts['wformer_decoder']) == (2 * len(w_batches), len(w_batches))
+          and all(np.isfinite(list(val_metrics.values()))),
+          f'validation over {len(w_batches)} batches: wformer launches {counts["wformer_encoder"]} / '
+          f'{counts["wformer_decoder"]} (2 and 1 per batch), metrics {json.dumps(val_metrics)}')
+    val_ms, fwd_ms = [], []
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    for _ in range(VALIDATION_REPS):
+        t0 = time.perf_counter()
+        validation(trainer.epoch)
+        torch.cuda.synchronize()
+        val_ms.append((time.perf_counter() - t0) * 1e3 / len(w_batches))
+        with torch.no_grad():
+            w_model.eval()
+            t0 = time.perf_counter()
+            for wi, wt in w_batches:
+                w_loss.loss_and_metrics(w_model(wi, None, gen).replace(model_epoch=float(trainer.epoch)), wt)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3 / len(w_batches))
+    print(f'validation ms per batch of {bw}: median {np.median(val_ms):.3f} over {VALIDATION_REPS} passes '
+          f'(derived dataset included: VQ-VAE encoder and classifier on 2048-point clouds), '
+          f'{np.median(fwd_ms):.3f} for the W-autoencoder and its loss alone (host clock, synchronised)', flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        w_loss.loss_and_metrics(w_model(winputs, None, gen).replace(model_epoch=float(trainer.epoch)), wtargets)
+        torch.cuda.synchronize()
+    print('profile of one validation batch (W-autoencoder and loss, eval):', flush=True)
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=15, max_name_column_width=60), flush=True)
+
+    # ---- one stage-2 step at a small width on the card against the CPU ---
+    tnet = pc.TransformerNetConfig
+    small_cfg = SliceConfig(
+        autoencoder=pc.AutoEncoderConfig(book_size=8, w_dim=512),
+        w_autoencoder=pc.WAutoEncoderConfig(
+            z1_dim=4, z2_dim=4, w_encoder=tnet(128, 2, (256,)), w_decoder=tnet(128, 2, (128, 256)),
+            conditional_w_encoder=tnet(128, 2, (128,)), train=pc.WAutoEncoderTrainConfig(batch_size=4)))
+    s_t, s_e = small_cfg.autoencoder.n_codes, small_cfg.autoencoder.embedding_dim
+    s_model = WAETrainModule(build_w_autoencoder(small_cfg), small_cfg.autoencoder.book_size)
+    init_from_seed(s_model, args.seed + 10)
+    s_state = copy.deepcopy(s_model.state_dict())
+    s_rng = np.random.default_rng(args.seed + 11)
+
+    def s_randn(*shape: int) -> torch.Tensor:
+        return torch.from_numpy(s_rng.standard_normal(shape).astype(np.float32))
+
+    s_in = WInputs(s_randn(4, s_t * s_e), 2 * s_randn(4, cfg.data.n_classes))
+    s_idx = torch.from_numpy(s_rng.integers(0, 8, (4, s_t)))
+    s_tg = WTargets(s_randn(4, s_t * s_e), torch.eye(8)[s_idx], s_in.logits)
+    s_eps = (s_randn(4, s_t, 4), s_randn(4, s_t, 4))
+    s_tcfg = small_cfg.w_autoencoder.train
+
+    def w_step(device: torch.device):
+        m = WAETrainModule(build_w_autoencoder(small_cfg), small_cfg.autoencoder.book_size)
+        m.load_state_dict(s_state)
+        m = m.to(device)
+        tr = Trainer(m, get_w_autoencoder_loss(s_tcfg), s_tcfg, STEPS_PER_EPOCH)
+        before = {k: p.detach().clone() for k, p in m.named_parameters()}
+        out = tr.run_step(WInputs(s_in.w_q.to(device), s_in.logits.to(device)),
+                          WTargets(s_tg.w_e.to(device), s_tg.one_hot_idx.to(device), s_tg.logits.to(device)),
+                          tuple(e.to(device) for e in s_eps))
+        grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters() if p.grad is not None}
+        updates = {k: (p.detach() - before[k]).cpu() for k, p in m.named_parameters()}
+        return {k: float(v) for k, v in out.items()}, grads, updates, tr.grad_op.state()
+
+    gpu_w, cpu_w = w_step(dev), w_step(torch.device('cpu'))
+    for name, value in cpu_w[0].items():
+        if name == 'Quantisation Accuracy':
+            ok, r = abs(gpu_w[0][name] - value) <= W_STEP_ACCURACY_ATOL, abs(gpu_w[0][name] - value)
+        else:
+            r = abs(gpu_w[0][name] - value) / max(abs(value), 1e-30)
+            ok = r <= W_STEP_LOSS_RTOL
+        check(ok, f'card vs CPU stage-2 step: {name} {gpu_w[0][name]:.6g} vs {value:.6g}, diff {r:.2e}')
+    compared = [k for k in cpu_w[1] if not k.endswith(ZERO_GRADIENT_SUFFIX)]
+    grad_errs = {k: rel_l2(gpu_w[1][k], cpu_w[1][k]) for k in compared}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= W_STEP_GRAD_REL_L2,
+          f'card vs CPU stage-2 step: largest per-parameter gradient rel L2 {grad_errs[worst]:.2e} ({worst}), '
+          f'median {float(np.median(list(grad_errs.values()))):.2e}, over {len(compared)} of {len(cpu_w[1])}')
+    upd = rel_l2(torch.cat([gpu_w[2][k].flatten() for k in compared]),
+                 torch.cat([cpu_w[2][k].flatten() for k in compared]))
+    clip_err = max(abs(gpu_w[3][k][0] - cpu_w[3][k][0]) / max(abs(cpu_w[3][k][0]), 1e-30) for k in compared)
+    check(upd <= STEP_UPDATE_REL_L2 and clip_err <= W_STEP_LOSS_RTOL,
+          f'card vs CPU stage-2 step: AdamW update rel L2 {upd:.2e} <= {STEP_UPDATE_REL_L2}; clipper norm EMA '
+          f'max rel diff {clip_err:.2e}')
+
+    # ---- the counterfactual route with the fused chain's gate failing -----
+    # a W-encoder 256 wide (4 heads of 64) beside 512-wide nets: the three
+    # nets run one by one, each stack through its wformer kernel
+    u_cfg = dataclasses.replace(cfg, w_autoencoder=dataclasses.replace(cfg.w_autoencoder,
+                                                                       w_encoder=tnet(256, 4)))
+    u_wae = build_w_autoencoder(u_cfg)
+    init_from_seed(u_wae, args.seed + 12)
+    u_wae.eval()
+    u_in = WInputs(torch.from_numpy(rng.standard_normal((2, cfg.autoencoder.w_dim)).astype(np.float32)),
+                   torch.from_numpy(2 * rng.standard_normal((2, cfg.data.n_classes)).astype(np.float32)))
+    u_book = vqvae.codebook.detach().cpu()
+    with torch.inference_mode():
+        want = u_wae.generate_counterfactual(u_in, u_book, 1)
+        u_wae = u_wae.to(dev)
+        api.reset_launch_counts()
+        got = u_wae.generate_counterfactual(WInputs(u_in.w_q.to(dev), u_in.logits.to(dev)), u_book.to(dev), 1)
+        counts = api.launch_counts()  # a check of another route: not added to the main path's launches
+    r = rel_l2(got.w_recon.cpu(), want.w_recon)
+    agree = float((got.idx.cpu() == want.idx).float().mean())
+    check(not u_wae.fused_ok() and (counts['wformer_encoder'], counts['wformer_decoder'], counts['cvae_cf']) == (2, 1, 0)
+          and r <= CVAE_REL_L2 and agree >= CODE_AGREEMENT,
+          f'unfused counterfactual route: wformer launches {counts["wformer_encoder"]} / {counts["wformer_decoder"]}, '
+          f'cvae_cf {counts["cvae_cf"]}; card vs CPU w_recon rel L2 {r:.2e} <= {CVAE_REL_L2}, code agreement '
+          f'{agree:.4f}')
+
+    print(f'launches: serving {json.dumps(launches)}; training ({len(losses)} steps) {json.dumps(train_launches)}; '
+          f'stage 2 {json.dumps(stage2_launches)}', flush=True)
+    print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
+          'serving / stage 1 / stage 2', flush=True)
+    for name in KERNEL_INFO:
+        k = kernels[name]
+        lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'
+        print(f'{name} | {k["shape"]} | {k["ms"]:.4f} | {k["plain_ms"]:.4f} | {lib} | {k["bound_ms"]:.4f} '
+              f'({k["bound_by"]}) | {k["bound_ms"] / k["ms"]:.2%} | {launches[name]} / {train_launches[name]} / '
+              f'{stage2_launches[name]}', flush=True)
     record = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': KERNEL_INFO[name][0], 'replaces': KERNEL_INFO[name][1],
-         'launches': launches[name] + train_launches[name], **kernels[name]}
+         'launches': launches[name] + train_launches[name] + stage2_launches[name], **kernels[name]}
         for name in KERNEL_INFO
     ]}
     if failures:

@@ -7,7 +7,8 @@ from.  ``tests/test_torch_port_modules.py`` holds these defaults against
 ``pccf.config.get_config_all([])`` so the two cannot drift apart.
 
 The slices cover the flagship unmodified: counterfactual serving with graph
-filtering on, and the stage-1 VQ-VAE training step with the ChamferEMD loss.
+filtering on, the stage-1 VQ-VAE training step with the ChamferEMD loss, and
+stage-2 training of the inner W-autoencoder.
 """
 
 from __future__ import annotations
@@ -57,19 +58,7 @@ class TransformerNetConfig:
     n_heads: int = 8
     mlp_dims: tuple[int, ...] = (1024, 1024)
     act_name: str = 'GELU'
-
-
-@dataclasses.dataclass(frozen=True)
-class WAutoEncoderConfig:
-    z1_dim: int = 16  # w_autoencoder/model/wae.yaml:8
-    z2_dim: int = 16  # w_autoencoder/model/wae.yaml:9
-    cf_temperature: float = 5.0  # w_autoencoder/model/wae.yaml:10
-    # w_autoencoder/model/w_encoder/transformer_w_encoder.yaml
-    w_encoder: TransformerNetConfig = TransformerNetConfig()
-    # w_autoencoder/model/w_decoder/transformer_w_decoder.yaml
-    w_decoder: TransformerNetConfig = TransformerNetConfig(mlp_dims=(1024, 1024, 1024, 512))
-    # w_autoencoder/model/conditional_w_encoder/transformer_conditional_w_encoder.yaml
-    conditional_w_encoder: TransformerNetConfig = TransformerNetConfig()
+    dropout_rates: tuple[float, ...] = (0.0,) * 5  # one per layer, the rest unread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,11 +72,48 @@ class SchedulerConfig:
     decay_steps: int = 100
 
 
+W_EPOCHS = 500  # w_autoencoder/train/default_train.yaml:7
+
+
+@dataclasses.dataclass(frozen=True)
+class WAutoEncoderTrainConfig:
+    """Stage 2: w_autoencoder/train/** and w_autoencoder/objective/vae_objective.yaml."""
+
+    batch_size: int = 32  # train/default_train.yaml:6
+    n_epochs: int = W_EPOCHS  # train/default_train.yaml:7; also the KLD annealing length
+    learning_rate: float = 0.0014  # train/learn/default_learn.yaml:6
+    weight_decay: float = 0.001  # train/learn/default_learn.yaml:10 (AdamW, :5)
+    grad_op: str | None = 'ParamHistClipper'  # train/learn/default_learn.yaml:7
+    clip_criterion: str = 'EMA'  # train/learn/default_learn.yaml:8
+    # train/learn/scheduler/cosine.yaml: restart and decay over n_epochs, warmup 6
+    scheduler: SchedulerConfig = SchedulerConfig(
+        restart_interval=W_EPOCHS, warmup_steps=6, min_decay=0.01, decay_steps=W_EPOCHS)
+    c_kld1: float = 0.1  # objective/vae_objective.yaml:1
+    c_kld2: float = 4.0  # objective/vae_objective.yaml:2
+
+
+@dataclasses.dataclass(frozen=True)
+class WAutoEncoderConfig:
+    z1_dim: int = 16  # w_autoencoder/model/wae.yaml:8
+    z2_dim: int = 16  # w_autoencoder/model/wae.yaml:9
+    cf_temperature: float = 5.0  # w_autoencoder/model/wae.yaml:10
+    # w_autoencoder/model/w_encoder/transformer_w_encoder.yaml
+    w_encoder: TransformerNetConfig = TransformerNetConfig()
+    # w_autoencoder/model/w_decoder/transformer_w_decoder.yaml
+    w_decoder: TransformerNetConfig = TransformerNetConfig(mlp_dims=(1024, 1024, 1024, 512),
+                                                           dropout_rates=(0.1,) * 5)
+    # w_autoencoder/model/conditional_w_encoder/transformer_conditional_w_encoder.yaml
+    conditional_w_encoder: TransformerNetConfig = TransformerNetConfig()
+    train: WAutoEncoderTrainConfig = WAutoEncoderTrainConfig()
+
+
 @dataclasses.dataclass(frozen=True)
 class AutoEncoderTrainConfig:
     batch_size: int = 8  # autoencoder/train/default_train.yaml:6
     learning_rate: float = 0.004  # autoencoder/train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # autoencoder/train/learn/default_learn.yaml:10 (AdamW, :5)
+    grad_op: str | None = None  # autoencoder/train/learn/default_learn.yaml: none
+    clip_criterion: str = 'ZStat'
     scheduler: SchedulerConfig = SchedulerConfig()
     c_embedding: float = 8.0  # autoencoder/objective/chamfer_emd.yaml:4 (recon_loss ChamferEMD, :3)
 

@@ -1,7 +1,12 @@
 """Convert the JAX package's flax variables into the port's ``state_dict``.
 
-Input: the nested dict of numpy arrays a flax model carries (``params`` and
-``batch_stats`` collections, e.g. ``jax.tree.map(np.asarray, variables)``).
+Input: the nested dict of numpy arrays a flax model carries (``params``,
+``batch_stats`` and ``constants`` collections, e.g.
+``jax.tree.map(np.asarray, variables)``).  The stage-2 shell
+``WAETrainModule`` converts onto :class:`pccf_torch.models.WAETrainModule`:
+``params.wae.*`` onto ``wae.*`` and ``constants.codebook`` onto its
+``codebook`` buffer; the merged VQ-VAE (``params.w_autoencoder.*``) onto
+``w_autoencoder.*``.
 Any tree shaped like ``params`` converts the same way under the ``params``
 key, so JAX gradients and updated parameters of a training step land on the
 port's parameter names; the training step touches every parameter outside
@@ -91,10 +96,10 @@ def _leaf(path: tuple, leaf: str, a: np.ndarray, collection: str) -> tuple[str, 
 
 
 def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """``{'params': …, 'batch_stats': …}`` of a flax model -> the port's
+    """``{'params': …, 'batch_stats': …, 'constants': …}`` of a flax model -> the port's
     ``state_dict`` (load it with ``strict=True`` to check coverage)."""
     state = {}
-    for collection in ('params', 'batch_stats'):
+    for collection in ('params', 'batch_stats', 'constants'):
         for path, a in _flatten(variables.get(collection, {})).items():
             name, value = _leaf(path[:-1], path[-1], a, collection)
             key = '.'.join([*(_rename(s) for s in path[:-1]), name])

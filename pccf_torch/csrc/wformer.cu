@@ -1,18 +1,23 @@
-// The counterfactual CVAE chain on Hopper: a tiled GEMM with a bias / GELU /
+// Pre-norm transformer stacks on Hopper: a tiled GEMM with a bias / GELU /
 // residual epilogue, a LayerNorm, and per-(batch, head) attention.  The
-// wrapper (pccf_torch/kernels/cvae.py) runs the whole chain by launching
-// these in turn on one stream.
+// stack launchers in pccf_torch/kernels/wformer.py launch these in turn on one
+// stream, layer by layer; the counterfactual CVAE chain
+// (pccf_torch/kernels/cvae.py) runs its three stacks through the same launchers.
 //
-// Replaces pccf/kernels/pallas_cvae.py:203 cvae_cf_tpu (body _cvae_kernel:77,
-// built on the pallas_wformer.py layer bodies _enc_layers / _dec_layers):
-// z1 encoder stack, z2 posterior stack, folded heads + conditional prior,
-// decoder stack (self + cross attention), compress — over T = 256 code tokens
-// of width d = 512 with 8 heads at the flagship configuration.
+// Replaces pccf/kernels/pallas_wformer.py:335 wformer_encoder_tpu and :365
+// wformer_decoder_tpu (layer bodies _enc_layers / _dec_layers), and with them
+// pccf/kernels/pallas_cvae.py:203 cvae_cf_tpu, which is built on those
+// bodies: T = 256 code tokens of width d = 512 with 8 heads of 64 at the
+// flagship configuration.
 //
-// What bounds it: ~11 GFLOP per sample in matrix products of modest size
-// (M = B*256 rows, N and K of 512 to 1536), and launch overhead: the chain is
-// 8 layers of ~7 launches each.  A single fused launch (as on the TPU) is
-// later work.
+// What bounds it: the matrix products, 1.21 GFLOP per encoder layer and
+// 1.6-1.8 GFLOP per decoder layer per sample (M = B*256 rows, N and K of 512
+// to 1536), against the TF32 tensor-core peak; and launch overhead: a layer
+// is ~7 launches (~11 for a decoder layer).  The TPU kernel keeps every
+// layer's weights and the residual stream in VMEM for the whole stack; a
+// block here has 227 KB of shared memory, so the residual stream goes
+// through device memory (L2 at these sizes) between launches.  A fused
+// persistent stack is later work.
 //
 // Precision: the chain feeds a VQ argmin whose choices must agree with the
 // fp32 plain version, so every product runs as 3xTF32 (x = big + small, both

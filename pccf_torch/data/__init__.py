@@ -1,3 +1,3 @@
-from pccf_torch.data.structures import Inputs, Outputs, Targets, WInputs
+from pccf_torch.data.structures import Inputs, Outputs, Targets, WInputs, WTargets
 
-__all__ = ['Inputs', 'Outputs', 'Targets', 'WInputs']
+__all__ = ['Inputs', 'Outputs', 'Targets', 'WInputs', 'WTargets']

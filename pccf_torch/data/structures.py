@@ -39,11 +39,24 @@ class WInputs:
 
 
 @dataclasses.dataclass
+class WTargets:
+    """Targets of the inner (W) autoencoder: the quantised code embeddings
+    ``(B, w_dim)``, their one-hot selections ``(B, n_codes, book_size)`` and
+    the classifier logits ``(B, C)``."""
+
+    w_e: torch.Tensor
+    one_hot_idx: torch.Tensor
+    logits: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
 class Outputs:
     """Outputs of the inner and outer autoencoder, filled along the path
-    (the fields the serving and stage-1 training paths set; ``pccf`` has
-    more)."""
+    (the fields the serving and training paths set; ``pccf`` has more).
+    ``model_epoch`` is the 1-based epoch a training step injects (0-based
+    in evaluation), which the KLD annealing reads."""
 
+    model_epoch: float | None = None
     recon: torch.Tensor | None = None
     w: torch.Tensor | None = None
     w_q: torch.Tensor | None = None
@@ -52,6 +65,14 @@ class Outputs:
     w_dist_2: torch.Tensor | None = None
     idx: torch.Tensor | None = None
     one_hot_idx: torch.Tensor | None = None
+    z1: torch.Tensor | None = None
+    z2: torch.Tensor | None = None
+    mu1: torch.Tensor | None = None
+    log_var1: torch.Tensor | None = None
+    p_mu2: torch.Tensor | None = None
+    p_log_var2: torch.Tensor | None = None
+    d_mu2: torch.Tensor | None = None
+    d_log_var2: torch.Tensor | None = None
     probs: torch.Tensor | None = None
 
     def replace(self, **changes) -> 'Outputs':

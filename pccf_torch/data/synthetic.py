@@ -1,7 +1,7 @@
 """Synthetic point clouds, numpy only: the fixed shapes of
 ``pccf/data/synthetic.py:23-70`` (``variability=0``), normalised as
 ``pccf/data/augmentations.py:16-26`` does.  The JAX package's data modules
-import flax and jax through ``pccf/data/__init__.py``; the port keeps this
+pull in flax and jax through ``pccf/data/__init__.py``; the port keeps this
 copy so that a run on the card can make a batch from a seed.
 """
 

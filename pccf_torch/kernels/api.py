@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pccf_torch.kernels import _build, cvae, emd, gather, knn as knn_mod, ops, pcgen
+from pccf_torch.kernels import _build, cvae, emd, gather, knn as knn_mod, ops, pcgen, wformer
 
 # name -> the CUDA wrapper that counts its launches
 KERNELS = {
@@ -25,6 +25,8 @@ KERNELS = {
     'scatter_add_slots': gather.scatter_add_slots_cuda,
     'graph_sum_pool': gather.graph_sum_pool_cuda,
     'chamfer_match_cost': emd.chamfer_match_cost_cuda,
+    'wformer_encoder': wformer.wformer_encoder_cuda,
+    'wformer_decoder': wformer.wformer_decoder_cuda,
 }
 
 FILTER_NEIGHBORS = 4  # graph filtering's k, self included (pccf/kernels/api.py:178)
@@ -90,3 +92,17 @@ def pcgen_mix(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *, tau: f
 def cvae_cf(x: torch.Tensor, probs: torch.Tensor, pack: cvae.CVAEPack) -> torch.Tensor:
     """The deterministic counterfactual CVAE chain, ``(B, T, e)``."""
     return cvae.cvae_cf_cuda(x, probs, pack) if _build.on_cuda(x) else cvae.plain(x, probs, pack)
+
+
+def wformer_encoder(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    """A pre-norm encoder stack in eval, ``(B, T, d)``."""
+    if _build.on_cuda(x):
+        return wformer.wformer_encoder_cuda(x, pack, n_heads)
+    return wformer.plain_encoder(x, pack, n_heads)
+
+
+def wformer_decoder(x: torch.Tensor, memory: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    """A pre-norm decoder stack (self, cross on ``memory``, FF) in eval, ``(B, T, d)``."""
+    if _build.on_cuda(x):
+        return wformer.wformer_decoder_cuda(x, memory, pack, n_heads)
+    return wformer.plain_decoder(x, memory, pack, n_heads)

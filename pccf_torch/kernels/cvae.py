@@ -1,5 +1,6 @@
 """The counterfactual CVAE chain: weight pack, plain version and the CUDA
-chain of ``csrc/cvae_cf.cu``.
+chain, which runs its three stacks through the stack launchers of
+:mod:`pccf_torch.kernels.wformer` over ``csrc/wformer.cu``.
 
 Replaces ``pccf/kernels/pallas_cvae.py:203`` ``cvae_cf_tpu`` and its pack
 ``pack_cvae_cf_params`` (``pallas_cvae.py:119-195``, built on
@@ -25,15 +26,16 @@ import dataclasses
 import torch
 
 from pccf_torch.kernels import _build, ops
+from pccf_torch.kernels.wformer import Stacks, pack_decoder, pack_encoder
 
-LN_EPS = 1e-6
 IN_PAD = 32  # token width padded to one GEMM k tile
 OUT_PAD = 64  # compress head padded to one GEMM n tile
 
 
 @dataclasses.dataclass
 class CVAEPack:
-    """Folded float32 weights of the chain, ``x · W`` layouts ``(in, out)``."""
+    """Folded float32 weights of the chain, ``x · W`` layouts ``(in, out)``;
+    the stacks' layers as :mod:`pccf_torch.kernels.wformer` packs them."""
 
     win1: torch.Tensor  # (e, d)
     add1: torch.Tensor  # (T, d)
@@ -55,8 +57,9 @@ class CVAEPack:
     _cuda: dict | None = dataclasses.field(default=None, repr=False)
 
     def cuda_operands(self) -> dict:
-        """Weights as ``(out, in)`` contiguous fp32 for the GEMM kernel, built
-        on first use; token input and compress head zero-padded."""
+        """The folded weights as ``(out, in)`` contiguous fp32 for the GEMM
+        kernel, built on first use; token input and compress head
+        zero-padded."""
         if self._cuda is None:
             def t(w):  # (in, out) -> (out, in)
                 return w.detach().T.contiguous()
@@ -66,60 +69,21 @@ class CVAEPack:
                 out[:, : w.shape[0]] = w.T
                 return out
 
-            def layers(ps):
-                return [{k: (t(v) if v.dim() == 2 else v.detach().contiguous()) for k, v in p.items()} for p in ps]
-
             e = self.wcomp.shape[1]
             wcomp = torch.zeros(OUT_PAD, self.wcomp.shape[0], dtype=self.wcomp.dtype, device=self.wcomp.device)
             wcomp[:e] = self.wcomp.T
             bcomp = torch.zeros(OUT_PAD, dtype=self.bcomp.dtype, device=self.bcomp.device)
             bcomp[:e] = self.bcomp
             self._cuda = {
-                'win1': pad_in(self.win1), 'add1': self.add1.contiguous(), 'enc1': layers(self.enc1),
-                'aw': t(self.aw), 'ab': self.ab.contiguous(),
-                'win2': pad_in(self.win2), 'enc2': layers(self.enc2),
-                'bw': t(self.bw), 'dec': layers(self.dec), 'wcomp': wcomp, 'bcomp': bcomp,
+                'win1': pad_in(self.win1), 'add1': self.add1.contiguous(), 'aw': t(self.aw), 'ab': self.ab.contiguous(),
+                'win2': pad_in(self.win2), 'bw': t(self.bw), 'wcomp': wcomp, 'bcomp': bcomp,
             }
         return self._cuda
 
 
 def _lin(linear: torch.nn.Linear) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(W (in, out), b)`` of a torch Linear."""
+    """``(W (in, out), b)`` of a torch Linear, for the folds."""
     return linear.weight.detach().T, linear.bias.detach()
-
-
-def _attn_qkv(attn) -> tuple[torch.Tensor, torch.Tensor]:
-    ws, bs = zip(*(_lin(getattr(attn, n)) for n in ('query', 'key', 'value')))
-    return torch.cat(ws, dim=1), torch.cat(bs)
-
-
-def _ff(layer) -> dict:
-    w1, b1 = _lin(layer.dense_0)
-    w2, b2 = _lin(layer.dense_1)
-    return {'w1': w1, 'b1': b1, 'w2': w2, 'b2': b2}
-
-
-def _ln(norm, name: str) -> dict:
-    return {f'{name}_w': norm.weight.detach(), f'{name}_b': norm.bias.detach()}
-
-
-def pack_encoder_layer(layer) -> dict:
-    w_qkv, b_qkv = _attn_qkv(layer.attn_0)
-    w_o, b_o = _lin(layer.attn_0.out)
-    return {**_ln(layer.norm_0, 'ln1'), 'w_qkv': w_qkv, 'b_qkv': b_qkv, 'w_o': w_o, 'b_o': b_o,
-            **_ln(layer.norm_1, 'ln2'), **_ff(layer)}
-
-
-def pack_decoder_layer(layer) -> dict:
-    w_qkv, b_qkv = _attn_qkv(layer.attn_0)
-    w_o, b_o = _lin(layer.attn_0.out)
-    xw_q, xb_q = _lin(layer.attn_1.query)
-    (wk, bk), (wv, bv) = _lin(layer.attn_1.key), _lin(layer.attn_1.value)
-    xw_o, xb_o = _lin(layer.attn_1.out)
-    return {**_ln(layer.norm_0, 'ln1'), 'w_qkv': w_qkv, 'b_qkv': b_qkv, 'w_o': w_o, 'b_o': b_o,
-            **_ln(layer.norm_1, 'lnx'), 'xw_q': xw_q, 'xb_q': xb_q,
-            'xw_kv': torch.cat([wk, wv], dim=1), 'xb_kv': torch.cat([bk, bv]), 'xw_o': xw_o, 'xb_o': xb_o,
-            **_ln(layer.norm_2, 'ln2'), **_ff(layer)}
 
 
 @torch.no_grad()
@@ -153,9 +117,9 @@ def pack_cvae_cf(wae) -> CVAEPack:
     wcomp, bcomp = _lin(dec.compress.dense)
     wp, bp = _lin(post.prob_proj.dense)
     return CVAEPack(
-        win1=win1, add1=add1, enc1=[pack_encoder_layer(lyr) for lyr in enc.layers],
-        aw=aw, ab=ab, win2=win2, add2=add2, enc2=[pack_encoder_layer(lyr) for lyr in post.layers],
-        bw=bw, addd=addd, dec=[pack_decoder_layer(lyr) for lyr in dec.layers],
+        win1=win1, add1=add1, enc1=pack_encoder(enc.layers),
+        aw=aw, ab=ab, win2=win2, add2=add2, enc2=pack_encoder(post.layers),
+        bw=bw, addd=addd, dec=pack_decoder(dec.layers),
         wcomp=wcomp, bcomp=bcomp, prior_z2p=prior_z2p, wp=wp, bp=bp,
         heads=(enc.n_heads, post.n_heads, dec.n_heads),
     )
@@ -180,55 +144,12 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
         raise ValueError(f'cvae_cf: tokens {tuple(x.shape)} do not fit a pack of T={pack.add1.shape[0]}, d={d}, '
                          f'heads={pack.heads} (token width at most {min(IN_PAD, OUT_PAD)})')
     w = pack.cuda_operands()
-    ffn = tuple(p['w1'].shape[1] for p in (*pack.enc1, *pack.enc2, *pack.dec))
     if w['aw'].device != x.device:
         raise ValueError(f'cvae_cf: weights on {w["aw"].device}, inputs on {x.device}')
-    lib, stream = _build.lib(), _build.stream()
     m = b * t
     h1, h2, hd = pack.heads
-
-    def gemm(a, wt, bias, res, out, res_rows=0, gelu=False):
-        n, k = wt.shape
-        err = lib.pccf_gemm(a.data_ptr(), wt.data_ptr(), bias.data_ptr() if bias is not None else None,
-                            res.data_ptr() if res is not None else None, out.data_ptr(),
-                            m, n, k, res_rows or m, int(gelu), stream)
-        _build.check('pccf_gemm', err, f'M={m}, N={n}, K={k}')
-
-    def norm(src, wgt, bias, out):
-        err = lib.pccf_layer_norm(src.data_ptr(), wgt.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d, LN_EPS,
-                                  stream)
-        _build.check('pccf_layer_norm', err, f'rows={m}, d={d}')
-
-    def attend(q, q_stride, k, v, kv_stride, out, n_heads):
-        err = lib.pccf_attention(q, q_stride, k, v, kv_stride, out.data_ptr(), d, b, t, t, n_heads, d // n_heads,
-                                 stream)
-        _build.check('pccf_attention', err, f'B={b}, T={t}, {n_heads} heads of {d // n_heads}')
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
-
-    res, h, att = empty(m, d), empty(m, d), empty(m, d)
-    qkv = empty(m, 3 * d)
-    ff_store = empty(m * max(ffn))
-    off = d * 4  # bytes per d floats
-
-    def ff_block(p):
-        norm(res, p['ln2_w'], p['ln2_b'], h)
-        f = ff_store[: m * p['w1'].shape[0]].view(m, -1)
-        gemm(h, p['w1'], p['b1'], None, f, gelu=True)
-        gemm(f, p['w2'], p['b2'], res, res)
-
-    def self_attention(p, n_heads):
-        norm(res, p['ln1_w'], p['ln1_b'], h)
-        gemm(h, p['w_qkv'], p['b_qkv'], None, qkv)
-        base = qkv.data_ptr()
-        attend(base, 3 * d, base + off, base + 2 * off, 3 * d, att, n_heads)
-        gemm(att, p['w_o'], p['b_o'], res, res)
-
-    def encoder_stack(layers, n_heads):
-        for p in layers:
-            self_attention(p, n_heads)
-            ff_block(p)
+    stacks = Stacks(b, t, d, x.device)
+    empty = stacks.empty
 
     x_pad = torch.zeros(m, IN_PAD, dtype=torch.float32, device=x.device)
     x_pad[:, :e] = x.reshape(m, e)
@@ -237,29 +158,20 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     extra2 = (pack.add2 + pemb[:, None, :]).reshape(m, d).contiguous()
     extrad = (pack.addd + pz2p).reshape(m, d).contiguous()
 
-    gemm(x_pad, w['win1'], None, w['add1'], res, res_rows=t)
-    encoder_stack(w['enc1'], h1)
+    res = empty(m, d)
+    stacks.gemm(x_pad, w['win1'], None, w['add1'], res, res_rows=t)
+    stacks.encoder(res, pack.enc1, h1)
     memory = empty(m, d)
-    gemm(res, w['aw'], None, w['ab'], memory, res_rows=t)
+    stacks.gemm(res, w['aw'], None, w['ab'], memory, res_rows=t)
 
-    gemm(x_pad, w['win2'], None, extra2, res)
-    encoder_stack(w['enc2'], h2)
+    stacks.gemm(x_pad, w['win2'], None, extra2, res)
+    stacks.encoder(res, pack.enc2, h2)
     dec_in = empty(m, d)
-    gemm(res, w['bw'], None, extrad, dec_in)
-    res = dec_in
-
-    q, kv = empty(m, d), empty(m, 2 * d)
-    for p in w['dec']:
-        self_attention(p, hd)
-        norm(res, p['lnx_w'], p['lnx_b'], h)
-        gemm(h, p['xw_q'], p['xb_q'], None, q)
-        gemm(memory, p['xw_kv'], p['xb_kv'], None, kv)
-        attend(q.data_ptr(), d, kv.data_ptr(), kv.data_ptr() + off, 2 * d, att, hd)
-        gemm(att, p['xw_o'], p['xb_o'], res, res)
-        ff_block(p)
+    stacks.gemm(res, w['bw'], None, extrad, dec_in)
+    stacks.decoder(dec_in, memory, pack.dec, hd)
 
     out = empty(m, OUT_PAD)
-    gemm(res, w['wcomp'], w['bcomp'], None, out)
+    stacks.gemm(dec_in, w['wcomp'], w['bcomp'], None, out)
     cvae_cf_cuda.launches += 1
     return out[:, :e].reshape(b, t, e)
 

@@ -353,9 +353,10 @@ def gelu_exact(x: Tensor) -> Tensor:
     return F.gelu(x, approximate='none')
 
 
-def attention(q: Tensor, k: Tensor, v: Tensor, n_heads: int) -> Tensor:
+def attention(q: Tensor, k: Tensor, v: Tensor, n_heads: int, weight_scale: Tensor | None = None) -> Tensor:
     """Multi-head scaled dot-product attention on projected ``(B, T, d)``
-    tensors, heads laid out ``(H, hd)`` along d as flax's MHA does."""
+    tensors, heads laid out ``(H, hd)`` along d as flax's MHA does;
+    ``weight_scale`` multiplies the softmax weights (a dropout mask)."""
     b, t, d = q.shape
     hd = d // n_heads
 
@@ -363,35 +364,37 @@ def attention(q: Tensor, k: Tensor, v: Tensor, n_heads: int) -> Tensor:
         return a.reshape(a.shape[0], a.shape[1], n_heads, hd).transpose(1, 2)
 
     s = torch.matmul(split(q) / math.sqrt(hd), split(k).transpose(-1, -2))
-    o = torch.matmul(torch.softmax(s, dim=-1), split(v))
+    weights = torch.softmax(s, dim=-1)
+    if weight_scale is not None:
+        weights = weights * weight_scale
+    o = torch.matmul(weights, split(v))
     return o.transpose(1, 2).reshape(b, t, d)
 
 
-def encoder_layer(x: Tensor, p: dict, n_heads: int) -> Tensor:
-    """Pre-norm encoder layer from a packed parameter dict (see
-    :mod:`pccf_torch.kernels.cvae`)."""
-    d = x.shape[-1]
-    h = layer_norm(x, p['ln1_w'], p['ln1_b'])
-    qkv = torch.matmul(h, p['w_qkv']) + p['b_qkv']
-    x = x + torch.matmul(attention(qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :], n_heads), p['w_o']) + p['b_o']
+def _dense(x: Tensor, p: dict, name: str) -> Tensor:
+    return F.linear(x, p[f'w{name}'], p[f'b{name}'])
+
+
+def _feed_forward(x: Tensor, p: dict) -> Tensor:
     h = layer_norm(x, p['ln2_w'], p['ln2_b'])
-    f = gelu_exact(torch.matmul(h, p['w1']) + p['b1'])
-    return x + torch.matmul(f, p['w2']) + p['b2']
+    return x + _dense(gelu_exact(_dense(h, p, '1')), p, '2')
+
+
+def encoder_layer(x: Tensor, p: dict, n_heads: int) -> Tensor:
+    """Pre-norm encoder layer from a packed parameter dict, weights in the
+    ``(out, in)`` layout of :mod:`pccf_torch.kernels.wformer`."""
+    h = layer_norm(x, p['ln1_w'], p['ln1_b'])
+    x = x + _dense(attention(_dense(h, p, 'q'), _dense(h, p, 'k'), _dense(h, p, 'v'), n_heads), p, 'o')
+    return _feed_forward(x, p)
 
 
 def decoder_layer(x: Tensor, memory: Tensor, p: dict, n_heads: int) -> Tensor:
     """Pre-norm decoder layer (self, cross, feed-forward) from a packed dict."""
-    d = x.shape[-1]
     h = layer_norm(x, p['ln1_w'], p['ln1_b'])
-    qkv = torch.matmul(h, p['w_qkv']) + p['b_qkv']
-    x = x + torch.matmul(attention(qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :], n_heads), p['w_o']) + p['b_o']
+    x = x + _dense(attention(_dense(h, p, 'q'), _dense(h, p, 'k'), _dense(h, p, 'v'), n_heads), p, 'o')
     h = layer_norm(x, p['lnx_w'], p['lnx_b'])
-    q = torch.matmul(h, p['xw_q']) + p['xb_q']
-    kv = torch.matmul(memory, p['xw_kv']) + p['xb_kv']
-    x = x + torch.matmul(attention(q, kv[..., :d], kv[..., d:], n_heads), p['xw_o']) + p['xb_o']
-    h = layer_norm(x, p['ln2_w'], p['ln2_b'])
-    f = gelu_exact(torch.matmul(h, p['w1']) + p['b1'])
-    return x + torch.matmul(f, p['w2']) + p['b2']
+    x = x + _dense(attention(_dense(h, p, 'xq'), _dense(memory, p, 'xk'), _dense(memory, p, 'xv'), n_heads), p, 'xo')
+    return _feed_forward(x, p)
 
 
 def cvae_cf(x: Tensor, probs: Tensor, pack) -> Tensor:

@@ -1,0 +1,142 @@
+"""The least time an H100 SXM could take for each kernel's work.
+
+Each ``*_work`` function counts, from the shapes of one call's inputs, the
+operations the function needs and the bytes it must move (every input read
+once, every output written once), and names the peak rate of the instruction
+class the kernel issues.  :func:`bound_ms` turns that into the larger of the
+two times, ``operations / peak`` and ``bytes / 3.35 TB/s``, and says which
+sets it.  Only ``chip_smoke.py`` reads these; no kernel does.
+
+Peaks: NVIDIA's H100 SXM data sheet, dense, at the 700 W power limit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+FP32 = 67e12  # FP32 on the CUDA cores, FLOP/s
+TF32 = 495e12  # TF32 mma on the tensor cores, FLOP/s (the 3xTF32 kernels issue three per product)
+HBM = 3.35e12  # device memory, bytes/s
+F32 = 4
+
+# ApproxMatch EMD + Chamfer, operations per point pair: d2 once (3 sub, 3 mul,
+# 2 add), nine levels x three passes of exp, two multiplies and an add, and
+# one compare per direction for Chamfer's minima
+EMD_OPS_PER_PAIR = 8 + 9 * 3 * 4 + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    ops: float  # operations the function needs
+    bytes: float  # inputs read once, outputs written once
+    peak: float  # operations/s of the instruction class the kernel issues
+
+
+def bound_ms(work: Work) -> tuple[float, str]:
+    """``(least ms, 'operations' or 'bytes')`` for ``work``."""
+    t_ops, t_bytes = work.ops / work.peak * 1e3, work.bytes / HBM * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ------------------------------------------------------ neighbour kernels
+
+
+def knn_work(x: torch.Tensor, k: int) -> Work:
+    """Every pair's distance as C fp32 multiply-adds; selection uncounted."""
+    b, n, c = x.shape
+    return Work(2.0 * b * n * n * c, _nbytes(x) + b * n * k * 4, FP32)
+
+
+def pool_work(x: torch.Tensor, idx: torch.Tensor, slots: bool = False) -> Work:
+    """Max- or sum-pool over k gathered rows: one op per gathered element;
+    ``slots`` adds the uint8 winning-slot output of the training forward."""
+    b, n, c = x.shape
+    k = idx.shape[-1]
+    return Work(float(b * n * k * c), _nbytes(x, idx) + b * n * c * (F32 + (1 if slots else 0)), FP32)
+
+
+def gather_work(x: torch.Tensor, idx: torch.Tensor) -> Work:
+    b, n, c = x.shape
+    return Work(0.0, _nbytes(x, idx) + idx.numel() * c * F32, FP32)
+
+
+def scatter_rows_work(g: torch.Tensor, idx: torch.Tensor, n: int) -> Work:
+    """``dx[idx[b, i, j]] += g[b, i]``: one add per scattered element."""
+    b, m, c = g.shape
+    return Work(float(idx.numel() * c), _nbytes(g, idx) + b * n * c * F32, FP32)
+
+
+def scatter_slots_work(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor, n: int) -> Work:
+    b, _, c = g.shape
+    return Work(float(g.numel()), _nbytes(g, idx, slots) + b * n * c * F32, FP32)
+
+
+def emd_work(x: torch.Tensor, y: torch.Tensor) -> Work:
+    """Cost and both gradients of ApproxMatch EMD with Chamfer's minima and
+    argmins of both directions."""
+    b, n, _ = x.shape
+    m = y.shape[1]
+    out = b * F32 + _nbytes(x, y) + 2 * (b * n + b * m) * F32
+    return Work(float(EMD_OPS_PER_PAIR * b * n * m), 2 * _nbytes(x, y) + out, FP32)
+
+
+# ------------------------------------------------- matrix-product kernels
+
+
+def pcgen_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
+    """Map head, G component stacks, heads and the attention mix per point;
+    the component weights move as bf16, the rest as fp32."""
+    b, n, dm = m.shape
+    d0 = pack.map_w.shape[0]
+    g = pack.head_w.shape[0]
+    per_point = 2 * dm * d0 + sum(2 * g * lw.shape[1] * lw.shape[2] for lw in pack.layer_ws)
+    per_point += 2 * pack.head_w.numel() + 2 * pack.att_w.numel()
+    weights = sum(lw.numel() * 2 for lw in pack.layer_ws) + F32 * sum(
+        t.numel() for t in (pack.map_w, pack.map_b, *pack.layer_bs, pack.head_w, pack.head_b, pack.att_w, pack.att_b))
+    return Work(float(b * n * per_point), _nbytes(m, w) + weights + b * n * 3 * F32, TF32)
+
+
+def _stack_ops(b: int, t: int, t_mem: int, d: int, pack: list[dict], cross: bool) -> float:
+    per_sample = 0.0
+    for p in pack:
+        f = p['w1'].shape[0]
+        per_sample += 8 * t * d * d + 4 * t * t * d  # q, k, v, out projections; scores and P·V
+        if cross:
+            per_sample += 4 * t * d * d + 4 * t_mem * d * d + 4 * t * t_mem * d
+        per_sample += 4 * t * d * f
+    return b * per_sample
+
+
+def _pack_bytes(pack: list[dict]) -> int:
+    return sum(_nbytes(v) for p in pack for v in p.values())
+
+
+def encoder_stack_work(x: torch.Tensor, pack: list[dict]) -> Work:
+    b, t, d = x.shape
+    return Work(_stack_ops(b, t, t, d, pack, False), 2 * _nbytes(x) + _pack_bytes(pack), TF32)
+
+
+def decoder_stack_work(x: torch.Tensor, memory: torch.Tensor, pack: list[dict]) -> Work:
+    b, t, d = x.shape
+    return Work(_stack_ops(b, t, memory.shape[1], d, pack, True),
+                2 * _nbytes(x) + _nbytes(memory) + _pack_bytes(pack), TF32)
+
+
+def cvae_work(x: torch.Tensor, probs: torch.Tensor, pack) -> Work:
+    """The chain: two input projections, two encoder stacks, the folded head
+    products, the decoder stack and the compress head."""
+    b, t, e = x.shape
+    d = pack.aw.shape[0]
+    mats = 2 * 2 * b * t * e * d + 2 * 2 * b * t * d * d + 2 * b * t * d * e
+    ops = mats + _stack_ops(b, t, t, d, pack.enc1, False) + _stack_ops(b, t, t, d, pack.enc2, False)
+    ops += _stack_ops(b, t, t, d, pack.dec, True)
+    weights = _pack_bytes(pack.enc1) + _pack_bytes(pack.enc2) + _pack_bytes(pack.dec) + _nbytes(
+        pack.win1, pack.add1, pack.aw, pack.ab, pack.win2, pack.add2, pack.bw, pack.addd, pack.wcomp, pack.bcomp,
+        pack.prior_z2p, pack.wp, pack.bp)
+    return Work(float(ops), 2 * _nbytes(x) + _nbytes(probs) + weights, TF32)

@@ -1,0 +1,226 @@
+"""Pre-norm transformer stacks: weight pack, plain versions, and the CUDA
+stack launchers over ``csrc/wformer.cu``.
+
+Replaces ``pccf/kernels/pallas_wformer.py:335`` ``wformer_encoder_tpu`` and
+``:365`` ``wformer_decoder_tpu``, which run a whole encoder or decoder stack of
+the W-autoencoder's transformer nets in one ``pallas_call`` with every
+layer's weights and the residual stream resident in VMEM.  A block on the
+card has 227 KB of shared memory, so here a stack is a sequence of launches
+of three kernels (GEMM with a bias / exact-GELU / residual epilogue,
+LayerNorm, attention), layer by layer, on one stream; the residual stream
+stays in one device buffer that the GEMM epilogues update in place.  The
+products run as 3xTF32 (about fp32 rounding): the stacks feed the VQ argmin
+and the quantisation accuracy, which bf16 products flip against the fp32
+reference.  The CVAE chain (:mod:`pccf_torch.kernels.cvae`) runs its three
+stacks through the same launchers.
+
+The pack is a list of per-layer dicts of the live module weights, each in
+its ``nn.Linear``'s own ``(out, in)`` layout: detached views, no copies, so
+packing on every eval call costs nothing and no pack outlives a training
+step.  Differing FF widths need no padding: each layer's GEMMs take its own
+width.  The stacks are eval only: no dropout and no gradient.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pccf_torch.kernels import _build, ops
+
+LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
+MAX_TOKENS = 256  # pccf_attention holds all keys of a head in shared memory
+
+
+def supported(t: int, d: int, n_heads: int) -> bool:
+    """The shape gate of the JAX package's fused stacks
+    (``pallas_wformer.py:41-49`` ``wformer_supported``): 128-multiple tokens
+    and width, whole heads.  Its VMEM budget is a TPU limit and is not
+    carried over; what the card's kernels do not cover, their wrappers
+    refuse."""
+    return t % 128 == 0 and d % 128 == 0 and d % n_heads == 0
+
+
+# ------------------------------------------------------------------ pack
+
+
+def _linears(prefix: str, linears: dict[str, torch.nn.Linear]) -> dict:
+    """``w{prefix}{name}`` ``(out, in)`` and ``b{prefix}{name}`` of each
+    Linear, as the GEMM kernel reads them."""
+    out = {}
+    for name, linear in linears.items():
+        out[f'w{prefix}{name}'] = linear.weight.detach().contiguous()
+        out[f'b{prefix}{name}'] = linear.bias.detach()
+    return out
+
+
+def _attn(attn, prefix: str = '') -> dict:
+    return _linears(prefix, {'q': attn.query, 'k': attn.key, 'v': attn.value, 'o': attn.out})
+
+
+def _ln(norm, name: str) -> dict:
+    return {f'{name}_w': norm.weight.detach(), f'{name}_b': norm.bias.detach()}
+
+
+def pack_encoder_layer(layer) -> dict:
+    return {**_ln(layer.norm_0, 'ln1'), **_attn(layer.attn_0), **_ln(layer.norm_1, 'ln2'),
+            **_linears('', {'1': layer.dense_0, '2': layer.dense_1})}
+
+
+def pack_decoder_layer(layer) -> dict:
+    return {**_ln(layer.norm_0, 'ln1'), **_attn(layer.attn_0), **_ln(layer.norm_1, 'lnx'),
+            **_attn(layer.attn_1, 'x'), **_ln(layer.norm_2, 'ln2'),
+            **_linears('', {'1': layer.dense_0, '2': layer.dense_1})}
+
+
+def pack_encoder(layers) -> list[dict]:
+    return [pack_encoder_layer(layer) for layer in layers]
+
+
+def pack_decoder(layers) -> list[dict]:
+    return [pack_decoder_layer(layer) for layer in layers]
+
+
+# --------------------------------------------------------- plain versions
+
+
+def plain_encoder(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    """The encoder stack in plain PyTorch, float32: what the CPU runs and
+    what ``chip_smoke.py`` holds the kernel against."""
+    for p in pack:
+        x = ops.encoder_layer(x, p, n_heads)
+    return x
+
+
+def plain_decoder(x: torch.Tensor, memory: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    for p in pack:
+        x = ops.decoder_layer(x, memory, p, n_heads)
+    return x
+
+
+# ------------------------------------------------------------ CUDA stacks
+
+
+class Stacks:
+    """Launches the entry points of ``csrc/wformer.cu`` for ``b`` sequences of
+    ``t`` tokens of width ``d`` on the current stream, with scratch buffers
+    allocated once per call.  The residual stream ``res (b * t, d)`` is
+    updated in place: every residual add is a GEMM epilogue."""
+
+    def __init__(self, b: int, t: int, d: int, device: torch.device) -> None:
+        self.lib, self.stream = _build.lib(), _build.stream()
+        self.b, self.t, self.d, self.m = b, t, d, b * t
+        self.device = device
+        self._scratch: dict[str, torch.Tensor] = {}
+
+    def empty(self, *shape: int) -> torch.Tensor:
+        return torch.empty(shape, dtype=torch.float32, device=self.device)
+
+    def scratch(self, name: str, rows: int, cols: int) -> torch.Tensor:
+        buf = self._scratch.get(name)
+        if buf is None or buf.numel() < rows * cols:
+            buf = self._scratch[name] = self.empty(rows * cols)
+        return buf[: rows * cols].view(rows, cols)
+
+    def gemm(self, a, wt, bias, res, out, res_rows: int = 0, gelu: bool = False) -> None:
+        """``out = a · wtᵀ + bias [GELU] + res[row % res_rows]``."""
+        n, k = wt.shape
+        m = a.shape[0]
+        err = self.lib.pccf_gemm(a.data_ptr(), wt.data_ptr(), bias.data_ptr() if bias is not None else None,
+                                 res.data_ptr() if res is not None else None, out.data_ptr(),
+                                 m, n, k, res_rows or m, int(gelu), self.stream)
+        _build.check('pccf_gemm', err, f'M={m}, N={n}, K={k}')
+
+    def norm(self, src, weight, bias, out) -> None:
+        err = self.lib.pccf_layer_norm(src.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                       src.shape[0], self.d, LN_EPS, self.stream)
+        _build.check('pccf_layer_norm', err, f'rows={src.shape[0]}, d={self.d}')
+
+    def attend(self, q, k, v, out, n_heads: int) -> None:
+        """Multi-head attention, ``q, out (b * t, d)`` and ``k, v (b * t_k, d)``."""
+        d, t_k = self.d, k.shape[0] // self.b
+        err = self.lib.pccf_attention(q.data_ptr(), d, k.data_ptr(), v.data_ptr(), d, out.data_ptr(), d, self.b,
+                                      self.t, t_k, n_heads, d // n_heads, self.stream)
+        _build.check('pccf_attention', err, f'B={self.b}, T={self.t}, T_kv={t_k}, {n_heads} heads of {d // n_heads}')
+
+    def project(self, src, p: dict, prefix: str, names: str) -> list[torch.Tensor]:
+        """One ``(rows, d)`` product of ``src`` per projection in ``names``."""
+        outs = []
+        for name in names:
+            out = self.scratch(f'{prefix}{name}', src.shape[0], self.d)
+            self.gemm(src, p[f'w{prefix}{name}'], p[f'b{prefix}{name}'], None, out)
+            outs.append(out)
+        return outs
+
+    def self_attention(self, res, p: dict, n_heads: int) -> None:
+        h, att = self.scratch('h', self.m, self.d), self.scratch('att', self.m, self.d)
+        self.norm(res, p['ln1_w'], p['ln1_b'], h)
+        self.attend(*self.project(h, p, '', 'qkv'), att, n_heads)
+        self.gemm(att, p['wo'], p['bo'], res, res)
+
+    def cross_attention(self, res, memory, p: dict, n_heads: int) -> None:
+        h, att = self.scratch('h', self.m, self.d), self.scratch('att', self.m, self.d)
+        self.norm(res, p['lnx_w'], p['lnx_b'], h)
+        self.attend(*self.project(h, p, 'x', 'q'), *self.project(memory, p, 'x', 'kv'), att, n_heads)
+        self.gemm(att, p['wxo'], p['bxo'], res, res)
+
+    def feed_forward(self, res, p: dict) -> None:
+        h = self.scratch('h', self.m, self.d)
+        f = self.scratch('ff', self.m, p['w1'].shape[0])
+        self.norm(res, p['ln2_w'], p['ln2_b'], h)
+        self.gemm(h, p['w1'], p['b1'], None, f, gelu=True)
+        self.gemm(f, p['w2'], p['b2'], res, res)
+
+    def encoder(self, res, layers: list[dict], n_heads: int) -> None:
+        """Run pre-norm encoder layers over ``res`` in place."""
+        for p in layers:
+            self.self_attention(res, p, n_heads)
+            self.feed_forward(res, p)
+
+    def decoder(self, res, memory, layers: list[dict], n_heads: int) -> None:
+        """Run pre-norm decoder layers (self, cross on ``memory``, FF) in place."""
+        for p in layers:
+            self.self_attention(res, p, n_heads)
+            self.cross_attention(res, memory, p, n_heads)
+            self.feed_forward(res, p)
+
+
+def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int]:
+    _build.require(x, name, torch.float32)
+    if x.dim() != 3:
+        raise ValueError(f'{name}: expected (B, T, d), got {tuple(x.shape)}')
+    if x.shape[1] > MAX_TOKENS:
+        raise ValueError(f'wformer: the attention kernel does not cover {x.shape[1]} tokens (at most {MAX_TOKENS})')
+    if pack and pack[0]['wq'].device != x.device:
+        raise ValueError(f'wformer: weights on {pack[0]["wq"].device}, {name} on {x.device}')
+    return x.shape
+
+
+def wformer_encoder_cuda(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    """``x (B, T, d)`` float32 on the card -> ``(B, T, d)`` through the
+    encoder stack.  The guards of ``pccf_gemm`` and ``pccf_attention`` state
+    the shapes covered (64-row tiles over tokens, 64-wide heads, widths in
+    multiples of 64, at most 256 tokens)."""
+    b, t, d = _tokens(x, 'x', pack)
+    stacks = Stacks(b, t, d, x.device)
+    res = x.reshape(b * t, d).clone()
+    stacks.encoder(res, pack, n_heads)
+    wformer_encoder_cuda.launches += 1
+    return res.view(b, t, d)
+
+
+def wformer_decoder_cuda(x: torch.Tensor, memory: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
+    """``x (B, T, d)`` and ``memory (B, T_mem, d)`` float32 on the card ->
+    ``(B, T, d)`` through the decoder stack."""
+    b, t, d = _tokens(x, 'x', pack)
+    bm, t_mem, dm = _tokens(memory, 'memory', pack)
+    if (bm, dm) != (b, d):
+        raise ValueError(f'wformer: memory {tuple(memory.shape)} does not match x {tuple(x.shape)}')
+    stacks = Stacks(b, t, d, x.device)
+    res = x.reshape(b * t, d).clone()
+    stacks.decoder(res, memory.reshape(b * t_mem, d), pack, n_heads)
+    wformer_decoder_cuda.launches += 1
+    return res.view(b, t, d)
+
+
+wformer_encoder_cuda.launches = 0
+wformer_decoder_cuda.launches = 0

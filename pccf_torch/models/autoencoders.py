@@ -13,7 +13,7 @@ from pccf_torch.kernels.cvae import pack_cvae_cf
 from pccf_torch.models.w_autoencoders import WAutoEncoder, build_w_autoencoder
 from pccf_torch.nn.decoders import PCGenDecoder, build_decoder
 from pccf_torch.nn.encoders import DGCNNEncoder
-from pccf_torch.nn.layers import get_act
+from pccf_torch.nn.layers import get_act, gumbel_uniform
 
 
 class VQVAE(nn.Module):
@@ -47,19 +47,37 @@ class VQVAE(nn.Module):
         if self.decoder.fused_ok():
             self.decoder.packed = self.decoder.pack()
 
-    def forward(self, inputs: Inputs, gumbel_uniform: torch.Tensor | None = None) -> Outputs:
+    def forward(
+        self, inputs: Inputs, noise: torch.Tensor | None = None, generator: torch.Generator | None = None
+    ) -> Outputs:
         """Encode, quantise with the straight-through gradient, decode
-        (``autoencoders.py:60-79``); ``inputs.initial_sampling`` and, in
-        training, the decoder's Gumbel noise are passed in."""
-        return self.decode(self.encode(inputs), inputs, gumbel_uniform)
+        (``autoencoders.py:60-79``).  ``noise`` is the decoder's Gumbel
+        uniforms, needed in training.  Where ``inputs.initial_sampling`` or, in
+        training, ``noise`` is missing, it is drawn from ``generator``."""
+        if generator is not None:
+            batch, n, dev = inputs.cloud.shape[0], self.n_training_output_points, inputs.cloud.device
+            if inputs.initial_sampling is None:
+                sampling = torch.randn((batch, n, self.decoder.sample_dim), generator=generator, device=dev)
+                inputs = type(inputs)(inputs.cloud, inputs.indices, sampling)
+            if noise is None and self.training:
+                noise = gumbel_uniform((batch, n, self.decoder.n_components), generator, dev)
+        return self.decode(self.encode(inputs), inputs, noise)
 
     def encode(self, inputs: Inputs) -> Outputs:
         return Outputs(w_q=self.encoder(inputs.cloud, inputs.indices))
 
-    def decode(self, data: Outputs, inputs: Inputs, gumbel_uniform: torch.Tensor | None = None) -> Outputs:
+    def encode_quantize(self, inputs: Inputs) -> Outputs:
+        """The frozen encode path of the derived datasets
+        (``autoencoders.py:81-85``): ``w_q``, its quantisation ``w_e``, the
+        selections ``idx`` and their one-hot form."""
+        data = self.encode(inputs)
+        w_e, idx, _ = ops.vq_assign(data.w_q, self.codebook)
+        return data.replace(w_e=w_e, idx=idx, one_hot_idx=ops.one_hot_idx(idx, self.book_size))
+
+    def decode(self, data: Outputs, inputs: Inputs, noise: torch.Tensor | None = None) -> Outputs:
         w_e, idx, _ = ops.vq_assign(data.w_q, self.codebook)
         w = ops.straight_through(w_e, data.w_q)
-        recon = self.decoder(w, inputs.initial_sampling, gumbel_uniform)
+        recon = self.decoder(w, inputs.initial_sampling, noise)
         return data.replace(w_e=w_e, idx=idx, one_hot_idx=ops.one_hot_idx(idx, self.book_size), w=w, recon=recon)
 
     def generate_counterfactual(

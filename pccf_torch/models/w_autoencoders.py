@@ -1,4 +1,5 @@
-"""Conditional inner CVAE, counterfactual path (``pccf/models/w_autoencoders.py``)."""
+"""Conditional inner CVAE (``pccf/models/w_autoencoders.py``): the training
+forward of stage 2 and the deterministic counterfactual path."""
 
 from __future__ import annotations
 
@@ -18,10 +19,14 @@ from pccf_torch.nn.w_networks import (
     TransformerWEncoder,
 )
 
+Noise = tuple[torch.Tensor, torch.Tensor]  # the standard normal draws of z1 and z2
+
 
 class WAutoEncoder(nn.Module):
     """Two-level conditional VAE over code embeddings; the codebook is an
-    explicit argument, as in the JAX package."""
+    explicit argument, as in the JAX package.  Randomness (the posterior's
+    Gaussian noise, dropout masks in training) comes from a
+    ``torch.Generator`` passed in, or the noise itself is."""
 
     def __init__(
         self,
@@ -45,6 +50,50 @@ class WAutoEncoder(nn.Module):
         # folded on every call
         self.packed: CVAEPack | None = None
 
+    def forward(
+        self, inputs: WInputs, codebook: torch.Tensor, eps: Noise | None = None,
+        generator: torch.Generator | None = None,
+    ) -> Outputs:
+        """Encode, sample the posterior, decode (``w_autoencoders.py:54-60``).
+        ``eps`` is the standard normal noise of z1 and z2; drawn from
+        ``generator`` when not given (in eval too, as the JAX package samples
+        there)."""
+        x = inputs.w_q.reshape(-1, self.n_codes, self.embedding_dim)
+        data = self.encode_z1(x, generator).replace(probs=self.get_probabilities(inputs))
+        data = self.encode_z2(x, data, generator)
+        data = self.sample_posterior(data, eps, generator)
+        return self.decode(data, codebook, generator)
+
+    def encode_z1(self, x: torch.Tensor, generator: torch.Generator | None = None) -> Outputs:
+        mu1, log_var1 = self.encoder(x, generator).chunk(2, dim=2)
+        return Outputs(mu1=mu1, log_var1=log_var1)
+
+    def encode_z2(self, x: torch.Tensor, data: Outputs, generator: torch.Generator | None = None) -> Outputs:
+        p_mu2, p_log_var2 = self.z2_prior(data.probs).chunk(2, dim=2)
+        d_mu2, d_log_var2 = self.z2_posterior(data.probs, x, generator).chunk(2, dim=2)
+        return data.replace(p_mu2=p_mu2, p_log_var2=p_log_var2, d_mu2=d_mu2, d_log_var2=d_log_var2)
+
+    def sample_posterior(self, data: Outputs, eps: Noise | None = None,
+                         generator: torch.Generator | None = None) -> Outputs:
+        """``z = ε · exp(½ log σ²) + μ`` for z1 and for z2, whose posterior is
+        the prior shifted by the difference net (``w_autoencoders.py:76-79``)."""
+        mu2, log_var2 = data.d_mu2 + data.p_mu2, data.d_log_var2 + data.p_log_var2
+        if eps is None:
+            if generator is None:
+                raise ValueError('sample_posterior: pass the noise or a torch.Generator to draw it')
+            eps = tuple(torch.randn(m.shape, generator=generator, device=m.device) for m in (data.mu1, mu2))
+        eps1, eps2 = eps
+        return data.replace(z1=eps1 * torch.exp(0.5 * data.log_var1) + data.mu1,
+                            z2=eps2 * torch.exp(0.5 * log_var2) + mu2)
+
+    def decode(self, data: Outputs, codebook: torch.Tensor, generator: torch.Generator | None = None) -> Outputs:
+        w_recon = self.decoder(data.z1, data.z2, generator)
+        _, idx, w_dist_2 = ops.vq_assign(w_recon, codebook)
+        return data.replace(w_recon=w_recon, idx=idx, w_dist_2=w_dist_2)
+
+    def get_probabilities(self, inputs: WInputs) -> torch.Tensor:
+        return self.get_probabilities_from_logits(inputs.logits)
+
     def get_probabilities_from_logits(self, logits: torch.Tensor) -> torch.Tensor:
         return ops.temperature_softmax(logits, self.cf_temperature, dim=1)
 
@@ -56,7 +105,9 @@ class WAutoEncoder(nn.Module):
         target_value: float | torch.Tensor = 1.0,
     ) -> Outputs:
         """Deterministic conditional decode with interpolated probabilities
-        (``w_autoencoders.py:92-113``): ``z1 = mu1``, ``z2 = p_mu2 + d_mu2``."""
+        (``w_autoencoders.py:92-113``): ``z1 = mu1``, ``z2 = p_mu2 + d_mu2``.
+        The fused chain runs when its gate holds; otherwise the nets run one
+        by one, each stack through its own kernel where its gate holds."""
         x = inputs.w_q.reshape(-1, self.n_codes, self.embedding_dim)
         old_probs = self.get_probabilities_from_logits(inputs.logits)
         target = F.one_hot(torch.as_tensor(target_dim, device=x.device).long(), self.n_classes).to(old_probs.dtype)
@@ -64,20 +115,10 @@ class WAutoEncoder(nn.Module):
         if self.fused_ok():
             pack = self.packed if self.packed is not None else pack_cvae_cf(self)
             w_recon = api.cvae_cf(x.contiguous(), probs.contiguous(), pack).reshape(x.shape[0], -1)
-        elif x.is_cuda:
-            # JAX runs the per-stack wformer_encoder_tpu / wformer_decoder_tpu
-            # kernels here; the port has no CUDA counterpart for them yet
-            raise NotImplementedError(
-                'WAutoEncoder: the fused CVAE gate failed (transformer W-nets with exact GELU and one shared '
-                'proj_dim), and the unfused chain (wformer_encoder_tpu / wformer_decoder_tpu) is not ported to CUDA'
-            )
-        else:
-            mu1 = self.encoder(x).split(self.z1_dim, dim=2)[0]
-            p_mu2 = self.z2_prior(probs).split(self.z2_dim, dim=2)[0]
-            d_mu2 = self.z2_posterior(probs, x).split(self.z2_dim, dim=2)[0]
-            w_recon = self.decoder(mu1, p_mu2 + d_mu2)
-        _, idx, w_dist_2 = ops.vq_assign(w_recon, codebook)
-        return Outputs(probs=probs, w_recon=w_recon, idx=idx, w_dist_2=w_dist_2)
+            _, idx, w_dist_2 = ops.vq_assign(w_recon, codebook)
+            return Outputs(probs=probs, w_recon=w_recon, idx=idx, w_dist_2=w_dist_2)
+        data = self.encode_z2(x, self.encode_z1(x).replace(probs=probs))
+        return self.decode(data.replace(z1=data.mu1, z2=data.p_mu2 + data.d_mu2), codebook)
 
     def fused_ok(self) -> bool:
         """The structural gate of the fused chain (``w_autoencoders.py:130-144``):
@@ -92,19 +133,32 @@ class WAutoEncoder(nn.Module):
         )
 
 
+class WAETrainModule(nn.Module):
+    """Stage-2 training shell (``w_autoencoders.py:233-249``): the inner CVAE
+    and the VQ-VAE's codebook as a buffer, which the optimiser neither trains
+    nor decays."""
+
+    def __init__(self, wae: WAutoEncoder, book_size: int) -> None:
+        super().__init__()
+        self.wae = wae
+        self.register_buffer('codebook', torch.zeros(wae.n_codes, book_size, wae.embedding_dim))
+
+    def forward(self, inputs: WInputs, eps: Noise | None = None, generator: torch.Generator | None = None) -> Outputs:
+        return self.wae(inputs, self.codebook, eps, generator)
+
+
 def build_w_autoencoder(cfg: SliceConfig) -> WAutoEncoder:
     ae, wae = cfg.autoencoder, cfg.w_autoencoder
     e, t, c = ae.embedding_dim, ae.n_codes, cfg.data.n_classes
     we, wd, cw = wae.w_encoder, wae.w_decoder, wae.conditional_w_encoder
     return WAutoEncoder(
-        encoder=TransformerWEncoder(e, wae.z1_dim, t, we.proj_dim, we.n_heads, we.mlp_dims, get_act(we.act_name)),
-        decoder=TransformerWDecoder(
-            e, wae.z1_dim, wae.z2_dim, t, wd.proj_dim, wd.n_heads, wd.mlp_dims, get_act(wd.act_name)
-        ),
+        encoder=TransformerWEncoder(e, wae.z1_dim, t, we.proj_dim, we.n_heads, we.mlp_dims, get_act(we.act_name),
+                                    we.dropout_rates),
+        decoder=TransformerWDecoder(e, wae.z1_dim, wae.z2_dim, t, wd.proj_dim, wd.n_heads, wd.mlp_dims,
+                                    get_act(wd.act_name), wd.dropout_rates),
         z2_prior=ConditionalPrior(c, t, wae.z2_dim),
-        z2_posterior=TransformerWConditionalEncoder(
-            e, c, wae.z2_dim, t, cw.proj_dim, cw.n_heads, cw.mlp_dims, get_act(cw.act_name)
-        ),
+        z2_posterior=TransformerWConditionalEncoder(e, c, wae.z2_dim, t, cw.proj_dim, cw.n_heads, cw.mlp_dims,
+                                                    get_act(cw.act_name), cw.dropout_rates),
         n_codes=t,
         embedding_dim=e,
         z1_dim=wae.z1_dim,

@@ -1,8 +1,10 @@
 """Layer library (``pccf/nn/layers.py``), channels-last.
 
 ``module.train()`` selects the JAX ``train=True`` path: BatchNorm normalises
-with batch statistics and updates its running statistics.  Dropout is not
-ported: the stage-1 VQ-VAE has none.
+with batch statistics and updates its running statistics, and the
+transformer layers apply dropout (flax ``nn.Dropout`` on each residual branch
+and after the FF activation, and the attention's ``broadcast_dropout``) with
+masks drawn from the caller's ``torch.Generator``.
 
 Parameter layouts are torch's (``weight`` is ``(out, in)``);
 :mod:`pccf_torch.convert` maps the flax variable tree onto them.  Module
@@ -219,6 +221,21 @@ class MLPHead(nn.Module):
         return x
 
 
+def dropout(x: Tensor, rate: float, generator: torch.Generator | None) -> Tensor:
+    """flax ``nn.Dropout`` in training: each element kept with probability
+    ``1 - rate`` by its own draw and scaled by ``1 / (1 - rate)``."""
+    if rate == 0.0:
+        return x
+    keep = _keep(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _keep(shape: tuple[int, ...], rate: float, generator: torch.Generator | None, device) -> Tensor:
+    if generator is None:
+        raise ValueError('dropout in training draws its masks from an explicit torch.Generator')
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 class MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` with heads laid out ``(H, hd)``
     along the projected features; projections are ``nn.Linear``s."""
@@ -231,8 +248,14 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(d_model, d_model)
         self.out = nn.Linear(d_model, d_model)
 
-    def forward(self, x: Tensor, kv: Tensor) -> Tensor:
-        o = ops.attention(self.query(x), self.key(kv), self.value(kv), self.n_heads)
+    def forward(self, x: Tensor, kv: Tensor, rate: float = 0.0, generator: torch.Generator | None = None) -> Tensor:
+        """``rate > 0`` drops attention weights with one ``(T, T_kv)`` mask
+        shared by the batch and the heads (flax ``broadcast_dropout=True``)."""
+        scale = None
+        if rate > 0.0:
+            keep = _keep((x.shape[-2], kv.shape[-2]), rate, generator, x.device)
+            scale = keep.to(x.dtype) / (1.0 - rate)
+        o = ops.attention(self.query(x), self.key(kv), self.value(kv), self.n_heads, weight_scale=scale)
         return self.out(o)
 
 
@@ -241,29 +264,34 @@ def _layer_norm(d: int) -> nn.LayerNorm:
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm encoder layer (``layers.py:231``), eval."""
+    """Pre-norm encoder layer (``layers.py:231-257``); in training, dropout
+    at ``rate`` on the attention weights, the attention branch, after the FF
+    activation and on the FF branch."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, act: Act) -> None:
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, act: Act, rate: float = 0.0) -> None:
         super().__init__()
-        self.act = act
+        self.act, self.rate = act, rate
         self.norm_0 = _layer_norm(d_model)
         self.attn_0 = MultiHeadAttention(d_model, n_heads)
         self.norm_1 = _layer_norm(d_model)
         self.dense_0 = nn.Linear(d_model, d_ff)
         self.dense_1 = nn.Linear(d_ff, d_model)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, generator: torch.Generator | None = None) -> Tensor:
+        rate = self.rate if self.training else 0.0
         h = self.norm_0(x)
-        x = x + self.attn_0(h, h)
-        return x + self.dense_1(self.act(self.dense_0(self.norm_1(x))))
+        x = x + dropout(self.attn_0(h, h, rate, generator), rate, generator)
+        h = dropout(self.act(self.dense_0(self.norm_1(x))), rate, generator)
+        return x + dropout(self.dense_1(h), rate, generator)
 
 
 class TransformerDecoderLayer(nn.Module):
-    """Pre-norm decoder layer with cross-attention memory (``layers.py:260``)."""
+    """Pre-norm decoder layer with cross-attention memory
+    (``layers.py:260-295``), dropout as the encoder layer's."""
 
-    def __init__(self, d_model: int, n_heads: int, d_ff: int, act: Act) -> None:
+    def __init__(self, d_model: int, n_heads: int, d_ff: int, act: Act, rate: float = 0.0) -> None:
         super().__init__()
-        self.act = act
+        self.act, self.rate = act, rate
         self.norm_0 = _layer_norm(d_model)
         self.attn_0 = MultiHeadAttention(d_model, n_heads)
         self.norm_1 = _layer_norm(d_model)
@@ -272,11 +300,13 @@ class TransformerDecoderLayer(nn.Module):
         self.dense_0 = nn.Linear(d_model, d_ff)
         self.dense_1 = nn.Linear(d_ff, d_model)
 
-    def forward(self, x: Tensor, memory: Tensor) -> Tensor:
+    def forward(self, x: Tensor, memory: Tensor, generator: torch.Generator | None = None) -> Tensor:
+        rate = self.rate if self.training else 0.0
         h = self.norm_0(x)
-        x = x + self.attn_0(h, h)
-        x = x + self.attn_1(self.norm_1(x), memory)
-        return x + self.dense_1(self.act(self.dense_0(self.norm_2(x))))
+        x = x + dropout(self.attn_0(h, h, rate, generator), rate, generator)
+        x = x + dropout(self.attn_1(self.norm_1(x), memory, rate, generator), rate, generator)
+        h = dropout(self.act(self.dense_0(self.norm_2(x))), rate, generator)
+        return x + dropout(self.dense_1(h), rate, generator)
 
 
 @torch.no_grad()

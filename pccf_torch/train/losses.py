@@ -1,13 +1,17 @@
-"""Stage-1 losses (``pccf/train/losses.py:46-75, 131-137, 307-312``)."""
+"""Stage-1 and stage-2 losses (``pccf/train/losses.py:46-75, 131-137,
+148-245, 302-312``)."""
 
 from __future__ import annotations
 
-import torch
+import math
 
-from pccf_torch.config import AutoEncoderTrainConfig
-from pccf_torch.data.structures import Outputs, Targets
+import torch
+import torch.nn.functional as F
+
+from pccf_torch.config import AutoEncoderTrainConfig, WAutoEncoderTrainConfig
+from pccf_torch.data.structures import Outputs, Targets, WTargets
 from pccf_torch.kernels import api
-from pccf_torch.train.objectives import Loss, Objective
+from pccf_torch.train.objectives import Loss, Metric, Objective
 
 
 def get_chamfer_emd_losses() -> tuple[Objective, Objective]:
@@ -46,3 +50,73 @@ def get_autoencoder_loss(cfg: AutoEncoderTrainConfig) -> Objective:
     objective of ``configs/experiment/autoencoder/objective/chamfer_emd.yaml``)."""
     chamfer_term, emd_term = get_chamfer_emd_losses()
     return chamfer_term + emd_term + cfg.c_embedding * get_embed_loss()
+
+
+# ----------------------------------------------------------------- stage 2
+
+
+def gaussian_kld(mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, σ²) ‖ N(0, 1)) per element."""
+    return 0.5 * (-1.0 - log_var + torch.exp(log_var) + mu**2)
+
+
+def diff_gaussian_kld(d_mu: torch.Tensor, d_log_var: torch.Tensor, p_log_var: torch.Tensor) -> torch.Tensor:
+    """KL of the posterior (the prior shifted by ``d_mu``, scaled by
+    ``exp(d_log_var)``) from the prior, per element."""
+    return 0.5 * (-1.0 - d_log_var + torch.exp(d_log_var) + d_mu**2 / torch.exp(p_log_var))
+
+
+def get_kld1_loss() -> Objective:
+    def _kld1(data: Outputs, _t: WTargets) -> torch.Tensor:
+        return torch.sum(gaussian_kld(data.mu1, data.log_var1), dim=(1, 2))
+
+    return Loss(_kld1, 'KLD1')
+
+
+def get_kld2_loss() -> Objective:
+    def _kld2(data: Outputs, _t: WTargets) -> torch.Tensor:
+        return torch.sum(diff_gaussian_kld(data.d_mu2, data.d_log_var2, data.p_log_var2), dim=(1, 2))
+
+    return Loss(_kld2, 'KLD2')
+
+
+def get_annealing(n_epochs: int) -> Objective:
+    """Cosine ramp of the KLD weight from 0 to 1 over ``n_epochs``, read from
+    ``Outputs.model_epoch``."""
+
+    def _anneal(data: Outputs, _t: WTargets) -> torch.Tensor:
+        frac = torch.clamp(torch.as_tensor(data.model_epoch, dtype=torch.float32, device=data.mu1.device)
+                           / n_epochs, 0.0, 1.0)
+        return 0.5 * (1.0 - torch.cos(frac * math.pi))
+
+    return Loss(_anneal, 'Annealing')
+
+
+def get_kld_loss(cfg: WAutoEncoderTrainConfig) -> Objective:
+    """``annealing · (c_kld1 · KLD1 + c_kld2 · KLD2)``; the VampPrior term of
+    ``n_pseudo_inputs > 0`` is not ported (the flagship has none)."""
+    return get_annealing(cfg.n_epochs) * (cfg.c_kld1 * get_kld1_loss() + cfg.c_kld2 * get_kld2_loss())
+
+
+def get_mse_loss() -> Objective:
+    """Squared error of the reconstructed code embeddings, summed over w_dim."""
+
+    def _mse(data: Outputs, targets: WTargets) -> torch.Tensor:
+        return torch.sum((data.w_recon - targets.w_e) ** 2, dim=1)
+
+    return Loss(_mse, 'MSE')
+
+
+def get_w_accuracy() -> Objective:
+    """Share of code slots whose nearest codebook entry is the target's."""
+
+    def _acc(data: Outputs, targets: WTargets) -> torch.Tensor:
+        pred = F.one_hot(torch.argmin(data.w_dist_2, dim=2), targets.one_hot_idx.shape[2]).to(torch.float32)
+        return torch.mean(torch.sum(targets.one_hot_idx * pred, dim=2), dim=1)
+
+    return Metric(_acc, 'Quantisation Accuracy')
+
+
+def get_w_autoencoder_loss(cfg: WAutoEncoderTrainConfig) -> Objective:
+    """MSE + annealed KLD, with the quantisation accuracy reported."""
+    return (get_mse_loss() + get_kld_loss(cfg)) | get_w_accuracy()

@@ -1,10 +1,14 @@
-"""The loss algebra the stage-1 objective uses (``pccf/train/objectives.py``).
+"""The loss algebra of the training objectives (``pccf/train/objectives.py``).
 
 ``Loss(fn, name)`` wraps a per-sample calculation ``fn(outputs, targets) ->
-(B,)``; ``a + b`` sums losses, ``c * a`` scales one by a number, ``a | m``
-attaches the calculations of ``m`` as metrics that are reported but not
-optimised.  :meth:`Objective.loss_and_metrics` returns the batch mean of the
-loss expression and the batch mean of every named calculation.
+(B,)``; ``a + b`` sums losses, ``c * a`` scales one by a number and ``a * b``
+multiplies two (the KLD annealing), ``a | m`` attaches the calculations of
+``m`` as metrics that are reported but not optimised; ``Metric`` is such a
+calculation on its own.  :meth:`Objective.loss_and_metrics` returns the batch
+mean of the loss expression and the batch mean of every named calculation.
+An objective also keeps a running state of batch means weighted by batch
+size (``update_state`` / ``compute_metrics``), as the evaluation runners
+aggregate it.
 """
 
 from __future__ import annotations
@@ -18,12 +22,14 @@ LossExpr = Callable[[dict[str, torch.Tensor]], torch.Tensor]  # per-sample value
 
 
 class Objective:
-    """Named per-sample calculations and one loss expression over them."""
+    """Named per-sample calculations and one loss expression over them
+    (``None`` for a metric-only objective)."""
 
-    def __init__(self, calculations: dict[str, CalcFn], loss_expr: LossExpr, name: str) -> None:
+    def __init__(self, calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str) -> None:
         self.calculations = dict(calculations)
         self.loss_expr = loss_expr
         self.name = name
+        self._state: dict[str, tuple[float, float]] = {}  # name -> (weighted sum, count)
 
     def compute_all(self, outputs: Any, targets: Any) -> dict[str, torch.Tensor]:
         return {name: fn(outputs, targets) for name, fn in self.calculations.items()}
@@ -31,10 +37,32 @@ class Objective:
     def loss_and_metrics(self, outputs: Any, targets: Any) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         values = self.compute_all(outputs, targets)
         metrics = {name: torch.mean(v) for name, v in values.items()}
+        if self.loss_expr is None:
+            return torch.zeros(()), metrics
         loss = torch.mean(self.loss_expr(values))
         metrics[self.name] = loss
         return loss, metrics
 
+    # ---------------------------------------------------------- aggregation
+    def update_state(self, metrics: dict[str, Any], count: int = 1) -> None:
+        """Fold batch-mean metrics of a batch of ``count`` samples into the
+        running state (reads each value to the host)."""
+        for name, value in metrics.items():
+            s, c = self._state.get(name, (0.0, 0.0))
+            self._state[name] = (s + float(value) * count, c + count)
+
+    def reset_state(self) -> None:
+        self._state = {}
+
+    def compute_metrics(self) -> dict[str, float]:
+        """Means since the last reset, weighted by batch size."""
+        return {name: s / max(c, 1e-12) for name, (s, c) in self._state.items()}
+
+    def copy(self) -> 'Objective':
+        """The same calculations with a running state of its own."""
+        return Objective(self.calculations, self.loss_expr, self.name)
+
+    # -------------------------------------------------------------- algebra
     @staticmethod
     def _merge(a: dict, b: dict) -> dict:
         for name in a.keys() & b.keys():
@@ -42,12 +70,21 @@ class Objective:
                 raise ValueError(f'objective name collision: {name!r} is bound to two different calculations')
         return {**a, **b}
 
+    def _expr(self) -> LossExpr:
+        if self.loss_expr is None:
+            raise ValueError(f'{self.name} is metric-only; it cannot join a loss')
+        return self.loss_expr
+
     def __add__(self, other: 'Objective') -> 'Objective':
-        ea, eb = self.loss_expr, other.loss_expr
+        ea, eb = self._expr(), other._expr()
         return Objective(self._merge(self.calculations, other.calculations), lambda v: ea(v) + eb(v), 'Loss')
 
-    def __mul__(self, scale: float) -> 'Objective':
-        ea, s = self.loss_expr, float(scale)
+    def __mul__(self, other: 'Objective | float') -> 'Objective':
+        ea = self._expr()
+        if isinstance(other, Objective):
+            eb = other._expr()
+            return Objective(self._merge(self.calculations, other.calculations), lambda v: ea(v) * eb(v), 'Loss')
+        s = float(other)
         return Objective(self.calculations, lambda v: s * ea(v), self.name)
 
     __rmul__ = __mul__
@@ -61,3 +98,10 @@ class Loss(Objective):
 
     def __init__(self, fn: CalcFn, name: str) -> None:
         super().__init__({name: fn}, lambda v: v[name], name)
+
+
+class Metric(Objective):
+    """A named per-sample calculation that is reported, never optimised."""
+
+    def __init__(self, fn: CalcFn, name: str) -> None:
+        super().__init__({name: fn}, None, name)

@@ -1,39 +1,62 @@
-"""The stage-1 training step (``pccf/train/runners.py:222-324``).
+"""Training and evaluation runners (``pccf/train/runners.py``).
 
-:class:`Trainer` holds a VQ-VAE, its objective and an AdamW optimiser set as
-``optax.adamw(lr, weight_decay)`` is (betas 0.9 / 0.999, eps 1e-8, decoupled
-decay on every trained parameter, BatchNorm and the codebook included).  The
-embedded inner CVAE is frozen: it is left out of the optimiser, so neither
-updates nor weight decay touch it (``runners.py:245-256``,
-``train_autoencoder.py:68``).  The learning rate has epoch resolution,
-``base_lr · schedule(step // steps_per_epoch)`` (``runners.py:226-229``).
-A step draws the decoder's ``initial_sampling`` and the attention's Gumbel
-noise from the trainer's ``torch.Generator`` on the model's device unless the
-caller passes them.
+:class:`Trainer` holds a model, its objective, the configured gradient
+operation and an AdamW optimiser set as ``optax.adamw(lr, weight_decay)``
+is (betas 0.9 / 0.999, eps 1e-8, decoupled decay on every trained
+parameter).  A step runs the model in train mode, injects the 1-based epoch
+into ``Outputs.model_epoch`` (``runners.py:69-73, 303``), backpropagates,
+applies the gradient operation (stage 2's per-parameter history clipper),
+then AdamW at ``base_lr · schedule(step // steps_per_epoch)``, the 0-based
+epoch (``runners.py:226-229``).  The VQ-VAE's embedded inner CVAE is frozen
+in stage 1: it is left out of the optimiser, so neither updates nor weight
+decay touch it (``runners.py:245-256``, ``train_autoencoder.py:68``).  Stage 2
+trains a :class:`~pccf_torch.models.w_autoencoders.WAETrainModule`, whose
+codebook is a buffer and so is never optimised.
+
+A step's noise comes from the trainer's ``torch.Generator`` on the model's
+device unless the caller passes it: the model is called as ``model(inputs,
+noise, generator)`` and draws what is missing (stage 1 the decoder's
+``initial_sampling`` and the attention's Gumbel noise, stage 2 the
+posterior's Gaussian noise and its dropout masks).
+
+:class:`Test` is the evaluation pass (``runners.py:69-150``): the model in
+eval mode over every batch, metrics averaged with the batch sizes as weights.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Any, Iterator, Protocol
+
 import torch
 
-from pccf_torch.config import AutoEncoderTrainConfig
-from pccf_torch.data.structures import Inputs, Targets
-from pccf_torch.models.autoencoders import VQVAE
-from pccf_torch.nn.layers import gumbel_uniform
+from pccf_torch.train.grad_ops import get_grad_op
 from pccf_torch.train.objectives import Objective
 from pccf_torch.train.schedulers import get_scheduler
 
 FROZEN = 'w_autoencoder'  # the submodule stage 1 does not train
 
 
-class Trainer:
-    """One optimisation step at a time of a :class:`VQVAE`."""
+class ConvergenceError(RuntimeError):
+    """The epoch's loss is not finite (``runners.py:49``)."""
 
-    def __init__(
-        self, model: VQVAE, objective: Objective, cfg: AutoEncoderTrainConfig, steps_per_epoch: int, seed: int = 0
-    ) -> None:
+
+class Loader(Protocol):
+    def epoch_iterator(self, epoch: int) -> Iterator[tuple[Any, Any]]: ...
+
+    def batches(self) -> Iterator[tuple[Any, Any]]: ...
+
+
+class Trainer:
+    """One optimisation step at a time, or whole epochs, of a model.
+
+    ``cfg`` is the stage's train configuration
+    (:class:`~pccf_torch.config.AutoEncoderTrainConfig` or
+    :class:`~pccf_torch.config.WAutoEncoderTrainConfig`)."""
+
+    def __init__(self, model: torch.nn.Module, objective: Objective, cfg, steps_per_epoch: int, seed: int = 0) -> None:
         self.model = model
-        self.objective = objective
+        self.objective = objective.copy()
         self.base_lr = cfg.learning_rate
         self.schedule = get_scheduler(cfg.scheduler)
         self.steps_per_epoch = steps_per_epoch
@@ -42,41 +65,82 @@ class Trainer:
             if name.split('.')[0] == FROZEN:
                 p.requires_grad_(False)
             else:
-                trained.append(p)
+                trained.append((name, p))
         self.optimizer = torch.optim.AdamW(
-            trained, lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay
+            [p for _, p in trained], lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay
         )
+        self.grad_op = get_grad_op(cfg.grad_op, trained, cfg.clip_criterion)
         self.step = 0
-        self.generator = torch.Generator(device=model.codebook.device).manual_seed(seed)
+        self.epoch = 0  # completed epochs
+        self.generator = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+        self.metrics_log: list[dict[str, float]] = []
+        self.validation_log: list[dict[str, float]] = []
 
     def lr_at(self, step: int) -> float:
         return self.base_lr * self.schedule(step // self.steps_per_epoch)
 
-    def draw(self, batch: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """``initial_sampling (B, n_train, sample_dim)`` and the Gumbel noise
-        ``(B, n_train, n_components)`` of one step."""
-        dec, n = self.model.decoder, self.model.n_training_output_points
-        dev = self.model.codebook.device
-        sampling = torch.randn((batch, n, dec.sample_dim), generator=self.generator, device=dev)
-        return sampling, gumbel_uniform((batch, n, dec.n_components), self.generator, dev)
-
-    def run_step(
-        self, inputs: Inputs, targets: Targets, gumbel: torch.Tensor | None = None
-    ) -> dict[str, torch.Tensor]:
-        """One step: forward in train mode, loss, backward, AdamW.  Returns the
-        batch-mean metrics (device tensors: reading them waits for the step)."""
-        if inputs.initial_sampling is None or gumbel is None:
-            sampling, noise = self.draw(inputs.cloud.shape[0])
-            if inputs.initial_sampling is None:
-                inputs = Inputs(inputs.cloud, inputs.indices, sampling)
-            gumbel = noise if gumbel is None else gumbel
+    def run_step(self, inputs, targets, noise=None, epoch: float | None = None) -> dict[str, torch.Tensor]:
+        """One step: forward in train mode, loss, backward, gradient
+        operation, AdamW.  ``epoch`` (1-based) defaults to the one after the
+        completed epochs, as ``runners.py:357-358``.  Returns the batch-mean
+        metrics (device tensors: reading them waits for the step)."""
         self.model.train()
         for group in self.optimizer.param_groups:
             group['lr'] = self.lr_at(self.step)
         self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(inputs, gumbel)
+        epoch = float(self.epoch + 1 if epoch is None else epoch)
+        outputs = self.model(inputs, noise, self.generator).replace(model_epoch=epoch)
         loss, metrics = self.objective.loss_and_metrics(outputs, targets)
         loss.backward()
+        if self.grad_op is not None:
+            self.grad_op()
         self.optimizer.step()
         self.step += 1
         return {name: v.detach() for name, v in metrics.items()}
+
+    def train_until(self, loader: Loader, n_epochs: int, validation: 'Test | None' = None) -> None:
+        """Train from the completed epochs up to ``n_epochs``
+        (``runners.py:364-423``): per epoch the mean of the step metrics and
+        the lr applied, a non-finite loss raises, then the validation pass."""
+        for epoch in range(self.epoch + 1, n_epochs + 1):
+            self.objective.reset_state()
+            step_metrics = [self.run_step(inputs, targets, epoch=epoch) for inputs, targets in loader.epoch_iterator(epoch)]
+            for metrics in step_metrics:
+                self.objective.update_state(metrics, 1)
+            self.epoch = epoch
+            epoch_metrics = self.objective.compute_metrics()
+            epoch_metrics['lr'] = self.base_lr * self.schedule(epoch - 1)
+            self.metrics_log.append(epoch_metrics)
+            if not math.isfinite(epoch_metrics.get(self.objective.name, 0.0)):
+                raise ConvergenceError(f'{self.objective.name} diverged: {epoch_metrics[self.objective.name]}')
+            if validation is not None:
+                self.validation_log.append(validation(epoch))
+
+
+class Test:
+    """An evaluation pass with averaged metrics (``runners.py:69-150``).  The
+    model samples in eval too; its noise comes from a generator seeded anew
+    for every pass (``seed + 17``), so two passes over the same weights
+    agree."""
+
+    def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, name: str = 'Test',
+                 seed: int = 0) -> None:
+        self.model, self.loader, self.name = model, loader, name
+        self.objective = objective.copy()
+        self.seed = seed + 17
+
+    @torch.no_grad()
+    def __call__(self, epoch: int = 0) -> dict[str, float]:
+        """Metrics over the loader's batches, with ``epoch`` (the completed
+        epochs) as ``Outputs.model_epoch``."""
+        self.model.eval()
+        self.objective.reset_state()
+        device = next(self.model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(self.seed)
+        pending = []
+        for inputs, targets in self.loader.batches():
+            outputs = self.model(inputs, None, generator).replace(model_epoch=float(epoch))
+            pending.append((self.objective.loss_and_metrics(outputs, targets)[1], outputs.w_recon.shape[0]))
+        for metrics, count in pending:  # read to the host once the pass is enqueued
+            self.objective.update_state(metrics, count)
+        return self.objective.compute_metrics()

@@ -9,7 +9,8 @@ conftest helpers, so it runs on a machine that has only PyTorch:
 Tolerances: kNN neighbour sets equal up to near-ties (a differing neighbour
 must be as near, in float64, within 1e-5 of the squared distance scale),
 with the lowest index first on exact duplicates; max-pool bit-exact; pcgen_mix
-rel-L2 1e-2 (bf16 weights); the CVAE chain rel-L2 1e-4 (3xTF32 products);
+rel-L2 1e-2 (bf16 weights); the CVAE chain and the transformer stacks rel-L2
+1e-4 (3xTF32 products);
 gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
 addition (1e-5); the scatter-adds 1e-5 of the largest entry (fp32 atomics
 add in an order that changes from run to run); EMD cost 1e-4 relative and
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from pccf_torch.kernels import api, cvae, emd, gather, knn, ops, pcgen
+from pccf_torch.kernels import api, cvae, emd, gather, knn, ops, pcgen, wformer
 
 pytestmark = pytest.mark.cuda
 
@@ -111,14 +112,13 @@ def _layer(d, f, gen, dev, decoder=False):
     def r(*shape, scale):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    p = {'ln1_w': 1 + r(d, scale=0.1), 'ln1_b': r(d, scale=0.1), 'w_qkv': r(d, 3 * d, scale=d ** -0.5),
-         'b_qkv': r(3 * d, scale=0.1), 'w_o': r(d, d, scale=d ** -0.5), 'b_o': r(d, scale=0.1),
-         'ln2_w': 1 + r(d, scale=0.1), 'ln2_b': r(d, scale=0.1), 'w1': r(d, f, scale=d ** -0.5),
-         'b1': r(f, scale=0.1), 'w2': r(f, d, scale=f ** -0.5), 'b2': r(d, scale=0.1)}
+    p = {'ln1_w': 1 + r(d, scale=0.1), 'ln1_b': r(d, scale=0.1), 'ln2_w': 1 + r(d, scale=0.1),
+         'ln2_b': r(d, scale=0.1), 'w1': r(f, d, scale=d ** -0.5), 'b1': r(f, scale=0.1),
+         'w2': r(d, f, scale=f ** -0.5), 'b2': r(d, scale=0.1)}
+    for name in ('q', 'k', 'v', 'o', *(('xq', 'xk', 'xv', 'xo') if decoder else ())):
+        p.update({f'w{name}': r(d, d, scale=d ** -0.5), f'b{name}': r(d, scale=0.1)})
     if decoder:
-        p.update({'lnx_w': 1 + r(d, scale=0.1), 'lnx_b': r(d, scale=0.1), 'xw_q': r(d, d, scale=d ** -0.5),
-                  'xb_q': r(d, scale=0.1), 'xw_kv': r(d, 2 * d, scale=d ** -0.5), 'xb_kv': r(2 * d, scale=0.1),
-                  'xw_o': r(d, d, scale=d ** -0.5), 'xb_o': r(d, scale=0.1)})
+        p.update({'lnx_w': 1 + r(d, scale=0.1), 'lnx_b': r(d, scale=0.1)})
     return p
 
 
@@ -155,31 +155,106 @@ def test_cvae_chain_refuses_shapes_it_does_not_cover(dev):
 
 
 def test_failed_gates_raise_on_cuda(dev):
-    """A model whose structural gate fails has no kernel path on the card:
-    it raises instead of running the plain modules there."""
+    """A W-autoencoder whose fused-chain gate fails runs its nets one by one
+    on the card, each stack through the wformer kernels, and agrees with the
+    CPU; a PCGen decoder whose gate fails has no kernel path on the card and
+    raises instead of running the plain modules there."""
     from pccf_torch.data.structures import WInputs
     from pccf_torch.models.w_autoencoders import WAutoEncoder
     from pccf_torch.nn import w_networks as tw
     from pccf_torch.nn.decoders import PCGenDecoder
-    from pccf_torch.nn.layers import gelu_exact, relu
+    from pccf_torch.nn.layers import gelu_exact, init_from_seed, relu
 
-    wae = WAutoEncoder(  # unequal proj_dim
-        encoder=tw.TransformerWEncoder(4, 8, 64, 128, 2, (64,), gelu_exact),
-        decoder=tw.TransformerWDecoder(4, 8, 6, 64, 64, 1, (64,), gelu_exact),
-        z2_prior=tw.ConditionalPrior(3, 64, 6),
-        z2_posterior=tw.TransformerWConditionalEncoder(4, 3, 6, 64, 128, 2, (64,), gelu_exact),
-        n_codes=64, embedding_dim=4, z1_dim=8, z2_dim=6, n_classes=3,
-    ).to(dev).eval()
+    wae = WAutoEncoder(  # a W-encoder wider than the decoder: the chain's gate fails
+        encoder=tw.TransformerWEncoder(4, 8, 128, 256, 4, (256,), gelu_exact),
+        decoder=tw.TransformerWDecoder(4, 8, 6, 128, 128, 2, (128, 256), gelu_exact),
+        z2_prior=tw.ConditionalPrior(3, 128, 6),
+        z2_posterior=tw.TransformerWConditionalEncoder(4, 3, 6, 128, 128, 2, (128,), gelu_exact),
+        n_codes=128, embedding_dim=4, z1_dim=8, z2_dim=6, n_classes=3,
+    ).eval()
+    init_from_seed(wae, 0)
     assert not wae.fused_ok()
-    with pytest.raises(NotImplementedError, match='wformer'):
-        wae.generate_counterfactual(WInputs(_randn((2, 256), 1, dev), _randn((2, 3), 2, dev)),
-                                    _randn((64, 8, 4), 3, dev), 1)
+    args = (_randn((2, 512), 1, 'cpu'), _randn((2, 3), 2, 'cpu')), _randn((128, 8, 4), 3, 'cpu')
+    with torch.no_grad():
+        want = wae.generate_counterfactual(WInputs(*args[0]), args[1], 1)
+        api.reset_launch_counts()
+        got = wae.to(dev).generate_counterfactual(WInputs(*(a.to(dev) for a in args[0])), args[1].to(dev), 1)
+    counts = api.launch_counts()
+    assert (counts['wformer_encoder'], counts['wformer_decoder'], counts['cvae_cf']) == (2, 1, 0)
+    assert _rel_l2(got.w_recon.cpu(), want.w_recon) <= 1e-4
+    assert (got.idx.cpu() == want.idx).float().mean() >= 0.99
 
     dec = PCGenDecoder(w_dim=128, sample_dim=4, n_components=1, map_dims=(8,), conv_dims=(128, 64, 16), tau=5.0,
                        act=relu).to(dev).eval()
     assert not dec.fused_ok()
     with pytest.raises(NotImplementedError, match='pcgen_mix gate'):
         dec(_randn((2, 128), 4, dev), _randn((2, 64, 4), 5, dev))
+
+
+@pytest.mark.parametrize('why', ['tokens', 'activation'])
+def test_failed_stack_gates_raise_on_cuda(dev, why):
+    """A W-net whose wformer gate fails (96 tokens, or LeakyReLU) runs
+    its layers one by one in training on the card, and raises in eval there."""
+    from pccf_torch.nn import w_networks as tw
+    from pccf_torch.nn.layers import default_act, gelu_exact, init_from_seed
+
+    t, act = (96, gelu_exact) if why == 'tokens' else (128, default_act)
+    nets = [tw.TransformerWEncoder(4, 8, t, 128, 2, (128,), act),
+            tw.TransformerWDecoder(4, 8, 6, t, 128, 2, (128,), act)]
+    inputs = [(_randn((2, t, 4), 1, dev),), (_randn((2, 1, 8), 2, dev), _randn((2, t, 6), 3, dev))]
+    for net, args in zip(nets, inputs):
+        init_from_seed(net, 0)
+        net = net.to(dev)
+        api.reset_launch_counts()
+        with torch.no_grad():
+            assert torch.isfinite(net.train()(*args, torch.Generator(device=dev).manual_seed(0))).all()
+            with pytest.raises(NotImplementedError, match='wformer stack gate'):
+                net.eval()(*args)
+        assert set(api.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize('decoder', [False, True])
+def test_wformer_stacks_match_plain(dev, decoder):
+    """Mixed FF widths (256, then 128); the decoder's memory has its own rows."""
+    gen = torch.Generator().manual_seed(2)
+    pack = [_layer(128, f, gen, dev, decoder) for f in (256, 128)]
+    x, memory = _randn((3, 128, 128), 6, dev), _randn((3, 128, 128), 7, dev)
+    api.reset_launch_counts()
+    if decoder:
+        got, want = wformer.wformer_decoder_cuda(x, memory, pack, 2), wformer.plain_decoder(x, memory, pack, 2)
+    else:
+        got, want = wformer.wformer_encoder_cuda(x, pack, 2), wformer.plain_encoder(x, pack, 2)
+    assert got.shape == (3, 128, 128) and not torch.equal(got, x)
+    assert _rel_l2(got, want) <= 1e-4
+    assert api.launch_counts()['wformer_decoder' if decoder else 'wformer_encoder'] == 1
+
+
+def test_wformer_refuses_shapes_it_does_not_cover(dev):
+    gen = torch.Generator().manual_seed(3)
+    pack = [_layer(128, 128, gen, dev)]
+    with pytest.raises(ValueError, match='does not cover'):  # more keys than the attention kernel holds
+        wformer.wformer_encoder_cuda(_randn((1, 320, 128), 8, dev), pack, 2)
+    with pytest.raises(ValueError, match='does not cover'):  # heads of 32
+        wformer.wformer_encoder_cuda(_randn((1, 128, 128), 8, dev), pack, 4)
+
+
+def test_w_nets_launch_stacks_in_eval_only(dev):
+    from pccf_torch.nn import w_networks as tw
+    from pccf_torch.nn.layers import gelu_exact, init_from_seed
+
+    net = tw.TransformerWEncoder(4, 8, 128, 128, 2, (256,), gelu_exact, (0.1,))
+    init_from_seed(net, 1)
+    net = net.to(dev)
+    x = _randn((2, 128, 4), 9, dev)
+    api.reset_launch_counts()
+    with torch.no_grad():
+        net.eval()
+        out = net(x)
+        assert api.launch_counts()['wformer_encoder'] == 1
+        torch.testing.assert_close(out, net.cpu()(x.cpu()).to(dev), rtol=1e-4, atol=1e-4)
+        net.to(dev).train()
+        net(x, torch.Generator(device=dev).manual_seed(0))
+    assert api.launch_counts()['wformer_encoder'] == 1  # training runs the plain layers, with dropout
 
 
 def test_dispatch_sends_cuda_tensors_to_kernels(dev):

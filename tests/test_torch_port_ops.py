@@ -203,9 +203,20 @@ def test_cpu_tensors_take_the_plain_versions():
     xg = x.clone().requires_grad_(True)
     (api.graph_max_pool(xg, idx).sum() + api.graph_sum_pool(xg, idx).sum() + api.graph_filtering(xg[..., :3]).sum()
      + sum(api.chamfer_match_cost(xg[..., :3], x[..., 1:])).sum()).backward()
+    tokens = torch.from_numpy(_cloud((1, 64, 64), seed=12))
+    eye, ones, zeros = torch.eye(64), torch.ones(64), torch.zeros(64)
+    layer = {'ln1_w': ones, 'ln1_b': zeros, 'ln2_w': ones, 'ln2_b': zeros}
+    cross = {'lnx_w': ones, 'lnx_b': zeros}
+    for name in ('q', 'k', 'v', 'o', '1', '2'):
+        layer.update({f'w{name}': eye, f'b{name}': zeros})
+    for name in ('xq', 'xk', 'xv', 'xo'):
+        cross.update({f'w{name}': eye, f'b{name}': zeros})
+    assert api.wformer_encoder(tokens, [layer], 1).shape == tokens.shape
+    assert api.wformer_decoder(tokens, tokens, [{**layer, **cross}], 1).shape == tokens.shape
     assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors',
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
-                                        'graph_sum_pool', 'chamfer_match_cost'}
+                                        'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
+                                        'wformer_decoder'}
     assert set(api.launch_counts().values()) == {0}
 
 
