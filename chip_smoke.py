@@ -13,9 +13,15 @@ filtering on):
   ``pccf_torch.serve.CounterfactualServer``, checked for shapes,
   finiteness, batch invariance and agreement with the same model on the CPU;
 - stage-1 training: VQ-VAE steps through ``pccf_torch.train.Trainer``
-  (batch 8, 2048 points, ChamferEMD + embedding loss, AdamW at lr 0.004) on
-  a fixed batch of synthetic clouds, checked for finite and falling losses,
-  and one step at batch 2 and 512 points against the same step on the CPU;
+  (batch 8, 2048 points, AdamW at lr 0.004) on a fixed batch of synthetic
+  clouds under each reconstruction objective (ChamferEMD, the flagship's,
+  then Chamfer and ChamferSinkhorn, each + embedding loss), checked for
+  finite and falling losses and for the launches of that objective's loss
+  kernel alone, and one step at batch 2 and 512 points against the same step
+  on the CPU under each; then the entry point
+  ``pccf_torch.train.autoencoder.train_autoencoder`` under Chamfer and
+  ChamferSinkhorn for 2 epochs of 16 clouds (validation, the codebook hook
+  after every epoch, the final test);
 - stage-2 training: ``pccf_torch.train.w_autoencoder.train_w_autoencoder``
   for one epoch on codes derived from 64 clouds (derived dataset, two steps
   of batch 32, validation, final test, merge back), then W-autoencoder steps
@@ -31,8 +37,9 @@ just before the path and read just after).
 
 It also prints the compiler's register and spill report for every kernel, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
-each stage and of one validation batch, the warm request latency at batch 1
-and 16, the step time, samples/s and peak memory of both stages and the
+each stage (stage 1 under each objective) and of one validation batch, the
+warm request latency at batch 1 and 16, the step time, samples/s and peak
+memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
 
 Prints the card's name and power limit, one JSON line with the kernels, and
@@ -67,6 +74,12 @@ SCATTER_REL_MAX = 1e-5  # fp32 atomics add in an order that changes from run to 
 SUM_POOL_REL_MAX = 1e-5  # the kernel adds the k rows in slot order, the plain reduction in its own
 EMD_COST_RTOL = 1e-4  # exp and the row and column sums recomputed in another order than the plain version
 EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
+# Sinkhorn: exp recomputed in every sweep (expf, as the plain version's) and
+# the sums over the pairs taken in another order, through twelve updates of
+# each scaling; its Chamfer minima and argmins, like nn_distance's, bit-exact
+# (the same float32 squared distances, the lowest index on ties)
+SINKHORN_COST_RTOL = 1e-4
+SINKHORN_GRAD_REL_L2 = 1e-3
 # one training step on the card against the same step on the CPU: atomics
 # reorder the scatter sums, EMD recomputes its exps, cuBLAS and the CPU add
 # GEMM terms in other orders, and a kNN neighbour or VQ code at a near-tie may
@@ -99,10 +112,15 @@ KERNEL_INFO = {
     'chamfer_match_cost': ('pccf_torch/csrc/emd.cu', 'pccf/kernels/pallas_emd.py:218'),
     'wformer_encoder': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:335'),
     'wformer_decoder': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:365'),
+    'nn_distance': ('pccf_torch/csrc/nn_distance.cu', 'pccf/kernels/pallas_chamfer.py:78'),
+    'sinkhorn_cost': ('pccf_torch/csrc/sinkhorn.cu', 'pccf/kernels/pallas_sinkhorn.py:163'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors')
+# every stage-1 step launches these, and the kernel of its reconstruction loss
 TRAINING_KERNELS = ('knn', 'gather_neighbors', 'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
-                    'graph_sum_pool', 'chamfer_match_cost')
+                    'graph_sum_pool')
+LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
+ENTRY_TRAIN, ENTRY_TEST, ENTRY_EPOCHS = 16, 8, 2  # the stage-1 entry point's clouds and epochs
 STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
 STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 (stage 1), 0.0014 / 6 (stage 2, warmup)
@@ -207,13 +225,15 @@ def main() -> int:
     from pccf_torch.data import synthetic
     from pccf_torch.data.processed import WDatasetWithLogits
     from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
-    from pccf_torch.kernels import _build, api, cvae, emd, gather, knn, ops, pcgen, roofline, wformer
+    from pccf_torch.kernels import _build, api, chamfer, cvae, emd, gather, knn, ops, pcgen, roofline, sinkhorn, wformer
     from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
     from pccf_torch.nn import build_classifier
     from pccf_torch.nn.layers import gumbel_uniform, init_from_seed
     from pccf_torch.serve import CounterfactualServer
-    from pccf_torch.train import Test, Trainer, get_autoencoder_loss, get_w_autoencoder_loss
-    from pccf_torch.train.w_autoencoder import WLoader, build_w_train_model, train_w_autoencoder
+    from pccf_torch.train import Loader, Test, Trainer, get_autoencoder_loss, get_w_autoencoder_loss
+    from pccf_torch.train.autoencoder import train_autoencoder
+    from pccf_torch.train.hooks import DEAD_ENTRY
+    from pccf_torch.train.w_autoencoder import build_w_train_model, train_w_autoencoder
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -425,6 +445,29 @@ def main() -> int:
               cost_err <= EMD_COST_RTOL and max(g1, g2) <= EMD_GRAD_REL_L2 and nn_exact,
               f'cost rel err {cost_err:.2e} <= {EMD_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
               f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}', roofline.emd_work(x1, x2))
+        # the Chamfer and ChamferSinkhorn losses at the shapes their paths
+        # give them, the headline (8, 2048, 3)^2 last: a decoded cloud
+        # against its reference, a smaller batch, and a rectangular pair for
+        # the marginal multipliers; no single PyTorch call computes either
+        for bb, n1, n2, seed in ((2, 512, 512, 20), (bt, n, n // 2, 21), (bt, n, n, 22)):
+            y1 = torch.from_numpy(synthetic.batch(args.seed + seed, bb, n1)).to(dev)
+            y2 = (torch.from_numpy(synthetic.batch(args.seed + seed + 1, bb, n2)).to(dev)
+                  + 0.05 * randn(bb, n2, 3)).contiguous()
+            shape = f'({bb}, {n1}, 3) x ({bb}, {n2}, 3)'
+            got, want = chamfer.nn_distance_cuda(y1, y2), chamfer.plain(y1, y2)
+            exact = all(torch.equal(a, w) for a, w in zip(got, want))
+            timed('nn_distance', shape, lambda: chamfer.nn_distance_cuda(y1, y2), lambda: chamfer.plain(y1, y2),
+                  0.0 if exact else float('inf'), exact, f'minima and argmins bit-exact {exact}',
+                  roofline.nn_distance_work(y1, y2))
+            got, want = sinkhorn.sinkhorn_cost_cuda(y1, y2), sinkhorn.plain(y1, y2)
+            cost_err = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+            g1, g2 = rel_l2(got[1], want[1]), rel_l2(got[2], want[2])
+            exact = all(torch.equal(a, w) for a, w in zip(got[3:], want[3:]))
+            timed('sinkhorn_cost', shape, lambda: sinkhorn.sinkhorn_cost_cuda(y1, y2), lambda: sinkhorn.plain(y1, y2),
+                  float((got[0] - want[0]).abs().max()),
+                  cost_err <= SINKHORN_COST_RTOL and max(g1, g2) <= SINKHORN_GRAD_REL_L2 and exact,
+                  f'cost rel err {cost_err:.2e} <= {SINKHORN_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
+                  f'{SINKHORN_GRAD_REL_L2}, Chamfer min/argmin exact {exact}', roofline.sinkhorn_work(y1, y2))
 
         # ---- the stage-2 stacks at the flagship shapes, batch 32 ----------
         # the W-encoder and the posterior (2 layers, FF 1024) and the
@@ -535,51 +578,76 @@ def main() -> int:
         check(r <= RECON_REL_L2, f'card vs CPU recon rel L2 {r:.3e} <= {RECON_REL_L2}')
 
     # ---- the main path, training: stage-1 steps of the flagship VQ-VAE ---
+    # under the flagship's ChamferEMD objective, then under Chamfer and
+    # ChamferSinkhorn, each from the same weights on the same fixed batch
     tcfg = cfg.autoencoder.train
     model = build_vqvae(cfg)
     init_from_seed(model, args.seed + 2)
     base_state = copy.deepcopy(model.state_dict())
-    model = model.to(dev)
-    trainer = Trainer(model, get_autoencoder_loss(tcfg), tcfg, STEPS_PER_EPOCH, seed=args.seed)
+    del model
     batch = torch.from_numpy(synthetic.batch(args.seed + 3, TRAIN_BATCH, n)).to(dev)
     inputs, targets = Inputs(batch), Targets(batch)
-    losses, step_ms, step_launches = [], [], []
-    train_launches = dict.fromkeys(KERNEL_INFO, 0)
-    for step in range(WARM_STEPS + TIMED_STEPS):
-        if step == WARM_STEPS:
-            torch.cuda.reset_peak_memory_stats()
-            held_gib = torch.cuda.memory_allocated() / 2**30
-        api.reset_launch_counts()
-        t0 = time.perf_counter()
-        metrics = trainer.run_step(inputs, targets)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        counts = api.launch_counts()
-        step_launches.append(counts)
-        for name, count in counts.items():
-            train_launches[name] += count
-        losses.append({k: float(v) for k, v in metrics.items()})
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    check(all(np.isfinite(list(m.values())).all() for m in losses),
-          f'training: every loss finite over {len(losses)} steps')
-    first, last = losses[0]['Loss'], losses[-1]['Loss']
-    check(last < first, f'training: loss {first:.4f} at step 1 -> {last:.4f} at step {len(losses)} on the same batch')
-    print('training losses per step: ' + json.dumps([{k: round(v, 5) for k, v in m.items()} for m in losses]),
-          flush=True)
-    for name in TRAINING_KERNELS:
-        per_step = [c[name] for c in step_launches]
-        check(min(per_step) > 0, f'{name}: launches per training step {per_step}')
-    timed_ms = step_ms[WARM_STEPS:]
-    q1, med, q3 = np.percentile(timed_ms, [25, 50, 75])
-    print(f'training step (batch {TRAIN_BATCH}, {n} points): median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms '
-          f'over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '
-          f'peak memory {peak_gib:.3f} GiB (max_memory_allocated; {held_gib:.3f} GiB held before the timed steps)',
-          flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run_step(inputs, targets)
-        torch.cuda.synchronize()
-    print('profile of one training step:', flush=True)
-    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25, max_name_column_width=60), flush=True)
+    train_launches = dict.fromkeys(KERNEL_INFO, 0)  # ChamferEMD's steps
+    objective_launches = dict.fromkeys(KERNEL_INFO, 0)  # the steps and the entry point of the other two
+
+    def objective_cfg(recon_loss: str, **autoencoder) -> SliceConfig:
+        return dataclasses.replace(cfg, autoencoder=dataclasses.replace(
+            cfg.autoencoder, train=dataclasses.replace(tcfg, recon_loss=recon_loss), **autoencoder))
+
+    def stage1_steps(recon_loss: str, totals: dict[str, int]) -> None:
+        """Warm and timed steps: finite and falling losses, step time,
+        samples/s, peak memory, a profile, and in every step the launches of
+        the stage-1 kernels and of this objective's loss kernel alone."""
+        label = f'stage-1 {recon_loss}'
+        model = build_vqvae(cfg)
+        model.load_state_dict(base_state)
+        model = model.to(dev)
+        trainer = Trainer(model, get_autoencoder_loss(objective_cfg(recon_loss)), tcfg, STEPS_PER_EPOCH,
+                          seed=args.seed)
+        losses, step_ms, step_launches = [], [], []
+        for step in range(WARM_STEPS + TIMED_STEPS):
+            if step == WARM_STEPS:
+                torch.cuda.reset_peak_memory_stats()
+                held_gib = torch.cuda.memory_allocated() / 2**30
+            api.reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = trainer.run_step(inputs, targets)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = api.launch_counts()
+            step_launches.append(counts)
+            for name, count in counts.items():
+                totals[name] += count
+            losses.append({k: float(v) for k, v in metrics.items()})
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(all(np.isfinite(list(m.values())).all() for m in losses),
+              f'{label}: every loss finite over {len(losses)} steps')
+        first, last = losses[0]['Loss'], losses[-1]['Loss']
+        check(last < first, f'{label}: loss {first:.4f} at step 1 -> {last:.4f} at step {len(losses)} on the same '
+                            f'batch')
+        print(f'{label} losses per step: ' + json.dumps([{k: round(v, 5) for k, v in m.items()} for m in losses]),
+              flush=True)
+        expected = {**dict.fromkeys(TRAINING_KERNELS, True),
+                    **{name: name == LOSS_KERNELS[recon_loss] for name in LOSS_KERNELS.values()}}
+        for name, launched in expected.items():
+            per_step = [c[name] for c in step_launches]
+            check(min(per_step) > 0 if launched else max(per_step) == 0,
+                  f'{name}: launches per {label} step {per_step}')
+        q1, med, q3 = np.percentile(step_ms[WARM_STEPS:], [25, 50, 75])
+        print(f'{label} step (batch {TRAIN_BATCH}, {n} points): median {med:.3f} ms, quartiles {q1:.3f} / '
+              f'{q3:.3f} ms over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '
+              f'peak memory {peak_gib:.3f} GiB (max_memory_allocated; {held_gib:.3f} GiB held before the timed '
+              f'steps)', flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.run_step(inputs, targets)
+            torch.cuda.synchronize()
+        print(f'profile of one {label} step:', flush=True)
+        print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25, max_name_column_width=60),
+              flush=True)
+
+    stage1_steps('ChamferEMD', train_launches)
+    for recon_loss in ('Chamfer', 'ChamferSinkhorn'):
+        stage1_steps(recon_loss, objective_launches)
 
     # ---- one training step on the card against the CPU, batch 2 x 512 ----
     pts = 512
@@ -588,11 +656,11 @@ def main() -> int:
     sampling = torch.randn((2, pts, cfg.autoencoder.decoder.sample_dim), generator=gen)
     noise = gumbel_uniform((2, pts, cfg.autoencoder.decoder.n_components), gen, torch.device('cpu'))
 
-    def one_step(device: torch.device):
+    def one_step(device: torch.device, recon_loss: str):
         m = build_vqvae(cfg)
         m.load_state_dict(base_state)
         m = m.to(device)
-        tr = Trainer(m, get_autoencoder_loss(tcfg), tcfg, STEPS_PER_EPOCH)
+        tr = Trainer(m, get_autoencoder_loss(objective_cfg(recon_loss)), tcfg, STEPS_PER_EPOCH)
         before = {k: p.detach().clone() for k, p in m.named_parameters()}
         cl = small.to(device)
         out = tr.run_step(Inputs(cl, initial_sampling=sampling.to(device)), Targets(cl), noise.to(device))
@@ -600,25 +668,66 @@ def main() -> int:
         updates = {k: (p.detach() - before[k]).cpu() for k, p in m.named_parameters()}
         return {k: float(v) for k, v in out.items()}, grads, updates
 
-    t0 = time.perf_counter()
-    gpu_step, cpu_step = one_step(dev), one_step(torch.device('cpu'))
-    print(f'card and CPU step at batch 2 x {pts}: {time.perf_counter() - t0:.1f} s', flush=True)
-    for name, value in cpu_step[0].items():
-        r = abs(gpu_step[0][name] - value) / abs(value)
-        check(r <= STEP_LOSS_RTOL, f'card vs CPU step: {name} {gpu_step[0][name]:.6f} vs {value:.6f}, rel {r:.2e}')
-    check(set(gpu_step[1]) == set(cpu_step[1]) and not any(k.startswith('w_autoencoder.') for k in gpu_step[1]),
-          f'card vs CPU step: the same {len(cpu_step[1])} parameters have gradients, none of the frozen inner CVAE')
-    grad_errs = {k: rel_l2(gpu_step[1][k], v) for k, v in cpu_step[1].items()}
-    worst = max(grad_errs, key=grad_errs.get)
-    check(grad_errs[worst] <= STEP_GRAD_REL_L2,
-          f'card vs CPU step: largest per-parameter gradient rel L2 {grad_errs[worst]:.2e} ({worst}), '
-          f'median {float(np.median(list(grad_errs.values()))):.2e}')
-    upd = rel_l2(torch.cat([gpu_step[2][k].flatten() for k in cpu_step[1]]),
-                 torch.cat([cpu_step[2][k].flatten() for k in cpu_step[1]]))
-    frozen_still = all(not bool(v.any()) for k, v in gpu_step[2].items() if k.startswith('w_autoencoder.'))
-    check(upd <= STEP_UPDATE_REL_L2 and frozen_still,
-          f'card vs CPU step: AdamW update rel L2 {upd:.2e} <= {STEP_UPDATE_REL_L2}; frozen inner CVAE unmoved '
-          f'{frozen_still}')
+    for recon_loss in LOSS_KERNELS:
+        label = f'card vs CPU {recon_loss} step'
+        t0 = time.perf_counter()
+        gpu_step, cpu_step = one_step(dev, recon_loss), one_step(torch.device('cpu'), recon_loss)
+        print(f'card and CPU {recon_loss} step at batch 2 x {pts}: {time.perf_counter() - t0:.1f} s', flush=True)
+        for name, value in cpu_step[0].items():
+            r = abs(gpu_step[0][name] - value) / abs(value)
+            check(r <= STEP_LOSS_RTOL, f'{label}: {name} {gpu_step[0][name]:.6f} vs {value:.6f}, rel {r:.2e}')
+        check(set(gpu_step[1]) == set(cpu_step[1]) and not any(k.startswith('w_autoencoder.') for k in gpu_step[1]),
+              f'{label}: the same {len(cpu_step[1])} parameters have gradients, none of the frozen inner CVAE')
+        grad_errs = {k: rel_l2(gpu_step[1][k], v) for k, v in cpu_step[1].items()}
+        worst = max(grad_errs, key=grad_errs.get)
+        check(grad_errs[worst] <= STEP_GRAD_REL_L2,
+              f'{label}: largest per-parameter gradient rel L2 {grad_errs[worst]:.2e} ({worst}), '
+              f'median {float(np.median(list(grad_errs.values()))):.2e}')
+        upd = rel_l2(torch.cat([gpu_step[2][k].flatten() for k in cpu_step[1]]),
+                     torch.cat([cpu_step[2][k].flatten() for k in cpu_step[1]]))
+        frozen_still = all(not bool(v.any()) for k, v in gpu_step[2].items() if k.startswith('w_autoencoder.'))
+        check(upd <= STEP_UPDATE_REL_L2 and frozen_still,
+              f'{label}: AdamW update rel L2 {upd:.2e} <= {STEP_UPDATE_REL_L2}; frozen inner CVAE unmoved '
+              f'{frozen_still}')
+
+    # ---- the main path, the stage-1 entry point under Chamfer and ----------
+    # ChamferSinkhorn: the flagship width, its depth cut to 2 epochs over 16
+    # training and 8 test clouds, the codebook hook after every epoch
+    e_train = torch.from_numpy(synthetic.batch(args.seed + 13, ENTRY_TRAIN, n))
+    e_test = torch.from_numpy(synthetic.batch(args.seed + 14, ENTRY_TEST, n))
+    for recon_loss in ('Chamfer', 'ChamferSinkhorn'):
+        label = f'stage-1 entry point ({recon_loss})'
+        e_cfg = objective_cfg(recon_loss, diagnose_every=1)
+        e_model = build_vqvae(e_cfg)
+        e_model.load_state_dict(base_state)
+        api.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = train_autoencoder(e_cfg, e_model, e_train, e_test, n_epochs=ENTRY_EPOCHS, seed=args.seed,
+                                   device=dev)
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+        counts = api.launch_counts()
+        for name, count in counts.items():
+            objective_launches[name] += count
+        e_trainer, hook, e_test_metrics = result['trainer'], result['codebook_hook'], result['test']
+        steps = ENTRY_TRAIN // tcfg.batch_size * ENTRY_EPOCHS
+        check(e_trainer.step == steps and e_trainer.epoch == ENTRY_EPOCHS
+              and len(e_trainer.validation_log) == ENTRY_EPOCHS
+              and all(np.isfinite(list(v.values())).all() for v in e_trainer.validation_log),
+              f'{label}, {ENTRY_EPOCHS} epochs of {ENTRY_TRAIN} clouds in {entry_s:.1f} s: {e_trainer.step} steps, '
+              f'validation {json.dumps(e_trainer.validation_log)}')
+        usage = hook.last_usage
+        dead = torch.from_numpy(usage == 0).to(dev)
+        check(bool((usage.sum(axis=1) == ENTRY_TRAIN).all()) and bool((e_model.codebook[dead] == DEAD_ENTRY).all()),
+              f'{label}: the codebook hook ran, every slot has a used entry ({int((usage > 0).sum())} of '
+              f'{usage.size} entries used), the {int(dead.sum())} unused ones at {DEAD_ENTRY} after the final epoch')
+        check(np.isfinite(list(e_test_metrics.values())).all() and ('EMD' in e_test_metrics),
+              f'{label}: final test {json.dumps(e_test_metrics)}')
+        launched = (LOSS_KERNELS[recon_loss], 'pcgen_mix', 'knn') + (
+            ('chamfer_match_cost',) if recon_loss == 'Chamfer' else ())  # the EMD the final test attaches
+        for name in launched:
+            check(counts[name] > 0, f'{name}: {counts[name]} launches in the {label}')
+        print(f'launches, {label}: {json.dumps(counts)}', flush=True)
 
     # ---- the main path, stage 2: the entry point for one epoch ------------
     wcfg = cfg.w_autoencoder.train
@@ -654,7 +763,7 @@ def main() -> int:
 
     # ---- stage-2 steps on one derived batch of 32 -------------------------
     api.reset_launch_counts()
-    w_loader = WLoader(WDatasetWithLogits(w_train.to(dev), vqvae, classifier), bw, args.seed)
+    w_loader = Loader(WDatasetWithLogits(w_train.to(dev), vqvae, classifier), bw, args.seed)
     w_batches = list(w_loader.batches())
     w_model = build_w_train_model(cfg, vqvae, seed=args.seed + 9)
     w_loss = get_w_autoencoder_loss(wcfg)
@@ -803,19 +912,21 @@ def main() -> int:
           f'cvae_cf {counts["cvae_cf"]}; card vs CPU w_recon rel L2 {r:.2e} <= {CVAE_REL_L2}, code agreement '
           f'{agree:.4f}')
 
-    print(f'launches: serving {json.dumps(launches)}; training ({len(losses)} steps) {json.dumps(train_launches)}; '
-          f'stage 2 {json.dumps(stage2_launches)}', flush=True)
+    print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
+          f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
+          f'{json.dumps(objective_launches)}', flush=True)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
-          'serving / stage 1 / stage 2', flush=True)
+          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'
         print(f'{name} | {k["shape"]} | {k["ms"]:.4f} | {k["plain_ms"]:.4f} | {lib} | {k["bound_ms"]:.4f} '
               f'({k["bound_by"]}) | {k["bound_ms"] / k["ms"]:.2%} | {launches[name]} / {train_launches[name]} / '
-              f'{stage2_launches[name]}', flush=True)
+              f'{stage2_launches[name]} / {objective_launches[name]}', flush=True)
     record = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': KERNEL_INFO[name][0], 'replaces': KERNEL_INFO[name][1],
-         'launches': launches[name] + train_launches[name] + stage2_launches[name], **kernels[name]}
+         'launches': launches[name] + train_launches[name] + stage2_launches[name] + objective_launches[name],
+         **kernels[name]}
         for name in KERNEL_INFO
     ]}
     if failures:

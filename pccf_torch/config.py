@@ -7,8 +7,9 @@ from.  ``tests/test_torch_port_modules.py`` holds these defaults against
 ``pccf.config.get_config_all([])`` so the two cannot drift apart.
 
 The slices cover the flagship unmodified: counterfactual serving with graph
-filtering on, the stage-1 VQ-VAE training step with the ChamferEMD loss, and
-stage-2 training of the inner W-autoencoder.
+filtering on, stage-1 training of the VQ-VAE under its three reconstruction
+objectives (ChamferEMD, the flagship's, and the Chamfer and ChamferSinkhorn
+alternatives), and stage-2 training of the inner W-autoencoder.
 """
 
 from __future__ import annotations
@@ -110,12 +111,16 @@ class WAutoEncoderConfig:
 @dataclasses.dataclass(frozen=True)
 class AutoEncoderTrainConfig:
     batch_size: int = 8  # autoencoder/train/default_train.yaml:6
+    n_epochs: int = 1000  # autoencoder/train/default_train.yaml:7
     learning_rate: float = 0.004  # autoencoder/train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # autoencoder/train/learn/default_learn.yaml:10 (AdamW, :5)
     grad_op: str | None = None  # autoencoder/train/learn/default_learn.yaml: none
     clip_criterion: str = 'ZStat'
     scheduler: SchedulerConfig = SchedulerConfig()
-    c_embedding: float = 8.0  # autoencoder/objective/chamfer_emd.yaml:4 (recon_loss ChamferEMD, :3)
+    # autoencoder/objective/{chamfer_emd,chamfer,chamfer_sinkhorn}.yaml; the
+    # flagship composes chamfer_emd.yaml (autoencoder/autoencoder_exp.yaml:3)
+    recon_loss: str = 'ChamferEMD'  # autoencoder/objective/chamfer_emd.yaml:2
+    c_embedding: float = 8.0  # autoencoder/objective/chamfer_emd.yaml:3 (the same in the other two)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +128,8 @@ class AutoEncoderConfig:
     book_size: int = 16  # autoencoder/model/vqvae.yaml:8
     embedding_dim: int = 4  # autoencoder/model/vqvae.yaml:9
     w_dim: int = 1024  # autoencoder/model/vqvae.yaml:10
+    vq_noise: float = 2.0  # autoencoder/model/vqvae.yaml:11 (the codebook hook's noise scale)
+    diagnose_every: int = 10  # autoencoder/autoencoder_exp.yaml:8 (epochs between codebook hooks)
     encoder: EncoderConfig = EncoderConfig()
     decoder: DecoderConfig = DecoderConfig()
     train: AutoEncoderTrainConfig = AutoEncoderTrainConfig()

@@ -27,9 +27,9 @@
 // and the column side of phase 2 accumulates grad2 per column, scaled by
 // ratio_r[m] once the column's demand is known.
 //
-// Design: 8 threads share one row (or one column) and stride over the other
-// cloud, then reduce with shuffles; a block of 256 threads serves 32 rows of
-// one sample, so a staged point is read by every row of the block.  One
+// Design: the pair sweep of pair_sweep.cuh, over the rows for phases 1 and 3
+// and over the columns for phase 2; a block of 256 threads serves 32 rows (or
+// columns) of one sample, 8 threads a row.  One
 // launch per phase and level, in the JAX order, plus an initialisation and a
 // final per-sample sum of the row costs (no atomics: the result is the same
 // every run).  d2 is ((dx*dx + dy*dy) + dz*dz) without fused multiply-adds,
@@ -37,47 +37,11 @@
 // (strict <, lowest index on ties) agree with it exactly; Chamfer rides the
 // first level's phase-1 (rows) and phase-2 (columns) sweeps.
 
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "pair_sweep.cuh"
+
 namespace {
-
-constexpr int LANES = 8;   // threads that share one row or column
-constexpr int GROUPS = 32;  // rows or columns per block
-constexpr int THREADS = LANES * GROUPS;
-constexpr int TILE = 1024;  // points of the other cloud staged per step (16 KB)
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, float by, float bz) {
-  const float dx = __fsub_rn(ax, bx), dy = __fsub_rn(ay, by), dz = __fsub_rn(az, bz);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-}
-
-// stage points [p0, p0 + cnt) of a (P, 3) cloud with one scalar each
-__device__ __forceinline__ void stage(float4* tile, const float* pts, const float* scalar, int p0, int cnt) {
-  for (int t = threadIdx.x; t < cnt; t += THREADS) {
-    const float* q = pts + (long long)(p0 + t) * 3;
-    tile[t] = make_float4(q[0], q[1], q[2], scalar[p0 + t]);
-  }
-}
-
-__device__ __forceinline__ float lane_sum(float v) {
-  for (int o = LANES / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// the lexicographic (distance, index) minimum across the lanes of a group
-__device__ __forceinline__ void lane_argmin(float& best, int& best_i) {
-  for (int o = LANES / 2; o > 0; o >>= 1) {
-    const float ob = __shfl_xor_sync(FULL, best, o);
-    const int oi = __shfl_xor_sync(FULL, best_i, o);
-    if (ob < best || (ob == best && oi < best_i)) {
-      best = ob;
-      best_i = oi;
-    }
-  }
-}
 
 __global__ void fill_kernel(float* __restrict__ p, float v, long long count) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -227,22 +191,6 @@ __global__ void __launch_bounds__(THREADS) cols_kernel(const float* __restrict__
   }
 }
 
-// cost[b] = sum over the rows of sample b, in a fixed order
-__global__ void __launch_bounds__(THREADS) cost_kernel(const float* __restrict__ cost_rows, float* __restrict__ cost,
-                                                       int n) {
-  __shared__ float part[THREADS];
-  const float* c = cost_rows + (long long)blockIdx.x * n;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += THREADS) s += c[i];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) part[threadIdx.x] += part[threadIdx.x + w];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) cost[blockIdx.x] = part[0];
-}
-
 }  // namespace
 
 // x1 (B, N, 3), x2 (B, M, 3) -> cost (B,), grad1 (B, N, 3), grad2 (B, M, 3);
@@ -280,6 +228,6 @@ extern "C" int pccf_chamfer_match_cost(const float* x1, const float* x2, int b, 
                                                      grad1, nullptr, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  cost_kernel<<<b, THREADS, 0, stream>>>(cost_rows, cost, n);
+  sample_sum_kernel<<<b, THREADS, 0, stream>>>(cost_rows, cost, n);
   return (int)cudaGetLastError();
 }

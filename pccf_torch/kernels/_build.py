@@ -49,6 +49,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_scatter_add_slots': (P, P, P, P, I, I, I, I, I, P),
     'pccf_graph_sum_pool': (P, P, P, I, I, I, I, P),
     'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
+    'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P),
+    'pccf_sinkhorn_cost': (P, P, I, I, I, F, F, F, I, P, P, P, P, P, P, P, P, P),
 }
 
 CUDA_ERROR_INVALID_VALUE = 1

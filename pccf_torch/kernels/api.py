@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from pccf_torch.kernels import _build, cvae, emd, gather, knn as knn_mod, ops, pcgen, wformer
+from pccf_torch.kernels import _build, chamfer as chamfer_mod, cvae, emd, gather, knn as knn_mod, ops, pcgen, sinkhorn, wformer
 
 # name -> the CUDA wrapper that counts its launches
 KERNELS = {
@@ -27,6 +27,8 @@ KERNELS = {
     'chamfer_match_cost': emd.chamfer_match_cost_cuda,
     'wformer_encoder': wformer.wformer_encoder_cuda,
     'wformer_decoder': wformer.wformer_decoder_cuda,
+    'nn_distance': chamfer_mod.nn_distance_cuda,
+    'sinkhorn_cost': sinkhorn.sinkhorn_cost_cuda,
 }
 
 FILTER_NEIGHBORS = 4  # graph filtering's k, self included (pccf/kernels/api.py:178)
@@ -72,6 +74,12 @@ def graph_filtering(x: torch.Tensor, k: int = FILTER_NEIGHBORS) -> torch.Tensor:
     return ops.graph_filtering_with_idx(x, knn(x, k), gather_fn=gather_neighbors)
 
 
+def chamfer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Chamfer distance ``(B,)``: the mean over the points of each direction
+    of the squared distance to the nearest point of the other cloud."""
+    return chamfer_mod.Chamfer.apply(x, y)
+
+
 def chamfer_match_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(chamfer (B,), emd (B,))`` of one cloud pair from one launch;
     Chamfer is the mean over the points of each direction."""
@@ -81,6 +89,12 @@ def chamfer_match_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, 
 def match_cost(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """ApproxMatch EMD ``(B,)``, the fused kernel with Chamfer off."""
     return emd.MatchCost.apply(x, y)
+
+
+def chamfer_sinkhorn_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(chamfer (B,), sinkhorn (B,))`` of one cloud pair from one launch;
+    Chamfer is the mean over the points of each direction."""
+    return sinkhorn.ChamferSinkhornCost.apply(x, y)
 
 
 def pcgen_mix(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:

@@ -6,15 +6,15 @@ Replaces ``pccf/kernels/pallas_emd.py:218`` ``_call_emd_kernel``, which serves
 Chamfer).  The forward returns the cost, both match-constant EMD gradients
 and, with Chamfer, the bidirectional nearest-neighbour minima and argmins; the
 backward scales the saved EMD gradients and adds the Chamfer gradients with
-plain tensor operations, as JAX does outside its kernel
-(``pallas_emd.py:353-371``).
+plain tensor operations (:func:`pccf_torch.kernels.chamfer.nn_distance_grads`),
+as JAX does outside its kernel (``pallas_emd.py:353-371``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from pccf_torch.kernels import _build, ops
+from pccf_torch.kernels import _build, chamfer, ops
 
 
 def plain(x1: torch.Tensor, x2: torch.Tensor, with_chamfer: bool = True) -> tuple[torch.Tensor, ...]:
@@ -83,14 +83,6 @@ class MatchCost(torch.autograd.Function):
         return g1 * g[:, None, None], g2 * g[:, None, None]
 
 
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
-
-
-def _scatter_rows(like: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(like).scatter_add_(1, idx.long()[..., None].expand(-1, -1, like.shape[-1]), g)
-
-
 class ChamferMatchCost(torch.autograd.Function):
     """``(chamfer (B,), emd (B,))`` of one cloud pair from one launch
     (``pallas_emd.py:325-374``); Chamfer takes the mean over the points of
@@ -103,12 +95,11 @@ class ChamferMatchCost(torch.autograd.Function):
         return torch.mean(d1, dim=1) + torch.mean(d2, dim=1), cost
 
     @staticmethod
-    def backward(ctx, g_cham, g_emd):
+    def backward(ctx, g_cham, g_cost):
+        """Chamfer's analytic gradient plus the plan-constant one of the
+        transport cost; :class:`~pccf_torch.kernels.sinkhorn.ChamferSinkhornCost`
+        shares it."""
         x1, x2, i1, i2, eg1, eg2 = ctx.saved_tensors
-        ge = g_emd[:, None, None]
-        gc = g_cham[:, None, None]
-        gx1 = (2.0 / x1.shape[1]) * (x1 - _gather_rows(x2, i1)) * gc
-        gy2 = (2.0 / x2.shape[1]) * (x2 - _gather_rows(x1, i2)) * gc
-        gx = eg1 * ge + gx1 + _scatter_rows(x1, i2, -gy2)
-        gy = eg2 * ge + _scatter_rows(x2, i1, -gx1) + gy2
-        return gx, gy
+        gc = g_cham[:, None]
+        gx, gy = chamfer.nn_distance_grads(x1, x2, i1, i2, gc / x1.shape[1], gc / x2.shape[1])
+        return eg1 * g_cost[:, None, None] + gx, eg2 * g_cost[:, None, None] + gy

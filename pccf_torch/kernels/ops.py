@@ -209,6 +209,41 @@ def emd_forward(x1: Tensor, x2: Tensor, d: Tensor | None = None) -> tuple[Tensor
     return (cost, *match_cost_grads(x1, x2, match))
 
 
+# Sinkhorn, the opt-in entropic-OT surrogate for ApproxMatch
+# (pccf/kernels/ops.py:379-424): the same marginals and the same
+# plan-constant cost and gradients
+
+SINKHORN_EPS = 0.02
+SINKHORN_ITERS = 12
+
+
+def sinkhorn_match(x1: Tensor, x2: Tensor, d: Tensor | None = None) -> Tensor:
+    """Entropic transport plan ``(B, N, M)`` with ApproxMatch marginals
+    (``pccf/kernels/ops.py:383-406``): the row-stabilised kernel
+    ``K = exp(-(d² - rowmin) / eps)``, then ``SINKHORN_ITERS`` updates of ``u``
+    and ``v`` from ``v = 1``; the plan is ``u K v``."""
+    n, m = x1.shape[1], x2.shape[1]
+    mult_l, mult_r = emd_marginal_multipliers(n, m)
+    d = square_distance(x1, x2) if d is None else d
+    k = torch.exp(-(d - torch.amin(d, dim=2, keepdim=True)) / SINKHORN_EPS)
+    v = torch.ones((x1.shape[0], m), dtype=x1.dtype, device=x1.device)
+    for _ in range(SINKHORN_ITERS):
+        u = mult_l / torch.clamp_min(torch.einsum('bnm,bm->bn', k, v), 1e-30)
+        v = mult_r / torch.clamp_min(torch.einsum('bnm,bn->bm', k, u), 1e-30)
+    return u[:, :, None] * k * v[:, None, :]
+
+
+def sinkhorn_forward(x1: Tensor, x2: Tensor, d: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """Sinkhorn ``cost (B,)`` and its two gradients with the plan held
+    constant, the forward and saved residuals of ``sinkhorn_cost``
+    (``pccf/kernels/ops.py:410-424``); the autograd function is
+    :class:`pccf_torch.kernels.sinkhorn.ChamferSinkhornCost`."""
+    d = square_distance(x1, x2) if d is None else d
+    match = sinkhorn_match(x1, x2, d)
+    cost = torch.sum(match * torch.sqrt(torch.clamp_min(d, 0.0)), dim=(1, 2))
+    return (cost, *match_cost_grads(x1, x2, match))
+
+
 # ------------------------------------------------------------------ layers
 
 

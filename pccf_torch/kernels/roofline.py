@@ -25,6 +25,19 @@ F32 = 4
 # 2 add), nine levels x three passes of exp, two multiplies and an add, and
 # one compare per direction for Chamfer's minima
 EMD_OPS_PER_PAIR = 8 + 9 * 3 * 4 + 2
+# bidirectional nearest neighbours, operations per pair: d2 once (3 sub,
+# 3 mul, 2 add) and one compare per direction, 2C + 5 for C = 3 as the TPU
+# kernel's cost estimate counts it (pallas_chamfer.py:96)
+NN_OPS_PER_PAIR = 8 + 3
+# Sinkhorn with Chamfer, operations per pair, the least the function needs
+# rather than the sweeps the kernel makes: d2 once (8); the stabilised kernel
+# K built once, its shift, scale and exp and the first row sum (4); the other
+# 23 updates of u and v each a multiply and an add over K (46); the final
+# pass's rsqrt and three multiplies for the plan weight w, the cost's
+# multiply-add, the products w (x1 - x2) that both gradients share (3, the
+# difference is d2's) and their row and column sums (3 + 3); one compare per
+# direction for Chamfer's minima (2)
+SINKHORN_OPS_PER_PAIR = 8 + 4 + 23 * 2 + (4 + 2 + 3 + 3 + 3) + 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,13 +90,33 @@ def scatter_slots_work(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor, 
     return Work(float(g.numel()), _nbytes(g, idx, slots) + b * n * c * F32, FP32)
 
 
+def _nn_out_bytes(b: int, n: int, m: int) -> int:
+    return (b * n + b * m) * (F32 + 4)  # d1, i1, d2, i2
+
+
 def emd_work(x: torch.Tensor, y: torch.Tensor) -> Work:
     """Cost and both gradients of ApproxMatch EMD with Chamfer's minima and
     argmins of both directions."""
     b, n, _ = x.shape
     m = y.shape[1]
-    out = b * F32 + _nbytes(x, y) + 2 * (b * n + b * m) * F32
-    return Work(float(EMD_OPS_PER_PAIR * b * n * m), 2 * _nbytes(x, y) + out, FP32)
+    out = b * F32 + _nbytes(x, y) + _nn_out_bytes(b, n, m)
+    return Work(float(EMD_OPS_PER_PAIR * b * n * m), _nbytes(x, y) + out, FP32)
+
+
+def nn_distance_work(x: torch.Tensor, y: torch.Tensor) -> Work:
+    """Minima and argmins of both directions."""
+    b, n, _ = x.shape
+    m = y.shape[1]
+    return Work(float(NN_OPS_PER_PAIR * b * n * m), _nbytes(x, y) + _nn_out_bytes(b, n, m), FP32)
+
+
+def sinkhorn_work(x: torch.Tensor, y: torch.Tensor) -> Work:
+    """Cost and both plan-constant gradients of the Sinkhorn surrogate, with
+    Chamfer's minima and argmins of both directions."""
+    b, n, _ = x.shape
+    m = y.shape[1]
+    out = b * F32 + _nbytes(x, y) + _nn_out_bytes(b, n, m)
+    return Work(float(SINKHORN_OPS_PER_PAIR * b * n * m), _nbytes(x, y) + out, FP32)
 
 
 # ------------------------------------------------- matrix-product kernels

@@ -35,8 +35,8 @@ class VQVAE(nn.Module):
         self.encoder, self.decoder, self.w_autoencoder = encoder, decoder, w_autoencoder
         self.codebook = nn.Parameter(torch.zeros(n_codes, book_size, embedding_dim))
         self.book_size = book_size
-        self.n_training_output_points = n_training_output_points  # the trainer's decoder sampling size
-        self.n_inference_output_points = n_inference_output_points  # the server's decoder sampling size
+        self.n_training_output_points = n_training_output_points  # decoder sampling size in train mode
+        self.n_inference_output_points = n_inference_output_points  # in eval: serving, validation, tests
 
     @torch.no_grad()
     def prepack(self) -> None:
@@ -51,11 +51,14 @@ class VQVAE(nn.Module):
         self, inputs: Inputs, noise: torch.Tensor | None = None, generator: torch.Generator | None = None
     ) -> Outputs:
         """Encode, quantise with the straight-through gradient, decode
-        (``autoencoders.py:60-79``).  ``noise`` is the decoder's Gumbel
+        (``autoencoders.py:55-79``).  ``noise`` is the decoder's Gumbel
         uniforms, needed in training.  Where ``inputs.initial_sampling`` or, in
-        training, ``noise`` is missing, it is drawn from ``generator``."""
+        training, ``noise`` is missing, it is drawn from ``generator``: the
+        sampling of ``n_training_output_points`` points in train mode, of
+        ``n_inference_output_points`` in eval."""
         if generator is not None:
-            batch, n, dev = inputs.cloud.shape[0], self.n_training_output_points, inputs.cloud.device
+            n = self.n_training_output_points if self.training else self.n_inference_output_points
+            batch, dev = inputs.cloud.shape[0], inputs.cloud.device
             if inputs.initial_sampling is None:
                 sampling = torch.randn((batch, n, self.decoder.sample_dim), generator=generator, device=dev)
                 inputs = type(inputs)(inputs.cloud, inputs.indices, sampling)

@@ -1,5 +1,5 @@
-"""Stage-1 and stage-2 losses (``pccf/train/losses.py:46-75, 131-137,
-148-245, 302-312``)."""
+"""Stage-1 and stage-2 losses (``pccf/train/losses.py:27-137, 148-245,
+302-312``)."""
 
 from __future__ import annotations
 
@@ -8,32 +8,81 @@ import math
 import torch
 import torch.nn.functional as F
 
-from pccf_torch.config import AutoEncoderTrainConfig, WAutoEncoderTrainConfig
+from pccf_torch.config import SliceConfig, WAutoEncoderTrainConfig
 from pccf_torch.data.structures import Outputs, Targets, WTargets
 from pccf_torch.kernels import api
 from pccf_torch.train.objectives import Loss, Metric, Objective
 
+RECON_LOSSES = ('Chamfer', 'ChamferEMD', 'ChamferSinkhorn')  # pccf/config/options.py:72-77
 
-def get_chamfer_emd_losses() -> tuple[Objective, Objective]:
-    """Chamfer and EMD terms sharing one kernel launch: the second term finds
-    the pair the first computed for the same ``(recon, ref_cloud)`` tensors."""
+
+def get_chamfer_loss() -> Objective:
+    """Chamfer, the mean over the points of each direction."""
+
+    def _chamfer(data: Outputs, targets: Targets) -> torch.Tensor:
+        return api.chamfer(data.recon, targets.ref_cloud)
+
+    return Loss(_chamfer, 'Chamfer')
+
+
+def get_emd_loss() -> Objective:
+    """ApproxMatch EMD."""
+
+    def _emd(data: Outputs, targets: Targets) -> torch.Tensor:
+        return api.match_cost(data.recon, targets.ref_cloud)
+
+    return Loss(_emd, 'EMD')
+
+
+def _paired_losses(pair_fn) -> tuple[Objective, Objective]:
+    """Chamfer and a transport cost sharing one kernel launch: the second
+    term finds the pair the first computed for the same ``(recon,
+    ref_cloud)`` tensors."""
     cache: list = []
 
     def _pair(data: Outputs, targets: Targets) -> tuple[torch.Tensor, torch.Tensor]:
         a, b = data.recon, targets.ref_cloud
         if len(cache) == 3 and cache[0] is a and cache[1] is b:
             return cache[2]
-        out = api.chamfer_match_cost(a, b)
+        out = pair_fn(a, b)
         cache[:] = [a, b, out]
         return out
 
     def _chamfer(data: Outputs, targets: Targets) -> torch.Tensor:
         return _pair(data, targets)[0]
 
-    def _emd(data: Outputs, targets: Targets) -> torch.Tensor:
+    def _cost(data: Outputs, targets: Targets) -> torch.Tensor:
         return _pair(data, targets)[1]
 
-    return Loss(_chamfer, 'Chamfer'), Loss(_emd, 'EMD')
+    return Loss(_chamfer, 'Chamfer'), Loss(_cost, 'EMD')
+
+
+def get_chamfer_emd_losses() -> tuple[Objective, Objective]:
+    """Chamfer and ApproxMatch EMD from one launch."""
+    return _paired_losses(api.chamfer_match_cost)
+
+
+def get_chamfer_sinkhorn_losses() -> tuple[Objective, Objective]:
+    """Chamfer and the Sinkhorn surrogate from one launch, the surrogate
+    under the monitor name ``'EMD'``."""
+    return _paired_losses(api.chamfer_sinkhorn_cost)
+
+
+def get_recon_loss(cfg: SliceConfig) -> Objective:
+    """The reconstruction objective ``autoencoder.train.recon_loss`` names
+    (``pccf/train/losses.py:111-128``).  JAX drops the EMD term of ChamferEMD
+    under ``user.cpu``, where its Pallas kernel does not run; the port keeps
+    it, as a CPU tensor runs the kernel's plain version."""
+    recon = cfg.autoencoder.train.recon_loss
+    if recon not in RECON_LOSSES:
+        raise ValueError(f'recon_loss must be one of {RECON_LOSSES}, got {recon!r}')
+    if recon == 'ChamferEMD':
+        chamfer_term, cost_term = get_chamfer_emd_losses()
+        return chamfer_term + cost_term
+    if recon == 'ChamferSinkhorn':
+        chamfer_term, cost_term = get_chamfer_sinkhorn_losses()
+        return chamfer_term + cost_term
+    return get_chamfer_loss()
 
 
 def get_embed_loss() -> Objective:
@@ -45,11 +94,11 @@ def get_embed_loss() -> Objective:
     return Loss(_embed, 'Embed. Loss')
 
 
-def get_autoencoder_loss(cfg: AutoEncoderTrainConfig) -> Objective:
-    """Chamfer + EMD + ``c_embedding`` · embedding loss (the ChamferEMD
-    objective of ``configs/experiment/autoencoder/objective/chamfer_emd.yaml``)."""
-    chamfer_term, emd_term = get_chamfer_emd_losses()
-    return chamfer_term + emd_term + cfg.c_embedding * get_embed_loss()
+def get_autoencoder_loss(cfg: SliceConfig) -> Objective:
+    """The reconstruction objective + ``c_embedding`` · embedding loss
+    (``pccf/train/losses.py:307-312``; the port's VQ-VAE is always the
+    counterfactual one, which has the embedding term)."""
+    return get_recon_loss(cfg) + cfg.autoencoder.train.c_embedding * get_embed_loss()
 
 
 # ----------------------------------------------------------------- stage 2

@@ -21,13 +21,19 @@ posterior's Gaussian noise and its dropout masks).
 
 :class:`Test` is the evaluation pass (``runners.py:69-150``): the model in
 eval mode over every batch, metrics averaged with the batch sizes as weights.
+:class:`Diagnostic` is the same pass over the training set for the codebook
+hook (``runners.py:151-156``).  After every epoch's validation, the trainer
+runs its ``post_epoch_hooks``.  :class:`Loader` batches a dataset held by the
+main process for both stages' entry points.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Iterator, Protocol
+from typing import Callable, Iterator
 
+import numpy as np
 import torch
 
 from pccf_torch.train.grad_ops import get_grad_op
@@ -41,10 +47,33 @@ class ConvergenceError(RuntimeError):
     """The epoch's loss is not finite (``runners.py:49``)."""
 
 
-class Loader(Protocol):
-    def epoch_iterator(self, epoch: int) -> Iterator[tuple[Any, Any]]: ...
+class Loader:
+    """Batches of a dataset held by the main process
+    (``pccf/train/loader.py:58-200``): training epochs shuffled by ``(seed,
+    epoch)`` with the trailing partial batch dropped, evaluation in order with
+    it kept.  The dataset has a length and ``__getitems__(indices) -> (inputs,
+    targets)``."""
 
-    def batches(self) -> Iterator[tuple[Any, Any]]: ...
+    def __init__(self, dataset, batch_size: int, seed: int = 0) -> None:
+        self.dataset, self.batch_size, self.seed = dataset, batch_size, seed
+
+    def n_batches(self) -> int:
+        """Training batches per epoch."""
+        full = len(self.dataset) // self.batch_size
+        if full == 0:
+            raise ValueError(f'{len(self.dataset)} samples yield no training batch of {self.batch_size}')
+        return full
+
+    def epoch_iterator(self, epoch: int) -> Iterator[tuple]:
+        order = np.arange(len(self.dataset))
+        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        for b in range(self.n_batches()):
+            yield self.dataset.__getitems__(order[b * self.batch_size: (b + 1) * self.batch_size].tolist())
+
+    def batches(self) -> Iterator[tuple]:
+        n = len(self.dataset)
+        for start in range(0, n, self.batch_size):
+            yield self.dataset.__getitems__(list(range(start, min(start + self.batch_size, n))))
 
 
 class Trainer:
@@ -75,6 +104,7 @@ class Trainer:
         self.generator = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
         self.metrics_log: list[dict[str, float]] = []
         self.validation_log: list[dict[str, float]] = []
+        self.post_epoch_hooks: list[Callable[['Trainer'], None]] = []
 
     def lr_at(self, step: int) -> float:
         return self.base_lr * self.schedule(step // self.steps_per_epoch)
@@ -101,7 +131,8 @@ class Trainer:
     def train_until(self, loader: Loader, n_epochs: int, validation: 'Test | None' = None) -> None:
         """Train from the completed epochs up to ``n_epochs``
         (``runners.py:364-423``): per epoch the mean of the step metrics and
-        the lr applied, a non-finite loss raises, then the validation pass."""
+        the lr applied, a non-finite loss raises, then the validation pass
+        and the post-epoch hooks, in registration order."""
         for epoch in range(self.epoch + 1, n_epochs + 1):
             self.objective.reset_state()
             step_metrics = [self.run_step(inputs, targets, epoch=epoch) for inputs, targets in loader.epoch_iterator(epoch)]
@@ -115,6 +146,8 @@ class Trainer:
                 raise ConvergenceError(f'{self.objective.name} diverged: {epoch_metrics[self.objective.name]}')
             if validation is not None:
                 self.validation_log.append(validation(epoch))
+            for hook in self.post_epoch_hooks:
+                hook(self)
 
 
 class Test:
@@ -140,7 +173,36 @@ class Test:
         pending = []
         for inputs, targets in self.loader.batches():
             outputs = self.model(inputs, None, generator).replace(model_epoch=float(epoch))
-            pending.append((self.objective.loss_and_metrics(outputs, targets)[1], outputs.w_recon.shape[0]))
+            self._observe(outputs)
+            pending.append((self.objective.loss_and_metrics(outputs, targets)[1], _batch_size(inputs)))
         for metrics, count in pending:  # read to the host once the pass is enqueued
             self.objective.update_state(metrics, count)
         return self.objective.compute_metrics()
+
+    def _observe(self, outputs) -> None:
+        """What a subclass keeps of each batch's outputs; a test keeps none."""
+
+
+class Diagnostic(Test):
+    """An evaluation pass over the training set that keeps, of its outputs,
+    what the codebook hook reads: how often each code slot selected each
+    codebook entry, ``code_usage (n_codes, book_size)``, summed on the
+    device (``runners.py:151-156``, ``hooks.py:203-205``)."""
+
+    def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, seed: int = 0) -> None:
+        super().__init__(model, loader, objective, 'Diagnostic', seed)
+        self.code_usage: torch.Tensor | None = None
+
+    def __call__(self, epoch: int = 0) -> dict[str, float]:
+        self.code_usage = None
+        return super().__call__(epoch)
+
+    def _observe(self, outputs) -> None:
+        usage = outputs.one_hot_idx.sum(dim=0)
+        self.code_usage = usage if self.code_usage is None else self.code_usage + usage
+
+
+def _batch_size(inputs) -> int:
+    """The samples in a batch, read from its first field as JAX reads the
+    first leaf of its inputs (``runners.py:108``)."""
+    return getattr(inputs, dataclasses.fields(inputs)[0].name).shape[0]

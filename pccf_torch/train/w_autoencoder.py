@@ -15,46 +15,15 @@ data-parallel training are not ported.
 
 from __future__ import annotations
 
-from typing import Iterator
-
-import numpy as np
 import torch
 
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.processed import WDatasetWithLogits
-from pccf_torch.data.structures import WInputs, WTargets
 from pccf_torch.models.autoencoders import VQVAE
 from pccf_torch.models.w_autoencoders import WAETrainModule, build_w_autoencoder
 from pccf_torch.nn.layers import init_from_seed
 from pccf_torch.train.losses import get_w_autoencoder_loss
-from pccf_torch.train.runners import Test, Trainer
-
-
-class WLoader:
-    """Batches of a derived dataset (``pccf/train/loader.py:58-200``, in the
-    main process): training epochs shuffled by ``(seed, epoch)`` with the
-    trailing partial batch dropped, evaluation in order with it kept."""
-
-    def __init__(self, dataset: WDatasetWithLogits, batch_size: int, seed: int = 0) -> None:
-        self.dataset, self.batch_size, self.seed = dataset, batch_size, seed
-
-    def n_batches(self) -> int:
-        """Training batches per epoch."""
-        full = len(self.dataset) // self.batch_size
-        if full == 0:
-            raise ValueError(f'{len(self.dataset)} samples yield no training batch of {self.batch_size}')
-        return full
-
-    def epoch_iterator(self, epoch: int) -> Iterator[tuple[WInputs, WTargets]]:
-        order = np.arange(len(self.dataset))
-        np.random.default_rng((self.seed, epoch)).shuffle(order)
-        for b in range(self.n_batches()):
-            yield self.dataset.__getitems__(order[b * self.batch_size: (b + 1) * self.batch_size].tolist())
-
-    def batches(self) -> Iterator[tuple[WInputs, WTargets]]:
-        n = len(self.dataset)
-        for start in range(0, n, self.batch_size):
-            yield self.dataset.__getitems__(list(range(start, min(start + self.batch_size, n))))
+from pccf_torch.train.runners import Loader, Test, Trainer
 
 
 def build_w_train_model(cfg: SliceConfig, vqvae: VQVAE, reset: bool = True, seed: int = 0) -> WAETrainModule:
@@ -99,8 +68,8 @@ def train_w_autoencoder(
     wcfg = cfg.w_autoencoder.train
     vqvae, classifier = vqvae.to(device), classifier.to(device)
     w_model = build_w_train_model(cfg, vqvae, seed=seed)
-    train_loader = WLoader(WDatasetWithLogits(train_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
-    test_loader = WLoader(WDatasetWithLogits(test_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
+    train_loader = Loader(WDatasetWithLogits(train_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
+    test_loader = Loader(WDatasetWithLogits(test_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
     loss = get_w_autoencoder_loss(wcfg)
     trainer = Trainer(w_model, loss, wcfg, train_loader.n_batches(), seed=seed)
     validation = Test(w_model, test_loader, loss, 'Validation', seed=seed)

@@ -15,14 +15,19 @@ gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
 addition (1e-5); the scatter-adds 1e-5 of the largest entry (fp32 atomics
 add in an order that changes from run to run); EMD cost 1e-4 relative and
 gradients rel-L2 1e-3 (exp and the row and column sums recomputed in another
-order), Chamfer minima and argmins exact (same float32 squared distances).
+order), Chamfer minima and argmins exact (same float32 squared distances);
+the nearest-neighbour minima and argmins exact; Sinkhorn cost 1e-4 relative
+and gradients rel-L2 1e-3 (its sums over the pairs in another order, through
+twelve updates of the scalings), its Chamfer outputs exact; gradients of the
+Chamfer and Sinkhorn losses on the card against the CPU rel-L2 1e-4 (Chamfer:
+the same argmins, the scatter-adds in another order) and 1e-3 (Sinkhorn).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pccf_torch.kernels import api, cvae, emd, gather, knn, ops, pcgen, wformer
+from pccf_torch.kernels import api, chamfer, cvae, emd, gather, knn, ops, pcgen, sinkhorn, wformer
 
 pytestmark = pytest.mark.cuda
 
@@ -362,3 +367,82 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
         gather.gather_neighbors_cuda(x, idx.long())
     with pytest.raises(ValueError):
         emd.chamfer_match_cost_cuda(x, x)  # not 3-D points
+
+
+def _clouds(n, m, seed, dev):
+    x = _randn((2, n, 3), seed, dev) * 0.5
+    y = _randn((2, m, 3), seed + 1, dev) * 0.5
+    y[:, 5] = y[:, 1]  # exact ties: the lowest index wins
+    x[:, 9] = x[:, 2]
+    return x, y
+
+
+@pytest.mark.parametrize('n,m', [(2048, 2048), (2048, 1024), (300, 77)])
+def test_nn_distance_matches_plain_exactly(dev, n, m):
+    x, y = _clouds(n, m, 30, dev)
+    got, want = chamfer.nn_distance_cuda(x, y), chamfer.plain(x, y)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert not bool((got[1] == 5).any()) and not bool((got[3] == 9).any())
+
+
+@pytest.mark.parametrize('n,m', [(1024, 1024), (1024, 512), (300, 77)])
+def test_sinkhorn_cost_matches_plain(dev, n, m):
+    x, y = _clouds(n, m, 31, dev)
+    got, want = sinkhorn.sinkhorn_cost_cuda(x, y), sinkhorn.plain(x, y)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
+    assert _rel_l2(got[1], want[1]) <= 1e-3 and _rel_l2(got[2], want[2]) <= 1e-3
+    for a, b in zip(got[3:], want[3:]):
+        assert torch.equal(a, b)
+
+
+def _loss_grads(fn, x, y):
+    xs, ys = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    out = fn(xs, ys)
+    out = out if isinstance(out, tuple) else (out,)
+    sum((i + 1.0) * (o * torch.linspace(0.5, 1.5, o.shape[0], device=o.device)).sum()
+        for i, o in enumerate(out)).backward()
+    return [o.detach().cpu() for o in out], xs.grad.cpu(), ys.grad.cpu()
+
+
+@pytest.mark.parametrize('loss', ['chamfer', 'chamfer_sinkhorn'])
+def test_loss_gradients_on_cuda_match_cpu(dev, loss):
+    fn = {'chamfer': api.chamfer, 'chamfer_sinkhorn': api.chamfer_sinkhorn_cost}[loss]
+    x, y = _clouds(512, 384, 32, 'cpu')
+    api.reset_launch_counts()
+    got = _loss_grads(fn, x.to(dev), y.to(dev))
+    counts = api.launch_counts()
+    want = _loss_grads(fn, x, y)
+    assert counts['sinkhorn_cost' if 'sinkhorn' in loss else 'nn_distance'] == 1
+    assert sum(counts.values()) == 1
+    tol = 1e-3 if 'sinkhorn' in loss else 1e-4
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g, w, rtol=tol, atol=0.0)
+    assert _rel_l2(got[1], want[1]) <= tol and _rel_l2(got[2], want[2]) <= tol
+
+
+def test_new_losses_never_run_plain_on_cuda(dev, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError('a plain version ran on CUDA tensors')
+
+    for name in ('nn_distance', 'sinkhorn_forward', 'pair_square_distance'):
+        monkeypatch.setattr(ops, name, boom)
+    x, y = _clouds(256, 256, 33, dev)
+    x.requires_grad_(True)
+    api.reset_launch_counts()
+    cham, cost = api.chamfer_sinkhorn_cost(x, y)
+    (cham.sum() + cost.sum() + api.chamfer(x, y).sum()).backward()
+    torch.cuda.synchronize()
+    assert api.launch_counts()['nn_distance'] == 1 and api.launch_counts()['sinkhorn_cost'] == 1
+    assert bool(torch.isfinite(x.grad).all())
+
+
+def test_new_wrappers_reject_bad_inputs(dev):
+    x = _randn((1, 64, 3), 34, dev)
+    for call in (chamfer.nn_distance_cuda, sinkhorn.sinkhorn_cost_cuda):
+        with pytest.raises(ValueError):
+            call(_randn((1, 64, 4), 35, dev), x)  # not 3-D points
+        with pytest.raises(ValueError):
+            call(x, _randn((2, 64, 3), 36, dev))  # batches differ
+        with pytest.raises(ValueError):
+            call(x.double(), x.double())

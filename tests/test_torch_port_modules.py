@@ -77,7 +77,8 @@ def t(a) -> torch.Tensor:
 
 def test_config_matches_composed_yaml():
     """The port's flagship dataclasses equal the composed JAX config,
-    unmodified: graph filtering on, and the stage-1 training settings."""
+    unmodified: graph filtering on, the stage-1 training settings and those
+    of its entry point (objective, epochs, codebook hook)."""
     from pccf.config import get_config_all
     from pccf.config.options import ReconLosses, Schedulers
     from pccf_torch.config import SliceConfig
@@ -101,7 +102,12 @@ def test_config_matches_composed_yaml():
         dec.sample_dim, dec.n_components, tuple(dec.map_dims), tuple(dec.conv_dims))
     assert (pd.tau, pd.act_name, pd.filter) == (dec.tau, dec.act_name, dec.filter) == (5.0, 'ReLU', True)
     pt, train, obj = pa.train, cfg.autoencoder.train, cfg.autoencoder.objective
-    assert obj.recon_loss == ReconLosses.ChamferEMD and pt.c_embedding == obj.c_embedding
+    assert obj.recon_loss == ReconLosses.ChamferEMD == pt.recon_loss and pt.c_embedding == obj.c_embedding
+    assert pt.n_epochs == train.n_epochs and pa.diagnose_every == cfg.autoencoder.diagnose_every
+    assert pa.vq_noise == ae.vq_noise and cfg.user.cpu is False  # JAX keeps ChamferEMD's EMD, as the port does
+    for name in ('chamfer', 'chamfer_sinkhorn'):  # the other objectives differ from the flagship's in the loss alone
+        other = get_config_all([f'autoencoder/objective={name}']).autoencoder.objective
+        assert other.c_embedding == obj.c_embedding and other.recon_loss != obj.recon_loss
     assert (pt.batch_size, pt.learning_rate) == (train.batch_size, train.learn.learning_rate)
     assert train.learn.optimizer_name == 'AdamW' and train.learn.opt_settings == {'weight_decay': pt.weight_decay}
     assert train.learn.grad_op is None

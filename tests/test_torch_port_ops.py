@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from pccf.kernels import ops as jops
-from pccf_torch.kernels import _build, api, cvae, emd, gather, knn as tknn, ops, pcgen
+from pccf_torch.kernels import _build, api, chamfer, cvae, emd, gather, knn as tknn, ops, pcgen, sinkhorn
 
 torch.set_num_threads(1)
 
@@ -202,7 +202,8 @@ def test_cpu_tensors_take_the_plain_versions():
     api.graph_max_pool(x, idx)
     xg = x.clone().requires_grad_(True)
     (api.graph_max_pool(xg, idx).sum() + api.graph_sum_pool(xg, idx).sum() + api.graph_filtering(xg[..., :3]).sum()
-     + sum(api.chamfer_match_cost(xg[..., :3], x[..., 1:])).sum()).backward()
+     + sum(api.chamfer_match_cost(xg[..., :3], x[..., 1:])).sum() + api.chamfer(xg[..., :3], x[..., 1:]).sum()
+     + sum(api.chamfer_sinkhorn_cost(xg[..., :3], x[..., 1:])).sum()).backward()
     tokens = torch.from_numpy(_cloud((1, 64, 64), seed=12))
     eye, ones, zeros = torch.eye(64), torch.ones(64), torch.zeros(64)
     layer = {'ln1_w': ones, 'ln1_b': zeros, 'ln2_w': ones, 'ln2_b': zeros}
@@ -216,7 +217,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors',
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
-                                        'wformer_decoder'}
+                                        'wformer_decoder', 'nn_distance', 'sinkhorn_cost'}
     assert set(api.launch_counts().values()) == {0}
 
 
@@ -234,6 +235,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                                 torch.zeros((1, 64, 4), dtype=torch.uint8), 64),
         lambda x: gather.graph_sum_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32)),
         lambda x: emd.chamfer_match_cost_cuda(x[..., :3].contiguous(), x[..., :3].contiguous()),
+        lambda x: chamfer.nn_distance_cuda(x[..., :3].contiguous(), x[..., :3].contiguous()),
+        lambda x: sinkhorn.sinkhorn_cost_cuda(x[..., :3].contiguous(), x[..., :3].contiguous()),
     ],
 )
 def test_cuda_wrappers_refuse_cpu_tensors(call):

@@ -69,3 +69,18 @@ def test_gather_kernels_are_bound_by_bytes():
     assert by == 'bytes' and ms == pytest.approx((2 * x.numel() * 4 + idx.numel() * 4) / 3.35e12 * 1e3)
     ms, by = roofline.bound_ms(roofline.knn_work(torch.empty(16, 2048, 128, device='meta'), 25))
     assert by == 'operations' and ms == pytest.approx(2 * 16 * 2048**2 * 128 / 67e12 * 1e3)
+
+
+def test_loss_kernels_are_bound_by_operations():
+    """The nearest-neighbour and Sinkhorn kernels at the flagship (8, 2048,
+    3)^2: operations per pair by the counts in roofline.py, fp32 peak."""
+    x = torch.empty(8, 2048, 3, device='meta')
+    pairs = 8 * 2048 * 2048
+    nn = roofline.nn_distance_work(x, x)
+    assert nn.ops == 11 * pairs and nn.bytes == 2 * x.numel() * 4 + 2 * 8 * 2048 * 8
+    sink = roofline.sinkhorn_work(x, x)
+    assert roofline.SINKHORN_OPS_PER_PAIR == 75
+    assert sink.ops == 75 * pairs and sink.bytes == 4 * x.numel() * 4 + 8 * 4 + 2 * 8 * 2048 * 8
+    for work in (nn, sink):
+        ms, by = roofline.bound_ms(work)
+        assert by == 'operations' and ms == pytest.approx(work.ops / 67e12 * 1e3)

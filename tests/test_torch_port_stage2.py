@@ -202,8 +202,7 @@ def test_validation_pass_matches_jax(monkeypatch):
     from pccf.train import DataLoader, ModelEpoch, Test as JTest, get_w_autoencoder_loss as jloss
     from pccf_torch.kernels import wformer
     from pccf_torch.models.w_autoencoders import WAutoEncoder
-    from pccf_torch.train import Test, get_w_autoencoder_loss
-    from pccf_torch.train.w_autoencoder import WLoader
+    from pccf_torch.train import Loader, Test, get_w_autoencoder_loss
 
     cfg = get_config_all(W_OVERRIDES)
     shell, v = _jax_shell(cfg, seed=4)
@@ -225,7 +224,7 @@ def test_validation_pass_matches_jax(monkeypatch):
     monkeypatch.setattr(wformer, 'plain_encoder', lambda *a: stacks.append(1) or real_stack(*a))
     port = _port_shell(v)
     pcfg = w_port_config().w_autoencoder.train
-    got = Test(port, WLoader(_Items(inputs, targets), 3), get_w_autoencoder_loss(pcfg))(epoch=250)
+    got = Test(port, Loader(_Items(inputs, targets), 3), get_w_autoencoder_loss(pcfg))(epoch=250)
     assert len(stacks) == 4  # W-encoder and posterior, two batches
     assert set(got) == set(want)
     for name, value in want.items():

@@ -377,7 +377,7 @@ TRAIN_OVERRIDES = [
 STEPS_PER_EPOCH = 3
 
 
-def _port_train_config():
+def _port_train_config(recon_loss='ChamferEMD'):
     from pccf_torch import config as tc
 
     net = tc.TransformerNetConfig
@@ -386,7 +386,7 @@ def _port_train_config():
         autoencoder=tc.AutoEncoderConfig(
             book_size=8, embedding_dim=4, w_dim=128,
             decoder=tc.DecoderConfig(sample_dim=4, n_components=2, map_dims=(8,), conv_dims=(128, 64, 16)),
-            train=tc.AutoEncoderTrainConfig(batch_size=2),
+            train=tc.AutoEncoderTrainConfig(batch_size=2, recon_loss=recon_loss),
         ),
         w_autoencoder=tc.WAutoEncoderConfig(z1_dim=4, z2_dim=4, w_encoder=net(32, 2, (32,)),
                                             w_decoder=net(32, 2, (32,)), conditional_w_encoder=net(32, 2, (32,))),
@@ -404,7 +404,6 @@ def _jax_train_step(cfg, v, inputs, targets):
 
     module = get_autoencoder(cfg)
     objective = get_autoencoder_loss(cfg)
-    assert sorted(objective.calculations) == ['Chamfer', 'EMD', 'Embed. Loss']
     loader = types.SimpleNamespace(batch_size=2, n_batches=lambda inference=False: STEPS_PER_EPOCH)
     trainer = Trainer(Model(module, 'vqvae', variables=v), loader, objective, get_learning_schema(cfg.autoencoder),
                       frozen=('w_autoencoder',), mesh=get_mesh(1))
@@ -432,6 +431,15 @@ def test_train_step_matches_jax(monkeypatch):
     the same flax weights, batch, decoder sampling and Gumbel noise: losses,
     every parameter's gradient, the updated BatchNorm statistics, and the
     parameters after AdamW; the frozen inner CVAE does not move."""
+    check_train_step(monkeypatch, 'ChamferEMD', {'Chamfer', 'EMD', 'Embed. Loss', 'Loss'})
+
+
+JAX_OBJECTIVES = {'ChamferEMD': 'chamfer_emd', 'Chamfer': 'chamfer', 'ChamferSinkhorn': 'chamfer_sinkhorn'}
+
+
+def check_train_step(monkeypatch, recon_loss: str, metric_names: set[str]) -> None:
+    """One step of the port against the JAX train step under the
+    reconstruction objective ``recon_loss``, which reports ``metric_names``."""
     from pccf.config import get_config_all
     from pccf.data.structures import Inputs as JInputs, Targets as JTargets
     from pccf.models import get_autoencoder
@@ -439,7 +447,8 @@ def test_train_step_matches_jax(monkeypatch):
     from pccf_torch.models import build_vqvae
     from pccf_torch.train import Trainer, get_autoencoder_loss
 
-    cfg = get_config_all(TRAIN_OVERRIDES)
+    cfg = get_config_all(TRAIN_OVERRIDES + [f'autoencoder/objective={JAX_OBJECTIVES[recon_loss]}'])
+    assert cfg.autoencoder.objective.recon_loss == recon_loss
     rng = np.random.default_rng(19)
     cloud = (rng.standard_normal((2, N_TRAIN, 3)) / 2).astype(np.float32)
     ref = (cloud + rng.standard_normal(cloud.shape) * 0.01).astype(np.float32)
@@ -456,15 +465,15 @@ def test_train_step_matches_jax(monkeypatch):
         cfg, v, JInputs(cloud=jnp.asarray(cloud), initial_sampling=jnp.asarray(sampling)),
         JTargets(ref_cloud=jnp.asarray(ref)))
 
-    pcfg = _port_train_config()
+    pcfg = _port_train_config(recon_loss)
     port = load_port(build_vqvae(pcfg), v)
     frozen_before = {k: p.detach().clone() for k, p in port.w_autoencoder.named_parameters()}
-    trainer = Trainer(port, get_autoencoder_loss(pcfg.autoencoder.train), pcfg.autoencoder.train, STEPS_PER_EPOCH)
+    trainer = Trainer(port, get_autoencoder_loss(pcfg), pcfg.autoencoder.train, STEPS_PER_EPOCH)
     assert trainer.lr_at(0) == 0.004
     got = trainer.run_step(Inputs(torch.from_numpy(cloud), initial_sampling=torch.from_numpy(sampling)),
                            Targets(torch.from_numpy(ref)), torch.from_numpy(uniform))
 
-    assert set(got) == set(metrics) == {'Chamfer', 'EMD', 'Embed. Loss', 'Loss'}
+    assert set(got) == set(metrics) == metric_names
     for name, value in metrics.items():
         np.testing.assert_allclose(float(got[name]), float(value), rtol=1e-4, err_msg=name)
     want_grads = _grads_by_name(grads)
@@ -498,14 +507,14 @@ def test_schedule_matches_jax():
 def test_chamfer_and_emd_terms_share_one_call(monkeypatch):
     from pccf_torch.data.structures import Outputs, Targets
     from pccf_torch.train import get_autoencoder_loss
-    from pccf_torch.config import AutoEncoderTrainConfig
+    from pccf_torch.config import SliceConfig
 
     calls = []
     real = api.chamfer_match_cost
     monkeypatch.setattr(api, 'chamfer_match_cost', lambda *a, **k: calls.append(1) or real(*a, **k))
     x, y = (torch.from_numpy(a) for a in _clouds(21, 64, 64, b=2))
     w_q, w_e = torch.from_numpy(_rand((2, 16), 22)), torch.from_numpy(_rand((2, 16), 23))
-    loss, metrics = get_autoencoder_loss(AutoEncoderTrainConfig()).loss_and_metrics(
+    loss, metrics = get_autoencoder_loss(SliceConfig()).loss_and_metrics(
         Outputs(recon=x, w_q=w_q, w_e=w_e), Targets(ref_cloud=y))
     assert len(calls) == 1
     cham, cost = real(x, y)
