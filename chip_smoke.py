@@ -33,6 +33,15 @@ filtering on):
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after).
 
+Before the kernel table it prints a line for every shape at which the
+stacks' device kernels run (``pccf_gemm`` and ``pccf_attention``, recorded
+from the W-encoder, W-decoder and the batch-16 and batch-1 CVAE chains):
+the check against the float64 product or attention, the time per launch,
+the plain version's, the one-call PyTorch yardstick's and the bound; then the
+weight split that feeds the GEMM (``pccf_tf32_split``) on the real weights of
+the W-encoder, the W-decoder and the CVAE pack, bit-exact against its plain
+version.
+
     python3 chip_smoke.py [--seed 0]
 
 It also prints the compiler's register and spill report for every kernel, a
@@ -41,6 +50,10 @@ each stage (stage 1 under each objective) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
 memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
+
+Kernel times are medians over samples of many back-to-back calls between
+one pair of CUDA events, queued behind a spin kernel so that the host's
+dispatch stays out of them (``time_ms``).
 
 Prints the card's name and power limit, one JSON line with the kernels, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
@@ -51,8 +64,11 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -61,13 +77,21 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-REPS = 10  # timed calls per kernel and version; the median is reported
+REPS = 10  # timed samples per kernel and version; the median is reported
+SAMPLE_MS = 2.0  # the least device time of the back-to-back calls of one sample
+MAX_CALLS = 500  # back-to-back calls of one sample at most
+SPIN_CYCLES_PER_MS = 2e6  # the spin kernel's clock cycles per ms (SM clock at most ~2 GHz)
 
 # tolerances, each with its reason
 KNN_SET_AGREEMENT = 0.999  # fp32 distances in another order: near-ties at the k-th slot may swap
 PCGEN_REL_L2 = 1e-2  # the kernel rounds weights to bf16 (as the TPU kernel does), activations TF32
 CVAE_REL_L2 = 1e-3  # 3xTF32 products: about fp32 rounding, through 8 transformer layers
 CODE_AGREEMENT = 0.99  # VQ argmin on card vs CPU
+# the stacks' GEMM against the float64 product and epilogue: 3xTF32 drops the
+# small-small term (~2^-22 of each product), the tensor cores sum each 32-wide
+# k tile and the tiles add in fp32; one TF32 product alone misses by ~3e-4
+GEMM_REL_L2 = 5e-6
+ATTENTION_REL_L2 = 1e-5  # the same products, and the online softmax rescales its fp32 sums
 RECON_REL_L2 = 1e-2  # the decode runs the bf16-weight PCGen kernel on the card
 BATCH_INVARIANCE = 1e-4  # rel. max difference of a request alone vs inside a batch
 SCATTER_REL_MAX = 1e-5  # fp32 atomics add in an order that changes from run to run; |diff| / max |plain|
@@ -132,18 +156,78 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Median device time of one call, CUDA events around each call."""
+    """Median device time of one call over ``reps`` samples.  A sample is as
+    many back-to-back calls as span ``SAMPLE_MS`` (at most ``MAX_CALLS``)
+    between one pair of CUDA events, divided by their count; a spin kernel
+    queued before the first event lasts as long as the host takes to enqueue
+    them, so the events see device time and not the host's dispatch."""
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    calls = int(min(MAX_CALLS, max(1, math.ceil(SAMPLE_MS / max(start.elapsed_time(end), 1e-3)))))
     times = []
     for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2 * calls * host_ms * SPIN_CYCLES_PER_MS))
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+class LaunchLog:
+    """Stands in for the kernel library while a path runs: forwards every
+    entry point and records its name and arguments (host pointer arrays read
+    out as lists)."""
+
+    def __init__(self, lib) -> None:
+        self.lib, self.calls = lib, []
+
+    def __getattr__(self, name: str):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls.append((name, [list(a) if isinstance(a, ctypes.Array) else a for a in args]))
+            return fn(*args)
+
+        return call
+
+
+def launch_shapes(build, run) -> list[tuple]:
+    """The distinct shapes at which ``run`` launches ``pccf_gemm`` (``('gemm',
+    M, N, K, groups, bias, gelu, res_rows or 0, out aliases res)``) and
+    ``pccf_attention`` (``('attention', B, T, T_kv, heads, head_dim)``), in
+    order of first launch."""
+    real = build.lib
+    log = LaunchLog(real())
+    build.lib = lambda: log
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        build.lib = real
+    shapes = []
+    for name, args in log.calls:
+        if name == 'pccf_gemm':
+            _, groups, ops, res, m, n, k, res_rows, gelu, _ = args
+            key = ('gemm', m, n, k, groups, all(ops[2 * groups: 3 * groups]), bool(gelu), res_rows if res else 0,
+                   res == ops[3 * groups])
+        elif name == 'pccf_attention':
+            key = ('attention', *args[7:12])
+        else:
+            continue
+        if key not in shapes:
+            shapes.append(key)
+    return shapes
 
 
 def knn_check(x: torch.Tensor, k: int, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -479,6 +563,7 @@ def main() -> int:
         bw, t, d = cfg.w_autoencoder.train.batch_size, wae.n_codes, wae.decoder.proj_dim
         stacks = [('wformer_encoder', 'W-encoder', wae.encoder), ('wformer_encoder', 'posterior', wae.z2_posterior),
                   ('wformer_decoder', 'W-decoder', wae.decoder)]
+        stack_runs = {}
         for name, net_name, net in reversed(stacks):  # the W-encoder last: the headline
             decoder = name == 'wformer_decoder'
             heads = net.n_heads
@@ -488,14 +573,14 @@ def main() -> int:
             if decoder:
                 memory = randn(bw, t, d)
                 spack = wformer.pack_decoder(net.layers)
-                run_k = lambda: wformer.wformer_decoder_cuda(x, memory, spack, heads)  # noqa: E731
+                run_k = functools.partial(wformer.wformer_decoder_cuda, x, memory, spack, heads)
                 run_p = lambda: wformer.plain_decoder(x, memory, spack, heads)  # noqa: E731
                 lib_stack = library_stack(spack, heads, True)
                 run_l = lambda: lib_stack(x, memory)  # noqa: E731
                 work = roofline.decoder_stack_work(x, memory, spack)
             else:
                 spack = wformer.pack_encoder(net.layers)
-                run_k = lambda: wformer.wformer_encoder_cuda(x, spack, heads)  # noqa: E731
+                run_k = functools.partial(wformer.wformer_encoder_cuda, x, spack, heads)
                 run_p = lambda: wformer.plain_encoder(x, spack, heads)  # noqa: E731
                 lib_stack = library_stack(spack, heads, False)
                 run_l = lambda: lib_stack(x)  # noqa: E731
@@ -506,6 +591,91 @@ def main() -> int:
                   r <= CVAE_REL_L2 and r_lib <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
                   f'rel L2 {r:.3e} <= {CVAE_REL_L2} (the library stack against the plain version {r_lib:.3e}); '
                   f'{work.ops / 1e9:.1f} GFLOP', work, run_l)
+            stack_runs[net_name] = run_k
+
+        # ---- the stacks' device kernels, one line per shape they launch ---
+        # recorded from the headline W-encoder and W-decoder (batch 32) and
+        # the CVAE chain at serving's batch 16 and 1
+        stack_runs['CVAE b16'] = functools.partial(cvae.cvae_cf_cuda, tokens, probs, cpack)
+        stack_runs['CVAE b1'] = functools.partial(cvae.cvae_cf_cuda, tokens[:1].contiguous(), probs[:1].contiguous(),
+                                                  cpack)
+        shapes: dict[tuple, list[str]] = {}
+        for who in ('W-encoder', 'W-decoder', 'CVAE b16', 'CVAE b1'):
+            for key in launch_shapes(_build, stack_runs[who]):
+                shapes.setdefault(key, []).append(who)
+        launch_ms: dict[tuple, float] = {}
+        for key, who in shapes.items():
+            if key[0] == 'gemm':
+                _, m, nn, k, groups, has_bias, gelu, res_rows, alias = key
+                a = randn(m, k)
+                wts = [randn(nn, k) * k ** -0.5 for _ in range(groups)]
+                biases = [randn(nn) if has_bias else None for _ in range(groups)]
+                res = randn(res_rows, nn) if res_rows else None
+                st = wformer.Stacks(1, m, k, dev)
+                want = [a.double() @ w.double().T + (bb.double() if has_bias else 0.0) for w, bb in zip(wts, biases)]
+                if gelu:
+                    want = [ops.gelu_exact(x) for x in want]
+                if res is not None:
+                    want = [x + res.double().repeat(m // res_rows, 1) for x in want]
+                outs = [res.clone()] if alias else [torch.empty(m, nn, device=dev) for _ in wts]
+                st.gemm(a, wts, biases, outs, outs[0] if alias else res, res_rows, gelu)
+                r = max(rel_l2(o, x) for o, x in zip(outs, want))
+                if alias:
+                    outs = [res]
+
+                def plain(a=a, wts=wts, biases=biases, res=res, gelu=gelu, m=m):
+                    ys = [torch.nn.functional.linear(a, w, bb) for w, bb in zip(wts, biases)]
+                    ys = [ops.gelu_exact(y) for y in ys] if gelu else ys
+                    return [y + res.repeat(m // res.shape[0], 1) for y in ys] if res is not None else ys
+
+                w_cat, b_cat = torch.cat(wts), torch.cat(biases) if has_bias else None
+                row = (time_ms(functools.partial(st.gemm, a, wts, biases, outs, res, res_rows, gelu), REPS),
+                       time_ms(plain, REPS),
+                       time_ms(functools.partial(torch.nn.functional.linear, a, w_cat, b_cat), REPS),
+                       bound(roofline.gemm_work(m, nn, k, groups, has_bias, res_rows)))
+                epilogue = ' + '.join(e for e, on in (('bias', has_bias), ('GELU', gelu), (
+                    f'res[row % {res_rows}]' if res_rows and res_rows != m else 'res', res_rows),
+                    ('in place', alias)) if on) or 'none'
+                what = f'pccf_gemm (M, N, K) = ({m}, {nn}, {k}){f" x {groups} groups" if groups > 1 else ""}, ' \
+                       f'{epilogue} [{", ".join(who)}]: rel L2 vs float64 {r:.2e} <= {GEMM_REL_L2}'
+                ok = r <= GEMM_REL_L2
+            else:
+                _, bb, tq, tk, heads, hd = key
+                dd = heads * hd
+                q, k_, v_ = randn(bb * tq, dd), randn(bb * tk, dd), randn(bb * tk, dd)
+                out = torch.empty(bb * tq, dd, device=dev)
+                st = wformer.Stacks(bb, tq, dd, dev)
+                st.attend(q, k_, v_, out, heads)
+                want = ops.attention(q.double().view(bb, tq, dd), k_.double().view(bb, tk, dd),
+                                     v_.double().view(bb, tk, dd), heads)
+                r = rel_l2(out.view(bb, tq, dd), want)
+                q4, k4, v4 = (x.view(bb, -1, heads, hd).transpose(1, 2) for x in (q, k_, v_))
+                row = (time_ms(functools.partial(st.attend, q, k_, v_, out, heads), REPS),
+                       time_ms(functools.partial(ops.attention, q.view(bb, tq, dd), k_.view(bb, tk, dd),
+                                                 v_.view(bb, tk, dd), heads), REPS),
+                       time_ms(functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4), REPS),
+                       bound(roofline.attention_work(bb, tq, tk, heads, hd)))
+                what = f'pccf_attention (B, T, T_kv) = ({bb}, {tq}, {tk}), {heads} heads of {hd} ' \
+                       f'[{", ".join(who)}]: rel L2 vs float64 {r:.2e} <= {ATTENTION_REL_L2}'
+                ok = r <= ATTENTION_REL_L2
+            launch_ms[key] = row[0]
+            check(ok, f'{what}; {row[0]:.4f} ms a launch (plain {row[1]:.4f}, library {row[2]:.4f}, bound '
+                      f'{row[3]["bound_ms"]:.4f} ms ({row[3]["bound_by"]}), share {row[3]["bound_ms"] / row[0]:.1%})')
+
+        # the weight split that feeds the GEMM, on the real weights of the
+        # W-encoder, the W-decoder and the CVAE pack; no PyTorch call splits
+        for who, ws in (('W-encoder', wformer.stack_weights(wformer.pack_encoder(wae.encoder.layers))),
+                        ('W-decoder', wformer.stack_weights(wformer.pack_decoder(wae.decoder.layers))),
+                        ('CVAE pack', cpack.cuda_operands()['weights'])):
+            small = wformer.split_small(ws)
+            exact = all(torch.equal(small[w.data_ptr()], wformer.tf32_split(w)[1]) for w in ws)
+            work = roofline.split_work(ws)
+            row = (time_ms(functools.partial(wformer.split_small, ws), REPS),
+                   time_ms(lambda ws=ws: [wformer.tf32_split(w)[1] for w in ws], REPS), bound(work))
+            check(exact, f'pccf_tf32_split, the {len(ws)} matrices of the {who} ({work.bytes / 8e6:.2f} M '
+                         f'elements): small parts bit-exact {exact}; {row[0]:.4f} ms a launch (plain {row[1]:.4f}, '
+                         f'bound {row[2]["bound_ms"]:.4f} ms ({row[2]["bound_by"]}), '
+                         f'share {row[2]["bound_ms"] / row[0]:.1%})')
 
     # ---- the main path, serving: a server answering requests -------------
     server = CounterfactualServer(vqvae, classifier, buckets=(1, 2, 4, 8, 16), seed=args.seed)

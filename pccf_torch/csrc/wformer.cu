@@ -1,8 +1,9 @@
-// Pre-norm transformer stacks on Hopper: a tiled GEMM with a bias / GELU /
-// residual epilogue, a LayerNorm, and per-(batch, head) attention.  The
-// stack launchers in pccf_torch/kernels/wformer.py launch these in turn on one
-// stream, layer by layer; the counterfactual CVAE chain
-// (pccf_torch/kernels/cvae.py) runs its three stacks through the same launchers.
+// Pre-norm transformer stacks on Hopper: a GEMM with a bias / GELU /
+// residual epilogue over up to three weight matrices at once, a LayerNorm, and
+// streaming multi-head attention.  The stack launchers in
+// pccf_torch/kernels/wformer.py launch these in turn on one stream, layer by
+// layer; the counterfactual CVAE chain (pccf_torch/kernels/cvae.py) runs its
+// three stacks through the same launchers.
 //
 // Replaces pccf/kernels/pallas_wformer.py:335 wformer_encoder_tpu and :365
 // wformer_decoder_tpu (layer bodies _enc_layers / _dec_layers), and with them
@@ -12,106 +13,233 @@
 //
 // What bounds it: the matrix products, 1.21 GFLOP per encoder layer and
 // 1.6-1.8 GFLOP per decoder layer per sample (M = B*256 rows, N and K of 512
-// to 1536), against the TF32 tensor-core peak; and launch overhead: a layer
-// is ~7 launches (~11 for a decoder layer).  The TPU kernel keeps every
-// layer's weights and the residual stream in VMEM for the whole stack; a
-// block here has 227 KB of shared memory, so the residual stream goes
+// to 1536), against the TF32 tensor-core peak (each product is three TF32
+// products, so at most a third of that peak counts); and launch overhead, 7
+// launches an encoder layer and 12 a decoder layer.  The TPU kernel keeps
+// every layer's weights and the residual stream in VMEM for the whole stack;
+// a block here has 227 KB of shared memory, so the residual stream goes
 // through device memory (L2 at these sizes) between launches.  A fused
 // persistent stack is later work.
 //
 // Precision: the chain feeds a VQ argmin whose choices must agree with the
 // fp32 plain version, so every product runs as 3xTF32 (x = big + small, both
-// TF32; big*big + big*small + small*big with fp32 accumulation), which is
-// accurate to about fp32 rounding.  LayerNorm (eps from the caller, 1e-6 as
-// flax), softmax and the residual stream are fp32; GELU is the exact erf form.
+// TF32; small*big + big*small + big*big with fp32 accumulation, the small
+// products first), accurate to about 2^-22 of each term.  LayerNorm (eps
+// from the caller, 1e-6 as flax), softmax and the residual stream are fp32;
+// GELU is the exact erf form.
+//
+// GEMM design (gemm_kernel): one producer warp issues TMA loads of 32-wide k
+// slices (one 128-byte swizzled row per matrix row) into a ring of 4 stages
+// tracked by mbarriers; one or two consumer warpgroups each own 64 rows of the
+// tile and issue wgmma.m64nNk8 on TF32. Each consumer thread loads its A
+// fragments from the swizzled tile once and splits them in registers: big = x
+// with its low 13 bits cleared, small = x - big rounded to TF32; all three
+// products take A from registers, so shared memory serves only B to the tensor
+// cores (A read from shared memory by the big products was 6% slower on an
+// H100). The tensor cores read B's raw fp32 tile as its truncated TF32 big
+// part. B's small part comes from a separate tensor: the stack launchers split
+// every weight of a stack once per stack call with one elementwise launch
+// (tf32_split_kernel), since a weight tile is read by every row tile of the
+// grid and splitting it in shared memory would redo the work in every block and
+// need a proxy fence before each wgmma. The tensor cores sum each k tile's 12
+// products into a fresh accumulator and the tiles' sums add in registers in
+// fp32: summed on the tensor cores alone over K = 1024 the result missed the
+// float64 product by ~5e-6 (rel-L2, on an H100), the tile sums keep it at
+// ~2e-7. The tile is 128x128 where that gives the 132 SMs a full wave, else
+// 128x64, else 64x64 (the block count of a 64x64 grid, 32 at M = 256, N = 512).
+//
+// Attention design (attention_kernel): a block holds 64 queries of one
+// (batch, head), their 3xTF32 fragments in registers, and walks the keys in
+// tiles of 64 with K and V double-buffered in 68 KB of shared memory by
+// cp.async (three blocks an SM); scores stay in registers under an online
+// softmax (running max and sum per row), and P feeds P·V straight from the
+// score registers, the keys of each 8-wide step taken in the order the score
+// fragment holds them (V read row-major in that order, no transposed copy).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
 using namespace pccf;
 
-// ------------------------------------------------------------------ GEMM
-// out[M, N] = epilogue(A[M, K] · Wt[N, K]^T): + bias[N], optional exact GELU,
-// then + res[(row % res_rows), N].  out may alias res (in-place residual).
-
-constexpr int kTm = 64, kTn = 64, kTk = 32, kLd = kTk + 16;
-
 __device__ __forceinline__ float gelu_exact(float v) { return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)); }
 
-__global__ void __launch_bounds__(128) gemm_kernel(const float* __restrict__ a, const float* __restrict__ wt,
-                                                   const float* __restrict__ bias, const float* res, float* out,
-                                                   int M, int N, int K, int res_rows, int gelu) {
-  __shared__ __align__(16) float as[kTm * kLd];
-  __shared__ __align__(16) float bs[kTn * kLd];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * kTm, n0 = blockIdx.x * kTn;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+// the TF32 small part of x against the truncated big part the tensor cores read
+__device__ __forceinline__ uint32_t tf32_small(float x) {
+  return tf32(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u));
+}
 
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+// ------------------------------------------------------------------ GEMM
+// out_g[M, N] = epilogue(A[M, K] · Wt_g[N, K]^T) for each group g: + bias_g[N],
+// optional exact GELU, then + res[(row % res_rows), N].  out may alias res
+// (in-place residual).
 
-  for (int k0 = 0; k0 < K; k0 += kTk) {
-    // stage 64x32 tiles of A and Wt: 512 float4 each, 4 per thread
+constexpr int kMaxGroups = 3, kBk = 32, kStages = 4;
+
+struct GemmArgs {
+  CUtensorMap a;                     // A (M, K), boxes of 32 x (64 * warpgroups)
+  CUtensorMap wt[kMaxGroups];        // Wt_g (N, K), boxes of 32 x BN
+  CUtensorMap wt_small[kMaxGroups];  // the TF32 small parts of Wt_g
+  const float* bias[kMaxGroups];
+  float* out[kMaxGroups];
+  const float* res;
+  int N, res_rows, gelu, k_tiles, n_tiles;  // n_tiles: column tiles per group
+};
+
+// one thread's share of the output tile: rows r0 and r0 + 8, columns
+// n0 + 8 j + 2 t and the next, out = acc + bias [GELU] [+ res].  With a
+// residual every load is issued before the first store: out may alias res, so
+// a store between two loads would keep the compiler from issuing them together
+template <int kBn, bool kRes>
+__device__ __forceinline__ void store_tile(const float (&acc)[kBn / 2], const GemmArgs& args, const float* bias,
+                                           float* out, int n0, int r0, int t) {
+  const int N = args.N;
+  float rv[kBn / 2];
+  if (kRes) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * 128, r = e >> 3, c4 = (e & 7) * 4;
-      *reinterpret_cast<float4*>(as + r * kLd + c4) =
-          __ldg(reinterpret_cast<const float4*>(a + (size_t)(m0 + r) * K + k0 + c4));
-      *reinterpret_cast<float4*>(bs + r * kLd + c4) =
-          __ldg(reinterpret_cast<const float4*>(wt + (size_t)(n0 + r) * K + k0 + c4));
+    for (int j = 0; j < kBn / 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            args.res + (size_t)((r0 + 8 * half) % args.res_rows) * N + n0 + 8 * j + 2 * t);
+        rv[4 * j + 2 * half] = v.x;
+        rv[4 * j + 2 * half + 1] = v.y;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kBn / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * t;
+    const float2 bv = bias ? *reinterpret_cast<const float2*>(bias + c) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float v0 = acc[4 * j + 2 * half] + bv.x, v1 = acc[4 * j + 2 * half + 1] + bv.y;
+      if (args.gelu) {
+        v0 = gelu_exact(v0);
+        v1 = gelu_exact(v1);
+      }
+      if (kRes) {
+        v0 += rv[4 * j + 2 * half];
+        v1 += rv[4 * j + 2 * half + 1];
+      }
+      *reinterpret_cast<float2*>(out + (size_t)(r0 + 8 * half) * N + c) = make_float2(v0, v1);
     }
-    __syncthreads();
+  }
+}
+
+template <int kWg, int kBn>
+__global__ void __launch_bounds__(kWg * 128 + 32, 1) gemm_kernel(const __grid_constant__ GemmArgs args) {
+  constexpr int kBm = 64 * kWg;
+  constexpr int kABytes = kBm * kBk * 4, kBBytes = kBn * kBk * 4, kStageBytes = kABytes + 2 * kBBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = blockIdx.x / args.n_tiles;
+  const int n0 = (blockIdx.x % args.n_tiles) * kBn, m0 = blockIdx.y * kBm;
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int kb = 0; kb < kTk; kb += 16) {
-      float4 top[2], bot[2], bv[4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) load_a_k16(as, kLd, wm + mt * 16, kb, lane, top[mt], bot[mt]);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        bv[nt] = *reinterpret_cast<const float4*>(bs + (wn + nt * 8 + g) * kLd + kb + 4 * t);
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t ab[2][4], asml[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) a_frag_split(top[mt], bot[mt], s, ab[mt], asml[mt]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          uint32_t bb[2], bsml[2];
-          split_tf32(s ? bv[nt].z : bv[nt].x, bb[0], bsml[0]);
-          split_tf32(s ? bv[nt].w : bv[nt].y, bb[1], bsml[1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_3xtf32(acc[mt][nt], ab[mt], asml[mt], bb, bsml);
-        }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWg);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kWg) {  // the producer warp: one lane issues every copy
+    if (lane == 0) {
+      for (int kt = 0; kt < args.k_tiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) + 1) & 1);
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load_2d(st, &args.a, &full[s], kt * kBk, m0);
+        tma_load_2d(st + kABytes, &args.wt[group], &full[s], kt * kBk, n0);
+        tma_load_2d(st + kABytes + kBBytes, &args.wt_small[group], &full[s], kt * kBk, n0);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = warp >> 2, wr = (warp & 3) * 16, g = lane >> 2, t = lane & 3;
+  // part: one k tile's products, summed on the tensor cores; acc: the tiles' sums
+  float acc[kBn / 2], part[kBn / 2];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < kBn / 2; ++i) acc[i] = part[i] = 0.f;
+  fence_operands(part);
+
+  for (int kt = 0; kt < args.k_tiles; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint8_t* st = smem + s * kStageBytes;
+    const float* at = reinterpret_cast<const float*>(st + wg * 64 * 128);
+    // A's fragments for the four 8-wide k steps, split into big and small
+    // parts, from the swizzled tile: (r, c) at float
+    // r * 32 + ((c / 4) ^ (r % 8)) * 4 + c % 4, and r % 8 = g
+    uint32_t a_big[4][4], a_small[4][4];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int kk = 0; kk < 4; ++kk) {
+      const int lo = (((2 * kk) ^ g) << 2) + t, hi = (((2 * kk + 1) ^ g) << 2) + t;
+      const float x[4] = {at[(wr + g) * 32 + lo], at[(wr + g + 8) * 32 + lo], at[(wr + g) * 32 + hi],
+                          at[(wr + g + 8) * 32 + hi]};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = m0 + wm + mt * 16 + g + (i >> 1) * 8;
-        const int c = n0 + wn + nt * 8 + 2 * t + (i & 1);
-        float v = acc[mt][nt][i];
-        if (bias) v += bias[c];
-        if (gelu) v = gelu_exact(v);
-        if (res) v += res[(size_t)(r % res_rows) * N + c];
-        out[(size_t)r * N + c] = v;
+        a_big[kk][i] = __float_as_uint(x[i]) & 0xFFFFE000u;
+        a_small[kk][i] = tf32_small(x[i]);
       }
+    }
+    const uint64_t db = desc_sw128(st + kABytes), dbs = desc_sw128(st + kABytes + kBBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_small[kk], db + 2 * kk, kk > 0);  // small(A) · big(B)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_big[kk], dbs + 2 * kk, 1);  // big(A) · small(B)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_big[kk], db + 2 * kk, 1);  // big(A) · big(B)
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_operands(part);
+#pragma unroll
+    for (int i = 0; i < kBn / 2; ++i) acc[i] += part[i];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: lane (g, t) holds rows r0 and r0 + 8 at columns 8 j + 2 t, +1
+  const int r0 = m0 + wg * 64 + wr + g;
+  if (args.res)
+    store_tile<kBn, true>(acc, args, args.bias[group], args.out[group], n0, r0, t);
+  else
+    store_tile<kBn, false>(acc, args, args.bias[group], args.out[group], n0, r0, t);
+}
+
+// ------------------------------------------------- weight split (3xTF32)
+// dst_i = the TF32 small part of src_i, elementwise, for up to kMaxSplit
+// tensors in one launch (blockIdx.y picks the tensor)
+
+constexpr int kMaxSplit = 128;
+
+struct SplitArgs {
+  const float* src[kMaxSplit];
+  float* dst[kMaxSplit];
+  long long n[kMaxSplit];
+};
+
+__global__ void tf32_split_kernel(const __grid_constant__ SplitArgs args) {
+  const float* src = args.src[blockIdx.y];
+  float* dst = args.dst[blockIdx.y];
+  const long long n = args.n[blockIdx.y];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += (long long)gridDim.x * blockDim.x)
+    dst[i] = __uint_as_float(tf32_small(src[i]));
 }
 
 // -------------------------------------------------------------- LayerNorm
@@ -139,139 +267,270 @@ __global__ void layer_norm_kernel(const float* __restrict__ x, const float* __re
 }
 
 // -------------------------------------------------------------- attention
-// Block = 64 queries of one (batch, head); 4 warps x 16 queries.  Scores for
-// all keys (Tk <= 256) go to shared memory, softmax runs exactly in fp32 per
-// row, then P · V.  Head h reads columns h*64 .. h*64+63 of q, k and v.
+// Block = 64 queries of one (batch, head); 4 warps x 16 queries.  Head h
+// reads columns h*64 .. h*64+63 of q, k and v.  Fragments (mma.cuh):
+// lane (g, t) holds score rows g and g+8 at keys 8n + 2t and 8n + 2t + 1; for
+// P·V those two keys fill the A slots t and t+4 of an 8-key step, and the B
+// fragment reads V at the same two keys.
 
-constexpr int kHd = 64, kQt = 64, kMaxTk = 256, kLdq = kHd + 16;
+constexpr int kHd = 64, kQt = 64, kKt = 64, kMaxTk = 256;
+constexpr int kLdt = kHd + 4;        // row stride of a staged tile: conflict-free fragment reads
+constexpr int kTile = kKt * kLdt;    // floats of one staged 64-row tile
+constexpr size_t kAttnSmem = 4 * kTile * sizeof(float);  // K and V, two stages each
 
-__global__ void __launch_bounds__(128) attention_kernel(const float* __restrict__ q, int q_stride,
-                                                        const float* __restrict__ k, const float* __restrict__ v,
-                                                        int kv_stride, float* __restrict__ out, int out_stride,
-                                                        int t_q, int t_k, float scale) {
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
+
+// stage 64 rows x 64 floats at src (row stride `stride`) into dst (stride kLdt)
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int stride, int tid) {
+#pragma unroll
+  for (int e = tid; e < kKt * kHd / 4; e += 128) {
+    const int r = e >> 4, c4 = (e & 15) * 4;
+    cp_async16(dst + r * kLdt + c4, src + (size_t)r * stride + c4);
+  }
+}
+
+__global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restrict__ q, int q_stride,
+                                                           const float* __restrict__ k, const float* __restrict__ v,
+                                                           int kv_stride, float* __restrict__ out, int out_stride,
+                                                           int t_q, int t_k, float scale) {
   extern __shared__ float smem[];
-  const int lds = t_k + 16;
-  float* qs = smem;                      // [64][80]
-  float* kv = qs + kQt * kLdq;           // K as [t_k][80], later V^T as [64][t_k + 16]
-  float* ss = kv + max(t_k * kLdq, kHd * lds);  // [64][t_k + 16] scores / probabilities
+  float* ks = smem;              // [2][64][68]
+  float* vs = smem + 2 * kTile;  // [2][64][68]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const int q0 = blockIdx.x * kQt, h = blockIdx.y, b = blockIdx.z;
   const float* qb = q + ((size_t)b * t_q + q0) * q_stride + h * kHd;
   const float* kb = k + (size_t)b * t_k * kv_stride + h * kHd;
   const float* vb = v + (size_t)b * t_k * kv_stride + h * kHd;
+  const int n_tiles = t_k / kKt;
 
-  for (int e = tid; e < kQt * kHd / 4; e += 128) {
-    const int r = e / (kHd / 4), c4 = (e % (kHd / 4)) * 4;
-    float4 val = *reinterpret_cast<const float4*>(qb + (size_t)r * q_stride + c4);
-    val.x *= scale; val.y *= scale; val.z *= scale; val.w *= scale;
-    *reinterpret_cast<float4*>(qs + r * kLdq + c4) = val;
-  }
-  for (int e = tid; e < t_k * kHd / 4; e += 128) {
-    const int r = e / (kHd / 4), c4 = (e % (kHd / 4)) * 4;
-    *reinterpret_cast<float4*>(kv + r * kLdq + c4) = *reinterpret_cast<const float4*>(kb + (size_t)r * kv_stride + c4);
-  }
+  stage_tile(ks + kTile, qb, q_stride, tid);  // the queries, through the second K stage
+  cp_async_commit();
+  stage_tile(ks, kb, kv_stride, tid);
+  stage_tile(vs, vb, kv_stride, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  // S = (q · scale) K^T for this warp's 16 rows, 64 keys at a time
-  const int wr = warp * 16;
-  for (int j0 = 0; j0 < t_k; j0 += 64) {
-    float acc[8][4];
+  // (q · scale) as 3xTF32 A fragments for the 8 steps over the head's 64 dims
+  uint32_t q_big[8][4], q_small[8][4];
+  {
+    const float* qs = ks + kTile;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < kHd; k0 += 16) {
-      float4 top, bot;
-      load_a_k16(qs, kLdq, wr, k0, lane, top, bot);
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        uint32_t ab[4], asml[4];
-        a_frag_split(top, bot, s, ab, asml);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const float4 bv = *reinterpret_cast<const float4*>(kv + (j0 + nt * 8 + g) * kLdq + k0 + 4 * t);
-          uint32_t bb[2], bsml[2];
-          split_tf32(s ? bv.z : bv.x, bb[0], bsml[0]);
-          split_tf32(s ? bv.w : bv.y, bb[1], bsml[1]);
-          mma_3xtf32(acc[nt], ab, asml, bb, bsml);
-        }
-      }
+    for (int kk = 0; kk < 8; ++kk) {
+      const int c = 8 * kk + t;
+      split_tf32(qs[(wr + g) * kLdt + c] * scale, q_big[kk][0], q_small[kk][0]);
+      split_tf32(qs[(wr + g + 8) * kLdt + c] * scale, q_big[kk][1], q_small[kk][1]);
+      split_tf32(qs[(wr + g) * kLdt + c + 4] * scale, q_big[kk][2], q_small[kk][2]);
+      split_tf32(qs[(wr + g + 8) * kLdt + c + 4] * scale, q_big[kk][3], q_small[kk][3]);
     }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ss[(wr + g + (i >> 1) * 8) * lds + j0 + nt * 8 + 2 * t + (i & 1)] = acc[nt][i];
   }
-  __syncwarp();
+  __syncthreads();  // the second K stage is free for tile 1
 
-  // exact softmax per row in fp32
-  for (int r = wr; r < wr + 16; ++r) {
-    float* sr = ss + r * lds;
-    float mx = -INFINITY;
-    for (int c = lane; c < t_k; c += 32) mx = fmaxf(mx, sr[c]);
-    for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int c = lane; c < t_k; c += 32) {
-      const float e = expf(sr[c] - mx);
-      sr[c] = e;
-      sum += e;
-    }
-    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;
-    for (int c = lane; c < t_k; c += 32) sr[c] *= inv;
-  }
-  __syncthreads();  // every warp is done with K
-
-  for (int e = tid; e < t_k * kHd; e += 128) {
-    const int r = e / kHd, c = e % kHd;
-    kv[c * lds + r] = vb[(size_t)r * kv_stride + c];  // V^T
-  }
-  __syncthreads();
-
-  // O = P · V for this warp's 16 rows, all 64 head columns
-  float acc[8][4];
+  float o[8][4];
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-  for (int k0 = 0; k0 < t_k; k0 += 16) {
-    float4 top, bot;
-    load_a_k16(ss, lds, wr, k0, lane, top, bot);
+    for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g and g + 8; l per lane, summed at the end
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      const int nxt = (j + 1) & 1;
+      stage_tile(ks + nxt * kTile, kb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, tid);
+      stage_tile(vs + nxt * kTile, vb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + (j & 1) * kTile;
+    const float* vt = vs + (j & 1) * kTile;
+
+    // S = (q · scale) K^T for this warp's 16 rows and the tile's 64 keys
+    float s[8][4];
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      uint32_t ab[4], asml[4];
-      a_frag_split(top, bot, s, ab, asml);
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
-        const float4 bv = *reinterpret_cast<const float4*>(kv + (nt * 8 + g) * lds + k0 + 4 * t);
-        uint32_t bb[2], bsml[2];
-        split_tf32(s ? bv.z : bv.x, bb[0], bsml[0]);
-        split_tf32(s ? bv.w : bv.y, bb[1], bsml[1]);
-        mma_3xtf32(acc[nt], ab, asml, bb, bsml);
+        const float* kr = kt + (nt * 8 + g) * kLdt + 8 * kk + t;
+        uint32_t bb[2], bs[2];
+        split_tf32(kr[0], bb[0], bs[0]);
+        split_tf32(kr[4], bb[1], bs[1]);
+        mma_3xtf32(s[nt], q_big[kk], q_small[kk], bb, bs);
+      }
+
+    // online softmax: rescale the running sums and output to the new row max
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * half], s[nt][2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      const float corr = expf(m_run[half] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][2 * half] = expf(s[nt][2 * half] - m_new);
+        s[nt][2 * half + 1] = expf(s[nt][2 * half + 1] - m_new);
+        sum += s[nt][2 * half] + s[nt][2 * half + 1];
+        o[nt][2 * half] *= corr;
+        o[nt][2 * half + 1] *= corr;
+      }
+      l_run[half] = l_run[half] * corr + sum;
+      m_run[half] = m_new;
+    }
+
+    // O += P · V: the 8-key step kk is score block kk, keys 8kk + 2t (slot t)
+    // and 8kk + 2t + 1 (slot t + 4)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t p_big[4], p_small[4];
+      split_tf32(s[kk][0], p_big[0], p_small[0]);
+      split_tf32(s[kk][2], p_big[1], p_small[1]);
+      split_tf32(s[kk][1], p_big[2], p_small[2]);
+      split_tf32(s[kk][3], p_big[3], p_small[3]);
+      const float* v0 = vt + (8 * kk + 2 * t) * kLdt + g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        uint32_t bb[2], bs[2];
+        split_tf32(v0[nt * 8], bb[0], bs[0]);
+        split_tf32(v0[kLdt + nt * 8], bb[1], bs[1]);
+        mma_3xtf32(o[nt], p_big, p_small, bb, bs);
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
+
   float* ob = out + ((size_t)b * t_q + q0 + wr) * out_stride + h * kHd;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int half = 0; half < 2; ++half) {
+    float l = l_run[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / l;
 #pragma unroll
-    for (int half = 0; half < 2; ++half)
+    for (int nt = 0; nt < 8; ++nt)
       *reinterpret_cast<float2*>(ob + (size_t)(g + half * 8) * out_stride + nt * 8 + 2 * t) =
-          make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+          make_float2(o[nt][2 * half] * inv, o[nt][2 * half + 1] * inv);
+  }
 }
+
+// ------------------------------------------------------ host: GEMM launch
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// library links no libcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a (rows, cols) row-major fp32 matrix in boxes of 32 columns x box_rows rows,
+// 128-byte swizzled
+bool encode(EncodeTiled fn, CUtensorMap* map, const float* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBk, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kWg, int kBn>
+int launch_gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K,
+                int res_rows, int gelu, cudaStream_t stream) {
+  constexpr int smem = kStages * (64 * kWg + 2 * kBn) * kBk * 4 + 1024 + 2 * kStages * 8;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemm_kernel<kWg, kBn>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  GemmArgs args = {};
+  bool ok = encode(fn, &args.a, a, M, K, 64 * kWg);
+  for (int i = 0; i < groups; ++i) {
+    ok = ok && encode(fn, &args.wt[i], static_cast<const float*>(ops[i]), N, K, kBn) &&
+         encode(fn, &args.wt_small[i], static_cast<const float*>(ops[groups + i]), N, K, kBn);
+    args.bias[i] = static_cast<const float*>(ops[2 * groups + i]);
+    args.out[i] = static_cast<float*>(const_cast<void*>(ops[3 * groups + i]));
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  args.res = res;
+  args.N = N;
+  args.res_rows = res_rows;
+  args.gelu = gelu;
+  args.k_tiles = K / kBk;
+  args.n_tiles = N / kBn;
+  gemm_kernel<kWg, kBn><<<dim3(groups * (N / kBn), M / (64 * kWg)), kWg * 128 + 32, smem, stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
-extern "C" int pccf_gemm(const float* a, const float* wt, const float* bias, const float* res, float* out, int M,
-                         int N, int K, int res_rows, int gelu, cudaStream_t stream) {
-  if (M % kTm || N % kTn || K % kTk || (res && res_rows <= 0)) return (int)cudaErrorInvalidValue;
-  dim3 grid(N / kTn, M / kTm);
-  gemm_kernel<<<grid, 128, 0, stream>>>(a, wt, bias, res, out, M, N, K, res_rows > 0 ? res_rows : M, gelu);
-  return (int)cudaGetLastError();
+// out_g = a · wt_gᵀ + bias_g [GELU] + res[row % res_rows] for g < groups (1 to
+// 3).  ops is a host array of 4 * groups device pointers: wt_g (N, K), then
+// wt_small_g, the TF32 small parts of wt_g (pccf_tf32_split), then bias_g
+// (may be null), then out_g (M, N).
+extern "C" int pccf_gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K,
+                         int res_rows, int gelu, cudaStream_t stream) {
+  bool ok = groups >= 1 && groups <= kMaxGroups && M % 64 == 0 && N % 64 == 0 && K % kBk == 0 && M > 0 && N > 0 &&
+            K > 0 && aligned16(a) && (!res || res_rows > 0);
+  for (int i = 0; ok && i < 2 * groups; ++i) ok = aligned16(ops[i]);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!res) res_rows = M;
+  const long long row_tiles = (long long)groups * (M / 128);
+  if (M % 128 == 0 && N % 128 == 0 && row_tiles * (N / 128) >= 132)
+    return launch_gemm<2, 128>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+  if (M % 128 == 0 && row_tiles * (N / 64) >= 132)
+    return launch_gemm<2, 64>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+  return launch_gemm<1, 64>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+}
+
+// dst_i[j] = the TF32 small part of src_i[j], j < n_i, for i < count
+extern "C" int pccf_tf32_split(const float* const* src, float* const* dst, const long long* n, int count,
+                               cudaStream_t stream) {
+  for (int i0 = 0; i0 < count; i0 += kMaxSplit) {
+    SplitArgs args = {};
+    const int c = count - i0 < kMaxSplit ? count - i0 : kMaxSplit;
+    for (int i = 0; i < c; ++i) {
+      args.src[i] = src[i0 + i];
+      args.dst[i] = dst[i0 + i];
+      args.n[i] = n[i0 + i];
+    }
+    tf32_split_kernel<<<dim3(64, c), 256, 0, stream>>>(args);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 extern "C" int pccf_layer_norm(const float* x, const float* w, const float* b, float* out, int rows, int d,
@@ -285,15 +544,14 @@ extern "C" int pccf_layer_norm(const float* x, const float* w, const float* b, f
 extern "C" int pccf_attention(const float* q, int q_stride, const float* k, const float* v, int kv_stride,
                               float* out, int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim,
                               cudaStream_t stream) {
-  if (head_dim != kHd || t_q % kQt || t_k % 64 || t_k > kMaxTk || q_stride % 4 || kv_stride % 4)
+  if (head_dim != kHd || t_q % kQt || t_k % kKt || t_k <= 0 || t_k > kMaxTk || q_stride % 4 || kv_stride % 4 ||
+      out_stride % 2)
     return (int)cudaErrorInvalidValue;
-  const int lds = t_k + 16;
-  const size_t smem = (size_t)(kQt * kLdq + (t_k * kLdq > kHd * lds ? t_k * kLdq : kHd * lds) + kQt * lds) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid(t_q / kQt, n_heads, batch);
-  attention_kernel<<<grid, 128, smem, stream>>>(q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k,
-                                                1.f / sqrtf((float)head_dim));
+  attention_kernel<<<grid, 128, kAttnSmem, stream>>>(q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k,
+                                                     1.f / sqrtf((float)head_dim));
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_knn': (P, P, I, I, I, I, P),
     'pccf_graph_max_pool': (P, P, P, I, I, I, I, P),
     'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P),
-    'pccf_gemm': (P, P, P, P, P, I, I, I, I, I, P),
+    'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),
+    'pccf_tf32_split': (P, P, P, I, P),
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),
     'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),
     'pccf_gather_neighbors': (P, P, P, I, I, I, I, P),

@@ -16,7 +16,11 @@ chain into its neighbour, as on the TPU:
 
 ``pemb`` and ``pz2p`` are the tiny products outside the TPU kernel and stay
 ``torch.matmul`` here too.  The pack is built once per server; the CUDA
-wrapper derives its transposed, padded operands from it once.
+wrapper derives from it, once, a snapshot of every operand its GEMMs read:
+the folds transposed and padded, copies of the stacks' layers, and the TF32
+small part of each of their matrices.  The folds are a snapshot already, and
+copying the layers keeps each matrix and its small part from drifting apart
+if the live weights change.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import dataclasses
 import torch
 
 from pccf_torch.kernels import _build, ops
-from pccf_torch.kernels.wformer import Stacks, pack_decoder, pack_encoder
+from pccf_torch.kernels.wformer import Stacks, pack_decoder, pack_encoder, split_small, stack_weights
 
 IN_PAD = 32  # token width padded to one GEMM k tile
 OUT_PAD = 64  # compress head padded to one GEMM n tile
@@ -58,8 +62,11 @@ class CVAEPack:
 
     def cuda_operands(self) -> dict:
         """The folded weights as ``(out, in)`` contiguous fp32 for the GEMM
-        kernel, built on first use; token input and compress head
-        zero-padded."""
+        kernel, built on first use, token input and compress head
+        zero-padded; under ``'enc1'``, ``'enc2'`` and ``'dec'`` copies of the
+        stacks' layers; under ``'weights'`` every matrix the GEMMs read, and
+        under ``'small'`` their TF32 small parts
+        (:func:`pccf_torch.kernels.wformer.split_small`)."""
         if self._cuda is None:
             def t(w):  # (in, out) -> (out, in)
                 return w.detach().T.contiguous()
@@ -78,6 +85,12 @@ class CVAEPack:
                 'win1': pad_in(self.win1), 'add1': self.add1.contiguous(), 'aw': t(self.aw), 'ab': self.ab.contiguous(),
                 'win2': pad_in(self.win2), 'bw': t(self.bw), 'wcomp': wcomp, 'bcomp': bcomp,
             }
+            for name in ('enc1', 'enc2', 'dec'):
+                self._cuda[name] = [{k: v.clone() for k, v in p.items()} for p in getattr(self, name)]
+            weights = [self._cuda[name] for name in ('win1', 'aw', 'win2', 'bw', 'wcomp')]
+            weights += stack_weights(self._cuda['enc1'] + self._cuda['enc2'] + self._cuda['dec'])
+            self._cuda['weights'] = weights
+            self._cuda['small'] = split_small(weights)
         return self._cuda
 
 
@@ -148,7 +161,7 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
         raise ValueError(f'cvae_cf: weights on {w["aw"].device}, inputs on {x.device}')
     m = b * t
     h1, h2, hd = pack.heads
-    stacks = Stacks(b, t, d, x.device)
+    stacks = Stacks(b, t, d, x.device, w['small'])
     empty = stacks.empty
 
     x_pad = torch.zeros(m, IN_PAD, dtype=torch.float32, device=x.device)
@@ -159,19 +172,19 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     extrad = (pack.addd + pz2p).reshape(m, d).contiguous()
 
     res = empty(m, d)
-    stacks.gemm(x_pad, w['win1'], None, w['add1'], res, res_rows=t)
-    stacks.encoder(res, pack.enc1, h1)
+    stacks.gemm(x_pad, [w['win1']], [None], [res], w['add1'], res_rows=t)
+    stacks.encoder(res, w['enc1'], h1)
     memory = empty(m, d)
-    stacks.gemm(res, w['aw'], None, w['ab'], memory, res_rows=t)
+    stacks.gemm(res, [w['aw']], [None], [memory], w['ab'], res_rows=t)
 
-    stacks.gemm(x_pad, w['win2'], None, extra2, res)
-    stacks.encoder(res, pack.enc2, h2)
+    stacks.gemm(x_pad, [w['win2']], [None], [res], extra2)
+    stacks.encoder(res, w['enc2'], h2)
     dec_in = empty(m, d)
-    stacks.gemm(res, w['bw'], None, extrad, dec_in)
-    stacks.decoder(dec_in, memory, pack.dec, hd)
+    stacks.gemm(res, [w['bw']], [None], [dec_in], extrad)
+    stacks.decoder(dec_in, memory, w['dec'], hd)
 
     out = empty(m, OUT_PAD)
-    stacks.gemm(dec_in, w['wcomp'], w['bcomp'], None, out)
+    stacks.gemm(dec_in, [w['wcomp']], [w['bcomp']], [out])
     cvae_cf_cuda.launches += 1
     return out[:, :e].reshape(b, t, e)
 

@@ -135,6 +135,31 @@ def pcgen_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
     return Work(float(b * n * per_point), _nbytes(m, w) + weights + b * n * 3 * F32, TF32)
 
 
+def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0) -> Work:
+    """One ``pccf_gemm`` launch: ``groups`` products ``(m, k) · (k, n)``, 2·m·n·k
+    operations each as :func:`_stack_ops` counts them (the epilogue's adds
+    and GELU uncounted); ``a``, the weights, biases and ``res_rows`` rows of
+    the residual read once, the outputs written once."""
+    read = m * k + groups * (n * k + (n if bias else 0)) + res_rows * n
+    return Work(2.0 * groups * m * n * k, F32 * (read + groups * m * n), TF32)
+
+
+def attention_work(b: int, t_q: int, t_k: int, n_heads: int, head_dim: int) -> Work:
+    """One ``pccf_attention`` launch: scores and P·V, 4·t_q·t_k·d operations a
+    sample as :func:`_stack_ops` counts them (softmax uncounted); q, k, v
+    read once, the output written once."""
+    d = n_heads * head_dim
+    return Work(4.0 * b * t_q * t_k * d, F32 * 2 * b * (t_q + t_k) * d, TF32)
+
+
+def split_work(weights: list[torch.Tensor]) -> Work:
+    """One ``pccf_tf32_split`` launch over ``weights``: the big part's mask,
+    the subtraction, the rounding add and its mask per element, on the CUDA
+    cores; each weight read once, its small part written once."""
+    n = sum(w.numel() for w in weights)
+    return Work(4.0 * n, F32 * 2 * n, FP32)
+
+
 def _stack_ops(b: int, t: int, t_mem: int, d: int, pack: list[dict], cross: bool) -> float:
     per_sample = 0.0
     for p in pack:

@@ -7,12 +7,17 @@ the W-autoencoder's transformer nets in one ``pallas_call`` with every
 layer's weights and the residual stream resident in VMEM.  A block on the
 card has 227 KB of shared memory, so here a stack is a sequence of launches
 of three kernels (GEMM with a bias / exact-GELU / residual epilogue,
-LayerNorm, attention), layer by layer, on one stream; the residual stream
-stays in one device buffer that the GEMM epilogues update in place.  The
-products run as 3xTF32 (about fp32 rounding): the stacks feed the VQ argmin
-and the quantisation accuracy, which bf16 products flip against the fp32
-reference.  The CVAE chain (:mod:`pccf_torch.kernels.cvae`) runs its three
-stacks through the same launchers.
+LayerNorm, attention), layer by layer, on one stream: 7 launches an encoder
+layer and 12 a decoder layer, the q, k and v projections of one LayerNorm
+output (and the cross-attention's k and v of ``memory``) one grouped GEMM
+launch.  The residual stream stays in one device buffer that the GEMM
+epilogues update in place.  The products run as 3xTF32 (about fp32
+rounding): the stacks feed the VQ argmin and the quantisation accuracy,
+which bf16 products flip against the fp32 reference.  The GEMM reads each
+weight's TF32 small part from a tensor that :class:`Stacks` makes with one
+launch before a stack's first layer (:func:`split_small`).  The CVAE chain
+(:mod:`pccf_torch.kernels.cvae`) runs its three stacks through the same
+launchers.
 
 The pack is a list of per-layer dicts of the live module weights, each in
 its ``nn.Linear``'s own ``(out, in)`` layout: detached views, no copies, so
@@ -23,12 +28,15 @@ width.  The stacks are eval only: no dropout and no gradient.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from pccf_torch.kernels import _build, ops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
-MAX_TOKENS = 256  # pccf_attention holds all keys of a head in shared memory
+MAX_TOKENS = 256  # the keys pccf_attention's guard takes: the W-nets' 256 code tokens
+TF32_BIG = -(1 << 13)  # int32 mask keeping the sign, exponent and 10 mantissa bits a tensor core reads
 
 
 def supported(t: int, d: int, n_heads: int) -> bool:
@@ -97,6 +105,48 @@ def plain_decoder(x: torch.Tensor, memory: torch.Tensor, pack: list[dict], n_hea
     return x
 
 
+# --------------------------------------------------- 3xTF32 weight split
+
+
+def tf32_split(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` with ``w = big + small`` to about 2^-22 relative, as
+    the GEMM kernel multiplies them: ``big`` is ``w`` truncated to TF32 (what
+    the tensor cores read from a fp32 word) and ``small`` the remainder
+    rounded to the nearest TF32, ties away from zero (``cvt.rna.tf32.f32``).
+    The plain version of ``pccf_tf32_split``, which stores ``small``."""
+    w = w.contiguous()
+    big = (w.view(torch.int32) & TF32_BIG).view(torch.float32)
+    small = (((w - big).view(torch.int32) + (1 << 12)) & TF32_BIG).view(torch.float32)
+    return big, small
+
+
+def stack_weights(pack: list[dict]) -> list[torch.Tensor]:
+    """The matrices of a stack's pack, the GEMM's ``wt`` operands."""
+    return [v for p in pack for name, v in p.items() if name.startswith('w')]
+
+
+def split_small(weights: list[torch.Tensor]) -> dict[int, torch.Tensor]:
+    """The TF32 small part of each weight by one ``pccf_tf32_split`` launch,
+    keyed by the weight's ``data_ptr``: views into one buffer, each starting
+    on a 256-byte boundary (TMA reads 16-byte aligned rows)."""
+    starts, total = [], 0
+    for w in weights:
+        starts.append(total)
+        total += -(-w.numel() // 64) * 64
+    buf = torch.empty(total, dtype=torch.float32, device=weights[0].device)
+    smalls = [buf[s: s + w.numel()].view(w.shape) for s, w in zip(starts, weights)]
+    n = len(weights)
+    err = _build.lib().pccf_tf32_split(_pointers(weights), _pointers(smalls),
+                                       (ctypes.c_longlong * n)(*(w.numel() for w in weights)), n, _build.stream())
+    _build.check('pccf_tf32_split', err, f'{n} tensors')
+    return {w.data_ptr(): s for w, s in zip(weights, smalls)}
+
+
+def _pointers(tensors: list) -> ctypes.Array:
+    """A host array of device pointers, null for ``None``."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() if t is not None else None for t in tensors))
+
+
 # ------------------------------------------------------------ CUDA stacks
 
 
@@ -104,13 +154,29 @@ class Stacks:
     """Launches the entry points of ``csrc/wformer.cu`` for ``b`` sequences of
     ``t`` tokens of width ``d`` on the current stream, with scratch buffers
     allocated once per call.  The residual stream ``res (b * t, d)`` is
-    updated in place: every residual add is a GEMM epilogue."""
+    updated in place: every residual add is a GEMM epilogue.
 
-    def __init__(self, b: int, t: int, d: int, device: torch.device) -> None:
+    The GEMM reads each weight's TF32 small part, which ``Stacks`` splits
+    (:meth:`split`) the first time it meets the weight and keeps for its own
+    lifetime, one call: a stack's weights in one launch before its first
+    layer.  ``small`` gives parts split beforehand, keyed by the weight's
+    ``data_ptr``, for weights that are a snapshot and cannot change (the CVAE
+    pack's)."""
+
+    def __init__(self, b: int, t: int, d: int, device: torch.device,
+                 small: dict[int, torch.Tensor] | None = None) -> None:
         self.lib, self.stream = _build.lib(), _build.stream()
         self.b, self.t, self.d, self.m = b, t, d, b * t
         self.device = device
+        self.small = dict(small or {})
         self._scratch: dict[str, torch.Tensor] = {}
+
+    def split(self, weights: list[torch.Tensor]) -> None:
+        """Split the TF32 small parts of the weights not split yet, in one
+        launch."""
+        new = {w.data_ptr(): w for w in weights if w.data_ptr() not in self.small}
+        if new:
+            self.small.update(split_small(list(new.values())))
 
     def empty(self, *shape: int) -> torch.Tensor:
         return torch.empty(shape, dtype=torch.float32, device=self.device)
@@ -121,14 +187,18 @@ class Stacks:
             buf = self._scratch[name] = self.empty(rows * cols)
         return buf[: rows * cols].view(rows, cols)
 
-    def gemm(self, a, wt, bias, res, out, res_rows: int = 0, gelu: bool = False) -> None:
-        """``out = a · wtᵀ + bias [GELU] + res[row % res_rows]``."""
-        n, k = wt.shape
-        m = a.shape[0]
-        err = self.lib.pccf_gemm(a.data_ptr(), wt.data_ptr(), bias.data_ptr() if bias is not None else None,
-                                 res.data_ptr() if res is not None else None, out.data_ptr(),
+    def gemm(self, a, wts: list, biases: list, outs: list, res=None, res_rows: int = 0, gelu: bool = False) -> None:
+        """``outs[g] = a · wts[g]ᵀ + biases[g] [GELU] + res[row % res_rows]``
+        for every group ``g`` (at most 3, all ``(N, K)``) in one launch."""
+        n, k = wts[0].shape
+        m, groups = a.shape[0], len(wts)
+        if any(tuple(w.shape) != (n, k) for w in wts):
+            raise ValueError(f'pccf_gemm: the grouped weights differ in shape: {[tuple(w.shape) for w in wts]}')
+        self.split(wts)
+        ops = _pointers([*wts, *(self.small[w.data_ptr()] for w in wts), *biases, *outs])
+        err = self.lib.pccf_gemm(a.data_ptr(), groups, ops, res.data_ptr() if res is not None else None,
                                  m, n, k, res_rows or m, int(gelu), self.stream)
-        _build.check('pccf_gemm', err, f'M={m}, N={n}, K={k}')
+        _build.check('pccf_gemm', err, f'M={m}, N={n}, K={k}, {groups} group(s)')
 
     def norm(self, src, weight, bias, out) -> None:
         err = self.lib.pccf_layer_norm(src.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -136,48 +206,52 @@ class Stacks:
         _build.check('pccf_layer_norm', err, f'rows={src.shape[0]}, d={self.d}')
 
     def attend(self, q, k, v, out, n_heads: int) -> None:
-        """Multi-head attention, ``q, out (b * t, d)`` and ``k, v (b * t_k, d)``."""
+        """Multi-head attention, ``q, out (b * t, d)`` and ``k, v (b * t_k, d)``,
+        each a row-strided 2-D view (``k`` and ``v`` with one stride)."""
         d, t_k = self.d, k.shape[0] // self.b
-        err = self.lib.pccf_attention(q.data_ptr(), d, k.data_ptr(), v.data_ptr(), d, out.data_ptr(), d, self.b,
-                                      self.t, t_k, n_heads, d // n_heads, self.stream)
+        if k.stride(0) != v.stride(0):
+            raise ValueError(f'pccf_attention: k and v strides differ ({k.stride(0)}, {v.stride(0)})')
+        err = self.lib.pccf_attention(q.data_ptr(), q.stride(0), k.data_ptr(), v.data_ptr(), k.stride(0),
+                                      out.data_ptr(), out.stride(0), self.b, self.t, t_k, n_heads, d // n_heads,
+                                      self.stream)
         _build.check('pccf_attention', err, f'B={self.b}, T={self.t}, T_kv={t_k}, {n_heads} heads of {d // n_heads}')
 
     def project(self, src, p: dict, prefix: str, names: str) -> list[torch.Tensor]:
-        """One ``(rows, d)`` product of ``src`` per projection in ``names``."""
-        outs = []
-        for name in names:
-            out = self.scratch(f'{prefix}{name}', src.shape[0], self.d)
-            self.gemm(src, p[f'w{prefix}{name}'], p[f'b{prefix}{name}'], None, out)
-            outs.append(out)
+        """One ``(rows, d)`` product of ``src`` per projection in ``names``,
+        all in one grouped launch."""
+        outs = [self.scratch(f'{prefix}{name}', src.shape[0], self.d) for name in names]
+        self.gemm(src, [p[f'w{prefix}{name}'] for name in names], [p[f'b{prefix}{name}'] for name in names], outs)
         return outs
 
     def self_attention(self, res, p: dict, n_heads: int) -> None:
         h, att = self.scratch('h', self.m, self.d), self.scratch('att', self.m, self.d)
         self.norm(res, p['ln1_w'], p['ln1_b'], h)
         self.attend(*self.project(h, p, '', 'qkv'), att, n_heads)
-        self.gemm(att, p['wo'], p['bo'], res, res)
+        self.gemm(att, [p['wo']], [p['bo']], [res], res)
 
     def cross_attention(self, res, memory, p: dict, n_heads: int) -> None:
         h, att = self.scratch('h', self.m, self.d), self.scratch('att', self.m, self.d)
         self.norm(res, p['lnx_w'], p['lnx_b'], h)
         self.attend(*self.project(h, p, 'x', 'q'), *self.project(memory, p, 'x', 'kv'), att, n_heads)
-        self.gemm(att, p['wxo'], p['bxo'], res, res)
+        self.gemm(att, [p['wxo']], [p['bxo']], [res], res)
 
     def feed_forward(self, res, p: dict) -> None:
         h = self.scratch('h', self.m, self.d)
         f = self.scratch('ff', self.m, p['w1'].shape[0])
         self.norm(res, p['ln2_w'], p['ln2_b'], h)
-        self.gemm(h, p['w1'], p['b1'], None, f, gelu=True)
-        self.gemm(f, p['w2'], p['b2'], res, res)
+        self.gemm(h, [p['w1']], [p['b1']], [f], gelu=True)
+        self.gemm(f, [p['w2']], [p['b2']], [res], res)
 
     def encoder(self, res, layers: list[dict], n_heads: int) -> None:
         """Run pre-norm encoder layers over ``res`` in place."""
+        self.split(stack_weights(layers))
         for p in layers:
             self.self_attention(res, p, n_heads)
             self.feed_forward(res, p)
 
     def decoder(self, res, memory, layers: list[dict], n_heads: int) -> None:
         """Run pre-norm decoder layers (self, cross on ``memory``, FF) in place."""
+        self.split(stack_weights(layers))
         for p in layers:
             self.self_attention(res, p, n_heads)
             self.cross_attention(res, memory, p, n_heads)

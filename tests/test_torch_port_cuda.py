@@ -10,7 +10,12 @@ Tolerances: kNN neighbour sets equal up to near-ties (a differing neighbour
 must be as near, in float64, within 1e-5 of the squared distance scale),
 with the lowest index first on exact duplicates; max-pool bit-exact; pcgen_mix
 rel-L2 1e-2 (bf16 weights); the CVAE chain and the transformer stacks rel-L2
-1e-4 (3xTF32 products);
+1e-4 (3xTF32 products); the stacks' GEMM against the float64 product and
+epilogue rel-L2 5e-6 (3xTF32 drops the small-small term, ~2^-22 of each
+product; the tensor cores sum only each 32-wide k tile, whose partial sums
+add in fp32 rounded to nearest; one TF32 product alone misses by ~3e-4),
+the TF32 weight split bit-exact, the streaming attention against the exact softmax
+1e-5 (the online softmax rescales its fp32 sums);
 gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
 addition (1e-5); the scatter-adds 1e-5 of the largest entry (fp32 atomics
 add in an order that changes from run to run); EMD cost 1e-4 relative and
@@ -446,3 +451,86 @@ def test_new_wrappers_reject_bad_inputs(dev):
             call(x, _randn((2, 64, 3), 36, dev))  # batches differ
         with pytest.raises(ValueError):
             call(x.double(), x.double())
+
+
+# ------------------------------------------------ the stacks' GEMM and attention
+
+
+def _gemm_case(m, n, k, groups, seed, dev):
+    a = _randn((m, k), seed, dev)
+    wts = [_randn((n, k), seed + 1 + g, dev) * k ** -0.5 for g in range(groups)]
+    biases = [_randn((n,), seed + 11 + g, dev) for g in range(groups)]
+    return a, wts, biases, wformer.Stacks(1, m, k, dev)
+
+
+@pytest.mark.parametrize('k', [32, 512, 1024])
+@pytest.mark.parametrize('n', [64, 512, 1024])
+@pytest.mark.parametrize('m', [64, 256, 4096, 8192])
+def test_gemm_matches_float64(dev, m, n, k):
+    """Every tile shape the launch picks (64x64, 128x64, 128x128) over the
+    stacks' M, N and K, with a bias."""
+    a, (wt,), (bias,), stacks = _gemm_case(m, n, k, 1, m + n + k, dev)
+    out = torch.empty(m, n, device=dev)
+    stacks.gemm(a, [wt], [bias], [out])
+    assert _rel_l2(out.double(), a.double() @ wt.double().T + bias.double()) <= 5e-6
+
+
+@pytest.mark.parametrize('epilogue', ['gelu', 'res', 'res_rows', 'alias', 'grouped'])
+@pytest.mark.parametrize('m', [256, 8192])
+def test_gemm_epilogues_match_float64(dev, epilogue, m):
+    """Exact GELU; a residual; one broadcast over ``res_rows`` rows (the
+    chain's positional tables); ``out`` aliasing ``res`` (the in-place
+    residual stream); and a grouped q/k/v launch, three weights, biases and
+    outputs, with no bias on the residual cases as the chain's input products."""
+    n, k = 512, 512
+    groups = 3 if epilogue == 'grouped' else 1
+    a, wts, biases, stacks = _gemm_case(m, n, k, groups, 40 + m, dev)
+    want = [a.double() @ w.double().T for w in wts]
+    outs = [torch.empty(m, n, device=dev) for _ in wts]
+    if epilogue == 'gelu':
+        stacks.gemm(a, wts, biases, outs, gelu=True)
+        want = [torch.nn.functional.gelu(want[0] + biases[0].double())]
+    elif epilogue == 'grouped':
+        stacks.gemm(a, wts, biases, outs)
+        assert len({o.data_ptr() for o in outs}) == 3
+        want = [w + b.double() for w, b in zip(want, biases)]
+    else:
+        rows = 256 if epilogue == 'res_rows' else m
+        res = _randn((rows, n), 50, dev)
+        want = [want[0] + res.double().repeat(m // rows, 1)]
+        if epilogue == 'alias':
+            outs = [res]
+        stacks.gemm(a, wts, [None], outs, res, res_rows=rows if epilogue == 'res_rows' else 0)
+    for got, ref in zip(outs, want):
+        assert _rel_l2(got.double(), ref) <= 5e-6
+
+
+def test_gemm_refuses_shapes_it_does_not_cover(dev):
+    a, (wt,), (bias,), stacks = _gemm_case(96, 64, 32, 1, 60, dev)
+    with pytest.raises(ValueError, match='does not cover'):  # M not a multiple of 64
+        stacks.gemm(a, [wt], [bias], [torch.empty(96, 64, device=dev)])
+    a, wts, biases, stacks = _gemm_case(64, 64, 32, 4, 61, dev)
+    with pytest.raises(ValueError, match='does not cover'):  # four groups
+        stacks.gemm(a, wts, biases, [torch.empty(64, 64, device=dev) for _ in wts])
+
+
+def test_tf32_split_kernel_is_bit_exact(dev):
+    ws = [_randn((512, 512), 70, dev), _randn((1024, 512), 71, dev) * 1e-3, _randn((64, 32), 72, dev) * 1e4]
+    small = wformer.split_small(ws)
+    for w in ws:
+        assert torch.equal(small[w.data_ptr()], wformer.tf32_split(w)[1])
+
+
+@pytest.mark.parametrize('t_k', [64, 128, 256])
+@pytest.mark.parametrize('t_q', [64, 128, 256])
+def test_attention_matches_plain(dev, t_q, t_k):
+    """Queries read from a (rows, 3d) buffer and keys and values from a
+    (rows, 2d) one, each at its row stride, as a grouped projection could lay
+    them out; two heads of 64."""
+    b, heads, d = 3, 2, 128
+    qbuf, kvbuf = _randn((b * t_q, 3 * d), t_q, dev), _randn((b * t_k, 2 * d), t_k + 1, dev)
+    q, k, v = qbuf[:, d: 2 * d], kvbuf[:, :d], kvbuf[:, d:]
+    out = torch.empty(b * t_q, d, device=dev)
+    wformer.Stacks(b, t_q, d, dev).attend(q, k, v, out, heads)
+    want = ops.attention(q.reshape(b, t_q, d), k.reshape(b, t_k, d), v.reshape(b, t_k, d), heads)
+    assert _rel_l2(out.reshape(b, t_q, d), want) <= 1e-5

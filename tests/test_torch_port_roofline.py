@@ -2,16 +2,21 @@
 (``pccf_torch.kernels.roofline``), on the CPU.
 
 The stacks' operation counts against ``torch.utils.flop_counter`` over the
-plain versions (every matrix product counted as 2·M·N·K, exactly), and the
+plain versions (every matrix product counted as 2·M·N·K, exactly), the
 flagship stage-2 figures: 77.3 GFLOP for the W-encoder stack and 231.9 GFLOP
-for the W-decoder stack at batch 32, both bound by operations.
+for the W-decoder stack at batch 32, both bound by operations; and the
+per-launch counts of the stacks' GEMM and attention, summed over the
+launches a stack issues (recorded by a stand-in for the kernel library),
+against the stack's count.
 """
+
+import ctypes
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from pccf_torch.kernels import roofline, wformer
+from pccf_torch.kernels import _build, roofline, wformer
 
 torch.set_num_threads(1)
 
@@ -47,6 +52,94 @@ def test_stack_operations_match_the_flop_counter(decoder):
     work = roofline.decoder_stack_work(x, memory, pack) if decoder else roofline.encoder_stack_work(x, pack)
     assert work.ops == counter.get_total_flops()
     assert work.peak == roofline.TF32
+
+
+class RecordingLib:
+    """Stands in for the kernel library on the CPU: records each entry
+    point's name and arguments (host pointer arrays read out as lists) and
+    launches nothing."""
+
+    def __init__(self) -> None:
+        self.calls: list[tuple[str, list]] = []
+
+    def __getattr__(self, name: str):
+        if not name.startswith('pccf_'):
+            raise AttributeError(name)
+
+        def record(*args):
+            self.calls.append((name, [list(a) if isinstance(a, ctypes.Array) else a for a in args]))
+            return 0
+
+        return record
+
+
+@pytest.fixture()
+def recording(monkeypatch):
+    lib = RecordingLib()
+    monkeypatch.setattr(_build, 'lib', lambda: lib)
+    monkeypatch.setattr(_build, 'stream', lambda: 0)
+    return lib
+
+
+def drive_stack(pack, decoder, b=2, t=128, t_mem=64, n_heads=2):
+    """One stack over zeros through :class:`wformer.Stacks` on the CPU, as the
+    CUDA wrappers drive it; returns the residual and memory buffers."""
+    d = pack[0]['wo'].shape[0]
+    res, memory = torch.zeros(b * t, d), torch.zeros(b * t_mem, d)
+    stacks = wformer.Stacks(b, t, d, torch.device('cpu'))
+    if decoder:
+        stacks.decoder(res, memory, pack, n_heads)
+    else:
+        stacks.encoder(res, pack, n_heads)
+    return res, memory
+
+
+@pytest.mark.parametrize('decoder', [False, True])
+def test_launch_work_sums_to_the_stack(recording, decoder):
+    """gemm_work over every pccf_gemm launch and attention_work over every
+    pccf_attention launch of a stack add up to its stack count, operation for
+    operation (mixed FF widths, a memory shorter than the tokens)."""
+    b, t, t_mem, d = 2, 128, 64, 64
+    pack = _pack(d, (128, 64), decoder)
+    drive_stack(pack, decoder, b, t, t_mem)
+    ops = 0.0
+    for name, args in recording.calls:
+        if name == 'pccf_gemm':
+            _, groups, operands, res, m, n, k, res_rows, _, _ = args
+            biases = operands[2 * groups: 3 * groups]
+            ops += roofline.gemm_work(m, n, k, groups, all(biases), res_rows if res else 0).ops
+        elif name == 'pccf_attention':
+            batch, t_q, t_k, n_heads, head_dim = args[7:12]
+            ops += roofline.attention_work(batch, t_q, t_k, n_heads, head_dim).ops
+    x, memory = torch.empty(b, t, d), torch.empty(b, t_mem, d)
+    work = roofline.decoder_stack_work(x, memory, pack) if decoder else roofline.encoder_stack_work(x, pack)
+    assert ops == work.ops
+
+
+def test_launch_work_at_the_headline_shapes():
+    """pccf_gemm at (8192, 512, 512) with a bias moves 34.6 MB for 4.3 GFLOP
+    and is bound by bytes, its q/k/v launch by operations; pccf_attention at
+    (32, 256, 256, 8 x 64) moves 67 MB for 4.3 GFLOP, bound by bytes."""
+    gemm = roofline.gemm_work(8192, 512, 512)
+    assert gemm.ops == 2 * 8192 * 512 * 512 and gemm.bytes == 4 * (2 * 8192 * 512 + 512 * 512 + 512)
+    grouped = roofline.gemm_work(8192, 512, 512, groups=3)
+    assert grouped.ops == 3 * gemm.ops and grouped.bytes == 4 * (4 * 8192 * 512 + 3 * (512 * 512 + 512))
+    attn = roofline.attention_work(32, 256, 256, 8, 64)
+    assert attn.ops == 4 * 32 * 256 * 256 * 512 and attn.bytes == 4 * 4 * 32 * 256 * 512
+    for work, by in ((gemm, 'bytes'), (grouped, 'operations'), (attn, 'bytes')):
+        want = work.bytes / 3.35e12 * 1e3 if by == 'bytes' else work.ops / 495e12 * 1e3
+        assert roofline.bound_ms(work) == (pytest.approx(want), by)
+
+
+def test_split_work_is_bound_by_bytes():
+    """pccf_tf32_split over a W-encoder's matrices reads and writes each
+    element once (8 bytes) for 4 operations: 16.8 MB a layer of width 512
+    and FF 1024, bound by bytes."""
+    pack = _pack(512, (1024, 1024), False, 'meta')
+    work = roofline.split_work(wformer.stack_weights(pack))
+    n = 2 * (4 * 512 * 512 + 2 * 512 * 1024)
+    assert (work.ops, work.bytes) == (4 * n, 8 * n)
+    assert roofline.bound_ms(work) == (pytest.approx(8 * n / 3.35e12 * 1e3), 'bytes')
 
 
 def test_flagship_stacks_are_bound_by_operations():

@@ -28,6 +28,7 @@ from pccf.kernels import api as japi
 from pccf_torch.kernels import wformer
 
 from tests.test_torch_port_modules import assert_norm_close, load_port
+from tests.test_torch_port_roofline import _pack, drive_stack, recording  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -196,6 +197,155 @@ def test_stack_gate_follows_jax():
     assert net.stack_ok()
     assert not net.train().stack_ok()
     assert not tw.TransformerWEncoder(E, Z1, T, D, H, (128,), default_act).eval().stack_ok()
+
+
+def test_3xtf32_split_emulation_matches_fp64():
+    """The GEMM kernel's split as the tensor cores see it (``tf32_split``): big
+    = the word with its low 13 bits masked, small = the remainder rounded to
+    TF32 (so the tensor cores' truncation leaves it as it is).  Both parts are
+    TF32, they rebuild each element to 2^-22 relative, and small·big +
+    big·small + big·big at K = 1024 agrees with the float64 product to 1e-6
+    relative, where the big parts alone miss it by more than 1e-4."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal((64, 1024)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((96, 1024)).astype(np.float32))
+    (a_big, a_small), (w_big, w_small) = wformer.tf32_split(a), wformer.tf32_split(w)
+    for part in (a_big, a_small, w_big, w_small):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    for x, (big, small) in ((a, (a_big, a_small)), (w, (w_big, w_small))):
+        assert float(((big.double() + small.double() - x.double()).abs() / x.double().abs()).max()) <= 2.0 ** -22
+    want = a.double() @ w.double().T
+
+    def rel(got):
+        return float(torch.linalg.norm(got.double() - want) / torch.linalg.norm(want))
+
+    assert rel(a_small @ w_big.T + a_big @ w_small.T + a_big @ w_big.T) <= 1e-6
+    assert rel(a_big @ w_big.T) > 1e-4
+
+
+@pytest.mark.parametrize('decoder', [False, True])
+def test_stacks_issue_grouped_launches_in_order(recording, decoder):
+    """``Stacks`` against a recording stand-in for the kernel library: one
+    weight split, then 7 launches an encoder layer and 12 a decoder layer, in
+    order; the q, k, v projections (and the cross-attention's k, v of the
+    memory) one grouped GEMM over the layer's own weights, biases, small parts
+    and outputs, which the attention reads; the residual adds in place."""
+    b, t, t_mem = 2, 128, 64
+    pack = _pack(128, (256, 128), decoder)
+    res, memory = drive_stack(pack, decoder, b, t, t_mem)
+    names = [name for name, _ in recording.calls]
+    layer = ['pccf_layer_norm', 'pccf_gemm', 'pccf_attention', 'pccf_gemm']
+    if decoder:
+        layer += ['pccf_layer_norm', 'pccf_gemm', 'pccf_gemm', 'pccf_attention', 'pccf_gemm']
+    layer += ['pccf_layer_norm', 'pccf_gemm', 'pccf_gemm']
+    assert len(layer) == (12 if decoder else 7)
+    assert names == ['pccf_tf32_split'] + layer * len(pack)
+
+    _, (srcs, dsts, sizes, count, _) = recording.calls[0]
+    weights = wformer.stack_weights(pack)
+    assert srcs == [w.data_ptr() for w in weights] and sizes == [w.numel() for w in weights]
+    assert count == len(weights)
+    assert all((dst - dsts[0]) % 256 == 0 for dst in dsts)
+    small = dict(zip(srcs, dsts))
+    m, d = b * t, 128
+    calls = iter(recording.calls[1:])
+    for p in pack:
+        def gemm(prefix, names, a_rows, res_ptr=None, gelu=0, src=None):
+            name, (a, groups, ops, res_arg, mm, n, k, res_rows, gelu_arg, _) = next(calls)
+            wts, smalls, biases, outs = (ops[i * groups: (i + 1) * groups] for i in range(4))
+            want = [p[f'w{prefix}{x}'] for x in names]
+            assert name == 'pccf_gemm' and groups == len(names) and (mm, n, k) == (a_rows, *want[0].shape)
+            assert wts == [w.data_ptr() for w in want] and smalls == [small[w.data_ptr()] for w in want]
+            assert biases == [p[f'b{prefix}{x}'].data_ptr() for x in names] and len(set(outs)) == groups
+            assert (res_arg, gelu_arg, res_rows) == (res_ptr, gelu, mm)
+            if src is not None:
+                assert a == src
+            return outs
+
+        def attention(q, kv, t_k):
+            name, (qp, qs, kp, vp, kvs, _, outs, batch, t_q, tk, heads, hd, _) = next(calls)
+            assert name == 'pccf_attention' and (qp, kp, vp) == (q, *kv) and (qs, kvs, outs) == (d, d, d)
+            assert (batch, t_q, tk, heads, hd) == (b, t, t_k, 2, 64)
+
+        def norm():
+            assert next(calls)[0] == 'pccf_layer_norm'
+
+        norm()
+        q, k, v = gemm('', 'qkv', m)
+        attention(q, (k, v), t)
+        gemm('', 'o', m, res.data_ptr())
+        if decoder:
+            norm()
+            (xq,) = gemm('x', 'q', m)
+            xk, xv = gemm('x', 'kv', b * t_mem, src=memory.data_ptr())
+            attention(xq, (xk, xv), t_mem)
+            gemm('x', 'o', m, res.data_ptr())
+        norm()
+        (f,) = gemm('', '1', m, gelu=1)
+        name, args = next(calls)
+        assert name == 'pccf_gemm' and args[0] == f and args[2][3] == args[3] == res.data_ptr()
+
+
+def test_stacks_split_each_weight_once(recording):
+    """``Stacks`` splits a weight's small part the first time a GEMM reads it
+    (the new ones of a grouped launch together, in one launch), reuses it
+    after, and splits none of the parts it was given."""
+    a, out = torch.zeros(64, 64), torch.zeros(64, 64)
+    w1, w2, w3 = (torch.full((64, 64), float(i)) for i in (1, 2, 3))
+    given = torch.zeros(64, 64)
+    stacks = wformer.Stacks(1, 64, 64, torch.device('cpu'), {w3.data_ptr(): given})
+    stacks.gemm(a, [w1], [None], [out])
+    stacks.gemm(a, [w1], [None], [out])
+    stacks.gemm(a, [w1, w2, w3], [None] * 3, [out, torch.zeros(64, 64), torch.zeros(64, 64)])
+    splits = [args for name, args in recording.calls if name == 'pccf_tf32_split']
+    assert [srcs for srcs, *_ in splits] == [[w1.data_ptr()], [w2.data_ptr()]]
+    gemms = [args for name, args in recording.calls if name == 'pccf_gemm']
+    assert len(gemms) == 3 and gemms[2][2][3:6] == [stacks.small[w1.data_ptr()].data_ptr(),
+                                                   stacks.small[w2.data_ptr()].data_ptr(), given.data_ptr()]
+
+
+def test_cvae_pack_snapshot_owns_its_stack_weights(recording, monkeypatch):
+    """The CVAE chain's operands are a snapshot: the stacks' layers are
+    copies, split once with the folds when the snapshot is made, so a live
+    weight changed in place changes neither a matrix the chain reads nor its
+    small part; a chain call splits nothing and reads the snapshot's
+    matrices and small parts."""
+    from pccf_torch.kernels import _build, cvae
+    from pccf_torch.models.w_autoencoders import WAutoEncoder as TWAE
+    from pccf_torch.nn import w_networks as tw
+    from pccf_torch.nn.layers import gelu_exact as tgelu
+
+    torch.manual_seed(0)
+    wae = TWAE(encoder=tw.TransformerWEncoder(E, Z1, T, D, H, (256, 128), tgelu),
+               decoder=tw.TransformerWDecoder(E, Z1, Z2, T, D, H, (128, 256), tgelu),
+               z2_prior=tw.ConditionalPrior(C, T, Z2),
+               z2_posterior=tw.TransformerWConditionalEncoder(E, C, Z2, T, D, H, (192,), tgelu),
+               n_codes=T, embedding_dim=E, z1_dim=Z1, z2_dim=Z2, n_classes=C).eval()
+    pack = cvae.pack_cvae_cf(wae)
+    w = pack.cuda_operands()
+    (split,) = recording.calls
+    weights = w['weights']
+    assert split[0] == 'pccf_tf32_split' and split[1][0] == [x.data_ptr() for x in weights]
+    n_enc, n_dec = len(pack.enc1) + len(pack.enc2), len(pack.dec)
+    assert set(w['small']) == {x.data_ptr() for x in weights} and len(weights) == 5 + 6 * n_enc + 10 * n_dec
+    live = {v.untyped_storage().data_ptr() for v in wformer.stack_weights(pack.enc1 + pack.enc2 + pack.dec)}
+    assert not live & {x.untyped_storage().data_ptr() for x in weights}
+    query = wae.encoder.layers[0].attn_0.query.weight
+    before = w['enc1'][0]['wq'].clone()
+    with torch.no_grad():
+        query.add_(1.0)
+    assert torch.equal(pack.enc1[0]['wq'], query) and torch.equal(w['enc1'][0]['wq'], before)
+
+    monkeypatch.setattr(_build, 'require', lambda *args, **kwargs: None)
+    recording.calls.clear()
+    cvae.cvae_cf_cuda(torch.zeros(2, T, E), torch.full((2, C), 1.0 / C), pack)
+    names = [name for name, _ in recording.calls]
+    assert 'pccf_tf32_split' not in names and names.count('pccf_gemm') == 5 + 4 * n_enc + 7 * n_dec
+    small = {x.data_ptr(): w['small'][x.data_ptr()].data_ptr() for x in weights}
+    for name, args in recording.calls:
+        if name == 'pccf_gemm':
+            groups, ops = args[1], args[2]
+            assert [small[p] for p in ops[:groups]] == ops[groups: 2 * groups]
 
 
 # ---------------------------------------------------------------- dropout
