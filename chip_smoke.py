@@ -33,6 +33,11 @@ filtering on):
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after).
 
+kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8 and
+at stage 2's 32; at batch 1 the kernel splits each cloud's candidates across
+blocks (its lists held equal to the unsplit ones); the fused PCGen at batch 1
+and 16.
+
 Before the kernel table it prints a line for every shape at which the
 stacks' device kernels run (``pccf_gemm`` and ``pccf_attention``, recorded
 from the W-encoder, W-decoder and the batch-16 and batch-1 CVAE chains):
@@ -83,8 +88,16 @@ MAX_CALLS = 500  # back-to-back calls of one sample at most
 SPIN_CYCLES_PER_MS = 2e6  # the spin kernel's clock cycles per ms (SM clock at most ~2 GHz)
 
 # tolerances, each with its reason
-KNN_SET_AGREEMENT = 0.999  # fp32 distances in another order: near-ties at the k-th slot may swap
-PCGEN_REL_L2 = 1e-2  # the kernel rounds weights to bf16 (as the TPU kernel does), activations TF32
+# distances in 3xTF32 (C > 16) or fp32 FMA, summed in another order than the
+# plain version's: near-ties at the k-th slot may swap
+KNN_SET_AGREEMENT = 0.999
+# the kernel rounds the component weights and their products' inputs to fp16
+# (the join, h before each later layer; the layer-0 residual reads the fp16
+# join) where the TPU kernel rounds to bf16, sums in fp32.  It reads ~3e-4;
+# 1e-2 is the bound every PCGen kernel of the port has met, bf16 included
+# (~4e-3).  RECON_REL_L2 is the check that bf16 failed, and the card tests
+# hold the kernel to fp16's precision (2e-3)
+PCGEN_REL_L2 = 1e-2
 CVAE_REL_L2 = 1e-3  # 3xTF32 products: about fp32 rounding, through 8 transformer layers
 CODE_AGREEMENT = 0.99  # VQ argmin on card vs CPU
 # the stacks' GEMM against the float64 product and epilogue: 3xTF32 drops the
@@ -92,7 +105,7 @@ CODE_AGREEMENT = 0.99  # VQ argmin on card vs CPU
 # k tile and the tiles add in fp32; one TF32 product alone misses by ~3e-4
 GEMM_REL_L2 = 5e-6
 ATTENTION_REL_L2 = 1e-5  # the same products, and the online softmax rescales its fp32 sums
-RECON_REL_L2 = 1e-2  # the decode runs the bf16-weight PCGen kernel on the card
+RECON_REL_L2 = 1e-2  # the decode runs the fp16 PCGen kernel on the card
 BATCH_INVARIANCE = 1e-4  # rel. max difference of a request alone vs inside a batch
 SCATTER_REL_MAX = 1e-5  # fp32 atomics add in an order that changes from run to run; |diff| / max |plain|
 SUM_POOL_REL_MAX = 1e-5  # the kernel adds the k rows in slot order, the plain reduction in its own
@@ -359,13 +372,15 @@ def main() -> int:
     with torch.inference_mode():
         # every (C, k) the main path gives kNN: the encoder's k=25 and the
         # classifier's k=20 at C = 3, 64, 128 (C=64 twice per model), and
-        # graph filtering's k=4 on the decoded cloud; at serving's batch 16
-        # and at stage 2's 32, the derived dataset's chunk
+        # graph filtering's k=4 on the decoded cloud; at serving's batch 1, 5
+        # and 16 (the candidate split acts at 1), at stage 1's 8 and at stage
+        # 2's 32, the derived dataset's chunk; a split batch must get the
+        # neighbours it gets with the candidates unsplit.
         # no single PyTorch call computes kNN indices (cdist, then topk) or a
         # max over gathered rows (indexing, then amax): library_ms is null
         batches = (b, cfg.w_autoencoder.train.batch_size)
         knn_errs, knn_ms = [], {}
-        for bb in batches:
+        for bb in (1, 5, TRAIN_BATCH, *batches):
             for c in (3, 64, 128):
                 for k in (25, 20, 4) if c == 3 else (25, 20):
                     x = torch.from_numpy(rng.standard_normal((bb, n, c)).astype(np.float32)).to(dev)
@@ -374,14 +389,24 @@ def main() -> int:
                     agree, err = knn_check(x, k, got, want)
                     knn_errs.append(err)
                     self_first = bool((got[..., 0] == torch.arange(n, device=dev)).float().mean() > 0.999)
+                    splits = knn.splits(bb, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+                    unsplit = splits == 1 or torch.equal(got, knn.knn_cuda(x, k, n_splits=1))
                     row = knn_ms[bb, c, k] = (time_ms(lambda: knn.knn_cuda(x, k), REPS),
                                               time_ms(lambda: knn.plain(x, k), REPS), bound(roofline.knn_work(x, k)))
-                    check(agree >= KNN_SET_AGREEMENT and self_first,
-                          f'knn B={bb} C={c} k={k}: neighbour-set agreement {agree:.6f}, self first, max |kth-distance '
-                          f'diff| {err:.2e}; {row[0]:.3f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms)')
+                    # knn.splits' choice beside half and twice as many splits
+                    others = {s: time_ms(lambda: knn.knn_cuda(x, k, n_splits=s), REPS)
+                              for s in (splits // 2, 2 * splits) if 1 <= s <= min(knn.MAX_SPLITS, -(-n // knn.TILE))}
+                    check(agree >= KNN_SET_AGREEMENT and self_first and unsplit,
+                          f'knn B={bb} C={c} k={k}, {splits} split(s): neighbour-set agreement {agree:.6f}, self '
+                          f'first, max |kth-distance diff| {err:.2e}, equal to the unsplit lists {unsplit}; '
+                          f'{row[0]:.4f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms, '
+                          f'{row[2]["bound_by"]}); '
+                          + ', '.join(f'{v:.4f} ms in {s} splits' for s, v in others.items()))
         head = knn_ms[b, 128, 25]
         kernels['knn'] = {'max_abs_err': max(knn_errs), 'ms': head[0], 'plain_ms': head[1], **head[2],
                           'library_ms': None, 'shape': '(16, 2048, 128) k=25'}
+        print('knn ms by (B, C, k): ' + json.dumps({f'{bb},{c},{k}': round(v[0], 4) for (bb, c, k), v in
+                                                    knn_ms.items()}), flush=True)
 
         # every (F, k) the main path gives max-pool: F = 64, 128, 256 at the
         # encoder's k=25 and the classifier's k=20, at both batches
@@ -402,19 +427,26 @@ def main() -> int:
         kernels['graph_max_pool'] = {'max_abs_err': max(pool_errs), 'ms': head[0], 'plain_ms': head[1], **head[2],
                                      'library_ms': None, 'shape': '(16, 2048, 256) k=25'}
 
+        # the fused PCGen at serving's batch 1 and 16 (the headline)
         dec = vqvae.decoder
         pack = dec.pack()
-        m = torch.relu(torch.from_numpy(rng.standard_normal((b, n, 64)).astype(np.float32))).to(dev)
-        w = torch.from_numpy(rng.standard_normal((b, cfg.autoencoder.w_dim)).astype(np.float32)).to(dev)
-        run_k = lambda: pcgen.pcgen_mix_cuda(m, w, pack, tau=dec.tau, act_slope=0.0)  # noqa: E731
-        run_p = lambda: pcgen.plain(m, w, pack, tau=dec.tau, act_slope=0.0)  # noqa: E731
-        got, want = run_k(), run_p()
-        r = rel_l2(got, want)
-        check(r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()), f'pcgen_mix: rel L2 {r:.3e} <= {PCGEN_REL_L2}')
+        pcgen_errs, pcgen_rows = [], {}
+        for bb in (1, b):
+            m = torch.relu(torch.from_numpy(rng.standard_normal((bb, n, 64)).astype(np.float32))).to(dev)
+            w = torch.from_numpy(rng.standard_normal((bb, cfg.autoencoder.w_dim)).astype(np.float32)).to(dev)
+            run_k = functools.partial(pcgen.pcgen_mix_cuda, m, w, pack, tau=dec.tau, act_slope=0.0)
+            run_p = functools.partial(pcgen.plain, m, w, pack, tau=dec.tau, act_slope=0.0)
+            got, want = run_k(), run_p()
+            r = rel_l2(got, want)
+            pcgen_errs.append(float((got - want).abs().max()))
+            work = roofline.pcgen_work(m, w, pack)
+            row = pcgen_rows[bb] = {'rel_l2': r, 'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
+                                    **bound(work)}
+            check(r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'pcgen_mix B={bb}: rel L2 {r:.3e} <= {PCGEN_REL_L2}; {row["ms"]:.4f} ms (plain '
+                  f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms, {row["bound_by"]})')
         # the chain and the fused PCGen have no single PyTorch call either
-        kernels['pcgen_mix'] = {'max_abs_err': float((got - want).abs().max()), 'rel_l2': r,
-                                'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
-                                **bound(roofline.pcgen_work(m, w, pack)), 'library_ms': None,
+        kernels['pcgen_mix'] = {'max_abs_err': max(pcgen_errs), **pcgen_rows[b], 'library_ms': None,
                                 'shape': '(16, 2048, 64) -> (16, 2048, 3), G=8, 1024-1024-256-16'}
 
         wae = vqvae.w_autoencoder

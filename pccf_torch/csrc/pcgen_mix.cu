@@ -11,290 +11,512 @@
 // with BatchNorm folded into W and b by the wrapper.
 //
 // What bounds it: ~0.69 TFLOP per batch of 16 clouds of 2048 points at the
-// flagship widths (D0 = D1 = 1024, D2 = 256, D3 = 16, G = 8), and the
-// (G, B, N, 1024) first-layer activations, which an unfused version writes to
-// and reads back from device memory (1 GB per batch).  Here nothing but the
-// (B, N, 3) result leaves the chip; the weights (21 MB in bf16) are re-read
-// from L2 by every block, 32 rows of points per read.
+// flagship widths (D0 = D1 = 1024, D2 = 256, D3 = 16, G = 8) against the
+// fp16 tensor-core peak (the bf16 one), and the component weights (21 MB in
+// fp16), which every block of 64 points reads from L2: 10.8 GB per batch of
+// 16.  Nothing but the (B, N, 3) result leaves the chip.
 //
-// Design: a block owns 32 points of one cloud and 8 warps.  The joined
-// latent x stays in shared memory in fp32 for the whole block.  Layers 0 and
-// 1 are fused: layer 0 is produced 256 columns at a time, activated, given
-// its interleaved residual, parked in shared memory, and immediately
-// multiplied into layer 1's accumulators, which live in registers; the first
-// chunk's values are also kept in registers as layer 1's residual.  So the
-// 1024-wide layer-0 activation never exists whole.  Layer 2 and the
-// per-component features follow in shared memory; the heads, the attention
-// logits and the softmax mix run in fp32 on the CUDA cores at the end.
+// Design: a block owns 64 points of one cloud (rows past N are zero and not
+// stored), one wgmma row tile.  The joined latent x stays in shared memory in
+// fp16 (128 KB at D0 = 1024) as the A operand of layer 0.  One producer warp
+// streams every weight tile the block needs, in the order the consumers use
+// them, by TMA into a ring of mbarrier stages (D2 rows x 64 columns of fp16,
+// 128-byte swizzled).  Two consumer warpgroups split every product's columns
+// and issue wgmma.m64nNk16 on fp16 with A and B from shared memory.  Layer 0
+// is produced D2 columns at a time (the chunk), activated, given its
+// residual, written to shared memory in fp16 and multiplied at once into
+// layer 1's accumulators, which stay in registers; the chunks run last to
+// first, so the last one written to shared memory is h0[:, :D2], layer 1's
+// residual.  Layer 2 (n16) runs on warpgroup 0, which hands h2 to two mix
+// warps of the producer warpgroup through shared memory: they keep each
+// point's head outputs and mix logits (fp32, on the CUDA cores) across the
+// components and end the block with the tempered-softmax mix.
 //
-// Precision: weights are rounded to bf16 by the wrapper (as in the TPU
-// kernel), activations enter the tensor cores as TF32 (10-bit mantissa, finer
-// than the TPU kernel's bf16), accumulation and the residual stream are
-// fp32.  State: the map head, heads and mix are full fp32.
+// Registers: each consumer thread holds two accumulator sets, 128 registers at
+// D2 = 256, through layer 0; everything else is kept out of them (the mix
+// state in the mix warps, the residual in shared memory but for the 16 columns
+// that reach the output, the first k step of a product writing its
+// accumulators without reading them), so that nothing spills to local memory,
+// which with 227 KB of shared memory in use has almost no L1 left and goes to
+// L2.  setmaxnreg moves registers from the producer warpgroup to the consumers.
+//
+// Precision: the TPU kernel rounds the weights and every product's input to
+// bf16 (pallas_pcgen.py:110, :121, :124, :126).  Here they are rounded to
+// fp16, whose 10-bit mantissa is TF32's, in the same places for the three
+// component layers (the join x, h before each later layer; the layer-0
+// residual reads the fp16 join, layer 1's reads h0 in fp16 but for the 16
+// columns that reach h2), and the heads and the mix logits are fp32 on the
+// CUDA cores: with bf16 everywhere the decode missed the CPU's by more than
+// chip_smoke.py's RECON_REL_L2 allows (on an H100; PERF.md).  fp16 has bf16's
+// speed on the tensor cores and half TF32's shared memory, but not bf16's
+// range: a value past 65504 becomes inf.  The wrapper refuses folded weights
+// past it; whether trained weights keep the activations inside it has not
+// been measured (every run so far used random weights).  Values below fp16's
+// normal range (6.1e-5) keep an absolute error under 2^-25.
+// Accumulation, the residual stream, the softmax and the mix are fp32; the
+// map head is fp32 on the CUDA cores.
 
+#include <cuda.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace pccf;
 
-constexpr int kRows = 32;      // points per block
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 256;    // layer-0 columns produced per pass (8 warps x 32)
-constexpr int kPad = 16;       // row padding: strides = 16 (mod 32) words
-constexpr int kMaxG = 16;
+constexpr int kRows = 64;  // points per block
+constexpr int kConsumers = 2;
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup (one lane issues the copies)
+// setmaxnreg: the registers a block holds, 384 threads x 168, shared out as
+// 128 x 56 (producer warpgroup) + 256 x 224 (consumers) = 64512; a request
+// beyond the block's pool would wait forever
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kTileBytes = kRows * 128;          // one 64 x 64 fp16 operand tile
+constexpr int kMaxD0 = 1024, kD3 = 16, kMaxDm = 64, kMaxG = 8, kMaxStages = 4;
+constexpr int kSmemMax = 232448;
+// the mix warps: the producer warpgroup's second and third, a point a thread
+constexpr int kMixWarp0 = kConsumerThreads / 32 + 1;
+constexpr int kMixSync = 128 + kRows;                 // warpgroup 0 and the mix warps
+// named barriers (0 is __syncthreads): the consumer warpgroups; h2 written
+// for the mix warps; h2 read by them
+constexpr int kBarConsumers = 1, kBarMixFull = 2, kBarMixEmpty = 3;
 
 __device__ __forceinline__ float act(float v, float slope) { return v >= 0.f ? v : slope * v; }
 
-// B fragments of one 16-wide k block from a bf16 (out, in) weight: row n,
-// columns k0 + 4t .. 4t+3, as the two k steps' (b0, b1) pairs.
-__device__ __forceinline__ uint2 load_b_bf16(const uint16_t* w, int in, int n, int k0, int lane) {
-  return __ldg(reinterpret_cast<const uint2*>(w + (size_t)n * in + k0 + 4 * (lane & 3)));
+template <bool kValue>
+struct Flag {
+  static constexpr bool value = kValue;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void b_frag_bf16(const uint2& v, int s, uint32_t (&b)[2]) {
-  const uint32_t word = s ? v.y : v.x;
-  b[0] = word << 16;
-  b[1] = word & 0xffff0000u;
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// acc[mt][nt] += A[rows 0..31, k] · B[k, cols n0 + 8 nt .. ], over k in [0, K)
-// A: fp32 shared tile (stride lda); B: bf16 (out, in) global weight rows.
-template <int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[2][NT][4], const float* a_tile, int lda,
-                                          const uint16_t* w, int in, int k_off, int n0, int K, int lane) {
-  const int g = lane >> 2;
-  uint2 bcur[NT], bnext[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) bcur[nt] = load_b_bf16(w, in, n0 + nt * 8 + g, k_off, lane);
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    if (k0 + 16 < K) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) bnext[nt] = load_b_bf16(w, in, n0 + nt * 8 + g, k_off + k0 + 16, lane);
-    }
-    float4 top[2], bot[2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) load_a_k16(a_tile, lda, mt * 16, k0, lane, top[mt], bot[mt]);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) a_frag(top[mt], bot[mt], s, a[mt]);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b[2];
-        b_frag_bf16(bcur[nt], s, b);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_tf32(acc[mt][nt], a[mt], b);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) bcur[nt] = bnext[nt];
-  }
+// byte offset of fp16 element (r, c) of a 64-row operand held as tiles of 64
+// columns, 128-byte swizzled as TMA writes and wgmma reads them
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return (uint32_t)((c >> 6) * kTileBytes + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1));
 }
 
-struct Params {
-  const float* m;       // (B, N, Dm)
-  const float* w;       // (B, D0)
-  const float* map_wt;  // (Dm, D0)
-  const float* map_b;   // (D0)
-  const uint16_t* w0;   // (G, D1, D0) bf16
-  const float* b0;      // (G, D1)
-  const uint16_t* w1;   // (G, D2, D1) bf16
-  const float* b1;      // (G, D2)
-  const uint16_t* w2;   // (G, D3, D2) bf16
-  const float* b2;      // (G, D3)
-  const float* head_w;  // (G, 3, D3)
-  const float* head_b;  // (G, 3)
-  const float* att_w;   // (G, G * D3)
-  const float* att_b;   // (G)
-  float* out;           // (B, N, 3)
-  int n, dm, d0, d1, d2, d3, g_count;
+struct Args {
+  CUtensorMap w0, w1, w2;  // fp16 (G * D1, D0), (G * D2, D1), (G * D3, D2), boxes of 64 columns
+  const float* m;          // (B, N, Dm)
+  const float* w;          // (B, D0)
+  const float* map_wt;     // (Dm, D0)
+  const float* map_b;      // (D0)
+  const float* b0;         // (G, D1)
+  const float* b1;         // (G, D2)
+  const float* b2;         // (G, D3)
+  const float* head_w;     // (G, 3, D3)
+  const float* head_b;     // (G, 3)
+  const float* att_w;      // (G, G * D3)
+  const float* att_b;      // (G)
+  float* out;              // (B, N, 3)
+  int n, dm, d0, d1, g_count, stages;
   float inv_tau, slope;
 };
 
-__global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int lda_x = p.d0 + kPad;
-  const int lda_c = kChunk + kPad;
-  const int lda_1 = p.d2 + kPad;
-  float* xs = smem;                       // [32][d0 + pad]   joined latent
-  float* h0c = xs + kRows * lda_x;        // [32][256 + pad]  layer-0 chunk (map input first)
-  float* h1s = h0c + kRows * lda_c;       // [32][d2 + pad]   layer-1 output
-  float* feats = h1s + kRows * lda_1;     // [G][32][d3]      layer-2 output per component
+// the producer's and the consumers' walk over the ring: use u of stage u % S
+struct Ring {
+  uint8_t* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, stage_bytes, use = 0;
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const long long row0 = (long long)blockIdx.x * kRows;  // flattened b * n + i
-  const int b = (int)(row0 / p.n);
+// consumer side: wait for the next stage, return it
+__device__ __forceinline__ uint8_t* ring_wait(Ring& ring) {
+  const int s = ring.use % ring.stages;
+  mbar_wait(&ring.full[s], (ring.use / ring.stages) & 1);
+  return ring.base + s * ring.stage_bytes;
+}
 
-  // ---- map head + join: xs = w ⊙ hardtanh(m · map_w + map_b) -------------
-  float* ms = h0c;  // [32][dm] staged map input (dm <= 256 + pad)
-  for (int e = tid; e < kRows * p.dm; e += kThreads) ms[e] = p.m[row0 * p.dm + e];
-  __syncthreads();
-  for (int j = tid; j < p.d0; j += kThreads) {
-    float acc[kRows];
+// consumer side: this warp is done with the stage
+__device__ __forceinline__ void ring_release(Ring& ring, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&ring.empty[ring.use % ring.stages]);
+  ++ring.use;
+}
+
+// producer side: claim the next stage for `bytes` of TMA, return its index
+__device__ __forceinline__ int ring_claim(Ring& ring, uint32_t bytes) {
+  const int s = ring.use % ring.stages;
+  if (ring.use >= ring.stages) mbar_wait(&ring.empty[s], ((ring.use / ring.stages) + 1) & 1);
+  mbar_expect_tx(&ring.full[s], bytes);
+  ++ring.use;
+  return s;
+}
+
+// acc (+)= A tile · B stage over one k tile of 64.  The first k tile of a
+// product writes acc without reading it, so the compiler keeps no old values
+// of acc alive up to it; the callers make that choice at compile time
+template <bool kFirst, int kN>
+__device__ __forceinline__ void mma_k64(float (&acc)[kN], const uint8_t* a_tile, const uint8_t* b_tile) {
+  const uint64_t da = desc_sw128(a_tile), db = desc_sw128(b_tile);
+  if (kFirst)
+    wgmma_ss_f16_first(acc, da, db);
+  else
+    wgmma_ss_f16(acc, da, db);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int kk = 0; kk < p.dm; ++kk) {
-      const float wv = __ldg(p.map_wt + (size_t)kk * p.d0 + j);
+  for (int s = 1; s < 4; ++s) wgmma_ss_f16(acc, da + 2 * s, db + 2 * s);
+}
+
+template <int kN>
+__device__ __forceinline__ void mma_done(float (&acc)[kN]) {
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_operands(acc);
+}
+
+// one k tile of a product from the next ring stage (B at `offset` in it)
+template <bool kFirst, int kN>
+__device__ __forceinline__ void ring_mma(float (&acc)[kN], Ring& ring, const uint8_t* a_tile, int offset, int lane) {
+  const uint8_t* st = ring_wait(ring);
+  wgmma_fence();
+  mma_k64<kFirst>(acc, a_tile, st + offset);
+  mma_done(acc);
+  ring_release(ring, lane);
+}
+
+// the consumer warpgroups: the three component layers.  After each
+// component, warpgroup 0 leaves h2 (64 x 16, fp32) at the start of hs for the
+// mix warps (mix below) and waits for them to have read it before hs is
+// written again.
+template <int kD2>
+__device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_t* hs, Ring& ring, int n_chunks,
+                                        int warp, int lane) {
+  constexpr int kNw = kD2 / 2;   // columns of a product per warpgroup
+  constexpr int kAcc = kNw / 2;  // accumulator registers per thread
+  const int d0 = p.d0, d1 = p.d1, G = p.g_count;
+  // warpgroup wg owns columns wg * kNw .. + kNw of each product
+  const int wg = warp >> 2, r0 = (warp & 3) * 16 + (lane >> 2), t = lane & 3;
+  const int reps0 = d1 / d0 + 1;  // interleave(x, D1): column j <- x[j / reps0]
+  float acc0[kAcc], acc1[kAcc], acc2[8];
+  // h0[:, :16] of the last chunk in fp32 (warpgroup 0): the residual of the
+  // columns of h1 that reach the output through h2; the rest of h1's residual
+  // reads h0 from hs in fp16, as layer 2 reads h1
+  float res16[8];
+  float* h2s = reinterpret_cast<float*>(hs);  // [64][16] h2 for the mix warps
+
+  // one chunk of layer 0, its epilogue and its share of layer 1; the last
+  // chunk (h0[:, :D2]) also keeps h0[:, :16] in fp32
+  auto chunk = [&](int g, int ch, auto last) {
+    // layer 0, columns ch * D2 + wg * kNw .. + kNw
+    ring_mma<true>(acc0, ring, xs, wg * kNw * 128, lane);
+    for (int kt = 1; kt < d0 / 64; ++kt)
+      ring_mma<false>(acc0, ring, xs + kt * kTileBytes, wg * kNw * 128, lane);
+    if (g > 0 && ch == n_chunks - 1 && wg == 0) bar_sync(kBarMixEmpty, kMixSync);  // the mix warps hold h2
+    bar_sync(kBarConsumers, kConsumerThreads);  // both warpgroups are done reading hs
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(ms[r * p.dm + kk], wv, acc[r]);
+    for (int j = 0; j < kNw / 8; ++j) {
+      const int c = wg * kNw + 8 * j + 2 * t, col = ch * kD2 + c;
+      // __ldg: read-only loads the compiler may issue ahead of the stores to hs
+      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.b0 + (size_t)g * d1 + col));
+      const int src0 = reps0 == 2 ? col >> 1 : col / reps0, src1 = reps0 == 2 ? src0 : (col + 1) / reps0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const float v0 = act(acc0[4 * j + 2 * h] + bias.x, p.slope) +
+                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src0)));
+        const float v1 = act(acc0[4 * j + 2 * h + 1] + bias.y, p.slope) +
+                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src1)));
+        if (decltype(last)::value && j < 2) {
+          res16[4 * j + 2 * h] = v0;
+          res16[4 * j + 2 * h + 1] = v1;
+        }
+        *reinterpret_cast<__half2*>(hs + sw_off(r, c)) = __floats2half2_rn(v0, v1);
+      }
     }
-    const float bias = p.map_b[j], scale = p.w[(size_t)b * p.d0 + j];
+    fence_proxy_async();
+    bar_sync(kBarConsumers, kConsumerThreads);
+    // layer 1, partial sums over this chunk's D2 inputs
+    if (ch == n_chunks - 1)
+      ring_mma<true>(acc1, ring, hs, wg * kNw * 128, lane);
+    else
+      ring_mma<false>(acc1, ring, hs, wg * kNw * 128, lane);
+    for (int kt = 1; kt < kD2 / 64; ++kt)
+      ring_mma<false>(acc1, ring, hs + kt * kTileBytes, wg * kNw * 128, lane);
+  };
+
+  for (int g = 0; g < G; ++g) {
+    for (int ch = n_chunks - 1; ch > 0; --ch) chunk(g, ch, Flag<false>());
+    chunk(g, 0, Flag<true>());
+
+    // layer-1 epilogue: h1 = act(acc1 + b1) + h0[:, :D2], in place in hs
+    bar_sync(kBarConsumers, kConsumerThreads);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) xs[r * lda_x + j] = scale * fminf(fmaxf(acc[r] + bias, -1.f), 1.f);
+    for (int j = 0; j < kNw / 8; ++j) {
+      const int c = wg * kNw + 8 * j + 2 * t;
+      const float2 bias = __ldg(reinterpret_cast<const float2*>(p.b1 + (size_t)g * kD2 + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __half2* at = reinterpret_cast<__half2*>(hs + sw_off(r0 + 8 * h, c));
+        const float2 h0 = (wg == 0 && j < 2) ? make_float2(res16[4 * j + 2 * h], res16[4 * j + 2 * h + 1])
+                                             : __half22float2(*at);
+        const float v0 = act(acc1[4 * j + 2 * h] + bias.x, p.slope) + h0.x;
+        const float v1 = act(acc1[4 * j + 2 * h + 1] + bias.y, p.slope) + h0.y;
+        if (j < 2) {  // h1[:, :16] in fp32 for h2's residual (warpgroup 0)
+          res16[4 * j + 2 * h] = v0;
+          res16[4 * j + 2 * h + 1] = v1;
+        }
+        *at = __floats2half2_rn(v0, v1);
+      }
+    }
+    fence_proxy_async();
+    bar_sync(kBarConsumers, kConsumerThreads);
+
+    // layer 2 on warpgroup 0: h2 = act(h1 · W2[g]ᵀ + b2) + h1[:, :16]
+    const uint8_t* st = ring_wait(ring);
+    if (wg == 0) {
+      wgmma_fence();
+      mma_k64<true>(acc2, hs, st);
+#pragma unroll
+      for (int kt = 1; kt < kD2 / 64; ++kt) mma_k64<false>(acc2, hs + kt * kTileBytes, st + kt * kD3 * 128);
+      mma_done(acc2);
+    }
+    ring_release(ring, lane);
+    if (wg == 0) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * jj + 2 * h, col = 8 * jj + 2 * t;
+          const float2 bias = __ldg(reinterpret_cast<const float2*>(p.b2 + g * kD3 + col));
+          *reinterpret_cast<float2*>(h2s + (r0 + 8 * h) * kD3 + col) =
+              make_float2(act(acc2[i] + bias.x, p.slope) + res16[i], act(acc2[i + 1] + bias.y, p.slope) + res16[i + 1]);
+        }
+      bar_arrive(kBarMixFull, kMixSync);
+    }
+  }
+}
+
+// h · w over 16 values, w read-only in global memory
+__device__ __forceinline__ float dot16(const float4 (&h)[kD3 / 4], const float* w) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kD3 / 4; ++j) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(w + 4 * j));
+    s = fmaf(h[j].x, v.x, fmaf(h[j].y, v.y, fmaf(h[j].z, v.z, fmaf(h[j].w, v.w, s))));
+  }
+  return s;
+}
+
+// the mix warps: one point each.  Per component, the point's h2 from hs gives
+// its head output and its share of every mix logit (fp32, on the CUDA cores);
+// after the last, the tempered softmax over the logits mixes the heads.
+__device__ __forceinline__ void mix(const Args& p, const uint8_t* hs, int point) {
+  const int G = p.g_count;
+  const float* h2s = reinterpret_cast<const float*>(hs);
+  float logit[kMaxG], comp[kMaxG][3];
+#pragma unroll
+  for (int q = 0; q < kMaxG; ++q) {
+    logit[q] = q < G ? __ldg(p.att_b + q) : -INFINITY;
+    comp[q][0] = comp[q][1] = comp[q][2] = 0.f;
+  }
+  for (int g = 0; g < G; ++g) {
+    float4 h2[kD3 / 4];
+    bar_sync(kBarMixFull, kMixSync);
+#pragma unroll
+    for (int j = 0; j < kD3 / 4; ++j) h2[j] = *reinterpret_cast<const float4*>(h2s + point * kD3 + 4 * j);
+    if (g + 1 < G) bar_arrive(kBarMixEmpty, kMixSync);
+#pragma unroll
+    for (int q = 0; q < kMaxG; ++q) {  // constant indices keep logit and comp in registers
+      if (q < G) logit[q] += dot16(h2, p.att_w + ((size_t)q * G + g) * kD3);
+      if (q == g)
+#pragma unroll
+        for (int o = 0; o < 3; ++o) comp[q][o] = __ldg(p.head_b + g * 3 + o) + dot16(h2, p.head_w + (g * 3 + o) * kD3);
+    }
+  }
+  float mx = -INFINITY;
+#pragma unroll
+  for (int q = 0; q < kMaxG; ++q) mx = fmaxf(mx, logit[q] * p.inv_tau);
+  float den = 0.f, o3[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int q = 0; q < kMaxG; ++q) {
+    if (q >= G) continue;
+    const float e = expf(logit[q] * p.inv_tau - mx);
+    den += e;
+#pragma unroll
+    for (int o = 0; o < 3; ++o) o3[o] = fmaf(e, comp[q][o], o3[o]);
+  }
+  const int b = blockIdx.y, r = blockIdx.x * kRows + point;
+  if (r < p.n) {
+    float* out = p.out + ((size_t)b * p.n + r) * 3;
+    out[0] = o3[0] / den;
+    out[1] = o3[1] / den;
+    out[2] = o3[2] / den;
+  }
+}
+
+template <int kD2>
+__global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_constant__ Args p) {
+  constexpr int kStageBytes = kD2 * 128;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xs = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* hs = xs + (p.d0 / 64) * kTileBytes;  // 64 x D2 fp16: a layer-0 chunk, then h1
+  uint8_t* ring_base = hs + (kD2 / 64) * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_base + p.stages * kStageBytes);
+  uint64_t* empty = full + kMaxStages;
+  Ring ring{ring_base, full, empty, p.stages, kStageBytes};
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.y, i0 = blockIdx.x * kRows;
+  const int n = p.n, d0 = p.d0, d1 = p.d1, G = p.g_count;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads / 32);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+
+  // ---- map head + join: xs = fp16(w ⊙ hardtanh(m · map_w + map_b)) --------
+  float* ms = reinterpret_cast<float*>(hs);  // [Dm][64] the map input, aliasing hs and the ring
+  for (int e = tid; e < kRows * p.dm; e += kThreads) {
+    const int r = e / p.dm, kk = e - r * p.dm;
+    ms[kk * kRows + r] = i0 + r < n ? p.m[((size_t)b * n + i0 + r) * p.dm + kk] : 0.f;
   }
   __syncthreads();
-
-  const int reps0 = p.d1 / p.d0 + 1;   // interleave_residual(x, d1): column j <- x[j / reps0]
-  const bool l1_warp = warp * 32 < p.d2;
-  const int l2_tiles = 2 * (p.d3 / 8);
-
-  for (int g = 0; g < p.g_count; ++g) {
-    const uint16_t* w0 = p.w0 + (size_t)g * p.d1 * p.d0;
-    const uint16_t* w1 = p.w1 + (size_t)g * p.d2 * p.d1;
-    const uint16_t* w2 = p.w2 + (size_t)g * p.d3 * p.d2;
-    float acc1[2][4][4], res1[2][4][4];
+  if (tid < kConsumerThreads) {
+    for (int j = tid; j < d0; j += kConsumerThreads) {
+      const float bias = p.map_b[j], scale = p.w[(size_t)b * d0 + j];
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float acc[32];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+        for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+        for (int kk = 0; kk < p.dm; ++kk) {
+          const float wv = __ldg(p.map_wt + (size_t)kk * d0 + j);
+          const float4* mr = reinterpret_cast<const float4*>(ms + kk * kRows + half * 32);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc1[mt][nt][i] = res1[mt][nt][i] = 0.f;
-
-    for (int c0 = 0; c0 < p.d1; c0 += kChunk) {
-      // layer 0, columns c0 + warp*32 .. +32 of this chunk
-      float acc0[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc0[mt][nt][i] = 0.f;
-      warp_gemm<4>(acc0, xs, lda_x, w0, p.d0, 0, c0 + warp * 32, p.d0, lane);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = mt * 16 + g8 + (i >> 1) * 8;
-            const int col = c0 + warp * 32 + nt * 8 + 2 * t4 + (i & 1);
-            const float h = act(acc0[mt][nt][i] + p.b0[(size_t)g * p.d1 + col], p.slope) +
-                            xs[r * lda_x + col / reps0];
-            if (c0 == 0) res1[mt][nt][i] = h;
-            h0c[r * lda_c + col - c0] = h;
+          for (int q = 0; q < 8; ++q) {
+            const float4 v = mr[q];
+            acc[4 * q] = fmaf(v.x, wv, acc[4 * q]);
+            acc[4 * q + 1] = fmaf(v.y, wv, acc[4 * q + 1]);
+            acc[4 * q + 2] = fmaf(v.z, wv, acc[4 * q + 2]);
+            acc[4 * q + 3] = fmaf(v.w, wv, acc[4 * q + 3]);
           }
-      __syncthreads();
-      // layer 1 partial sums over this chunk's 256 inputs
-      if (l1_warp) warp_gemm<4>(acc1, h0c, lda_c, w1, p.d1, c0, warp * 32, kChunk, lane);
-      __syncthreads();
-    }
-
-    // layer 1 epilogue: activation + residual h0[:, :d2] (chunk 0, same fragment slots)
-    if (l1_warp) {
+        }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = mt * 16 + g8 + (i >> 1) * 8;
-            const int col = warp * 32 + nt * 8 + 2 * t4 + (i & 1);
-            h1s[r * lda_1 + col] = act(acc1[mt][nt][i] + p.b1[(size_t)g * p.d2 + col], p.slope) + res1[mt][nt][i];
-          }
-    }
-    __syncthreads();
-
-    // layer 2: one 16x8 output tile per warp
-    if (warp < l2_tiles) {
-      const int mt = warp & 1, nt = warp >> 1;
-      float acc2[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int k0 = 0; k0 < p.d2; k0 += 16) {
-        float4 top, bot;
-        load_a_k16(h1s, lda_1, mt * 16, k0, lane, top, bot);
-        const uint2 bw = load_b_bf16(w2, p.d2, nt * 8 + g8, k0, lane);
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          uint32_t a[4], bb[2];
-          a_frag(top, bot, s, a);
-          b_frag_bf16(bw, s, bb);
-          mma_tf32(acc2, a, bb);
+        for (int r = 0; r < 32; ++r) {
+          const float x = scale * fminf(fmaxf(acc[r] + bias, -1.f), 1.f);
+          *reinterpret_cast<__half*>(xs + sw_off(half * 32 + r, j)) = __float2half_rn(x);
         }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = mt * 16 + g8 + (i >> 1) * 8;
-        const int col = nt * 8 + 2 * t4 + (i & 1);
-        feats[(g * kRows + r) * p.d3 + col] =
-            act(acc2[i] + p.b2[(size_t)g * p.d3 + col], p.slope) + h1s[r * lda_1 + col];
-      }
     }
   }
+  fence_proxy_async();  // xs is read by wgmma, the ms region rewritten by TMA
   __syncthreads();
 
-  // ---- heads, attention logits, tempered softmax, mix (fp32) -----------
-  if (tid < kRows) {
-    const int r = tid;
-    float logits[kMaxG], comp[kMaxG][3];
-    for (int gp = 0; gp < p.g_count; ++gp) logits[gp] = p.att_b[gp];
-    for (int g = 0; g < p.g_count; ++g) {
-      const float* f = feats + (g * kRows + r) * p.d3;
-      for (int o = 0; o < 3; ++o) {
-        float s = p.head_b[g * 3 + o];
-        for (int j = 0; j < p.d3; ++j) s = fmaf(f[j], p.head_w[(g * 3 + o) * p.d3 + j], s);
-        comp[g][o] = s;
+  const int n_chunks = d1 / kD2;
+  if (warp >= kConsumerThreads / 32) {
+    // ---- the producer: every weight tile, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kConsumerThreads / 32 && lane == 0) {
+      auto load = [&](int s, const CUtensorMap* map, int offset, int c0, int c1) {
+        tma_load_2d(ring_base + s * kStageBytes + offset, map, &full[s], c0, c1);
+      };
+      for (int g = 0; g < G; ++g) {
+        for (int ch = n_chunks - 1; ch >= 0; --ch) {
+          for (int kt = 0; kt < d0 / 64; ++kt)
+            load(ring_claim(ring, kStageBytes), &p.w0, 0, kt * 64, g * d1 + ch * kD2);
+          for (int kt = 0; kt < kD2 / 64; ++kt)
+            load(ring_claim(ring, kStageBytes), &p.w1, 0, ch * kD2 + kt * 64, g * kD2);
+        }
+        const int s = ring_claim(ring, (kD2 / 64) * kD3 * 128);
+        for (int kt = 0; kt < kD2 / 64; ++kt) load(s, &p.w2, kt * kD3 * 128, kt * 64, g * kD3);
       }
-      for (int gp = 0; gp < p.g_count; ++gp) {
-        const float* aw = p.att_w + (size_t)gp * p.g_count * p.d3 + g * p.d3;
-        float s = 0.f;
-        for (int j = 0; j < p.d3; ++j) s = fmaf(f[j], aw[j], s);
-        logits[gp] += s;
-      }
+    } else if (warp >= kMixWarp0 && warp < kMixWarp0 + kRows / 32) {
+      mix(p, hs, tid - kMixWarp0 * 32);
     }
-    float mx = -INFINITY;
-    for (int gp = 0; gp < p.g_count; ++gp) mx = fmaxf(mx, logits[gp] * p.inv_tau);
-    float denom = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f;
-    for (int gp = 0; gp < p.g_count; ++gp) {
-      const float e = expf(logits[gp] * p.inv_tau - mx);
-      denom += e;
-      o0 = fmaf(e, comp[gp][0], o0);
-      o1 = fmaf(e, comp[gp][1], o1);
-      o2 = fmaf(e, comp[gp][2], o2);
-    }
-    float* out = p.out + (row0 + r) * 3;
-    out[0] = o0 / denom;
-    out[1] = o1 / denom;
-    out[2] = o2 / denom;
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume<kD2>(p, xs, hs, ring, n_chunks, warp, lane);
   }
+}
+
+// a (rows, cols) row-major fp16 matrix in boxes of 64 columns x box_rows rows,
+// 128-byte swizzled
+bool encode_f16(CUtensorMap* map, const uint16_t* ptr, int rows, int cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 2, const_cast<uint16_t*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD2>
+int launch(Args& args, const uint16_t* w0, const uint16_t* w1, const uint16_t* w2, int batch, cudaStream_t stream) {
+  constexpr int kStageBytes = kD2 * 128;
+  const int fixed = (args.d0 / 64 + kD2 / 64) * kTileBytes + 1024 + 2 * kMaxStages * 8;
+  int stages = (kSmemMax - fixed) / kStageBytes;
+  if (stages > kMaxStages) stages = kMaxStages;
+  // at least two stages, and room for the prologue's map input, which aliases hs and the ring
+  if (stages < 2 || kRows * args.dm * 4 > (kD2 / 64) * kTileBytes + stages * kStageBytes)
+    return (int)cudaErrorInvalidValue;
+  args.stages = stages;
+  if (!encode_tiled()) return (int)cudaErrorNotSupported;
+  const int g = args.g_count;
+  if (!encode_f16(&args.w0, w0, g * args.d1, args.d0, kD2) || !encode_f16(&args.w1, w1, g * kD2, args.d1, kD2) ||
+      !encode_f16(&args.w2, w2, g * kD3, kD2, kD3))
+    return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(pcgen_mix_kernel<kD2>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((args.n + kRows - 1) / kRows, batch);
+  pcgen_mix_kernel<kD2><<<grid, kThreads, fixed + stages * kStageBytes, stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// out (B, N, 3) from m (B, N, Dm) and w (B, D0), for three component layers
+// D0 -> D1 -> D2 -> D3; the component weights (G, Dout, Din) in fp16, the
+// rest fp32.
 extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_wt, const float* map_b,
                               const uint16_t* w0, const float* b0, const uint16_t* w1, const float* b1,
                               const uint16_t* w2, const float* b2, const float* head_w, const float* head_b,
                               const float* att_w, const float* att_b, float* out, int batch, int n, int dm,
                               int d0, int d1, int d2, int d3, int g_count, float tau, float slope,
                               cudaStream_t stream) {
-  // the layouts this kernel is written for; the wrapper checks them first
-  if (n % kRows || d0 % 32 || d1 % kChunk || d2 % 32 || d2 > kChunk || d3 % 8 || d3 > 32 || d3 > d2 ||
-      dm > kChunk + kPad || g_count < 1 || g_count > kMaxG)
+  // the shapes this kernel covers (pccf_torch/kernels/pcgen.py supported)
+  if (batch < 1 || n < 1 || d0 < 64 || d0 > kMaxD0 || d0 % 64 || (d2 != 64 && d2 != 128 && d2 != 256) || d1 % d2 ||
+      d1 <= d2 || d3 != kD3 || dm < 1 || dm > kMaxDm || g_count < 2 || g_count > kMaxG)
     return (int)cudaErrorInvalidValue;
-  Params p{m, w, map_wt, map_b, w0, b0, w1, b1, w2, b2, head_w, head_b, att_w, att_b, out,
-           n, dm, d0, d1, d2, d3, g_count, 1.f / tau, slope};
-  const size_t smem =
-      (size_t)(kRows * (d0 + kPad) + kRows * (kChunk + kPad) + kRows * (d2 + kPad) + g_count * kRows * d3) *
-      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(pcgen_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)batch * n / kRows;
-  pcgen_mix_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  Args args = {};
+  args.m = m;
+  args.w = w;
+  args.map_wt = map_wt;
+  args.map_b = map_b;
+  args.b0 = b0;
+  args.b1 = b1;
+  args.b2 = b2;
+  args.head_w = head_w;
+  args.head_b = head_b;
+  args.att_w = att_w;
+  args.att_b = att_b;
+  args.out = out;
+  args.n = n;
+  args.dm = dm;
+  args.d0 = d0;
+  args.d1 = d1;
+  args.g_count = g_count;
+  args.inv_tau = 1.f / tau;
+  args.slope = slope;
+  if (d2 == 64) return launch<64>(args, w0, w1, w2, batch, stream);
+  if (d2 == 128) return launch<128>(args, w0, w1, w2, batch, stream);
+  return launch<256>(args, w0, w1, w2, batch, stream);
 }

@@ -37,7 +37,7 @@ F = ctypes.c_float
 
 # C entry point -> argument types; every entry point takes the stream last
 SIGNATURES: dict[str, tuple] = {
-    'pccf_knn': (P, P, I, I, I, I, P),
+    'pccf_knn': (P, P, P, P, P, I, I, I, I, I, P),
     'pccf_graph_max_pool': (P, P, P, I, I, I, I, P),
     'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P),
     'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),

@@ -3,7 +3,7 @@ version.
 
 Replaces ``pccf/kernels/pallas_pcgen.py:133`` ``pcgen_mix_tpu``.  The decoder
 builds a :class:`PCGenPack` (BatchNorm folded into the component weights)
-once; the CUDA wrapper derives its device layout (bf16 component weights,
+once; the CUDA wrapper derives its device layout (fp16 component weights,
 transposed map head) from the pack once and keeps it on the pack.
 """
 
@@ -14,6 +14,28 @@ import dataclasses
 import torch
 
 from pccf_torch.kernels import _build, ops
+
+# the shapes pccf_pcgen_mix takes, as the guard of csrc/pcgen_mix.cu states them
+MAX_D0 = 1024  # kMaxD0: the joined latent of 64 points stays in shared memory in fp16
+D2_WIDTHS = (64, 128, 256)  # layer 1: one chunk of layer 0, split over two warpgroups
+D3 = 16  # kD3: layer 2 is one m64n16 product
+MAX_MAP_IN = 64  # kMaxDm: the map head's input width
+MAX_COMPONENTS = 8  # kMaxG: a mix thread keeps a point's logit and head output per component
+ROWS = 64  # kRows: points per block
+FP16_MAX = 65504.0  # the largest finite fp16: the kernel's component weights past it would be inf
+
+
+def supported(dm: int, dims: tuple[int, ...], n_components: int) -> bool:
+    """Whether ``pccf_pcgen_mix`` covers a decoder: map input ``dm``, widths
+    ``dims = (D0, D1, D2, D3)`` (three component layers, non-expanding after
+    the first, as ``pcgen_fused_supported`` asks, ``pallas_pcgen.py:60-74``),
+    ``n_components`` from 2 to 8.  Any number of points: the last tile is
+    masked.  Its VMEM budget is a TPU limit and is not carried over."""
+    if len(dims) != 4:
+        return False
+    d0, d1, d2, d3 = dims
+    return (0 < d0 <= MAX_D0 and d0 % 64 == 0 and d2 in D2_WIDTHS and d1 % d2 == 0 and d1 > d2 and d3 == D3
+            and 0 < dm <= MAX_MAP_IN and 2 <= n_components <= MAX_COMPONENTS)
 
 
 @dataclasses.dataclass
@@ -35,19 +57,25 @@ class PCGenPack:
         return (self.map_w, self.map_b, self.layer_ws, self.layer_bs, self.head_w, self.head_b, self.att_w, self.att_b)
 
     def cuda_operands(self) -> tuple:
-        """The kernel's operand layout, built on first use."""
+        """The kernel's operand layout, built on first use.  Raises
+        ``ValueError`` if a folded component weight is not finite in fp16."""
         if self._cuda is None:
             def f32(t):
                 return t.detach().to(torch.float32).contiguous()
 
-            def bf16(t):
-                return t.detach().to(torch.bfloat16).contiguous()
+            def f16(t):
+                return t.detach().to(torch.float16).contiguous()
 
+            for i, lw in enumerate(self.layer_ws):
+                top = float(lw.detach().abs().max())
+                if not top <= FP16_MAX:  # also catches NaN
+                    raise ValueError(f'pcgen_mix: folded layer {i} weights reach |w| = {top:.4g}, past fp16\'s '
+                                     f'{FP16_MAX:g}')
             w0, w1, w2 = self.layer_ws
             b0, b1, b2 = self.layer_bs
             self._cuda = (
                 f32(self.map_w.T), f32(self.map_b),
-                bf16(w0), f32(b0), bf16(w1), f32(b1), bf16(w2), f32(b2),
+                f16(w0), f32(b0), f16(w1), f32(b1), f16(w2), f32(b2),
                 f32(self.head_w), f32(self.head_b), f32(self.att_w), f32(self.att_b),
             )
         return self._cuda
@@ -60,7 +88,7 @@ def plain(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float, act_
 def pcgen_mix_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:
     """``m (B, N, Dm)``, ``w (B, D0)`` float32 on the card -> ``(B, N, 3)``,
     for three component layers ``D0 -> D1 -> D2 -> D3``; the guard of
-    ``pccf_pcgen_mix`` states the widths its layout covers."""
+    ``pccf_pcgen_mix`` states the widths it covers (:func:`supported`)."""
     _build.require(m, 'm', torch.float32)
     if m.dim() != 3:
         raise ValueError(f'm: expected (B, N, Dm), got {tuple(m.shape)}')

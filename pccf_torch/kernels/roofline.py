@@ -18,6 +18,8 @@ import torch
 
 FP32 = 67e12  # FP32 on the CUDA cores, FLOP/s
 TF32 = 495e12  # TF32 mma on the tensor cores, FLOP/s (the 3xTF32 kernels issue three per product)
+BF16 = 989e12  # bf16 mma on the tensor cores, FLOP/s
+FP16 = BF16  # fp16 mma: the same dense peak
 HBM = 3.35e12  # device memory, bytes/s
 F32 = 4
 
@@ -60,10 +62,17 @@ def _nbytes(*tensors: torch.Tensor) -> int:
 # ------------------------------------------------------ neighbour kernels
 
 
+KNN_FMA_MAX_C = 16  # kFmaMaxC of csrc/knn.cu: above it the distances run on the tensor cores
+
+
 def knn_work(x: torch.Tensor, k: int) -> Work:
-    """Every pair's distance as C fp32 multiply-adds; selection uncounted."""
+    """Every pair's distance as C multiply-adds; selection uncounted.  The
+    class is the one ``pccf_knn`` issues at this C: fp32 FMA up to
+    :data:`KNN_FMA_MAX_C` channels, above it 3xTF32 on the tensor cores, the
+    product counted once as :func:`gemm_work` counts it.  The scratch (norms,
+    partial lists) is intermediate: the bytes are the input and the output."""
     b, n, c = x.shape
-    return Work(2.0 * b * n * n * c, _nbytes(x) + b * n * k * 4, FP32)
+    return Work(2.0 * b * n * n * c, _nbytes(x) + b * n * k * 4, TF32 if c > KNN_FMA_MAX_C else FP32)
 
 
 def pool_work(x: torch.Tensor, idx: torch.Tensor, slots: bool = False) -> Work:
@@ -123,16 +132,17 @@ def sinkhorn_work(x: torch.Tensor, y: torch.Tensor) -> Work:
 
 
 def pcgen_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
-    """Map head, G component stacks, heads and the attention mix per point;
-    the component weights move as bf16, the rest as fp32."""
+    """Map head, G component stacks, heads and the attention mix per point,
+    at the fp16 tensor-core peak the kernel's products issue; the component
+    weights move as fp16, the rest as fp32."""
     b, n, dm = m.shape
     d0 = pack.map_w.shape[0]
     g = pack.head_w.shape[0]
     per_point = 2 * dm * d0 + sum(2 * g * lw.shape[1] * lw.shape[2] for lw in pack.layer_ws)
     per_point += 2 * pack.head_w.numel() + 2 * pack.att_w.numel()
-    weights = sum(lw.numel() * 2 for lw in pack.layer_ws) + F32 * sum(
+    weights = 2 * sum(lw.numel() for lw in pack.layer_ws) + F32 * sum(
         t.numel() for t in (pack.map_w, pack.map_b, *pack.layer_bs, pack.head_w, pack.head_b, pack.att_w, pack.att_b))
-    return Work(float(b * n * per_point), _nbytes(m, w) + weights + b * n * 3 * F32, TF32)
+    return Work(float(b * n * per_point), _nbytes(m, w) + weights + b * n * 3 * F32, FP16)
 
 
 def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0) -> Work:

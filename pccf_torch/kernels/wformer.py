@@ -35,17 +35,23 @@ import torch
 from pccf_torch.kernels import _build, ops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
-MAX_TOKENS = 256  # the keys pccf_attention's guard takes: the W-nets' 256 code tokens
 TF32_BIG = -(1 << 13)  # int32 mask keeping the sign, exponent and 10 mantissa bits a tensor core reads
+# the shapes the card's stack kernels take, as the guards of csrc/wformer.cu state them
+HEAD_DIM = 64  # pccf_attention: heads exactly kHd = 64 wide
+MAX_TOKENS = 256  # pccf_attention: at most kMaxTk = 256 keys, the W-nets' 256 code tokens
+FF_MULTIPLE = 64  # pccf_gemm: N % 64 and K % 32, so FF widths in multiples of 64
 
 
-def supported(t: int, d: int, n_heads: int) -> bool:
-    """The shape gate of the JAX package's fused stacks
-    (``pallas_wformer.py:41-49`` ``wformer_supported``): 128-multiple tokens
-    and width, whole heads.  Its VMEM budget is a TPU limit and is not
-    carried over; what the card's kernels do not cover, their wrappers
-    refuse."""
-    return t % 128 == 0 and d % 128 == 0 and d % n_heads == 0
+def supported(t: int, d: int, n_heads: int, ff_widths: tuple[int, ...] = ()) -> bool:
+    """Whether the card's stack kernels cover a net: the shape line of the
+    JAX package's fused stacks (``pallas_wformer.py:41-49``
+    ``wformer_supported``: 128-multiple tokens and width, whole heads), and
+    what the guards of ``pccf_attention`` and ``pccf_gemm`` add: at most
+    :data:`MAX_TOKENS` tokens, heads exactly :data:`HEAD_DIM` wide, every FF
+    width a multiple of :data:`FF_MULTIPLE`.  Its VMEM budget is a TPU limit
+    and is not carried over."""
+    return (t % 128 == 0 and t <= MAX_TOKENS and d % 128 == 0 and d == n_heads * HEAD_DIM
+            and all(f > 0 and f % FF_MULTIPLE == 0 for f in ff_widths))
 
 
 # ------------------------------------------------------------------ pack

@@ -9,8 +9,8 @@ from torch import nn
 
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Outputs, WInputs
-from pccf_torch.kernels import api, ops
-from pccf_torch.kernels.cvae import CVAEPack, pack_cvae_cf
+from pccf_torch.kernels import api, ops, wformer
+from pccf_torch.kernels.cvae import IN_PAD, OUT_PAD, CVAEPack, pack_cvae_cf
 from pccf_torch.nn.layers import gelu_exact, get_act
 from pccf_torch.nn.w_networks import (
     ConditionalPrior,
@@ -121,15 +121,25 @@ class WAutoEncoder(nn.Module):
         return self.decode(data.replace(z1=data.mu1, z2=data.p_mu2 + data.d_mu2), codebook)
 
     def fused_ok(self) -> bool:
-        """The structural gate of the fused chain (``w_autoencoders.py:130-144``):
-        transformer nets with the exact GELU and one shared ``proj_dim``."""
+        """The gate of the fused chain (``w_autoencoders.py:130-144``): transformer
+        nets with the exact GELU and one shared ``proj_dim``, and the shape
+        test of ``cvae_cf_supported`` (``pallas_cvae.py:58-74``) as the card's
+        kernels state it: each net's stack within
+        :func:`pccf_torch.kernels.wformer.supported` (64-wide heads, at most
+        256 tokens, FF widths in multiples of 64 beside the 128-multiple
+        tokens and width), and a code embedding no wider than the chain's
+        padded token input and compress head.  The VMEM budget is a TPU limit
+        and is not carried over."""
         enc, post, dec = self.encoder, self.z2_posterior, self.decoder
+        nets = (enc, post, dec)
         return (
             isinstance(enc, TransformerWEncoder)
             and isinstance(post, TransformerWConditionalEncoder)
             and isinstance(dec, TransformerWDecoder)
-            and enc.act is gelu_exact and post.act is gelu_exact and dec.act is gelu_exact
+            and all(net.act is gelu_exact for net in nets)
             and enc.proj_dim == post.proj_dim == dec.proj_dim
+            and all(wformer.supported(self.n_codes, net.proj_dim, net.n_heads, net.mlp_dims) for net in nets)
+            and self.embedding_dim <= min(IN_PAD, OUT_PAD)
         )
 
 

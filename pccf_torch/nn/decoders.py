@@ -3,9 +3,11 @@
 Eval: the map MLP up to its penultimate layer stays ``torch.matmul`` (it lies
 outside the Pallas kernel in JAX too); the Hardtanh map head, the ``w ⊙ map``
 join, the component stacks, their heads and the tempered-softmax mix run in
-the ``pcgen_mix`` kernel when the structural gate of ``pallas_pcgen.py:68-72``
-holds.  Training (``module.train()``) runs module by module with batch-stat
-BatchNorm and Gumbel-softmax attention, whose products are plain
+the ``pcgen_mix`` kernel when its gate holds: the structural gate of
+``pallas_pcgen.py:68-72`` and the shapes the card's kernel takes
+(:func:`pccf_torch.kernels.pcgen.supported`).  Training
+(``module.train()``) runs module by module with batch-stat BatchNorm and
+Gumbel-softmax attention, whose products are plain
 ``torch.matmul`` as in JAX.  Either way graph filtering (kNN with k=4, then
 the neighbour gather kernel) sharpens the mixed cloud when ``filtering`` is
 on, as the flagship configuration has it.
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from pccf_torch.config import AutoEncoderConfig
-from pccf_torch.kernels import api, ops
+from pccf_torch.kernels import api, ops, pcgen
 from pccf_torch.kernels.pcgen import PCGenPack
 from pccf_torch.nn.layers import (Act, BatchNorm, DenseBlock, StackedLinear, act_slope, get_act, gumbel_softmax,
                                   hard_tanh, relu)
@@ -107,15 +109,13 @@ class PCGenDecoder(nn.Module):
         self.packed: PCGenPack | None = None
 
     def fused_ok(self) -> bool:
-        """The structural gate of the fused path (``decoders.py:135-155``,
-        ``pallas_pcgen.py:68-72``): a (leaky) ReLU the kernel hard-codes,
-        at least two components, non-expanding layers after the first."""
-        dims = (self.w_dim, *self.conv_dims)
-        return (
-            act_slope(self.act) is not None
-            and self.n_components >= 2
-            and all(dims[i + 1] < dims[i] for i in range(1, len(dims) - 1))
-        )
+        """The gate of the fused path (``decoders.py:135-155``,
+        ``pallas_pcgen.py:68-72``): a (leaky) ReLU the kernel hard-codes, and
+        the shapes the guard of ``pccf_pcgen_mix`` takes
+        (:func:`pccf_torch.kernels.pcgen.supported`: three component layers,
+        non-expanding after the first, 2 to 8 components)."""
+        return act_slope(self.act) is not None and pcgen.supported(
+            self.map_out.dense.in_features, (self.w_dim, *self.conv_dims), self.n_components)
 
     @torch.no_grad()
     def pack(self) -> PCGenPack:
@@ -152,8 +152,9 @@ class PCGenDecoder(nn.Module):
             x = api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
         elif x.is_cuda:
             raise NotImplementedError(
-                'PCGenDecoder: the pcgen_mix gate failed ((leaky) ReLU, at least two components, non-expanding '
-                'layers after the first); the module-by-module path runs on CPU tensors only'
+                f'PCGenDecoder: the pcgen_mix gate failed ((leaky) ReLU and the shapes of pcgen.supported; here '
+                f'map input {self.map_out.dense.in_features}, widths {(self.w_dim, *self.conv_dims)}, '
+                f'{self.n_components} components); the module-by-module path runs on CPU tensors only'
             )
         else:
             x = self._mix_modules(x, w, None)

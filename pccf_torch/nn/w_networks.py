@@ -1,8 +1,9 @@
 """Inner (W-space) transformer networks (``pccf/nn/w_networks.py``).
 
 All operate on the code axis: inputs ``(B, n_codes, embedding_dim)``.  In
-eval, a net whose shape passes the JAX package's gate (``w_networks.py:42-63``:
-exact GELU, 128-multiple tokens and width, whole heads) runs its layer stack
+eval, a net whose shape passes the stack gate (``w_networks.py:42-63``:
+exact GELU and the shapes the card's stack kernels cover,
+:func:`pccf_torch.kernels.wformer.supported`) runs its layer stack
 through :func:`pccf_torch.kernels.api.wformer_encoder` /
 ``wformer_decoder``, packed from the live weights on every call: the kernel
 on a CUDA tensor, its plain version on a CPU tensor.  In training the layers
@@ -42,9 +43,10 @@ class _TransformerNet(nn.Module):
 
     def stack_ok(self) -> bool:
         """``_fused_stack_ok`` (``w_networks.py:42-63``): eval, the exact GELU,
-        and the stack kernel's shape gate."""
+        and the shapes the card's stack kernels cover, FF widths included
+        (:func:`pccf_torch.kernels.wformer.supported`)."""
         return not self.training and self.act is gelu_exact and wformer.supported(
-            self.n_codes, self.proj_dim, self.n_heads)
+            self.n_codes, self.proj_dim, self.n_heads, self.mlp_dims)
 
     def use_kernel(self, x: torch.Tensor) -> bool:
         """Whether the stack runs through its wformer wrapper; raises in eval
@@ -53,9 +55,10 @@ class _TransformerNet(nn.Module):
             return True
         if not self.training and x.is_cuda:
             raise NotImplementedError(
-                f'{type(self).__name__}: the wformer stack gate failed (exact GELU, tokens and width multiples of '
-                f'128, heads dividing the width; here {self.n_codes} tokens, width {self.proj_dim}, '
-                f'{self.n_heads} heads); the layer-by-layer eval path runs on CPU tensors only')
+                f'{type(self).__name__}: the wformer stack gate failed (exact GELU, tokens a multiple of 128 up to '
+                f'{wformer.MAX_TOKENS}, width a multiple of 128, heads of {wformer.HEAD_DIM}, FF widths multiples '
+                f'of {wformer.FF_MULTIPLE}; here {self.n_codes} tokens, width {self.proj_dim}, {self.n_heads} heads, '
+                f'FF {self.mlp_dims}); the layer-by-layer eval path runs on CPU tensors only')
         return False
 
 

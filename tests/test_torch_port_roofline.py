@@ -161,7 +161,7 @@ def test_gather_kernels_are_bound_by_bytes():
     ms, by = roofline.bound_ms(roofline.pool_work(x, idx))
     assert by == 'bytes' and ms == pytest.approx((2 * x.numel() * 4 + idx.numel() * 4) / 3.35e12 * 1e3)
     ms, by = roofline.bound_ms(roofline.knn_work(torch.empty(16, 2048, 128, device='meta'), 25))
-    assert by == 'operations' and ms == pytest.approx(2 * 16 * 2048**2 * 128 / 67e12 * 1e3)
+    assert by == 'operations' and ms == pytest.approx(2 * 16 * 2048**2 * 128 / 495e12 * 1e3)
 
 
 def test_loss_kernels_are_bound_by_operations():
@@ -177,3 +177,39 @@ def test_loss_kernels_are_bound_by_operations():
     for work in (nn, sink):
         ms, by = roofline.bound_ms(work)
         assert by == 'operations' and ms == pytest.approx(work.ops / 67e12 * 1e3)
+
+
+@pytest.mark.parametrize('c,peak', [(3, 67e12), (16, 67e12), (64, 495e12), (128, 495e12)])
+def test_knn_work_takes_the_class_its_path_issues(c, peak):
+    """fp32 FMA up to 16 channels, 3xTF32 on the tensor cores above (the
+    product counted once, as gemm_work counts the stacks' 3xTF32 GEMM); the
+    headline (16, 2048, 128) k=25 is bound by operations at 0.0347 ms."""
+    x = torch.empty(16, 2048, c, device='meta')
+    work = roofline.knn_work(x, 25)
+    assert work.peak == peak and work.ops == 2 * 16 * 2048**2 * c
+    assert work.bytes == x.numel() * 4 + 16 * 2048 * 25 * 4
+    if c == 128:
+        assert roofline.bound_ms(work) == (pytest.approx(0.0347, abs=1e-4), 'operations')
+
+
+def test_pcgen_work_is_bound_by_half_precision_operations():
+    """The fused PCGen's products run as fp16 wgmma, at the H100's dense
+    bf16 and fp16 peak, 989 TFLOP/s: the flagship batch of 16 clouds (0.69
+    TFLOP) is bound by operations at ~0.70 ms."""
+    from pccf_torch.kernels import pcgen
+
+    assert roofline.BF16 == roofline.FP16 == 989e12
+    g, dims, dm = 8, (1024, 1024, 256, 16), 64
+
+    def e(*shape):
+        return torch.empty(shape, device='meta')
+
+    pack = pcgen.PCGenPack(map_w=e(dims[0], dm), map_b=e(dims[0]),
+                           layer_ws=tuple(e(g, dims[i + 1], dims[i]) for i in range(3)),
+                           layer_bs=tuple(e(g, dims[i + 1]) for i in range(3)),
+                           head_w=e(g, 3, 16), head_b=e(g, 3), att_w=e(g, g * 16), att_b=e(g))
+    m, w = e(16, 2048, dm), e(16, dims[0])
+    work = roofline.pcgen_work(m, w, pack)
+    assert work.peak == roofline.FP16
+    assert work.ops / 1e12 == pytest.approx(0.6937, abs=1e-3)
+    assert roofline.bound_ms(work) == (pytest.approx(0.7014, abs=1e-3), 'operations')
