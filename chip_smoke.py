@@ -49,9 +49,17 @@ version.
 
     python3 chip_smoke.py [--seed 0]
 
-It also prints the compiler's register and spill report for every kernel, a
+The row scatter and the EMD are also held bit-equal across two calls, the
+row scatter bit-equal to its plain version run on the CPU (both add in
+ascending edge order), and one EMD call's device launches are read from a
+trace: 19 pair sweeps.
+
+It also prints the compiler's registers and spills of the row scatter's and
+the EMD's kernels on one line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
-each stage (stage 1 under each objective) and of one validation batch, the
+each stage (stage 1 under each objective, with its device busy time and the
+device time of the row scatter's and the EMD's launches, their count checked
+against the wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
 memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
@@ -74,6 +82,8 @@ import dataclasses
 import functools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -107,9 +117,13 @@ GEMM_REL_L2 = 5e-6
 ATTENTION_REL_L2 = 1e-5  # the same products, and the online softmax rescales its fp32 sums
 RECON_REL_L2 = 1e-2  # the decode runs the fp16 PCGen kernel on the card
 BATCH_INVARIANCE = 1e-4  # rel. max difference of a request alone vs inside a batch
-SCATTER_REL_MAX = 1e-5  # fp32 atomics add in an order that changes from run to run; |diff| / max |plain|
+# |diff| / max |plain|: the slot scatter's fp32 atomics add in an order that
+# changes from run to run, and the plain version's reduction on the card may
+# take its own order; the row scatter adds in ascending edge order, the order
+# of the plain version on the CPU, which it equals bit for bit
+SCATTER_REL_MAX = 1e-5
 SUM_POOL_REL_MAX = 1e-5  # the kernel adds the k rows in slot order, the plain reduction in its own
-EMD_COST_RTOL = 1e-4  # exp and the row and column sums recomputed in another order than the plain version
+EMD_COST_RTOL = 1e-4  # exp2 of the folded level and the row and column sums in another order than the plain version's
 EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
 # Sinkhorn: exp recomputed in every sweep (expf, as the plain version's) and
 # the sums over the pairs taken in another order, through twelve updates of
@@ -118,7 +132,7 @@ EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
 SINKHORN_COST_RTOL = 1e-4
 SINKHORN_GRAD_REL_L2 = 1e-3
 # one training step on the card against the same step on the CPU: atomics
-# reorder the scatter sums, EMD recomputes its exps, cuBLAS and the CPU add
+# reorder the slot scatter's sums, EMD recomputes its exps, cuBLAS and the CPU add
 # GEMM terms in other orders, and a kNN neighbour or VQ code at a near-tie may
 # differ between the two
 STEP_LOSS_RTOL = 1e-3
@@ -195,6 +209,29 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
+
+
+def device_events(prof) -> list[tuple[str, float]]:
+    """``(name, us)`` of every device activity of a ``torch.profiler`` trace,
+    in the order they started."""
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+def short_kernel_name(name: str) -> str:
+    """A device kernel's name without its namespace, return type and arguments."""
+    m = re.search(r'(\w+(?:<[^()]*>)?)\(', name)
+    return m.group(1) if m else name
+
+
+EMD_PAIR_SWEEPS = 19  # rows P1 of -4^7, then per level columns P2 and rows P3 (+ P1 of the next level)
+# the two port kernels whose device time the stage-1 steps sum: the pattern of
+# their device kernels' names, and how many of those one wrapper call launches
+# (the scatter: partition, lists, gather; the EMD: 2 fills, the sweeps, the
+# per-sample sum, which sinkhorn.cu launches too)
+DEVICE_NAMES = {'scatter_add_rows': (r'scatter_(partition|lists|gather)_kernel', 3),
+                'chamfer_match_cost': (r'emd_(fill|rows|cols)_kernel|sample_sum_kernel', EMD_PAIR_SWEEPS + 3)}
 
 
 class LaunchLog:
@@ -352,6 +389,16 @@ def main() -> int:
     _build.build(verbose=True)
     _build.lib()
     print(f'kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds or 0.0:.1f} s)', flush=True)
+    resources = []
+    for source, name in (('gather_scatter.cu', 'scatter_add_rows'), ('emd.cu', 'chamfer_match_cost')):
+        for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
+            if re.search(DEVICE_NAMES[name][0], mangled):
+                filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
+                    if shutil.which('c++filt') else None
+                kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
+                resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
+    print('registers and spills (nvcc -Xptxas -v), the row scatter and EMD kernels: '
+          + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
 
     cfg = SliceConfig()
     rng = np.random.default_rng(args.seed)
@@ -514,6 +561,14 @@ def main() -> int:
                   lambda: ops.scatter_add_slots(g, idx25, slots, n), float((got - want).abs().max()),
                   r <= SCATTER_REL_MAX, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}',
                   roofline.scatter_slots_work(g, idx25, slots, n))
+
+        def row_scatter_exact(got: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> tuple[bool, bool]:
+            """(the kernel's rows equal the plain version's on a CPU copy, which
+            adds in the kernel's ascending edge order; a second call equals the
+            first)."""
+            cpu = ops.scatter_add_rows(g.cpu(), idx.cpu(), n)
+            return torch.equal(got.cpu(), cpu), torch.equal(got, gather.scatter_add_rows_cuda(g, idx, n))
+
         # sum-pool of [u, u^2] and its row scatter at every encoder width, k=25
         for f2 in (128, 256, 512):
             x = randn(bt, n, f2)
@@ -523,11 +578,12 @@ def main() -> int:
                   lambda: ops.graph_sum_pool(x, idx25), float((got - want).abs().max()), r <= SUM_POOL_REL_MAX,
                   f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}', roofline.pool_work(x, idx25))
             got, want = gather.scatter_add_rows_cuda(x, idx25, n), ops.scatter_add_rows(x, idx25, n)
-            r = rel_max(got, want)
+            r, exact, same = rel_max(got, want), *row_scatter_exact(got, x, idx25)
             timed('scatter_add_rows', f'({bt}, {n}, {f2}) k=25', lambda: gather.scatter_add_rows_cuda(x, idx25, n),
-                  lambda: ops.scatter_add_rows(x, idx25, n), float((got - want).abs().max()), r <= SCATTER_REL_MAX,
-                  f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}', roofline.scatter_rows_work(x, idx25, n),
-                  index_add_rows(x, idx25))
+                  lambda: ops.scatter_add_rows(x, idx25, n), float((got - want).abs().max()),
+                  r <= SCATTER_REL_MAX and exact and same, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}, bit-equal '
+                  f'to the plain version on the CPU {exact}, the same on a second call {same}',
+                  roofline.scatter_rows_work(x, idx25, n), index_add_rows(x, idx25))
         # graph filtering's gather on the decoded cloud, k=4: serving (batch
         # 16) and training (batch 8, with its scatter: N*4 rows of one
         # neighbour); the yardstick is one advanced-indexing call
@@ -542,11 +598,12 @@ def main() -> int:
         g = randn(bt, n * 4, 3)
         flat = idx4.reshape(bt, n * 4, 1)
         got, want = gather.scatter_add_rows_cuda(g, flat, n), ops.scatter_add_rows(g, flat, n)
-        r = rel_max(got, want)
+        r, exact, same = rel_max(got, want), *row_scatter_exact(got, g, flat)
         timed('scatter_add_rows', f'({bt}, {n}*4, 3) k=1', lambda: gather.scatter_add_rows_cuda(g, flat, n),
-              lambda: ops.scatter_add_rows(g, flat, n), float((got - want).abs().max()), r <= SCATTER_REL_MAX,
-              f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}', roofline.scatter_rows_work(g, flat, n),
-              index_add_rows(g, flat))
+              lambda: ops.scatter_add_rows(g, flat, n), float((got - want).abs().max()),
+              r <= SCATTER_REL_MAX and exact and same, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}, bit-equal to '
+              f'the plain version on the CPU {exact}, the same on a second call {same}',
+              roofline.scatter_rows_work(g, flat, n), index_add_rows(g, flat))
         headline = f'({bt}, {n}, 512) k=25'
         kernels['scatter_add_rows'].update(kernels['scatter_add_rows']['shapes'][headline], shape=headline)
         # the ChamferEMD loss on a decoded cloud against its reference
@@ -556,11 +613,21 @@ def main() -> int:
         cost_err = float(((got[0] - want[0]).abs() / want[0].abs()).max())
         g1, g2 = rel_l2(got[1], want[1]), rel_l2(got[2], want[2])
         nn_exact = all(torch.equal(a, w) for a, w in zip(got[3:], want[3:]))
+        same = all(torch.equal(a, w) for a, w in zip(got, emd.chamfer_match_cost_cuda(x1, x2)))
         timed('chamfer_match_cost', f'({bt}, {n}, 3) x ({bt}, {n}, 3)', lambda: emd.chamfer_match_cost_cuda(x1, x2),
               lambda: emd.plain(x1, x2), float((got[0] - want[0]).abs().max()),
-              cost_err <= EMD_COST_RTOL and max(g1, g2) <= EMD_GRAD_REL_L2 and nn_exact,
+              cost_err <= EMD_COST_RTOL and max(g1, g2) <= EMD_GRAD_REL_L2 and nn_exact and same,
               f'cost rel err {cost_err:.2e} <= {EMD_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
-              f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}', roofline.emd_work(x1, x2))
+              f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}, the same on a second call {same}',
+              roofline.emd_work(x1, x2))
+        # what one call runs on the device, from a trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            emd.chamfer_match_cost_cuda(x1, x2)
+            torch.cuda.synchronize()
+        sequence = [short_kernel_name(name) for name, _ in device_events(prof)]
+        sweeps = sum(1 for name in sequence if re.match(r'emd_(rows|cols)_kernel', name))
+        check(sweeps == EMD_PAIR_SWEEPS, f'chamfer_match_cost: {sweeps} pair sweeps a call == {EMD_PAIR_SWEEPS}; '
+                                         f'device launches in order: {", ".join(sequence)}')
         # the Chamfer and ChamferSinkhorn losses at the shapes their paths
         # give them, the headline (8, 2048, 3)^2 last: a decoded cloud
         # against its reference, a smaller batch, and a rectangular pair for
@@ -840,12 +907,26 @@ def main() -> int:
               f'{q3:.3f} ms over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '
               f'peak memory {peak_gib:.3f} GiB (max_memory_allocated; {held_gib:.3f} GiB held before the timed '
               f'steps)', flush=True)
+        api.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.run_step(inputs, targets)
             torch.cuda.synchronize()
+        calls = api.launch_counts()
         print(f'profile of one {label} step:', flush=True)
         print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25, max_name_column_width=60),
               flush=True)
+        events = device_events(prof)
+        parts = []
+        for name, (pattern, per_call) in DEVICE_NAMES.items():
+            if name in LOSS_KERNELS.values() and name != LOSS_KERNELS[recon_loss]:
+                continue  # the loss kernels' sources share sample_sum_kernel
+            times = [us for ev, us in events if re.search(pattern, ev)]
+            check(len(times) == per_call * calls[name] > 0,
+                  f'{label} step: {len(times)} device launches of {name}\'s kernels == {per_call} x {calls[name]} '
+                  f'calls')
+            parts.append(f'{name} kernels {len(times)} launches, {sum(times) / 1e3:.4f} ms')
+        print(f'{label} step, device: busy {sum(us for _, us in events) / 1e3:.3f} ms in {len(events)} activities; '
+              + '; '.join(parts), flush=True)
 
     stage1_steps('ChamferEMD', train_launches)
     for recon_loss in ('Chamfer', 'ChamferSinkhorn'):

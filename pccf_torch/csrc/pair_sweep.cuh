@@ -31,6 +31,15 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, 
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
+// 2^(level2 * d): exp(level * d) with the level folded with log2(e) on the
+// host, one multiply and the special-function unit's ex2 (flushing results
+// below 2^-126 to zero)
+__device__ __forceinline__ float exp2_level(float level2, float d) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(level2 * d));
+  return y;
+}
+
 // stage points [p0, p0 + cnt) of a (P, 3) cloud, each with its scalar (0 when
 // scalar is null)
 __device__ __forceinline__ void stage(float4* tile, const float* pts, const float* scalar, int p0, int cnt) {

@@ -20,6 +20,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -45,7 +46,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),
     'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),
     'pccf_gather_neighbors': (P, P, P, I, I, I, I, P),
-    'pccf_scatter_add_rows': (P, P, P, I, I, I, I, I, P),
+    'pccf_scatter_add_rows': (P, P, P, P, I, I, I, I, I, P),
+    'pccf_scatter_add_rows_scratch': (I, I, I, I),
     'pccf_graph_max_pool_src': (P, P, P, P, I, I, I, I, P),
     'pccf_scatter_add_slots': (P, P, P, P, I, I, I, I, I, P),
     'pccf_graph_sum_pool': (P, P, P, I, I, I, I, P),
@@ -57,6 +59,8 @@ SIGNATURES: dict[str, tuple] = {
 CUDA_ERROR_INVALID_VALUE = 1
 
 build_seconds: float | None = None
+# source name -> ptxas's register and spill report (-v), kept by a build(verbose=True) that compiled
+ptxas_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -79,7 +83,8 @@ def library_path() -> pathlib.Path:
 
 
 def build(verbose: bool = False) -> pathlib.Path:
-    """Compile the kernels unless an up-to-date library exists; returns its path."""
+    """Compile the kernels unless an up-to-date library exists; returns its
+    path.  With ``verbose``, a build keeps ptxas's report in :data:`ptxas_logs`."""
     global build_seconds
     out = library_path()
     if out.exists():
@@ -109,7 +114,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}')
         if verbose:
-            print(''.join(logs))
+            ptxas_logs.update((src.name, log) for src, log in zip(sources, logs))
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     finally:
         for proc in procs:
@@ -118,6 +123,21 @@ def build(verbose: bool = False) -> pathlib.Path:
                 proc.wait()
         shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
+    return out
+
+
+def kernel_resources(log: str) -> list[tuple[str, int, int, int]]:
+    """``(mangled kernel name, registers, spill store bytes, spill load
+    bytes)`` for every entry function in a ptxas report."""
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r'Used (\d+) registers', line)) and name is not None:
+            out.append((name, int(m.group(1)), *spills))
+            name = None
     return out
 
 

@@ -11,8 +11,12 @@ last two is ``_scatter_add_rows:182``.  The plain versions are in
 :mod:`pccf_torch.kernels.ops`.  Each autograd function runs the kernels in its
 forward and backward on a CUDA tensor and the plain versions on a CPU tensor.
 
-The scatter kernels add with fp32 atomics, in an order that changes from run
-to run: on the card their sums agree with the plain version to fp32 rounding.
+The row scatter (the backward of sum-pool and gather) sums over the
+transposed graph in ascending edge order, the order of ``index_add_`` on the
+CPU: its result equals the plain version run on the CPU bit for bit, on every
+run.  The slot scatter (the max-pool backward) adds with fp32 atomics, in an
+order that changes from run to run: its sums agree with the plain version to
+fp32 rounding.
 """
 
 from __future__ import annotations
@@ -99,11 +103,18 @@ def gather_neighbors_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def scatter_add_rows_cuda(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """``dx[b, idx[b, i, j]] += g[b, i]``: ``g (B, M, C)``, ``idx (B, M, k)``
-    -> ``(B, n, C)``."""
+    -> ``(B, n, C)``; each row's terms added in ascending ``(i, j)``.  The
+    transposed graph (``2·B·M·k + B·(n+1)`` int32 and a few per chunk) is
+    scratch of this call.  On the card it covers ``n <= 65536`` rows and
+    ``M·k < 2^23`` edges a sample and raises ``ValueError`` past them."""
     b, m, c, k = _require_graph(g, idx)
     dx = torch.empty((b, n, c), dtype=torch.float32, device=g.device)
+    words = _build.lib().pccf_scatter_add_rows_scratch(b, m, n, k)
+    if words < 0:
+        raise ValueError(f'pccf_scatter_add_rows: the kernel does not cover g {tuple(g.shape)}, k={k}, n={n}')
+    scratch = torch.empty(words, dtype=torch.int32, device=g.device)
     err = _build.lib().pccf_scatter_add_rows(
-        g.data_ptr(), idx.data_ptr(), dx.data_ptr(), b, m, n, c, k, _build.stream()
+        g.data_ptr(), idx.data_ptr(), dx.data_ptr(), scratch.data_ptr(), b, m, n, c, k, _build.stream()
     )
     _build.check('pccf_scatter_add_rows', err, f'g {tuple(g.shape)}, k={k}, n={n}')
     scatter_add_rows_cuda.launches += 1
@@ -142,7 +153,8 @@ class GraphMaxPool(torch.autograd.Function):
 
 class GraphSumPool(torch.autograd.Function):
     """Sum over the k neighbours; the backward is the row scatter-add
-    (``pallas_gather.py:280-292``)."""
+    (``pallas_gather.py:280-292``), which on the card takes clouds of at most
+    65536 points and ``N·k < 2^23`` (:func:`scatter_add_rows_cuda`)."""
 
     @staticmethod
     def forward(ctx, x, idx):
@@ -158,7 +170,8 @@ class GraphSumPool(torch.autograd.Function):
 class GatherNeighbors(torch.autograd.Function):
     """Row gather ``(B, N, k, C)``; the backward flattens (centre, slot) into
     ``N·k`` rows of one neighbour each and scatter-adds them
-    (``pallas_gather.py:341-352``)."""
+    (``pallas_gather.py:341-352``), which on the card takes clouds of at most
+    65536 points and ``N·k < 2^23`` (:func:`scatter_add_rows_cuda`)."""
 
     @staticmethod
     def forward(ctx, x, idx):

@@ -19,10 +19,13 @@ add in fp32 rounded to nearest; one TF32 product alone misses by ~3e-4),
 the TF32 weight split bit-exact, the streaming attention against the exact softmax
 1e-5 (the online softmax rescales its fp32 sums);
 gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
-addition (1e-5); the scatter-adds 1e-5 of the largest entry (fp32 atomics
-add in an order that changes from run to run); EMD cost 1e-4 relative and
-gradients rel-L2 1e-3 (exp and the row and column sums recomputed in another
-order), Chamfer minima and argmins exact (same float32 squared distances);
+addition (1e-5); the slot scatter 1e-5 of the largest entry (fp32 atomics
+add in an order that changes from run to run); the row scatter 1e-5 of the
+largest entry against the plain version on the card and bit-exact against
+it on the CPU (both add in ascending edge order), the same on every call;
+EMD cost 1e-4 relative and gradients rel-L2 1e-3 (exp2 of the folded level
+and the row and column sums recomputed in another order), Chamfer minima
+and argmins exact (same float32 squared distances), the same on every call;
 the nearest-neighbour minima and argmins exact; Sinkhorn cost 1e-4 relative
 and gradients rel-L2 1e-3 (its sums over the pairs in another order, through
 twelve updates of the scalings), its Chamfer outputs exact; gradients of the
@@ -415,13 +418,36 @@ def _max_rel(got, want):
     return float((got - want).abs().max() / (want.abs().max() + 1e-30))
 
 
-@pytest.mark.parametrize('c,k', [(3, 4), (128, 25)])
-def test_gather_and_row_scatter_match_plain(dev, c, k):
+def _scatter_graph(graph, b, n, k, dev, seed):
+    """``idx (B, M, k)`` into n rows: random, with a hub row (in-degree >= 300),
+    with rows no edge reaches, or the k = 1 layout of the gather backward
+    (N·4 rows of one neighbour)."""
+    if graph == 'k1_flat':
+        return _graph(b, n, 4, dev, seed).reshape(b, n * 4, 1)
+    idx = _graph(b, n, k, dev, seed)
+    if graph == 'hub':
+        idx[:, :1500, 2] = 77
+        idx[:, 3, 5:9] = 78  # one centre lists a neighbour four times
+    elif graph == 'empty_rows':
+        idx[(idx >= 1000) & (idx < 1200)] = 999
+    return idx
+
+
+@pytest.mark.parametrize('c,k,graph', [(3, 4, 'random'), (128, 25, 'random'), (512, 25, 'hub'), (3, 25, 'hub'),
+                                       (512, 25, 'empty_rows'), (6, 25, 'empty_rows'), (3, 1, 'k1_flat')])
+def test_gather_and_row_scatter_match_plain(dev, c, k, graph):
     x = _randn((2, 2048, c), 10, dev)
-    idx = _graph(2, 2048, k, dev, 11)
+    idx = _graph(2, 2048, 4 if graph == 'k1_flat' else k, dev, 11)
     assert torch.equal(gather.gather_neighbors_cuda(x, idx), ops.gather_neighbors(x, idx))
-    g = _randn((2, 2048, c), 12, dev)
-    assert _max_rel(gather.scatter_add_rows_cuda(g, idx, 2048), ops.scatter_add_rows(g, idx, 2048)) <= 1e-5
+    sidx = _scatter_graph(graph, 2, 2048, k, dev, 11)
+    g = _randn((2, sidx.shape[1], c), 12, dev)
+    got = gather.scatter_add_rows_cuda(g, sidx, 2048)
+    assert _max_rel(got, ops.scatter_add_rows(g, sidx, 2048)) <= 1e-5
+    # the transposed graph sums each row in ascending edge order, as index_add_ on the CPU does
+    assert torch.equal(got.cpu(), ops.scatter_add_rows(g.cpu(), sidx.cpu(), 2048))
+    assert torch.equal(got, gather.scatter_add_rows_cuda(g, sidx, 2048))  # the same on every call
+    if graph == 'empty_rows':
+        assert not got[:, 1000:1200].any()
 
 
 @pytest.mark.parametrize('f', [64, 256])
@@ -455,6 +481,8 @@ def test_chamfer_match_cost_matches_plain(dev, n, m):
         assert torch.equal(a, b)
     alone = emd.chamfer_match_cost_cuda(x1, x2, with_chamfer=False)
     assert len(alone) == 3 and torch.equal(alone[0], got[0])
+    again = emd.chamfer_match_cost_cuda(x1, x2)  # no atomics: the same bits on every call
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_autograd_on_cuda_never_runs_plain(dev, monkeypatch):
@@ -494,6 +522,8 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
         gather.gather_neighbors_cuda(x, idx.long())
     with pytest.raises(ValueError):
         emd.chamfer_match_cost_cuda(x, x)  # not 3-D points
+    with pytest.raises(ValueError, match='does not cover'):  # rows past the transposed graph's 65536
+        gather.scatter_add_rows_cuda(x, idx, 70000)
 
 
 def _clouds(n, m, seed, dev):
