@@ -36,7 +36,11 @@ just before the path and read just after).
 kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8 and
 at stage 2's 32; at batch 1 the kernel splits each cloud's candidates across
 blocks (its lists held equal to the unsplit ones); the fused PCGen at batch 1
-and 16.
+and 16.  The graph max-pool at serving's batch 1, 5 and 16 and stage 2's 32,
+the sum-pool at stage 1's widths: each beside its plan's channel slice and
+centre ranges (``gather.pool_plan``, held equal to the kernel library's) and
+the times in the other slice widths, every width bit-equal to the plan's; the
+sum-pool also bit-equal to the sum in slot order on the CPU, on every call.
 
 Before the kernel table it prints a line for every shape at which the
 stacks' device kernels run (``pccf_gemm`` and ``pccf_attention``, recorded
@@ -54,12 +58,12 @@ row scatter bit-equal to its plain version run on the CPU (both add in
 ascending edge order), and one EMD call's device launches are read from a
 trace: 19 pair sweeps.
 
-It also prints the compiler's registers and spills of the row scatter's and
-the EMD's kernels on one line, a
+It also prints the compiler's registers and spills of the row scatter's,
+the EMD's and the graph pools' kernels on one line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
 each stage (stage 1 under each objective, with its device busy time and the
-device time of the row scatter's and the EMD's launches, their count checked
-against the wrapper calls) and of one validation batch, the
+device time of the row scatter's, the EMD's and the sum-pool's launches, their
+count checked against the wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
 memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
@@ -226,12 +230,13 @@ def short_kernel_name(name: str) -> str:
 
 
 EMD_PAIR_SWEEPS = 19  # rows P1 of -4^7, then per level columns P2 and rows P3 (+ P1 of the next level)
-# the two port kernels whose device time the stage-1 steps sum: the pattern of
+# the port kernels whose device time the stage-1 steps sum: the pattern of
 # their device kernels' names, and how many of those one wrapper call launches
 # (the scatter: partition, lists, gather; the EMD: 2 fills, the sweeps, the
-# per-sample sum, which sinkhorn.cu launches too)
+# per-sample sum, which sinkhorn.cu launches too; the sum-pool: one)
 DEVICE_NAMES = {'scatter_add_rows': (r'scatter_(partition|lists|gather)_kernel', 3),
-                'chamfer_match_cost': (r'emd_(fill|rows|cols)_kernel|sample_sum_kernel', EMD_PAIR_SWEEPS + 3)}
+                'chamfer_match_cost': (r'emd_(fill|rows|cols)_kernel|sample_sum_kernel', EMD_PAIR_SWEEPS + 3),
+                'graph_sum_pool': (r'slice_pool_kernel<[^>]*PoolSum>', 1)}
 
 
 class LaunchLog:
@@ -390,14 +395,16 @@ def main() -> int:
     _build.lib()
     print(f'kernel build: {time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds or 0.0:.1f} s)', flush=True)
     resources = []
-    for source, name in (('gather_scatter.cu', 'scatter_add_rows'), ('emd.cu', 'chamfer_match_cost')):
+    for source, pattern in (('gather_scatter.cu', DEVICE_NAMES['scatter_add_rows'][0]),
+                            ('emd.cu', DEVICE_NAMES['chamfer_match_cost'][0]),
+                            ('graph_max_pool.cu', 'slice_pool_kernel'), ('gather_scatter.cu', 'slice_pool_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
-            if re.search(DEVICE_NAMES[name][0], mangled):
+            if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
                     if shutil.which('c++filt') else None
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
-    print('registers and spills (nvcc -Xptxas -v), the row scatter and EMD kernels: '
+    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD and graph pool kernels: '
           + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
 
     cfg = SliceConfig()
@@ -414,6 +421,22 @@ def main() -> int:
     def bound(work: roofline.Work) -> dict:
         ms, by = roofline.bound_ms(work)
         return {'bound_ms': ms, 'bound_by': by}
+
+    def slice_widths(run, x: torch.Tensor) -> tuple[str, bool]:
+        """The pools' plan for ``x`` (held equal to the kernel library's) beside
+        the time at every other slice width that fits; ``run(width)`` pools,
+        ``None`` at the plan's width.  True when every width's output equals
+        the plan's bit for bit."""
+        _, rows, c = x.shape
+        plan = gather.pool_plan(*x.shape, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        same_plan = plan == gather.kernel_pool_plan(*x.shape)
+        ref, times, equal = run(None), [], True
+        for w in gather.SLICE_WIDTHS:
+            if w != plan.slice_width and c % w == 0 and gather.pool_smem(rows, w) <= gather.MAX_SMEM:
+                equal = equal and torch.equal(run(w), ref)
+                times.append(f'{time_ms(lambda: run(w), REPS):.4f} ms in slices of {w}')
+        return (f'the plan: slices of {plan.slice_width}, {plan.ranges} centre range(s), the kernel\'s plan too '
+                f'{same_plan}; ' + ', '.join(times) + f', bit-equal to the plan\'s {equal}'), same_plan and equal
 
     # ---- each kernel against its plain version at the flagship shapes ----
     with torch.inference_mode():
@@ -455,10 +478,11 @@ def main() -> int:
         print('knn ms by (B, C, k): ' + json.dumps({f'{bb},{c},{k}': round(v[0], 4) for (bb, c, k), v in
                                                     knn_ms.items()}), flush=True)
 
-        # every (F, k) the main path gives max-pool: F = 64, 128, 256 at the
-        # encoder's k=25 and the classifier's k=20, at both batches
+        # every (B, F, k) the main path gives max-pool: F = 64, 128, 256 at
+        # the encoder's k=25 and the classifier's k=20, at serving's batch 1,
+        # 5 and 16 and at stage 2's 32; every slice width bit-exact too
         pool_errs, pool_ms = [], {}
-        for bb in batches:
+        for bb in (1, 5, *batches):
             for f in (64, 128, 256):
                 for k in (25, 20):
                     x = torch.from_numpy(rng.standard_normal((bb, n, f)).astype(np.float32)).to(dev)
@@ -468,11 +492,15 @@ def main() -> int:
                     row = pool_ms[bb, f, k] = (time_ms(lambda: gather.graph_max_pool_cuda(x, idx), REPS),
                                                time_ms(lambda: gather.plain(x, idx), REPS),
                                                bound(roofline.pool_work(x, idx)))
-                    check(err == 0.0, f'graph_max_pool B={bb} F={f} k={k}: bit-exact (max |diff| {err}); '
-                          f'{row[0]:.3f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms)')
+                    widths, widths_ok = slice_widths(lambda w: gather.graph_max_pool_cuda(x, idx, slice_width=w), x)
+                    check(err == 0.0 and widths_ok, f'graph_max_pool B={bb} F={f} k={k}: bit-exact (max |diff| '
+                          f'{err}); {row[0]:.4f} ms (plain {row[1]:.3f} ms, bound {row[2]["bound_ms"]:.4f} ms); '
+                          f'{widths}')
         head = pool_ms[b, 256, 25]
         kernels['graph_max_pool'] = {'max_abs_err': max(pool_errs), 'ms': head[0], 'plain_ms': head[1], **head[2],
                                      'library_ms': None, 'shape': '(16, 2048, 256) k=25'}
+        print('graph_max_pool ms by (B, F, k): ' + json.dumps({f'{bb},{f},{k}': round(v[0], 4) for (bb, f, k), v
+                                                               in pool_ms.items()}), flush=True)
 
         # the fused PCGen at serving's batch 1 and 16 (the headline)
         dec = vqvae.decoder
@@ -574,9 +602,15 @@ def main() -> int:
             x = randn(bt, n, f2)
             got, want = gather.graph_sum_pool_cuda(x, idx25), ops.graph_sum_pool(x, idx25)
             r = rel_max(got, want)
+            # the kernel adds in slot order: bit-equal to that sum on the CPU, on every call
+            exact = torch.equal(got.cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx25.cpu()))
+            same = torch.equal(got, gather.graph_sum_pool_cuda(x, idx25))
+            widths, widths_ok = slice_widths(lambda w: gather.graph_sum_pool_cuda(x, idx25, slice_width=w), x)
             timed('graph_sum_pool', f'({bt}, {n}, {f2}) k=25', lambda: gather.graph_sum_pool_cuda(x, idx25),
-                  lambda: ops.graph_sum_pool(x, idx25), float((got - want).abs().max()), r <= SUM_POOL_REL_MAX,
-                  f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}', roofline.pool_work(x, idx25))
+                  lambda: ops.graph_sum_pool(x, idx25), float((got - want).abs().max()),
+                  r <= SUM_POOL_REL_MAX and exact and same and widths_ok,
+                  f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}, bit-equal to the slot-order sum on the CPU {exact}, '
+                  f'the same on a second call {same}; {widths}', roofline.pool_work(x, idx25))
             got, want = gather.scatter_add_rows_cuda(x, idx25, n), ops.scatter_add_rows(x, idx25, n)
             r, exact, same = rel_max(got, want), *row_scatter_exact(got, x, idx25)
             timed('scatter_add_rows', f'({bt}, {n}, {f2}) k=25', lambda: gather.scatter_add_rows_cuda(x, idx25, n),

@@ -26,17 +26,23 @@
 // plain version run on the CPU bit for bit, on every run.  A row no edge
 // reaches is written as zeros; nothing clears dx first.
 //
-// Design: one thread per output element, or per 4 channels (one 16-byte
-// load per neighbour) where C % 4 == 0, so a warp covers consecutive
-// channels of one row and every access is coalesced.  The pool's slot output
-// is uint8 (k <= 255), a quarter of the int32 slots of the TPU kernel: it is
-// written once and read once per training step.  The max keeps the earliest
-// slot on ties (strict >, pallas_gather.py:111), so the forward is
-// bit-identical to graph_max_pool.cu wherever no NaN occurs.
+// The sum-pool is the resident-slice pool of slice_pool.cuh: a block copies
+// one channel slice of a sample into shared memory once by TMA and sums its
+// centres' rows from there in slot order.
+//
+// Design of the others: one thread per output element, or per 4 channels
+// (one 16-byte load per neighbour) where C % 4 == 0, so a warp covers
+// consecutive channels of one row and every access is coalesced.  The
+// pool's slot output is uint8 (k <= 255), a quarter of the int32 slots of
+// the TPU kernel: it is written once and read once per training step.  The
+// max keeps the earliest slot on ties (strict >, pallas_gather.py:111), so
+// the forward is bit-identical to graph_max_pool.cu wherever no NaN occurs.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "slice_pool.cuh"
 
 namespace {
 
@@ -406,27 +412,6 @@ __global__ void scatter_add_slots_kernel(const float* __restrict__ g, const int*
   atomicAdd(dx + (b * n + r) * f + ch, g[t]);
 }
 
-// out = sum over the k neighbour rows, added in slot order as the TPU kernel does
-__global__ void sum_pool_kernel(const float4* __restrict__ x, const int* __restrict__ idx, float4* __restrict__ out,
-                                int n, int c4, int k, long long total) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int ch = (int)(t % c4);
-  const long long point = t / c4;
-  const long long b = point / n;
-  const int* nb = idx + point * k;
-  const float4* xb = x + b * n * c4;
-  float4 s = __ldg(xb + (long long)__ldg(nb) * c4 + ch);
-  for (int j = 1; j < k; ++j) {
-    const float4 v = __ldg(xb + (long long)__ldg(nb + j) * c4 + ch);
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  out[t] = s;
-}
-
 }  // namespace
 
 // x (B, N, C), idx (B, N, k) -> out (B, N, k, C); any C >= 1
@@ -495,13 +480,10 @@ extern "C" int pccf_scatter_add_slots(const float* g, const int* idx, const uint
   return (int)cudaGetLastError();
 }
 
-// x (B, N, C), idx (B, N, k) -> out (B, N, C); C % 4 == 0
+// x (B, N, C), idx (B, N, k) -> out (B, N, C), each row the sum of its k
+// neighbour rows in slot order; C % 4 == 0, N <= 13951; slice_width 0 takes
+// the plan's (slice_pool.cuh)
 extern "C" int pccf_graph_sum_pool(const float* x, const int* idx, float* out, int b, int n, int c, int k,
-                                   cudaStream_t stream) {
-  if (b < 1 || n < 1 || c % 4 != 0 || c < 4 || k < 1 || !aligned16(x) || !aligned16(out))
-    return (int)cudaErrorInvalidValue;
-  const long long total = (long long)b * n * (c / 4);
-  sum_pool_kernel<<<grid_for(total), THREADS, 0, stream>>>(reinterpret_cast<const float4*>(x), idx,
-                                                           reinterpret_cast<float4*>(out), n, c / 4, k, total);
-  return (int)cudaGetLastError();
+                                   int slice_width, cudaStream_t stream) {
+  return pccf::slice_pool<pccf::PoolSum>(x, idx, out, b, n, c, k, slice_width, stream);
 }

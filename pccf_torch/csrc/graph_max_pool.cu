@@ -4,56 +4,31 @@
 // _pool_forward:80).  out[b, n, c] = max_j x[b, idx[b, n, j], c].
 //
 // What bounds it: bytes.  It reads k rows of F floats per point
-// (16*2048*25*256*4 B = 838 MB at the widest encoder block, mostly L2 hits
-// because each row is read by ~k centres) and writes one row.
+// (16*2048*25*256*4 B = 838.9 MB at the widest encoder block) and writes one
+// row.
 //
-// Design: one thread per (point, 4-channel group); each loads 16 bytes per
-// neighbour, so a warp covers 128 consecutive channels of a row and every
-// load is a full 512-byte coalesced segment.  The k indices of a point are
-// the same for all threads of the point (a broadcast read).  Max is exact,
-// so the result is bit-identical to the plain version; the first neighbour
-// seeds the maximum, and NaN propagates as in torch.amax.
+// Design: the resident-slice pool of slice_pool.cuh: a block copies one
+// channel slice of a sample into shared memory once by TMA and reduces its
+// centres' rows from there.  Max is exact, so the result is bit-identical to
+// the plain version: the first neighbour seeds the maximum, ties keep the
+// earlier value, and NaN propagates as in torch.amax.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "slice_pool.cuh"
 
-namespace {
-
-// running max m against a new value v: the earlier value stays on ties, a NaN
-// on either side wins
-__device__ __forceinline__ float fmax_nan(float m, float v) { return (v > m || v != v) ? v : m; }
-
-__global__ void graph_max_pool_kernel(const float4* __restrict__ x, const int* __restrict__ idx,
-                                      float4* __restrict__ out, int n, int f4, int k, long long total) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c4 = (int)(t % f4);
-  const long long point = t / f4;  // b * n + i
-  const long long b = point / n;
-  const int* nb = idx + point * k;
-  const float4* xb = x + b * n * f4;
-  float4 m = __ldg(xb + (long long)__ldg(nb) * f4 + c4);
-  for (int j = 1; j < k; ++j) {
-    const float4 v = __ldg(xb + (long long)__ldg(nb + j) * f4 + c4);
-    m.x = fmax_nan(m.x, v.x);
-    m.y = fmax_nan(m.y, v.y);
-    m.z = fmax_nan(m.z, v.z);
-    m.w = fmax_nan(m.w, v.w);
-  }
-  out[t] = m;
+// x (B, N, F), idx (B, N, k) -> out (B, N, F); F % 4 == 0, N <= 13951;
+// slice_width 0 takes the plan's (slice_plan)
+extern "C" int pccf_graph_max_pool(const float* x, const int* idx, float* out, int b, int n, int f, int k,
+                                   int slice_width, cudaStream_t stream) {
+  return pccf::slice_pool<pccf::PoolMax>(x, idx, out, b, n, f, k, slice_width, stream);
 }
 
-}  // namespace
-
-extern "C" int pccf_graph_max_pool(const float* x, const int* idx, float* out, int b, int n, int f, int k,
-                                   cudaStream_t stream) {
-  if (f % 4 != 0 || k < 1 || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int f4 = f / 4;
-  const long long total = (long long)b * n * f4;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  graph_max_pool_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(x), idx, reinterpret_cast<float4*>(out), n, f4, k, total);
-  return (int)cudaGetLastError();
+// the plan of both pools for (B, N, C) on the current device: plan[0] the
+// slice width, plan[1] the centre ranges, plan[2] the shared memory of a block;
+// cudaErrorInvalidValue where no slice covers the shape
+extern "C" int pccf_pool_plan(int b, int n, int c, int slice_width, int* plan) {
+  const pccf::SlicePlan p = pccf::slice_plan(b, n, c, slice_width, pccf::device_sms());
+  plan[0] = p.s;
+  plan[1] = p.ranges;
+  plan[2] = p.smem;
+  return p.s == 0 ? (int)cudaErrorInvalidValue : 0;
 }

@@ -39,7 +39,8 @@ F = ctypes.c_float
 # C entry point -> argument types; every entry point takes the stream last
 SIGNATURES: dict[str, tuple] = {
     'pccf_knn': (P, P, P, P, P, I, I, I, I, I, P),
-    'pccf_graph_max_pool': (P, P, P, I, I, I, I, P),
+    'pccf_graph_max_pool': (P, P, P, I, I, I, I, I, P),
+    'pccf_pool_plan': (I, I, I, I, P),
     'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P),
     'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),
     'pccf_tf32_split': (P, P, P, I, P),
@@ -50,7 +51,7 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_scatter_add_rows_scratch': (I, I, I, I),
     'pccf_graph_max_pool_src': (P, P, P, P, I, I, I, I, P),
     'pccf_scatter_add_slots': (P, P, P, P, I, I, I, I, I, P),
-    'pccf_graph_sum_pool': (P, P, P, I, I, I, I, P),
+    'pccf_graph_sum_pool': (P, P, P, I, I, I, I, I, P),
     'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
     'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P),
     'pccf_sinkhorn_cost': (P, P, I, I, I, F, F, F, I, P, P, P, P, P, P, P, P, P),

@@ -11,6 +11,11 @@ last two is ``_scatter_add_rows:182``.  The plain versions are in
 :mod:`pccf_torch.kernels.ops`.  Each autograd function runs the kernels in its
 forward and backward on a CUDA tensor and the plain versions on a CPU tensor.
 
+The two pools read their rows from a channel slice of the sample held in
+shared memory (``csrc/slice_pool.cuh``); :func:`pool_plan` mirrors how the
+kernel picks the slice width and the centre ranges, and bounds the cloud at
+:data:`MAX_POOL_ROWS` points.
+
 The row scatter (the backward of sum-pool and gather) sums over the
 transposed graph in ascending edge order, the order of ``index_add_`` on the
 CPU: its result equals the plain version run on the CPU bit for bit, on every
@@ -21,11 +26,98 @@ fp32 rounding.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from pccf_torch.kernels import _build, ops
+from pccf_torch.kernels.knn import H100_SMS
 
 plain = ops.graph_max_pool
+
+# from slice_plan in csrc/slice_pool.cuh
+SLICE_WIDTHS = (16, 8, 4)  # channels of a slice, widest first
+MAX_SMEM = 232448  # shared memory a block can use on an H100 (kPoolMaxSmem)
+PASS_CENTRES = 256  # centres a block reduces at once (kPoolPassCentres)
+MAX_RANGES = 8  # centre ranges a slice is loaded for, at most (kPoolMaxRanges)
+
+
+def pool_smem(n: int, w: int) -> int:
+    """Dynamic shared memory of a block (``slice_smem``): the slice, a chunk
+    of neighbour indices for its 256 centres (``2w + 1`` words each) and the
+    mbarrier."""
+    return n * w * 4 + PASS_CENTRES * (2 * w + 1) * 4 + 8
+
+
+MAX_POOL_ROWS = (MAX_SMEM - pool_smem(0, 4)) // 16  # 13951: the points of the narrowest slice
+
+
+class PoolPlan(NamedTuple):
+    slice_width: int  # channels a block holds in shared memory
+    ranges: int  # centre ranges per (sample, slice): blocks that load the same slice
+    smem: int  # dynamic shared memory of a block, bytes (pool_smem)
+
+
+def _pool_covers(b: int, n: int, c: int) -> bool:
+    """Whether some slice width covers ``x (B, N, C)``: the 4-channel slice
+    fits whenever ``N <= MAX_POOL_ROWS``."""
+    return 1 <= b <= 65535 and 1 <= n <= MAX_POOL_ROWS and c >= 4 and c % 4 == 0
+
+
+def pool_plan(b: int, n: int, c: int, slice_width: int | None = None, sms: int = H100_SMS) -> PoolPlan:
+    """The plan of ``pccf_graph_max_pool`` and ``pccf_graph_sum_pool`` for
+    ``x (B, N, C)`` (``slice_plan`` in ``csrc/slice_pool.cuh``): the widest
+    slice that fits in shared memory, divides ``C`` and gives at least a
+    third of the SMs a block, else the narrowest that fits; ``ranges`` the largest
+    power of two that keeps ``B·(C/S)·ranges`` within one block an SM, with
+    ranges of at least 256 centres and at most :data:`MAX_RANGES` of them.
+    ``slice_width`` fixes the width (to time the others).  Raises
+    ``ValueError`` past ``N <= 13951`` (:data:`MAX_POOL_ROWS`) or ``C % 4``."""
+    def fits(w: int) -> bool:
+        return c % w == 0 and pool_smem(n, w) <= MAX_SMEM
+
+    def plan(w: int) -> PoolPlan:
+        cap = max(1, min(MAX_RANGES, n // PASS_CENTRES))
+        r = 1
+        while 2 * r <= cap and b * (c // w) * 2 * r <= sms:
+            r *= 2
+        return PoolPlan(w, r, pool_smem(n, w))
+
+    if not _pool_covers(b, n, c):
+        raise ValueError(f'the graph pools\' kernel does not cover x ({b}, {n}, {c}): it takes N <= {MAX_POOL_ROWS} '
+                         f'points (a 4-channel slice in {MAX_SMEM} bytes of shared memory), B <= 65535 and C % 4 == 0')
+    if slice_width is not None:
+        if slice_width not in SLICE_WIDTHS or not fits(slice_width):
+            raise ValueError(f'the graph pools\' kernel does not cover x ({b}, {n}, {c}) in slices of {slice_width} '
+                             f'channels: the width must be one of {SLICE_WIDTHS}, divide C and fit {MAX_SMEM} bytes')
+        return plan(slice_width)
+    for w in SLICE_WIDTHS:
+        if fits(w):
+            p = plan(w)
+            if 3 * b * (c // w) * p.ranges >= sms:
+                return p
+    return p  # the narrowest slice, which always fits here: the most blocks
+
+
+def kernel_pool_plan(b: int, n: int, c: int, slice_width: int | None = None) -> PoolPlan:
+    """The plan the kernel library takes on the current card (``pccf_pool_plan``),
+    to hold :func:`pool_plan` to it."""
+    out = (ctypes.c_int * 3)()
+    err = _build.lib().pccf_pool_plan(b, n, c, slice_width or 0, out)
+    _build.check('pccf_pool_plan', err, f'({b}, {n}, {c}), slice width {slice_width}')
+    return PoolPlan(*out)
+
+
+def _launch_pool(name: str, x: torch.Tensor, idx: torch.Tensor, slice_width: int | None) -> torch.Tensor:
+    b, n, c, k = _require_graph(x, idx)
+    if slice_width is not None or not _pool_covers(b, n, c):
+        pool_plan(b, n, c, slice_width)  # raises past the kernel's limits, before any launch
+    out = torch.empty_like(x)
+    err = getattr(_build.lib(), name)(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k, slice_width or 0,
+                                      _build.stream())
+    _build.check(name, err, f'x {tuple(x.shape)}, k={k}, slice width {slice_width or "of the plan"}')
+    return out
 
 
 def _require_graph(x: torch.Tensor, idx: torch.Tensor) -> tuple[int, int, int, int]:
@@ -40,13 +132,13 @@ def _require_graph(x: torch.Tensor, idx: torch.Tensor) -> tuple[int, int, int, i
     return b, n, c, idx.shape[-1]
 
 
-def graph_max_pool_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x (B, N, F)`` float32, ``idx (B, N, k)`` int32 -> ``(B, N, F)``;
-    ``F % 4 == 0`` (the guard of ``pccf_graph_max_pool``)."""
-    b, n, f, k = _require_graph(x, idx)
-    out = torch.empty_like(x)
-    err = _build.lib().pccf_graph_max_pool(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, f, k, _build.stream())
-    _build.check('pccf_graph_max_pool', err, f'x {tuple(x.shape)}, k={k}')
+def graph_max_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | None = None) -> torch.Tensor:
+    """``x (B, N, F)`` float32, ``idx (B, N, k)`` int32 with entries in
+    ``[0, N)`` -> ``(B, N, F)``; ``F % 4 == 0``, ``k >= 1`` and ``N <= 13951``
+    points (the guard of ``pccf_graph_max_pool``), past which it raises
+    ``ValueError``.  ``slice_width`` overrides :func:`pool_plan`'s width, to
+    time the others."""
+    out = _launch_pool('pccf_graph_max_pool', x, idx, slice_width)
     graph_max_pool_cuda.launches += 1
     return out
 
@@ -78,13 +170,14 @@ def scatter_add_slots_cuda(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tens
     return dx
 
 
-def graph_sum_pool_cuda(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x (B, N, C)``, ``idx (B, N, k)`` -> ``(B, N, C)`` neighbour sums;
-    ``C % 4 == 0``."""
-    b, n, c, k = _require_graph(x, idx)
-    out = torch.empty_like(x)
-    err = _build.lib().pccf_graph_sum_pool(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k, _build.stream())
-    _build.check('pccf_graph_sum_pool', err, f'x {tuple(x.shape)}, k={k}')
+def graph_sum_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | None = None) -> torch.Tensor:
+    """``x (B, N, C)``, ``idx (B, N, k)`` with entries in ``[0, N)`` ->
+    ``(B, N, C)`` neighbour sums, added in slot order from slot 0's row
+    (:func:`ops.graph_sum_pool_slot_order` on the CPU, bit for bit);
+    ``C % 4 == 0``, ``k >= 1`` and ``N <= 13951`` points (the guard of
+    ``pccf_graph_sum_pool``), past which it raises ``ValueError``.
+    ``slice_width`` overrides :func:`pool_plan`'s width, to time the others."""
+    out = _launch_pool('pccf_graph_sum_pool', x, idx, slice_width)
     graph_sum_pool_cuda.launches += 1
     return out
 

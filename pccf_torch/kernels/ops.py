@@ -78,6 +78,17 @@ def graph_sum_pool(x: Tensor, idx: Tensor) -> Tensor:
     return torch.sum(gather_neighbors(x, idx), dim=2)
 
 
+def graph_sum_pool_slot_order(x: Tensor, idx: Tensor) -> Tensor:
+    """:func:`graph_sum_pool` added in slot order from slot 0's row with
+    plain fp32 adds, the order of the TPU kernel (``pallas_gather.py:246-249``)
+    and of the card's kernel, which equals it bit for bit on the CPU."""
+    batch = torch.arange(x.shape[0], device=x.device)[:, None]
+    out = x[batch, idx[..., 0].long()]
+    for j in range(1, idx.shape[-1]):
+        out += x[batch, idx[..., j].long()]
+    return out
+
+
 def scatter_add_rows(g: Tensor, idx: Tensor, n: int) -> Tensor:
     """Transpose of the row gather: ``dx[b, idx[b, i, j]] += g[b, i]``,
     ``g (B, M, C)``, ``idx (B, M, k)`` -> ``(B, n, C)``

@@ -19,8 +19,11 @@ add in fp32 rounded to nearest; one TF32 product alone misses by ~3e-4),
 the TF32 weight split bit-exact, the streaming attention against the exact softmax
 1e-5 (the online softmax rescales its fp32 sums);
 gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
-addition (1e-5); the slot scatter 1e-5 of the largest entry (fp32 atomics
-add in an order that changes from run to run); the row scatter 1e-5 of the
+addition (1e-5) against the plain version on the card, and bit-exact against
+the sum in slot order on the CPU, which the kernel keeps at every slice
+width; the max-pool bit-exact with NaNs at every slice width; the slot
+scatter 1e-5 of the largest entry (fp32 atomics add in an order that
+changes from run to run); the row scatter 1e-5 of the
 largest entry against the plain version on the card and bit-exact against
 it on the CPU (both add in ascending edge order), the same on every call;
 EMD cost 1e-4 relative and gradients rel-L2 1e-3 (exp2 of the folded level
@@ -468,6 +471,90 @@ def test_sum_pool_matches_plain(dev):
     x = _randn((2, 2048, 256), 16, dev)
     idx = _graph(2, 2048, 25, dev, 17)
     assert _max_rel(gather.graph_sum_pool_cuda(x, idx), ops.graph_sum_pool(x, idx)) <= 1e-5
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit where neither is NaN, and NaN at the same places."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def _pool_case(b, n, c, k, dev, seed, nans):
+    """Exact ties (row 40 a copy of row 7, both in every list), a hub row in
+    3/4 of the lists and, for the max, NaNs in two rows."""
+    x = _randn((b, n, c), seed, dev)
+    x[:, 40] = x[:, 7]
+    idx = _graph(b, n, k, dev, seed + 1)
+    idx[..., 1], idx[..., k - 1] = 7, 40
+    idx[:, : 3 * n // 4, k // 2] = 11
+    if nans:
+        x[:, 11, ::3] = float('nan')
+        x[:, 12, 1::5] = float('nan')
+        idx[:, ::7, 0] = 12
+    return x, idx
+
+
+@pytest.mark.parametrize('width', [None, 16, 8, 4])
+@pytest.mark.parametrize('k', [20, 25])
+@pytest.mark.parametrize('b,c', [(1, 64), (16, 256), (32, 256)])
+def test_slice_pools_at_every_width(dev, b, c, k, width):
+    """Every slice width the plan can choose: the max bit-exact to the plain
+    version with NaNs, ties and a hub row; the sum bit-equal to the sum in slot
+    order on the CPU, and the same on a second call."""
+    x, idx = _pool_case(b, 2048, c, k, dev, 40 + b + k, nans=True)
+    got = gather.graph_max_pool_cuda(x, idx, slice_width=width)
+    assert torch.isnan(got).any() and _bits_equal(got, ops.graph_max_pool(x, idx))
+    x, idx = _pool_case(b, 2048, c, k, dev, 41 + b + k, nans=False)
+    got = gather.graph_sum_pool_cuda(x, idx, slice_width=width)
+    assert torch.equal(got.cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))
+    assert torch.equal(got, gather.graph_sum_pool_cuda(x, idx, slice_width=width))
+
+
+@pytest.mark.parametrize('b,n,c,width', [(b, n, c, w) for b, n, c in ((2, 300, 48), (3, 1000, 64), (100, 3073, 16))
+                                         for w in (None, 16, 8, 4)])
+def test_slice_pools_with_a_tail_box(dev, b, n, c, width):
+    """Clouds that end in a box shorter than 256 rows: one box alone at N =
+    300, a last box of one row at N = 3073."""
+    x, idx = _pool_case(b, n, c, 20, dev, 46 + n, nans=True)
+    assert _bits_equal(gather.graph_max_pool_cuda(x, idx, slice_width=width), ops.graph_max_pool(x, idx))
+    x, idx = _pool_case(b, n, c, 20, dev, 47 + n, nans=False)
+    got = gather.graph_sum_pool_cuda(x, idx, slice_width=width)
+    assert torch.equal(got.cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))
+
+
+@pytest.mark.parametrize('n', [2048, 300, 3104, 13951])
+def test_slice_pool_plan_is_the_kernels(dev, n):
+    """``gather.pool_plan`` mirrors the plan the kernel library takes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b in (1, 2, 5, 8, 16, 32):
+        for c in (4, 12, 48, 64, 128, 256, 512):
+            for width in (None, *gather.SLICE_WIDTHS):
+                try:
+                    want = gather.pool_plan(b, n, c, width, sms)
+                except ValueError:
+                    with pytest.raises(ValueError, match='does not cover'):
+                        gather.kernel_pool_plan(b, n, c, width)
+                    continue
+                assert gather.kernel_pool_plan(b, n, c, width) == want, (b, n, c, width)
+
+
+def test_slice_pools_at_the_row_limit(dev):
+    """N = 13951 points fill the shared memory in 4-channel slices (a tail
+    box of 127 rows); one more point raises ``ValueError`` before any launch."""
+    n = gather.MAX_POOL_ROWS
+    x, idx = _pool_case(1, n, 8, 25, dev, 42, nans=True)
+    assert _bits_equal(gather.graph_max_pool_cuda(x, idx), ops.graph_max_pool(x, idx))
+    x, idx = _pool_case(1, n, 8, 25, dev, 43, nans=False)
+    assert torch.equal(gather.graph_sum_pool_cuda(x, idx).cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))
+    api.reset_launch_counts()
+    x = _randn((1, n + 1, 8), 44, dev)
+    idx = _graph(1, n + 1, 4, dev, 45)
+    for call in (gather.graph_max_pool_cuda, gather.graph_sum_pool_cuda):
+        with pytest.raises(ValueError, match='N <= 13951'):
+            call(x, idx)
+    with pytest.raises(ValueError, match='does not cover'):
+        gather.graph_max_pool_cuda(x[:, :n].contiguous(), idx[:, :n].contiguous(), slice_width=16)
+    assert api.launch_counts()['graph_max_pool'] == api.launch_counts()['graph_sum_pool'] == 0
 
 
 @pytest.mark.parametrize('n,m', [(1024, 1024), (512, 768)])
