@@ -41,6 +41,12 @@ the sum-pool at stage 1's widths: each beside its plan's channel slice and
 centre ranges (``gather.pool_plan``, held equal to the kernel library's) and
 the times in the other slice widths, every width bit-equal to the plan's; the
 sum-pool also bit-equal to the sum in slot order on the CPU, on every call.
+The training max-pool with its winning slot at stage 1's widths, bit-exact to
+the strict > rule (``ops.graph_max_pool_slots_strict``) on rows with NaNs,
+ties and a hub row; its slot scatter bit-equal to its plain version on the
+CPU and the same on a second call, its plan (``gather.slot_scatter_plan``,
+held equal to the library's) timed beside the other slice widths and row
+splits, each bit-equal to the plan's.
 
 Before the kernel table it prints a line for every shape at which the
 stacks' device kernels run (``pccf_gemm`` and ``pccf_attention``, recorded
@@ -59,11 +65,12 @@ ascending edge order), and one EMD call's device launches are read from a
 trace: 19 pair sweeps.
 
 It also prints the compiler's registers and spills of the row scatter's,
-the EMD's and the graph pools' kernels on one line, a
+the EMD's, the graph pools' and the slot scatter's kernels on one line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
 each stage (stage 1 under each objective, with its device busy time and the
-device time of the row scatter's, the EMD's and the sum-pool's launches, their
-count checked against the wrapper calls) and of one validation batch, the
+device time of the row scatter's, the EMD's, the sum-pool's, the training
+max-pool's and the slot scatter's launches, their count checked against the
+wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
 memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
@@ -121,10 +128,10 @@ GEMM_REL_L2 = 5e-6
 ATTENTION_REL_L2 = 1e-5  # the same products, and the online softmax rescales its fp32 sums
 RECON_REL_L2 = 1e-2  # the decode runs the fp16 PCGen kernel on the card
 BATCH_INVARIANCE = 1e-4  # rel. max difference of a request alone vs inside a batch
-# |diff| / max |plain|: the slot scatter's fp32 atomics add in an order that
-# changes from run to run, and the plain version's reduction on the card may
-# take its own order; the row scatter adds in ascending edge order, the order
-# of the plain version on the CPU, which it equals bit for bit
+# |diff| / max |plain|: the plain row scatter's reduction on the card may take
+# its own order; the kernel adds in ascending edge order, the order of the
+# plain version on the CPU, which it equals bit for bit (and the slot scatter,
+# in ascending centre order, its own plain version on the CPU)
 SCATTER_REL_MAX = 1e-5
 SUM_POOL_REL_MAX = 1e-5  # the kernel adds the k rows in slot order, the plain reduction in its own
 EMD_COST_RTOL = 1e-4  # exp2 of the folded level and the row and column sums in another order than the plain version's
@@ -135,8 +142,8 @@ EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
 # (the same float32 squared distances, the lowest index on ties)
 SINKHORN_COST_RTOL = 1e-4
 SINKHORN_GRAD_REL_L2 = 1e-3
-# one training step on the card against the same step on the CPU: atomics
-# reorder the slot scatter's sums, EMD recomputes its exps, cuBLAS and the CPU add
+# one training step on the card against the same step on the CPU: EMD
+# recomputes its exps, cuBLAS and the CPU add
 # GEMM terms in other orders, and a kNN neighbour or VQ code at a near-tie may
 # differ between the two
 STEP_LOSS_RTOL = 1e-3
@@ -236,7 +243,9 @@ EMD_PAIR_SWEEPS = 19  # rows P1 of -4^7, then per level columns P2 and rows P3 (
 # per-sample sum, which sinkhorn.cu launches too; the sum-pool: one)
 DEVICE_NAMES = {'scatter_add_rows': (r'scatter_(partition|lists|gather)_kernel', 3),
                 'chamfer_match_cost': (r'emd_(fill|rows|cols)_kernel|sample_sum_kernel', EMD_PAIR_SWEEPS + 3),
-                'graph_sum_pool': (r'slice_pool_kernel<[^>]*PoolSum>', 1)}
+                'graph_sum_pool': (r'slice_pool_kernel<[^>]*PoolSum>', 1),
+                'graph_max_pool_src': (r'slice_pool_kernel<[^>]*PoolMaxSlot>', 1),
+                'scatter_add_slots': (r'slot_scatter_kernel', 1)}
 
 
 class LaunchLog:
@@ -397,14 +406,15 @@ def main() -> int:
     resources = []
     for source, pattern in (('gather_scatter.cu', DEVICE_NAMES['scatter_add_rows'][0]),
                             ('emd.cu', DEVICE_NAMES['chamfer_match_cost'][0]),
-                            ('graph_max_pool.cu', 'slice_pool_kernel'), ('gather_scatter.cu', 'slice_pool_kernel')):
+                            ('graph_max_pool.cu', 'slice_pool_kernel'), ('gather_scatter.cu', 'slice_pool_kernel'),
+                            ('gather_scatter.cu', 'slot_scatter_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
                     if shutil.which('c++filt') else None
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
-    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD and graph pool kernels: '
+    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool and slot scatter kernels: '
           + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
 
     cfg = SliceConfig()
@@ -570,24 +580,58 @@ def main() -> int:
             src = g[:, :, None, :].expand(bb, m, idx.shape[-1], c).reshape(-1, c)
             return lambda: torch.zeros((bb * n, c), device=dev).index_add_(0, rows, src)
 
-        # pool with slot and its slot scatter at every encoder width, k=25
+        # pool with slot and its slot scatter at every encoder width, k=25:
+        # the pool bit-exact to the strict > rule on rows with NaNs, ties and a
+        # hub row, and without NaNs to the plain version and the eval pool;
+        # the scatter bit-equal to its plain version on the CPU, on every call,
+        # its plan (held equal to the library's) beside the other slice widths
+        # and row splits
         idx25 = graph(25)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for f in (64, 128, 256):
             x = randn(bt, n, f)
+            x_nan, idx_nan = x.clone(), idx25.clone()
+            x_nan[:, 40] = x_nan[:, 7]
+            x_nan[:, 11, ::3] = float('nan')
+            x_nan[:, 12, 1::5] = float('nan')
+            idx_nan[..., 1], idx_nan[..., 24] = 7, 40
+            idx_nan[:, : 3 * n // 4, 12] = 11
+            idx_nan[:, ::7, 0] = 12
+            got_nan, got_nan_slots = gather.graph_max_pool_src_cuda(x_nan, idx_nan)
+            want_nan, want_nan_slots = ops.graph_max_pool_slots_strict(x_nan, idx_nan)
+            nan = torch.isnan(want_nan)
+            strict = (bool(nan.any()) and torch.equal(nan, torch.isnan(got_nan))
+                      and torch.equal(got_nan[~nan].view(torch.int32), want_nan[~nan].view(torch.int32))
+                      and torch.equal(got_nan_slots, want_nan_slots))
             out, slots = gather.graph_max_pool_src_cuda(x, idx25)
             want, want_slots = ops.graph_max_pool_slots(x, idx25)
             exact = torch.equal(out, want) and torch.equal(slots, want_slots)
             eval_equal = torch.equal(out, gather.graph_max_pool_cuda(x, idx25))
             timed('graph_max_pool_src', f'({bt}, {n}, {f}) k=25', lambda: gather.graph_max_pool_src_cuda(x, idx25),
-                  lambda: ops.graph_max_pool_slots(x, idx25), float((out - want).abs().max()), exact and eval_equal,
-                  f'max and slots bit-exact {exact}, bit-equal to graph_max_pool {eval_equal}',
+                  lambda: ops.graph_max_pool_slots(x, idx25), float((out - want).abs().max()),
+                  strict and exact and eval_equal,
+                  f'max and slots bit-exact to the strict > rule with NaNs, ties and a hub row {strict}, to the '
+                  f'plain version without NaNs {exact}, bit-equal to graph_max_pool {eval_equal}',
                   roofline.pool_work(x, idx25, slots=True))
             g = randn(bt, n, f)
             got, want = gather.scatter_add_slots_cuda(g, idx25, slots, n), ops.scatter_add_slots(g, idx25, slots, n)
-            r = rel_max(got, want)
+            # ascending centre order: bit-equal to scatter_add_ on the CPU, on every call
+            exact = torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx25.cpu(), slots.cpu(), n))
+            same = torch.equal(got, gather.scatter_add_slots_cuda(g, idx25, slots, n))
+            plan = gather.slot_scatter_plan(bt, n, f, sms=sms)
+            same_plan = plan == gather.kernel_slot_scatter_plan(bt, n, f)
+            others, others_equal = [], True
+            for w, r in ((w, r) for w in gather.SLICE_WIDTHS for r in (1, 2, 4) if (w, r) != plan[:2] and f % w == 0):
+                others_equal = others_equal and torch.equal(
+                    gather.scatter_add_slots_cuda(g, idx25, slots, n, slice_width=w, ranges=r), got)
+                ms = time_ms(lambda: gather.scatter_add_slots_cuda(g, idx25, slots, n, slice_width=w, ranges=r), REPS)
+                others.append(f'{ms:.4f} ms in slices of {w}, {r} range(s)')
             timed('scatter_add_slots', f'({bt}, {n}, {f}) k=25', lambda: gather.scatter_add_slots_cuda(g, idx25, slots, n),
                   lambda: ops.scatter_add_slots(g, idx25, slots, n), float((got - want).abs().max()),
-                  r <= SCATTER_REL_MAX, f'rel max diff {r:.2e} <= {SCATTER_REL_MAX}',
+                  exact and same and same_plan and others_equal,
+                  f'bit-equal to the plain version on the CPU {exact}, the same on a second call {same}; the plan: '
+                  f'slices of {plan.slice_width}, {plan.ranges} row range(s), the kernel\'s plan too {same_plan}; '
+                  + ', '.join(others) + f', bit-equal to the plan\'s {others_equal}',
                   roofline.scatter_slots_work(g, idx25, slots, n))
 
         def row_scatter_exact(got: torch.Tensor, g: torch.Tensor, idx: torch.Tensor) -> tuple[bool, bool]:

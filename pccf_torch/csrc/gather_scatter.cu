@@ -11,32 +11,37 @@
 // What bounds them: bytes.  Every forward reads k rows per centre (mostly L2
 // hits: each row is read by ~k centres) and writes one row (pools) or k rows
 // (gather).  The TPU kernels keep the (N, C) operand resident in VMEM and
-// accumulate the scatters in place across grid steps that run in order;
-// blocks on the card run in parallel and in no order.  The slot scatter adds
-// with fp32 atomicAdd into an output zeroed first, so its sums change from
-// run to run by fp32 rounding (a few ulp of the sum), never by a lost or
-// doubled term.
+// accumulate the scatters in place across grid steps that run in order, so
+// each output element gets its terms in ascending centre order from 0.0;
+// blocks on the card run in parallel and in no order.  Neither scatter here
+// uses atomics: each keeps the TPU kernel's order, so dx equals its plain
+// version run on the CPU bit for bit, on every run.
 //
 // The row scatter is a sum-pool over the transposed graph instead, with no
 // atomics: two launches build each sample's reverse adjacency (row offsets,
 // and for each row the source centres of its in-edges e = i * k + j in
 // ascending e), and a third sums those g rows in list order from 0.0 with
 // plain fp32 adds.  Ascending e is the
-// order of the TPU kernel's grid and of index_add_ on the CPU, so dx equals the
-// plain version run on the CPU bit for bit, on every run.  A row no edge
+// order of the TPU kernel's grid and of index_add_ on the CPU.  A row no edge
 // reaches is written as zeros; nothing clears dx first.
 //
-// The sum-pool is the resident-slice pool of slice_pool.cuh: a block copies
-// one channel slice of a sample into shared memory once by TMA and sums its
-// centres' rows from there in slot order.
+// The slot scatter holds a dx slice in shared memory instead: a block owns
+// dx[b, rows r0..r1, c0:c0+S] (slot_scatter_plan), zeroes it there, walks
+// all of the sample's centres in ascending i and adds g[b, i, c] onto row
+// idx[b, i, slot[b, i, c]] when it lies in the block's rows, each row's
+// terms by one lane in ascending i; then it writes its rows once.  Ascending i is the order of the TPU
+// kernel (pallas_gather.py:161-179) and of scatter_add_ on the CPU.
 //
-// Design of the others: one thread per output element, or per 4 channels
-// (one 16-byte load per neighbour) where C % 4 == 0, so a warp covers
-// consecutive channels of one row and every access is coalesced.  The
-// pool's slot output is uint8 (k <= 255), a quarter of the int32 slots of
-// the TPU kernel: it is written once and read once per training step.  The
-// max keeps the earliest slot on ties (strict >, pallas_gather.py:111), so
-// the forward is bit-identical to graph_max_pool.cu wherever no NaN occurs.
+// The three pools are the resident-slice pool of slice_pool.cuh: a block
+// copies one channel slice of a sample into shared memory once by TMA and
+// reduces its centres' rows from there (the sum in slot order, the max with
+// its winning slot by the TPU kernel's strict >, pallas_gather.py:111).
+// The slot output is uint8 (k <= 255), a quarter of the int32 slots of the
+// TPU kernel: it is written once and read once per training step.
+//
+// The gather: one thread per output element, or per 4 channels (one 16-byte
+// load per neighbour) where C % 4 == 0, so a warp covers consecutive channels
+// of one row and every access is coalesced.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -369,47 +374,300 @@ void scatter_rows(const T* g, const int* idx, T* dx, int* scratch, int b, int m,
   scatter_gather_kernel<T><<<grid_for(total), THREADS, 0, stream>>>(g, offsets, lists, dx, m, n, cv, e_count, total);
 }
 
-__device__ __forceinline__ void take_if_greater(float& m, unsigned char& s, float v, int j) {
-  if (v > m) {
-    m = v;
-    s = (unsigned char)j;
+// ---- the slot scatter: dx[b, r, c] = the sum, in ascending centre i from
+// 0.0, of g[b, i, c] over the i with idx[b, i, slot[b, i, c]] = r ----
+//
+// A block owns dx[b, r0:r1, c0:c0+S] in shared memory, column by column
+// (`held`, S columns of rows_pad floats), has 16 / S warps a channel (512
+// threads), and walks all of the sample's centres in chunks (256 centres at
+// S = 16, 512 below):
+//   staging: each thread takes (centre, 4 channels) units of the chunk: it
+//     loads their 4 slots and g float4 with coalesced reads two chunks
+//     ahead, the 4 winning rows idx[b, i, slot] one chunk ahead (L1 hits:
+//     the row of k indices is read by the slice's S / 4 units), and stores
+//     rows and g column by column into one of two staging buffers;
+//   adding: lane L of a channel's first warp owns the held rows r0 + key
+//     with key % 64 == L (key % 32 at S = 16, one warp a channel), of the
+//     second warp key % 64 == 32 + L: no two lanes ever add onto one row, so
+//     the adds need no conflict test and no barrier between them, and a
+//     warp's adds hit 32 distinct banks.  The channel's warps sort its
+//     column of the chunk by key % 64, stably, into 64 lists in place (each
+//     warp a share of the batches of 32 centres: 7 ballots a batch; then
+//     the counts exchanged through shared memory, a scan over the lanes, and
+//     each term placed at its list's start plus the earlier terms of its
+//     list), and each owning lane walks its list in ascending i, reading a
+//     term's held value one step before it adds (the previous sum forwarded
+//     where both terms are one row).  Lanes as centres instead, grouping
+//     equal rows with __match_any_sync or an owner byte a row, spent most
+//     of the kernel in those tests.  Every add is __fadd_rn onto the held
+//     value, one term at a time, so each (row, channel) gets its terms in
+//     ascending i, from 0.0.
+// What it costs: every block reads its sample's slots and g of its slice
+// and looks up the winning rows in idx, so idx rows are read once a slice
+// (and a row range); below 16 channels that is the largest stream, and with
+// the sort's latency it keeps the kernel at a few times its bound.
+// A slice's staged columns and held rows are padded so that the staging
+// stores, the column reads and the final float4 reads hit distinct banks.
+constexpr int SLOT_CHUNK = 256;      // centres a staged chunk a walking warp
+constexpr int SLOT_MAX_RANGES = 8;   // row ranges a slice at most: re-reads of g, slots and idx
+constexpr int SLOT_MAX_SMEM = 232448;  // shared memory a block can use on an H100 (227 KB)
+
+struct SlotScatterPlan {
+  int s;       // channels a slice, 0 when the shape is not covered
+  int ranges;  // row ranges per (sample, slice)
+  int rows;    // rows a range (a multiple of 8; the last range may be shorter)
+  int smem;    // dynamic shared memory of a block, bytes
+};
+
+// warps a channel, 512 threads a block: they split the channel's sort by
+// batches, and the first two its walk by row % 64
+__host__ __device__ constexpr int slot_parts(int s) { return 16 / s; }
+__host__ __device__ constexpr int slot_chunk(int s) { return SLOT_CHUNK * (s == 16 ? 1 : 2); }
+
+int slot_col(int s) { return slot_chunk(s) + 32 / s; }
+int slot_rows_pad(int rows, int s) { return (rows + 7) / 8 * 8 + 32 / s; }
+// the held slice, two staging buffers of winning rows (int32) and g (fp32),
+// and the sort's counts (an int a lane of each warp)
+int slot_staging(int s) { return 16 * s * slot_col(s) + 128 * s * slot_parts(s); }
+int slot_smem(int rows, int s) { return 4 * s * slot_rows_pad(rows, s) + slot_staging(s); }
+int slot_max_rows(int s) { return ((SLOT_MAX_SMEM - slot_staging(s)) / (4 * s) - 32 / s) / 8 * 8; }
+
+// s = 0 chooses the width (else 4, 8 or 16), ranges = 0 the fewest that fit
+// (else at least that many): the widest slice whose blocks fill three
+// quarters of the SMs, else the narrowest that fits (the most blocks).  A
+// block walks all of its sample's centres whatever its rows, so more ranges
+// add work where narrower slices do not
+SlotScatterPlan slot_scatter_plan(int b, int n, int f, int s, int ranges, int sms) {
+  const SlotScatterPlan none{0, 0, 0, 0};
+  const auto plan = [&](int w) {
+    if (f % w != 0) return none;
+    const int least = (n + slot_max_rows(w) - 1) / slot_max_rows(w);
+    const int r = ranges == 0 ? least : ranges;
+    if (r < least || r > SLOT_MAX_RANGES) return none;
+    const int rows = ((n + r - 1) / r + 7) / 8 * 8;
+    return SlotScatterPlan{w, r, rows, slot_smem(rows, w)};
+  };
+  if (b < 1 || b > 65535 || n < 1 || f < 4 || f % 4 != 0 || ranges < 0) return none;
+  if (s != 0) return s == 4 || s == 8 || s == 16 ? plan(s) : none;
+  SlotScatterPlan last = none;
+  for (int w = 16; w >= 4; w /= 2) {
+    const SlotScatterPlan p = plan(w);
+    if (p.s == 0) continue;
+    last = p;
+    if (4LL * b * (f / w) * p.ranges >= 3LL * sms) return p;
+  }
+  return last;
+}
+
+struct SlotScatterArgs {
+  const float* g;
+  const int* idx;
+  const uint8_t* slot;
+  float* dx;
+  int m, n, f, k, rows, rows_pad;
+};
+
+// grid (F / S, ranges, B), 32 * S * slot_parts(S) threads, slot_smem(rows, S) bytes
+template <int S>
+__global__ void __launch_bounds__(32 * S * slot_parts(S)) slot_scatter_kernel(const __grid_constant__ SlotScatterArgs a) {
+  constexpr int W = slot_parts(S);                         // warps a channel
+  constexpr int kHalves = W > 1 ? 2 : 1;                   // lists by row % (32 kHalves), a warp's walk a half
+  constexpr int kThreads = 32 * S * W;
+  constexpr int kQuads = S / 4;                            // float4 columns of the slice
+  constexpr int kChunk = slot_chunk(S);                    // centres a staged chunk
+  constexpr int kCol = kChunk + 32 / S;                    // a staged column, padded
+  constexpr int kUnits = kChunk * kQuads / kThreads;       // (centre, quad) units a thread stages: 1 or 2
+  constexpr int kBatches = kChunk / 32 / W;                // batches of 32 centres a warp sorts a chunk: 4 or 8
+  extern __shared__ __align__(16) float smem_f[];
+  float* held = smem_f;                                             // [S][rows_pad]
+  int* rows_s = reinterpret_cast<int*>(held + S * a.rows_pad);      // [2][S][kCol]
+  float* g_s = reinterpret_cast<float*>(rows_s + 2 * S * kCol);     // [2][S][kCol]
+  int* counts_s = reinterpret_cast<int*>(g_s + 2 * S * kCol);       // [S][W][32]
+  const int c0 = blockIdx.x * S;
+  const int r0 = blockIdx.y * a.rows, r1 = min(a.n, r0 + a.rows);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int channel = warp / W, part = warp % W;
+
+  const long long centre0 = (long long)blockIdx.z * a.m;
+  const int chunks = (a.m + kChunk - 1) / kChunk;
+  unsigned sl[kUnits];  // a unit's 4 slots, a byte each
+  float4 gv[kUnits];
+  int rr[kUnits][4];    // a unit's 4 winning rows, -1 past the last centre
+  // unit u = threadIdx.x + kThreads * h: centre u / kQuads of the chunk, channels c0 + 4 * (u % kQuads)
+  const auto load = [&](int chunk) {
+#pragma unroll
+    for (int h = 0; h < kUnits; ++h) {
+      const int u = threadIdx.x + kThreads * h;
+      const int i = chunk * kChunk + u / kQuads;
+      const long long at = (centre0 + i) * a.f + c0 + 4 * (u % kQuads);
+      sl[h] = i < a.m ? __ldg(reinterpret_cast<const unsigned*>(a.slot + at)) : 0u;
+      gv[h] = i < a.m ? __ldg(reinterpret_cast<const float4*>(a.g + at)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  const auto lookup = [&](int chunk) {
+#pragma unroll
+    for (int h = 0; h < kUnits; ++h) {
+      const int i = chunk * kChunk + (threadIdx.x + kThreads * h) / kQuads;
+      const int* row = a.idx + (centre0 + i) * a.k;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) rr[h][j] = i < a.m ? __ldg(row + ((sl[h] >> (8 * j)) & 255u)) : -1;
+    }
+  };
+  const auto stage = [&](int buf, const float4 (&v)[kUnits]) {
+#pragma unroll
+    for (int h = 0; h < kUnits; ++h) {
+      const int u = threadIdx.x + kThreads * h;
+      const int at = (buf * S + 4 * (u % kQuads)) * kCol + u / kQuads;
+      rows_s[at] = rr[h][0];
+      rows_s[at + kCol] = rr[h][1];
+      rows_s[at + 2 * kCol] = rr[h][2];
+      rows_s[at + 3 * kCol] = rr[h][3];
+      g_s[at] = v[h].x;
+      g_s[at + kCol] = v[h].y;
+      g_s[at + 2 * kCol] = v[h].z;
+      g_s[at + 3 * kCol] = v[h].w;
+    }
+  };
+  float* held_col = held + channel * a.rows_pad;
+  const unsigned lower = (1u << lane) - 1u;
+  // The channel's terms of a chunk are sorted, stably, into 32 * kHalves
+  // lists by key % (32 kHalves), key = r - r0 the held row, each list in
+  // ascending i; warp `part` of the channel sorts batches [part * kBatches,
+  // +kBatches), and the first kHalves warps walk the lists part * 32 + L,
+  // lane L one.  A lane's count of its list of half h sits at bit 16 h of a
+  // packed word.
+  const auto add = [&](int buf) {
+    int* rc = rows_s + (buf * S + channel) * kCol;  // this channel's column of the chunk
+    float* gc = g_s + (buf * S + channel) * kCol;
+    int key[kBatches];
+    float val[kBatches];
+    unsigned own[kBatches], upper[kBatches];
+    int counts = 0;
+#pragma unroll
+    for (int t = 0; t < kBatches; ++t) {
+      const int at = (part * kBatches + t) * 32 + lane;
+      const int r = rc[at];
+      val[t] = gc[at];
+      key[t] = r >= r0 && r < r1 ? r - r0 : -1;
+      unsigned m = __ballot_sync(FULL_MASK, key[t] >= 0);  // own[t]: the batch's lanes of key % 32 == lane
+#pragma unroll
+      for (int bit = 0; bit < 5; ++bit) {
+        const unsigned set = __ballot_sync(FULL_MASK, (key[t] >> bit) & 1);
+        m &= (lane >> bit) & 1 ? set : ~set;
+      }
+      own[t] = m;
+      upper[t] = kHalves == 2 ? __ballot_sync(FULL_MASK, (key[t] >> 5) & 1) : 0u;
+      counts += __popc(m & ~upper[t]) | __popc(m & upper[t]) << 16;
+    }
+    counts_s[(channel * W + part) * 32 + lane] = counts;
+    __syncthreads();  // every warp has read its batches and counted them
+    int total = 0, before = 0;  // the lane's lists: all the channel's terms, and those of earlier parts
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const int c = counts_s[(channel * W + q) * 32 + lane];
+      total += c;
+      before += q < part ? c : 0;
+    }
+    int start = total;  // the lists' starts: a scan over the lanes, the upper lists after all the lower
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(FULL_MASK, start, o);
+      if (lane >= o) start += u;
+    }
+    start += (__shfl_sync(FULL_MASK, start, 31) & 0xffff) << 16;
+    start -= total;
+    int at = start + before;  // where this part's next term of each of the lane's lists goes
+#pragma unroll
+    for (int t = 0; t < kBatches; ++t) {
+      const int d = key[t] & 31;
+      const bool up = (key[t] >> 5) & 1 && kHalves == 2;
+      const int base = __shfl_sync(FULL_MASK, at, d);
+      const unsigned group = __shfl_sync(FULL_MASK, own[t], d) & (up ? upper[t] : ~upper[t]);
+      if (key[t] >= 0) {
+        const int pos = (up ? base >> 16 : base & 0xffff) + __popc(group & lower);
+        rc[pos] = key[t];
+        gc[pos] = val[t];
+      }
+      at += __popc(own[t] & ~upper[t]) | __popc(own[t] & upper[t]) << 16;
+    }
+    __syncthreads();  // the channel's lists are written
+    // the lane's list, one term a step: term j + 1's held value is read
+    // before term j's sum is stored (and replaced by it where both are one
+    // row), term j + 2's row and value a step earlier still
+    const int first = part ? start >> 16 : start & 0xffff;
+    const int count = part >= kHalves ? 0 : part ? total >> 16 : total & 0xffff;
+    const int end = first + count;
+    int k0 = count > 0 ? rc[first] : 0;
+    float g0 = count > 0 ? gc[first] : 0.f;
+    int k1 = count > 1 ? rc[first + 1] : k0;
+    float g1 = count > 1 ? gc[first + 1] : 0.f;
+    float h0 = held_col[k0];
+    const int steps = __reduce_max_sync(FULL_MASK, count);
+    for (int j = first; j < first + steps; ++j) {
+      const bool live = j < end, ahead = j + 2 < end;
+      const float h1 = held_col[k1];
+      const int k2 = ahead ? rc[j + 2] : k1;
+      const float g2 = ahead ? gc[j + 2] : 0.f;
+      const float sum = __fadd_rn(h0, g0);
+      if (live) held_col[k0] = sum;
+      h0 = k1 == k0 ? sum : h1;
+      k0 = k1;
+      g0 = g1;
+      k1 = k2;
+      g1 = g2;
+    }
+  };
+
+  load(0);
+  for (int t = threadIdx.x; t < S * a.rows_pad / 4; t += kThreads)
+    reinterpret_cast<float4*>(held)[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  lookup(0);
+  float4 first[kUnits];
+#pragma unroll
+  for (int h = 0; h < kUnits; ++h) first[h] = gv[h];
+  if (chunks > 1) load(1);
+  stage(0, first);
+  __syncthreads();  // held is zeroed and chunk 0 staged
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    const bool more = chunk + 1 < chunks;  // the same for the whole block
+    float4 next[kUnits];
+#pragma unroll
+    for (int h = 0; h < kUnits; ++h) next[h] = gv[h];
+    if (more) lookup(chunk + 1);
+    if (chunk + 2 < chunks) load(chunk + 2);
+    add(chunk & 1);
+    if (more) stage((chunk + 1) & 1, next);
+    __syncthreads();
+  }
+  for (int t = threadIdx.x; t < (r1 - r0) * kQuads; t += kThreads) {
+    const int row = t / kQuads, q = t % kQuads;
+    const float* h = held + 4 * q * a.rows_pad + row;
+    reinterpret_cast<float4*>(a.dx + ((long long)blockIdx.z * a.n + r0 + row) * a.f + c0)[q] =
+        make_float4(h[0], h[a.rows_pad], h[2 * a.rows_pad], h[3 * a.rows_pad]);
   }
 }
 
-// out = max over the k neighbour rows, slot = the first j attaining it
-__global__ void pool_src_kernel(const float4* __restrict__ x, const int* __restrict__ idx, float4* __restrict__ out,
-                                uchar4* __restrict__ slot, int n, int f4, int k, long long total) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int c4 = (int)(t % f4);
-  const long long point = t / f4;  // b * n + i
-  const long long b = point / n;
-  const int* nb = idx + point * k;
-  const float4* xb = x + b * n * f4;
-  float4 m = __ldg(xb + (long long)__ldg(nb) * f4 + c4);
-  uchar4 s = make_uchar4(0, 0, 0, 0);
-  for (int j = 1; j < k; ++j) {
-    const float4 v = __ldg(xb + (long long)__ldg(nb + j) * f4 + c4);
-    take_if_greater(m.x, s.x, v.x, j);
-    take_if_greater(m.y, s.y, v.y, j);
-    take_if_greater(m.z, s.z, v.z, j);
-    take_if_greater(m.w, s.w, v.w, j);
-  }
-  out[t] = m;
-  slot[t] = s;
+template <int S>
+int launch_slot_scatter(const SlotScatterPlan& p, const SlotScatterArgs& a, int b, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(slot_scatter_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, SLOT_MAX_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  slot_scatter_kernel<S><<<dim3(a.f / S, p.ranges, b), 32 * S * slot_parts(S), p.smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// dx[b, idx[b, i, slot[b, i, c]], c] += g[b, i, c]: one atomic per element
-__global__ void scatter_add_slots_kernel(const float* __restrict__ g, const int* __restrict__ idx,
-                                         const uint8_t* __restrict__ slot, float* __restrict__ dx, int m, int n,
-                                         int f, int k, long long total) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const long long row = t / f;  // flat (b, i)
-  const int ch = (int)(t - row * f);
-  const long long b = row / m;
-  const int r = __ldg(idx + row * k + slot[t]);
-  atomicAdd(dx + (b * n + r) * f + ch, g[t]);
+int slot_scatter(const float* g, const int* idx, const uint8_t* slot, float* dx, int b, int m, int n, int f, int k,
+                 int slice_width, int ranges, cudaStream_t stream) {
+  const SlotScatterPlan p = slot_scatter_plan(b, n, f, slice_width, ranges, pccf::device_sms());
+  if (p.s == 0 || m < 1 || k < 1 || k > 255 || !aligned16(g) || !aligned16(dx) ||
+      reinterpret_cast<uintptr_t>(slot) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  const SlotScatterArgs a{g, idx, slot, dx, m, n, f, k, p.rows, slot_rows_pad(p.rows, p.s)};
+  switch (p.s) {
+    case 16: return launch_slot_scatter<16>(p, a, b, stream);
+    case 8: return launch_slot_scatter<8>(p, a, b, stream);
+    default: return launch_slot_scatter<4>(p, a, b, stream);
+  }
 }
 
 }  // namespace
@@ -456,28 +714,41 @@ extern "C" int pccf_scatter_add_rows(const float* g, const int* idx, float* dx, 
   return (int)cudaGetLastError();
 }
 
-// x (B, N, F), idx (B, N, k) -> out (B, N, F) float, slot (B, N, F) uint8; F % 4 == 0, k <= 255
+// x (B, N, F), idx (B, N, k) -> out (B, N, F) float, slot (B, N, F) uint8, the
+// first slot attaining the max by strict >; F % 4 == 0, k <= 255, N <= 13951
+// (the pools' slice plan, slice_pool.cuh)
 extern "C" int pccf_graph_max_pool_src(const float* x, const int* idx, float* out, uint8_t* slot, int b, int n,
                                        int f, int k, cudaStream_t stream) {
-  if (b < 1 || n < 1 || f % 4 != 0 || f < 4 || k < 1 || k > 255 || !aligned16(x) || !aligned16(out) ||
-      reinterpret_cast<uintptr_t>(slot) % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const long long total = (long long)b * n * (f / 4);
-  pool_src_kernel<<<grid_for(total), THREADS, 0, stream>>>(reinterpret_cast<const float4*>(x), idx,
-                                                           reinterpret_cast<float4*>(out),
-                                                           reinterpret_cast<uchar4*>(slot), n, f / 4, k, total);
-  return (int)cudaGetLastError();
+  if (k > 255 || reinterpret_cast<uintptr_t>(slot) % 4 != 0) return (int)cudaErrorInvalidValue;
+  return pccf::slice_pool<pccf::PoolMaxSlot>(x, idx, out, b, n, f, k, 0, stream, slot);
 }
 
-// g (B, M, F), idx (B, M, k), slot (B, M, F) into dx (B, N, F), which is zeroed first
+// g (B, M, F), idx (B, M, k), slot (B, M, F) into dx (B, N, F), every element
+// written: each (row, channel) the sum of its terms in ascending centre from
+// 0.0; F % 4 == 0, k <= 255, N <= SLOT_MAX_RANGES * slot_max_rows(4) = 98496
 extern "C" int pccf_scatter_add_slots(const float* g, const int* idx, const uint8_t* slot, float* dx, int b, int m,
                                       int n, int f, int k, cudaStream_t stream) {
-  if (b < 1 || m < 1 || n < 1 || f < 1 || k < 1 || k > 255) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(dx, 0, sizeof(float) * (size_t)b * n * f, stream);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)b * m * f;
-  scatter_add_slots_kernel<<<grid_for(total), THREADS, 0, stream>>>(g, idx, slot, dx, m, n, f, k, total);
-  return (int)cudaGetLastError();
+  return slot_scatter(g, idx, slot, dx, b, m, n, f, k, 0, 0, stream);
+}
+
+// pccf_scatter_add_slots in slices of slice_width channels (0: the plan's)
+// and `ranges` row ranges (0: the fewest that fit), to time the others
+extern "C" int pccf_scatter_add_slots_split(const float* g, const int* idx, const uint8_t* slot, float* dx, int b,
+                                            int m, int n, int f, int k, int slice_width, int ranges,
+                                            cudaStream_t stream) {
+  return slot_scatter(g, idx, slot, dx, b, m, n, f, k, slice_width, ranges, stream);
+}
+
+// the slot scatter's plan for (B, N, F) on the current device: plan[0] the
+// slice width, plan[1] the row ranges, plan[2] the rows a range, plan[3] the
+// shared memory of a block; cudaErrorInvalidValue where none covers the shape
+extern "C" int pccf_slot_scatter_plan(int b, int n, int f, int slice_width, int ranges, int* plan) {
+  const SlotScatterPlan p = slot_scatter_plan(b, n, f, slice_width, ranges, pccf::device_sms());
+  plan[0] = p.s;
+  plan[1] = p.ranges;
+  plan[2] = p.rows;
+  plan[3] = p.smem;
+  return p.s == 0 ? (int)cudaErrorInvalidValue : 0;
 }
 
 // x (B, N, C), idx (B, N, k) -> out (B, N, C), each row the sum of its k

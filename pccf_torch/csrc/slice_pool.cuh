@@ -1,12 +1,13 @@
 // The resident-slice pool: out[b, i, c] = reduce over j in slot order of
-// x[b, idx[b, i, j], c], the device routine of graph_max_pool.cu (max) and of
-// pccf_graph_sum_pool in gather_scatter.cu (sum).
+// x[b, idx[b, i, j], c], the device routine of graph_max_pool.cu (max), and of
+// pccf_graph_sum_pool (sum) and pccf_graph_max_pool_src (max with its winning
+// slot) in gather_scatter.cu.
 //
-// Replaces the row reads of pccf/kernels/pallas_gather.py _pool_forward:80
-// and _sum_pool_forward:256.  The TPU kernels keep a sample's whole (N, C)
-// block in VMEM (pallas_gather.py:88, :264) and gather rows from there; a
-// Hopper block has at most 227 KB of shared memory, too little for (2048,
-// 256) fp32, so the block is cut along channels.
+// Replaces the row reads of pccf/kernels/pallas_gather.py _pool_forward:80,
+// _pool_src_forward:121 and _sum_pool_forward:256.  The TPU kernels keep a
+// sample's whole (N, C) block in VMEM (pallas_gather.py:88, :130, :264) and
+// gather rows from there; a Hopper block has at most 227 KB of shared memory,
+// too little for (2048, 256) fp32, so the block is cut along channels.
 //
 // What bounds it: bytes.  Each centre reduces k rows, so a kernel that
 // gathers from device memory moves k times its input (838.9 MB at (16, 2048,
@@ -33,11 +34,18 @@
 // S / 4 a centre, one float4 each: 256 centres a pass.  N is limited by the
 // narrowest slice: N * 16 bytes and 9 KB of staged indices, N <= 13951.
 //
-// Reductions keep the parent kernels' arithmetic: the max seeds with slot 0
-// and takes v when v > m or v is NaN (ties keep the earlier value, NaN
-// propagates as in torch.amax), bit-identical to the plain version; the sum
-// starts from slot 0's row and adds the others in slot order with plain fp32
-// adds, the order of the TPU kernel (pallas_gather.py:246-249).
+// Reductions (a Reduce class: its accumulator, seed, step and store):
+//   PoolMax seeds with slot 0 and takes v when v > m or v is NaN (ties keep
+//     the earlier value, NaN propagates as in torch.amax), bit-identical to
+//     the plain version;
+//   PoolMaxSlot seeds the max and the slot with slot 0 and takes v, and its
+//     slot j, only when v > m: ties keep the earliest slot and a NaN never
+//     displaces the running value, the rule of the TPU kernel
+//     (pallas_gather.py:111).  It differs from PoolMax (and from argmax, which
+//     the plain version and pccf/kernels/ops.py:126 take) only where a NaN
+//     lies past slot 0.  The slot is written as uint8 (k <= 255) beside the max;
+//   PoolSum starts from slot 0's row and adds the others in slot order with
+//     plain fp32 adds, the order of the TPU kernel (pallas_gather.py:246-249).
 
 #pragma once
 
@@ -92,27 +100,71 @@ struct SlicePoolArgs {
   CUtensorMap tail;  // one box of N % kPoolBoxRows rows (unused when 0)
   const int* idx;
   float* out;
+  uint8_t* slot;  // PoolMaxSlot's winning slots, (B, N, C) uint8
   int n, c, k, range;
 };
 
+// A Reduce has an accumulator Acc (zero-initialised), seed(acc, v) for slot
+// 0's float4, step(acc, v, j) for slot j's, and store(a, at, acc), at the
+// float4 index of (b, i, c0 + 4q) in the (B, N, C) output
 struct PoolMax {
+  using Acc = float4;
   // running max m against a new value v: the earlier value stays on ties, a
   // NaN on either side wins
   static __device__ __forceinline__ float one(float m, float v) { return (v > m || v != v) ? v : m; }
-  static __device__ __forceinline__ void step(float4& m, const float4 v) {
+  static __device__ __forceinline__ void seed(float4& m, const float4 v) { m = v; }
+  static __device__ __forceinline__ void step(float4& m, const float4 v, int) {
     m.x = one(m.x, v.x);
     m.y = one(m.y, v.y);
     m.z = one(m.z, v.z);
     m.w = one(m.w, v.w);
   }
+  static __device__ __forceinline__ void store(const SlicePoolArgs& a, long long at, const float4& m) {
+    reinterpret_cast<float4*>(a.out)[at] = m;
+  }
+};
+
+struct MaxSlot {
+  float4 m;
+  int s0, s1, s2, s3;  // one register a channel: a select a slot, packed to bytes at the store
+};
+
+struct PoolMaxSlot {
+  using Acc = MaxSlot;
+  static __device__ __forceinline__ void take(float& m, int& s, float v, int j) {
+    if (v > m) {  // strict: ties keep the earlier slot, a NaN candidate never wins
+      m = v;
+      s = j;
+    }
+  }
+  static __device__ __forceinline__ void seed(MaxSlot& acc, const float4 v) {
+    acc.m = v;
+    acc.s0 = acc.s1 = acc.s2 = acc.s3 = 0;
+  }
+  static __device__ __forceinline__ void step(MaxSlot& acc, const float4 v, int j) {
+    take(acc.m.x, acc.s0, v.x, j);
+    take(acc.m.y, acc.s1, v.y, j);
+    take(acc.m.z, acc.s2, v.z, j);
+    take(acc.m.w, acc.s3, v.w, j);
+  }
+  static __device__ __forceinline__ void store(const SlicePoolArgs& a, long long at, const MaxSlot& acc) {
+    reinterpret_cast<float4*>(a.out)[at] = acc.m;
+    reinterpret_cast<uint32_t*>(a.slot)[at] =
+        (uint32_t)acc.s0 | (uint32_t)acc.s1 << 8 | (uint32_t)acc.s2 << 16 | (uint32_t)acc.s3 << 24;
+  }
 };
 
 struct PoolSum {
-  static __device__ __forceinline__ void step(float4& s, const float4 v) {
+  using Acc = float4;
+  static __device__ __forceinline__ void seed(float4& s, const float4 v) { s = v; }
+  static __device__ __forceinline__ void step(float4& s, const float4 v, int) {
     s.x = __fadd_rn(s.x, v.x);
     s.y = __fadd_rn(s.y, v.y);
     s.z = __fadd_rn(s.z, v.z);
     s.w = __fadd_rn(s.w, v.w);
+  }
+  static __device__ __forceinline__ void store(const SlicePoolArgs& a, long long at, const float4& s) {
+    reinterpret_cast<float4*>(a.out)[at] = s;
   }
 };
 
@@ -165,7 +217,7 @@ __global__ void __launch_bounds__(64 * S) slice_pool_kernel(const __grid_constan
   __syncthreads();  // the barrier is initialised before any thread waits on it
   mbar_wait(bar, 0);
 
-  float4* out = reinterpret_cast<float4*>(a.out) + blockIdx.x * kVec + q;
+  const int out_col = blockIdx.x * kVec + q;  // float4 column of (c0 + 4q)
   const long long out_stride = a.c / 4;
   const int* mine = staged + (lane / kVec) * kRow;
   // passes and chunks are the same for every thread of the block, so a
@@ -173,7 +225,7 @@ __global__ void __launch_bounds__(64 * S) slice_pool_kernel(const __grid_constan
   // and write nothing
   for (int p = first; p < last; p += kPoolPassCentres) {
     const int i = p + (int)threadIdx.x / kVec;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    typename Reduce::Acc acc{};
     for (int c = 0; c < chunks; ++c) {
 #pragma unroll
       for (int t = 0; t < kPer; ++t) {
@@ -188,14 +240,14 @@ __global__ void __launch_bounds__(64 * S) slice_pool_kernel(const __grid_constan
       const int slots = min(kChunk, a.k - c * kChunk);
       int u = 0;
       if (c == 0) {
-        acc = slice[mine[0] * kVec + q];  // slot 0 seeds the reduction
+        Reduce::seed(acc, slice[mine[0] * kVec + q]);  // slot 0 seeds the reduction
         u = 1;
       }
 #pragma unroll 8
-      for (; u < slots; ++u) Reduce::step(acc, slice[mine[u] * kVec + q]);
+      for (; u < slots; ++u) Reduce::step(acc, slice[mine[u] * kVec + q], c * kChunk + u);
       __syncwarp();  // every lane has read the chunk before it is overwritten
     }
-    if (i < last) out[(row0 + i) * out_stride] = acc;
+    if (i < last) Reduce::store(a, (row0 + i) * out_stride + out_col, acc);
   }
 }
 
@@ -222,8 +274,8 @@ inline int device_sms() {
 }
 
 template <int S, class Reduce>
-int launch_slice_pool(const SlicePlan& p, const float* x, const int* idx, float* out, int b, int n, int c, int k,
-                      cudaStream_t stream) {
+int launch_slice_pool(const SlicePlan& p, const float* x, const int* idx, float* out, uint8_t* slot, int b, int n,
+                      int c, int k, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       slice_pool_kernel<S, Reduce>, cudaFuncAttributeMaxDynamicSharedMemorySize, kPoolMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
@@ -237,6 +289,7 @@ int launch_slice_pool(const SlicePlan& p, const float* x, const int* idx, float*
     return (int)cudaErrorInvalidValue;
   a.idx = idx;
   a.out = out;
+  a.slot = slot;
   a.n = n;
   a.c = c;
   a.k = k;
@@ -245,18 +298,19 @@ int launch_slice_pool(const SlicePlan& p, const float* x, const int* idx, float*
   return (int)cudaGetLastError();
 }
 
-// x (B, N, C), idx (B, N, k) with entries in [0, N) -> out (B, N, C); C % 4 == 0,
-// x and out 16-byte aligned, k >= 1, N <= 13951; slice_width 0 takes the plan's
+// x (B, N, C), idx (B, N, k) with entries in [0, N) -> out (B, N, C) (and, for
+// PoolMaxSlot, slot (B, N, C) uint8, 4-byte aligned); C % 4 == 0, x and out
+// 16-byte aligned, k >= 1, N <= 13951; slice_width 0 takes the plan's
 template <class Reduce>
 int slice_pool(const float* x, const int* idx, float* out, int b, int n, int c, int k, int slice_width,
-               cudaStream_t stream) {
+               cudaStream_t stream, uint8_t* slot = nullptr) {
   const SlicePlan p = slice_plan(b, n, c, slice_width, device_sms());
   if (p.s == 0 || k < 1 || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   switch (p.s) {
-    case 16: return launch_slice_pool<16, Reduce>(p, x, idx, out, b, n, c, k, stream);
-    case 8: return launch_slice_pool<8, Reduce>(p, x, idx, out, b, n, c, k, stream);
-    default: return launch_slice_pool<4, Reduce>(p, x, idx, out, b, n, c, k, stream);
+    case 16: return launch_slice_pool<16, Reduce>(p, x, idx, out, slot, b, n, c, k, stream);
+    case 8: return launch_slice_pool<8, Reduce>(p, x, idx, out, slot, b, n, c, k, stream);
+    default: return launch_slice_pool<4, Reduce>(p, x, idx, out, slot, b, n, c, k, stream);
   }
 }
 

@@ -51,6 +51,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_scatter_add_rows_scratch': (I, I, I, I),
     'pccf_graph_max_pool_src': (P, P, P, P, I, I, I, I, P),
     'pccf_scatter_add_slots': (P, P, P, P, I, I, I, I, I, P),
+    'pccf_scatter_add_slots_split': (P, P, P, P, I, I, I, I, I, I, I, P),
+    'pccf_slot_scatter_plan': (I, I, I, I, I, P),
     'pccf_graph_sum_pool': (P, P, P, I, I, I, I, I, P),
     'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
     'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P),

@@ -11,17 +11,23 @@ last two is ``_scatter_add_rows:182``.  The plain versions are in
 :mod:`pccf_torch.kernels.ops`.  Each autograd function runs the kernels in its
 forward and backward on a CUDA tensor and the plain versions on a CPU tensor.
 
-The two pools read their rows from a channel slice of the sample held in
-shared memory (``csrc/slice_pool.cuh``); :func:`pool_plan` mirrors how the
-kernel picks the slice width and the centre ranges, and bounds the cloud at
-:data:`MAX_POOL_ROWS` points.
+The three pools (the eval max-pool, the training max-pool with its winning
+slot, and the sum-pool) read their rows from a channel slice of the sample
+held in shared memory (``csrc/slice_pool.cuh``); :func:`pool_plan` mirrors
+how the kernel picks the slice width and the centre ranges, and bounds the
+cloud at :data:`MAX_POOL_ROWS` points.  The training max-pool keeps the TPU
+kernel's rule, strict ``>`` (:func:`ops.graph_max_pool_slots_strict`); its CPU
+plain version takes ``argmax``, as ``pccf/kernels/ops.py`` does, and the two
+differ only where a NaN lies past slot 0.
 
-The row scatter (the backward of sum-pool and gather) sums over the
-transposed graph in ascending edge order, the order of ``index_add_`` on the
+Neither scatter uses atomics, and each adds an element's terms in the order of
+the TPU kernel, which is the order of ``index_add_`` / ``scatter_add_`` on the
 CPU: its result equals the plain version run on the CPU bit for bit, on every
-run.  The slot scatter (the max-pool backward) adds with fp32 atomics, in an
-order that changes from run to run: its sums agree with the plain version to
-fp32 rounding.
+run.  The row scatter (the backward of sum-pool and gather) sums over the
+transposed graph in ascending edge order.  The slot scatter (the max-pool
+backward) holds a ``dx`` slice in shared memory and walks the centres in
+ascending order; :func:`slot_scatter_plan` mirrors its slice width and row
+ranges (``slot_scatter_plan`` in ``csrc/gather_scatter.cu``).
 """
 
 from __future__ import annotations
@@ -100,6 +106,103 @@ def pool_plan(b: int, n: int, c: int, slice_width: int | None = None, sms: int =
     return p  # the narrowest slice, which always fits here: the most blocks
 
 
+# from slot_scatter_plan in csrc/gather_scatter.cu
+SLOT_CHUNK = 256  # centres a staged chunk a walking warp
+SLOT_MAX_RANGES = 8  # row ranges a slice at most
+
+
+def _slot_rows_pad(rows: int, w: int) -> int:
+    """A held column: the rows rounded up to 8, and ``32 / w`` more (banks)."""
+    return -(-rows // 8) * 8 + 32 // w
+
+
+def _slot_staging(w: int) -> int:
+    """``slot_staging``: two staging buffers of a chunk's winning rows (int32)
+    and ``g`` values a channel, padded by ``32 / w``, and the sort's counts, an
+    int a lane of each warp (``16 / w`` warps a channel, 512 threads a block;
+    a chunk is ``SLOT_CHUNK`` centres at 16 channels, twice that below)."""
+    chunk = SLOT_CHUNK * (1 if w == 16 else 2)
+    return 16 * w * (chunk + 32 // w) + 128 * w * (16 // w)
+
+
+def slot_scatter_smem(rows: int, w: int) -> int:
+    """Dynamic shared memory of a slot-scatter block (``slot_smem``): the held
+    ``dx`` slice, ``w`` padded columns of ``rows`` (fp32), and the staging."""
+    return 4 * w * _slot_rows_pad(rows, w) + _slot_staging(w)
+
+
+def slot_scatter_max_rows(w: int) -> int:
+    """The most rows a block of ``w`` channels holds (``slot_max_rows``), a multiple of 8."""
+    return ((MAX_SMEM - _slot_staging(w)) // (4 * w) - 32 // w) // 8 * 8
+
+
+MAX_SLOT_SCATTER_ROWS = SLOT_MAX_RANGES * slot_scatter_max_rows(4)  # 98496
+
+
+class SlotScatterPlan(NamedTuple):
+    slice_width: int  # channels a block holds in shared memory, 16 / slice_width warps each
+    ranges: int  # row ranges per (sample, slice): blocks that walk the same centres
+    rows: int  # rows a range, a multiple of 8 (the last range may be shorter)
+    smem: int  # dynamic shared memory of a block, bytes (slot_scatter_smem)
+
+
+def _slot_scatter_covers(b: int, n: int, f: int) -> bool:
+    """Whether some plan covers ``dx (B, N, F)``: the 4-channel slice in at most
+    :data:`SLOT_MAX_RANGES` row ranges whenever ``N <= MAX_SLOT_SCATTER_ROWS``."""
+    return 1 <= b <= 65535 and 1 <= n <= MAX_SLOT_SCATTER_ROWS and f >= 4 and f % 4 == 0
+
+
+def slot_scatter_plan(b: int, n: int, f: int, slice_width: int | None = None, ranges: int | None = None,
+                      sms: int = H100_SMS) -> SlotScatterPlan:
+    """The plan of ``pccf_scatter_add_slots`` for ``dx (B, N, F)``
+    (``slot_scatter_plan`` in ``csrc/gather_scatter.cu``): for each width, the
+    fewest row ranges whose rows fit in shared memory; the widest slice whose
+    ``B·(F/S)·ranges`` blocks fill three quarters of the SMs, else the
+    narrowest that fits.  Every block walks all of its sample's centres, so
+    more ranges add work where narrower slices do not.  ``slice_width`` and
+    ``ranges`` fix the width and the ranges (at least the fewest), to time the
+    others.
+    Raises ``ValueError`` past ``N <= 98496`` (:data:`MAX_SLOT_SCATTER_ROWS`),
+    ``F % 4`` or :data:`SLOT_MAX_RANGES`."""
+    def plan(w: int) -> SlotScatterPlan | None:
+        if f % w:
+            return None
+        least = -(-n // slot_scatter_max_rows(w))
+        r = least if ranges is None else ranges
+        if not least <= r <= SLOT_MAX_RANGES:
+            return None
+        rows = -(-n // r)
+        rows = -(-rows // 8) * 8
+        return SlotScatterPlan(w, r, rows, slot_scatter_smem(rows, w))
+
+    if not _slot_scatter_covers(b, n, f):
+        raise ValueError(f'the slot scatter\'s kernel does not cover dx ({b}, {n}, {f}): it takes N <= '
+                         f'{MAX_SLOT_SCATTER_ROWS} rows ({SLOT_MAX_RANGES} ranges of a 4-channel slice in {MAX_SMEM} '
+                         f'bytes of shared memory), B <= 65535 and F % 4 == 0')
+    p = plan(slice_width) if slice_width in SLICE_WIDTHS else None
+    if slice_width is None:
+        for w in SLICE_WIDTHS:
+            if (q := plan(w)) is not None:
+                p = q
+                if 4 * b * (f // w) * q.ranges >= 3 * sms:
+                    break
+    if p is None:
+        raise ValueError(f'the slot scatter\'s kernel does not cover dx ({b}, {n}, {f}) in slices of {slice_width} '
+                         f'channels and {ranges} row ranges: the width must be one of {SLICE_WIDTHS} and divide F, '
+                         f'the ranges enough for the rows to fit and at most {SLOT_MAX_RANGES}')
+    return p
+
+
+def kernel_slot_scatter_plan(b: int, n: int, f: int, slice_width: int | None = None,
+                             ranges: int | None = None) -> SlotScatterPlan:
+    """The plan the kernel library takes on the current card
+    (``pccf_slot_scatter_plan``), to hold :func:`slot_scatter_plan` to it."""
+    out = (ctypes.c_int * 4)()
+    err = _build.lib().pccf_slot_scatter_plan(b, n, f, slice_width or 0, ranges or 0, out)
+    _build.check('pccf_slot_scatter_plan', err, f'({b}, {n}, {f}), slice width {slice_width}, {ranges} ranges')
+    return SlotScatterPlan(*out)
+
+
 def kernel_pool_plan(b: int, n: int, c: int, slice_width: int | None = None) -> PoolPlan:
     """The plan the kernel library takes on the current card (``pccf_pool_plan``),
     to hold :func:`pool_plan` to it."""
@@ -144,9 +247,14 @@ def graph_max_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | N
 
 
 def graph_max_pool_src_cuda(x: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Max-pool and the winning slot per channel: ``(B, N, F)`` float32 and
-    ``(B, N, F)`` uint8; ``F % 4 == 0``, ``k <= 255``."""
+    """Max-pool and the winning slot per channel, ``(B, N, F)`` float32 and
+    ``(B, N, F)`` uint8, by the TPU kernel's strict ``>``
+    (:func:`ops.graph_max_pool_slots_strict` bit for bit); ``F % 4 == 0``,
+    ``k <= 255`` and ``N <= 13951`` points (the pools' slice plan,
+    :func:`pool_plan`), past which it raises ``ValueError`` before any launch."""
     b, n, f, k = _require_graph(x, idx)
+    if not _pool_covers(b, n, f):
+        pool_plan(b, n, f)  # raises past the kernel's limits, before any launch
     out = torch.empty_like(x)
     slots = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     err = _build.lib().pccf_graph_max_pool_src(
@@ -157,14 +265,24 @@ def graph_max_pool_src_cuda(x: torch.Tensor, idx: torch.Tensor) -> tuple[torch.T
     return out, slots
 
 
-def scatter_add_slots_cuda(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor, n: int) -> torch.Tensor:
-    """Max-pool backward: ``g (B, M, F)`` onto the winning rows, ``(B, n, F)``."""
+def scatter_add_slots_cuda(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor, n: int,
+                           slice_width: int | None = None, ranges: int | None = None) -> torch.Tensor:
+    """Max-pool backward: ``g (B, M, F)`` onto the winning rows, ``(B, n, F)``,
+    each element's terms added in ascending centre from 0.0
+    (:func:`ops.scatter_add_slots` on the CPU, bit for bit); ``F % 4 == 0``,
+    ``k <= 255`` and ``n <= 98496`` rows (:func:`slot_scatter_plan`), past
+    which it raises ``ValueError`` before any launch.  ``slice_width`` and
+    ``ranges`` override the plan's, to time the others."""
     b, m, f, k = _require_graph(g, idx)
     _build.require(slots, 'slots', torch.uint8, g.shape)
+    if slice_width is not None or ranges is not None or not _slot_scatter_covers(b, n, f):
+        slot_scatter_plan(b, n, f, slice_width, ranges)  # raises past the kernel's limits, before any launch
     dx = torch.empty((b, n, f), dtype=torch.float32, device=g.device)
-    err = _build.lib().pccf_scatter_add_slots(
-        g.data_ptr(), idx.data_ptr(), slots.data_ptr(), dx.data_ptr(), b, m, n, f, k, _build.stream()
-    )
+    args = (g.data_ptr(), idx.data_ptr(), slots.data_ptr(), dx.data_ptr(), b, m, n, f, k)
+    if slice_width is None and ranges is None:
+        err = _build.lib().pccf_scatter_add_slots(*args, _build.stream())
+    else:
+        err = _build.lib().pccf_scatter_add_slots_split(*args, slice_width or 0, ranges or 0, _build.stream())
     _build.check('pccf_scatter_add_slots', err, f'g {tuple(g.shape)}, k={k}, n={n}')
     scatter_add_slots_cuda.launches += 1
     return dx
@@ -226,7 +344,9 @@ def _scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 
 class GraphMaxPool(torch.autograd.Function):
     """Max over the k neighbours; the gradient goes to the first winning slot
-    of each channel (``pallas_gather.py:223-237``)."""
+    of each channel (``pallas_gather.py:223-237``).  Where a NaN lies past
+    slot 0, the card's slot is the TPU kernel's (strict ``>``) and the CPU's
+    is ``argmax``'s, as in ``pccf/kernels/ops.py:126``."""
 
     @staticmethod
     def forward(ctx, x, idx):

@@ -58,16 +58,37 @@ def graph_max_pool(x: Tensor, idx: Tensor) -> Tensor:
 def graph_max_pool_slots(x: Tensor, idx: Tensor) -> tuple[Tensor, Tensor]:
     """Max over the k neighbours and the slot ``j`` that wins each channel,
     ``(B, N, C)`` float and ``(B, N, C)`` uint8; ties keep the earliest slot
-    (``argmax`` first, ``pccf/kernels/ops.py:124-127``, the strict ``>`` of
-    ``pallas_gather.py:111``)."""
+    and a NaN wins (``argmax`` first, ``pccf/kernels/ops.py:124-127``).
+    Without NaNs it equals :func:`graph_max_pool_slots_strict`, the rule of
+    the TPU kernel and of the card's."""
     gathered = gather_neighbors(x, idx)
     slots = torch.argmax(gathered, dim=2, keepdim=True)  # first maximum
     return torch.gather(gathered, 2, slots)[:, :, 0, :], slots[:, :, 0, :].to(torch.uint8)
 
 
+def graph_max_pool_slots_strict(x: Tensor, idx: Tensor) -> tuple[Tensor, Tensor]:
+    """:func:`graph_max_pool_slots` by the TPU kernel's rule
+    (``pallas_gather.py:107-113``): slot 0 seeds the max and the slot, and
+    slot ``j`` takes over only where it is strictly greater, so ties keep the
+    earliest slot and a NaN past slot 0 never wins.  The card's
+    ``graph_max_pool_src`` equals it bit for bit, NaNs included."""
+    gathered = gather_neighbors(x, idx)
+    best = gathered[:, :, 0]
+    slots = torch.zeros(best.shape, dtype=torch.uint8, device=x.device)
+    for j in range(1, idx.shape[-1]):
+        cand = gathered[:, :, j]
+        take = cand > best
+        best = torch.where(take, cand, best)
+        slots = torch.where(take, j, slots)
+    return best.contiguous(), slots
+
+
 def scatter_add_slots(g: Tensor, idx: Tensor, slots: Tensor, n: int) -> Tensor:
     """Max-pool backward ``dx[b, idx[b, i, slot], c] += g[b, i, c]`` where
-    ``slot = slots[b, i, c]``, ``(B, n, C)`` (``pccf/kernels/ops.py:130-140``)."""
+    ``slot = slots[b, i, c]``, ``(B, n, C)`` (``pccf/kernels/ops.py:130-140``).
+    On the CPU ``scatter_add_`` adds each element's terms in ascending ``i``
+    from 0.0, the order of the TPU kernel (``pallas_gather.py:161-179``) and of
+    the card's, which equals this run on the CPU bit for bit."""
     rows = torch.gather(idx.long(), 2, slots.long())  # (B, M, C): winning row per channel
     return torch.zeros((g.shape[0], n, g.shape[2]), dtype=g.dtype, device=g.device).scatter_add_(1, rows, g)
 

@@ -21,9 +21,11 @@ the TF32 weight split bit-exact, the streaming attention against the exact softm
 gather, sum-pool and pool-with-slot bit-exact except sum-pool's order of
 addition (1e-5) against the plain version on the card, and bit-exact against
 the sum in slot order on the CPU, which the kernel keeps at every slice
-width; the max-pool bit-exact with NaNs at every slice width; the slot
-scatter 1e-5 of the largest entry (fp32 atomics add in an order that
-changes from run to run); the row scatter 1e-5 of the
+width; the max-pool bit-exact with NaNs at every slice width, the training
+max-pool with NaNs against the strict > rule of the TPU kernel; the slot
+scatter bit-exact against its plain version on the CPU (both add in
+ascending centre order) at every slice width and row split, the same on
+every call; the row scatter 1e-5 of the
 largest entry against the plain version on the card and bit-exact against
 it on the CPU (both add in ascending edge order), the same on every call;
 EMD cost 1e-4 relative and gradients rel-L2 1e-3 (exp2 of the folded level
@@ -453,18 +455,62 @@ def test_gather_and_row_scatter_match_plain(dev, c, k, graph):
         assert not got[:, 1000:1200].any()
 
 
-@pytest.mark.parametrize('f', [64, 256])
+@pytest.mark.parametrize('f', [64, 128, 256])
 def test_pool_with_slot_and_slot_scatter_match_plain(dev, f):
-    x = _randn((2, 2048, f), 13, dev)
-    x[:, 40] = x[:, 7]  # exact ties between rows
-    idx = _graph(2, 2048, 25, dev, 14)
-    idx[..., 3], idx[..., 9] = 7, 40
+    """The training max-pool bit-exact in max and slots to the strict > rule
+    with NaNs, ties and a hub row, and to the plain version and the eval pool
+    without NaNs; its slot scatter bit-equal to the plain version on the CPU
+    (both add in ascending centre order) and the same on a second call."""
+    x, idx = _pool_case(2, 2048, f, 25, dev, 13, nans=True)
+    out, slots = gather.graph_max_pool_src_cuda(x, idx)
+    want, want_slots = ops.graph_max_pool_slots_strict(x, idx)
+    assert torch.isnan(want).any() and _bits_equal(out, want) and torch.equal(slots, want_slots)
+    x, idx = _pool_case(2, 2048, f, 25, dev, 14, nans=False)
     out, slots = gather.graph_max_pool_src_cuda(x, idx)
     want, want_slots = ops.graph_max_pool_slots(x, idx)
     assert torch.equal(out, want) and torch.equal(slots, want_slots)
     assert torch.equal(out, gather.graph_max_pool_cuda(x, idx))
     g = _randn((2, 2048, f), 15, dev)
-    assert _max_rel(gather.scatter_add_slots_cuda(g, idx, slots, 2048), ops.scatter_add_slots(g, idx, slots, 2048)) <= 1e-5
+    got = gather.scatter_add_slots_cuda(g, idx, slots, 2048)
+    assert torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx.cpu(), slots.cpu(), 2048))
+    assert torch.equal(got, gather.scatter_add_slots_cuda(g, idx, slots, 2048))
+
+
+@pytest.mark.parametrize('m,n', [(2048, 2048), (300, 2048), (2048, 100), (1000, 3073)])
+@pytest.mark.parametrize('width,ranges', [(None, None), (16, 2), (8, 1), (4, 4), (16, 8)])
+def test_slot_scatter_adds_in_centre_order(dev, m, n, width, ranges):
+    """Terms whose sum depends on the order of adds (1e8, 1, -1e8, 1 into one
+    row: 1 in ascending centre order), within one batch of 32 centres and
+    across batches and chunks of 256, and a hub row: every slice width and
+    row split bit-equal to the plain version on the CPU."""
+    f, k = 64, 25
+    g = _randn((2, m, f), 50 + m, dev)
+    idx = _graph(2, m, k, dev, 51 + m) % n
+    slots = torch.randint(0, k, (2, m, f), generator=torch.Generator().manual_seed(52), dtype=torch.uint8).to(dev)
+    idx[:, : m // 2, 3] = 7  # a hub row
+    for centres, row in (((0, 1, 2, 3), 5 % n), ((31, 32, 255, 256), 9 % n)):
+        for i, v in zip((c % m for c in centres), (1e8, 1.0, -1e8, 1.0)):
+            idx[:, i, 0], slots[:, i], g[:, i] = row, 0, v
+    got = gather.scatter_add_slots_cuda(g, idx, slots, n, slice_width=width, ranges=ranges)
+    want = ops.scatter_add_slots(g.cpu(), idx.cpu(), slots.cpu(), n)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_slot_scatter_plan_is_the_kernels(dev):
+    """``gather.slot_scatter_plan`` mirrors the plan the kernel library takes."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (100, 2048, 2593, 6217, 13465, gather.MAX_SLOT_SCATTER_ROWS):
+        for b in (1, 2, 8, 16, 32):
+            for f in (4, 12, 48, 64, 128, 256):
+                for width, ranges in ((None, None), *((w, None) for w in gather.SLICE_WIDTHS), (None, 2), (8, 3),
+                                      (4, 8), (16, 9)):
+                    try:
+                        want = gather.slot_scatter_plan(b, n, f, width, ranges, sms)
+                    except ValueError:
+                        with pytest.raises(ValueError, match='does not cover'):
+                            gather.kernel_slot_scatter_plan(b, n, f, width, ranges)
+                        continue
+                    assert gather.kernel_slot_scatter_plan(b, n, f, width, ranges) == want, (b, n, f, width, ranges)
 
 
 def test_sum_pool_matches_plain(dev):
@@ -611,6 +657,20 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
         emd.chamfer_match_cost_cuda(x, x)  # not 3-D points
     with pytest.raises(ValueError, match='does not cover'):  # rows past the transposed graph's 65536
         gather.scatter_add_rows_cuda(x, idx, 70000)
+    # clouds past the slot pool's and the slot scatter's N limits, refused before any launch
+    api.reset_launch_counts()
+    n = gather.MAX_POOL_ROWS + 1
+    with pytest.raises(ValueError, match='N <= 13951'):
+        gather.graph_max_pool_src_cuda(_randn((1, n, 8), 28, dev), _graph(1, n, 4, dev, 29))
+    g, gidx = _randn((1, 64, 8), 30, dev), _graph(1, 64, 4, dev, 31)
+    slots = torch.zeros((1, 64, 8), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match=f'N <= {gather.MAX_SLOT_SCATTER_ROWS}'):
+        gather.scatter_add_slots_cuda(g, gidx, slots, gather.MAX_SLOT_SCATTER_ROWS + 1)
+    with pytest.raises(ValueError, match='does not cover'):  # 9 row ranges, one past the plan's limit
+        gather.scatter_add_slots_cuda(g, gidx, slots, 64, slice_width=4, ranges=9)
+    with pytest.raises(ValueError, match='does not cover'):  # F % 4
+        gather.scatter_add_slots_cuda(x, idx, torch.zeros(x.shape, dtype=torch.uint8, device=dev), 64)
+    assert api.launch_counts()['graph_max_pool_src'] == api.launch_counts()['scatter_add_slots'] == 0
 
 
 def _clouds(n, m, seed, dev):

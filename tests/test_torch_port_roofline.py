@@ -16,7 +16,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from pccf_torch.kernels import _build, roofline, wformer
+from pccf_torch.kernels import _build, api, roofline, wformer
 
 torch.set_num_threads(1)
 
@@ -75,10 +75,16 @@ class RecordingLib:
 
 @pytest.fixture()
 def recording(monkeypatch):
+    """The stand-in library for one test; the launch counts its calls add
+    are put back afterwards (it launched nothing), so a later test in the
+    process that checks the counts starts from what it would have found."""
     lib = RecordingLib()
     monkeypatch.setattr(_build, 'lib', lambda: lib)
     monkeypatch.setattr(_build, 'stream', lambda: 0)
-    return lib
+    counts = api.launch_counts()
+    yield lib
+    for name, fn in api.KERNELS.items():
+        fn.launches = counts[name]
 
 
 def drive_stack(pack, decoder, b=2, t=128, t_mem=64, n_heads=2):
