@@ -59,18 +59,25 @@ version.
 
     python3 chip_smoke.py [--seed 0]
 
-The row scatter and the EMD are also held bit-equal across two calls, the
-row scatter bit-equal to its plain version run on the CPU (both add in
-ascending edge order), and one EMD call's device launches are read from a
-trace: 19 pair sweeps.
+The row scatter, the EMD, the nearest-neighbour kernel and the Sinkhorn
+kernel are also held bit-equal across two calls, the row scatter bit-equal to
+its plain version run on the CPU (both add in ascending edge order), and one
+EMD call's and one Sinkhorn call's device launches are read from a trace: 19
+and 25 pair sweeps.  The nearest-neighbour kernel runs its plan's column
+splits (``chamfer.nn_plan``); the Sinkhorn kernel's sweeps' grids
+(``sinkhorn.sweep_plan``) are held equal to the library's, and its time is
+printed beside the special-function floor of its schedule; an empty
+kernel's time is printed as the launch floor.
 
 It also prints the compiler's registers and spills of the row scatter's,
-the EMD's, the graph pools' and the slot scatter's kernels on one line, a
+the EMD's, the graph pools', the slot scatter's, the nearest-neighbour and the
+Sinkhorn kernels on one line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
-each stage (stage 1 under each objective, with its device busy time and the
-device time of the row scatter's, the EMD's, the sum-pool's, the training
-max-pool's and the slot scatter's launches, their count checked against the
-wrapper calls) and of one validation batch, the
+each stage (stage 1 under each objective, with its device busy time, both
+the sum of its activities' durations and the union of their intervals, and
+the device time of the row scatter's, the loss kernel's, the sum-pool's, the
+training max-pool's and the slot scatter's launches, their count checked
+against the wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
 memory of both stages, the seconds of each stage-1 entry-point run and the
 validation time per batch, the numbers PERF.md quotes.
@@ -93,6 +100,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -102,6 +110,14 @@ import time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+# Kineto tears CUPTI down at the end of each profiler session and sets it up
+# again at the next, and a session after such a turnover can see none or
+# only some of its device launches (tools/torch_profiler_sessions.py: 9 of
+# 192 sessions short with the teardown, 0 of 192 without, on an H100); the
+# launch counts read from traces need every launch, so CUPTI stays up.  Read
+# when a session ends.
+os.environ['TEARDOWN_CUPTI'] = '0'
 
 REPS = 10  # timed samples per kernel and version; the median is reported
 SAMPLE_MS = 2.0  # the least device time of the back-to-back calls of one sample
@@ -136,10 +152,13 @@ SCATTER_REL_MAX = 1e-5
 SUM_POOL_REL_MAX = 1e-5  # the kernel adds the k rows in slot order, the plain reduction in its own
 EMD_COST_RTOL = 1e-4  # exp2 of the folded level and the row and column sums in another order than the plain version's
 EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
-# Sinkhorn: exp recomputed in every sweep (expf, as the plain version's) and
-# the sums over the pairs taken in another order, through twelve updates of
-# each scaling; its Chamfer minima and argmins, like nn_distance's, bit-exact
-# (the same float32 squared distances, the lowest index on ties)
+# Sinkhorn: K recomputed in every sweep as the TPU kernel's folded exp2
+# (ex2.approx, 2 ulp) with the scalings added in its exponent, the middle
+# sweeps' exponent from the expanded distances |x|^2 - 2 x.y + |y|^2 (the JAX
+# golden's rounding), and the sums over the pairs taken in another order,
+# through twelve updates of each scaling; its Chamfer minima and argmins, like
+# nn_distance's, bit-exact (the same float32 squared distances, the lowest
+# index on ties)
 SINKHORN_COST_RTOL = 1e-4
 SINKHORN_GRAD_REL_L2 = 1e-3
 # one training step on the card against the same step on the CPU: EMD
@@ -222,12 +241,30 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def device_events(prof) -> list[tuple[str, float]]:
-    """``(name, us)`` of every device activity of a ``torch.profiler`` trace,
-    in the order they started."""
+def device_events(prof) -> list[tuple[str, float, float]]:
+    """``(name, start us, end us)`` of every device activity of a
+    ``torch.profiler`` trace, in the order they started."""
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     events.sort(key=lambda e: e.time_range.start)
-    return [(e.name, e.time_range.elapsed_us()) for e in events]
+    return [(e.name, e.time_range.start, e.time_range.end) for e in events]
+
+
+def summed_ms(events: list[tuple[str, float, float]]) -> float:
+    """The activities' durations summed."""
+    return sum(end - start for _, start, end in events) / 1e3
+
+
+def busy_ms(events: list[tuple[str, float, float]]) -> float:
+    """The time at least one of the activities runs: overlapping intervals
+    counted once (a kernel launched programmatically shows from its launch,
+    its wait for the kernel before included, so its duration overlaps the
+    one before)."""
+    busy, reach = 0.0, float('-inf')
+    for _, start, end in events:
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e3
 
 
 def short_kernel_name(name: str) -> str:
@@ -237,12 +274,18 @@ def short_kernel_name(name: str) -> str:
 
 
 EMD_PAIR_SWEEPS = 19  # rows P1 of -4^7, then per level columns P2 and rows P3 (+ P1 of the next level)
+SINKHORN_PAIR_SWEEPS = 25  # the build, 12 v passes and 11 u passes in turn, the final rows sweep
+SINKHORN_MUFU_PER_PAIR = 27  # an ex2 a pair in each sweep, an rsqrt in the two final ones
+MUFU_PER_CLOCK = 16  # special-function results a clock an SM (Hopper)
 # the port kernels whose device time the stage-1 steps sum: the pattern of
 # their device kernels' names, and how many of those one wrapper call launches
 # (the scatter: partition, lists, gather; the EMD: 2 fills, the sweeps, the
-# per-sample sum, which sinkhorn.cu launches too; the sum-pool: one)
+# per-sample sum, which sinkhorn.cu launches too; the nearest neighbours: the
+# fold and the combine; the sum-pool: one)
 DEVICE_NAMES = {'scatter_add_rows': (r'scatter_(partition|lists|gather)_kernel', 3),
                 'chamfer_match_cost': (r'emd_(fill|rows|cols)_kernel|sample_sum_kernel', EMD_PAIR_SWEEPS + 3),
+                'nn_distance': (r'nn_(fold|combine)_kernel', 2),
+                'sinkhorn_cost': (r'sinkhorn_(build|sweep)_kernel|sample_sum_kernel', SINKHORN_PAIR_SWEEPS + 1),
                 'graph_sum_pool': (r'slice_pool_kernel<[^>]*PoolSum>', 1),
                 'graph_max_pool_src': (r'slice_pool_kernel<[^>]*PoolMaxSlot>', 1),
                 'scatter_add_slots': (r'slot_scatter_kernel', 1)}
@@ -395,6 +438,9 @@ def main() -> int:
 
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, timeout=60)
+    clock = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,nounits'],
+                           capture_output=True, text=True, timeout=60)
+    max_sm_mhz = float(clock.stdout.split()[0]) if clock.returncode == 0 and clock.stdout.strip() else float('nan')
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else ''
     check(bool(card), 'nvidia-smi reads the card')
     print(card, flush=True)
@@ -407,15 +453,21 @@ def main() -> int:
     for source, pattern in (('gather_scatter.cu', DEVICE_NAMES['scatter_add_rows'][0]),
                             ('emd.cu', DEVICE_NAMES['chamfer_match_cost'][0]),
                             ('graph_max_pool.cu', 'slice_pool_kernel'), ('gather_scatter.cu', 'slice_pool_kernel'),
-                            ('gather_scatter.cu', 'slot_scatter_kernel')):
+                            ('gather_scatter.cu', 'slot_scatter_kernel'),
+                            ('nn_distance.cu', DEVICE_NAMES['nn_distance'][0]),
+                            ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
                     if shutil.which('c++filt') else None
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
-    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool and slot scatter kernels: '
-          + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
+    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour '
+          'and Sinkhorn kernels: ' + ('; '.join(resources) if resources else 'none read: the library was built before '
+                                                                             'this run'), flush=True)
+    empty = _build.lib().pccf_empty
+    print(f'launch floor: an empty kernel (one warp) {time_ms(lambda: empty(_build.stream()), REPS):.4f} ms '
+          f'back to back', flush=True)
 
     cfg = SliceConfig()
     rng = np.random.default_rng(args.seed)
@@ -564,8 +616,8 @@ def main() -> int:
             single PyTorch call that computes the same function."""
             row = {'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS), **bound(work),
                    'library_ms': time_ms(run_lib, REPS) if run_lib is not None else None}
-            lib = f', library {row["library_ms"]:.3f}' if run_lib is not None else ''
-            check(ok, f'{name} {shape}: {what}; {row["ms"]:.3f} ms (plain {row["plain_ms"]:.3f}{lib}, bound '
+            lib = f', library {row["library_ms"]:.4f}' if run_lib is not None else ''
+            check(ok, f'{name} {shape}: {what}; {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}{lib}, bound '
                       f'{row["bound_ms"]:.4f} ms, {row["bound_by"]})')
             entry = kernels.setdefault(name, {'max_abs_err': 0.0, 'shapes': {}})
             entry['max_abs_err'] = max(entry['max_abs_err'], err)
@@ -698,14 +750,6 @@ def main() -> int:
               f'cost rel err {cost_err:.2e} <= {EMD_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
               f'{EMD_GRAD_REL_L2}, Chamfer min/argmin exact {nn_exact}, the same on a second call {same}',
               roofline.emd_work(x1, x2))
-        # what one call runs on the device, from a trace
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            emd.chamfer_match_cost_cuda(x1, x2)
-            torch.cuda.synchronize()
-        sequence = [short_kernel_name(name) for name, _ in device_events(prof)]
-        sweeps = sum(1 for name in sequence if re.match(r'emd_(rows|cols)_kernel', name))
-        check(sweeps == EMD_PAIR_SWEEPS, f'chamfer_match_cost: {sweeps} pair sweeps a call == {EMD_PAIR_SWEEPS}; '
-                                         f'device launches in order: {", ".join(sequence)}')
         # the Chamfer and ChamferSinkhorn losses at the shapes their paths
         # give them, the headline (8, 2048, 3)^2 last: a decoded cloud
         # against its reference, a smaller batch, and a rectangular pair for
@@ -717,18 +761,43 @@ def main() -> int:
             shape = f'({bb}, {n1}, 3) x ({bb}, {n2}, 3)'
             got, want = chamfer.nn_distance_cuda(y1, y2), chamfer.plain(y1, y2)
             exact = all(torch.equal(a, w) for a, w in zip(got, want))
+            same = all(torch.equal(a, w) for a, w in zip(got, chamfer.nn_distance_cuda(y1, y2)))
             timed('nn_distance', shape, lambda: chamfer.nn_distance_cuda(y1, y2), lambda: chamfer.plain(y1, y2),
-                  0.0 if exact else float('inf'), exact, f'minima and argmins bit-exact {exact}',
-                  roofline.nn_distance_work(y1, y2))
+                  0.0 if exact else float('inf'), exact and same,
+                  f'minima and argmins bit-exact {exact}, the same on a second call {same}; '
+                  f'{chamfer.nn_plan(bb, n1, sms)} column split(s)', roofline.nn_distance_work(y1, y2))
             got, want = sinkhorn.sinkhorn_cost_cuda(y1, y2), sinkhorn.plain(y1, y2)
             cost_err = float(((got[0] - want[0]).abs() / want[0].abs()).max())
             g1, g2 = rel_l2(got[1], want[1]), rel_l2(got[2], want[2])
             exact = all(torch.equal(a, w) for a, w in zip(got[3:], want[3:]))
+            same = all(torch.equal(a, w) for a, w in zip(got, sinkhorn.sinkhorn_cost_cuda(y1, y2)))
+            splan = sinkhorn.sweep_plan(bb, n1, n2, sms)
+            same_plan = splan == sinkhorn.kernel_sweep_plan(bb, n1, n2, sms)
+            floor = SINKHORN_MUFU_PER_PAIR * bb * n1 * n2 / (MUFU_PER_CLOCK * sms * max_sm_mhz * 1e3)
             timed('sinkhorn_cost', shape, lambda: sinkhorn.sinkhorn_cost_cuda(y1, y2), lambda: sinkhorn.plain(y1, y2),
                   float((got[0] - want[0]).abs().max()),
-                  cost_err <= SINKHORN_COST_RTOL and max(g1, g2) <= SINKHORN_GRAD_REL_L2 and exact,
+                  cost_err <= SINKHORN_COST_RTOL and max(g1, g2) <= SINKHORN_GRAD_REL_L2 and exact and same
+                  and same_plan,
                   f'cost rel err {cost_err:.2e} <= {SINKHORN_COST_RTOL}, grad rel L2 {g1:.2e} / {g2:.2e} <= '
-                  f'{SINKHORN_GRAD_REL_L2}, Chamfer min/argmin exact {exact}', roofline.sinkhorn_work(y1, y2))
+                  f'{SINKHORN_GRAD_REL_L2}, Chamfer min/argmin exact {exact}, the same on a second call {same}; '
+                  f'sweeps {splan}, the library\'s too {same_plan}; special-function floor of the schedule '
+                  f'{floor:.4f} ms ({SINKHORN_MUFU_PER_PAIR} a pair, {MUFU_PER_CLOCK} a clock on each of {sms} SMs '
+                  f'at {max_sm_mhz:.0f} MHz)',
+                  roofline.sinkhorn_work(y1, y2))
+        # what one EMD call and one Sinkhorn call at the headline run on the
+        # device, from one trace
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            emd.chamfer_match_cost_cuda(x1, x2)
+            torch.cuda.synchronize()
+            sinkhorn.sinkhorn_cost_cuda(y1, y2)
+            torch.cuda.synchronize()
+        sequence = [short_kernel_name(name) for name, _, _ in device_events(prof)]
+        sweeps = sum(1 for name in sequence if re.match(r'emd_(rows|cols)_kernel', name))
+        check(sweeps == EMD_PAIR_SWEEPS, f'chamfer_match_cost: {sweeps} pair sweeps a call == {EMD_PAIR_SWEEPS}')
+        sweeps = sum(1 for name in sequence if re.match(r'sinkhorn_(build|sweep)_kernel', name))
+        check(sweeps == SINKHORN_PAIR_SWEEPS == len(sinkhorn.schedule()),
+              f'sinkhorn_cost: {sweeps} pair sweeps a call == {SINKHORN_PAIR_SWEEPS}; device launches of both in '
+              f'order: {", ".join(sequence)}')
 
         # ---- the stage-2 stacks at the flagship shapes, batch 32 ----------
         # the W-encoder and the posterior (2 layers, FF 1024) and the
@@ -998,13 +1067,14 @@ def main() -> int:
         for name, (pattern, per_call) in DEVICE_NAMES.items():
             if name in LOSS_KERNELS.values() and name != LOSS_KERNELS[recon_loss]:
                 continue  # the loss kernels' sources share sample_sum_kernel
-            times = [us for ev, us in events if re.search(pattern, ev)]
-            check(len(times) == per_call * calls[name] > 0,
-                  f'{label} step: {len(times)} device launches of {name}\'s kernels == {per_call} x {calls[name]} '
+            mine = [ev for ev in events if re.search(pattern, ev[0])]
+            check(len(mine) == per_call * calls[name] > 0,
+                  f'{label} step: {len(mine)} device launches of {name}\'s kernels == {per_call} x {calls[name]} '
                   f'calls')
-            parts.append(f'{name} kernels {len(times)} launches, {sum(times) / 1e3:.4f} ms')
-        print(f'{label} step, device: busy {sum(us for _, us in events) / 1e3:.3f} ms in {len(events)} activities; '
-              + '; '.join(parts), flush=True)
+            parts.append(f'{name} kernels {len(mine)} launches, {summed_ms(mine):.4f} ms (union '
+                         f'{busy_ms(mine):.4f})')
+        print(f'{label} step, device: busy {summed_ms(events):.3f} ms in {len(events)} activities (their union '
+              f'{busy_ms(events):.3f} ms); ' + '; '.join(parts), flush=True)
 
     stage1_steps('ChamferEMD', train_launches)
     for recon_loss in ('Chamfer', 'ChamferSinkhorn'):

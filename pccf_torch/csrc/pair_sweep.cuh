@@ -1,17 +1,28 @@
 // The pieces shared by the kernels that sweep every point pair of two clouds
 // (emd.cu, nn_distance.cu, sinkhorn.cu).
 //
-// A group of LANES threads owns one point of one cloud ("its row") and
-// strides over the other cloud, which the block stages in shared memory TILE
-// points at a time, each with one per-point scalar; the group then reduces
-// across its lanes with shuffles.  A block of THREADS threads serves GROUPS
-// rows of one sample, so every staged point is read by all of them.
+// emd.cu's sweeps: a group of LANES threads owns one point of one cloud
+// ("its row") and strides over the other cloud, which the block stages in
+// shared memory TILE points at a time, each with one per-point scalar; the
+// group then reduces across its lanes with shuffles.  A block of THREADS
+// threads serves GROUPS rows of one sample, so every staged point is read by
+// all of them.  nn_distance.cu and sinkhorn.cu hold several points of their
+// own side in each thread's registers and let the 32 lanes of a warp split
+// the other cloud (warp_sum, warp_argmin), so one staged point serves them
+// all.
 //
 // Squared distances are ((dx*dx + dy*dy) + dz*dz) without fused multiply-adds,
 // the rounding of pccf_torch.kernels.ops.pair_square_distance, so minima and
 // argmins (strict <, the lowest index on ties) agree with the plain versions
 // bit for bit.  fl(a - b) = -fl(b - a) under round-to-nearest, so the
 // distance is the same whichever cloud owns the rows.
+//
+// A chain of dependent sweeps launches each one after the first with
+// programmatic dependent launch (sinkhorn.cu, nn_distance.cu): a sweep loads
+// what no earlier sweep writes, then waits for the one before
+// (wait_for_previous_sweep, a no-op in a kernel launched without it), then
+// lets the next one be scheduled (let_next_sweep_launch), so the next grid's
+// blocks are resident when this one drains.
 
 #pragma once
 
@@ -31,13 +42,22 @@ __device__ __forceinline__ float sqdist(float ax, float ay, float az, float bx, 
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-// 2^(level2 * d): exp(level * d) with the level folded with log2(e) on the
-// host, one multiply and the special-function unit's ex2 (flushing results
-// below 2^-126 to zero)
-__device__ __forceinline__ float exp2_level(float level2, float d) {
+// 2^x by the special-function unit's ex2, flushing results below 2^-126 to
+// zero (ex2.approx.ftz: at most 2 ulp)
+__device__ __forceinline__ float ex2_ftz(float x) {
   float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(level2 * d));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 2^(level2 * d): exp(level * d) with the level folded with log2(e) on the
+// host, one multiply and one ex2
+__device__ __forceinline__ float exp2_level(float level2, float d) { return ex2_ftz(level2 * d); }
+
+__device__ __forceinline__ void wait_for_previous_sweep() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+
+__device__ __forceinline__ void let_next_sweep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 }
 
 // stage points [p0, p0 + cnt) of a (P, 3) cloud, each with its scalar (0 when
@@ -67,11 +87,47 @@ __device__ __forceinline__ void lane_argmin(float& best, int& best_i) {
   }
 }
 
+// launch a kernel of a chain, programmatically dependent on the one before
+// when pdl
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, int threads, bool pdl, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// the lexicographic (distance, index) minimum across the 32 lanes of a warp;
+// every lane ends with it
+__device__ __forceinline__ void warp_argmin(float& best, int& best_i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o);
+    const int oi = __shfl_xor_sync(FULL, best_i, o);
+    if (ob < best || (ob == best && oi < best_i)) {
+      best = ob;
+      best_i = oi;
+    }
+  }
+}
+
 // out[b] = sum over the n row values of sample b, in a fixed order (no
-// atomics: the same result on every run); one block per sample
+// atomics: the same result on every run); one block per sample.  Waits for
+// the sweep before it where that launched it programmatically.
 __global__ void __launch_bounds__(THREADS) sample_sum_kernel(const float* __restrict__ rows, float* __restrict__ out,
                                                              int n) {
   __shared__ float part[THREADS];
+  wait_for_previous_sweep();
   const float* c = rows + (long long)blockIdx.x * n;
   float s = 0.f;
   for (int i = threadIdx.x; i < n; i += THREADS) s += c[i];

@@ -55,8 +55,10 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_slot_scatter_plan': (I, I, I, I, I, P),
     'pccf_graph_sum_pool': (P, P, P, I, I, I, I, I, P),
     'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
-    'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P),
+    'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P, I, P),
     'pccf_sinkhorn_cost': (P, P, I, I, I, F, F, F, I, P, P, P, P, P, P, P, P, P),
+    'pccf_sinkhorn_plan': (I, I, I, I, P),
+    'pccf_empty': (P,),
 }
 
 CUDA_ERROR_INVALID_VALUE = 1

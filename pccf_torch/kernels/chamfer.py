@@ -11,9 +11,18 @@ operations, as JAX does outside its kernel (``pallas_chamfer.py:109-153``).
 :func:`nn_distance_grads` is that backward, shared by every loss that holds
 Chamfer's argmins (:mod:`~pccf_torch.kernels.emd`,
 :mod:`~pccf_torch.kernels.sinkhorn`).
+
+The kernel computes each pair's distance once and folds it into the row's
+and the column's running minimum: a block owns :func:`nn_plan`'s rows of one
+sample against all of ``y``, and a second launch combines each column's
+partials over the row tiles.  The lexicographic (distance, index) minimum
+does not depend on the order of combination, so the outputs equal the plain
+version's bit for bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,9 +35,32 @@ def plain(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return ops.nn_distance(x, y, ops.pair_square_distance(x, y))
 
 
+ROWS_PER_WARP = 8  # rows of x each lane of a warp of csrc/nn_distance.cu holds
+ROWS_PER_BLOCK = 64  # rows of x a block owns: 8 warps
+MAX_SPLITS = 16
+
+
+def nn_plan(b: int, n: int, sms: int) -> int:
+    """Column splits of ``csrc/nn_distance.cu``: each (row tile, sample)
+    block is cut into this many blocks over ranges of ``y``'s points, the
+    fewest (a power of two up to 16) that give half the card's ``sms`` SMs a
+    block: 1 at stage 1's (8, 2048) clouds, 8 at (2, 512)."""
+    blocks = b * -(-n // ROWS_PER_BLOCK)
+    splits = 1
+    while splits < MAX_SPLITS and 2 * blocks * splits < sms:
+        splits *= 2
+    return splits
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """``x (B, N, 3)``, ``y (B, M, 3)`` float32 on the card -> ``d1 (B, N),
-    i1 (B, N) int32, d2 (B, M), i2 (B, M) int32``."""
+    i1 (B, N) int32, d2 (B, M), i2 (B, M) int32``, cut into
+    :func:`nn_plan`'s column splits."""
     _build.require(x, 'x', torch.float32)
     if x.dim() != 3 or x.shape[-1] != 3:
         raise ValueError(f'x: expected (B, N, 3), got {tuple(x.shape)}')
@@ -40,8 +72,11 @@ def nn_distance_cuda(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, ..
     dev = x.device
     out = (torch.empty((b, n), dtype=torch.float32, device=dev), torch.empty((b, n), dtype=torch.int32, device=dev),
            torch.empty((b, m), dtype=torch.float32, device=dev), torch.empty((b, m), dtype=torch.int32, device=dev))
+    splits = nn_plan(b, n, _sms(x.get_device()))
+    # each row's partials over the splits and each column's over the row tiles
+    scratch = torch.empty(2 * b * (splits * n + -(-n // ROWS_PER_BLOCK) * m), dtype=torch.float32, device=dev)
     err = _build.lib().pccf_nn_distance(x.data_ptr(), y.data_ptr(), b, n, m, *(t.data_ptr() for t in out),
-                                        _build.stream())
+                                        scratch.data_ptr(), splits, _build.stream())
     _build.check('pccf_nn_distance', err, f'x {tuple(x.shape)}, y {tuple(y.shape)}')
     nn_distance_cuda.launches += 1
     return out

@@ -31,9 +31,12 @@ it on the CPU (both add in ascending edge order), the same on every call;
 EMD cost 1e-4 relative and gradients rel-L2 1e-3 (exp2 of the folded level
 and the row and column sums recomputed in another order), Chamfer minima
 and argmins exact (same float32 squared distances), the same on every call;
-the nearest-neighbour minima and argmins exact; Sinkhorn cost 1e-4 relative
-and gradients rel-L2 1e-3 (its sums over the pairs in another order, through
-twelve updates of the scalings), its Chamfer outputs exact; gradients of the
+the nearest-neighbour minima and argmins exact at every column split its
+plan takes, the same on every call; Sinkhorn cost 1e-4 relative and gradients rel-L2 1e-3
+(the folded exp2 with the scalings in its exponent, the expanded distances
+in the middle sweeps and the sums over the pairs in another order, through
+twelve updates of the scalings), its Chamfer outputs exact, the same on
+every call; gradients of the
 Chamfer and Sinkhorn losses on the card against the CPU rel-L2 1e-4 (Chamfer:
 the same argmins, the scatter-adds in another order) and 1e-3 (Sinkhorn).
 """
@@ -673,31 +676,93 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
     assert api.launch_counts()['graph_max_pool_src'] == api.launch_counts()['scatter_add_slots'] == 0
 
 
-def _clouds(n, m, seed, dev):
-    x = _randn((2, n, 3), seed, dev) * 0.5
-    y = _randn((2, m, 3), seed + 1, dev) * 0.5
+def _clouds(n, m, seed, dev, b=2):
+    x = _randn((b, n, 3), seed, dev) * 0.5
+    y = _randn((b, m, 3), seed + 1, dev) * 0.5
     y[:, 5] = y[:, 1]  # exact ties: the lowest index wins
     x[:, 9] = x[:, 2]
     return x, y
 
 
-@pytest.mark.parametrize('n,m', [(2048, 2048), (2048, 1024), (300, 77)])
-def test_nn_distance_matches_plain_exactly(dev, n, m):
+@pytest.mark.parametrize('n,m,many_ties', [(2048, 2048, False), (2048, 1024, False), (300, 77, False),
+                                           (512, 512, True), (2048, 2048, True)])
+def test_nn_distance_matches_plain_exactly(dev, n, m, many_ties):
     x, y = _clouds(n, m, 30, dev)
+    if many_ties:  # a hub most of x is nearest to, and every point twice on both sides
+        y[:, 100] = 0.0
+        x[:, ::4] *= 0.01
+        x[:, 1::2] = x[:, 0::2]
+        y[:, 1::2] = y[:, 0::2]
     got, want = chamfer.nn_distance_cuda(x, y), chamfer.plain(x, y)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
     assert not bool((got[1] == 5).any()) and not bool((got[3] == 9).any())
+    if many_ties:
+        assert not bool((got[1] % 2 == 1).any()) and not bool((got[3] % 2 == 1).any())
+    again = chamfer.nn_distance_cuda(x, y)  # no atomics: the same bits on every call
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize('n,m', [(1024, 1024), (1024, 512), (300, 77)])
-def test_sinkhorn_cost_matches_plain(dev, n, m):
-    x, y = _clouds(n, m, 31, dev)
+@pytest.mark.parametrize('b,n,splits', [(8, 2048, 1), (2, 2048, 2), (1, 2048, 4), (1, 1024, 8), (1, 512, 16)])
+def test_nn_distance_every_split_is_exact(dev, b, n, splits):
+    """Each column split chamfer.nn_plan takes on a 132-SM card, against 700
+    columns (no multiple of a split's range)."""
+    assert chamfer.nn_plan(b, n, 132) == splits
+    x, y = _clouds(n, 700, 37, dev, b)
+    want = chamfer.plain(x, y)
+    assert all(torch.equal(a, b) for a, b in zip(chamfer.nn_distance_cuda(x, y), want))
+
+
+@pytest.mark.parametrize('b,n,m', [(2, 1024, 1024), (2, 1024, 512), (2, 300, 77), (8, 2048, 2048)])
+def test_sinkhorn_cost_matches_plain(dev, b, n, m):
+    x, y = _clouds(n, m, 31, dev, b)
     got, want = sinkhorn.sinkhorn_cost_cuda(x, y), sinkhorn.plain(x, y)
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0.0)
     assert _rel_l2(got[1], want[1]) <= 1e-3 and _rel_l2(got[2], want[2]) <= 1e-3
     for a, b in zip(got[3:], want[3:]):
         assert torch.equal(a, b)
+    again = sinkhorn.sinkhorn_cost_cuda(x, y)  # no atomics: the same bits on every call
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the device kernel of each sweep of sinkhorn.schedule(): its mode and side
+SWEEP_KERNELS = {('rows', 'build'): 'sinkhorn_build_kernel',
+                 ('cols', 'chamfer'): 'sinkhorn_sweep_kernel<0, false',
+                 ('rows', 'middle'): 'sinkhorn_sweep_kernel<1, true',
+                 ('cols', 'middle'): 'sinkhorn_sweep_kernel<1, false',
+                 ('cols', 'final'): 'sinkhorn_sweep_kernel<2, false',
+                 ('rows', 'final'): 'sinkhorn_sweep_kernel<2, true'}
+
+
+@pytest.mark.parametrize('n,m', [(2048, 2048), (2048, 1024)])
+def test_sinkhorn_launches_its_schedule(dev, n, m, monkeypatch):
+    """One call's device launches, from a torch.profiler trace: the 25 sweeps
+    of sinkhorn.schedule() in order, then the per-sample sum.  CUPTI stays up
+    between sessions (a session after Kineto's teardown can miss launches:
+    tools/torch_profiler_sessions.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    monkeypatch.setenv('TEARDOWN_CUPTI', '0')
+
+    x, y = _clouds(n, m, 38, dev, 8)
+    sinkhorn.sinkhorn_cost_cuda(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sinkhorn.sinkhorn_cost_cuda(x, y)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    want = [SWEEP_KERNELS[sweep] for sweep in sinkhorn.schedule()] + ['sample_sum_kernel']
+    assert len(names) == len(want) == 26
+    for name, kernel in zip(names, want):
+        assert kernel in name, (name, kernel)
+
+
+@pytest.mark.parametrize('b,n,m', [(8, 2048, 2048), (8, 2048, 1024), (2, 512, 512), (2, 300, 77), (1, 33, 4100)])
+def test_sinkhorn_sweep_plan_is_the_kernels(dev, b, n, m):
+    for sms in (132, 114, torch.cuda.get_device_properties(dev).multi_processor_count):
+        assert sinkhorn.sweep_plan(b, n, m, sms) == sinkhorn.kernel_sweep_plan(b, n, m, sms)
 
 
 def _loss_grads(fn, x, y):
