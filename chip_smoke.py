@@ -31,7 +31,19 @@ filtering on):
   counterfactual route with the fused CVAE gate failing, against the CPU.
 
 Each path must have launched every kernel it runs (launch counts set to 0
-just before the path and read just after).
+just before the path and read just after); serving and every stage-1 step
+also the exact counts of the kernels graph filtering's fused pass took over
+(``SERVING_LAUNCHES``, ``STEP_LAUNCHES``).
+
+Graph filtering's fused pass (``graph_filter``, forward, and
+``graph_filter_backward``, its backward with the row scatter) at every shape
+the paths give it: serving's batch 1, 5 and 16, stage 1's 8 and the card-vs-
+CPU step's (2, 512), and a cloud with duplicated points; its indices equal
+``knn_cuda(x, 4)``'s, its output, mean and gradient held to the plain
+versions and the same on a second call, its plan (``graph_filter.filter_plan``)
+equal to the library's, each timed beside the chain it replaced (kNN, the
+gather and the eager tail; autograd through the gather and the tail
+backward).
 
 kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8 and
 at stage 2's 32; at batch 1 the kernel splits each cloud's candidates across
@@ -161,6 +173,12 @@ EMD_GRAD_REL_L2 = 1e-3  # the same, through nine levels of remaining mass
 # index on ties)
 SINKHORN_COST_RTOL = 1e-4
 SINKHORN_GRAD_REL_L2 = 1e-3
+# graph filtering's fused pass against the plain version on its own indices
+# (which equal knn_cuda's): expf's ulp and the per-cloud mean summed in
+# another order (|diff| / max |plain|); the gradient through the same rows,
+# then the row scatter in ascending edge order (rel-L2)
+FILTER_REL_MAX = 1e-5
+FILTER_GRAD_REL_L2 = 1e-5
 # one training step on the card against the same step on the CPU: EMD
 # recomputes its exps, cuBLAS and the CPU add
 # GEMM terms in other orders, and a kNN neighbour or VQ code at a near-tie may
@@ -195,11 +213,21 @@ KERNEL_INFO = {
     'wformer_decoder': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:365'),
     'nn_distance': ('pccf_torch/csrc/nn_distance.cu', 'pccf/kernels/pallas_chamfer.py:78'),
     'sinkhorn_cost': ('pccf_torch/csrc/sinkhorn.cu', 'pccf/kernels/pallas_sinkhorn.py:163'),
+    'graph_filter': ('pccf_torch/csrc/graph_filter.cu', 'pccf/kernels/pallas_gather.py:309'),
+    'graph_filter_backward': ('pccf_torch/csrc/graph_filter.cu', 'pccf/kernels/pallas_gather.py:341'),
 }
-SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors')
+SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter')
 # every stage-1 step launches these, and the kernel of its reconstruction loss
-TRAINING_KERNELS = ('knn', 'gather_neighbors', 'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
-                    'graph_sum_pool')
+TRAINING_KERNELS = ('knn', 'graph_filter', 'graph_filter_backward', 'scatter_add_rows', 'graph_max_pool_src',
+                    'scatter_add_slots', 'graph_sum_pool')
+# the exact launches of the kernels graph filtering's fused pass took over:
+# the three requests (batch 1, 5, 16) build 4 kNN graphs each in the encoder
+# and 4 in the classifier and filter once; a stage-1 step builds the
+# encoder's 4 graphs, filters once and scatters 5 times (4 sum-pool
+# backwards, the filter's backward)
+SERVING_LAUNCHES = {'knn': 24, 'gather_neighbors': 0, 'graph_filter': 3, 'graph_filter_backward': 0}
+STEP_LAUNCHES = {'knn': 4, 'gather_neighbors': 0, 'graph_filter': 1, 'graph_filter_backward': 1,
+                 'scatter_add_rows': 5}
 LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
 ENTRY_TRAIN, ENTRY_TEST, ENTRY_EPOCHS = 16, 8, 2  # the stage-1 entry point's clouds and epochs
 STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
@@ -288,7 +316,9 @@ DEVICE_NAMES = {'scatter_add_rows': (r'scatter_(partition|lists|gather)_kernel',
                 'sinkhorn_cost': (r'sinkhorn_(build|sweep)_kernel|sample_sum_kernel', SINKHORN_PAIR_SWEEPS + 1),
                 'graph_sum_pool': (r'slice_pool_kernel<[^>]*PoolSum>', 1),
                 'graph_max_pool_src': (r'slice_pool_kernel<[^>]*PoolMaxSlot>', 1),
-                'scatter_add_slots': (r'slot_scatter_kernel', 1)}
+                'scatter_add_slots': (r'slot_scatter_kernel', 1),
+                'graph_filter': (r'filter_(search|finish)_kernel', 2),
+                'graph_filter_backward': (r'filter_grad_(partial|rows)_kernel', 2)}
 
 
 class LaunchLog:
@@ -416,7 +446,8 @@ def main() -> int:
     from pccf_torch.data import synthetic
     from pccf_torch.data.processed import WDatasetWithLogits
     from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
-    from pccf_torch.kernels import _build, api, chamfer, cvae, emd, gather, knn, ops, pcgen, roofline, sinkhorn, wformer
+    from pccf_torch.kernels import (_build, api, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, roofline,
+                                    sinkhorn, wformer)
     from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
     from pccf_torch.nn import build_classifier
     from pccf_torch.nn.layers import gumbel_uniform, init_from_seed
@@ -455,16 +486,17 @@ def main() -> int:
                             ('graph_max_pool.cu', 'slice_pool_kernel'), ('gather_scatter.cu', 'slice_pool_kernel'),
                             ('gather_scatter.cu', 'slot_scatter_kernel'),
                             ('nn_distance.cu', DEVICE_NAMES['nn_distance'][0]),
-                            ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel')):
+                            ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel'),
+                            ('graph_filter.cu', r'filter_\w+_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
                     if shutil.which('c++filt') else None
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
-    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour '
-          'and Sinkhorn kernels: ' + ('; '.join(resources) if resources else 'none read: the library was built before '
-                                                                             'this run'), flush=True)
+    print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour, '
+          'Sinkhorn and graph filter kernels: '
+          + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
     empty = _build.lib().pccf_empty
     print(f'launch floor: an empty kernel (one warp) {time_ms(lambda: empty(_build.stream()), REPS):.4f} ms '
           f'back to back', flush=True)
@@ -611,12 +643,16 @@ def main() -> int:
             return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
 
         def timed(name: str, shape: str, run_k, run_p, err: float, ok: bool, what: str, work: roofline.Work,
-                  run_lib=None) -> None:
+                  run_lib=None, run_chain=None) -> None:
             """Time the kernel, its plain version and, where one exists, the
-            single PyTorch call that computes the same function."""
+            single PyTorch call that computes the same function, or the chain
+            of launches the kernel replaced on the path."""
             row = {'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS), **bound(work),
                    'library_ms': time_ms(run_lib, REPS) if run_lib is not None else None}
             lib = f', library {row["library_ms"]:.4f}' if run_lib is not None else ''
+            if run_chain is not None:
+                row['chain_ms'] = time_ms(run_chain, REPS)
+                lib += f', the chain it replaced {row["chain_ms"]:.4f}'
             check(ok, f'{name} {shape}: {what}; {row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}{lib}, bound '
                       f'{row["bound_ms"]:.4f} ms, {row["bound_by"]})')
             entry = kernels.setdefault(name, {'max_abs_err': 0.0, 'shapes': {}})
@@ -736,6 +772,71 @@ def main() -> int:
               roofline.scatter_rows_work(g, flat, n), index_add_rows(g, flat))
         headline = f'({bt}, {n}, 512) k=25'
         kernels['scatter_add_rows'].update(kernels['scatter_add_rows']['shapes'][headline], shape=headline)
+
+        # graph filtering's fused pass at every shape the paths give it: the
+        # card-vs-CPU step's (2, 512), a cloud with duplicated points, then
+        # serving's batch 1 and 5, stage 1's 8 and serving's 16 (the
+        # headline, last).  Its indices equal knn_cuda's, its output and mean
+        # are the plain version's on them.  No single PyTorch call computes
+        # it: library_ms is null, and the chain it replaced (kNN, the gather,
+        # the eager tail) is timed beside it.  Its clouds come from a
+        # generator of their own, so every later phase draws what it drew
+        # before this phase was added
+        filter_rng = np.random.default_rng([args.seed, 11])
+
+        def filter_randn(*shape: int) -> torch.Tensor:
+            return torch.from_numpy(filter_rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+        def filter_chain(x: torch.Tensor) -> torch.Tensor:
+            return ops.graph_filtering_with_idx(x, knn.knn_cuda(x, 4), gather_fn=gather.gather_neighbors_cuda)
+
+        for bb, pts, dup in ((2, 512, False), (bt, n, True), (1, n, False), (5, n, False), (bt, n, False),
+                             (b, n, False)):
+            cloud = (0.5 * filter_randn(bb, pts, 3)).contiguous()
+            if dup:  # every point twice, and in cloud 0 point 8 three times: slot 0 the lowest copy
+                cloud[:, 1::2] = cloud[:, 0::2]
+                cloud[0, 100] = cloud[0, 8]
+            out, idx, mean = graph_filter.graph_filter_cuda(cloud)
+            same_idx = torch.equal(idx, knn.knn_cuda(cloud, 4))
+            agree, _ = knn_check(cloud, 4, idx, knn.plain(cloud, 4))
+            want = ops.graph_filtering_with_idx(cloud, idx)
+            neigh = ops.gather_neighbors(cloud, idx)[:, :, 1:, :]
+            want_mean = torch.sqrt(torch.abs(((cloud[:, :, None] - neigh) ** 2).sum(-1)) + 1e-12)[:, :, 0].mean(1)
+            r, rm = rel_max(out, want), rel_max(mean, want_mean)
+            again = all(torch.equal(a, c) for a, c in zip((out, idx, mean), graph_filter.graph_filter_cuda(cloud)))
+            plan = graph_filter.filter_plan(bb, pts, sms)
+            same_plan = plan == graph_filter.kernel_filter_plan(bb, pts, sms)
+            timed('graph_filter', f'({bb}, {pts}, 3){" duplicated" if dup else ""}',
+                  lambda: graph_filter.graph_filter_cuda(cloud), lambda: graph_filter.plain(cloud),
+                  float((out - want).abs().max()),
+                  same_idx and agree >= KNN_SET_AGREEMENT and max(r, rm) <= FILTER_REL_MAX and again and same_plan,
+                  f'indices equal knn_cuda(x, 4)\'s {same_idx}, neighbour-set agreement with the plain kNN '
+                  f'{agree:.6f}, output and mean rel max diff {r:.2e} / {rm:.2e} <= {FILTER_REL_MAX}, the same on a '
+                  f'second call {again}; plan {tuple(plan)} (splits, centres a block, blocks a cloud), the '
+                  f'library\'s too {same_plan}', roofline.filter_work(cloud), run_chain=lambda: filter_chain(cloud))
+        # its backward at stage 1's batch and the card-vs-CPU step's, held to
+        # the closed-form plain backward on the card and on the CPU; the
+        # chain it replaced: autograd through the gather and the eager tail
+        for bb, pts in ((2, 512), (bt, n)):
+            cloud = (0.5 * filter_randn(bb, pts, 3)).contiguous()
+            g = filter_randn(bb, pts, 3)
+            _, idx, mean = graph_filter.graph_filter_cuda(cloud)
+            dx = graph_filter.graph_filter_backward_cuda(cloud, idx, mean, g)
+            want = graph_filter.plain_backward(cloud, idx, mean, g)
+            r = rel_l2(dx, want)
+            r_cpu = rel_l2(dx.cpu(), graph_filter.plain_backward(cloud.cpu(), idx.cpu(), mean.cpu(), g.cpu()))
+            same = torch.equal(dx, graph_filter.graph_filter_backward_cuda(cloud, idx, mean, g))
+            with torch.inference_mode(False):
+                xc, ic, gc = cloud.clone().requires_grad_(True), idx.clone(), g.clone()
+                oc = ops.graph_filtering_with_idx(xc, ic, gather_fn=api.gather_neighbors)
+                timed('graph_filter_backward', f'({bb}, {pts}, 3)',
+                      lambda: graph_filter.graph_filter_backward_cuda(cloud, idx, mean, g),
+                      lambda: graph_filter.plain_backward(cloud, idx, mean, g), float((dx - want).abs().max()),
+                      max(r, r_cpu) <= FILTER_GRAD_REL_L2 and same,
+                      f'rel L2 {r:.2e} against the plain backward on the card, {r_cpu:.2e} on the CPU, <= '
+                      f'{FILTER_GRAD_REL_L2}, the same on a second call {same} (its row scatter included)',
+                      roofline.filter_work(cloud, backward=True),
+                      run_chain=lambda: torch.autograd.grad(oc, xc, gc, retain_graph=True))
         # the ChamferEMD loss on a decoded cloud against its reference
         x1 = torch.from_numpy(synthetic.batch(args.seed, bt, n)).to(dev)
         x2 = (x1 + 0.05 * randn(bt, n, 3)).contiguous()
@@ -948,6 +1049,8 @@ def main() -> int:
     check(diff <= BATCH_INVARIANCE, f'request alone vs inside a batch of 16: rel max diff {diff:.2e}')
     for name in SERVING_KERNELS:
         check(launches[name] > 0, f'{name}: {launches[name]} launches on the serving path')
+    for name, count in SERVING_LAUNCHES.items():
+        check(launches[name] == count, f'{name}: {launches[name]} launches on the serving path == {count}')
     print(f'request ms (batch 1, 5, 16; host clock incl. copies): {[round(v, 3) for v in req_ms]}', flush=True)
     for i in (0, 2):  # warm requests, batch 1 and batch 16: device time by kernel, then latency
         cl, tdim, seeds = requests[i]
@@ -1049,6 +1152,9 @@ def main() -> int:
             per_step = [c[name] for c in step_launches]
             check(min(per_step) > 0 if launched else max(per_step) == 0,
                   f'{name}: launches per {label} step {per_step}')
+        for name, count in STEP_LAUNCHES.items():
+            per_step = [c[name] for c in step_launches]
+            check(set(per_step) == {count}, f'{name}: launches per {label} step {per_step} == {count}')
         q1, med, q3 = np.percentile(step_ms[WARM_STEPS:], [25, 50, 75])
         print(f'{label} step (batch {TRAIN_BATCH}, {n} points): median {med:.3f} ms, quartiles {q1:.3f} / '
               f'{q3:.3f} ms over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '

@@ -18,7 +18,9 @@
 // distance is the same whichever cloud owns the rows.
 //
 // A chain of dependent sweeps launches each one after the first with
-// programmatic dependent launch (sinkhorn.cu, nn_distance.cu): a sweep loads
+// programmatic dependent launch (sinkhorn.cu, nn_distance.cu, and
+// graph_filter.cu's finishing launches, which use launch and the two
+// griddepcontrol helpers below): a sweep loads
 // what no earlier sweep writes, then waits for the one before
 // (wait_for_previous_sweep, a no-op in a kernel launched without it), then
 // lets the next one be scheduled (let_next_sweep_launch), so the next grid's

@@ -58,6 +58,9 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P, I, P),
     'pccf_sinkhorn_cost': (P, P, I, I, I, F, F, F, I, P, P, P, P, P, P, P, P, P),
     'pccf_sinkhorn_plan': (I, I, I, I, P),
+    'pccf_graph_filter': (P, P, P, P, P, I, I, I, I, P),
+    'pccf_graph_filter_backward': (P, P, P, P, P, P, P, I, I, I, I, P),
+    'pccf_graph_filter_plan': (I, I, I, P),
     'pccf_empty': (P,),
 }
 

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from pccf_torch.kernels import _build, chamfer as chamfer_mod, cvae, emd, gather, knn as knn_mod, ops, pcgen, sinkhorn, wformer
+from pccf_torch.kernels import (_build, chamfer as chamfer_mod, cvae, emd, gather, graph_filter, knn as knn_mod, pcgen,
+                                sinkhorn, wformer)
 
 # name -> the CUDA wrapper that counts its launches
 KERNELS = {
@@ -29,9 +30,9 @@ KERNELS = {
     'wformer_decoder': wformer.wformer_decoder_cuda,
     'nn_distance': chamfer_mod.nn_distance_cuda,
     'sinkhorn_cost': sinkhorn.sinkhorn_cost_cuda,
+    'graph_filter': graph_filter.graph_filter_cuda,
+    'graph_filter_backward': graph_filter.graph_filter_backward_cuda,
 }
-
-FILTER_NEIGHBORS = 4  # graph filtering's k, self included (pccf/kernels/api.py:178)
 
 
 def launch_counts() -> dict[str, int]:
@@ -64,14 +65,16 @@ def graph_sum_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Neighbour rows ``(B, N, k, C)``."""
+    """Neighbour rows ``(B, N, k, C)``, the public gather op
+    (``pccf/kernels/api.py:168``); graph filtering no longer runs it."""
     return gather.GatherNeighbors.apply(x, idx)
 
 
-def graph_filtering(x: torch.Tensor, k: int = FILTER_NEIGHBORS) -> torch.Tensor:
-    """PCGen output sharpening (``pccf/kernels/api.py:178-181``): kNN, then
-    the gathered neighbours weighted by distance."""
-    return ops.graph_filtering_with_idx(x, knn(x, k), gather_fn=gather_neighbors)
+def graph_filtering(x: torch.Tensor) -> torch.Tensor:
+    """PCGen output sharpening (``pccf/kernels/api.py:178-181``): the k = 4
+    neighbours, self included, and the three after slot 0 weighted by
+    distance, as one fused pass forward and backward on the card."""
+    return graph_filter.GraphFilter.apply(x)
 
 
 def chamfer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

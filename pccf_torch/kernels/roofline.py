@@ -75,6 +75,30 @@ def knn_work(x: torch.Tensor, k: int) -> Work:
     return Work(2.0 * b * n * n * c, _nbytes(x) + b * n * k * 4, TF32 if c > KNN_FMA_MAX_C else FP32)
 
 
+# graph filtering's backward, operations a point: per neighbour the
+# difference (3), its squared sum (5), the guarded sqrt (2), -dist / sigma and
+# its exp (2), g . diff (5), its product with w and dist and the point's sum
+# (3), dL/ddist (2), through the sqrt (2), dL/ddiff (6) and the neighbour's
+# row (6); then the weights' sum (3), the point's own row (9) and the row
+# scatter's adds (12)
+FILTER_BACKWARD_OPS_PER_POINT = 3 * (3 + 5 + 2 + 2 + 5 + 3 + 2 + 2 + 6 + 6) + 3 + 9 + 12
+
+
+def filter_work(x: torch.Tensor, backward: bool = False) -> Work:
+    """Graph filtering of ``x (B, N, 3)``.  The forward: the k = 4 search's
+    pairs counted as :func:`knn_work` counts them (C multiply-adds a pair,
+    fp32; the tail's few operations a point uncounted), ``x`` read once, the
+    output, the ``(B, N, 4)`` indices and the ``(B,)`` mean written once.  The
+    backward: :data:`FILTER_BACKWARD_OPS_PER_POINT` a point, ``x``, the
+    indices, the mean and ``g`` read once, ``dx`` written once (the rows it
+    hands the row scatter are intermediate)."""
+    b, n, c = x.shape
+    saved = b * n * 4 * 4 + b * F32
+    if backward:
+        return Work(float(FILTER_BACKWARD_OPS_PER_POINT * b * n), 3 * _nbytes(x) + saved, FP32)
+    return Work(2.0 * b * n * n * c, 2 * _nbytes(x) + saved, FP32)
+
+
 def pool_work(x: torch.Tensor, idx: torch.Tensor, slots: bool = False) -> Work:
     """Max- or sum-pool over k gathered rows: one op per gathered element;
     ``slots`` adds the uint8 winning-slot output of the training forward."""

@@ -38,14 +38,18 @@ in the middle sweeps and the sums over the pairs in another order, through
 twelve updates of the scalings), its Chamfer outputs exact, the same on
 every call; gradients of the
 Chamfer and Sinkhorn losses on the card against the CPU rel-L2 1e-4 (Chamfer:
-the same argmins, the scatter-adds in another order) and 1e-3 (Sinkhorn).
+the same argmins, the scatter-adds in another order) and 1e-3 (Sinkhorn);
+graph filtering's fused pass: its indices knn_cuda(x, 4)'s index for index,
+its output and mean within 1e-5 of the largest of the plain version's on
+those indices (expf's ulp, the mean summed in another order), its gradient
+rel-L2 1e-5 against the closed-form plain backward, the same on every call.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pccf_torch.kernels import api, chamfer, cvae, emd, gather, knn, ops, pcgen, sinkhorn, wformer
+from pccf_torch.kernels import api, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, sinkhorn, wformer
 
 pytestmark = pytest.mark.cuda
 
@@ -628,8 +632,10 @@ def test_autograd_on_cuda_never_runs_plain(dev, monkeypatch):
         raise AssertionError('a plain version ran on CUDA tensors')
 
     for name in ('gather_neighbors', 'graph_max_pool_slots', 'scatter_add_slots', 'graph_sum_pool',
-                 'scatter_add_rows', 'emd_forward', 'nn_distance'):
+                 'scatter_add_rows', 'emd_forward', 'nn_distance', 'graph_filtering_with_idx'):
         monkeypatch.setattr(ops, name, boom)
+    for name in ('plain', 'plain_backward'):
+        monkeypatch.setattr(graph_filter, name, boom)
     api.reset_launch_counts()
     x = _randn((2, 512, 64), 20, dev).requires_grad_(True)
     idx = api.knn(x, 8)
@@ -639,10 +645,11 @@ def test_autograd_on_cuda_never_runs_plain(dev, monkeypatch):
     (y + cham.sum() + cost.sum() + api.match_cost(cloud, _randn((2, 512, 3), 23, dev)).sum()).backward()
     torch.cuda.synchronize()
     counts = api.launch_counts()
-    for name in ('gather_neighbors', 'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
-                 'graph_sum_pool'):
+    for name in ('graph_filter', 'graph_filter_backward', 'scatter_add_rows', 'graph_max_pool_src',
+                 'scatter_add_slots', 'graph_sum_pool'):
         assert counts[name] >= 1, name
     assert counts['chamfer_match_cost'] == 2 and counts['graph_max_pool'] == 0
+    assert counts['gather_neighbors'] == 0 and counts['knn'] == 1  # graph filtering runs neither
     assert bool(torch.isfinite(x.grad).all()) and bool(torch.isfinite(cloud.grad).all())
 
 
@@ -674,6 +681,105 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
     with pytest.raises(ValueError, match='does not cover'):  # F % 4
         gather.scatter_add_slots_cuda(x, idx, torch.zeros(x.shape, dtype=torch.uint8, device=dev), 64)
     assert api.launch_counts()['graph_max_pool_src'] == api.launch_counts()['scatter_add_slots'] == 0
+
+
+# ------------------------------------------------ graph filtering's fused pass
+
+FILTER_REL_MAX = 1e-5  # expf's ulp and the per-cloud mean summed in another order than the plain version's
+FILTER_GRAD_REL_L2 = 1e-5  # the same through the backward's rows, then the row scatter (ascending edge order)
+
+
+def _filter_cloud(b, n, seed, dev, duplicates=False):
+    x = _randn((b, n, 3), seed, dev) * 0.5
+    if duplicates:  # every point twice, and in cloud 0 point 8 three times (101 then alone)
+        x[:, 1::2] = x[:, 0::2]
+        x[0, 100] = x[0, 8]
+    return x
+
+
+@pytest.mark.parametrize('b,n,duplicates', [(1, 2048, False), (5, 2048, False), (8, 2048, False), (16, 2048, False),
+                                            (8, 2048, True), (2, 512, False), (3, 300, False), (1, 5000, False)])
+def test_graph_filter_matches_plain(dev, b, n, duplicates):
+    """The indices are knn_cuda(x, 4)'s index for index (and the plain kNN's
+    up to near-ties); the output and the mean are the plain version's on those
+    indices; a second call gives the same bits."""
+    x = _filter_cloud(b, n, 40 + b, dev, duplicates)
+    out, idx, mean = graph_filter.graph_filter_cuda(x)
+    assert torch.equal(idx, knn.knn_cuda(x, 4))
+    assert _knn_agrees(x, idx, knn.plain(x, 4), 4)
+    if duplicates:
+        # slot 0 holds the lowest index among each point's exact copies
+        lowest = (x[:, :, None, :] == x[:, None, :, :]).all(-1).int().argmax(-1)
+        assert torch.equal(idx[..., 0].long(), lowest) and idx[0, [8, 9, 100], 0].tolist() == [8, 8, 8]
+    neigh = ops.gather_neighbors(x, idx)[:, :, 1:, :]
+    dist = torch.sqrt(torch.abs(((x[:, :, None, :] - neigh) ** 2).sum(-1)) + 1e-12)
+    assert _max_rel(out, ops.graph_filtering_with_idx(x, idx)) <= FILTER_REL_MAX
+    assert _max_rel(mean, dist[:, :, 0].mean(1)) <= FILTER_REL_MAX
+    again = graph_filter.graph_filter_cuda(x)  # fixed-order sums: the same bits on every call
+    assert all(torch.equal(a, c) for a, c in zip((out, idx, mean), again))
+
+
+@pytest.mark.parametrize('b,n,scale', [(8, 2048, 0.5), (8, 2048, 0.002), (2, 512, 0.5), (3, 300, 0.5)])
+def test_graph_filter_backward_matches_plain(dev, b, n, scale):
+    """dx against the closed-form plain backward on the card and on the CPU
+    (scale 0.002: the 0.005 clamp active); one backward kernel call and one
+    row scatter; a second call gives the same bits."""
+    x = _randn((b, n, 3), 50 + b, dev) * scale
+    g = _randn((b, n, 3), 51 + b, dev)
+    _, idx, mean = graph_filter.graph_filter_cuda(x)
+    assert bool((mean < 0.005).all()) == (scale < 0.01)
+    api.reset_launch_counts()
+    dx = graph_filter.graph_filter_backward_cuda(x, idx, mean, g)
+    counts = api.launch_counts()
+    assert counts['graph_filter_backward'] == counts['scatter_add_rows'] == 1 and sum(counts.values()) == 2
+    assert _rel_l2(dx, graph_filter.plain_backward(x, idx, mean, g)) <= FILTER_GRAD_REL_L2
+    cpu = graph_filter.plain_backward(x.cpu(), idx.cpu(), mean.cpu(), g.cpu())
+    assert _rel_l2(dx.cpu(), cpu) <= FILTER_GRAD_REL_L2
+    assert torch.equal(dx, graph_filter.graph_filter_backward_cuda(x, idx, mean, g))
+
+
+def test_graph_filtering_trains_through_the_fused_pass(dev):
+    """api.graph_filtering on a CUDA tensor that needs a gradient: the fused
+    forward, its backward and the row scatter, no kNN and no gather; value
+    and gradient against the same function on the CPU."""
+    x = _filter_cloud(2, 512, 52, 'cpu')
+    g = _randn((2, 512, 3), 53, 'cpu')
+    api.reset_launch_counts()
+    xc = x.to(dev).requires_grad_(True)
+    out = api.graph_filtering(xc)
+    out.backward(g.to(dev))
+    torch.cuda.synchronize()
+    counts = api.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {'graph_filter': 1, 'graph_filter_backward': 1,
+                                                      'scatter_add_rows': 1}
+    xr = x.clone().requires_grad_(True)
+    want = api.graph_filtering(xr)
+    want.backward(g)
+    assert _max_rel(out.detach().cpu(), want.detach()) <= FILTER_REL_MAX
+    assert _rel_l2(xc.grad.cpu(), xr.grad) <= FILTER_GRAD_REL_L2
+
+
+def test_graph_filter_refuses_shapes_it_does_not_cover(dev):
+    """Past the guard (N < 4, N > 65536, C != 3) both wrappers raise
+    ValueError before any launch."""
+    api.reset_launch_counts()
+    for shape in ((1, 3, 3), (1, graph_filter.MAX_POINTS + 1, 3), (1, 64, 4), (2, 64, 2)):
+        x = torch.zeros(shape, device=dev)
+        with pytest.raises(ValueError, match='does not cover'):
+            graph_filter.graph_filter_cuda(x)
+        idx = torch.zeros((*shape[:2], 4), dtype=torch.int32, device=dev)
+        mean = torch.zeros(shape[0], device=dev)
+        with pytest.raises(ValueError, match='does not cover'):
+            graph_filter.graph_filter_backward_cuda(x, idx, mean, torch.zeros_like(x))
+    with pytest.raises(ValueError):
+        graph_filter.graph_filter_cuda(torch.zeros((1, 64, 3), device=dev, dtype=torch.float64))
+    assert set(api.launch_counts().values()) == {0}
+
+
+@pytest.mark.parametrize('b,n', [(1, 2048), (5, 2048), (8, 2048), (16, 2048), (2, 512), (3, 300), (1, 65536)])
+def test_graph_filter_plan_is_the_kernels(dev, b, n):
+    for sms in (132, 114, torch.cuda.get_device_properties(dev).multi_processor_count):
+        assert graph_filter.filter_plan(b, n, sms) == graph_filter.kernel_filter_plan(b, n, sms)
 
 
 def _clouds(n, m, seed, dev, b=2):

@@ -217,7 +217,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors',
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
-                                        'wformer_decoder', 'nn_distance', 'sinkhorn_cost'}
+                                        'wformer_decoder', 'nn_distance', 'sinkhorn_cost', 'graph_filter',
+                                        'graph_filter_backward'}
     assert set(api.launch_counts().values()) == {0}
 
 

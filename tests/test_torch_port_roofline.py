@@ -198,6 +198,25 @@ def test_knn_work_takes_the_class_its_path_issues(c, peak):
         assert roofline.bound_ms(work) == (pytest.approx(0.0347, abs=1e-4), 'operations')
 
 
+@pytest.mark.parametrize('b', [1, 8, 16])
+def test_filter_work_counts_the_search_and_the_bytes(b):
+    """Graph filtering's fused pass: the forward's k = 4 search counted as
+    knn_work counts it (3 multiply-adds a pair, fp32), x read once, the
+    output, the (B, N, 4) indices and the (B,) mean written once, bound by
+    operations (0.0060 ms at serving's batch 16); the backward's operations
+    a point, x, the indices, the mean and g read, dx written, bound by
+    bytes."""
+    x = torch.empty(b, 2048, 3, device='meta')
+    fwd, bwd = roofline.filter_work(x), roofline.filter_work(x, backward=True)
+    assert fwd.ops == roofline.knn_work(x, 4).ops == 2 * b * 2048**2 * 3 and fwd.peak == roofline.FP32
+    assert fwd.bytes == b * 2048 * (12 + 12 + 16) + 4 * b
+    assert bwd.ops == roofline.FILTER_BACKWARD_OPS_PER_POINT * b * 2048
+    assert bwd.bytes == b * 2048 * (3 * 12 + 16) + 4 * b
+    assert roofline.bound_ms(fwd)[1] == 'operations' and roofline.bound_ms(bwd)[1] == 'bytes'
+    if b == 16:
+        assert roofline.bound_ms(fwd)[0] == pytest.approx(0.0060, abs=1e-4)
+
+
 def test_pcgen_work_is_bound_by_half_precision_operations():
     """The fused PCGen's products run as fp16 wgmma, at the H100's dense
     bf16 and fp16 peak, 989 TFLOP/s: the flagship batch of 16 clouds (0.69
