@@ -28,12 +28,32 @@ filtering on):
   on one derived batch (finite losses, falling MSE) and a validation pass
   over two batches, whose W-nets run their transformer stacks through the
   ``wformer`` kernels; one step at a small width against the CPU; and the
-  counterfactual route with the fused CVAE gate failing, against the CPU.
+  counterfactual route with the fused CVAE gate failing, against the CPU;
+- classifier training: DGCNN classifier steps through ``Trainer`` (batch 16
+  of spheres and boxes, 2048 points, SGD at lr 0.01, dropout on), each
+  launching the streaming-BN EdgeConv kernels of its blocks at k = 20 and
+  nothing else (step time, samples/s, peak memory, a profile), one step at
+  batch 2 and 512 points against the CPU (dropout 0), and the entry point
+  ``pccf_torch.train.classifier.train_classifier`` for 2 epochs of 32 clouds
+  (validation, the final test's logits, confusion matrix, misclassified);
+- the five evaluation suites: ``pccf_torch.evaluate_counterfactuals.
+  evaluate_counterfactuals`` over 186 clouds (86 spheres, 100 boxes: the
+  flagship's ModelNet desk / table test split) with the entry point's
+  classifier and the flagship VQ-VAE, each suite's metrics and seconds, the
+  launches of every kernel equal to what the suites' structure implies
+  (``suite_launch_counts``), one profiled counterfactual chunk of 64; then
+  the suites on 8 clouds of 512 points on the card against the CPU (the
+  original classification equal but at argmax near-ties, a derived suite's
+  accuracy apart only by clouds whose codes differ or whose prediction sits
+  at a near-tie).
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); serving and every stage-1 step
 also the exact counts of the kernels graph filtering's fused pass took over
-(``SERVING_LAUNCHES``, ``STEP_LAUNCHES``).
+(``SERVING_LAUNCHES``, ``STEP_LAUNCHES``), every classifier step and the
+suites the exact counts of all kernels.  A profiled stage-1 step whose trace
+holds fewer launches of a kernel than its wrapper counted (``torch.profiler``
+loses records) is traced again, up to three traces in all.
 
 Graph filtering's fused pass (``graph_filter``, forward, and
 ``graph_filter_backward``, its backward with the row scatter) at every shape
@@ -45,10 +65,13 @@ equal to the library's, each timed beside the chain it replaced (kNN, the
 gather and the eager tail; autograd through the gather and the tail
 backward).
 
-kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8 and
-at stage 2's 32; at batch 1 the kernel splits each cloud's candidates across
-blocks (its lists held equal to the unsplit ones); the fused PCGen at batch 1
-and 16.  The graph max-pool at serving's batch 1, 5 and 16 and stage 2's 32,
+kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8, at
+stage 2's 32 and at the suites' chunks of 64 and 58; at batch 1 the kernel
+splits each cloud's candidates across blocks (its lists held equal to the
+unsplit ones); the fused PCGen at batch 1, 16, 64 and 58, the CVAE chain and
+the W-nets' stacks at 64, 58 and 1, graph filtering at 64 and 58; the
+classifier step's pools and scatters at batch 16, k = 20.  The graph
+max-pool at serving's batch 1, 5 and 16, stage 2's 32, the suites' 64 and 58,
 the sum-pool at stage 1's widths: each beside its plan's channel slice and
 centre ranges (``gather.pool_plan``, held equal to the kernel library's) and
 the times in the other slice widths, every width bit-equal to the plan's; the
@@ -91,8 +114,9 @@ the device time of the row scatter's, the loss kernel's, the sum-pool's, the
 training max-pool's and the slot scatter's launches, their count checked
 against the wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
-memory of both stages, the seconds of each stage-1 entry-point run and the
-validation time per batch, the numbers PERF.md quotes.
+memory of both stages and of the classifier, the seconds of each
+entry-point run, the validation time per batch, the suites' seconds and the
+total seconds of the run, the numbers PERF.md quotes.
 
 Kernel times are medians over samples of many back-to-back calls between
 one pair of CUDA events, queued behind a spin kernel so that the host's
@@ -106,10 +130,12 @@ no result, when there is no CUDA device or any check fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -197,6 +223,10 @@ W_STEP_GRAD_REL_L2 = 1e-3  # per parameter
 # their gradient is zero but for rounding and its sign is noise: left out of
 # the per-parameter gradient, update and clipper comparisons
 ZERO_GRADIENT_SUFFIX = 'key.bias'
+# likewise the classifier's final_conv BatchNorm shift: it moves every
+# point's feature, so the max and the mean, by the same amount, which the
+# head's BatchNorm takes out again
+CLASSIFIER_ZERO_GRADIENT = 'final_conv.bn.bias'
 
 KERNEL_INFO = {
     'knn': ('pccf_torch/csrc/knn.cu', 'pccf/kernels/pallas_knn.py:183'),
@@ -230,6 +260,20 @@ STEP_LAUNCHES = {'knn': 4, 'gather_neighbors': 0, 'graph_filter': 1, 'graph_filt
                  'scatter_add_rows': 5}
 LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
 ENTRY_TRAIN, ENTRY_TEST, ENTRY_EPOCHS = 16, 8, 2  # the stage-1 entry point's clouds and epochs
+# the evaluation suites: 186 test clouds (ModelNet desk / table's test split,
+# 86 + 100) in chunks of 64 give the derived datasets chunks of 64 and 58
+SUITE_CLASS_COUNTS = (86, 100)
+SUITE_CHUNKS = (64, 58)
+# the suites on the card against the CPU: the card decodes through the fp16
+# PCGen kernel (rel-L2 ~3e-4 of the CPU's) and classifies in another
+# summation order, so a prediction may flip where its two logits are this close
+SUITE_TIE_MARGIN = 0.05
+# a classifier step: each EdgeConv block (four in the flagship) builds its kNN
+# graph (k = 20), sum-pools [u, u^2] for its batch statistics and max-pools
+# with the winning slot; backward, the slot scatter and the sum-pool's row
+# scatter; a block launches each of these once and nothing else launches
+CLASSIFIER_STEP_KERNELS = ('knn', 'graph_sum_pool', 'graph_max_pool_src', 'scatter_add_slots', 'scatter_add_rows')
+CLASSIFIER_TRAIN, CLASSIFIER_TEST = 32, 16  # the classifier entry point's clouds (2 epochs, cut from 45)
 STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
 STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 (stage 1), 0.0014 / 6 (stage 2, warmup)
@@ -305,6 +349,10 @@ EMD_PAIR_SWEEPS = 19  # rows P1 of -4^7, then per level columns P2 and rows P3 (
 SINKHORN_PAIR_SWEEPS = 25  # the build, 12 v passes and 11 u passes in turn, the final rows sweep
 SINKHORN_MUFU_PER_PAIR = 27  # an ex2 a pair in each sweep, an rsqrt in the two final ones
 MUFU_PER_CLOCK = 16  # special-function results a clock an SM (Hopper)
+# torch.profiler loses device records in about 1 stage-1 step session in 40
+# with CUPTI kept up (PERF.md §7): a step trace short of a kernel's launches
+# is taken again, up to this many traces in all
+TRACE_ATTEMPTS = 3
 # the port kernels whose device time the stage-1 steps sum: the pattern of
 # their device kernels' names, and how many of those one wrapper call launches
 # (the scatter: partition, lists, gather; the EMD: 2 fills, the sweeps, the
@@ -433,6 +481,138 @@ def library_stack(pack: list[dict], n_heads: int, decoder: bool) -> torch.nn.Mod
     return stack.eval()
 
 
+def labelled_clouds(seed: int, counts: tuple[int, ...], n: int) -> tuple[np.ndarray, np.ndarray]:
+    """``counts[c]`` clouds of ``n`` points of each class ``c`` (0 spheres, 1
+    boxes: ``pccf_torch.data.synthetic``'s shapes, normalised) in an order
+    shuffled from ``seed``, float32, and their int64 labels."""
+    from pccf_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(len(counts)), counts)
+    rng.shuffle(labels)
+    clouds = np.stack([synthetic.normalise(synthetic.shape_cloud(rng, int(c), n)) for c in labels])
+    return clouds.astype(np.float32), labels.astype(np.int64)
+
+
+class StampedLines(io.TextIOBase):
+    """Standard output's lines with the host clock at which each ended."""
+
+    def __init__(self) -> None:
+        self.stamped: list[tuple[float, str]] = []
+        self._part = ''
+
+    def write(self, text: str) -> int:
+        now = time.perf_counter()
+        self._part += text
+        while '\n' in self._part:
+            line, self._part = self._part.split('\n', 1)
+            self.stamped.append((now, line))
+        return len(text)
+
+    def lines(self, start: float):
+        """``(line, seconds since the line before, or since start)``."""
+        for now, line in self.stamped:
+            yield line, now - start
+            start = now
+
+
+def suite_launch_counts(cfg, predictions: np.ndarray, labels: np.ndarray) -> dict[str, int]:
+    """The launches the five suites make over the clouds: every pass of the
+    classifier over a batch builds a kNN graph and max-pools in each EdgeConv
+    block; every derived chunk of up to ``MAX_BATCH`` clouds runs the
+    classifier on them, the VQ-VAE's encoder (a graph and a max-pool a
+    block), the inner CVAE's sampled forward (the W-encoder's and the
+    posterior's encoder stacks, the W-decoder's decoder stack) or its fused
+    counterfactual chain, the PCGen decode and graph filtering; the derived
+    clouds are then classified in batches."""
+    from pccf_torch.data.processed import MAX_BATCH
+
+    batch, n_classes = cfg.classifier.train.batch_size, cfg.data.n_classes
+    c_blocks, e_blocks = len(cfg.classifier.conv_dims), len(cfg.autoencoder.encoder.h_dim)
+    counts = dict.fromkeys(('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder', 'cvae_cf', 'pcgen_mix',
+                            'graph_filter'), 0)
+
+    def classified(m: int) -> None:
+        for name in ('knn', 'graph_max_pool'):
+            counts[name] += c_blocks * -(-m // batch)
+
+    def derived(m: int, sampled: bool) -> None:
+        chunks = -(-m // MAX_BATCH)
+        for name in ('knn', 'graph_max_pool'):
+            counts[name] += (c_blocks + e_blocks) * chunks
+        if sampled:
+            counts['wformer_encoder'] += 2 * chunks
+            counts['wformer_decoder'] += chunks
+        else:
+            counts['cvae_cf'] += chunks
+        counts['pcgen_mix'] += chunks
+        counts['graph_filter'] += chunks
+        classified(m)
+
+    classified(len(labels))  # the original clouds
+    derived(len(labels), True)  # their double reconstructions
+    for _ in range(n_classes):  # counterfactuals to each class
+        derived(len(labels), False)
+    if (mis := int((predictions != labels).sum())) > 0:
+        derived(mis, True)
+    for i in range(n_classes):
+        for j in range(n_classes):
+            if i != j and (m := int(((predictions == i) & (labels == j)).sum())) > 0:
+                derived(m, False)
+    return counts
+
+
+@torch.no_grad()
+def suite_outcomes(vq, judge, clouds: np.ndarray, labels: np.ndarray, seed: int, cfg, device) -> dict:
+    """What each suite decides about each cloud: ``name -> (codes, predictions,
+    margins)`` of the clouds it derives (each rebuilt from the noise the
+    suite's derived dataset draws, the whole set in one chunk), and the
+    original clouds' predictions; a margin is the gap between the two
+    largest logits."""
+    from pccf_torch.data.clouds import LabelledClouds
+    from pccf_torch.data.processed import CounterfactualDatasetEncoder, DoubleReconstructedDatasetWithLogits
+    from pccf_torch.data.structures import Inputs
+    from pccf_torch.evaluate_counterfactuals import Subset
+
+    dataset = LabelledClouds(torch.from_numpy(clouds).to(device), torch.from_numpy(labels), seed)
+
+    def judged(cloud: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        logits = judge(Inputs(cloud)).cpu()
+        top = torch.topk(logits, 2, dim=1).values
+        return logits.argmax(1).numpy(), (top[:, 0] - top[:, 1]).numpy()
+
+    out = {'original': (np.zeros((len(labels), 0)), *judged(dataset.clouds))}
+    predictions = out['original'][1]
+
+    def recon(name: str, idx: np.ndarray) -> None:
+        sub = Subset(dataset, idx)
+        noise = DoubleReconstructedDatasetWithLogits(sub, vq, judge).draw(len(idx))
+        cloud = dataset.clouds[torch.as_tensor(idx, device=device)]
+        data = vq.double_reconstruct_with_logits(Inputs(cloud, initial_sampling=noise[0]), judge(Inputs(cloud)),
+                                                 noise[1])
+        out[name] = (data.idx.cpu().numpy(), *judged(data.recon))
+
+    def counterfactual(name: str, idx: np.ndarray, j: int) -> None:
+        sub = Subset(dataset, idx)
+        sampling = CounterfactualDatasetEncoder(sub, vq, judge, j).draw(len(idx))[0]
+        cloud = dataset.clouds[torch.as_tensor(idx, device=device)]
+        data = vq.generate_counterfactual(Inputs(cloud, initial_sampling=sampling), judge(Inputs(cloud)), j,
+                                          cfg.user.counterfactual_value)
+        out[name] = (data.idx.cpu().numpy(), *judged(data.recon))
+
+    everyone = np.arange(len(labels))
+    recon('ClassificationReconstructed', everyone)
+    for j in range(cfg.data.n_classes):
+        counterfactual(f'Counterfeit_to_{j}', everyone, j)
+    if (mis := np.nonzero(predictions != labels)[0]).size:
+        recon('MisclassifiedReconstructed', mis)
+    for i in range(cfg.data.n_classes):
+        for j in range(cfg.data.n_classes):
+            if i != j and (idx := np.nonzero((predictions == i) & (labels == j))[0]).size:
+                counterfactual(f'{i}_to_{j}', idx, j)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -441,19 +621,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    started = time.perf_counter()
     from pccf_torch import config as pc
     from pccf_torch.config import SliceConfig
     from pccf_torch.data import synthetic
-    from pccf_torch.data.processed import WDatasetWithLogits
+    from pccf_torch.data.clouds import LabelledClouds
+    from pccf_torch.data.processed import MAX_BATCH, CounterfactualDatasetEncoder, WDatasetWithLogits
     from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
     from pccf_torch.kernels import (_build, api, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, roofline,
                                     sinkhorn, wformer)
     from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
-    from pccf_torch.nn import build_classifier
+    from pccf_torch.evaluate_counterfactuals import evaluate_counterfactuals
+    from pccf_torch.nn import ClassifierTrainModule, build_classifier
     from pccf_torch.nn.layers import gumbel_uniform, init_from_seed
     from pccf_torch.serve import CounterfactualServer
-    from pccf_torch.train import Loader, Test, Trainer, get_autoencoder_loss, get_w_autoencoder_loss
+    from pccf_torch.train import (Loader, Test, Trainer, get_autoencoder_loss, get_classification_loss,
+                                  get_w_autoencoder_loss)
     from pccf_torch.train.autoencoder import train_autoencoder
+    from pccf_torch.train.classifier import train_classifier
     from pccf_torch.train.hooks import DEAD_ENTRY
     from pccf_torch.train.w_autoencoder import build_w_train_model, train_w_autoencoder
 
@@ -487,7 +672,7 @@ def main() -> int:
                             ('gather_scatter.cu', 'slot_scatter_kernel'),
                             ('nn_distance.cu', DEVICE_NAMES['nn_distance'][0]),
                             ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel'),
-                            ('graph_filter.cu', r'filter_\w+_kernel')):
+                            ('graph_filter.cu', r'filter_\w+_kernel'), ('pcgen_mix.cu', 'pcgen_mix_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
@@ -495,7 +680,7 @@ def main() -> int:
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
     print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour, '
-          'Sinkhorn and graph filter kernels: '
+          'Sinkhorn, graph filter and PCGen mix kernels: '
           + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
     empty = _build.lib().pccf_empty
     print(f'launch floor: an empty kernel (one warp) {time_ms(lambda: empty(_build.stream()), REPS):.4f} ms '
@@ -537,14 +722,15 @@ def main() -> int:
         # every (C, k) the main path gives kNN: the encoder's k=25 and the
         # classifier's k=20 at C = 3, 64, 128 (C=64 twice per model), and
         # graph filtering's k=4 on the decoded cloud; at serving's batch 1, 5
-        # and 16 (the candidate split acts at 1), at stage 1's 8 and at stage
-        # 2's 32, the derived dataset's chunk; a split batch must get the
-        # neighbours it gets with the candidates unsplit.
+        # and 16 (the candidate split acts at 1; the classifier step's 16),
+        # at stage 1's 8, at stage 2's 32, the derived dataset's chunk, and at
+        # the suites' chunks of 64 and 58 (and of 1, a subset's); a split
+        # batch must get the neighbours it gets with the candidates unsplit.
         # no single PyTorch call computes kNN indices (cdist, then topk) or a
         # max over gathered rows (indexing, then amax): library_ms is null
         batches = (b, cfg.w_autoencoder.train.batch_size)
         knn_errs, knn_ms = [], {}
-        for bb in (1, 5, TRAIN_BATCH, *batches):
+        for bb in (1, 5, TRAIN_BATCH, *batches, *SUITE_CHUNKS):
             for c in (3, 64, 128):
                 for k in (25, 20, 4) if c == 3 else (25, 20):
                     x = torch.from_numpy(rng.standard_normal((bb, n, c)).astype(np.float32)).to(dev)
@@ -574,9 +760,10 @@ def main() -> int:
 
         # every (B, F, k) the main path gives max-pool: F = 64, 128, 256 at
         # the encoder's k=25 and the classifier's k=20, at serving's batch 1,
-        # 5 and 16 and at stage 2's 32; every slice width bit-exact too
+        # 5 and 16, at stage 2's 32 and at the suites' chunks of 64 and 58;
+        # every slice width bit-exact too
         pool_errs, pool_ms = [], {}
-        for bb in (1, 5, *batches):
+        for bb in (1, 5, *batches, *SUITE_CHUNKS):
             for f in (64, 128, 256):
                 for k in (25, 20):
                     x = torch.from_numpy(rng.standard_normal((bb, n, f)).astype(np.float32)).to(dev)
@@ -596,11 +783,12 @@ def main() -> int:
         print('graph_max_pool ms by (B, F, k): ' + json.dumps({f'{bb},{f},{k}': round(v[0], 4) for (bb, f, k), v
                                                                in pool_ms.items()}), flush=True)
 
-        # the fused PCGen at serving's batch 1 and 16 (the headline)
+        # the fused PCGen at serving's batch 1 and 16 (the headline) and the
+        # suites' chunks of 64 and 58
         dec = vqvae.decoder
         pack = dec.pack()
         pcgen_errs, pcgen_rows = [], {}
-        for bb in (1, b):
+        for bb in (1, b, *SUITE_CHUNKS):
             m = torch.relu(torch.from_numpy(rng.standard_normal((bb, n, 64)).astype(np.float32))).to(dev)
             w = torch.from_numpy(rng.standard_normal((bb, cfg.autoencoder.w_dim)).astype(np.float32)).to(dev)
             run_k = functools.partial(pcgen.pcgen_mix_cuda, m, w, pack, tau=dec.tau, act_slope=0.0)
@@ -632,6 +820,17 @@ def main() -> int:
                               'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
                               **bound(roofline.cvae_work(tokens, probs, cpack)), 'library_ms': None,
                               'shape': '(16, 256, 4), d=512, 8 heads, 2+2+4 layers'}
+        # the chain at the suites' chunks of 64 and 58 and a subset's 1
+        for bb in (*SUITE_CHUNKS, 1):
+            x = torch.from_numpy(rng.standard_normal((bb, wae.n_codes, wae.embedding_dim)).astype(np.float32)).to(dev)
+            pr = torch.softmax(torch.from_numpy(rng.standard_normal((bb, cfg.data.n_classes)).astype(np.float32)),
+                               -1).to(dev)
+            got, want = cvae.cvae_cf_cuda(x, pr, cpack), cvae.plain(x, pr, cpack)
+            r = rel_l2(got, want)
+            kernels['cvae_cf']['max_abs_err'] = max(kernels['cvae_cf']['max_abs_err'], float((got - want).abs().max()))
+            ms = time_ms(lambda: cvae.cvae_cf_cuda(x, pr, cpack), REPS) if bb > 1 else float('nan')
+            check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'cvae_cf B={bb}: rel L2 {r:.3e} <= {CVAE_REL_L2}' + (f'; {ms:.4f} ms' if bb > 1 else ''))
 
         # ---- the training path's kernels at its shapes, batch 8 ----------
         bt = TRAIN_BATCH
@@ -667,6 +866,42 @@ def main() -> int:
             rows = (idx.long() + n * torch.arange(bb, device=dev)[:, None, None]).reshape(-1)
             src = g[:, :, None, :].expand(bb, m, idx.shape[-1], c).reshape(-1, c)
             return lambda: torch.zeros((bb * n, c), device=dev).index_add_(0, rows, src)
+
+        # the classifier step's EdgeConv kernels at batch 16, k=20, widths 64,
+        # 64, 128, 256: the pool with its slot and its slot scatter, the
+        # sum-pool of [u, u^2] and its row scatter (timed before stage 1's
+        # shapes, whose last is each kernel's headline)
+        bc = cfg.classifier.train.batch_size
+        idx20 = knn.knn_cuda(torch.from_numpy(rng.standard_normal((bc, n, 8)).astype(np.float32)).to(dev), 20)
+        for f in (64, 128, 256):
+            x = randn(bc, n, f)
+            out, slots = gather.graph_max_pool_src_cuda(x, idx20)
+            want, want_slots = ops.graph_max_pool_slots(x, idx20)
+            exact = torch.equal(out, want) and torch.equal(slots, want_slots)
+            timed('graph_max_pool_src', f'({bc}, {n}, {f}) k=20', lambda: gather.graph_max_pool_src_cuda(x, idx20),
+                  lambda: ops.graph_max_pool_slots(x, idx20), float((out - want).abs().max()), exact,
+                  f'max and slots bit-exact to the plain version {exact}', roofline.pool_work(x, idx20, slots=True))
+            g = randn(bc, n, f)
+            got = gather.scatter_add_slots_cuda(g, idx20, slots, n)
+            exact = torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx20.cpu(), slots.cpu(), n))
+            timed('scatter_add_slots', f'({bc}, {n}, {f}) k=20',
+                  lambda: gather.scatter_add_slots_cuda(g, idx20, slots, n),
+                  lambda: ops.scatter_add_slots(g, idx20, slots, n),
+                  float((got - ops.scatter_add_slots(g, idx20, slots, n)).abs().max()), exact,
+                  f'bit-equal to the plain version on the CPU {exact}', roofline.scatter_slots_work(g, idx20, slots, n))
+            x2 = randn(bc, n, 2 * f)
+            got, want = gather.graph_sum_pool_cuda(x2, idx20), ops.graph_sum_pool(x2, idx20)
+            r = rel_max(got, want)
+            timed('graph_sum_pool', f'({bc}, {n}, {2 * f}) k=20', lambda: gather.graph_sum_pool_cuda(x2, idx20),
+                  lambda: ops.graph_sum_pool(x2, idx20), float((got - want).abs().max()), r <= SUM_POOL_REL_MAX,
+                  f'rel max diff {r:.2e} <= {SUM_POOL_REL_MAX}', roofline.pool_work(x2, idx20))
+            got = gather.scatter_add_rows_cuda(x2, idx20, n)
+            exact = torch.equal(got.cpu(), ops.scatter_add_rows(x2.cpu(), idx20.cpu(), n))
+            timed('scatter_add_rows', f'({bc}, {n}, {2 * f}) k=20', lambda: gather.scatter_add_rows_cuda(x2, idx20, n),
+                  lambda: ops.scatter_add_rows(x2, idx20, n),
+                  float((got - ops.scatter_add_rows(x2, idx20, n)).abs().max()), exact,
+                  f'bit-equal to the plain version on the CPU {exact}', roofline.scatter_rows_work(x2, idx20, n),
+                  index_add_rows(x2, idx20))
 
         # pool with slot and its slot scatter at every encoder width, k=25:
         # the pool bit-exact to the strict > rule on rows with NaNs, ties and a
@@ -775,8 +1010,8 @@ def main() -> int:
 
         # graph filtering's fused pass at every shape the paths give it: the
         # card-vs-CPU step's (2, 512), a cloud with duplicated points, then
-        # serving's batch 1 and 5, stage 1's 8 and serving's 16 (the
-        # headline, last).  Its indices equal knn_cuda's, its output and mean
+        # serving's batch 1 and 5, stage 1's 8, the suites' chunks of 64 and
+        # 58, and serving's 16 (the headline, last).  Its indices equal knn_cuda's, its output and mean
         # are the plain version's on them.  No single PyTorch call computes
         # it: library_ms is null, and the chain it replaced (kNN, the gather,
         # the eager tail) is timed beside it.  Its clouds come from a
@@ -791,7 +1026,7 @@ def main() -> int:
             return ops.graph_filtering_with_idx(x, knn.knn_cuda(x, 4), gather_fn=gather.gather_neighbors_cuda)
 
         for bb, pts, dup in ((2, 512, False), (bt, n, True), (1, n, False), (5, n, False), (bt, n, False),
-                             (b, n, False)):
+                             *((bb, n, False) for bb in SUITE_CHUNKS), (b, n, False)):
             cloud = (0.5 * filter_randn(bb, pts, 3)).contiguous()
             if dup:  # every point twice, and in cloud 0 point 8 three times: slot 0 the lowest copy
                 cloud[:, 1::2] = cloud[:, 0::2]
@@ -908,6 +1143,27 @@ def main() -> int:
         init_from_seed(wae, args.seed + 6)
         wae = wae.to(dev)
         bw, t, d = cfg.w_autoencoder.train.batch_size, wae.n_codes, wae.decoder.proj_dim
+        # the W-nets' stacks in eval at the suites' chunks of 64, 58 and 1
+        # (the double reconstruction), before the headline batch of 32
+        for bb in (*SUITE_CHUNKS, 1):
+            for name, net_name, net in (('wformer_encoder', 'W-encoder', wae.encoder),
+                                        ('wformer_decoder', 'W-decoder', wae.decoder)):
+                x = randn(bb, t, d)
+                if name == 'wformer_decoder':
+                    memory = randn(bb, t, d)
+                    spack = wformer.pack_decoder(net.layers)
+                    run_k = functools.partial(wformer.wformer_decoder_cuda, x, memory, spack, net.n_heads)
+                    run_p = functools.partial(wformer.plain_decoder, x, memory, spack, net.n_heads)
+                    work = roofline.decoder_stack_work(x, memory, spack)
+                else:
+                    spack = wformer.pack_encoder(net.layers)
+                    run_k = functools.partial(wformer.wformer_encoder_cuda, x, spack, net.n_heads)
+                    run_p = functools.partial(wformer.plain_encoder, x, spack, net.n_heads)
+                    work = roofline.encoder_stack_work(x, spack)
+                got, want = run_k(), run_p()
+                r = rel_l2(got, want)
+                timed(name, f'{net_name} ({bb}, {t}, {d})', run_k, run_p, float((got - want).abs().max()),
+                      r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()), f'rel L2 {r:.3e} <= {CVAE_REL_L2}', work)
         stacks = [('wformer_encoder', 'W-encoder', wae.encoder), ('wformer_encoder', 'posterior', wae.z2_posterior),
                   ('wformer_decoder', 'W-decoder', wae.decoder)]
         stack_runs = {}
@@ -1160,25 +1416,36 @@ def main() -> int:
               f'{q3:.3f} ms over {TIMED_STEPS} (host clock, synchronised); {TRAIN_BATCH / med * 1e3:.1f} samples/s; '
               f'peak memory {peak_gib:.3f} GiB (max_memory_allocated; {held_gib:.3f} GiB held before the timed '
               f'steps)', flush=True)
-        api.reset_launch_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.run_step(inputs, targets)
-            torch.cuda.synchronize()
-        calls = api.launch_counts()
+        # the loss kernels' sources share sample_sum_kernel: only this objective's is read
+        traced_names = {name: v for name, v in DEVICE_NAMES.items()
+                        if name not in LOSS_KERNELS.values() or name == LOSS_KERNELS[recon_loss]}
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            api.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.run_step(inputs, targets)
+                torch.cuda.synchronize()
+            calls = api.launch_counts()
+            events = device_events(prof)
+            mine = {name: [ev for ev in events if re.search(pattern, ev[0])]
+                    for name, (pattern, _) in traced_names.items()}
+            wanted = {name: per_call * calls[name] for name, (_, per_call) in traced_names.items()}
+            print(f'{label} step, trace {attempt} of at most {TRACE_ATTEMPTS}: {len(events)} device activities; '
+                  + ', '.join(f'{name} {len(mine[name])} of {wanted[name]}' for name in traced_names), flush=True)
+            # a trace short of launches lost records (PERF.md §7): take it
+            # again; one with more launches than the wrappers made fails
+            if all(len(mine[name]) >= wanted[name] for name in traced_names) or any(
+                    len(mine[name]) > wanted[name] for name in traced_names):
+                break
         print(f'profile of one {label} step:', flush=True)
         print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25, max_name_column_width=60),
               flush=True)
-        events = device_events(prof)
         parts = []
-        for name, (pattern, per_call) in DEVICE_NAMES.items():
-            if name in LOSS_KERNELS.values() and name != LOSS_KERNELS[recon_loss]:
-                continue  # the loss kernels' sources share sample_sum_kernel
-            mine = [ev for ev in events if re.search(pattern, ev[0])]
-            check(len(mine) == per_call * calls[name] > 0,
-                  f'{label} step: {len(mine)} device launches of {name}\'s kernels == {per_call} x {calls[name]} '
-                  f'calls')
-            parts.append(f'{name} kernels {len(mine)} launches, {summed_ms(mine):.4f} ms (union '
-                         f'{busy_ms(mine):.4f})')
+        for name, (_, per_call) in traced_names.items():
+            check(len(mine[name]) == wanted[name] > 0,
+                  f'{label} step: {len(mine[name])} device launches of {name}\'s kernels == {per_call} x '
+                  f'{calls[name]} calls (trace {attempt})')
+            parts.append(f'{name} kernels {len(mine[name])} launches, {summed_ms(mine[name]):.4f} ms (union '
+                         f'{busy_ms(mine[name]):.4f})')
         print(f'{label} step, device: busy {summed_ms(events):.3f} ms in {len(events)} activities (their union '
               f'{busy_ms(events):.3f} ms); ' + '; '.join(parts), flush=True)
 
@@ -1449,23 +1716,269 @@ def main() -> int:
           f'cvae_cf {counts["cvae_cf"]}; card vs CPU w_recon rel L2 {r:.2e} <= {CVAE_REL_L2}, code agreement '
           f'{agree:.4f}')
 
+    # ---- the main path, classifier training: SGD steps at batch 16 x 2048 --
+    # on a fixed batch of 8 spheres and 8 boxes, dropout on (masks from the
+    # trainer's generator), every step launching the streaming-BN EdgeConv
+    # kernels of its four blocks at k = 20 and nothing else
+    print(f'chip_smoke: {time.perf_counter() - started:.1f} s before the classifier phase', flush=True)
+    ccfg = cfg.classifier.train
+    c_init = build_classifier(cfg)
+    init_from_seed(c_init, args.seed + 15)
+    c_state = copy.deepcopy(c_init.state_dict())
+    classifier_launches = dict.fromkeys(KERNEL_INFO, 0)
+
+    def c_model(c_cfg: SliceConfig, device: torch.device) -> ClassifierTrainModule:
+        m = build_classifier(c_cfg)
+        m.load_state_dict(c_state)
+        return ClassifierTrainModule(m).to(device)
+
+    c_clouds, c_labels = labelled_clouds(args.seed + 16, (ccfg.batch_size // 2,) * 2, n)
+    c_in = Inputs(torch.from_numpy(c_clouds).to(dev))
+    c_tg = Targets(c_in.cloud, torch.from_numpy(c_labels).to(dev))
+    trainer = Trainer(c_model(cfg, dev), get_classification_loss(), ccfg, STEPS_PER_EPOCH, seed=args.seed)
+    c_losses, c_ms, c_step_launches = [], [], []
+    for step in range(WARM_STEPS + TIMED_STEPS):
+        if step == WARM_STEPS:
+            torch.cuda.reset_peak_memory_stats()
+            c_held_gib = torch.cuda.memory_allocated() / 2**30
+        api.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.run_step(c_in, c_tg)
+        torch.cuda.synchronize()
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = api.launch_counts()
+        c_step_launches.append(counts)
+        for name, count in counts.items():
+            classifier_launches[name] += count
+        c_losses.append({k: float(v) for k, v in metrics.items()})
+    c_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(list(m.values())).all() for m in c_losses),
+          f'classifier: every loss finite over {len(c_losses)} steps')
+    print('classifier losses per step: ' + json.dumps([{k: round(v, 5) for k, v in m.items()} for m in c_losses]),
+          flush=True)
+    for name in KERNEL_INFO:
+        per_step = [c[name] for c in c_step_launches]
+        want = len(cfg.classifier.conv_dims) if name in CLASSIFIER_STEP_KERNELS else 0
+        check(set(per_step) == {want}, f'{name}: launches per classifier step {per_step} == {want}')
+    q1, med, q3 = np.percentile(c_ms[WARM_STEPS:], [25, 50, 75])
+    print(f'classifier step (batch {ccfg.batch_size}, {n} points, SGD): median {med:.3f} ms, quartiles {q1:.3f} / '
+          f'{q3:.3f} ms over {TIMED_STEPS} (host clock, synchronised); {ccfg.batch_size / med * 1e3:.1f} samples/s; '
+          f'peak memory {c_peak_gib:.3f} GiB (max_memory_allocated; {c_held_gib:.3f} GiB held before the timed '
+          f'steps, earlier phases included)', flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run_step(c_in, c_tg)
+        torch.cuda.synchronize()
+    print('profile of one classifier step:', flush=True)
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=20, max_name_column_width=60), flush=True)
+    events = device_events(prof)
+    print(f'classifier step, device: busy {summed_ms(events):.3f} ms in {len(events)} activities (their union '
+          f'{busy_ms(events):.3f} ms)', flush=True)
+
+    # one classifier step on the card against the CPU, batch 4 x 512, with
+    # dropout 0 (the two devices' generators draw different masks).  Not 2:
+    # the head's BatchNorm over two samples leaves the step ill-conditioned
+    # in float32 itself (on the CPU, float32 and float64 part as far as the
+    # card and the CPU do).  The CPU step takes the card's kNN lists: the
+    # graph is rebuilt on the features before every block, so one neighbour
+    # that a near-tie swaps (distances in 3xTF32 on the card) changes every
+    # later block's graph, and the two steps then differ by more than
+    # rounding; how many lists the CPU's own kNN would give alike is printed
+    nodrop = dataclasses.replace(cfg, classifier=dataclasses.replace(cfg.classifier, dropout_rates=(0.0, 0.0)))
+    s_clouds, s_labels = labelled_clouds(args.seed + 17, (2, 2), 512)
+    card_graphs, own_agree = [], []
+    build_graph = api.knn
+
+    def card_graph(x: torch.Tensor, k: int) -> torch.Tensor:
+        card_graphs.append(build_graph(x, k))
+        return card_graphs[-1]
+
+    def replayed_graph(x: torch.Tensor, k: int) -> torch.Tensor:
+        idx = card_graphs.pop(0).cpu()
+        own_agree.append(knn_check(x.detach(), k, idx, build_graph(x, k))[0])
+        return idx
+
+    def c_step(device: torch.device, graph):
+        m = c_model(nodrop, device)
+        cl = torch.from_numpy(s_clouds).to(device)
+        api.knn = graph
+        try:
+            out = Trainer(m, get_classification_loss(), ccfg, STEPS_PER_EPOCH).run_step(
+                Inputs(cl), Targets(cl, torch.from_numpy(s_labels).to(device)))
+        finally:
+            api.knn = build_graph
+        return {k: float(v) for k, v in out.items()}, {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+
+    gpu_c, cpu_c = c_step(dev, card_graph), c_step(torch.device('cpu'), replayed_graph)
+    print(f'card vs CPU classifier step: the CPU\'s own kNN lists agree with the card\'s at '
+          f'{", ".join(f"{a:.6f}" for a in own_agree)} of the neighbours, block by block', flush=True)
+    r = abs(gpu_c[0]['CrossEntropy'] - cpu_c[0]['CrossEntropy']) / abs(cpu_c[0]['CrossEntropy'])
+    check(r <= STEP_LOSS_RTOL, f'card vs CPU classifier step at {len(s_labels)} x 512: cross entropy '
+                               f'{gpu_c[0]["CrossEntropy"]:.6f} vs {cpu_c[0]["CrossEntropy"]:.6f}, rel {r:.2e} <= '
+                               f'{STEP_LOSS_RTOL}')
+    compared = [k for k in cpu_c[1] if not k.endswith(CLASSIFIER_ZERO_GRADIENT)]
+    grad_errs = {k: rel_l2(gpu_c[1][k], cpu_c[1][k]) for k in compared}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(set(gpu_c[1]) == set(cpu_c[1]) and grad_errs[worst] <= STEP_GRAD_REL_L2,
+          f'card vs CPU classifier step: largest per-parameter gradient rel L2 {grad_errs[worst]:.2e} ({worst}) <= '
+          f'{STEP_GRAD_REL_L2}, median {float(np.median(list(grad_errs.values()))):.2e}, over {len(compared)} of '
+          f'{len(cpu_c[1])}; SGD moves each by lr x grad')
+
+    # the classifier's entry point at the flagship width, its depth cut to 2
+    # epochs over 32 training and 16 test clouds; its classifier is the one
+    # the suites judge with
+    e_clouds, e_labels = labelled_clouds(args.seed + 18, (CLASSIFIER_TRAIN // 2,) * 2, n)
+    t_clouds, t_labels = labelled_clouds(args.seed + 19, (CLASSIFIER_TEST // 2,) * 2, n)
+    judge = build_classifier(cfg)
+    judge.load_state_dict(c_state)
+    api.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train_classifier(cfg, judge, torch.from_numpy(e_clouds), torch.from_numpy(e_labels),
+                              torch.from_numpy(t_clouds), torch.from_numpy(t_labels), n_epochs=ENTRY_EPOCHS,
+                              seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    counts = api.launch_counts()
+    for name, count in counts.items():
+        classifier_launches[name] += count
+    c_trainer = result['trainer']
+    check(c_trainer.step == CLASSIFIER_TRAIN // ccfg.batch_size * ENTRY_EPOCHS and c_trainer.epoch == ENTRY_EPOCHS
+          and len(c_trainer.validation_log) == ENTRY_EPOCHS
+          and all(np.isfinite(list(v.values())).all() for v in c_trainer.validation_log),
+          f'classifier entry point, {ENTRY_EPOCHS} epochs of {CLASSIFIER_TRAIN} clouds in {entry_s:.1f} s: '
+          f'{c_trainer.step} steps, validation {json.dumps(c_trainer.validation_log)}')
+    cm = result['confusion_matrix']
+    check(result['logits'].shape == (CLASSIFIER_TEST, cfg.data.n_classes) and bool(np.isfinite(result['logits']).all())
+          and int(cm.sum()) == CLASSIFIER_TEST and np.isfinite(list(result['test'].values())).all(),
+          f'classifier entry point: final test {json.dumps(result["test"])}, confusion matrix {cm.tolist()}, '
+          f'{len(result["misclassified"])} misclassified')
+    for name in CLASSIFIER_STEP_KERNELS:
+        check(counts[name] > 0, f'{name}: {counts[name]} launches in the classifier entry point')
+    print(f'launches, classifier entry point: {json.dumps(counts)}', flush=True)
+
+    # ---- the main path, the five evaluation suites over 186 clouds --------
+    # 86 spheres and 100 boxes (the flagship's ModelNet desk / table test
+    # split), the entry point's classifier, the flagship VQ-VAE (random
+    # weights, prepacked by the server); launch counts exact as the suites'
+    # structure implies them, each suite's seconds from the time its line is
+    # printed
+    print(f'chip_smoke: {time.perf_counter() - started:.1f} s before the suites phase', flush=True)
+    v_clouds, v_labels = labelled_clouds(args.seed + 20, SUITE_CLASS_COUNTS, n)
+    stamped = StampedLines()
+    api.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        suites = evaluate_counterfactuals(cfg, judge, vqvae, torch.from_numpy(v_clouds), torch.from_numpy(v_labels),
+                                          seed=args.seed, device=dev)
+        torch.cuda.synchronize()
+    suites_s = time.perf_counter() - t0
+    suite_launches = api.launch_counts()
+    print(f'evaluation suites over {len(v_labels)} clouds of {n} points: {suites_s:.2f} s (host clock, synchronised)',
+          flush=True)
+    for line, seconds in stamped.lines(t0):
+        print(f'{line}    ({seconds:.3f} s)' if line.startswith('[') else line, flush=True)
+    with torch.inference_mode():
+        judge.eval()
+        predictions = torch.cat([judge(Inputs(torch.from_numpy(v_clouds[i: i + ccfg.batch_size]).to(dev)))
+                                 for i in range(0, len(v_labels), ccfg.batch_size)]).argmax(1).cpu().numpy()
+    expected = suite_launch_counts(cfg, predictions, v_labels)
+    for name in KERNEL_INFO:
+        check(suite_launches[name] == expected.get(name, 0),
+              f'{name}: {suite_launches[name]} launches in the evaluation suites == {expected.get(name, 0)}')
+    check(all(np.isfinite(list(m.values())).all() for m in suites.values()) and len(suites) >= 5,
+          f'evaluation suites: {len(suites)} suites, every metric finite')
+    print('evaluation suites: ' + json.dumps(suites), flush=True)
+    # one counterfactual chunk of 64: its device busy time and its kernels
+    chunk_set = CounterfactualDatasetEncoder(LabelledClouds(torch.from_numpy(v_clouds[:MAX_BATCH]).to(dev),
+                                                            torch.from_numpy(v_labels[:MAX_BATCH]), args.seed),
+                                             vqvae, judge, 1, cfg.user.counterfactual_value)
+    chunk_set.__getitems__([0])
+    torch.cuda.synchronize()
+    chunk_set.set_inference(True)  # the next fetch computes the chunk anew
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chunk_set.__getitems__(list(range(MAX_BATCH)))
+        torch.cuda.synchronize()
+    chunk_ms = (time.perf_counter() - t0) * 1e3
+    print(f'profile of one counterfactual chunk of {MAX_BATCH} clouds (classifier logits, encode, CVAE chain, '
+          f'decode, filter):', flush=True)
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=15, max_name_column_width=60), flush=True)
+    events = device_events(prof)
+    print(f'counterfactual chunk of {MAX_BATCH}, device: busy {summed_ms(events):.3f} ms in {len(events)} activities '
+          f'(their union {busy_ms(events):.3f} ms); host clock {chunk_ms:.3f} ms (profiled)', flush=True)
+
+    # the suites on the card against the CPU: 8 clouds of 512 points, the
+    # VQ-VAE decoding 512; the noise comes from a host generator, so both
+    # draw the same.  The original classification must agree but for argmax
+    # near-ties; a derived suite's accuracy may differ only by clouds whose
+    # codes differ or whose prediction sits at a near-tie (SUITE_TIE_MARGIN)
+    p_cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, n_input_points=512, n_target_points=512))
+    p_clouds, p_labels = labelled_clouds(args.seed + 21, (4, 4), 512)
+    p_vq = build_vqvae(p_cfg)
+    p_vq.load_state_dict(vqvae.state_dict())
+    p_judge = build_classifier(cfg)
+    p_judge.load_state_dict(judge.state_dict())
+    pair_suites, pair_codes = {}, {}
+    t0 = time.perf_counter()
+    for label, where in (('card', dev), ('cpu', torch.device('cpu'))):
+        vq_w, judge_w = copy.deepcopy(p_vq).to(where).eval(), copy.deepcopy(p_judge).to(where).eval()
+        with contextlib.redirect_stdout(StampedLines()):
+            pair_suites[label] = evaluate_counterfactuals(p_cfg, judge_w, vq_w, torch.from_numpy(p_clouds),
+                                                          torch.from_numpy(p_labels), seed=args.seed, device=where)
+        pair_codes[label] = suite_outcomes(vq_w, judge_w, p_clouds, p_labels, args.seed, p_cfg, where)
+    print(f'suites card vs CPU on {len(p_labels)} clouds of 512 points, both devices: '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    card, host = pair_codes['card'], pair_codes['cpu']
+    flipped = card['original'][1] != host['original'][1]
+    near = host['original'][2] < SUITE_TIE_MARGIN
+    orig_c, orig_h = pair_suites['card']['ClassificationOriginal'], pair_suites['cpu']['ClassificationOriginal']
+    r = abs(orig_c['CrossEntropy'] - orig_h['CrossEntropy']) / abs(orig_h['CrossEntropy'])
+    check(not (flipped & ~near).any() and r <= STEP_LOSS_RTOL and (flipped.any() or (
+        orig_c['Accuracy'] == orig_h['Accuracy'] and orig_c['Macro Accuracy'] == orig_h['Macro Accuracy'])),
+          f'suites card vs CPU: original classification {orig_c} vs {orig_h}, cross entropy rel {r:.2e} <= '
+          f'{STEP_LOSS_RTOL}; {int(flipped.sum())} predictions differ, each at a near-tie (margins '
+          f'{np.round(host["original"][2], 4).tolist()})')
+    # a near-tie flip changes which clouds the subset suites take: only the
+    # suites over every cloud are compared then
+    derived = sorted(set(card) - {'original'}) if not flipped.any() else [
+        name for name in sorted(card) if name == 'ClassificationReconstructed' or name.startswith('Counterfeit_to_')]
+    check(flipped.any() or (set(pair_suites['card']) == set(pair_suites['cpu']) and set(derived) <= set(
+        pair_suites['card'])), f'suites card vs CPU: the same suites {sorted(pair_suites["card"])}')
+    agree_all = []
+    for name in derived:
+        codes_c, pred_c, _ = card[name]
+        codes_h, pred_h, margin_h = host[name]
+        same_codes = (codes_c == codes_h).all(1)
+        agree_all.append((codes_c == codes_h).mean())
+        flips = pred_c != pred_h
+        unexplained = flips & same_codes & ~(margin_h < SUITE_TIE_MARGIN)
+        gap = abs(pair_suites['card'][name]['Accuracy'] - pair_suites['cpu'][name]['Accuracy'])
+        check(not unexplained.any() and gap <= flips.sum() / len(flips) + 1e-9,
+              f'suites card vs CPU, {name}: accuracy {pair_suites["card"][name]["Accuracy"]:.4f} vs '
+              f'{pair_suites["cpu"][name]["Accuracy"]:.4f}; {int(flips.sum())} of {len(flips)} predictions differ, '
+              f'{int((~same_codes).sum())} clouds with a differing code, flips unexplained {int(unexplained.sum())}')
+    agree = float(np.mean(agree_all)) if agree_all else 1.0
+    check(agree >= CODE_AGREEMENT, f'suites card vs CPU: code agreement of the derived clouds {agree:.4f} >= '
+                                   f'{CODE_AGREEMENT}')
+
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
-          f'{json.dumps(objective_launches)}', flush=True)
+          f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
+          f'evaluation suites {json.dumps(suite_launches)}', flush=True)
+    paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
-          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn', flush=True)
+          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'
         print(f'{name} | {k["shape"]} | {k["ms"]:.4f} | {k["plain_ms"]:.4f} | {lib} | {k["bound_ms"]:.4f} '
-              f'({k["bound_by"]}) | {k["bound_ms"] / k["ms"]:.2%} | {launches[name]} / {train_launches[name]} / '
-              f'{stage2_launches[name]} / {objective_launches[name]}', flush=True)
+              f'({k["bound_by"]}) | {k["bound_ms"] / k["ms"]:.2%} | ' + ' / '.join(str(c[name]) for c in paths),
+              flush=True)
     record = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': KERNEL_INFO[name][0], 'replaces': KERNEL_INFO[name][1],
-         'launches': launches[name] + train_launches[name] + stage2_launches[name] + objective_launches[name],
-         **kernels[name]}
+         'launches': sum(c[name] for c in paths), **kernels[name]}
         for name in KERNEL_INFO
     ]}
+    print(f'chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels\' build included', flush=True)
     if failures:
         print(f'chip_smoke: {len(failures)} check(s) failed: {failures}', file=sys.stderr)
         return 1

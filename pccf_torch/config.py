@@ -9,7 +9,8 @@ from.  ``tests/test_torch_port_modules.py`` holds these defaults against
 The slices cover the flagship unmodified: counterfactual serving with graph
 filtering on, stage-1 training of the VQ-VAE under its three reconstruction
 objectives (ChamferEMD, the flagship's, and the Chamfer and ChamferSinkhorn
-alternatives), and stage-2 training of the inner W-autoencoder.
+alternatives), stage-2 training of the inner W-autoencoder, classifier
+training and the counterfactual evaluation suites.
 """
 
 from __future__ import annotations
@@ -23,6 +24,43 @@ class DataConfig:
     n_target_points: int = 2048  # data/default_data.yaml:6
     n_neighbors: int = 25  # data/default_data.yaml:13
     n_classes: int = 2  # data/dataset/modelnet_desk_table.yaml:2
+    # the augmentations of a training cloud (pccf/data/modelnet.py:85-103)
+    translate: bool = False  # data/default_data.yaml:7
+    rotate: bool = False  # data/default_data.yaml:8
+    jitter_sigma: float = 0.01  # data/default_data.yaml:9
+    jitter_clip: float = 0.01  # data/default_data.yaml:10
+    resample: bool = False  # data/default_data.yaml:11
+
+
+@dataclasses.dataclass(frozen=True)
+class SchedulerConfig:
+    """autoencoder/train/learn/scheduler/cosine.yaml"""
+
+    restart_interval: int = 100
+    restart_fraction: float = 1.0
+    warmup_steps: int = 0
+    min_decay: float = 0.01
+    decay_steps: int = 100
+
+
+CLASSIFIER_EPOCHS = 45  # classifier/train/default_train.yaml:7
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierTrainConfig:
+    """classifier/train/**: SGD with the cosine schedule, no gradient operation."""
+
+    batch_size: int = 16  # train/default_train.yaml:6
+    n_epochs: int = CLASSIFIER_EPOCHS  # train/default_train.yaml:7
+    optimizer_name: str = 'SGD'  # train/learn/default_learn.yaml:5
+    learning_rate: float = 0.01  # train/learn/default_learn.yaml:6
+    momentum: float = 0.0  # train/learn/default_learn.yaml sets none: optax.sgd without momentum (specs.py:81-84)
+    weight_decay: float = 0.0  # train/learn/default_learn.yaml:10
+    grad_op: str | None = None  # train/learn/default_learn.yaml:7
+    clip_criterion: str = 'ZStat'  # train/learn/default_learn.yaml:8
+    # train/learn/scheduler/cosine.yaml: restart and decay over n_epochs, no warmup
+    scheduler: SchedulerConfig = SchedulerConfig(restart_interval=CLASSIFIER_EPOCHS, min_decay=0.01,
+                                                 decay_steps=CLASSIFIER_EPOCHS)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,8 +68,10 @@ class ClassifierConfig:
     n_neighbors: int = 20  # classifier/model/dgcnn.yaml:3
     conv_dims: tuple[int, ...] = (64, 64, 128, 256)  # classifier/model/dgcnn.yaml:4
     act_name: str = ''  # classifier/model/dgcnn.yaml:5 (LeakyReLU 0.2)
+    dropout_rates: tuple[float, ...] = (0.5, 0.5)  # classifier/model/dgcnn.yaml:6
     feature_dim: int = 512  # classifier/model/dgcnn.yaml:7
     mlp_dims: tuple[int, ...] = (512, 256)  # classifier/model/dgcnn.yaml:8
+    train: ClassifierTrainConfig = ClassifierTrainConfig()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,17 +102,6 @@ class TransformerNetConfig:
     dropout_rates: tuple[float, ...] = (0.0,) * 5  # one per layer, the rest unread
 
 
-@dataclasses.dataclass(frozen=True)
-class SchedulerConfig:
-    """autoencoder/train/learn/scheduler/cosine.yaml"""
-
-    restart_interval: int = 100
-    restart_fraction: float = 1.0
-    warmup_steps: int = 0
-    min_decay: float = 0.01
-    decay_steps: int = 100
-
-
 W_EPOCHS = 500  # w_autoencoder/train/default_train.yaml:7
 
 
@@ -82,6 +111,7 @@ class WAutoEncoderTrainConfig:
 
     batch_size: int = 32  # train/default_train.yaml:6
     n_epochs: int = W_EPOCHS  # train/default_train.yaml:7; also the KLD annealing length
+    optimizer_name: str = 'AdamW'  # train/learn/default_learn.yaml:5
     learning_rate: float = 0.0014  # train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # train/learn/default_learn.yaml:10 (AdamW, :5)
     grad_op: str | None = 'ParamHistClipper'  # train/learn/default_learn.yaml:7
@@ -112,6 +142,7 @@ class WAutoEncoderConfig:
 class AutoEncoderTrainConfig:
     batch_size: int = 8  # autoencoder/train/default_train.yaml:6
     n_epochs: int = 1000  # autoencoder/train/default_train.yaml:7
+    optimizer_name: str = 'AdamW'  # autoencoder/train/learn/default_learn.yaml:5
     learning_rate: float = 0.004  # autoencoder/train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # autoencoder/train/learn/default_learn.yaml:10 (AdamW, :5)
     grad_op: str | None = None  # autoencoder/train/learn/default_learn.yaml: none
@@ -125,6 +156,9 @@ class AutoEncoderTrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AutoEncoderConfig:
+    # autoencoder/model/vqvae.yaml:7; 'VQVAE' gives the unconditional model
+    # (uniform class probabilities in the inner CVAE)
+    class_name: str = 'CounterfactualVQVAE'
     book_size: int = 16  # autoencoder/model/vqvae.yaml:8
     embedding_dim: int = 4  # autoencoder/model/vqvae.yaml:9
     w_dim: int = 1024  # autoencoder/model/vqvae.yaml:10
@@ -140,6 +174,13 @@ class AutoEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class UserConfig:
+    # user/user_settings.yaml:21, how far the suites' counterfactuals move the
+    # class probabilities towards the target (1: all the way)
+    counterfactual_value: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class SliceConfig:
     """Everything the serving and training slices read; the defaults are the
     flagship model.  The training step decodes ``data.n_input_points``
@@ -150,3 +191,4 @@ class SliceConfig:
     classifier: ClassifierConfig = ClassifierConfig()
     autoencoder: AutoEncoderConfig = AutoEncoderConfig()
     w_autoencoder: WAutoEncoderConfig = WAutoEncoderConfig()
+    user: UserConfig = UserConfig()

@@ -50,9 +50,21 @@
 // chip_smoke.py's RECON_REL_L2 allows (on an H100; PERF.md).  fp16 has bf16's
 // speed on the tensor cores and half TF32's shared memory, but not bf16's
 // range: a value past 65504 becomes inf.  The wrapper refuses folded weights
-// past it; whether trained weights keep the activations inside it has not
-// been measured (every run so far used random weights).  Values below fp16's
-// normal range (6.1e-5) keep an absolute error under 2^-25.
+// past it.  The activations keep fp32's range by a power-of-two scale per
+// cloud on each fp16 operand (x, h0, h1): a block bounds |x| by max |w| of
+// its cloud (hardtanh <= 1), |h0| by |x| (1 + A0) + B0 and |h1| by
+// |h0| (1 + A1) + B1, where A is the largest absolute row sum of a layer's
+// fp16 weights and B its largest bias (the wrapper's bounds; a (leaky) ReLU
+// never grows a value), and halves the scale from 1 until the bound fits
+// under 65504.  The operand is stored times its scale; the product's fp32
+// accumulator and the fp16 residual reads are multiplied back by its
+// inverse.  Both are exact (powers of two), so a scale of 1, which
+// chip_smoke.py's random flagship weights give, leaves every bit as it was.
+// The scales cost the consumers registers: ptxas reports more spill bytes
+// in the epilogues, and the kernel runs longer at the flagship widths
+// (PERF.md §6).
+// Values below fp16's normal range (6.1e-5) after scaling keep an absolute
+// error under 2^-25 of the inverse scale.
 // Accumulation, the residual stream, the softmax and the mix are fp32; the
 // map head is fp32 on the CUDA cores.
 
@@ -79,6 +91,7 @@ constexpr int kProducerRegs = 56, kConsumerRegs = 224;
 constexpr int kTileBytes = kRows * 128;          // one 64 x 64 fp16 operand tile
 constexpr int kMaxD0 = 1024, kD3 = 16, kMaxDm = 64, kMaxG = 8, kMaxStages = 4;
 constexpr int kSmemMax = 232448;
+constexpr float kFp16Max = 65504.f;
 // the mix warps: the producer warpgroup's second and third, a point a thread
 constexpr int kMixWarp0 = kConsumerThreads / 32 + 1;
 constexpr int kMixSync = 128 + kRows;                 // warpgroup 0 and the mix warps
@@ -123,7 +136,32 @@ struct Args {
   float* out;              // (B, N, 3)
   int n, dm, d0, d1, g_count, stages;
   float inv_tau, slope;
+  float a0, c0, a1, c1;  // layers 0 and 1: largest absolute weight row sum, largest |bias|
 };
+
+// the power-of-two scales of a cloud's fp16 operands and their inverses
+struct Scales {
+  float x, ix, h0, ih0, h1, ih1;
+};
+
+// the largest power of two <= 1 that keeps bound * s within fp16's range
+__device__ __forceinline__ float fp16_scale(float bound) {
+  float s = 1.f;
+  for (int i = 0; i < 160 && !(bound * s <= kFp16Max); ++i) s *= 0.5f;
+  return s;
+}
+
+__device__ __forceinline__ Scales scales_for(const Args& p, float x_bound) {
+  const float h0 = fmaf(x_bound, 1.f + p.a0, p.c0), h1 = fmaf(h0, 1.f + p.a1, p.c1);
+  Scales sc;
+  sc.x = fp16_scale(x_bound);
+  sc.h0 = fp16_scale(h0);
+  sc.h1 = fp16_scale(h1);
+  sc.ix = 1.f / sc.x;
+  sc.ih0 = 1.f / sc.h0;
+  sc.ih1 = 1.f / sc.h1;
+  return sc;
+}
 
 // the producer's and the consumers' walk over the ring: use u of stage u % S
 struct Ring {
@@ -192,8 +230,8 @@ __device__ __forceinline__ void ring_mma(float (&acc)[kN], Ring& ring, const uin
 // mix warps (mix below) and waits for them to have read it before hs is
 // written again.
 template <int kD2>
-__device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_t* hs, Ring& ring, int n_chunks,
-                                        int warp, int lane) {
+__device__ __forceinline__ void consume(const Args& p, const Scales& sc, const uint8_t* xs, uint8_t* hs, Ring& ring,
+                                        int n_chunks, int warp, int lane) {
   constexpr int kNw = kD2 / 2;   // columns of a product per warpgroup
   constexpr int kAcc = kNw / 2;  // accumulator registers per thread
   const int d0 = p.d0, d1 = p.d1, G = p.g_count;
@@ -216,6 +254,7 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
       ring_mma<false>(acc0, ring, xs + kt * kTileBytes, wg * kNw * 128, lane);
     if (g > 0 && ch == n_chunks - 1 && wg == 0) bar_sync(kBarMixEmpty, kMixSync);  // the mix warps hold h2
     bar_sync(kBarConsumers, kConsumerThreads);  // both warpgroups are done reading hs
+    const float ix = sc.ix, s_h0 = sc.h0;
 #pragma unroll
     for (int j = 0; j < kNw / 8; ++j) {
       const int c = wg * kNw + 8 * j + 2 * t, col = ch * kD2 + c;
@@ -225,15 +264,15 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h;
-        const float v0 = act(acc0[4 * j + 2 * h] + bias.x, p.slope) +
-                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src0)));
-        const float v1 = act(acc0[4 * j + 2 * h + 1] + bias.y, p.slope) +
-                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src1)));
+        const float v0 = act(fmaf(acc0[4 * j + 2 * h], ix, bias.x), p.slope) +
+                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src0))) * ix;
+        const float v1 = act(fmaf(acc0[4 * j + 2 * h + 1], ix, bias.y), p.slope) +
+                         __half2float(*reinterpret_cast<const __half*>(xs + sw_off(r, src1))) * ix;
         if (decltype(last)::value && j < 2) {
           res16[4 * j + 2 * h] = v0;
           res16[4 * j + 2 * h + 1] = v1;
         }
-        *reinterpret_cast<__half2*>(hs + sw_off(r, c)) = __floats2half2_rn(v0, v1);
+        *reinterpret_cast<__half2*>(hs + sw_off(r, c)) = __floats2half2_rn(v0 * s_h0, v1 * s_h0);
       }
     }
     fence_proxy_async();
@@ -253,6 +292,7 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
 
     // layer-1 epilogue: h1 = act(acc1 + b1) + h0[:, :D2], in place in hs
     bar_sync(kBarConsumers, kConsumerThreads);
+    const float ih0 = sc.ih0, s_h1 = sc.h1;
 #pragma unroll
     for (int j = 0; j < kNw / 8; ++j) {
       const int c = wg * kNw + 8 * j + 2 * t;
@@ -260,15 +300,16 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         __half2* at = reinterpret_cast<__half2*>(hs + sw_off(r0 + 8 * h, c));
+        const float2 h0s = __half22float2(*at);
         const float2 h0 = (wg == 0 && j < 2) ? make_float2(res16[4 * j + 2 * h], res16[4 * j + 2 * h + 1])
-                                             : __half22float2(*at);
-        const float v0 = act(acc1[4 * j + 2 * h] + bias.x, p.slope) + h0.x;
-        const float v1 = act(acc1[4 * j + 2 * h + 1] + bias.y, p.slope) + h0.y;
+                                             : make_float2(h0s.x * ih0, h0s.y * ih0);
+        const float v0 = act(fmaf(acc1[4 * j + 2 * h], ih0, bias.x), p.slope) + h0.x;
+        const float v1 = act(fmaf(acc1[4 * j + 2 * h + 1], ih0, bias.y), p.slope) + h0.y;
         if (j < 2) {  // h1[:, :16] in fp32 for h2's residual (warpgroup 0)
           res16[4 * j + 2 * h] = v0;
           res16[4 * j + 2 * h + 1] = v1;
         }
-        *at = __floats2half2_rn(v0, v1);
+        *at = __floats2half2_rn(v0 * s_h1, v1 * s_h1);
       }
     }
     fence_proxy_async();
@@ -285,6 +326,7 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
     }
     ring_release(ring, lane);
     if (wg == 0) {
+      const float ih1 = sc.ih1;
 #pragma unroll
       for (int jj = 0; jj < 2; ++jj)
 #pragma unroll
@@ -292,7 +334,8 @@ __device__ __forceinline__ void consume(const Args& p, const uint8_t* xs, uint8_
           const int i = 4 * jj + 2 * h, col = 8 * jj + 2 * t;
           const float2 bias = __ldg(reinterpret_cast<const float2*>(p.b2 + g * kD3 + col));
           *reinterpret_cast<float2*>(h2s + (r0 + 8 * h) * kD3 + col) =
-              make_float2(act(acc2[i] + bias.x, p.slope) + res16[i], act(acc2[i + 1] + bias.y, p.slope) + res16[i + 1]);
+              make_float2(act(fmaf(acc2[i], ih1, bias.x), p.slope) + res16[i],
+                          act(fmaf(acc2[i + 1], ih1, bias.y), p.slope) + res16[i + 1]);
         }
       bar_arrive(kBarMixFull, kMixSync);
     }
@@ -366,6 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_con
   uint8_t* ring_base = hs + (kD2 / 64) * kTileBytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring_base + p.stages * kStageBytes);
   uint64_t* empty = full + kMaxStages;
+  unsigned* w_max = reinterpret_cast<unsigned*>(empty + kMaxStages);  // max |w| of the cloud, as float bits
   Ring ring{ring_base, full, empty, p.stages, kStageBytes};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -377,6 +421,15 @@ __global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_con
       mbar_init(&empty[s], kConsumerThreads / 32);  // one arrival per consumer warp
     }
     mbar_fence_init();
+    *w_max = 0u;
+  }
+  __syncthreads();
+  {  // the bound of |x|: non-negative floats order as their bits
+    float top = 0.f;
+    for (int j = tid; j < d0; j += kThreads) top = fmaxf(top, fabsf(p.w[(size_t)b * d0 + j]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) top = fmaxf(top, __shfl_xor_sync(0xffffffffu, top, o));
+    if (lane == 0) atomicMax(w_max, __float_as_uint(top));
   }
 
   // ---- map head + join: xs = fp16(w ⊙ hardtanh(m · map_w + map_b)) --------
@@ -386,6 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_con
     ms[kk * kRows + r] = i0 + r < n ? p.m[((size_t)b * n + i0 + r) * p.dm + kk] : 0.f;
   }
   __syncthreads();
+  const Scales sc = scales_for(p, __uint_as_float(*w_max));
   if (tid < kConsumerThreads) {
     for (int j = tid; j < d0; j += kConsumerThreads) {
       const float bias = p.map_b[j], scale = p.w[(size_t)b * d0 + j];
@@ -409,7 +463,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_con
 #pragma unroll
         for (int r = 0; r < 32; ++r) {
           const float x = scale * fminf(fmaxf(acc[r] + bias, -1.f), 1.f);
-          *reinterpret_cast<__half*>(xs + sw_off(half * 32 + r, j)) = __float2half_rn(x);
+          *reinterpret_cast<__half*>(xs + sw_off(half * 32 + r, j)) = __float2half_rn(x * sc.x);
         }
       }
     }
@@ -440,7 +494,7 @@ __global__ void __launch_bounds__(kThreads, 1) pcgen_mix_kernel(const __grid_con
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    consume<kD2>(p, xs, hs, ring, n_chunks, warp, lane);
+    consume<kD2>(p, sc, xs, hs, ring, n_chunks, warp, lane);
   }
 }
 
@@ -461,7 +515,7 @@ bool encode_f16(CUtensorMap* map, const uint16_t* ptr, int rows, int cols, int b
 template <int kD2>
 int launch(Args& args, const uint16_t* w0, const uint16_t* w1, const uint16_t* w2, int batch, cudaStream_t stream) {
   constexpr int kStageBytes = kD2 * 128;
-  const int fixed = (args.d0 / 64 + kD2 / 64) * kTileBytes + 1024 + 2 * kMaxStages * 8;
+  const int fixed = (args.d0 / 64 + kD2 / 64) * kTileBytes + 1024 + 2 * kMaxStages * 8 + 16;
   int stages = (kSmemMax - fixed) / kStageBytes;
   if (stages > kMaxStages) stages = kMaxStages;
   // at least two stages, and room for the prologue's map input, which aliases hs and the ring
@@ -485,13 +539,14 @@ int launch(Args& args, const uint16_t* w0, const uint16_t* w1, const uint16_t* w
 
 // out (B, N, 3) from m (B, N, Dm) and w (B, D0), for three component layers
 // D0 -> D1 -> D2 -> D3; the component weights (G, Dout, Din) in fp16, the
-// rest fp32.
+// rest fp32; a0 / a1 the largest absolute row sum of the fp16 W0 / W1, c0 /
+// c1 the largest |b0| / |b1| (the bounds of the operands' scales).
 extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_wt, const float* map_b,
                               const uint16_t* w0, const float* b0, const uint16_t* w1, const float* b1,
                               const uint16_t* w2, const float* b2, const float* head_w, const float* head_b,
                               const float* att_w, const float* att_b, float* out, int batch, int n, int dm,
-                              int d0, int d1, int d2, int d3, int g_count, float tau, float slope,
-                              cudaStream_t stream) {
+                              int d0, int d1, int d2, int d3, int g_count, float tau, float slope, float a0,
+                              float c0, float a1, float c1, cudaStream_t stream) {
   // the shapes this kernel covers (pccf_torch/kernels/pcgen.py supported)
   if (batch < 1 || n < 1 || d0 < 64 || d0 > kMaxD0 || d0 % 64 || (d2 != 64 && d2 != 128 && d2 != 256) || d1 % d2 ||
       d1 <= d2 || d3 != kD3 || dm < 1 || dm > kMaxDm || g_count < 2 || g_count > kMaxG)
@@ -516,6 +571,10 @@ extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_w
   args.g_count = g_count;
   args.inv_tau = 1.f / tau;
   args.slope = slope;
+  args.a0 = a0;
+  args.c0 = c0;
+  args.a1 = a1;
+  args.c1 = c1;
   if (d2 == 64) return launch<64>(args, w0, w1, w2, batch, stream);
   if (d2 == 128) return launch<128>(args, w0, w1, w2, batch, stream);
   return launch<256>(args, w0, w1, w2, batch, stream);

@@ -24,10 +24,12 @@ class Inputs:
 
 @dataclasses.dataclass
 class Targets:
-    """Targets of the outer autoencoder: the reference cloud ``(B, M, 3)``
-    (``pccf`` also carries the scale and label, which stage 1 does not read)."""
+    """Targets of the outer autoencoder, the reference cloud ``(B, M, 3)``,
+    and of the classifier, the class labels ``(B,)`` int64 (``pccf`` also
+    carries the scale, which no ported path reads)."""
 
     ref_cloud: torch.Tensor
+    label: torch.Tensor | None = None
 
 
 @dataclasses.dataclass

@@ -4,7 +4,8 @@ version.
 Replaces ``pccf/kernels/pallas_pcgen.py:133`` ``pcgen_mix_tpu``.  The decoder
 builds a :class:`PCGenPack` (BatchNorm folded into the component weights)
 once; the CUDA wrapper derives its device layout (fp16 component weights,
-transposed map head) from the pack once and keeps it on the pack.
+transposed map head) and the bounds of the kernel's fp16 operand scales from
+the pack once and keeps them on the pack.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ class PCGenPack:
     att_w: torch.Tensor  # (G, G * D_last)
     att_b: torch.Tensor  # (G,)
     _cuda: tuple | None = dataclasses.field(default=None, repr=False)
+    _bounds: tuple[float, ...] | None = dataclasses.field(default=None, repr=False)
 
     def tensors(self) -> tuple:
         return (self.map_w, self.map_b, self.layer_ws, self.layer_bs, self.head_w, self.head_b, self.att_w, self.att_b)
@@ -78,7 +80,23 @@ class PCGenPack:
                 f16(w0), f32(b0), f16(w1), f32(b1), f16(w2), f32(b2),
                 f32(self.head_w), f32(self.head_b), f32(self.att_w), f32(self.att_b),
             )
+            self._bounds = operand_bounds(self._cuda[2].float(), b0, self._cuda[4].float(), b1)
         return self._cuda
+
+    def scale_bounds(self) -> tuple[float, ...]:
+        """``(A0, B0, A1, B1)`` of :func:`operand_bounds` for the kernel's weights."""
+        self.cuda_operands()
+        return self._bounds
+
+
+def operand_bounds(w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor) -> tuple[float, ...]:
+    """What the kernel bounds its fp16 operands with (``csrc/pcgen_mix.cu``):
+    for layers 0 and 1 the largest absolute row sum ``A`` of the weights
+    ``(G, Dout, Din)`` as the kernel holds them, and the largest ``|bias|``
+    ``B``; ``|h0| <= |x| (1 + A0) + B0`` and ``|h1| <= |h0| (1 + A1) + B1``.
+    Read to the host once per pack."""
+    return tuple(float(v) for v in torch.stack([
+        w0.abs().sum(-1).max(), b0.abs().max(), w1.abs().sum(-1).max(), b1.abs().max()]).cpu())
 
 
 def plain(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:
@@ -106,7 +124,7 @@ def pcgen_mix_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: fl
     out = torch.empty((b, n, 3), dtype=torch.float32, device=m.device)
     err = _build.lib().pccf_pcgen_mix(
         m.data_ptr(), w.data_ptr(), *(t.data_ptr() for t in ops_), out.data_ptr(),
-        b, n, dm, *dims, g, float(tau), float(act_slope), _build.stream(),
+        b, n, dm, *dims, g, float(tau), float(act_slope), *pack.scale_bounds(), _build.stream(),
     )
     _build.check('pccf_pcgen_mix', err, f'N={n}, dims={dims}, Dm={dm}, G={g}')
     pcgen_mix_cuda.launches += 1

@@ -1,7 +1,10 @@
-"""Counterfactual VQ-VAE (``pccf/models/autoencoders.py``): the serving path
-and the stage-1 reconstruction path that training differentiates."""
+"""VQ-VAE (``pccf/models/autoencoders.py``): the serving path, the stage-1
+reconstruction path that training differentiates, and the double
+reconstruction through the inner CVAE that the evaluation suites run."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -18,7 +21,8 @@ from pccf_torch.nn.layers import get_act, gumbel_uniform
 
 class VQVAE(nn.Module):
     """VQ-VAE over point clouds with the embedded inner CVAE
-    (``autoencoders.py:34``, ``conditional=True``)."""
+    (``autoencoders.py:34``): the ``CounterfactualVQVAE`` when the inner CVAE
+    is conditional, else the plain ``VQVAE``."""
 
     def __init__(
         self,
@@ -82,6 +86,37 @@ class VQVAE(nn.Module):
         w = ops.straight_through(w_e, data.w_q)
         recon = self.decoder(w, inputs.initial_sampling, noise)
         return data.replace(w_e=w_e, idx=idx, one_hot_idx=ops.one_hot_idx(idx, self.book_size), w=w, recon=recon)
+
+    @property
+    def conditional(self) -> bool:
+        return self.w_autoencoder.conditional
+
+    def double_reconstruct(self, inputs: Inputs, eps=None, generator: torch.Generator | None = None) -> Outputs:
+        """Encode, the inner CVAE's sampled forward in eval with uniform class
+        probabilities, decode its codes (``autoencoders.py:88-99``).  The
+        conditional model needs the class logits: it raises ``ValueError``
+        (use :meth:`double_reconstruct_with_logits`)."""
+        if self.conditional:
+            raise ValueError('double_reconstruct on a conditional model: use '
+                             'double_reconstruct_with_logits(inputs, logits)')
+        return self.double_reconstruct_with_logits(inputs, None, eps, generator)
+
+    def double_reconstruct_with_logits(self, inputs: Inputs, logits: torch.Tensor | None, eps=None,
+                                       generator: torch.Generator | None = None) -> Outputs:
+        """Encode, the inner CVAE's sampled forward in eval conditioned on
+        ``logits``, decode its codes (``autoencoders.py:101-107``).  The
+        posterior's standard normal draws ``eps`` (z1, z2) and
+        ``inputs.initial_sampling`` are drawn from ``generator`` where not
+        given."""
+        if inputs.initial_sampling is None:
+            if generator is None:
+                raise ValueError('double reconstruction: pass the initial sampling or a torch.Generator to draw it')
+            shape = (inputs.cloud.shape[0], self.n_inference_output_points, self.decoder.sample_dim)
+            inputs = dataclasses.replace(inputs, initial_sampling=torch.randn(shape, generator=generator,
+                                                                              device=inputs.cloud.device))
+        w_q = self.encode(inputs).w_q
+        data = self.w_autoencoder(WInputs(w_q, logits), self.codebook, eps, generator)
+        return self._decode_from_idx(data, inputs)
 
     def generate_counterfactual(
         self,

@@ -40,12 +40,14 @@ class WAutoEncoder(nn.Module):
         z2_dim: int,
         n_classes: int,
         cf_temperature: float = 5.0,
+        conditional: bool = True,
     ) -> None:
         super().__init__()
         self.encoder, self.decoder, self.z2_prior, self.z2_posterior = encoder, decoder, z2_prior, z2_posterior
         self.n_codes, self.embedding_dim = n_codes, embedding_dim
         self.z1_dim, self.z2_dim, self.n_classes = z1_dim, z2_dim, n_classes
         self.cf_temperature = cf_temperature
+        self.conditional = conditional  # False: uniform class probabilities (w_autoencoders.py:233-236)
         # the chain's folded weights; set once by a server (prepack), else
         # folded on every call
         self.packed: CVAEPack | None = None
@@ -92,7 +94,9 @@ class WAutoEncoder(nn.Module):
         return data.replace(w_recon=w_recon, idx=idx, w_dist_2=w_dist_2)
 
     def get_probabilities(self, inputs: WInputs) -> torch.Tensor:
-        return self.get_probabilities_from_logits(inputs.logits)
+        if self.conditional:
+            return self.get_probabilities_from_logits(inputs.logits)
+        return torch.full((inputs.w_q.shape[0], self.n_classes), 1.0 / self.n_classes, device=inputs.w_q.device)
 
     def get_probabilities_from_logits(self, logits: torch.Tensor) -> torch.Tensor:
         return ops.temperature_softmax(logits, self.cf_temperature, dim=1)
@@ -175,4 +179,5 @@ def build_w_autoencoder(cfg: SliceConfig) -> WAutoEncoder:
         z2_dim=wae.z2_dim,
         n_classes=c,
         cf_temperature=wae.cf_temperature,
+        conditional=ae.class_name == 'CounterfactualVQVAE',
     )

@@ -205,19 +205,24 @@ def gumbel_uniform(shape: tuple[int, ...], generator: torch.Generator, device: t
 
 
 class MLPHead(nn.Module):
-    """Dense stack (BN + act) then a biased linear output (``layers.py:206``);
-    dropout is the identity in eval."""
+    """Dense stack (BN + act) then a biased linear output (``layers.py:206``).
+    In training, dropout at ``dropout_rates[i - 1]`` before hidden block
+    ``i >= 1``, with masks from the caller's generator: as in the JAX package
+    only the first ``len(dims) - 1`` rates are read, and nothing drops before
+    the output layer.  Dropout is the identity in eval."""
 
-    def __init__(self, in_features: int, dims: tuple[int, ...], out_features: int, act: Act) -> None:
+    def __init__(self, in_features: int, dims: tuple[int, ...], out_features: int, act: Act,
+                 dropout_rates: tuple[float, ...] = ()) -> None:
         super().__init__()
         widths = (in_features, *dims)
         blocks = [DenseBlock(widths[i], widths[i + 1], act=act) for i in range(len(dims))]
         blocks.append(DenseBlock(widths[-1], out_features, act=None, batch_norm=False))
         self.blocks = nn.ModuleList(blocks)
+        self.rates = (0.0, *dropout_rates, *(0.0,) * len(dims))[: len(dims)] + (0.0,)
 
-    def forward(self, x: Tensor) -> Tensor:
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x: Tensor, generator: torch.Generator | None = None) -> Tensor:
+        for blk, rate in zip(self.blocks, self.rates):
+            x = blk(dropout(x, rate if self.training else 0.0, generator))
         return x
 
 

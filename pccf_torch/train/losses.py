@@ -1,5 +1,5 @@
-"""Stage-1 and stage-2 losses (``pccf/train/losses.py:27-137, 148-245,
-302-312``)."""
+"""Stage-1, stage-2 and classification losses (``pccf/train/losses.py:27-137,
+148-300, 302-312``)."""
 
 from __future__ import annotations
 
@@ -163,9 +163,56 @@ def get_w_accuracy() -> Objective:
         pred = F.one_hot(torch.argmin(data.w_dist_2, dim=2), targets.one_hot_idx.shape[2]).to(torch.float32)
         return torch.mean(torch.sum(targets.one_hot_idx * pred, dim=2), dim=1)
 
-    return Metric(_acc, 'Quantisation Accuracy')
+    return Metric(_acc, 'Quantisation Accuracy', higher_is_better=True)
 
 
 def get_w_autoencoder_loss(cfg: WAutoEncoderTrainConfig) -> Objective:
     """MSE + annealed KLD, with the quantisation accuracy reported."""
     return (get_mse_loss() + get_kld_loss(cfg)) | get_w_accuracy()
+
+
+# ------------------------------------------------------------ classification
+
+
+def get_cross_entropy_loss() -> Objective:
+    """Cross entropy of the logits ``(B, C)`` against ``targets.label``."""
+
+    def _ce(logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+        return -torch.gather(F.log_softmax(logits, dim=-1), 1, targets.label[:, None].long())[:, 0]
+
+    return Loss(_ce, 'CrossEntropy')
+
+
+def _correct(logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+    return (torch.argmax(logits, dim=-1) == targets.label).to(torch.float32)
+
+
+def get_accuracy() -> Objective:
+    return Metric(_correct, 'Accuracy', higher_is_better=True)
+
+
+def get_macro_accuracy() -> Objective:
+    """The recall of each class present in the batch, averaged over those
+    classes: one value per batch (``losses.py:267-281``), which the running
+    state weighs by the batch size, so a pass's macro accuracy is a mean of
+    per-batch values, not the dataset's macro recall."""
+
+    def _macro(logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+        onehot = F.one_hot(targets.label.long(), logits.shape[1]).to(torch.float32)
+        per_class_correct = torch.sum(onehot * _correct(logits, targets)[:, None], dim=0)
+        per_class_count = torch.sum(onehot, dim=0)
+        present = per_class_count > 0
+        recalls = torch.where(present, per_class_correct / torch.clamp_min(per_class_count, 1.0), 0.0)
+        return torch.sum(recalls) / torch.clamp_min(torch.sum(present), 1)
+
+    return Metric(_macro, 'Macro Accuracy', higher_is_better=True)
+
+
+def get_f1() -> Objective:
+    """Micro F1, which equals the accuracy for single-label classes."""
+    return Metric(_correct, 'F1_Score', higher_is_better=True)
+
+
+def get_classification_loss() -> Objective:
+    """Cross entropy, with the accuracy and the macro accuracy reported."""
+    return get_cross_entropy_loss() | get_accuracy() | get_macro_accuracy()

@@ -8,7 +8,11 @@ calculation on its own.  :meth:`Objective.loss_and_metrics` returns the batch
 mean of the loss expression and the batch mean of every named calculation.
 An objective also keeps a running state of batch means weighted by batch
 size (``update_state`` / ``compute_metrics``), as the evaluation runners
-aggregate it.
+aggregate it; :meth:`Objective.copy` keeps that state and
+:meth:`Objective.merge_state` adds another objective's to it, as the
+evaluation suites merge their per-target tests
+(``evaluate_counterfactuals.py:79-81``).  ``higher_is_better`` says, per
+metric name, which direction is better (``Metric(..., higher_is_better=True)``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ class Objective:
         self.loss_expr = loss_expr
         self.name = name
         self._state: dict[str, tuple[float, float]] = {}  # name -> (weighted sum, count)
+        self.higher_is_better: dict[str, bool] = {}
 
     def compute_all(self, outputs: Any, targets: Any) -> dict[str, torch.Tensor]:
         return {name: fn(outputs, targets) for name, fn in self.calculations.items()}
@@ -58,9 +63,17 @@ class Objective:
         """Means since the last reset, weighted by batch size."""
         return {name: s / max(c, 1e-12) for name, (s, c) in self._state.items()}
 
+    def merge_state(self, other: 'Objective') -> None:
+        """Add ``other``'s running state to this one's (sums and counts)."""
+        for name, (s, c) in other._state.items():
+            s0, c0 = self._state.get(name, (0.0, 0.0))
+            self._state[name] = (s0 + s, c0 + c)
+
     def copy(self) -> 'Objective':
-        """The same calculations with a running state of its own."""
-        return Objective(self.calculations, self.loss_expr, self.name)
+        """The same calculations with a copy of the running state."""
+        new = _objective(self.calculations, self.loss_expr, self.name, self.higher_is_better)
+        new._state = dict(self._state)
+        return new
 
     # -------------------------------------------------------------- algebra
     @staticmethod
@@ -75,22 +88,34 @@ class Objective:
             raise ValueError(f'{self.name} is metric-only; it cannot join a loss')
         return self.loss_expr
 
+    def _join(self, other: 'Objective', loss_expr: LossExpr | None, name: str) -> 'Objective':
+        return _objective(self._merge(self.calculations, other.calculations), loss_expr, name,
+                          {**self.higher_is_better, **other.higher_is_better})
+
     def __add__(self, other: 'Objective') -> 'Objective':
         ea, eb = self._expr(), other._expr()
-        return Objective(self._merge(self.calculations, other.calculations), lambda v: ea(v) + eb(v), 'Loss')
+        return self._join(other, lambda v: ea(v) + eb(v), 'Loss')
 
     def __mul__(self, other: 'Objective | float') -> 'Objective':
         ea = self._expr()
         if isinstance(other, Objective):
             eb = other._expr()
-            return Objective(self._merge(self.calculations, other.calculations), lambda v: ea(v) * eb(v), 'Loss')
+            return self._join(other, lambda v: ea(v) * eb(v), 'Loss')
         s = float(other)
-        return Objective(self.calculations, lambda v: s * ea(v), self.name)
+        return _objective(self.calculations, lambda v: s * ea(v), self.name, self.higher_is_better)
 
     __rmul__ = __mul__
 
     def __or__(self, metric: 'Objective') -> 'Objective':
-        return Objective(self._merge(self.calculations, metric.calculations), self.loss_expr, self.name)
+        return self._join(metric, self.loss_expr, self.name)
+
+
+def _objective(calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str,
+               higher_is_better: dict[str, bool]) -> Objective:
+    """A new objective with an empty running state."""
+    new = Objective(calculations, loss_expr, name)
+    new.higher_is_better = dict(higher_is_better)
+    return new
 
 
 class Loss(Objective):
@@ -103,5 +128,11 @@ class Loss(Objective):
 class Metric(Objective):
     """A named per-sample calculation that is reported, never optimised."""
 
-    def __init__(self, fn: CalcFn, name: str) -> None:
+    def __init__(self, fn: CalcFn, name: str, higher_is_better: bool = False) -> None:
         super().__init__({name: fn}, None, name)
+        self.higher_is_better = {name: higher_is_better}
+
+
+def compute_metrics(objective: Objective) -> dict[str, float]:
+    """The running means of ``objective`` (``pccf/train/objectives.py:187``)."""
+    return objective.compute_metrics()

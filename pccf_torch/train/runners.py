@@ -1,13 +1,16 @@
 """Training and evaluation runners (``pccf/train/runners.py``).
 
 :class:`Trainer` holds a model, its objective, the configured gradient
-operation and an AdamW optimiser set as ``optax.adamw(lr, weight_decay)``
-is (betas 0.9 / 0.999, eps 1e-8, decoupled decay on every trained
-parameter).  A step runs the model in train mode, injects the 1-based epoch
+operation and the optimiser its configuration names
+(``pccf/config/specs.py:70-92``): AdamW for both autoencoders, set as
+``optax.adamw(lr, weight_decay)`` is (betas 0.9 / 0.999, eps 1e-8, decoupled
+decay on every trained parameter), SGD for the classifier (the weight decay
+added to the gradient, then momentum, as ``optax.chain(add_decayed_weights,
+sgd)``).  A step runs the model in train mode, injects the 1-based epoch
 into ``Outputs.model_epoch`` (``runners.py:69-73, 303``), backpropagates,
 applies the gradient operation (stage 2's per-parameter history clipper),
-then AdamW at ``base_lr · schedule(step // steps_per_epoch)``, the 0-based
-epoch (``runners.py:226-229``).  The VQ-VAE's embedded inner CVAE is frozen
+then the optimiser at ``base_lr · schedule(step // steps_per_epoch)``, the
+0-based epoch (``runners.py:226-229``).  The VQ-VAE's embedded inner CVAE is frozen
 in stage 1: it is left out of the optimiser, so neither updates nor weight
 decay touch it (``runners.py:245-256``, ``train_autoencoder.py:68``).  Stage 2
 trains a :class:`~pccf_torch.models.w_autoencoders.WAETrainModule`, whose
@@ -17,14 +20,18 @@ A step's noise comes from the trainer's ``torch.Generator`` on the model's
 device unless the caller passes it: the model is called as ``model(inputs,
 noise, generator)`` and draws what is missing (stage 1 the decoder's
 ``initial_sampling`` and the attention's Gumbel noise, stage 2 the
-posterior's Gaussian noise and its dropout masks).
+posterior's Gaussian noise and its dropout masks, the classifier its
+dropout masks).  A model that returns ``Outputs`` gets the epoch in
+``model_epoch``; other outputs (the classifier's logits) pass as they are.
 
 :class:`Test` is the evaluation pass (``runners.py:69-150``): the model in
-eval mode over every batch, metrics averaged with the batch sizes as weights.
+eval mode over every batch, metrics averaged with the batch sizes as weights;
+``store_outputs=True`` keeps each batch's output tensor (the classifier's
+logits), moved to the host, in ``outputs_list``.
 :class:`Diagnostic` is the same pass over the training set for the codebook
 hook (``runners.py:151-156``).  After every epoch's validation, the trainer
 runs its ``post_epoch_hooks``.  :class:`Loader` batches a dataset held by the
-main process for both stages' entry points.
+main process for the entry points.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from pccf_torch.data.structures import Outputs
 from pccf_torch.train.grad_ops import get_grad_op
 from pccf_torch.train.objectives import Objective
 from pccf_torch.train.schedulers import get_scheduler
@@ -52,7 +60,10 @@ class Loader:
     (``pccf/train/loader.py:58-200``): training epochs shuffled by ``(seed,
     epoch)`` with the trailing partial batch dropped, evaluation in order with
     it kept.  The dataset has a length and ``__getitems__(indices) -> (inputs,
-    targets)``."""
+    targets)``; as the JAX loader does, it is told whether a batch is for
+    inference (``set_inference``) and, where it augments with a numpy
+    generator ``rng``, that generator is seeded anew by ``(seed, epoch,
+    batch)`` before each training batch."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0) -> None:
         self.dataset, self.batch_size, self.seed = dataset, batch_size, seed
@@ -67,25 +78,36 @@ class Loader:
     def epoch_iterator(self, epoch: int) -> Iterator[tuple]:
         order = np.arange(len(self.dataset))
         np.random.default_rng((self.seed, epoch)).shuffle(order)
+        self._set_inference(False)
         for b in range(self.n_batches()):
+            if hasattr(self.dataset, 'rng'):
+                self.dataset.rng = np.random.default_rng((self.seed, epoch, b))
             yield self.dataset.__getitems__(order[b * self.batch_size: (b + 1) * self.batch_size].tolist())
 
     def batches(self) -> Iterator[tuple]:
         n = len(self.dataset)
+        self._set_inference(True)
         for start in range(0, n, self.batch_size):
             yield self.dataset.__getitems__(list(range(start, min(start + self.batch_size, n))))
+
+    def _set_inference(self, inference: bool) -> None:
+        if hasattr(self.dataset, 'set_inference'):
+            self.dataset.set_inference(inference)
 
 
 class Trainer:
     """One optimisation step at a time, or whole epochs, of a model.
 
     ``cfg`` is the stage's train configuration
-    (:class:`~pccf_torch.config.AutoEncoderTrainConfig` or
-    :class:`~pccf_torch.config.WAutoEncoderTrainConfig`)."""
+    (:class:`~pccf_torch.config.AutoEncoderTrainConfig`,
+    :class:`~pccf_torch.config.WAutoEncoderTrainConfig` or
+    :class:`~pccf_torch.config.ClassifierTrainConfig`).  The trainer's
+    objective starts with an empty running state."""
 
     def __init__(self, model: torch.nn.Module, objective: Objective, cfg, steps_per_epoch: int, seed: int = 0) -> None:
         self.model = model
         self.objective = objective.copy()
+        self.objective.reset_state()
         self.base_lr = cfg.learning_rate
         self.schedule = get_scheduler(cfg.scheduler)
         self.steps_per_epoch = steps_per_epoch
@@ -95,9 +117,7 @@ class Trainer:
                 p.requires_grad_(False)
             else:
                 trained.append((name, p))
-        self.optimizer = torch.optim.AdamW(
-            [p for _, p in trained], lr=self.lr_at(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay
-        )
+        self.optimizer = make_optimizer(cfg, [p for _, p in trained], self.lr_at(0))
         self.grad_op = get_grad_op(cfg.grad_op, trained, cfg.clip_criterion)
         self.step = 0
         self.epoch = 0  # completed epochs
@@ -111,7 +131,7 @@ class Trainer:
 
     def run_step(self, inputs, targets, noise=None, epoch: float | None = None) -> dict[str, torch.Tensor]:
         """One step: forward in train mode, loss, backward, gradient
-        operation, AdamW.  ``epoch`` (1-based) defaults to the one after the
+        operation, optimiser.  ``epoch`` (1-based) defaults to the one after the
         completed epochs, as ``runners.py:357-358``.  Returns the batch-mean
         metrics (device tensors: reading them waits for the step)."""
         self.model.train()
@@ -119,7 +139,7 @@ class Trainer:
             group['lr'] = self.lr_at(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         epoch = float(self.epoch + 1 if epoch is None else epoch)
-        outputs = self.model(inputs, noise, self.generator).replace(model_epoch=epoch)
+        outputs = with_epoch(self.model(inputs, noise, self.generator), epoch)
         loss, metrics = self.objective.loss_and_metrics(outputs, targets)
         loss.backward()
         if self.grad_op is not None:
@@ -154,27 +174,33 @@ class Test:
     """An evaluation pass with averaged metrics (``runners.py:69-150``).  The
     model samples in eval too; its noise comes from a generator seeded anew
     for every pass (``seed + 17``), so two passes over the same weights
-    agree."""
+    agree.  The objective starts with an empty running state."""
 
     def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, name: str = 'Test',
                  seed: int = 0) -> None:
         self.model, self.loader, self.name = model, loader, name
         self.objective = objective.copy()
+        self.objective.reset_state()
         self.seed = seed + 17
+        self.outputs_list: list = []
 
     @torch.no_grad()
-    def __call__(self, epoch: int = 0) -> dict[str, float]:
+    def __call__(self, epoch: int = 0, store_outputs: bool = False) -> dict[str, float]:
         """Metrics over the loader's batches, with ``epoch`` (the completed
-        epochs) as ``Outputs.model_epoch``."""
+        epochs) as ``Outputs.model_epoch``; with ``store_outputs`` each
+        batch's output tensor, on the host, in ``outputs_list``."""
         self.model.eval()
         self.objective.reset_state()
+        self.outputs_list = []
         device = next(self.model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(self.seed)
         pending = []
         for inputs, targets in self.loader.batches():
-            outputs = self.model(inputs, None, generator).replace(model_epoch=float(epoch))
+            outputs = with_epoch(self.model(inputs, None, generator), float(epoch))
             self._observe(outputs)
             pending.append((self.objective.loss_and_metrics(outputs, targets)[1], _batch_size(inputs)))
+            if store_outputs:
+                self.outputs_list.append(outputs.cpu())
         for metrics, count in pending:  # read to the host once the pass is enqueued
             self.objective.update_state(metrics, count)
         return self.objective.compute_metrics()
@@ -200,6 +226,23 @@ class Diagnostic(Test):
     def _observe(self, outputs) -> None:
         usage = outputs.one_hot_idx.sum(dim=0)
         self.code_usage = usage if self.code_usage is None else self.code_usage + usage
+
+
+def make_optimizer(cfg, params: list[torch.nn.Parameter], lr: float) -> torch.optim.Optimizer:
+    """The optimiser ``cfg.optimizer_name`` names, as ``pccf/config/specs.py``
+    ``get_optimizer`` builds it: AdamW with decoupled decay, or SGD with the
+    decay added to the gradient and optional momentum (no dampening)."""
+    if cfg.optimizer_name == 'AdamW':
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+    if cfg.optimizer_name == 'SGD':
+        return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
+    raise ValueError(f'optimizer {cfg.optimizer_name!r} is not ported; pccf_torch has AdamW and SGD')
+
+
+def with_epoch(outputs, epoch: float):
+    """``outputs`` with ``model_epoch`` set where they are ``Outputs``
+    (``runners.py:69-73``); logits pass as they are."""
+    return outputs.replace(model_epoch=epoch) if isinstance(outputs, Outputs) else outputs
 
 
 def _batch_size(inputs) -> int:
