@@ -9,9 +9,26 @@ drives the three parts of the main path with the flagship model (random
 weights from ``--seed``, the composed configuration unmodified, graph
 filtering on):
 
-- serving: counterfactual requests through
-  ``pccf_torch.serve.CounterfactualServer``, checked for shapes,
-  finiteness, batch invariance and agreement with the same model on the CPU;
+- serving: counterfactual requests of 1, 5, 16, 20 and 64 clouds through
+  ``pccf_torch.serve.CounterfactualServer`` with its default buckets (1 to
+  64), checked for shapes, finiteness, batch invariance (the first request
+  again inside the batches of 16, 20 and 64), one batch a request in
+  ``stats``, the exact launches of every kernel and agreement with the same
+  model on the CPU; then ``submit`` x 5 and ``flush`` against
+  ``counterfactual`` on the same batch, a ``flush`` on a second thread while
+  submits land, four ``counterfactual_async`` requests of 16 in flight
+  (bit-equal to the synchronous ones, their host buffers pinned; the host
+  clock of the four pipelined against four sequential) and ``warmup`` over
+  every bucket (``stats`` as they were);
+- generation: ``CounterfactualServer.generate`` at 1, 16 and 70 clouds
+  (chunks of 64 and 6), without and with ``probs``, and the entry point
+  ``pccf_torch.generate.generate_random_samples`` at its batch of 16 with a
+  bias on z1, each chunk launching the W-decoder stack, PCGen and graph
+  filtering once and nothing else; determinism per seed and chunk, the three
+  kernels against their plain versions at generation's batches 1, 16 and 64
+  (the W-decoder with a z1 of one row broadcast over the code tokens and of
+  a row per code), the card against the CPU on the same host draws, warm
+  latency at batch 1 and 16 and one profiled batch-16 call;
 - stage-1 training: VQ-VAE steps through ``pccf_torch.train.Trainer``
   (batch 8, 2048 points, AdamW at lr 0.004) on a fixed batch of synthetic
   clouds under each reconstruction objective (ChamferEMD, the flagship's,
@@ -48,10 +65,11 @@ filtering on):
   at a near-tie).
 
 Each path must have launched every kernel it runs (launch counts set to 0
-just before the path and read just after); serving and every stage-1 step
-also the exact counts of the kernels graph filtering's fused pass took over
-(``SERVING_LAUNCHES``, ``STEP_LAUNCHES``), every classifier step and the
-suites the exact counts of all kernels.  A profiled stage-1 step whose trace
+just before the path and read just after); every stage-1 step also the
+exact counts of the kernels graph filtering's fused pass took over
+(``STEP_LAUNCHES``), serving (``REQUEST_LAUNCHES`` a request), generation
+(``GENERATION_KERNELS`` once a chunk), every classifier step and the suites
+the exact counts of all kernels.  A profiled stage-1 step whose trace
 holds fewer launches of a kernel than its wrapper counted (``torch.profiler``
 loses records) is traced again, up to three traces in all.
 
@@ -114,7 +132,9 @@ the device time of the row scatter's, the loss kernel's, the sum-pool's, the
 training max-pool's and the slot scatter's launches, their count checked
 against the wrapper calls) and of one validation batch, the
 warm request latency at batch 1 and 16, the step time, samples/s and peak
-memory of both stages and of the classifier, the seconds of each
+memory of both stages and of the classifier, the warm request latency at
+bucket 32 and 64, the host time of a bucket-64 chunk's draws, the warm
+generation latency at batch 1 and 16 and its device busy time, the seconds of each
 entry-point run, the validation time per batch, the suites' seconds and the
 total seconds of the run, the numbers PERF.md quotes.
 
@@ -143,6 +163,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -250,12 +271,12 @@ SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filte
 # every stage-1 step launches these, and the kernel of its reconstruction loss
 TRAINING_KERNELS = ('knn', 'graph_filter', 'graph_filter_backward', 'scatter_add_rows', 'graph_max_pool_src',
                     'scatter_add_slots', 'graph_sum_pool')
-# the exact launches of the kernels graph filtering's fused pass took over:
-# the three requests (batch 1, 5, 16) build 4 kNN graphs each in the encoder
-# and 4 in the classifier and filter once; a stage-1 step builds the
-# encoder's 4 graphs, filters once and scatters 5 times (4 sum-pool
-# backwards, the filter's backward)
-SERVING_LAUNCHES = {'knn': 24, 'gather_neighbors': 0, 'graph_filter': 3, 'graph_filter_backward': 0}
+# the exact launches of one request (one bucket): 4 kNN graphs and 4
+# max-pools each in the encoder and the classifier, the CVAE chain, PCGen and
+# graph filtering once, nothing else; a stage-1 step builds the encoder's 4
+# graphs, filters once and scatters 5 times (4 sum-pool backwards, the
+# filter's backward)
+REQUEST_LAUNCHES = {'knn': 8, 'graph_max_pool': 8, 'cvae_cf': 1, 'pcgen_mix': 1, 'graph_filter': 1}
 STEP_LAUNCHES = {'knn': 4, 'gather_neighbors': 0, 'graph_filter': 1, 'graph_filter_backward': 1,
                  'scatter_add_rows': 5}
 LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
@@ -275,6 +296,13 @@ SUITE_TIE_MARGIN = 0.05
 CLASSIFIER_STEP_KERNELS = ('knn', 'graph_sum_pool', 'graph_max_pool_src', 'scatter_add_slots', 'scatter_add_rows')
 CLASSIFIER_TRAIN, CLASSIFIER_TEST = 32, 16  # the classifier entry point's clouds (2 epochs, cut from 45)
 STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
+# generation: each chunk runs the W-decoder stack on the prior's draws, then
+# PCGen and graph filtering, once each, and nothing else; server.generate at
+# these sizes (70: chunks of 64 and of 6 at bucket 8), without and with probs,
+# then the entry point with this bias on z1
+GENERATION_KERNELS = ('wformer_decoder', 'pcgen_mix', 'graph_filter')
+GENERATION_SIZES = (1, 16, 70)
+GENERATION_BIAS = 0.5
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
 STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 (stage 1), 0.0014 / 6 (stage 2, warmup)
 VALIDATION_REPS = 3
@@ -627,14 +655,15 @@ def main() -> int:
     from pccf_torch.data import synthetic
     from pccf_torch.data.clouds import LabelledClouds
     from pccf_torch.data.processed import MAX_BATCH, CounterfactualDatasetEncoder, WDatasetWithLogits
-    from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
+    from pccf_torch.data.structures import Inputs, Outputs, Targets, WInputs, WTargets
     from pccf_torch.kernels import (_build, api, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, roofline,
                                     sinkhorn, wformer)
     from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
     from pccf_torch.evaluate_counterfactuals import evaluate_counterfactuals
     from pccf_torch.nn import ClassifierTrainModule, build_classifier
     from pccf_torch.nn.layers import gumbel_uniform, init_from_seed
-    from pccf_torch.serve import CounterfactualServer
+    from pccf_torch.generate import generate_random_samples
+    from pccf_torch.serve import CounterfactualServer, next_bucket
     from pccf_torch.train import (Loader, Test, Trainer, get_autoencoder_loss, get_classification_loss,
                                   get_w_autoencoder_loss)
     from pccf_torch.train.autoencoder import train_autoencoder
@@ -1281,15 +1310,34 @@ def main() -> int:
                          f'share {row[2]["bound_ms"] / row[0]:.1%})')
 
     # ---- the main path, serving: a server answering requests -------------
-    server = CounterfactualServer(vqvae, classifier, buckets=(1, 2, 4, 8, 16), seed=args.seed)
+    # the server's default buckets (1, 2, 4, 8, 16, 32, 64): requests of 1,
+    # 5 (bucket 8), 16, 20 (bucket 32) and 64, the first request again inside
+    # the last three; the extra clouds come from a generator of their own, so
+    # every later phase draws what it drew before
+    server = CounterfactualServer(vqvae, classifier, seed=args.seed)
+    check(server.buckets == (1, 2, 4, 8, 16, 32, 64), f'server buckets {server.buckets}')
     clouds = (rng.standard_normal((22, n, 3)) / 2).astype(np.float32)
+    serve_rng = np.random.default_rng([args.seed, 12])
+    extra = (serve_rng.standard_normal((63, n, 3)) / 2).astype(np.float32)
+
+    def with_first(cl: np.ndarray, at: int, seed0: int) -> tuple:
+        """``cl`` with the first request's cloud (target 1, seed 11) at ``at``."""
+        m = cl.shape[0] + 1
+        tdim, seeds = np.arange(m) % 2, seed0 + np.arange(m)
+        tdim[at], seeds[at] = 1, 11
+        return np.concatenate([cl[:at], clouds[:1], cl[at:]]), tdim, seeds
+
     requests = [
         (clouds[:1], np.asarray([1]), np.asarray([11])),
         (clouds[1:6], np.asarray([0, 1, 0, 1, 1]), np.asarray([21, 22, 3, 24, 25])),
         # the first request again, at position 7 of a full batch
         (np.concatenate([clouds[6:13], clouds[:1], clouds[13:21]]),
          np.arange(16) % 2 | (np.arange(16) == 7), np.concatenate([np.arange(100, 107), [11], np.arange(107, 115)])),
+        with_first(clouds[1:20], 13, 300),  # 20: one batch of bucket 32, padded by 12
+        with_first(extra, 40, 400),  # 64: the largest bucket, full
     ]
+    first_at = {2: 7, 3: 13, 4: 40}
+    served_before = dict(server.stats)
     api.reset_launch_counts()
     outs, req_ms = [], []
     for cl, tdim, seeds in requests:
@@ -1301,20 +1349,32 @@ def main() -> int:
     for (cl, _, _), out in zip(requests, outs):
         check(out.shape == (cl.shape[0], cfg.data.n_target_points, 3) and bool(np.isfinite(out).all()),
               f'request of {cl.shape[0]}: output {out.shape} finite')
-    diff = float(np.abs(outs[0][0] - outs[2][7]).max() / (np.sqrt(np.mean(outs[0] ** 2)) + 1e-12))
-    check(diff <= BATCH_INVARIANCE, f'request alone vs inside a batch of 16: rel max diff {diff:.2e}')
+    for i, at in first_at.items():
+        diff = float(np.abs(outs[0][0] - outs[i][at]).max() / (np.sqrt(np.mean(outs[0] ** 2)) + 1e-12))
+        check(diff <= BATCH_INVARIANCE, f'request alone vs at {at} of a batch of {len(requests[i][0])} (bucket '
+                                        f'{next_bucket(len(requests[i][0]), server.buckets)}): rel max diff {diff:.2e}')
+    sizes = [len(r[0]) for r in requests]
+    buckets = [next_bucket(s, server.buckets) for s in sizes]
+    check(server.stats == {'served': served_before['served'] + sum(sizes),
+                           'batches': served_before['batches'] + len(sizes),
+                           'padded': served_before['padded'] + sum(buckets) - sum(sizes)},
+          f'serving stats {server.stats}: one batch a request, buckets {buckets}')
     for name in SERVING_KERNELS:
         check(launches[name] > 0, f'{name}: {launches[name]} launches on the serving path')
-    for name, count in SERVING_LAUNCHES.items():
-        check(launches[name] == count, f'{name}: {launches[name]} launches on the serving path == {count}')
-    print(f'request ms (batch 1, 5, 16; host clock incl. copies): {[round(v, 3) for v in req_ms]}', flush=True)
-    for i in (0, 2):  # warm requests, batch 1 and batch 16: device time by kernel, then latency
+    for name in KERNEL_INFO:
+        want = REQUEST_LAUNCHES.get(name, 0) * len(requests)
+        check(launches[name] == want, f'{name}: {launches[name]} launches on the serving path == {want}')
+    print(f'request ms (batch {", ".join(map(str, sizes))}; host clock incl. copies): '
+          f'{[round(v, 3) for v in req_ms]}', flush=True)
+    for i in (0, 2, 3, 4):  # warm requests, batch 1, 16, 20, 64: device time by kernel (1, 16), then latency
         cl, tdim, seeds = requests[i]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            server.counterfactual(cl, tdim, sampling_seed=seeds)
-            torch.cuda.synchronize()
-        print(f'profile of one batch-{cl.shape[0]} request:', flush=True)
-        print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=12, max_name_column_width=50), flush=True)
+        if i in (0, 2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                server.counterfactual(cl, tdim, sampling_seed=seeds)
+                torch.cuda.synchronize()
+            print(f'profile of one batch-{cl.shape[0]} request:', flush=True)
+            print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=12, max_name_column_width=50),
+                  flush=True)
         times = []
         for _ in range(REPS):
             t0 = time.perf_counter()
@@ -1322,8 +1382,18 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         q1, med, q3 = np.percentile(times, [25, 50, 75])
-        print(f'warm request batch {cl.shape[0]}: median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms '
-              f'over {REPS} (host clock incl. copies)', flush=True)
+        print(f'warm request batch {cl.shape[0]} (bucket {next_bucket(cl.shape[0], server.buckets)}): median '
+              f'{med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms over {REPS} (host clock incl. copies)', flush=True)
+    # the decoder scaffold of a bucket-64 chunk on the host: 64 generators and
+    # their draws, then one copy to the card
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server.initial_sampling(np.arange(64))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f'request scaffold of a bucket-64 chunk on the host: median {np.median(times):.3f} ms over 5 (64 '
+          f'generators, (64, {n}, {vqvae.decoder.sample_dim}) draws and their copy)', flush=True)
 
     # ---- card vs CPU on a batch of 2 --------------------------------------
     pair = torch.from_numpy(clouds[1:3])
@@ -1351,6 +1421,229 @@ def main() -> int:
     if same.any():
         r = rel_l2(gpu[2][same], cpu[2][same])
         check(r <= RECON_REL_L2, f'card vs CPU recon rel L2 {r:.3e} <= {RECON_REL_L2}')
+
+    # ---- serving: microbatching, requests in flight, warmup ---------------
+    # submit x 5 (two without logits) then flush: equal to counterfactual on
+    # the same batch; then a flush on a second thread while five submits land
+    mb = (serve_rng.standard_normal((8, n, 3)) / 2).astype(np.float32)
+    mb_tdim, mb_seeds = np.arange(8) % 2, 200 + np.arange(8)
+    mb_logits = server.classify(mb)
+    tickets = [server.submit(mb[i], int(mb_tdim[i]), None if i in (1, 3) else mb_logits[i], 1.0, int(mb_seeds[i]))
+               for i in range(5)]
+    flushed = server.flush()
+    direct = server.counterfactual(mb[:5], mb_tdim[:5], None, 1.0, mb_seeds[:5])
+    scale = np.sqrt(np.mean(direct ** 2)) + 1e-12
+    diff = max(float(np.abs(flushed[t] - direct[i]).max() / scale) for i, t in enumerate(tickets)) \
+        if sorted(flushed) == tickets else float('inf')
+    check(diff <= BATCH_INVARIANCE and server.flush() == {},
+          f'submit x 5 (2 without logits), flush: tickets {sorted(flushed)}, rel max diff to counterfactual on '
+          f'the batch {diff:.2e} <= {BATCH_INVARIANCE}, the queue drained')
+    early = [server.submit(mb[i], int(mb_tdim[i]), mb_logits[i], 1.0, int(mb_seeds[i])) for i in range(3)]
+    thread_results, thread_errors = {}, []
+
+    def flush_on_thread() -> None:
+        try:
+            thread_results.update(server.flush())
+        except Exception as e:  # reported by the check below
+            thread_errors.append(repr(e))
+
+    worker = threading.Thread(target=flush_on_thread)
+    worker.start()
+    late = [server.submit(mb[i], int(mb_tdim[i]), mb_logits[i], 1.0, int(mb_seeds[i])) for i in range(3, 8)]
+    worker.join(timeout=300)
+    rest = server.flush()
+    served = {**thread_results, **rest}
+    direct = server.counterfactual(mb, mb_tdim, mb_logits, 1.0, mb_seeds)
+    once = not (set(thread_results) & set(rest)) and sorted(served) == sorted(early + late)
+    diff = max(float(np.abs(served[t] - direct[i]).max() / scale) for i, t in enumerate(early + late)) \
+        if once else float('inf')
+    check(not worker.is_alive() and not thread_errors and once and diff <= BATCH_INVARIANCE,
+          f'flush on a second thread while 5 submits land: it served {len(thread_results)}, the next flush '
+          f'{len(rest)}, each ticket once {once}, errors {thread_errors}; rel max diff to the batch of 8 {diff:.2e}')
+
+    # counterfactual_async: four requests of 16 in flight, each equal to its
+    # synchronous result; then the host clock of four pipelined requests
+    # against four sequential ones (logits given: no classification waits)
+    a_clouds = (serve_rng.standard_normal((4, 16, n, 3)) / 2).astype(np.float32)
+    a_logits = [server.classify(c) for c in a_clouds]
+    a_args = [(c, np.arange(16) % 2, lg, 1.0, 500 + 16 * i + np.arange(16)) for i, (c, lg) in
+              enumerate(zip(a_clouds, a_logits))]
+    sync = [server.counterfactual(*a) for a in a_args]
+    futures = [server.counterfactual_async(*a) for a in a_args]
+    pinned = all(host.is_pinned() for f in futures for _, host, _ in f._parts)
+    got = [f.result() for f in futures]
+    equal = all(np.array_equal(g, s) for g, s in zip(got, sync))
+    check(equal and pinned, f'counterfactual_async: 4 requests of 16 in flight, each bit-equal to its synchronous '
+                            f'result {equal}, host buffers pinned {pinned}')
+    seq_ms, pipe_ms = [], []
+    for _ in range(5):
+        for pipelined, record in ((False, seq_ms), (True, pipe_ms)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if pipelined:
+                [f.result() for f in [server.counterfactual_async(*a) for a in a_args]]
+            else:
+                [server.counterfactual(*a) for a in a_args]
+            record.append((time.perf_counter() - t0) * 1e3)
+    print(f'4 requests of 16: sequential median {np.median(seq_ms):.3f} ms (quartiles '
+          f'{np.percentile(seq_ms, 25):.3f} / {np.percentile(seq_ms, 75):.3f}), pipelined median '
+          f'{np.median(pipe_ms):.3f} ms (quartiles {np.percentile(pipe_ms, 25):.3f} / '
+          f'{np.percentile(pipe_ms, 75):.3f}), over 5 of each in turns (host clock)', flush=True)
+
+    # warmup over every bucket: stats as they were
+    before = dict(server.stats)
+    t0 = time.perf_counter()
+    server.warmup(n, cfg.data.n_classes)
+    torch.cuda.synchronize()
+    check(server.stats == before, f'warmup over buckets {server.buckets} in {time.perf_counter() - t0:.2f} s: '
+                                  f'stats {server.stats} as before')
+
+    # ---- the main path, generation: sampling from the prior --------------
+    # server.generate at n = 1, 16 and 70 (chunks of 64 and 6, the second at
+    # bucket 8), without and with probs, then the entry point at its
+    # configured batch of 16 with a bias on z1; every chunk launches the
+    # W-decoder stack, the fused PCGen and graph filtering once and nothing
+    # else.  Its draws come from generators of their own
+    gen_rng = np.random.default_rng([args.seed, 13])
+    gen_seed, n_classes = args.seed + 3, cfg.data.n_classes
+    gen_cfg = dataclasses.replace(cfg, user=dataclasses.replace(
+        cfg.user, generate=dataclasses.replace(cfg.user.generate, bias_value=GENERATION_BIAS)))
+    gen_probs = {s: gen_rng.dirichlet(np.ones(n_classes), s).astype(np.float32) for s in GENERATION_SIZES}
+    api.reset_launch_counts()
+    gen_outs, gen_ms = {}, {}
+    for s in GENERATION_SIZES:
+        for given in (False, True):
+            t0 = time.perf_counter()
+            gen_outs[s, given] = server.generate(s, probs=gen_probs[s] if given else None, seed=gen_seed)
+            gen_ms[s, given] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    entry = generate_random_samples(gen_cfg, vqvae, seed=args.seed, device=dev)
+    gen_ms['entry'] = (time.perf_counter() - t0) * 1e3
+    gen_launches = api.launch_counts()
+    chunks = 2 * sum(-(-s // next_bucket(s, server.buckets)) for s in GENERATION_SIZES) + 1
+    for name in KERNEL_INFO:
+        want = chunks if name in GENERATION_KERNELS else 0
+        check(gen_launches[name] == want, f'{name}: {gen_launches[name]} launches on the generation path == {want} '
+                                          f'({chunks} chunks)')
+    for (s, given), out in gen_outs.items():
+        check(out.shape == (s, cfg.data.n_target_points, 3) and bool(np.isfinite(out).all()),
+              f'generate {s}{" with probs" if given else ""}: output {out.shape} finite')
+    check(entry.shape == (cfg.user.generate.batch_size, cfg.data.n_target_points, 3)
+          and bool(np.isfinite(entry).all()),
+          f'generate_random_samples, bias {GENERATION_BIAS} on z1 column {cfg.user.generate.bias_dim}: output '
+          f'{entry.shape} finite')
+    print('generation ms, first calls (host clock incl. copies): ' + json.dumps(
+        {f'{k[0]}{" probs" if k[1] else ""}' if isinstance(k, tuple) else k: round(v, 3)
+         for k, v in gen_ms.items()}), flush=True)
+    again = server.generate(16, seed=gen_seed)
+    other = server.generate(16, seed=gen_seed + 1)
+    check(np.array_equal(again, gen_outs[16, False]) and float(np.abs(other - again).max()) > 1e-4
+          and np.array_equal(generate_random_samples(gen_cfg, vqvae, seed=args.seed, device=dev), entry),
+          'generation: the same seed gives the same clouds (server and entry point), another seed other clouds')
+    whole = gen_outs[70, False]
+    head = server.generate(64, seed=gen_seed)
+    apart = min(float(np.abs(whole[64:] - server.generate(6, seed=gen_seed + k)).max()) for k in range(1, 4))
+    check(np.array_equal(whole[:64], head) and apart > 1e-5,
+          f'generation chunks: the first chunk of 70 equals generate(64) of its seed, the second (6 at bucket 8) '
+          f'none of generate(6) of seeds +1..+3 (min max |diff| {apart:.3e})')
+
+    # the three kernels against their plain versions at generation's shapes:
+    # the W-decoder with a z1 of one row broadcast over the code tokens (the
+    # server's) and of a row per code (the entry point's), PCGen on the
+    # generated codes, graph filtering on its output
+    wae_g, dec_g = vqvae.w_autoencoder, vqvae.decoder
+    wd = wae_g.decoder
+    with torch.inference_mode():
+        for bb in (1, 16, 64):
+            noise_b, sampling = server.generation_draws(bb, gen_seed, 0)
+            (eps1, eps2, prior), sampling = (x.to(dev) for x in noise_b), sampling.to(dev)
+            bias = torch.zeros((bb, wd.n_codes, wae_g.z1_dim), device=dev)
+            bias[:, :, cfg.user.generate.bias_dim] = GENERATION_BIAS
+            p_mu2, p_log_var2 = wae_g.z2_prior(prior).chunk(2, dim=2)
+            z2 = eps2 * torch.exp(0.5 * p_log_var2) + p_mu2
+            shape = (bb, wd.n_codes, wd.proj_dim)
+            spack = wformer.pack_decoder(wd.layers)
+            x = (wd.z2_proj(z2).expand(shape) + wd.positional_embedding).contiguous()
+            for form, z1 in (('z1 one row broadcast', eps1), ('z1 a row per code', eps1 + bias)):
+                memory = (wd.z1_proj(z1).expand(shape) + wd.memory_positional_embedding).contiguous()
+                run_k = functools.partial(wformer.wformer_decoder_cuda, x, memory, spack, wd.n_heads)
+                run_p = functools.partial(wformer.plain_decoder, x, memory, spack, wd.n_heads)
+                got, want = run_k(), run_p()
+                r = rel_l2(got, want)
+                kernels['wformer_decoder']['max_abs_err'] = max(kernels['wformer_decoder']['max_abs_err'],
+                                                                float((got - want).abs().max()))
+                check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+                      f'wformer_decoder generation B={bb}, {form}: rel L2 {r:.3e} <= {CVAE_REL_L2}; '
+                      f'{time_ms(run_k, REPS):.4f} ms (plain {time_ms(run_p, REPS):.4f})')
+            codes = wae_g.decode(Outputs(z1=eps1, z2=z2, probs=prior), vqvae.codebook).idx
+            w = ops.vq_lookup(codes, vqvae.codebook).contiguous()
+            m = sampling
+            for block in dec_g.map:
+                m = block(m)
+            m = m.contiguous()
+            run_k = functools.partial(pcgen.pcgen_mix_cuda, m, w, dec_g.packed, tau=dec_g.tau, act_slope=0.0)
+            run_p = functools.partial(pcgen.plain, m, w, dec_g.packed, tau=dec_g.tau, act_slope=0.0)
+            mixed, want = run_k(), run_p()
+            r = rel_l2(mixed, want)
+            kernels['pcgen_mix']['max_abs_err'] = max(kernels['pcgen_mix']['max_abs_err'],
+                                                      float((mixed - want).abs().max()))
+            check(r <= PCGEN_REL_L2 and bool(torch.isfinite(mixed).all()),
+                  f'pcgen_mix generation B={bb}: rel L2 {r:.3e} <= {PCGEN_REL_L2}; {time_ms(run_k, REPS):.4f} ms '
+                  f'(plain {time_ms(run_p, REPS):.4f})')
+            mixed = mixed.contiguous()
+            out, idx, mean = graph_filter.graph_filter_cuda(mixed)
+            want = ops.graph_filtering_with_idx(mixed, idx)
+            r, same_idx = rel_max(out, want), torch.equal(idx, knn.knn_cuda(mixed, 4))
+            kernels['graph_filter']['max_abs_err'] = max(kernels['graph_filter']['max_abs_err'],
+                                                         float((out - want).abs().max()))
+            check(same_idx and r <= FILTER_REL_MAX,
+                  f'graph_filter generation B={bb}: indices equal knn_cuda(x, 4)\'s {same_idx}, rel max diff '
+                  f'{r:.2e} <= {FILTER_REL_MAX}; {time_ms(lambda: graph_filter.graph_filter_cuda(mixed), REPS):.4f} '
+                  f'ms (plain {time_ms(lambda: graph_filter.plain(mixed), REPS):.4f})')
+
+    # card against CPU at batch 2 on the same host draws, z1 of one row and
+    # of a row per code
+    noise, sampling = server.generation_draws(2, gen_seed, 0)
+    row_bias = torch.zeros((2, wd.n_codes, wae_g.z1_dim))
+    row_bias[:, :, cfg.user.generate.bias_dim] = GENERATION_BIAS
+    for form, z1_bias in (('one-row z1', 0.0), ('z1 a row per code', row_bias)):
+        with torch.inference_mode():
+            g_card = vqvae.generate(2, sampling, z1_bias, None, noise)
+            g_cpu = cpu_vqvae.generate(2, sampling, z1_bias, None, noise)
+        agree = float((g_card.idx.cpu() == g_cpu.idx).float().mean())
+        same = (g_card.idx.cpu() == g_cpu.idx).all(dim=1)
+        r = rel_l2(g_card.recon.cpu()[same], g_cpu.recon[same]) if same.any() else float('inf')
+        check(agree >= CODE_AGREEMENT and bool(same.any()) and r <= RECON_REL_L2,
+              f'generation card vs CPU, {form}: code agreement {agree:.4f} >= {CODE_AGREEMENT}, recon rel L2 '
+              f'{r:.3e} <= {RECON_REL_L2} over the {int(same.sum())} of 2 samples with all codes equal')
+
+    # warm generation at batch 1 and 16: latency, then one profiled call
+    for bb in (1, 16):
+        times = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            server.generate(bb, seed=gen_seed)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        q1, med, q3 = np.percentile(times, [25, 50, 75])
+        print(f'warm generate batch {bb}: median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} ms over {REPS} '
+              f'(host clock incl. copies)', flush=True)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server.generation_draws(64, gen_seed, 0)
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f'generation draws of a bucket-64 chunk on the host: median {np.median(times):.3f} ms over 5', flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.generate(16, seed=gen_seed)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    print('profile of one batch-16 generate:', flush=True)
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=12, max_name_column_width=50), flush=True)
+    events = device_events(prof)
+    print(f'generate batch 16, device: busy {summed_ms(events):.3f} ms in {len(events)} activities (their union '
+          f'{busy_ms(events):.3f} ms); host clock {host_ms:.3f} ms (profiled)', flush=True)
 
     # ---- the main path, training: stage-1 steps of the flagship VQ-VAE ---
     # under the flagship's ChamferEMD objective, then under Chamfer and
@@ -1963,10 +2256,12 @@ def main() -> int:
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
           f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
-          f'evaluation suites {json.dumps(suite_launches)}', flush=True)
-    paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches)
+          f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}', flush=True)
+    paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
+             gen_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
-          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites', flush=True)
+          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation',
+          flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

@@ -10,7 +10,7 @@ The slices cover the flagship unmodified: counterfactual serving with graph
 filtering on, stage-1 training of the VQ-VAE under its three reconstruction
 objectives (ChamferEMD, the flagship's, and the Chamfer and ChamferSinkhorn
 alternatives), stage-2 training of the inner W-autoencoder, classifier
-training and the counterfactual evaluation suites.
+training, the counterfactual evaluation suites and generation from the prior.
 """
 
 from __future__ import annotations
@@ -174,10 +174,20 @@ class AutoEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GenerateConfig:
+    """Sampling from the generative prior (``generate.py``)."""
+
+    batch_size: int = 16  # user/user_settings.yaml:26
+    bias_dim: int = 0  # user/user_settings.yaml:27, the z1 column ``bias_value`` is added to
+    bias_value: float = 0.0  # user/user_settings.yaml:28 (0: no bias)
+
+
+@dataclasses.dataclass(frozen=True)
 class UserConfig:
     # user/user_settings.yaml:21, how far the suites' counterfactuals move the
     # class probabilities towards the target (1: all the way)
     counterfactual_value: float = 1.0
+    generate: GenerateConfig = GenerateConfig()  # user/user_settings.yaml:25
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,34 @@
+"""Random samples from the generative prior (``generate.py``).
+
+The entry point samples z1 and z2 from the priors (the Dirichlet class
+condition on the conditional model), decodes them through the codebook and
+PCGen, and returns the clouds.  Rendering, checkpoint loading and the Hydra
+CLI are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pccf_torch.config import SliceConfig
+from pccf_torch.models.autoencoders import VQVAE
+
+
+def generate_random_samples(cfg: SliceConfig, vqvae: VQVAE, seed: int = 0,
+                            device: torch.device | str = 'cuda') -> np.ndarray:
+    """``cfg.user.generate.batch_size`` clouds ``(B, n_inference_output_points,
+    3)`` from the priors (``generate.py:17-46``), with ``bias_value`` added to
+    column ``bias_dim`` of every z1 row.  The model moves to ``device``, the
+    card unless the caller asks for the CPU; the draws come from a host
+    generator seeded by ``seed``, so both devices see the same numbers."""
+    gen_cfg, n_codes, z1_dim = cfg.user.generate, cfg.autoencoder.n_codes, cfg.w_autoencoder.z1_dim
+    z1_bias = torch.zeros((gen_cfg.batch_size, n_codes, z1_dim))
+    if gen_cfg.bias_value:
+        if not 0 <= gen_cfg.bias_dim < z1_dim:
+            raise ValueError(f'user.generate.bias_dim={gen_cfg.bias_dim} is out of range for z1_dim={z1_dim}')
+        z1_bias[:, :, gen_cfg.bias_dim] = gen_cfg.bias_value
+    vqvae = vqvae.to(device).eval()
+    with torch.inference_mode():
+        out = vqvae.generate(gen_cfg.batch_size, None, z1_bias, generator=torch.Generator().manual_seed(seed))
+    return out.recon.float().cpu().numpy()

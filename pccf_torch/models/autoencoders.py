@@ -1,6 +1,7 @@
 """VQ-VAE (``pccf/models/autoencoders.py``): the serving path, the stage-1
-reconstruction path that training differentiates, and the double
-reconstruction through the inner CVAE that the evaluation suites run."""
+reconstruction path that training differentiates, the double
+reconstruction through the inner CVAE that the evaluation suites run, and
+generation from the priors."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Inputs, Outputs, WInputs
 from pccf_torch.kernels import ops
 from pccf_torch.kernels.cvae import pack_cvae_cf
-from pccf_torch.models.w_autoencoders import WAutoEncoder, build_w_autoencoder
+from pccf_torch.models.w_autoencoders import GenerationNoise, WAutoEncoder, build_w_autoencoder
 from pccf_torch.nn.decoders import PCGenDecoder, build_decoder
 from pccf_torch.nn.encoders import DGCNNEncoder
 from pccf_torch.nn.layers import get_act, gumbel_uniform
@@ -131,6 +132,32 @@ class VQVAE(nn.Module):
         data = self.w_autoencoder.generate_counterfactual(
             WInputs(w_q, sample_logits), self.codebook, target_dim, target_value
         )
+        return self._decode_from_idx(data, inputs)
+
+    def generate(
+        self,
+        batch_size: int = 1,
+        initial_sampling: torch.Tensor | None = None,
+        z1_bias: float | torch.Tensor = 0.0,
+        probs: torch.Tensor | None = None,
+        noise: GenerationNoise | None = None,
+        generator: torch.Generator | None = None,
+    ) -> Outputs:
+        """Sample the codes from the priors, decode them
+        (``autoencoders.py:124-137``).  ``noise`` (the latent draws, see
+        :meth:`WAutoEncoder.sample_noise`) and then ``initial_sampling``
+        ``(B, n_inference_output_points, sample_dim)`` are drawn from
+        ``generator`` where not given, on its device, and moved to the
+        model's."""
+        data = self.w_autoencoder.generate_discrete_latent_space(
+            self.codebook, z1_bias, batch_size, probs, noise, generator)
+        dev = self.codebook.device
+        if initial_sampling is None:
+            if generator is None:
+                raise ValueError('generation: pass the initial sampling or a torch.Generator to draw it')
+            shape = (batch_size, self.n_inference_output_points, self.decoder.sample_dim)
+            initial_sampling = torch.randn(shape, generator=generator, device=generator.device)
+        inputs = Inputs(cloud=torch.zeros((batch_size, 1, 3), device=dev), initial_sampling=initial_sampling.to(dev))
         return self._decode_from_idx(data, inputs)
 
     def _decode_from_idx(self, data: Outputs, inputs: Inputs) -> Outputs:

@@ -1,5 +1,6 @@
 """Conditional inner CVAE (``pccf/models/w_autoencoders.py``): the training
-forward of stage 2 and the deterministic counterfactual path."""
+forward of stage 2, the deterministic counterfactual path and sampling from
+the priors."""
 
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ from pccf_torch.nn.w_networks import (
 )
 
 Noise = tuple[torch.Tensor, torch.Tensor]  # the standard normal draws of z1 and z2
+# generation's draws: z1's and z2's standard normal and the class prior's probabilities
+GenerationNoise = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 class WAutoEncoder(nn.Module):
@@ -123,6 +126,61 @@ class WAutoEncoder(nn.Module):
             return Outputs(probs=probs, w_recon=w_recon, idx=idx, w_dist_2=w_dist_2)
         data = self.encode_z2(x, self.encode_z1(x).replace(probs=probs))
         return self.decode(data.replace(z1=data.mu1, z2=data.p_mu2 + data.d_mu2), codebook)
+
+    def generate_discrete_latent_space(
+        self,
+        codebook: torch.Tensor,
+        z1_bias: float | torch.Tensor = 0.0,
+        batch_size: int = 1,
+        probs: torch.Tensor | None = None,
+        noise: GenerationNoise | None = None,
+        generator: torch.Generator | None = None,
+    ) -> Outputs:
+        """Sample z1 and z2 from the priors and decode to code indices
+        (``w_autoencoders.py:195-212``): ``z1`` the standard normal draw plus
+        ``z1_bias`` (a float, or a tensor broadcast to ``(B, n_codes,
+        z1_dim)``, which gives z1 a row per code), the class probabilities
+        ``probs`` or the prior's draw, ``z2 = ε · exp(½ log σ²) + μ`` from
+        the conditional prior.  ``noise`` holds the draws (see
+        :meth:`sample_noise`); drawn from ``generator`` where not given."""
+        if noise is None:
+            if generator is None:
+                raise ValueError('generation: pass the noise or a torch.Generator to draw it')
+            noise = self.sample_noise(batch_size, generator)
+        dev = codebook.device
+        eps1, eps2, prior_probs = (x.to(dev) for x in noise)
+        z1 = eps1 + (z1_bias.to(dev) if isinstance(z1_bias, torch.Tensor) else z1_bias)
+        probs = prior_probs if probs is None else probs.to(dev)
+        p_mu2, p_log_var2 = self.z2_prior(probs).chunk(2, dim=2)
+        z2 = eps2 * torch.exp(0.5 * p_log_var2) + p_mu2
+        return self.decode(Outputs(z1=z1, z2=z2, probs=probs), codebook)
+
+    def sample_noise(self, batch_size: int, generator: torch.Generator) -> GenerationNoise:
+        """The draws of :meth:`generate_discrete_latent_space` on the
+        generator's device, made in JAX's order (z1's standard normal ``(B,
+        1, z1_dim)``, the class probabilities ``(B, n_classes)``, z2's
+        standard normal ``(B, n_codes, z2_dim)``) and returned as ``(z1's,
+        z2's, the probabilities)``."""
+        eps1 = self.sample_z1_prior(batch_size, generator)
+        probs = self.sample_prob(batch_size, generator)
+        eps2 = torch.randn((batch_size, self.n_codes, self.z2_dim), generator=generator, device=generator.device)
+        return eps1, eps2, probs
+
+    def sample_z1_prior(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """A standard normal ``(B, 1, z1_dim)`` (``w_autoencoders.py:214-223``;
+        the port has no pseudo-inputs)."""
+        return torch.randn((batch_size, 1, self.z1_dim), generator=generator, device=generator.device)
+
+    def sample_prob(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
+        """Class probabilities ``(B, n_classes)`` (``w_autoencoders.py:225-231``):
+        Dirichlet(1) for the conditional model, else uniform.  With every
+        concentration 1 the Dirichlet is i.i.d. Exp(1) draws divided by their
+        sum, drawn with ``exponential_`` because
+        ``torch.distributions.Dirichlet.sample`` takes no generator."""
+        if not self.conditional:
+            return torch.full((batch_size, self.n_classes), 1.0 / self.n_classes, device=generator.device)
+        e = torch.empty((batch_size, self.n_classes), device=generator.device).exponential_(generator=generator)
+        return e / e.sum(dim=1, keepdim=True)
 
     def fused_ok(self) -> bool:
         """The gate of the fused chain (``w_autoencoders.py:130-144``): transformer

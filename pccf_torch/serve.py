@@ -4,29 +4,45 @@ Kept from the JAX server:
 
 - :meth:`CounterfactualServer.classify` and
   :meth:`CounterfactualServer.counterfactual`, with request batches padded to
-  the smallest bucket that fits (oversize batches run in bucket-size chunks);
+  the smallest bucket that fits, ``(1, 2, 4, 8, 16, 32, 64)`` by default
+  (oversize batches run in bucket-size chunks);
 - per-request determinism (``serve.py:23-26``): the decoder's
   ``initial_sampling`` of each request is drawn from a ``torch.Generator``
   seeded by ``(server seed, request seed)``, so a request's output does not
   depend on how it was batched or padded.  The numbers differ from JAX's
   ``fold_in`` draws.
+- :meth:`CounterfactualServer.counterfactual_async`, which dispatches every
+  chunk, schedules each result's copy into pinned host memory and returns a
+  :class:`ServeFuture` without waiting; :meth:`counterfactual` is its
+  ``result()``;
+- :meth:`CounterfactualServer.generate`, samples from the generative prior,
+  deterministic per (bucket, seed, chunk);
+- microbatching: single clouds queued by :meth:`submit` run as one batch in
+  :meth:`flush`, which may be called from another thread;
+- :meth:`CounterfactualServer.warmup`, which drives every entry point once
+  per bucket and leaves ``stats`` as they were;
 - the weights the fused paths read are folded once, when the server starts
   (the ``packed`` cache of ``serve.py:315-328``).
 
-Microbatching, the asynchronous path, the mesh and the bf16 weight cast are
-not ported yet.
+The mesh and the bf16 weight cast are not ported yet.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
 
 from pccf_torch.data.structures import Inputs
+from pccf_torch.models.w_autoencoders import GenerationNoise
 
-DEFAULT_BUCKETS = (1, 2, 4, 8, 16)
+DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+# the spawn key of generation's seed sequences: their entropy is then longer
+# than any request's (server seed, request seed), so the streams of the two
+# never coincide
+GENERATION_STREAM = 1
 
 
 def next_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -42,9 +58,36 @@ def pad_batch(x: np.ndarray, b: int) -> np.ndarray:
     return np.pad(x, [(0, b - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
 
 
+def _host_generator(entropy: list[int], spawn_key: tuple[int, ...] = ()) -> torch.Generator:
+    state = np.random.SeedSequence(entropy, spawn_key=spawn_key).generate_state(2, np.uint32)
+    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
+
+
+class ServeFuture:
+    """An in-flight counterfactual request: each chunk's recon on the device,
+    its copy into pinned host memory and the event recorded after that copy
+    (none on the CPU, where the parts are ready at once).  :meth:`result`
+    waits for the events and concatenates the chunks in request order; the
+    future holds the device tensors and the host buffers until then."""
+
+    def __init__(self, parts: list[tuple[torch.Tensor, torch.Tensor, torch.cuda.Event | None]]) -> None:
+        self._parts = parts  # [(device recon of the valid rows, host copy, event), ...]
+
+    def result(self) -> np.ndarray:
+        outs = []
+        for _, host, event in self._parts:
+            if event is not None:
+                event.synchronize()
+            outs.append(host.numpy())
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
+
+
 class CounterfactualServer:
     """Serve counterfactual generation (and classification) from a VQ-VAE and
-    an optional classifier, both already on ``device``."""
+    an optional classifier, both already on ``device``.  ``classify``,
+    ``counterfactual``, ``generate``, ``submit`` and ``flush`` may be called
+    from several threads; each public method runs in inference mode on the
+    thread that calls it (PyTorch keeps that mode per thread)."""
 
     def __init__(
         self,
@@ -62,22 +105,49 @@ class CounterfactualServer:
         self.seed = int(seed)
         self.n_out = int(vqvae.n_inference_output_points)
         self.sample_dim = int(vqvae.decoder.sample_dim)
+        # guards ticket minting and the queue: flush() serves a snapshot
+        # while submits from other threads land
+        self._queue: list[tuple[int, np.ndarray, np.ndarray | None, int, float, int]] = []
+        self._next_ticket = 0
+        self._queue_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
         self.stats: dict[str, Any] = {'served': 0, 'batches': 0, 'padded': 0}
         vqvae.prepack()
 
-    def _tensor(self, x: np.ndarray, dtype=torch.float32) -> torch.Tensor:
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """Move a host tensor to the server's device; to the card through
+        pinned memory without waiting (a pageable source would wait for the
+        device work already queued)."""
+        if self.device.type == 'cuda':
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _tensor(self, x: np.ndarray, dtype: np.dtype = np.float32) -> torch.Tensor:
+        return self._to_device(torch.from_numpy(np.array(x, dtype=dtype)))
 
     def initial_sampling(self, seeds: np.ndarray) -> torch.Tensor:
         """``(len(seeds), n_out, sample_dim)`` decoder scaffold, one generator
         per request seeded by (server seed, request seed)."""
-        draws = []
-        for s in seeds:
-            state = np.random.SeedSequence([self.seed, int(s)]).generate_state(2, np.uint32)
-            gen = torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
-            draws.append(torch.randn((self.n_out, self.sample_dim), generator=gen))
-        return torch.stack(draws).to(self.device)
+        draws = [torch.randn((self.n_out, self.sample_dim), generator=_host_generator([self.seed, int(s)]))
+                 for s in seeds]
+        return self._to_device(torch.stack(draws))
 
+    def generation_draws(self, b: int, seed: int, chunk: int) -> tuple[GenerationNoise, torch.Tensor]:
+        """The latent draws and the decoder scaffold of one generation chunk
+        at bucket ``b``, on the host from one generator seeded by (server
+        seed, seed, chunk) under generation's own spawn key."""
+        gen = _host_generator([self.seed, int(seed), int(chunk)], (GENERATION_STREAM,))
+        noise = self.vqvae.w_autoencoder.sample_noise(b, gen)
+        return noise, torch.randn((b, self.n_out, self.sample_dim), generator=gen)
+
+    def _bump_stats(self, n: int, b: int) -> None:
+        # read-modify-write on plain ints: concurrent requests would undercount
+        with self._stats_lock:
+            self.stats['served'] += n
+            self.stats['batches'] += 1
+            self.stats['padded'] += b - n
+
+    # ------------------------------------------------------------- direct
     @torch.inference_mode()
     def classify(self, clouds: np.ndarray) -> np.ndarray:
         """Logits ``(B, n_classes)`` for a batch of clouds."""
@@ -104,6 +174,24 @@ class CounterfactualServer:
         ``target_dim`` / ``target_value`` / ``sampling_seed`` may be scalars or
         per-sample arrays; without ``logits`` the server's classifier gives
         them.  The same request gives the same output however it is batched."""
+        return self.counterfactual_async(clouds, target_dim, logits, target_value, sampling_seed).result()
+
+    @torch.inference_mode()
+    def counterfactual_async(
+        self,
+        clouds: np.ndarray,
+        target_dim: int | np.ndarray,
+        logits: np.ndarray | None = None,
+        target_value: float | np.ndarray = 1.0,
+        sampling_seed: int | np.ndarray = 0,
+    ) -> ServeFuture:
+        """Dispatch a counterfactual request without waiting for the device:
+        every bucket-size chunk is launched up front (its inputs copied to the
+        card from pinned memory), and on the card its result is copied into
+        pinned host memory behind an event.  Keeping
+        two or more requests in flight overlaps one request's host work with
+        the device work of the one before.  Without ``logits`` the
+        classification still waits for its result."""
         clouds = np.asarray(clouds, np.float32)
         n = clouds.shape[0]
         if logits is None:
@@ -122,11 +210,140 @@ class CounterfactualServer:
                     initial_sampling=self.initial_sampling(pad_batch(seeds[i : i + b], b)),
                 ),
                 self._tensor(pad_batch(logits[i : i + b], b)),
-                self._tensor(pad_batch(tdim[i : i + b], b), torch.int64),
+                self._tensor(pad_batch(tdim[i : i + b], b), np.int64),
                 self._tensor(pad_batch(tval[i : i + b], b)[:, None]),
             )
-            parts.append(out.recon[:m].float().cpu().numpy())
-            self.stats['served'] += m
-            self.stats['batches'] += 1
-            self.stats['padded'] += b - m
-        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+            parts.append(self._fetch(out.recon[:m].float()))
+            self._bump_stats(m, b)
+        return ServeFuture(parts)
+
+    @staticmethod
+    def _fetch(recon: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.cuda.Event | None]:
+        """Schedule the copy of ``recon`` to the host: into a pinned buffer
+        behind an event on the card (a pageable destination would make the
+        copy synchronous), none on the CPU."""
+        if not recon.is_cuda:
+            return recon, recon, None
+        host = torch.empty(recon.shape, dtype=recon.dtype, pin_memory=True)
+        host.copy_(recon, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return recon, host, event
+
+    # --------------------------------------------------------- generation
+    @torch.inference_mode()
+    def generate(
+        self,
+        n: int,
+        z1_bias: float = 0.0,
+        probs: np.ndarray | None = None,
+        seed: int = 0,
+    ) -> np.ndarray:
+        """``n`` clouds ``(n, n_out, 3)`` sampled from the generative prior
+        (``generate.py``'s path), the class probabilities ``probs (n,
+        n_classes)`` or the prior's draw.  Deterministic per (bucket, seed,
+        chunk); pass distinct seeds for distinct draws.  An oversize ``n``
+        runs in chunks of the largest bucket."""
+        b = next_bucket(n, self.buckets)
+        if n > b:
+            return np.concatenate([
+                self._generate_chunk(min(b, n - i), z1_bias, None if probs is None else probs[i : i + b], seed,
+                                     i // b)
+                for i in range(0, n, b)
+            ])
+        return self._generate_chunk(n, z1_bias, probs, seed, 0)
+
+    def _generate_chunk(self, n: int, z1_bias: float, probs: np.ndarray | None, seed: int, chunk: int) -> np.ndarray:
+        """One chunk: the draws at the bucket's size, cut to ``n``."""
+        b = next_bucket(n, self.buckets)
+        noise, sampling = self.generation_draws(b, seed, chunk)
+        p = None if probs is None else self._tensor(pad_batch(np.asarray(probs, np.float32), b))
+        out = self.vqvae.generate(b, self._to_device(sampling), float(z1_bias), p,
+                                  tuple(self._to_device(x) for x in noise))
+        recon = out.recon[:n].float().cpu().numpy()
+        self._bump_stats(n, b)
+        return recon
+
+    # ------------------------------------------------------ microbatching
+    @torch.inference_mode()
+    def submit(
+        self,
+        cloud: np.ndarray,
+        target_dim: int,
+        logits: np.ndarray | None = None,
+        target_value: float = 1.0,
+        sampling_seed: int = 0,
+    ) -> int:
+        """Queue one cloud ``(N, 3)``; returns a ticket for :meth:`flush`."""
+        cloud = np.asarray(cloud, np.float32)
+        if cloud.ndim != 2 or cloud.shape[-1] != 3:
+            raise ValueError(f'cloud must be (N, 3), got {cloud.shape}')
+        if logits is None and self.classifier is None:
+            # a logits-less entry would make every later flush raise
+            raise ValueError('server built without a classifier: submit() requires logits')
+        with self._queue_lock:
+            if self._queue and cloud.shape != self._queue[0][1].shape:
+                raise ValueError(f'cloud shape {cloud.shape} differs from queued {self._queue[0][1].shape}; '
+                                 f'flush() before switching shapes')
+            ticket = self._next_ticket
+            self._next_ticket += 1
+            self._queue.append((ticket, cloud, logits, int(target_dim), float(target_value), int(sampling_seed)))
+        return ticket
+
+    @torch.inference_mode()
+    def flush(self) -> dict[int, np.ndarray]:
+        """Serve the queued requests as one batch; returns ticket -> recon.
+        The classifier fills only the logits that are missing."""
+        with self._queue_lock:  # a snapshot: submits landing mid-flush stay queued
+            queue = list(self._queue)
+        if not queue:
+            return {}
+        clouds = np.stack([q[1] for q in queue])
+        tdim = np.asarray([q[3] for q in queue], np.int64)
+        tval = np.asarray([q[4] for q in queue], np.float32)
+        seeds = np.asarray([q[5] for q in queue], np.int64)
+        missing = [i for i, q in enumerate(queue) if q[2] is None]
+        given = [i for i, q in enumerate(queue) if q[2] is not None]
+        if missing:
+            computed = self.classify(clouds[missing])
+            logits = np.empty((len(queue), computed.shape[1]), np.float32)
+            logits[missing] = computed
+            if given:
+                logits[given] = np.stack([np.asarray(queue[i][2], np.float32) for i in given])
+        else:
+            logits = np.stack([np.asarray(q[2], np.float32) for q in queue])
+        recon = self.counterfactual(clouds, tdim, logits, tval, seeds)
+        # drain the snapshot only after success, by ticket: a failed flush
+        # keeps its tickets, and a concurrent flush may have drained this
+        # snapshot already while new requests landed
+        with self._queue_lock:
+            served = {q[0] for q in queue}
+            self._queue = [q for q in self._queue if q[0] not in served]
+        return {q[0]: recon[i] for i, q in enumerate(queue)}
+
+    # ------------------------------------------------------------- warmup
+    @torch.inference_mode()
+    def warmup(
+        self,
+        n_points: int,
+        n_classes: int,
+        buckets: Sequence[int] | None = None,
+        generate: bool = True,
+    ) -> None:
+        """Drive every entry point once per bucket (default: all):
+        counterfactual, classification when a classifier is present, and
+        generation with and without ``probs``.  On the card the first call
+        builds the kernels and loads their library.  Leaves ``stats`` as
+        they were: its synthetic traffic is not served traffic."""
+        with self._stats_lock:
+            before = dict(self.stats)
+        for b in buckets or self.buckets:
+            cloud = np.zeros((b, n_points, 3), np.float32)
+            self.counterfactual(cloud, 0, np.zeros((b, n_classes), np.float32), 1.0)
+            if self.classifier is not None:
+                self.classify(cloud)
+            if generate:
+                self.generate(b)
+                self.generate(b, probs=np.full((b, n_classes), 1.0 / n_classes, np.float32))
+        with self._stats_lock:
+            self.stats.update(before)

@@ -43,7 +43,12 @@ the same argmins, the scatter-adds in another order) and 1e-3 (Sinkhorn);
 graph filtering's fused pass: its indices knn_cuda(x, 4)'s index for index,
 its output and mean within 1e-5 of the largest of the plain version's on
 those indices (expf's ulp, the mean summed in another order), its gradient
-rel-L2 1e-5 against the closed-form plain backward, the same on every call.
+rel-L2 1e-5 against the closed-form plain backward, the same on every call;
+the server's requests in flight bit-equal to its synchronous ones;
+generation on the card against the CPU on the same host draws: codes at
+>= 0.99 agreement and the clouds whose codes agree at rel-L2 1e-2 (the fp16
+PCGen kernel, RECON_REL_L2), the decoder stack on a memory of one z1 row
+broadcast over the tokens at 1e-4 like every stack.
 """
 
 import numpy as np
@@ -1119,3 +1124,106 @@ def test_classifier_step_kernels_at_batch_16(dev, f):
     g = _randn((b, n, f), 151 + f, dev)
     got = gather.scatter_add_slots_cuda(g, idx, slots, n)
     assert torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx.cpu(), slots.cpu(), n))
+
+
+# ------------------------------------------------ generation and serving
+
+
+def _small_models():
+    """A small VQ-VAE and classifier whose eval paths all pass their gates
+    (the configuration of the CPU tests' slice: 256 points, 128 code tokens
+    of width 128 with heads of 64, PCGen (512, 512, 64, 16) with 2
+    components, graph filtering on), random weights from a seed, on the CPU."""
+    from pccf_torch import config as tc
+    from pccf_torch.models import build_vqvae
+    from pccf_torch.nn import build_classifier
+    from pccf_torch.nn.layers import init_from_seed
+
+    net = tc.TransformerNetConfig
+    cfg = tc.SliceConfig(
+        data=tc.DataConfig(n_input_points=256, n_target_points=256, n_neighbors=8, n_classes=2),
+        classifier=tc.ClassifierConfig(n_neighbors=6, conv_dims=(8, 16), feature_dim=32, mlp_dims=(32, 16)),
+        autoencoder=tc.AutoEncoderConfig(
+            book_size=8, embedding_dim=4, w_dim=512,
+            decoder=tc.DecoderConfig(sample_dim=4, n_components=2, map_dims=(8,), conv_dims=(512, 64, 16)),
+        ),
+        w_autoencoder=tc.WAutoEncoderConfig(
+            z1_dim=8, z2_dim=6, w_encoder=net(128, 2, (256, 128)), w_decoder=net(128, 2, (128,)),
+            conditional_w_encoder=net(128, 2, (256,)),
+        ),
+    )
+    vq, cls = build_vqvae(cfg), build_classifier(cfg)
+    init_from_seed(vq, 0)
+    init_from_seed(cls, 1)
+    return vq.eval(), cls.eval()
+
+
+@pytest.fixture(scope='module')
+def card_and_cpu_servers(dev):
+    """One server on the card and one on the CPU, from the same weights and
+    seed: their host draws are the same."""
+    import copy
+
+    from pccf_torch.serve import CounterfactualServer
+
+    vq, cls = _small_models()
+    card = CounterfactualServer(copy.deepcopy(vq).to(dev), copy.deepcopy(cls).to(dev), buckets=(1, 2, 4), seed=3)
+    return card, CounterfactualServer(vq, cls, buckets=(1, 2, 4), seed=3)
+
+
+def test_async_requests_in_flight_equal_sync(card_and_cpu_servers):
+    """Three requests in flight (the last two chunks of 4 and 1) copy into
+    pinned host buffers behind events; each result is bit-equal to the
+    synchronous request."""
+    srv, _ = card_and_cpu_servers
+    rng = np.random.default_rng(20)
+    reqs = [((rng.standard_normal((m, 256, 3)) / 2).astype(np.float32), np.arange(m) % 2, 10 * m + np.arange(m))
+            for m in (1, 3, 5)]
+    sync = [srv.counterfactual(c, t, sampling_seed=s) for c, t, s in reqs]
+    logits = [srv.classify(c) for c, _, _ in reqs]
+    futures = [srv.counterfactual_async(c, t, lg, 1.0, s) for (c, t, s), lg in zip(reqs, logits)]
+    assert all(host.is_pinned() and event is not None for f in futures for _, host, event in f._parts)
+    assert len(futures[2]._parts) == 2
+    for f, want in zip(futures, sync):
+        got = f.result()
+        assert got.shape == want.shape and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize('bias', ['float', 'array'])
+def test_generation_on_the_card_matches_the_cpu(card_and_cpu_servers, bias):
+    """One generation chunk on the card against the CPU on the same host
+    draws: one W-decoder stack, one PCGen and one graph filtering launch and
+    nothing else; codes at >= 0.99 agreement, the clouds whose codes all
+    agree at rel-L2 1e-2 (the fp16 PCGen kernel); the server's generate
+    equal on the card for the same seed."""
+    card, cpu = card_and_cpu_servers
+    noise, sampling = cpu.generation_draws(4, 7, 0)
+    assert all(torch.equal(a, b) for a, b in zip(noise, card.generation_draws(4, 7, 0)[0]))
+    z1_bias = 0.5 if bias == 'float' else torch.from_numpy(
+        np.random.default_rng(21).standard_normal((4, 128, 8)).astype(np.float32))
+    api.reset_launch_counts()
+    with torch.inference_mode():
+        got = card.vqvae.generate(4, sampling, z1_bias, None, noise)
+    counts = api.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {'wformer_decoder': 1, 'pcgen_mix': 1, 'graph_filter': 1}
+    with torch.inference_mode():
+        want = cpu.vqvae.generate(4, sampling, z1_bias, None, noise)
+    same = (got.idx.cpu() == want.idx).all(dim=1)
+    assert (got.idx.cpu() == want.idx).float().mean() >= 0.99 and same.any()
+    assert _rel_l2(got.recon.cpu()[same], want.recon[same]) <= 1e-2
+    a, b = card.generate(3, seed=2), card.generate(3, seed=2)
+    assert a.shape == (3, 256, 3) and np.isfinite(a).all() and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize('b', [1, 16, 64])
+def test_wformer_decoder_with_a_one_row_memory(dev, b):
+    """The decoder stack on a memory built from one z1 row broadcast over the
+    code tokens (the server's generation) and from a row per code
+    (``generate.py``'s biased z1), each plus the memory's positional term."""
+    gen = torch.Generator().manual_seed(160 + b)
+    pack = [_layer(128, f, gen, dev, decoder=True) for f in (256, 128)]
+    x, pos = _randn((b, 128, 128), 161 + b, dev), _randn((1, 128, 128), 162, dev)
+    for z1_rows in (1, 128):
+        memory = (_randn((b, z1_rows, 128), 163 + b, dev).expand(b, 128, 128) + pos).contiguous()
+        got, want = wformer.wformer_decoder_cuda(x, memory, pack, 2), wformer.plain_decoder(x, memory, pack, 2)
+        assert _rel_l2(got, want) <= 1e-4

@@ -173,7 +173,7 @@ def test_counterfactual_on_cpu_launches_no_kernel():
 def test_port_imports_no_jax():
     """pccf_torch runs where JAX, flax, pydantic and pyyaml are absent."""
     code = (
-        'import sys, pccf_torch, pccf_torch.serve, pccf_torch.convert, pccf_torch.models, pccf_torch.nn, '
+        'import sys, pccf_torch, pccf_torch.serve, pccf_torch.generate, pccf_torch.convert, pccf_torch.models, pccf_torch.nn, '
         'pccf_torch.kernels.api, pccf_torch.train, pccf_torch.train.autoencoder, pccf_torch.train.w_autoencoder, '
         'pccf_torch.train.classifier, pccf_torch.evaluate_counterfactuals, pccf_torch.data.clouds, '
         'pccf_torch.data.augmentations, pccf_torch.data.processed; '
