@@ -62,7 +62,21 @@ filtering on):
   the suites on 8 clouds of 512 points on the card against the CPU (the
   original classification equal but at argmax near-ties, a derived suite's
   accuracy apart only by clouds whose codes differ or whose prediction sits
-  at a near-tie).
+  at a near-tie);
+- the model variants of the experiment tree (``variant_configs``), each the
+  flagship with one override: A the LDGCNN encoder (requests of 1 and 16,
+  ChamferEMD steps at 8 x 2048, one step at 2 x 512 against the CPU), B the
+  convolutional W-encoder and the linear W-decoder (stage-2 steps at 32,
+  requests), C the VampPrior with 16 pseudo-inputs (stage-2 steps,
+  generation at 16), D an encoder activation of GELU (steps through the
+  neighbour gather and its backward, the row scatter), E a corner of the
+  tuning spaces (requests: heads of 8, 32 and 128, FF widths 137, 1000 and
+  700, PCGen 500-300-77 with a map of 200 on the general PCGen kernel,
+  LDGCNN pools at 17 and 130 channels); each request's and step's launches
+  exact and each path's card output against the CPU; before them the
+  widened kernels at those shapes against their plain versions: E's stacks,
+  the general PCGen kernel, the pools at 17, 130 and 511 channels, the
+  gather and the row scatter at D's (8, 2048, 25, F).
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
@@ -240,19 +254,29 @@ STEP_UPDATE_REL_L2 = 1e-2  # the AdamW update of all trained parameters together
 W_STEP_LOSS_RTOL = 1e-4
 W_STEP_ACCURACY_ATOL = 0.01  # 1% of the code slots
 W_STEP_GRAD_REL_L2 = 1e-3  # per parameter
-# attention key biases shift every score of a row by the same amount, so
-# their gradient is zero but for rounding and its sign is noise: left out of
-# the per-parameter gradient, update and clipper comparisons
-ZERO_GRADIENT_SUFFIX = 'key.bias'
-# likewise the classifier's final_conv BatchNorm shift: it moves every
-# point's feature, so the max and the mean, by the same amount, which the
-# head's BatchNorm takes out again
+
+# as the attention key biases (rounding_gradient), the classifier's
+# final_conv BatchNorm shift: it moves every point's feature, so the max and
+# the mean, by the same amount, which the head's BatchNorm takes out again
 CLASSIFIER_ZERO_GRADIENT = 'final_conv.bn.bias'
+
+
+def rounding_gradient(name: str, n_conv: int = 0) -> bool:
+    """Attention key biases shift every score of a row by the same amount,
+    and the BatchNorm shifts of the convolutional W-encoder (``n_conv``
+    layers) before its last layer are taken off again by the next Dense +
+    BatchNorm, with no activation between: their gradient is zero but for
+    rounding and its sign is noise, so they are left out of the
+    per-parameter gradient, update and clipper comparisons."""
+    conv = re.fullmatch(r'wae\.encoder\.conv\.(\d+)\.bn\.bias', name)
+    return name.endswith('key.bias') or (conv is not None and int(conv.group(1)) < n_conv - 1)
+
 
 KERNEL_INFO = {
     'knn': ('pccf_torch/csrc/knn.cu', 'pccf/kernels/pallas_knn.py:183'),
     'graph_max_pool': ('pccf_torch/csrc/graph_max_pool.cu', 'pccf/kernels/pallas_gather.py:218'),
     'pcgen_mix': ('pccf_torch/csrc/pcgen_mix.cu', 'pccf/kernels/pallas_pcgen.py:133'),
+    'pcgen_general': ('pccf_torch/csrc/pcgen_general.cu', 'pccf/kernels/pallas_pcgen.py:133'),
     'cvae_cf': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_cvae.py:203'),
     'gather_neighbors': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:309'),
     'scatter_add_rows': ('pccf_torch/csrc/gather_scatter.cu', 'pccf/kernels/pallas_gather.py:182'),
@@ -303,6 +327,36 @@ STAGE2_KERNELS = ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder')
 GENERATION_KERNELS = ('wformer_decoder', 'pcgen_mix', 'graph_filter')
 GENERATION_SIZES = (1, 16, 70)
 GENERATION_BIAS = 0.5
+# the model variants of the experiment tree, each the flagship with one
+# override (variant_configs): A the LDGCNN encoder, B the convolutional
+# W-encoder and the linear W-decoder, C the VampPrior with this many
+# pseudo-inputs (no configuration ships a value; the JAX tests take 3), D an
+# encoder activation of GELU, E a corner of the tuning spaces
+VAMP_PSEUDO_INPUTS = 16
+# a request of one bucket on a variant: the classifier's 4 kNN graphs and 4
+# max-pools besides the model's; A's LDGCNN builds one graph and pools 4
+# times, E's 3 times; B's and E's W-nets fail the chain's gate and run their
+# transformer stacks alone
+VARIANT_REQUEST_LAUNCHES = {
+    'A': {'knn': 5, 'graph_max_pool': 8, 'cvae_cf': 1, 'pcgen_mix': 1, 'graph_filter': 1},
+    'B': {'knn': 8, 'graph_max_pool': 8, 'wformer_encoder': 1, 'pcgen_mix': 1, 'graph_filter': 1},
+    'E': {'knn': 5, 'graph_max_pool': 7, 'wformer_encoder': 2, 'wformer_decoder': 1, 'pcgen_general': 1,
+          'graph_filter': 1},
+}
+# a ChamferEMD stage-1 step: A's one graph, its EdgeConv's sum-pool and 4
+# training max-pools; D's three GELU EdgeConvs on the gather (whose backward
+# is the row scatter) after a streaming first block
+VARIANT_STEP_LAUNCHES = {
+    'A': {'knn': 1, 'graph_sum_pool': 1, 'graph_max_pool_src': 4, 'scatter_add_slots': 4, 'scatter_add_rows': 2,
+          'graph_filter': 1, 'graph_filter_backward': 1, 'chamfer_match_cost': 1},
+    'D': {'knn': 4, 'graph_sum_pool': 1, 'graph_max_pool_src': 1, 'scatter_add_slots': 1, 'gather_neighbors': 3,
+          'scatter_add_rows': 5, 'graph_filter': 1, 'graph_filter_backward': 1, 'chamfer_match_cost': 1},
+}
+# a chunk of generation under the VampPrior: the W-encoder on the
+# pseudo-inputs, then what every chunk runs
+VAMP_GENERATION_LAUNCHES = {'wformer_encoder': 1, 'wformer_decoder': 1, 'pcgen_mix': 1, 'graph_filter': 1}
+# the tuning corner's graph pools and the widths off four channels checked beside them
+ODD_POOL_WIDTHS = (17, 130, 511)
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
 STEPS_PER_EPOCH = 100  # the timed steps stay in epoch 0: lr 0.004 (stage 1), 0.0014 / 6 (stage 2, warmup)
 VALIDATION_REPS = 3
@@ -507,6 +561,35 @@ def library_stack(pack: list[dict], n_heads: int, decoder: bool) -> torch.nn.Mod
         mod.linear2.weight[:, :f].copy_(p['w2'])
         mod.linear2.bias.copy_(p['b2'])
     return stack.eval()
+
+
+def variant_configs(cfg):
+    """Paths A-E: the flagship configuration with one override each."""
+    ae, wae = cfg.autoencoder, cfg.w_autoencoder
+    rep = dataclasses.replace
+
+    def with_ae(**kw):
+        return rep(cfg, autoencoder=rep(ae, **kw))
+
+    def with_wae(**kw):
+        return rep(cfg, w_autoencoder=rep(wae, **kw))
+
+    from pccf_torch import config as pc
+
+    corner = rep(cfg, autoencoder=rep(ae, encoder=rep(ae.encoder, class_name='LDGCNN', conv_dims=(17, 130, 511)),
+                                      decoder=rep(ae.decoder, conv_dims=(500, 300, 77), map_dims=(200,),
+                                                  sample_dim=32)),
+                 w_autoencoder=rep(wae, w_decoder=rep(wae.w_decoder, proj_dim=128, n_heads=16, mlp_dims=(137,)),
+                                   w_encoder=rep(wae.w_encoder, proj_dim=256, n_heads=8, mlp_dims=(1000,)),
+                                   conditional_w_encoder=rep(wae.conditional_w_encoder, proj_dim=512, n_heads=4,
+                                                             mlp_dims=(700,))))
+    return {
+        'A': with_ae(encoder=rep(ae.encoder, class_name='LDGCNN')),
+        'B': with_wae(w_encoder=pc.CONVOLUTIONAL_W_ENCODER, w_decoder=pc.LINEAR_W_DECODER),
+        'C': with_wae(n_pseudo_inputs=VAMP_PSEUDO_INPUTS),
+        'D': with_ae(encoder=rep(ae.encoder, act_name='GELU')),
+        'E': corner,
+    }
 
 
 def labelled_clouds(seed: int, counts: tuple[int, ...], n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -1971,7 +2054,7 @@ def main() -> int:
             r = abs(gpu_w[0][name] - value) / max(abs(value), 1e-30)
             ok = r <= W_STEP_LOSS_RTOL
         check(ok, f'card vs CPU stage-2 step: {name} {gpu_w[0][name]:.6g} vs {value:.6g}, diff {r:.2e}')
-    compared = [k for k in cpu_w[1] if not k.endswith(ZERO_GRADIENT_SUFFIX)]
+    compared = [k for k in cpu_w[1] if not rounding_gradient(k)]
     grad_errs = {k: rel_l2(gpu_w[1][k], cpu_w[1][k]) for k in compared}
     worst = max(grad_errs, key=grad_errs.get)
     check(grad_errs[worst] <= W_STEP_GRAD_REL_L2,
@@ -2253,15 +2336,371 @@ def main() -> int:
     check(agree >= CODE_AGREEMENT, f'suites card vs CPU: code agreement of the derived clouds {agree:.4f} >= '
                                    f'{CODE_AGREEMENT}')
 
+    # ---- the model variants of the experiment tree: paths A-E -------------
+    # each the flagship at full width with one override (variant_configs),
+    # random weights from --seed; first each widened kernel against its plain
+    # version at the shapes the variants give it, then each path's launches
+    # counted from 0 just before it and read just after, and its card output
+    # against the CPU
+    v_cfgs = variant_configs(cfg)
+    v_models = {}
+    for key, v_cfg in v_cfgs.items():
+        model = build_vqvae(v_cfg)
+        init_from_seed(model, args.seed + 40 + ord(key))
+        v_models[key] = model.to(dev).eval()
+    variant_launches = {key: dict.fromkeys(KERNEL_INFO, 0) for key in v_cfgs}
+
+    def add_variant(key: str) -> dict[str, int]:
+        counts = api.launch_counts()
+        for name, count in counts.items():
+            variant_launches[key][name] += count
+        return counts
+
+    def unpadded(layers) -> list[dict]:
+        """A stack's pack with each FF weight at its true width, for the bound."""
+        return [{**p, 'w1': layer.dense_0.weight, 'b1': layer.dense_0.bias, 'w2': layer.dense_1.weight}
+                for p, layer in zip((wformer.pack_decoder if hasattr(layers[0], 'attn_1') else wformer.pack_encoder)(
+                    layers), layers)]
+
+    with torch.inference_mode():
+        # E's three W-nets: heads of 8 (W-decoder, 128 x 16, FF 137), 32
+        # (W-encoder, 256 x 8, FF 1000) and 128 (the conditional encoder,
+        # 512 x 4, FF 700) at the counterfactual's batch of 16; FF widths
+        # off 64 run zero-padded copies (192, 1024, 704)
+        wae_e = v_models['E'].w_autoencoder
+        for label, net in (('W-decoder', wae_e.decoder), ('W-encoder', wae_e.encoder),
+                           ('conditional W-encoder', wae_e.z2_posterior)):
+            dec_net = label == 'W-decoder'
+            d, heads = net.proj_dim, net.n_heads
+            x = torch.from_numpy(rng.standard_normal((b, wae_e.n_codes, d)).astype(np.float32)).to(dev)
+            pack = (wformer.pack_decoder if dec_net else wformer.pack_encoder)(net.layers)
+            if dec_net:
+                run_k = functools.partial(wformer.wformer_decoder_cuda, x, x, pack, heads)
+                run_p = functools.partial(wformer.plain_decoder, x, x, pack, heads)
+                work = roofline.decoder_stack_work(x, x, unpadded(list(net.layers)))
+            else:
+                run_k = functools.partial(wformer.wformer_encoder_cuda, x, pack, heads)
+                run_p = functools.partial(wformer.plain_encoder, x, pack, heads)
+                work = roofline.encoder_stack_work(x, unpadded(list(net.layers)))
+            lib = library_stack(pack, heads, dec_net)
+            run_l = (lambda: lib(x, x)) if dec_net else (lambda: lib(x))  # noqa: E731
+            got, want = run_k(), run_p()
+            r = rel_l2(got, want)
+            ms, pms, lms = time_ms(run_k, REPS), time_ms(run_p, REPS), time_ms(run_l, REPS)
+            bms, by = roofline.bound_ms(work)
+            check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'path E {label} stack ({b}, {wae_e.n_codes}, {d}), heads of {d // heads}, FF '
+                  f'{list(net.mlp_dims)} (packed {[p["w1"].shape[0] for p in pack]}): rel L2 {r:.3e} <= '
+                  f'{CVAE_REL_L2}; {ms:.4f} ms (plain {pms:.4f}, library {lms:.4f}, bound {bms:.4f} ms, {by})')
+
+        # the general PCGen kernel at E's decoder: 500-300-77, map 200, 8 components
+        dec_e = v_models['E'].decoder
+        pack_e = dec_e.pack()
+        gen_rows, gen_errs = {}, []
+        for bb in (1, b):
+            m = torch.relu(torch.from_numpy(rng.standard_normal((bb, n, 200)).astype(np.float32))).to(dev)
+            w = torch.from_numpy(rng.standard_normal((bb, cfg.autoencoder.w_dim)).astype(np.float32)).to(dev)
+            run_k = functools.partial(pcgen.pcgen_general_cuda, m, w, pack_e, tau=dec_e.tau, act_slope=0.0)
+            run_p = functools.partial(pcgen.plain, m, w, pack_e, tau=dec_e.tau, act_slope=0.0)
+            got, want = run_k(), run_p()
+            r = rel_l2(got, want)
+            gen_errs.append(float((got - want).abs().max()))
+            row = gen_rows[bb] = {'rel_l2': r, 'ms': time_ms(run_k, REPS), 'plain_ms': time_ms(run_p, REPS),
+                                  **bound(roofline.pcgen_general_work(m, w, pack_e))}
+            check(r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'pcgen_general B={bb}, 1024-500-300-77, map 200, G=8: rel L2 {r:.3e} <= {PCGEN_REL_L2}; '
+                  f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms, '
+                  f'{row["bound_by"]})')
+        kernels['pcgen_general'] = {'max_abs_err': max(gen_errs), **gen_rows[b], 'library_ms': None,
+                                    'shape': '(16, 2048, 200) -> (16, 2048, 3), G=8, 1024-500-300-77'}
+
+        # the graph pools at widths off four channels (E's LDGCNN pools at 17
+        # and 130; 511 beside them): the eval max-pool at serving's 16, the
+        # training max-pool with its slot and its slot scatter at stage 1's
+        # 8, the sum-pool at 2 x 17 (E's EdgeConv statistics) and 511
+        for c in ODD_POOL_WIDTHS:
+            x16 = torch.from_numpy(rng.standard_normal((b, n, c)).astype(np.float32)).to(dev)
+            idx16 = knn.knn_cuda(torch.from_numpy(rng.standard_normal((b, n, 3)).astype(np.float32)).to(dev), 25)
+            got = gather.graph_max_pool_cuda(x16, idx16)
+            ok_max = torch.equal(got, gather.plain(x16, idx16))
+            x8, idx8 = x16[:TRAIN_BATCH].contiguous(), idx16[:TRAIN_BATCH].contiguous()
+            out, slots = gather.graph_max_pool_src_cuda(x8, idx8)
+            want, want_slots = ops.graph_max_pool_slots_strict(x8, idx8)
+            g8 = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, c)).astype(np.float32)).to(dev)
+            dx = gather.scatter_add_slots_cuda(g8, idx8, slots, n)
+            ok_slot = torch.equal(out, want) and torch.equal(slots, want_slots) and torch.equal(
+                dx.cpu(), ops.scatter_add_slots(g8.cpu(), idx8.cpu(), slots.cpu(), n))
+            xs = x8 if c != ODD_POOL_WIDTHS[0] else torch.cat([x8, x8 * x8], -1)
+            ok_sum = torch.equal(gather.graph_sum_pool_cuda(xs, idx8).cpu(),
+                                 ops.graph_sum_pool_slot_order(xs.cpu(), idx8.cpu()))
+            times = [time_ms(lambda: gather.graph_max_pool_cuda(x16, idx16), REPS),
+                     time_ms(lambda: gather.plain(x16, idx16), REPS),
+                     time_ms(lambda: gather.graph_max_pool_src_cuda(x8, idx8), REPS),
+                     time_ms(lambda: ops.graph_max_pool_slots_strict(x8, idx8), REPS),
+                     time_ms(lambda: gather.scatter_add_slots_cuda(g8, idx8, slots, n), REPS),
+                     time_ms(lambda: ops.scatter_add_slots(g8, idx8, slots, n), REPS),
+                     time_ms(lambda: gather.graph_sum_pool_cuda(xs, idx8), REPS),
+                     time_ms(lambda: ops.graph_sum_pool(xs, idx8), REPS)]
+            bounds = [roofline.bound_ms(w)[0] for w in (
+                roofline.pool_work(x16, idx16), roofline.pool_work(x8, idx8, slots=True),
+                roofline.scatter_slots_work(g8, idx8, slots, n), roofline.pool_work(xs, idx8))]
+            check(ok_max and ok_slot and ok_sum,
+                  f'pools at C={c}: max-pool (16, {n}, {c}) bit-exact {ok_max} {times[0]:.4f} ms (plain '
+                  f'{times[1]:.4f}, bound {bounds[0]:.4f}); pool with slot (8, {n}, {c}) and its slot scatter '
+                  f'bit-exact '
+                  f'{ok_slot} {times[2]:.4f} / {times[4]:.4f} ms (plain {times[3]:.4f} / {times[5]:.4f}, bound '
+                  f'{bounds[1]:.4f} / {bounds[2]:.4f}); sum-pool (8, {n}, {xs.shape[-1]}) bit-equal to the slot '
+                  f'order {ok_sum} {times[6]:.4f} ms (plain {times[7]:.4f}, bound {bounds[3]:.4f})')
+
+        # the gather and its backward, the row scatter, at D's GELU EdgeConvs
+        # (8, 2048, 25, F)
+        idx8 = knn.knn_cuda(torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, 3)).astype(np.float32)).to(dev), 25)
+        for f in (64, 128, 256):
+            u = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n, f)).astype(np.float32)).to(dev)
+            ok_g = torch.equal(gather.gather_neighbors_cuda(u, idx8), ops.gather_neighbors(u, idx8))
+            g = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, n * 25, f)).astype(np.float32)).to(dev)
+            sidx = idx8.reshape(TRAIN_BATCH, n * 25, 1)
+            got = gather.scatter_add_rows_cuda(g, sidx, n)
+            ok_s = torch.equal(got.cpu(), ops.scatter_add_rows(g.cpu(), sidx.cpu(), n)) and torch.equal(
+                got, gather.scatter_add_rows_cuda(g, sidx, n))
+            tg = time_ms(lambda: gather.gather_neighbors_cuda(u, idx8), REPS)
+            tgp = time_ms(lambda: ops.gather_neighbors(u, idx8), REPS)
+            ts = time_ms(lambda: gather.scatter_add_rows_cuda(g, sidx, n), REPS)
+            tsp = time_ms(lambda: ops.scatter_add_rows(g, sidx, n), REPS)
+            flat = (sidx[..., 0].long() + n * torch.arange(TRAIN_BATCH, device=dev)[:, None]).flatten()
+            tsl = time_ms(lambda: torch.zeros((TRAIN_BATCH * n, f), device=dev).index_add_(0, flat, g.view(-1, f)),
+                          REPS)
+            bg = roofline.bound_ms(roofline.gather_work(u, idx8))[0]
+            bs = roofline.bound_ms(roofline.scatter_rows_work(g, sidx, n))[0]
+            check(ok_g and ok_s, f'path D gather (8, {n}, 25, {f}) bit-exact {ok_g} {tg:.4f} ms (plain {tgp:.4f}, '
+                                 f'bound {bg:.4f}); its backward, the row scatter, bit-equal to the CPU and across '
+                                 f'calls {ok_s} {ts:.4f} ms (plain {tsp:.4f}, index_add_ {tsl:.4f}, bound {bs:.4f})')
+
+    def v_sampling(model, bb: int, seed: int) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randn((bb, n, model.decoder.sample_dim), generator=gen)
+
+    def cf_card_vs_cpu(key: str) -> None:
+        """The counterfactual of two clouds on the card and the CPU."""
+        model = v_models[key]
+        pair_cl = torch.from_numpy(clouds[1:3])
+        samp = v_sampling(model, 2, args.seed + 50)
+        outs = []
+        for vq, cls, where in ((model, classifier, dev), (None, None, torch.device('cpu'))):
+            if vq is None:
+                vq, cls = copy.deepcopy(model).cpu(), copy.deepcopy(classifier).cpu()
+                vq.prepack()
+            with torch.inference_mode():
+                cl = pair_cl.to(where)
+                out = vq.generate_counterfactual(Inputs(cloud=cl, initial_sampling=samp.to(where)),
+                                                 cls(Inputs(cloud=cl)), torch.tensor([1, 0], device=where))
+            outs.append((out.idx.cpu(), out.recon.cpu()))
+        agree = float((outs[0][0] == outs[1][0]).float().mean())
+        same = (outs[0][0] == outs[1][0]).all(dim=1)
+        r = rel_l2(outs[0][1][same], outs[1][1][same]) if same.any() else float('inf')
+        check(agree >= CODE_AGREEMENT and bool(same.any()) and r <= RECON_REL_L2,
+              f'path {key} counterfactual card vs CPU: code agreement {agree:.4f} >= {CODE_AGREEMENT}, recon rel L2 '
+              f'{r:.3e} <= {RECON_REL_L2} over the {int(same.sum())} of 2 samples with all codes equal')
+
+    def v_requests(key: str) -> None:
+        """Requests of 1 and 16 through a server of the variant: exact launches
+        a request, finite clouds, the warm latency at 16."""
+        server_v = CounterfactualServer(v_models[key], classifier, seed=args.seed)
+        for bb in (1, b):
+            api.reset_launch_counts()
+            out = server_v.counterfactual(clouds[:bb], np.arange(bb) % 2)
+            counts = add_variant(key)
+            want = {name: VARIANT_REQUEST_LAUNCHES[key].get(name, 0) for name in counts}
+            check(counts == want and out.shape == (bb, n, 3) and bool(np.isfinite(out).all()),
+                  f'path {key} request of {bb}: launches {json.dumps({k: v for k, v in counts.items() if v})} == '
+                  f'{json.dumps(VARIANT_REQUEST_LAUNCHES[key])}, finite ({bb}, {n}, 3)')
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            server_v.counterfactual(clouds[:b], np.arange(b) % 2)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f'path {key} warm request of {b}: median {np.median(times):.3f} ms over 5 (host clock incl. copies)',
+              flush=True)
+
+    def v_stage1(key: str) -> None:
+        """ChamferEMD steps at 8 x 2048 (exact launches a step, finite losses,
+        the step time), then one step at 2 x 512 on the card and the CPU."""
+        v_cfg = v_cfgs[key]
+        state = copy.deepcopy(v_models[key].state_dict())
+        model = build_vqvae(v_cfg)
+        model.load_state_dict(state)
+        model = model.to(dev)
+        tr = Trainer(model, get_autoencoder_loss(v_cfg), v_cfg.autoencoder.train, STEPS_PER_EPOCH)
+        v_losses, v_ms = [], []
+        for step in range(WARM_STEPS + 5):
+            api.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = tr.run_step(inputs, targets, gumbel_uniform((TRAIN_BATCH, n, cfg.autoencoder.decoder.n_components),
+                                                              torch.Generator(device=dev).manual_seed(step), dev))
+            torch.cuda.synchronize()
+            v_ms.append((time.perf_counter() - t0) * 1e3)
+            counts = add_variant(key)
+            v_losses.append(float(out['Loss']))
+            want = {name: VARIANT_STEP_LAUNCHES[key].get(name, 0) for name in counts}
+            if step == 0 or counts != want:
+                check(counts == want, f'path {key} stage-1 step {step}: launches '
+                                      f'{json.dumps({k: v for k, v in counts.items() if v})} == '
+                                      f'{json.dumps(VARIANT_STEP_LAUNCHES[key])}')
+        check(bool(np.isfinite(v_losses).all()), f'path {key} stage-1 losses finite: {np.round(v_losses, 5).tolist()}')
+        print(f'path {key} stage-1 ChamferEMD step ({TRAIN_BATCH} x {n}): median {np.median(v_ms[WARM_STEPS:]):.3f} '
+              f'ms over 5 (host clock, synchronised)', flush=True)
+        pts = 512
+        small_cl = torch.from_numpy(synthetic.batch(args.seed + 5, 2, pts))
+        gen = torch.Generator().manual_seed(args.seed + 51)
+        samp = torch.randn((2, pts, v_cfg.autoencoder.decoder.sample_dim), generator=gen)
+        noise = gumbel_uniform((2, pts, v_cfg.autoencoder.decoder.n_components), gen, torch.device('cpu'))
+        steps = []
+        for where in (dev, torch.device('cpu')):
+            m = build_vqvae(v_cfg)
+            m.load_state_dict(state)
+            m = m.to(where)
+            tr = Trainer(m, get_autoencoder_loss(v_cfg), v_cfg.autoencoder.train, STEPS_PER_EPOCH)
+            cl = small_cl.to(where)
+            out = tr.run_step(Inputs(cl, initial_sampling=samp.to(where)), Targets(cl), noise.to(where))
+            steps.append(({k: float(v) for k, v in out.items()},
+                          {k: p.grad.detach().cpu() for k, p in m.named_parameters() if p.grad is not None}))
+        for name, value in steps[1][0].items():
+            r = abs(steps[0][0][name] - value) / abs(value)
+            check(r <= STEP_LOSS_RTOL, f'path {key} step card vs CPU (2 x {pts}): {name} {steps[0][0][name]:.6f} vs '
+                                       f'{value:.6f}, rel {r:.2e}')
+        errs = {k: rel_l2(steps[0][1][k], v) for k, v in steps[1][1].items()}
+        worst = max(errs, key=errs.get)
+        check(set(steps[0][1]) == set(steps[1][1]) and errs[worst] <= STEP_GRAD_REL_L2,
+              f'path {key} step card vs CPU: largest per-parameter gradient rel L2 {errs[worst]:.2e} ({worst})')
+
+    def v_stage2(key: str) -> None:
+        """W-autoencoder steps at batch 32 on random codes of the codebook:
+        finite losses, falling MSE, no kernel launched (the W-nets train
+        layer by layer), the step time; then one step of 4 of those codes on
+        the card and the CPU from the same weights and posterior noise."""
+        v_cfg = v_cfgs[key]
+        w_m = WAETrainModule(build_w_autoencoder(v_cfg), v_cfg.autoencoder.book_size)
+        init_from_seed(w_m, args.seed + 52)
+        w_m.codebook.copy_(v_models[key].codebook.detach().cpu())
+        w_state = copy.deepcopy(w_m.state_dict())
+        w_m = w_m.to(dev)
+        vcfg = v_cfg.w_autoencoder
+        tr = Trainer(w_m, get_w_autoencoder_loss(vcfg.train, vcfg.n_pseudo_inputs), vcfg.train, STEPS_PER_EPOCH,
+                     seed=args.seed)
+        bw_, t_, e_, book = vcfg.train.batch_size, w_m.wae.n_codes, w_m.wae.embedding_dim, v_cfg.autoencoder.book_size
+        sel = torch.from_numpy(rng.integers(0, book, (bw_, t_))).to(dev)
+        w_e = w_m.codebook[torch.arange(t_, device=dev)[None], sel].reshape(bw_, t_ * e_)
+        w_q = w_e + 0.1 * torch.randn(w_e.shape, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+        logits = torch.randn((bw_, cfg.data.n_classes), generator=torch.Generator(device=dev).manual_seed(4),
+                             device=dev)
+        one_hot = torch.nn.functional.one_hot(sel, book).float()
+        mses, ms_ = [], []
+        for step in range(WARM_STEPS + 5):
+            api.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = tr.run_step(WInputs(w_q, logits), WTargets(w_e, one_hot, logits))
+            torch.cuda.synchronize()
+            ms_.append((time.perf_counter() - t0) * 1e3)
+            counts = add_variant(key)
+            mses.append({k: float(v) for k, v in out.items()})
+        check(all(np.isfinite(list(m.values())).all() for m in mses) and mses[-1]['MSE'] < mses[0]['MSE']
+              and not any(counts.values()),
+              f'path {key} stage 2 (batch {bw_}): finite losses, MSE {mses[0]["MSE"]:.4f} -> {mses[-1]["MSE"]:.4f}, '
+              f'no launch ({sorted(mses[0])})')
+        print(f'path {key} stage-2 step (batch {bw_}): median {np.median(ms_[WARM_STEPS:]):.3f} ms over 5 (host '
+              f'clock, synchronised)', flush=True)
+        # dropout off in every W-net: the card's and the CPU's generators draw
+        # different masks; the nets' weights are the same
+        rep = dataclasses.replace
+        no_drop = {net: rep(getattr(vcfg, net), dropout_rates=(0.0,) * len(getattr(vcfg, net).dropout_rates))
+                   for net in ('w_encoder', 'w_decoder', 'conditional_w_encoder')}
+        s_cfg = rep(v_cfg, w_autoencoder=rep(vcfg, **no_drop))
+        sb = 4
+        gen = torch.Generator().manual_seed(args.seed + 53)
+        eps = tuple(torch.randn((sb, t_, z), generator=gen) for z in (vcfg.z1_dim, vcfg.z2_dim))
+        batch = [t[:sb].cpu() for t in (w_q, logits, w_e, one_hot)]
+        steps = []
+        for where in (dev, torch.device('cpu')):
+            m = WAETrainModule(build_w_autoencoder(s_cfg), v_cfg.autoencoder.book_size)
+            m.load_state_dict(w_state)
+            m = m.to(where)
+            tr = Trainer(m, get_w_autoencoder_loss(vcfg.train, vcfg.n_pseudo_inputs), vcfg.train, STEPS_PER_EPOCH)
+            q_, l_, e_w, oh = (t.to(where) for t in batch)
+            out = tr.run_step(WInputs(q_, l_), WTargets(e_w, oh, l_), tuple(e.to(where) for e in eps))
+            steps.append(({k: float(v) for k, v in out.items()},
+                          {k: p.grad.detach().cpu() for k, p in m.named_parameters() if p.grad is not None}))
+        for name, value in steps[1][0].items():
+            if name == 'Quantisation Accuracy':
+                ok, r = abs(steps[0][0][name] - value) <= W_STEP_ACCURACY_ATOL, abs(steps[0][0][name] - value)
+            else:
+                r = abs(steps[0][0][name] - value) / max(abs(value), 1e-30)
+                ok = r <= STEP_LOSS_RTOL
+            check(ok, f'path {key} stage-2 step card vs CPU ({sb}, dropout off): {name} {steps[0][0][name]:.6g} vs '
+                      f'{value:.6g}, diff {r:.2e}')
+        n_conv = len(vcfg.w_encoder.conv_dims) if vcfg.w_encoder.class_name == 'Convolutional' else 0
+        compared = [k for k in steps[1][1] if not rounding_gradient(k, n_conv)]
+        errs = {k: rel_l2(steps[0][1][k], steps[1][1][k]) for k in compared}
+        worst = max(errs, key=errs.get)
+        check(set(steps[0][1]) == set(steps[1][1]) and errs[worst] <= STEP_GRAD_REL_L2,
+              f'path {key} stage-2 step card vs CPU: largest per-parameter gradient rel L2 {errs[worst]:.2e} '
+              f'({worst}), median {float(np.median(list(errs.values()))):.2e}, over {len(compared)} of '
+              f'{len(steps[1][1])}')
+
+    # A: the LDGCNN VQ-VAE
+    v_requests('A')
+    cf_card_vs_cpu('A')
+    v_stage1('A')
+    # B: the convolutional W-encoder and the linear W-decoder
+    v_stage2('B')
+    v_requests('B')
+    cf_card_vs_cpu('B')
+    # C: the VampPrior, the transformer nets
+    v_stage2('C')
+    server_c = CounterfactualServer(v_models['C'], classifier, seed=args.seed)
+    api.reset_launch_counts()
+    g_out = server_c.generate(b, seed=args.seed)
+    counts = add_variant('C')
+    want = {name: VAMP_GENERATION_LAUNCHES.get(name, 0) for name in counts}
+    check(counts == want and g_out.shape == (b, n, 3) and bool(np.isfinite(g_out).all()),
+          f'path C generate {b}: launches {json.dumps({k: v for k, v in counts.items() if v})} == '
+          f'{json.dumps(VAMP_GENERATION_LAUNCHES)}, finite ({b}, {n}, 3)')
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server_c.generate(b, seed=args.seed)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f'path C warm generate of {b}: median {np.median(times):.3f} ms over 5 (host clock incl. copies)', flush=True)
+    v_noise, v_samp = server_c.generation_draws(2, args.seed, 0)
+    cpu_c = copy.deepcopy(v_models['C']).cpu()
+    cpu_c.prepack()
+    with torch.inference_mode():
+        g_card = v_models['C'].generate(2, v_samp.to(dev), 0.0, None, tuple(t.to(dev) for t in v_noise))
+        g_cpu = cpu_c.generate(2, v_samp, 0.0, None, v_noise)
+    agree = float((g_card.idx.cpu() == g_cpu.idx).float().mean())
+    same = (g_card.idx.cpu() == g_cpu.idx).all(dim=1)
+    r = rel_l2(g_card.recon.cpu()[same], g_cpu.recon[same]) if same.any() else float('inf')
+    check(agree >= CODE_AGREEMENT and bool(same.any()) and r <= RECON_REL_L2,
+          f'path C generation card vs CPU ({VAMP_PSEUDO_INPUTS} pseudo-inputs): code agreement {agree:.4f} >= '
+          f'{CODE_AGREEMENT}, recon rel L2 {r:.3e} <= {RECON_REL_L2} over {int(same.sum())} of 2')
+    # D: an encoder activation of GELU
+    v_stage1('D')
+    # E: the tuning corner
+    v_requests('E')
+    cf_card_vs_cpu('E')
+    print('launches of the variants: ' + '; '.join(
+        f'{key} {json.dumps({k: v for k, v in c.items() if v})}' for key, c in variant_launches.items()), flush=True)
+
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
           f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
           f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
-             gen_launches)
+             gen_launches, *variant_launches.values())
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
-          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation',
-          flush=True)
+          'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
+          'variants A / B / C / D / E', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

@@ -6,7 +6,9 @@ values the port needs are restated here, each field citing the yaml it comes
 from.  ``tests/test_torch_port_modules.py`` holds these defaults against
 ``pccf.config.get_config_all([])`` so the two cannot drift apart.
 
-The slices cover the flagship unmodified: counterfactual serving with graph
+The slices cover the flagship unmodified, and the variants of the experiment
+tree (the LDGCNN encoder, the convolutional W-encoder, the linear W-decoder,
+the VampPrior) through these fields: counterfactual serving with graph
 filtering on, stage-1 training of the VQ-VAE under its three reconstruction
 objectives (ChamferEMD, the flagship's, and the Chamfer and ChamferSinkhorn
 alternatives), stage-2 training of the inner W-autoencoder, classifier
@@ -76,9 +78,13 @@ class ClassifierConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
+    # autoencoder/model/encoder/dgcnn.yaml:1; 'LDGCNN' with encoder=lgcnn
+    class_name: str = 'DGCNN'
     # the DGCNN block widths are hard-coded in the reference (encoders.py:165),
     # not read from autoencoder/model/encoder/dgcnn.yaml's conv_dims
     h_dim: tuple[int, ...] = (64, 64, 128, 256)
+    # the LDGCNN's widths (lgcnn.yaml:3; dgcnn.yaml:3 has the same, unread)
+    conv_dims: tuple[int, ...] = (16, 128, 512, 512)
     act_name: str = ''  # autoencoder/model/encoder/dgcnn.yaml:4
 
 
@@ -95,11 +101,19 @@ class DecoderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerNetConfig:
+    """One W-net (w_autoencoder/model/{w_encoder,w_decoder,conditional_w_encoder}/*.yaml).
+    ``class_name`` 'Transformer' reads the transformer fields; the W-encoder's
+    'Convolutional' reads ``conv_dims`` (convolutional_w_encoder.yaml), the
+    W-decoder's 'Linear' ``mlp_dims``, ``dropout_rates`` and ``act_name``
+    (linear_w_decoder.yaml)."""
+
     proj_dim: int = 512
     n_heads: int = 8
     mlp_dims: tuple[int, ...] = (1024, 1024)
     act_name: str = 'GELU'
     dropout_rates: tuple[float, ...] = (0.0,) * 5  # one per layer, the rest unread
+    class_name: str = 'Transformer'
+    conv_dims: tuple[int, ...] = ()
 
 
 W_EPOCHS = 500  # w_autoencoder/train/default_train.yaml:7
@@ -128,6 +142,7 @@ class WAutoEncoderConfig:
     z1_dim: int = 16  # w_autoencoder/model/wae.yaml:8
     z2_dim: int = 16  # w_autoencoder/model/wae.yaml:9
     cf_temperature: float = 5.0  # w_autoencoder/model/wae.yaml:10
+    n_pseudo_inputs: int = 0  # w_autoencoder/model/wae.yaml:11; > 0 gives the VampPrior
     # w_autoencoder/model/w_encoder/transformer_w_encoder.yaml
     w_encoder: TransformerNetConfig = TransformerNetConfig()
     # w_autoencoder/model/w_decoder/transformer_w_decoder.yaml
@@ -202,3 +217,9 @@ class SliceConfig:
     autoencoder: AutoEncoderConfig = AutoEncoderConfig()
     w_autoencoder: WAutoEncoderConfig = WAutoEncoderConfig()
     user: UserConfig = UserConfig()
+
+
+CONVOLUTIONAL_W_ENCODER = TransformerNetConfig(  # w_autoencoder/model/w_encoder/convolutional_w_encoder.yaml
+    class_name='Convolutional', conv_dims=(16, 128, 256), mlp_dims=(), dropout_rates=(0.0,) * 3, act_name='')
+LINEAR_W_DECODER = TransformerNetConfig(  # w_autoencoder/model/w_decoder/linear_w_decoder.yaml
+    class_name='Linear', mlp_dims=(2048, 2048, 2048), dropout_rates=(0.0, 0.1, 0.3), act_name='')

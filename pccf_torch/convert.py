@@ -14,8 +14,13 @@ the frozen ``w_autoencoder`` and every running statistic.  No JAX import is
 needed here.  The port's module attributes follow the flax
 submodule names, so the mapping is:
 
-- submodule names: ``edge_conv_i``, ``layer_i``, ``map_i``, ``conv_i`` become
-  list entries (``edge_conv.i``, ``layers.i``, ``map.i``, ``conv.i``);
+- submodule names: ``edge_conv_i``, ``layer_i``, ``map_i``, ``conv_i``,
+  ``mlp_i`` and ``points_conv_i`` become list entries (``edge_conv.i``,
+  ``layers.i``, ``map.i``, ``conv.i``, ``mlp.i``, ``points_conv.i``): the
+  LDGCNN's point convolutions, the convolutional W-encoder's layers and the
+  linear W-decoder's grouped layers among them; the LDGCNN's single
+  ``edge_conv``, the W-nets' ``head`` and the VampPrior's ``pseudo_inputs``
+  keep their names;
   ``DenseBlock_i`` becomes ``blocks.i``; ``LayerNorm_i``,
   ``MultiHeadDotProductAttention_i`` and ``Dense_i`` become ``norm_i``,
   ``attn_i`` and ``dense_i``;
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 _SEGMENT_RULES = (
-    (re.compile(r'^(edge_conv|map|conv)_(\d+)$'), r'\1.\2'),
+    (re.compile(r'^(edge_conv|map|conv|mlp|points_conv)_(\d+)$'), r'\1.\2'),
     (re.compile(r'^layer_(\d+)$'), r'layers.\1'),
     (re.compile(r'^DenseBlock_(\d+)$'), r'blocks.\1'),
     (re.compile(r'^LayerNorm_(\d+)$'), r'norm_\1'),

@@ -55,6 +55,10 @@
 // softmax (running max and sum per row), and P feeds P·V straight from the
 // score registers, the keys of each 8-wide step taken in the order the score
 // fragment holds them (V read row-major in that order, no transposed copy).
+// That is the 64-wide head of the flagship; heads of 16, 32 and 128 have
+// instances of their own, and any other width up to 128 runs in the next
+// instance up with the staged columns past it zero.  Any number of keys in
+// tiles of 64.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -268,15 +272,28 @@ __global__ void layer_norm_kernel(const float* __restrict__ x, const float* __re
 
 // -------------------------------------------------------------- attention
 // Block = 64 queries of one (batch, head); 4 warps x 16 queries.  Head h
-// reads columns h*64 .. h*64+63 of q, k and v.  Fragments (mma.cuh):
+// reads columns h*hd .. h*hd+hd-1 of q, k and v, staged kHd wide: kHd is the
+// head width hd where hd is 16, 32, 64 or 128, else the next of those, with
+// the staged q, k and v columns past hd zero (exact: they add nothing to a
+// score, and the output columns past hd are not stored; the scale is
+// 1/sqrt(hd)).  Fragments (mma.cuh):
 // lane (g, t) holds score rows g and g+8 at keys 8n + 2t and 8n + 2t + 1; for
 // P·V those two keys fill the A slots t and t+4 of an 8-key step, and the B
-// fragment reads V at the same two keys.
+// fragment reads V at the same two keys.  Up to 64-wide heads a warp keeps
+// its queries' 3xTF32 fragments in registers; 128-wide heads keep the
+// queries in shared memory and split them again for every key tile, which
+// leaves the registers to the 64 output columns.
 
-constexpr int kHd = 64, kQt = 64, kKt = 64, kMaxTk = 256;
-constexpr int kLdt = kHd + 4;        // row stride of a staged tile: conflict-free fragment reads
-constexpr int kTile = kKt * kLdt;    // floats of one staged 64-row tile
-constexpr size_t kAttnSmem = 4 * kTile * sizeof(float);  // K and V, two stages each
+constexpr int kQt = 64, kKt = 64, kMaxHd = 128;
+
+template <int kHd>
+struct AttnShape {
+  static constexpr int ld = kHd + 4;      // row stride of a staged tile: conflict-free fragment reads
+  static constexpr int tile = kKt * ld;   // floats of one staged 64-row tile
+  static constexpr bool q_regs = kHd <= 64;
+  // K and V, two stages each, and the queries where they stay in shared memory
+  static constexpr size_t smem = (4 + (q_regs ? 0 : 1)) * tile * sizeof(float);
+};
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
@@ -285,57 +302,86 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
 
-// stage 64 rows x 64 floats at src (row stride `stride`) into dst (stride kLdt)
-__device__ __forceinline__ void stage_tile(float* dst, const float* src, int stride, int tid) {
+// stage 64 rows x hd floats at src (row stride `stride`) into dst (stride
+// ld), the columns hd .. kHd - 1 zero: 16-byte async copies where hd is a
+// multiple of 4, else element by element (unsigned index arithmetic: the
+// signed division's sign fix-ups cost the 64-wide instance ~6% at batch 32
+// on an H100)
+template <int kHd, bool kPad>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int stride, int hd, int tid) {
+  constexpr int ld = AttnShape<kHd>::ld, kQuads = kHd / 4;
+  if (!kPad || hd % 4 == 0) {
 #pragma unroll
-  for (int e = tid; e < kKt * kHd / 4; e += 128) {
-    const int r = e >> 4, c4 = (e & 15) * 4;
-    cp_async16(dst + r * kLdt + c4, src + (size_t)r * stride + c4);
+    for (int e = tid; e < kKt * kQuads; e += 128) {
+      const int r = static_cast<unsigned>(e) / kQuads, c4 = static_cast<unsigned>(e) % kQuads * 4;
+      if (!kPad || c4 < hd)
+        cp_async16(dst + r * ld + c4, src + (size_t)r * stride + c4);
+      else
+        *reinterpret_cast<float4*>(dst + r * ld + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = tid; e < kKt * kHd; e += 128) {
+      const int r = static_cast<unsigned>(e) / kHd, c = static_cast<unsigned>(e) % kHd;
+      dst[r * ld + c] = c < hd ? src[(size_t)r * stride + c] : 0.f;
+    }
   }
 }
 
-__global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restrict__ q, int q_stride,
-                                                           const float* __restrict__ k, const float* __restrict__ v,
-                                                           int kv_stride, float* __restrict__ out, int out_stride,
-                                                           int t_q, int t_k, float scale) {
+// the 3xTF32 A fragment of (q · scale) for the 8-wide k step kk, rows wr + g
+// and wr + g + 8 of the staged queries
+template <int kHd>
+__device__ __forceinline__ void q_fragment(const float* qs, int wr, int g, int t, int kk, float scale,
+                                           uint32_t (&big)[4], uint32_t (&small)[4]) {
+  constexpr int ld = AttnShape<kHd>::ld;
+  const int c = 8 * kk + t;
+  split_tf32(qs[(wr + g) * ld + c] * scale, big[0], small[0]);
+  split_tf32(qs[(wr + g + 8) * ld + c] * scale, big[1], small[1]);
+  split_tf32(qs[(wr + g) * ld + c + 4] * scale, big[2], small[2]);
+  split_tf32(qs[(wr + g + 8) * ld + c + 4] * scale, big[3], small[3]);
+}
+
+template <int kHd, bool kPad>
+__global__ void __launch_bounds__(128, kHd <= 64 ? 3 : 1)
+    attention_kernel(const float* __restrict__ q, int q_stride, const float* __restrict__ k,
+                     const float* __restrict__ v, int kv_stride, float* __restrict__ out, int out_stride, int t_q,
+                     int t_k, int hd, float scale) {
+  using S = AttnShape<kHd>;
+  constexpr int ld = S::ld, kTileF = S::tile, kSteps = kHd / 8;
   extern __shared__ float smem[];
-  float* ks = smem;              // [2][64][68]
-  float* vs = smem + 2 * kTile;  // [2][64][68]
+  float* ks = smem;               // [2][64][ld]
+  float* vs = smem + 2 * kTileF;  // [2][64][ld]
+  // the queries: through the second K stage where they go to registers,
+  // else in a buffer of their own
+  float* qs = S::q_regs ? ks + kTileF : smem + 4 * kTileF;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3, wr = warp * 16;
   const int q0 = blockIdx.x * kQt, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + ((size_t)b * t_q + q0) * q_stride + h * kHd;
-  const float* kb = k + (size_t)b * t_k * kv_stride + h * kHd;
-  const float* vb = v + (size_t)b * t_k * kv_stride + h * kHd;
+  const int head = h * (kPad ? hd : kHd);  // the head's first column
+  const float* qb = q + ((size_t)b * t_q + q0) * q_stride + head;
+  const float* kb = k + (size_t)b * t_k * kv_stride + head;
+  const float* vb = v + (size_t)b * t_k * kv_stride + head;
   const int n_tiles = t_k / kKt;
 
-  stage_tile(ks + kTile, qb, q_stride, tid);  // the queries, through the second K stage
+  stage_tile<kHd, kPad>(qs, qb, q_stride, hd, tid);
   cp_async_commit();
-  stage_tile(ks, kb, kv_stride, tid);
-  stage_tile(vs, vb, kv_stride, tid);
+  stage_tile<kHd, kPad>(ks, kb, kv_stride, hd, tid);
+  stage_tile<kHd, kPad>(vs, vb, kv_stride, hd, tid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
 
-  // (q · scale) as 3xTF32 A fragments for the 8 steps over the head's 64 dims
-  uint32_t q_big[8][4], q_small[8][4];
-  {
-    const float* qs = ks + kTile;
+  // (q · scale) as 3xTF32 A fragments for the steps over the head's columns
+  uint32_t q_big[S::q_regs ? kSteps : 1][4], q_small[S::q_regs ? kSteps : 1][4];  // where they stay in registers
+  if constexpr (S::q_regs) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const int c = 8 * kk + t;
-      split_tf32(qs[(wr + g) * kLdt + c] * scale, q_big[kk][0], q_small[kk][0]);
-      split_tf32(qs[(wr + g + 8) * kLdt + c] * scale, q_big[kk][1], q_small[kk][1]);
-      split_tf32(qs[(wr + g) * kLdt + c + 4] * scale, q_big[kk][2], q_small[kk][2]);
-      split_tf32(qs[(wr + g + 8) * kLdt + c + 4] * scale, q_big[kk][3], q_small[kk][3]);
-    }
+    for (int kk = 0; kk < kSteps; ++kk) q_fragment<kHd>(qs, wr, g, t, kk, scale, q_big[kk], q_small[kk]);
+    __syncthreads();  // the second K stage is free for tile 1
   }
-  __syncthreads();  // the second K stage is free for tile 1
 
-  float o[8][4];
+  float o[kSteps][4];
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int nt = 0; nt < kSteps; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g and g + 8; l per lane, summed at the end
@@ -343,16 +389,16 @@ __global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restri
   for (int j = 0; j < n_tiles; ++j) {
     if (j + 1 < n_tiles) {
       const int nxt = (j + 1) & 1;
-      stage_tile(ks + nxt * kTile, kb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, tid);
-      stage_tile(vs + nxt * kTile, vb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, tid);
+      stage_tile<kHd, kPad>(ks + nxt * kTileF, kb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, hd, tid);
+      stage_tile<kHd, kPad>(vs + nxt * kTileF, vb + (size_t)(j + 1) * kKt * kv_stride, kv_stride, hd, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* kt = ks + (j & 1) * kTile;
-    const float* vt = vs + (j & 1) * kTile;
+    const float* kt = ks + (j & 1) * kTileF;
+    const float* vt = vs + (j & 1) * kTileF;
 
     // S = (q · scale) K^T for this warp's 16 rows and the tile's 64 keys
     float s[8][4];
@@ -360,16 +406,32 @@ __global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restri
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    if constexpr (S::q_regs) {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float* kr = kt + (nt * 8 + g) * kLdt + 8 * kk + t;
-        uint32_t bb[2], bs[2];
-        split_tf32(kr[0], bb[0], bs[0]);
-        split_tf32(kr[4], bb[1], bs[1]);
-        mma_3xtf32(s[nt], q_big[kk], q_small[kk], bb, bs);
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* kr = kt + (nt * 8 + g) * ld + 8 * kk + t;
+          uint32_t bb[2], bs[2];
+          split_tf32(kr[0], bb[0], bs[0]);
+          split_tf32(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[nt], q_big[kk], q_small[kk], bb, bs);
+        }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t qf_big[4], qf_small[4];
+        q_fragment<kHd>(qs, wr, g, t, kk, scale, qf_big, qf_small);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const float* kr = kt + (nt * 8 + g) * ld + 8 * kk + t;
+          uint32_t bb[2], bs[2];
+          split_tf32(kr[0], bb[0], bs[0]);
+          split_tf32(kr[4], bb[1], bs[1]);
+          mma_3xtf32(s[nt], qf_big, qf_small, bb, bs);
+        }
       }
+    }
 
     // online softmax: rescale the running sums and output to the new row max
 #pragma unroll
@@ -382,13 +444,23 @@ __global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restri
       const float m_new = fmaxf(m_run[half], mx);
       const float corr = expf(m_run[half] - m_new);
       float sum = 0.f;
+      // the score tiles and, for a 64-wide head, the output tiles share the loop
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         s[nt][2 * half] = expf(s[nt][2 * half] - m_new);
         s[nt][2 * half + 1] = expf(s[nt][2 * half + 1] - m_new);
         sum += s[nt][2 * half] + s[nt][2 * half + 1];
-        o[nt][2 * half] *= corr;
-        o[nt][2 * half + 1] *= corr;
+        if constexpr (kSteps == 8) {
+          o[nt][2 * half] *= corr;
+          o[nt][2 * half + 1] *= corr;
+        }
+      }
+      if constexpr (kSteps != 8) {
+#pragma unroll
+        for (int nt = 0; nt < kSteps; ++nt) {
+          o[nt][2 * half] *= corr;
+          o[nt][2 * half + 1] *= corr;
+        }
       }
       l_run[half] = l_run[half] * corr + sum;
       m_run[half] = m_new;
@@ -403,19 +475,19 @@ __global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restri
       split_tf32(s[kk][2], p_big[1], p_small[1]);
       split_tf32(s[kk][1], p_big[2], p_small[2]);
       split_tf32(s[kk][3], p_big[3], p_small[3]);
-      const float* v0 = vt + (8 * kk + 2 * t) * kLdt + g;
+      const float* v0 = vt + (8 * kk + 2 * t) * ld + g;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kSteps; ++nt) {
         uint32_t bb[2], bs[2];
         split_tf32(v0[nt * 8], bb[0], bs[0]);
-        split_tf32(v0[kLdt + nt * 8], bb[1], bs[1]);
+        split_tf32(v0[ld + nt * 8], bb[1], bs[1]);
         mma_3xtf32(o[nt], p_big, p_small, bb, bs);
       }
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  float* ob = out + ((size_t)b * t_q + q0 + wr) * out_stride + h * kHd;
+  float* ob = out + ((size_t)b * t_q + q0 + wr) * out_stride + head;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float l = l_run[half];
@@ -423,9 +495,17 @@ __global__ void __launch_bounds__(128, 3) attention_kernel(const float* __restri
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / l;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<float2*>(ob + (size_t)(g + half * 8) * out_stride + nt * 8 + 2 * t) =
-          make_float2(o[nt][2 * half] * inv, o[nt][2 * half + 1] * inv);
+    for (int nt = 0; nt < kSteps; ++nt) {
+      float* dst = ob + (size_t)(g + half * 8) * out_stride + nt * 8 + 2 * t;
+      const float v0 = o[nt][2 * half] * inv, v1 = o[nt][2 * half + 1] * inv;
+      if (!kPad) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        const int c = nt * 8 + 2 * t;
+        if (c < hd) dst[0] = v0;
+        if (c + 1 < hd) dst[1] = v1;
+      }
+    }
   }
 }
 
@@ -472,6 +552,19 @@ int launch_gemm(const float* a, int groups, const void* const* ops, const float*
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <int kHd, bool kPad>
+int launch_attention(const float* q, int q_stride, const float* k, const float* v, int kv_stride, float* out,
+                     int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim, float scale,
+                     cudaStream_t stream) {
+  constexpr size_t smem = AttnShape<kHd>::smem;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_kernel<kHd, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  attention_kernel<kHd, kPad><<<dim3(t_q / kQt, n_heads, batch), 128, smem, stream>>>(
+      q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k, head_dim, scale);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -523,14 +616,25 @@ extern "C" int pccf_layer_norm(const float* x, const float* w, const float* b, f
 extern "C" int pccf_attention(const float* q, int q_stride, const float* k, const float* v, int kv_stride,
                               float* out, int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim,
                               cudaStream_t stream) {
-  if (head_dim != kHd || t_q % kQt || t_k % kKt || t_k <= 0 || t_k > kMaxTk || q_stride % 4 || kv_stride % 4 ||
-      out_stride % 2)
+  if (head_dim < 1 || head_dim > kMaxHd || t_q % kQt || t_k % kKt || t_k <= 0 || q_stride % 4 || kv_stride % 4 ||
+      out_stride % 2 || n_heads < 1 || (long long)n_heads * head_dim > q_stride ||
+      (long long)n_heads * head_dim > kv_stride || (long long)n_heads * head_dim > out_stride)
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  dim3 grid(t_q / kQt, n_heads, batch);
-  attention_kernel<<<grid, 128, kAttnSmem, stream>>>(q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k,
-                                                     1.f / sqrtf((float)head_dim));
-  return (int)cudaGetLastError();
+  const float scale = 1.f / sqrtf((float)head_dim);
+  if (head_dim == 64) return launch_attention<64, false>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                         t_k, n_heads, head_dim, scale, stream);
+  if (head_dim == 16) return launch_attention<16, false>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                         t_k, n_heads, head_dim, scale, stream);
+  if (head_dim == 32) return launch_attention<32, false>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                         t_k, n_heads, head_dim, scale, stream);
+  if (head_dim == 128) return launch_attention<128, false>(q, q_stride, k, v, kv_stride, out, out_stride, batch,
+                                                           t_q, t_k, n_heads, head_dim, scale, stream);
+  if (head_dim < 16) return launch_attention<16, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                       t_k, n_heads, head_dim, scale, stream);
+  if (head_dim < 32) return launch_attention<32, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                       t_k, n_heads, head_dim, scale, stream);
+  if (head_dim < 64) return launch_attention<64, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                       t_k, n_heads, head_dim, scale, stream);
+  return launch_attention<128, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q, t_k, n_heads,
+                                     head_dim, scale, stream);
 }

@@ -71,6 +71,8 @@ class Outputs:
     z2: torch.Tensor | None = None
     mu1: torch.Tensor | None = None
     log_var1: torch.Tensor | None = None
+    pseudo_mu1: torch.Tensor | None = None  # the VampPrior's pseudo-inputs' z1 statistics
+    pseudo_log_var1: torch.Tensor | None = None
     p_mu2: torch.Tensor | None = None
     p_log_var2: torch.Tensor | None = None
     d_mu2: torch.Tensor | None = None

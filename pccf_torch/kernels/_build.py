@@ -42,6 +42,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_graph_max_pool': (P, P, P, I, I, I, I, I, P),
     'pccf_pool_plan': (I, I, I, I, P),
     'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, F, F, F, P),
+    'pccf_pcgen_general': (P, P, P, P, P, I, P, P, P, P, P, P, P, I, I, I, I, F, F, P),
+    'pccf_pcgen_general_scratch': (I, I, I, I, P, I),
     'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),
     'pccf_tf32_split': (P, P, P, I, P),
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),

@@ -19,6 +19,7 @@ KERNELS = {
     'knn': knn_mod.knn_cuda,
     'graph_max_pool': gather.graph_max_pool_cuda,
     'pcgen_mix': pcgen.pcgen_mix_cuda,
+    'pcgen_general': pcgen.pcgen_general_cuda,
     'cvae_cf': cvae.cvae_cf_cuda,
     'gather_neighbors': gather.gather_neighbors_cuda,
     'scatter_add_rows': gather.scatter_add_rows_cuda,
@@ -101,8 +102,15 @@ def chamfer_sinkhorn_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tenso
 
 
 def pcgen_mix(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:
-    """PCGen map head + components + mix, ``(B, N, 3)``."""
-    fn = pcgen.pcgen_mix_cuda if _build.on_cuda(m) else pcgen.plain
+    """PCGen map head + components + mix, ``(B, N, 3)``: on the card the
+    flagship's kernel where it covers the pack's shapes, else the general
+    one."""
+    if not _build.on_cuda(m):
+        fn = pcgen.plain
+    elif pcgen.flagship(m.shape[-1], pack.dims(), pack.head_w.shape[0]):
+        fn = pcgen.pcgen_mix_cuda
+    else:
+        fn = pcgen.pcgen_general_cuda
     return fn(m, w, pack, tau=tau, act_slope=act_slope)
 
 

@@ -30,10 +30,15 @@ import dataclasses
 import torch
 
 from pccf_torch.kernels import _build, ops
-from pccf_torch.kernels.wformer import Stacks, pack_decoder, pack_encoder, split_small, stack_weights
+from pccf_torch.kernels.wformer import Stacks, check_heads, pack_decoder, pack_encoder, split_small, stack_weights
 
-IN_PAD = 32  # token width padded to one GEMM k tile
-OUT_PAD = 64  # compress head padded to one GEMM n tile
+MAX_EMBEDDING = 128  # the widest token the chain takes (pallas_cvae.py:53 _IN_PAD)
+IN_TILE = 32  # the token input is padded to whole GEMM k tiles
+OUT_TILE = 64  # the compress head is padded to whole GEMM n tiles
+
+
+def _pad(e: int, tile: int) -> int:
+    return -(-e // tile) * tile
 
 
 @dataclasses.dataclass
@@ -71,15 +76,17 @@ class CVAEPack:
             def t(w):  # (in, out) -> (out, in)
                 return w.detach().T.contiguous()
 
-            def pad_in(w):  # (e, d) -> (d, IN_PAD)
-                out = torch.zeros(w.shape[1], IN_PAD, dtype=w.dtype, device=w.device)
+            e = self.wcomp.shape[1]
+
+            def pad_in(w):  # (e, d) -> (d, e padded to IN_TILE)
+                out = torch.zeros(w.shape[1], _pad(e, IN_TILE), dtype=w.dtype, device=w.device)
                 out[:, : w.shape[0]] = w.T
                 return out
 
-            e = self.wcomp.shape[1]
-            wcomp = torch.zeros(OUT_PAD, self.wcomp.shape[0], dtype=self.wcomp.dtype, device=self.wcomp.device)
+            out_pad = _pad(e, OUT_TILE)
+            wcomp = torch.zeros(out_pad, self.wcomp.shape[0], dtype=self.wcomp.dtype, device=self.wcomp.device)
             wcomp[:e] = self.wcomp.T
-            bcomp = torch.zeros(OUT_PAD, dtype=self.bcomp.dtype, device=self.bcomp.device)
+            bcomp = torch.zeros(out_pad, dtype=self.bcomp.dtype, device=self.bcomp.device)
             bcomp[:e] = self.bcomp
             self._cuda = {
                 'win1': pad_in(self.win1), 'add1': self.add1.contiguous(), 'aw': t(self.aw), 'ab': self.ab.contiguous(),
@@ -145,17 +152,19 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     """``x (B, T, e)``, ``probs (B, C)`` float32 on the card -> ``(B, T, e)``.
 
     The guards of ``pccf_gemm`` and ``pccf_attention`` state the shapes the
-    chain covers (64-row tiles over tokens, 64-wide heads, 64-multiple widths,
-    at most 256 keys); this wrapper checks only what it lays out itself."""
+    chain covers (64-row tiles over tokens, heads up to 128 wide, 64-multiple
+    widths); this wrapper checks what it lays out itself and the heads, and
+    raises ``ValueError`` before any launch."""
     _build.require(x, 'x', torch.float32)
     if x.dim() != 3:
         raise ValueError(f'x: expected (B, T, e), got {tuple(x.shape)}')
     b, t, e = x.shape
     d = pack.aw.shape[0]
     _build.require(probs, 'probs', torch.float32, (b, pack.wp.shape[0]))
-    if pack.add1.shape[0] != t or e > min(IN_PAD, OUT_PAD) or any(d % h for h in pack.heads):
+    if pack.add1.shape[0] != t or e > MAX_EMBEDDING or e != pack.wcomp.shape[1] or any(d % h for h in pack.heads):
         raise ValueError(f'cvae_cf: tokens {tuple(x.shape)} do not fit a pack of T={pack.add1.shape[0]}, d={d}, '
-                         f'heads={pack.heads} (token width at most {min(IN_PAD, OUT_PAD)})')
+                         f'heads={pack.heads} (token width at most {MAX_EMBEDDING})')
+    check_heads(d, *pack.heads)
     w = pack.cuda_operands()
     if w['aw'].device != x.device:
         raise ValueError(f'cvae_cf: weights on {w["aw"].device}, inputs on {x.device}')
@@ -164,7 +173,7 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     stacks = Stacks(b, t, d, x.device, w['small'])
     empty = stacks.empty
 
-    x_pad = torch.zeros(m, IN_PAD, dtype=torch.float32, device=x.device)
+    x_pad = torch.zeros(m, w['win1'].shape[1], dtype=torch.float32, device=x.device)
     x_pad[:, :e] = x.reshape(m, e)
     pemb = torch.matmul(probs, pack.wp) + pack.bp
     pz2p = torch.einsum('bc,ctd->btd', probs, pack.prior_z2p)
@@ -183,7 +192,7 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     stacks.gemm(res, [w['bw']], [None], [dec_in], extrad)
     stacks.decoder(dec_in, memory, w['dec'], hd)
 
-    out = empty(m, OUT_PAD)
+    out = empty(m, w['wcomp'].shape[0])
     stacks.gemm(dec_in, [w['wcomp']], [w['bcomp']], [out])
     cvae_cf_cuda.launches += 1
     return out[:, :e].reshape(b, t, e)

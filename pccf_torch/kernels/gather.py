@@ -28,6 +28,11 @@ transposed graph in ascending edge order.  The slot scatter (the max-pool
 backward) holds a ``dx`` slice in shared memory and walks the centres in
 ascending order; :func:`slot_scatter_plan` mirrors its slice width and row
 ranges (``slot_scatter_plan`` in ``csrc/gather_scatter.cu``).
+
+The pools' kernels and the slot scatter read channels in groups of four; a
+width that is not a multiple of four (the LDGCNN's pools run at its
+configured widths) is padded with zero channels in the wrapper and the
+output cropped, which is exact: every channel is reduced on its own.
 """
 
 from __future__ import annotations
@@ -212,7 +217,18 @@ def kernel_pool_plan(b: int, n: int, c: int, slice_width: int | None = None) -> 
     return PoolPlan(*out)
 
 
+def _pad4(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with zero channels appended up to a multiple of four."""
+    return t if t.shape[-1] % 4 == 0 else torch.nn.functional.pad(t, (0, -t.shape[-1] % 4))
+
+
+def _crop(t: torch.Tensor, c: int) -> torch.Tensor:
+    return t if t.shape[-1] == c else t[..., :c].contiguous()
+
+
 def _launch_pool(name: str, x: torch.Tensor, idx: torch.Tensor, slice_width: int | None) -> torch.Tensor:
+    c_in = x.shape[-1]
+    x = _pad4(x)
     b, n, c, k = _require_graph(x, idx)
     if slice_width is not None or not _pool_covers(b, n, c):
         pool_plan(b, n, c, slice_width)  # raises past the kernel's limits, before any launch
@@ -220,7 +236,7 @@ def _launch_pool(name: str, x: torch.Tensor, idx: torch.Tensor, slice_width: int
     err = getattr(_build.lib(), name)(x.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, c, k, slice_width or 0,
                                       _build.stream())
     _build.check(name, err, f'x {tuple(x.shape)}, k={k}, slice width {slice_width or "of the plan"}')
-    return out
+    return _crop(out, c_in)
 
 
 def _require_graph(x: torch.Tensor, idx: torch.Tensor) -> tuple[int, int, int, int]:
@@ -237,10 +253,10 @@ def _require_graph(x: torch.Tensor, idx: torch.Tensor) -> tuple[int, int, int, i
 
 def graph_max_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | None = None) -> torch.Tensor:
     """``x (B, N, F)`` float32, ``idx (B, N, k)`` int32 with entries in
-    ``[0, N)`` -> ``(B, N, F)``; ``F % 4 == 0``, ``k >= 1`` and ``N <= 13951``
-    points (the guard of ``pccf_graph_max_pool``), past which it raises
-    ``ValueError``.  ``slice_width`` overrides :func:`pool_plan`'s width, to
-    time the others."""
+    ``[0, N)`` -> ``(B, N, F)``; any ``F`` (padded to a multiple of 4),
+    ``k >= 1`` and ``N <= 13951`` points (the guard of
+    ``pccf_graph_max_pool``), past which it raises ``ValueError``.
+    ``slice_width`` overrides :func:`pool_plan`'s width, to time the others."""
     out = _launch_pool('pccf_graph_max_pool', x, idx, slice_width)
     graph_max_pool_cuda.launches += 1
     return out
@@ -249,9 +265,12 @@ def graph_max_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | N
 def graph_max_pool_src_cuda(x: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Max-pool and the winning slot per channel, ``(B, N, F)`` float32 and
     ``(B, N, F)`` uint8, by the TPU kernel's strict ``>``
-    (:func:`ops.graph_max_pool_slots_strict` bit for bit); ``F % 4 == 0``,
-    ``k <= 255`` and ``N <= 13951`` points (the pools' slice plan,
-    :func:`pool_plan`), past which it raises ``ValueError`` before any launch."""
+    (:func:`ops.graph_max_pool_slots_strict` bit for bit); any ``F`` (padded
+    to a multiple of 4), ``k <= 255`` and ``N <= 13951`` points (the pools'
+    slice plan, :func:`pool_plan`), past which it raises ``ValueError``
+    before any launch."""
+    f_in = x.shape[-1]
+    x = _pad4(x)
     b, n, f, k = _require_graph(x, idx)
     if not _pool_covers(b, n, f):
         pool_plan(b, n, f)  # raises past the kernel's limits, before any launch
@@ -262,17 +281,20 @@ def graph_max_pool_src_cuda(x: torch.Tensor, idx: torch.Tensor) -> tuple[torch.T
     )
     _build.check('pccf_graph_max_pool_src', err, f'x {tuple(x.shape)}, k={k}')
     graph_max_pool_src_cuda.launches += 1
-    return out, slots
+    return _crop(out, f_in), _crop(slots, f_in)
 
 
 def scatter_add_slots_cuda(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tensor, n: int,
                            slice_width: int | None = None, ranges: int | None = None) -> torch.Tensor:
     """Max-pool backward: ``g (B, M, F)`` onto the winning rows, ``(B, n, F)``,
     each element's terms added in ascending centre from 0.0
-    (:func:`ops.scatter_add_slots` on the CPU, bit for bit); ``F % 4 == 0``,
-    ``k <= 255`` and ``n <= 98496`` rows (:func:`slot_scatter_plan`), past
-    which it raises ``ValueError`` before any launch.  ``slice_width`` and
-    ``ranges`` override the plan's, to time the others."""
+    (:func:`ops.scatter_add_slots` on the CPU, bit for bit); any ``F``
+    (padded to a multiple of 4), ``k <= 255`` and ``n <= 98496`` rows
+    (:func:`slot_scatter_plan`), past which it raises ``ValueError`` before
+    any launch.  ``slice_width`` and ``ranges`` override the plan's, to time
+    the others."""
+    f_in = g.shape[-1]
+    g, slots = _pad4(g), _pad4(slots)
     b, m, f, k = _require_graph(g, idx)
     _build.require(slots, 'slots', torch.uint8, g.shape)
     if slice_width is not None or ranges is not None or not _slot_scatter_covers(b, n, f):
@@ -285,14 +307,14 @@ def scatter_add_slots_cuda(g: torch.Tensor, idx: torch.Tensor, slots: torch.Tens
         err = _build.lib().pccf_scatter_add_slots_split(*args, slice_width or 0, ranges or 0, _build.stream())
     _build.check('pccf_scatter_add_slots', err, f'g {tuple(g.shape)}, k={k}, n={n}')
     scatter_add_slots_cuda.launches += 1
-    return dx
+    return _crop(dx, f_in)
 
 
 def graph_sum_pool_cuda(x: torch.Tensor, idx: torch.Tensor, slice_width: int | None = None) -> torch.Tensor:
     """``x (B, N, C)``, ``idx (B, N, k)`` with entries in ``[0, N)`` ->
     ``(B, N, C)`` neighbour sums, added in slot order from slot 0's row
-    (:func:`ops.graph_sum_pool_slot_order` on the CPU, bit for bit);
-    ``C % 4 == 0``, ``k >= 1`` and ``N <= 13951`` points (the guard of
+    (:func:`ops.graph_sum_pool_slot_order` on the CPU, bit for bit); any
+    ``C`` (padded to a multiple of 4), ``k >= 1`` and ``N <= 13951`` points (the guard of
     ``pccf_graph_sum_pool``), past which it raises ``ValueError``.
     ``slice_width`` overrides :func:`pool_plan`'s width, to time the others."""
     out = _launch_pool('pccf_graph_sum_pool', x, idx, slice_width)

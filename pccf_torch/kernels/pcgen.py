@@ -1,15 +1,21 @@
-"""Fused PCGen eval: the CUDA kernel ``csrc/pcgen_mix.cu`` and its plain
-version.
+"""Fused PCGen eval: the CUDA kernels ``csrc/pcgen_mix.cu`` and
+``csrc/pcgen_general.cu`` and their plain version.
 
 Replaces ``pccf/kernels/pallas_pcgen.py:133`` ``pcgen_mix_tpu``.  The decoder
 builds a :class:`PCGenPack` (BatchNorm folded into the component weights)
-once; the CUDA wrapper derives its device layout (fp16 component weights,
-transposed map head) and the bounds of the kernel's fp16 operand scales from
-the pack once and keeps them on the pack.
+once.  The flagship's shapes (:func:`flagship`: three component layers whose
+second and third are one warpgroup-split chunk and one n16 product) run the
+fp16 ``wgmma`` kernel of ``pcgen_mix.cu``, whose wrapper derives its device
+layout (fp16 component weights, transposed map head) and the bounds of its
+fp16 operand scales from the pack once and keeps them on the pack.  Every
+other shape of the JAX package's gate (:func:`supported`: 1 to 4 layers, any
+widths, any map input and number of components) runs ``pcgen_general.cu``
+on the pack's fp32 weights as they are.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -24,14 +30,28 @@ MAX_MAP_IN = 64  # kMaxDm: the map head's input width
 MAX_COMPONENTS = 8  # kMaxG: a mix thread keeps a point's logit and head output per component
 ROWS = 64  # kRows: points per block
 FP16_MAX = 65504.0  # the largest finite fp16: the kernel's component weights past it would be inf
+TILE = 256  # pcgen_fused_supported's row tile: the JAX gate takes points in multiples of it
+MAX_LAYERS = 4  # kMaxLayers of csrc/pcgen_general.cu
 
 
-def supported(dm: int, dims: tuple[int, ...], n_components: int) -> bool:
+def supported(n: int, w_dim: int, conv_dims: tuple[int, ...], n_components: int) -> bool:
+    """``pcgen_fused_supported`` (``pallas_pcgen.py:60-74``) without its VMEM
+    budget, a TPU limit: points in multiples of 256, a 128-multiple
+    ``w_dim``, at least two components, and component layers that shrink
+    strictly after the first (their residual is a prefix slice).  The card
+    runs every such decoder: :func:`flagship` shapes on the ``pcgen_mix``
+    kernel, the others on the general kernel, which takes up to
+    :data:`MAX_LAYERS` layers and raises ``ValueError`` past them before any
+    launch."""
+    dims = (w_dim, *conv_dims)
+    return (n % TILE == 0 and w_dim % 128 == 0 and n_components >= 2 and len(conv_dims) >= 1
+            and all(dims[i + 1] < dims[i] for i in range(1, len(dims) - 1)))
+
+
+def flagship(dm: int, dims: tuple[int, ...], n_components: int) -> bool:
     """Whether ``pccf_pcgen_mix`` covers a decoder: map input ``dm``, widths
-    ``dims = (D0, D1, D2, D3)`` (three component layers, non-expanding after
-    the first, as ``pcgen_fused_supported`` asks, ``pallas_pcgen.py:60-74``),
-    ``n_components`` from 2 to 8.  Any number of points: the last tile is
-    masked.  Its VMEM budget is a TPU limit and is not carried over."""
+    ``dims = (D0, D1, D2, D3)`` (three component layers), ``n_components``
+    from 2 to 8.  Any number of points: the last tile is masked."""
     if len(dims) != 4:
         return False
     d0, d1, d2, d3 = dims
@@ -57,6 +77,19 @@ class PCGenPack:
 
     def tensors(self) -> tuple:
         return (self.map_w, self.map_b, self.layer_ws, self.layer_bs, self.head_w, self.head_b, self.att_w, self.att_b)
+
+    def dims(self) -> tuple[int, ...]:
+        """``(D0, D1, ..., D_last)``."""
+        return (self.map_w.shape[0], *(lw.shape[1] for lw in self.layer_ws))
+
+    def general_operands(self) -> tuple:
+        """The general kernel's operands: every weight fp32 contiguous in its
+        pack layout, the component layers' weights then biases."""
+        def f32(t):
+            return t.detach().to(torch.float32).contiguous()
+
+        return (f32(self.map_w), f32(self.map_b), [f32(t) for t in (*self.layer_ws, *self.layer_bs)],
+                f32(self.head_w), f32(self.head_b), f32(self.att_w), f32(self.att_b))
 
     def cuda_operands(self) -> tuple:
         """The kernel's operand layout, built on first use.  Raises
@@ -106,7 +139,7 @@ def plain(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float, act_
 def pcgen_mix_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:
     """``m (B, N, Dm)``, ``w (B, D0)`` float32 on the card -> ``(B, N, 3)``,
     for three component layers ``D0 -> D1 -> D2 -> D3``; the guard of
-    ``pccf_pcgen_mix`` states the widths it covers (:func:`supported`)."""
+    ``pccf_pcgen_mix`` states the widths it covers (:func:`flagship`)."""
     _build.require(m, 'm', torch.float32)
     if m.dim() != 3:
         raise ValueError(f'm: expected (B, N, Dm), got {tuple(m.shape)}')
@@ -131,4 +164,42 @@ def pcgen_mix_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: fl
     return out
 
 
+def pcgen_general_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float,
+                       act_slope: float) -> torch.Tensor:
+    """``m (B, N, Dm)``, ``w (B, D0)`` float32 on the card -> ``(B, N, 3)``
+    for any decoder of the JAX gate (:func:`supported`): 1 to 4 component
+    layers of any widths, non-expanding after the first, any map input and
+    number of components (``csrc/pcgen_general.cu``, whose guard states the
+    shapes).  Raises ``ValueError`` past 4 layers, before any launch."""
+    _build.require(m, 'm', torch.float32)
+    if m.dim() != 3:
+        raise ValueError(f'm: expected (B, N, Dm), got {tuple(m.shape)}')
+    b, n, dm = m.shape
+    dims, g = pack.dims(), pack.head_w.shape[0]
+    _build.require(w, 'w', torch.float32, (b, dims[0]))
+    if pack.map_w.shape[1] != dm:
+        raise ValueError(f'pcgen_general: the map head takes {pack.map_w.shape[1]} inputs, m has {dm}')
+    map_w, map_b, layers, head_w, head_b, att_w, att_b = pack.general_operands()
+    if map_w.device != m.device:
+        raise ValueError(f'pcgen_general: weights on {map_w.device}, inputs on {m.device}')
+    lib = _build.lib()
+    n_layers = len(dims) - 1
+    dims_c = (ctypes.c_int * len(dims))(*dims)
+    words = lib.pccf_pcgen_general_scratch(b, n, dm, n_layers, dims_c, g)
+    if words < 0:
+        raise ValueError(f'pccf_pcgen_general: the kernel does not cover N={n}, dims={dims}, Dm={dm}, G={g} (1 to '
+                         f'{MAX_LAYERS} component layers, non-expanding after the first)')
+    scratch = torch.empty(max(words, 1), dtype=torch.float32, device=m.device)
+    out = torch.empty((b, n, 3), dtype=torch.float32, device=m.device)
+    ptrs = (ctypes.c_void_p * len(layers))(*(t.data_ptr() for t in layers))
+    err = lib.pccf_pcgen_general(m.data_ptr(), w.data_ptr(), map_w.data_ptr(), map_b.data_ptr(), ptrs, n_layers,
+                                 dims_c, head_w.data_ptr(), head_b.data_ptr(), att_w.data_ptr(), att_b.data_ptr(),
+                                 out.data_ptr(), scratch.data_ptr() if words > 0 else None, b, n, dm, g, float(tau),
+                                 float(act_slope), _build.stream())
+    _build.check('pccf_pcgen_general', err, f'N={n}, dims={dims}, Dm={dm}, G={g}')
+    pcgen_general_cuda.launches += 1
+    return out
+
+
 pcgen_mix_cuda.launches = 0
+pcgen_general_cuda.launches = 0

@@ -169,6 +169,14 @@ def pcgen_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
     return Work(float(b * n * per_point), _nbytes(m, w) + weights + b * n * 3 * F32, FP16)
 
 
+def pcgen_general_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
+    """:func:`pcgen_work` for ``csrc/pcgen_general.cu``: the same operations,
+    at the TF32 peak its component products issue, every weight moved as
+    fp32."""
+    work = pcgen_work(m, w, pack)
+    return Work(work.ops, work.bytes + 2 * sum(lw.numel() for lw in pack.layer_ws), TF32)
+
+
 def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0) -> Work:
     """One ``pccf_gemm`` launch: ``groups`` products ``(m, k) · (k, n)``, 2·m·n·k
     operations each as :func:`_stack_ops` counts them (the epilogue's adds

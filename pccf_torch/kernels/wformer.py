@@ -23,7 +23,11 @@ The pack is a list of per-layer dicts of the live module weights, each in
 its ``nn.Linear``'s own ``(out, in)`` layout: detached views, no copies, so
 packing on every eval call costs nothing and no pack outlives a training
 step.  Differing FF widths need no padding: each layer's GEMMs take its own
-width.  The stacks are eval only: no dropout and no gradient.
+width.  The GEMM takes widths in multiples of 64; a layer whose FF width is
+not one packs a zero-padded copy of its FF weights instead (zero rows of the
+first, zero bias, zero columns of the second: the exact GELU of 0 is 0, so
+the result is exact), made once and kept on the layer until its parameters
+change.  The stacks are eval only: no dropout and no gradient.
 """
 
 from __future__ import annotations
@@ -36,22 +40,26 @@ from pccf_torch.kernels import _build, ops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
 TF32_BIG = -(1 << 13)  # int32 mask keeping the sign, exponent and 10 mantissa bits a tensor core reads
-# the shapes the card's stack kernels take, as the guards of csrc/wformer.cu state them
-HEAD_DIM = 64  # pccf_attention: heads exactly kHd = 64 wide
-MAX_TOKENS = 256  # pccf_attention: at most kMaxTk = 256 keys, the W-nets' 256 code tokens
-FF_MULTIPLE = 64  # pccf_gemm: N % 64 and K % 32, so FF widths in multiples of 64
+MAX_HEAD_DIM = 128  # pccf_attention: heads up to kMaxHd = 128 wide
+FF_MULTIPLE = 64  # pccf_gemm: N % 64 and K % 32; other FF widths are padded in the pack
 
 
-def supported(t: int, d: int, n_heads: int, ff_widths: tuple[int, ...] = ()) -> bool:
-    """Whether the card's stack kernels cover a net: the shape line of the
-    JAX package's fused stacks (``pallas_wformer.py:41-49``
-    ``wformer_supported``: 128-multiple tokens and width, whole heads), and
-    what the guards of ``pccf_attention`` and ``pccf_gemm`` add: at most
-    :data:`MAX_TOKENS` tokens, heads exactly :data:`HEAD_DIM` wide, every FF
-    width a multiple of :data:`FF_MULTIPLE`.  Its VMEM budget is a TPU limit
-    and is not carried over."""
-    return (t % 128 == 0 and t <= MAX_TOKENS and d % 128 == 0 and d == n_heads * HEAD_DIM
-            and all(f > 0 and f % FF_MULTIPLE == 0 for f in ff_widths))
+def supported(t: int, d: int, n_heads: int) -> bool:
+    """The shape line of the JAX package's fused stacks
+    (``pallas_wformer.py:41-49`` ``wformer_supported``): tokens and width in
+    multiples of 128, whole heads.  Its VMEM budget is a TPU limit and is not
+    carried over.  Inside it the card's kernels cover every net but those
+    with heads wider than :data:`MAX_HEAD_DIM`, which raise ``ValueError``
+    before any launch (:func:`check_heads`)."""
+    return t % 128 == 0 and d % 128 == 0 and n_heads > 0 and d % n_heads == 0
+
+
+def check_heads(d: int, *heads: int) -> None:
+    """Raise ``ValueError`` for a head wider than the attention kernel takes."""
+    for h in heads:
+        if d // h > MAX_HEAD_DIM:
+            raise ValueError(f'wformer: the attention kernel takes heads up to {MAX_HEAD_DIM} wide, not {d // h} '
+                             f'({h} heads over {d})')
 
 
 # ------------------------------------------------------------------ pack
@@ -75,15 +83,37 @@ def _ln(norm, name: str) -> dict:
     return {f'{name}_w': norm.weight.detach(), f'{name}_b': norm.bias.detach()}
 
 
+def _feed_forward(layer) -> dict:
+    """The FF weights of a layer as the GEMM reads them: the live weights
+    where the width is a multiple of :data:`FF_MULTIPLE`, else a zero-padded
+    copy kept on the layer while its parameters keep their storage and
+    version."""
+    d0, d1 = layer.dense_0, layer.dense_1
+    f = d0.out_features
+    if f % FF_MULTIPLE == 0:
+        return _linears('', {'1': d0, '2': d1})
+    key = tuple((p.data_ptr(), p._version) for p in (d0.weight, d0.bias, d1.weight, d1.bias))
+    cached = getattr(layer, '_ff_padded', None)
+    if cached is None or cached[0] != key:
+        width = -(-f // FF_MULTIPLE) * FF_MULTIPLE
+        w1 = d0.weight.new_zeros(width, d0.in_features)
+        b1 = d0.bias.new_zeros(width)
+        w2 = d1.weight.new_zeros(d1.out_features, width)
+        with torch.no_grad():
+            w1[:f] = d0.weight
+            b1[:f] = d0.bias
+            w2[:, :f] = d1.weight
+        cached = layer._ff_padded = (key, {'w1': w1, 'b1': b1, 'w2': w2, 'b2': d1.bias.detach()})
+    return dict(cached[1])
+
+
 def pack_encoder_layer(layer) -> dict:
-    return {**_ln(layer.norm_0, 'ln1'), **_attn(layer.attn_0), **_ln(layer.norm_1, 'ln2'),
-            **_linears('', {'1': layer.dense_0, '2': layer.dense_1})}
+    return {**_ln(layer.norm_0, 'ln1'), **_attn(layer.attn_0), **_ln(layer.norm_1, 'ln2'), **_feed_forward(layer)}
 
 
 def pack_decoder_layer(layer) -> dict:
     return {**_ln(layer.norm_0, 'ln1'), **_attn(layer.attn_0), **_ln(layer.norm_1, 'lnx'),
-            **_attn(layer.attn_1, 'x'), **_ln(layer.norm_2, 'ln2'),
-            **_linears('', {'1': layer.dense_0, '2': layer.dense_1})}
+            **_attn(layer.attn_1, 'x'), **_ln(layer.norm_2, 'ln2'), **_feed_forward(layer)}
 
 
 def pack_encoder(layers) -> list[dict]:
@@ -268,8 +298,6 @@ def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int
     _build.require(x, name, torch.float32)
     if x.dim() != 3:
         raise ValueError(f'{name}: expected (B, T, d), got {tuple(x.shape)}')
-    if x.shape[1] > MAX_TOKENS:
-        raise ValueError(f'wformer: the attention kernel does not cover {x.shape[1]} tokens (at most {MAX_TOKENS})')
     if pack and pack[0]['wq'].device != x.device:
         raise ValueError(f'wformer: weights on {pack[0]["wq"].device}, {name} on {x.device}')
     return x.shape
@@ -278,9 +306,11 @@ def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int
 def wformer_encoder_cuda(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
     """``x (B, T, d)`` float32 on the card -> ``(B, T, d)`` through the
     encoder stack.  The guards of ``pccf_gemm`` and ``pccf_attention`` state
-    the shapes covered (64-row tiles over tokens, 64-wide heads, widths in
-    multiples of 64, at most 256 tokens)."""
+    the shapes covered (64-row tiles over tokens, heads up to 128 wide,
+    widths in multiples of 64); a head past 128 raises ``ValueError`` before
+    any launch."""
     b, t, d = _tokens(x, 'x', pack)
+    check_heads(d, n_heads)
     stacks = Stacks(b, t, d, x.device)
     res = x.reshape(b * t, d).clone()
     stacks.encoder(res, pack, n_heads)
@@ -295,6 +325,7 @@ def wformer_decoder_cuda(x: torch.Tensor, memory: torch.Tensor, pack: list[dict]
     bm, t_mem, dm = _tokens(memory, 'memory', pack)
     if (bm, dm) != (b, d):
         raise ValueError(f'wformer: memory {tuple(memory.shape)} does not match x {tuple(x.shape)}')
+    check_heads(d, n_heads)
     stacks = Stacks(b, t, d, x.device)
     res = x.reshape(b * t, d).clone()
     stacks.decoder(res, memory.reshape(b * t_mem, d), pack, n_heads)

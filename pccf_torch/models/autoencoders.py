@@ -1,7 +1,8 @@
 """VQ-VAE (``pccf/models/autoencoders.py``): the serving path, the stage-1
 reconstruction path that training differentiates, the double
 reconstruction through the inner CVAE that the evaluation suites run, and
-generation from the priors."""
+generation from the priors; and ``Oracle``, the baseline that returns part of
+its input."""
 
 from __future__ import annotations
 
@@ -16,8 +17,24 @@ from pccf_torch.kernels import ops
 from pccf_torch.kernels.cvae import pack_cvae_cf
 from pccf_torch.models.w_autoencoders import GenerationNoise, WAutoEncoder, build_w_autoencoder
 from pccf_torch.nn.decoders import PCGenDecoder, build_decoder
-from pccf_torch.nn.encoders import DGCNNEncoder
-from pccf_torch.nn.layers import get_act, gumbel_uniform
+from pccf_torch.nn.encoders import get_encoder
+from pccf_torch.nn.layers import gumbel_uniform
+
+
+class Oracle(nn.Module):
+    """The first points of the input cloud as its reconstruction
+    (``autoencoders.py:21-30``): ``n_training_output_points`` in train mode,
+    ``n_inference_output_points`` in eval.  An upper bound for the
+    reconstruction metrics; it has no parameters."""
+
+    def __init__(self, n_training_output_points: int, n_inference_output_points: int) -> None:
+        super().__init__()
+        self.n_training_output_points = n_training_output_points
+        self.n_inference_output_points = n_inference_output_points
+
+    def forward(self, inputs: Inputs, *_) -> Outputs:
+        n = self.n_training_output_points if self.training else self.n_inference_output_points
+        return Outputs(recon=inputs.cloud[:, :n, :])
 
 
 class VQVAE(nn.Module):
@@ -27,7 +44,7 @@ class VQVAE(nn.Module):
 
     def __init__(
         self,
-        encoder: DGCNNEncoder,
+        encoder: nn.Module,
         decoder: PCGenDecoder,
         w_autoencoder: WAutoEncoder,
         n_codes: int,
@@ -169,7 +186,7 @@ class VQVAE(nn.Module):
 def build_vqvae(cfg: SliceConfig) -> VQVAE:
     ae = cfg.autoencoder
     return VQVAE(
-        encoder=DGCNNEncoder(ae.w_dim, cfg.data.n_neighbors, get_act(ae.encoder.act_name), ae.encoder.h_dim),
+        encoder=get_encoder(ae, cfg.data.n_neighbors),
         decoder=build_decoder(ae),
         w_autoencoder=build_w_autoencoder(cfg),
         n_codes=ae.n_codes,

@@ -1,6 +1,6 @@
 """Conditional inner CVAE (``pccf/models/w_autoencoders.py``): the training
 forward of stage 2, the deterministic counterfactual path and sampling from
-the priors."""
+the priors, with the VampPrior's pseudo-inputs where ``n_pseudo_inputs > 0``."""
 
 from __future__ import annotations
 
@@ -10,19 +10,23 @@ from torch import nn
 
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Outputs, WInputs
-from pccf_torch.kernels import api, ops, wformer
-from pccf_torch.kernels.cvae import IN_PAD, OUT_PAD, CVAEPack, pack_cvae_cf
-from pccf_torch.nn.layers import gelu_exact, get_act
+from pccf_torch.kernels import api, ops
+from pccf_torch.kernels.cvae import MAX_EMBEDDING, CVAEPack, pack_cvae_cf
+from pccf_torch.nn.layers import gelu_exact
 from pccf_torch.nn.w_networks import (
     ConditionalPrior,
     TransformerWConditionalEncoder,
     TransformerWDecoder,
     TransformerWEncoder,
+    get_conditional_w_encoder,
+    get_w_decoder,
+    get_w_encoder,
 )
 
 Noise = tuple[torch.Tensor, torch.Tensor]  # the standard normal draws of z1 and z2
-# generation's draws: z1's and z2's standard normal and the class prior's probabilities
-GenerationNoise = tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+# generation's draws: z1's and z2's standard normal, the class prior's
+# probabilities and, with pseudo-inputs, the pseudo-input each sample's z1 is drawn from
+GenerationNoise = tuple[torch.Tensor, ...]
 
 
 class WAutoEncoder(nn.Module):
@@ -44,6 +48,7 @@ class WAutoEncoder(nn.Module):
         n_classes: int,
         cf_temperature: float = 5.0,
         conditional: bool = True,
+        n_pseudo_inputs: int = 0,
     ) -> None:
         super().__init__()
         self.encoder, self.decoder, self.z2_prior, self.z2_posterior = encoder, decoder, z2_prior, z2_posterior
@@ -51,6 +56,9 @@ class WAutoEncoder(nn.Module):
         self.z1_dim, self.z2_dim, self.n_classes = z1_dim, z2_dim, n_classes
         self.cf_temperature = cf_temperature
         self.conditional = conditional  # False: uniform class probabilities (w_autoencoders.py:233-236)
+        self.n_pseudo_inputs = n_pseudo_inputs
+        if n_pseudo_inputs > 0:  # the VampPrior (w_autoencoders.py:46-52)
+            self.pseudo_inputs = nn.Parameter(torch.zeros(n_pseudo_inputs, n_codes, embedding_dim))
         # the chain's folded weights; set once by a server (prepack), else
         # folded on every call
         self.packed: CVAEPack | None = None
@@ -69,9 +77,29 @@ class WAutoEncoder(nn.Module):
         data = self.sample_posterior(data, eps, generator)
         return self.decode(data, codebook, generator)
 
-    def encode_z1(self, x: torch.Tensor, generator: torch.Generator | None = None) -> Outputs:
-        mu1, log_var1 = self.encoder(x, generator).chunk(2, dim=2)
-        return Outputs(mu1=mu1, log_var1=log_var1)
+    def encode_z1(self, x: torch.Tensor | None, generator: torch.Generator | None = None) -> Outputs:
+        """z1's statistics; with pseudo-inputs the encoder also takes them, as
+        rows after ``x``, and their statistics are split off
+        (``w_autoencoders.py:62-72``)."""
+        data = Outputs()
+        latent = self.encoder(self._get_input(x), generator)
+        if self.n_pseudo_inputs > 0:
+            latent, pseudo = latent[: -self.n_pseudo_inputs], latent[-self.n_pseudo_inputs:]
+            p_mu, p_log_var = pseudo.chunk(2, dim=2)
+            data = data.replace(pseudo_mu1=p_mu, pseudo_log_var1=p_log_var)
+        mu1, log_var1 = latent.chunk(2, dim=2)
+        return data.replace(mu1=mu1, log_var1=log_var1)
+
+    def _get_input(self, x: torch.Tensor | None) -> torch.Tensor:
+        """``x``, the pseudo-inputs after it, or the pseudo-inputs alone
+        (``w_autoencoders.py:246-254``)."""
+        if self.n_pseudo_inputs == 0:
+            if x is None:
+                raise ValueError('No input available.')
+            return x
+        if x is None:
+            return self.pseudo_inputs
+        return torch.cat([x, self.pseudo_inputs], dim=0)
 
     def encode_z2(self, x: torch.Tensor, data: Outputs, generator: torch.Generator | None = None) -> Outputs:
         p_mu2, p_log_var2 = self.z2_prior(data.probs).chunk(2, dim=2)
@@ -137,8 +165,8 @@ class WAutoEncoder(nn.Module):
         generator: torch.Generator | None = None,
     ) -> Outputs:
         """Sample z1 and z2 from the priors and decode to code indices
-        (``w_autoencoders.py:195-212``): ``z1`` the standard normal draw plus
-        ``z1_bias`` (a float, or a tensor broadcast to ``(B, n_codes,
+        (``w_autoencoders.py:195-212``): ``z1`` the prior's sample
+        (:meth:`sample_z1_prior`) plus ``z1_bias`` (a float, or a tensor broadcast to ``(B, n_codes,
         z1_dim)``, which gives z1 a row per code), the class probabilities
         ``probs`` or the prior's draw, ``z2 = ε · exp(½ log σ²) + μ`` from
         the conditional prior.  ``noise`` holds the draws (see
@@ -148,8 +176,9 @@ class WAutoEncoder(nn.Module):
                 raise ValueError('generation: pass the noise or a torch.Generator to draw it')
             noise = self.sample_noise(batch_size, generator)
         dev = codebook.device
-        eps1, eps2, prior_probs = (x.to(dev) for x in noise)
-        z1 = eps1 + (z1_bias.to(dev) if isinstance(z1_bias, torch.Tensor) else z1_bias)
+        eps1, eps2, prior_probs, *which = (x.to(dev) for x in noise)
+        z1 = self.sample_z1_prior(draws=(eps1, *which)) + (z1_bias.to(dev) if isinstance(z1_bias, torch.Tensor)
+                                                           else z1_bias)
         probs = prior_probs if probs is None else probs.to(dev)
         p_mu2, p_log_var2 = self.z2_prior(probs).chunk(2, dim=2)
         z2 = eps2 * torch.exp(0.5 * p_log_var2) + p_mu2
@@ -157,19 +186,44 @@ class WAutoEncoder(nn.Module):
 
     def sample_noise(self, batch_size: int, generator: torch.Generator) -> GenerationNoise:
         """The draws of :meth:`generate_discrete_latent_space` on the
-        generator's device, made in JAX's order (z1's standard normal ``(B,
-        1, z1_dim)``, the class probabilities ``(B, n_classes)``, z2's
-        standard normal ``(B, n_codes, z2_dim)``) and returned as ``(z1's,
-        z2's, the probabilities)``."""
-        eps1 = self.sample_z1_prior(batch_size, generator)
+        generator's device, made in JAX's order (z1's draws, see
+        :meth:`z1_draws`; the class probabilities ``(B, n_classes)``; z2's
+        standard normal ``(B, n_codes, z2_dim)``) and returned as ``(z1's
+        standard normal, z2's, the probabilities)``, with the chosen
+        pseudo-inputs last where the model has them."""
+        z1 = self.z1_draws(batch_size, generator)
         probs = self.sample_prob(batch_size, generator)
         eps2 = torch.randn((batch_size, self.n_codes, self.z2_dim), generator=generator, device=generator.device)
-        return eps1, eps2, probs
+        return (z1[0], eps2, probs, *z1[1:])
 
-    def sample_z1_prior(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
-        """A standard normal ``(B, 1, z1_dim)`` (``w_autoencoders.py:214-223``;
-        the port has no pseudo-inputs)."""
-        return torch.randn((batch_size, 1, self.z1_dim), generator=generator, device=generator.device)
+    def z1_draws(self, batch_size: int, generator: torch.Generator) -> tuple[torch.Tensor, ...]:
+        """The draws of z1's prior: a standard normal ``(B, 1, z1_dim)``; with
+        pseudo-inputs, a standard normal ``(B, n_codes, z1_dim)`` and the
+        pseudo-input each sample is drawn from ``(B,)`` (JAX draws the
+        choice first)."""
+        dev = generator.device
+        if self.n_pseudo_inputs == 0:
+            return (torch.randn((batch_size, 1, self.z1_dim), generator=generator, device=dev),)
+        which = torch.randint(0, self.n_pseudo_inputs, (batch_size,), generator=generator, device=dev)
+        return torch.randn((batch_size, self.n_codes, self.z1_dim), generator=generator, device=dev), which
+
+    def sample_z1_prior(self, batch_size: int = 1, generator: torch.Generator | None = None,
+                        draws: tuple[torch.Tensor, ...] | None = None) -> torch.Tensor:
+        """A sample of z1's prior (``w_autoencoders.py:214-223``): the standard
+        normal ``(B, 1, z1_dim)``, or with pseudo-inputs the VampPrior's
+        ``ε · exp(½ log σ²) + μ`` of the chosen pseudo-inputs' z1 statistics,
+        ``(B, n_codes, z1_dim)``.  ``draws`` (:meth:`z1_draws`) are drawn from
+        ``generator`` when not given."""
+        if draws is None:
+            if generator is None:
+                raise ValueError('sample_z1_prior: pass the draws or a torch.Generator to draw them')
+            draws = self.z1_draws(batch_size, generator)
+        if self.n_pseudo_inputs == 0:
+            return draws[0]
+        eps, which = draws
+        pseudo = self.encode_z1(None)
+        which = which.long()
+        return eps * torch.exp(0.5 * pseudo.pseudo_log_var1[which]) + pseudo.pseudo_mu1[which]
 
     def sample_prob(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
         """Class probabilities ``(B, n_classes)`` (``w_autoencoders.py:225-231``):
@@ -183,25 +237,26 @@ class WAutoEncoder(nn.Module):
         return e / e.sum(dim=1, keepdim=True)
 
     def fused_ok(self) -> bool:
-        """The gate of the fused chain (``w_autoencoders.py:130-144``): transformer
-        nets with the exact GELU and one shared ``proj_dim``, and the shape
-        test of ``cvae_cf_supported`` (``pallas_cvae.py:58-74``) as the card's
-        kernels state it: each net's stack within
-        :func:`pccf_torch.kernels.wformer.supported` (64-wide heads, at most
-        256 tokens, FF widths in multiples of 64 beside the 128-multiple
-        tokens and width), and a code embedding no wider than the chain's
-        padded token input and compress head.  The VMEM budget is a TPU limit
-        and is not carried over."""
+        """``_fused_cf_ok`` (``w_autoencoders.py:115-148``): transformer nets
+        with the exact GELU and one shared ``proj_dim``, and the shape test of
+        ``cvae_cf_supported`` (``pallas_cvae.py:58-74``): tokens and width in
+        multiples of 128, whole heads in each net, a code embedding of at most
+        128.  Pseudo-inputs do not gate it (their rows are split off before
+        the counterfactual reads z1).  The VMEM budget is a TPU limit and is
+        not carried over; inside the gate the card's chain covers every shape
+        but heads wider than 128, which raise ``ValueError`` before any
+        launch."""
         enc, post, dec = self.encoder, self.z2_posterior, self.decoder
-        nets = (enc, post, dec)
         return (
             isinstance(enc, TransformerWEncoder)
             and isinstance(post, TransformerWConditionalEncoder)
             and isinstance(dec, TransformerWDecoder)
-            and all(net.act is gelu_exact for net in nets)
+            and all(net.act is gelu_exact for net in (enc, post, dec))
             and enc.proj_dim == post.proj_dim == dec.proj_dim
-            and all(wformer.supported(self.n_codes, net.proj_dim, net.n_heads, net.mlp_dims) for net in nets)
-            and self.embedding_dim <= min(IN_PAD, OUT_PAD)
+            and self.n_codes % 128 == 0
+            and enc.proj_dim % 128 == 0
+            and self.embedding_dim <= MAX_EMBEDDING
+            and all(enc.proj_dim % net.n_heads == 0 for net in (enc, post, dec))
         )
 
 
@@ -220,22 +275,20 @@ class WAETrainModule(nn.Module):
 
 
 def build_w_autoencoder(cfg: SliceConfig) -> WAutoEncoder:
+    """The inner CVAE of the configuration, each net from its factory
+    (``w_autoencoders.py:280-300``)."""
     ae, wae = cfg.autoencoder, cfg.w_autoencoder
-    e, t, c = ae.embedding_dim, ae.n_codes, cfg.data.n_classes
-    we, wd, cw = wae.w_encoder, wae.w_decoder, wae.conditional_w_encoder
     return WAutoEncoder(
-        encoder=TransformerWEncoder(e, wae.z1_dim, t, we.proj_dim, we.n_heads, we.mlp_dims, get_act(we.act_name),
-                                    we.dropout_rates),
-        decoder=TransformerWDecoder(e, wae.z1_dim, wae.z2_dim, t, wd.proj_dim, wd.n_heads, wd.mlp_dims,
-                                    get_act(wd.act_name), wd.dropout_rates),
-        z2_prior=ConditionalPrior(c, t, wae.z2_dim),
-        z2_posterior=TransformerWConditionalEncoder(e, c, wae.z2_dim, t, cw.proj_dim, cw.n_heads, cw.mlp_dims,
-                                                    get_act(cw.act_name), cw.dropout_rates),
-        n_codes=t,
-        embedding_dim=e,
+        encoder=get_w_encoder(cfg),
+        decoder=get_w_decoder(cfg),
+        z2_prior=ConditionalPrior(cfg.data.n_classes, ae.n_codes, wae.z2_dim),
+        z2_posterior=get_conditional_w_encoder(cfg),
+        n_codes=ae.n_codes,
+        embedding_dim=ae.embedding_dim,
         z1_dim=wae.z1_dim,
         z2_dim=wae.z2_dim,
-        n_classes=c,
+        n_classes=cfg.data.n_classes,
         cf_temperature=wae.cf_temperature,
         conditional=ae.class_name == 'CounterfactualVQVAE',
+        n_pseudo_inputs=wae.n_pseudo_inputs,
     )

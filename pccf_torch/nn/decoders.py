@@ -3,11 +3,13 @@
 Eval: the map MLP up to its penultimate layer stays ``torch.matmul`` (it lies
 outside the Pallas kernel in JAX too); the Hardtanh map head, the ``w ⊙ map``
 join, the component stacks, their heads and the tempered-softmax mix run in
-the ``pcgen_mix`` kernel when its gate holds: the structural gate of
-``pallas_pcgen.py:68-72`` and the shapes the card's kernel takes
-(:func:`pccf_torch.kernels.pcgen.supported`).  Training
-(``module.train()``) runs module by module with batch-stat BatchNorm and
-Gumbel-softmax attention, whose products are plain
+the ``pcgen_mix`` kernels when the JAX package's gate holds
+(``decoders.py:135-155`` ``_fused_eval_ok`` with
+``pallas_pcgen.py:60-74`` ``pcgen_fused_supported``,
+:func:`pccf_torch.kernels.pcgen.supported`), and module by module where it
+fails, as JAX leaves such a decoder to its XLA layers, on either device.
+Training (``module.train()``) runs module by module with batch-stat
+BatchNorm and Gumbel-softmax attention, whose products are plain
 ``torch.matmul`` as in JAX.  Either way graph filtering (kNN with k=4, then
 the neighbour gather kernel) sharpens the mixed cloud when ``filtering`` is
 on, as the flagship configuration has it.
@@ -108,14 +110,15 @@ class PCGenDecoder(nn.Module):
         # folded on every call
         self.packed: PCGenPack | None = None
 
-    def fused_ok(self) -> bool:
-        """The gate of the fused path (``decoders.py:135-155``,
-        ``pallas_pcgen.py:68-72``): a (leaky) ReLU the kernel hard-codes, and
-        the shapes the guard of ``pccf_pcgen_mix`` takes
-        (:func:`pccf_torch.kernels.pcgen.supported`: three component layers,
-        non-expanding after the first, 2 to 8 components)."""
+    def fused_ok(self, n_points: int | None = None) -> bool:
+        """The gate of the fused path (``decoders.py:135-155``): a (leaky) ReLU
+        the kernels hard-code, and ``pcgen_fused_supported``'s shape terms
+        (:func:`pccf_torch.kernels.pcgen.supported`: points in multiples of
+        256, a 128-multiple ``w_dim``, layers non-expanding after the first,
+        at least two components); ``n_points`` None (``prepack``, which packs
+        for any point count) checks every term but the points'."""
         return act_slope(self.act) is not None and pcgen.supported(
-            self.map_out.dense.in_features, (self.w_dim, *self.conv_dims), self.n_components)
+            pcgen.TILE if n_points is None else n_points, self.w_dim, self.conv_dims, self.n_components)
 
     @torch.no_grad()
     def pack(self) -> PCGenPack:
@@ -147,15 +150,9 @@ class PCGenDecoder(nn.Module):
             x = block(x)
         if self.training:
             x = self._mix_modules(x, w, gumbel_uniform)
-        elif self.fused_ok():
+        elif self.fused_ok(x.shape[1]):
             pack = self.packed if self.packed is not None else self.pack()
             x = api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
-        elif x.is_cuda:
-            raise NotImplementedError(
-                f'PCGenDecoder: the pcgen_mix gate failed ((leaky) ReLU and the shapes of pcgen.supported; here '
-                f'map input {self.map_out.dense.in_features}, widths {(self.w_dim, *self.conv_dims)}, '
-                f'{self.n_components} components); the module-by-module path runs on CPU tensors only'
-            )
         else:
             x = self._mix_modules(x, w, None)
         return api.graph_filtering(x.contiguous()) if self.filtering else x

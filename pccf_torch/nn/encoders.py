@@ -1,38 +1,42 @@
-"""DGCNN encoder (``pccf/nn/encoders.py``), channels-last; ``module.train()``
-selects the streaming-BN training path."""
+"""DGCNN and LDGCNN encoders (``pccf/nn/encoders.py``), channels-last;
+``module.train()`` selects the batch-statistics training path."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from pccf_torch.config import AutoEncoderConfig
 from pccf_torch.kernels import api
-from pccf_torch.nn.layers import Act, BatchNorm, DenseBlock, act_slope
+from pccf_torch.nn.layers import Act, BatchNorm, DenseBlock, act_slope, get_act
 
 IN_CHAN = 3
 
 
 class EdgeConvBlock(nn.Module):
-    """EdgeConv on the streaming path (``encoders.py:62-126``).
+    """EdgeConv (``encoders.py:62-153``).
 
     With ``W = [W_diff; W_self]`` the edge dense ``concat(nbr − x, x) · W``
-    is ``(x · W_diff)[nbr] + x · (W_self − W_diff)``.  BatchNorm is a
-    per-channel affine ``a, b`` that folds into the gathered term before the
-    max (the per-centre term is constant over neighbours), and a monotone
-    activation commutes with the max:
-    ``act(graph_max_pool(u · a, idx) + s · a + b)``.  In training ``a, b``
-    come from the batch statistics of the never-materialised edge tensor:
-    one sum-pool of ``[u, u²]`` gives both u-moments, and
-    ``var = E[u²] + 2 E[u·s] + E[s²] − mean²`` (unclamped, as in JAX).
+    is ``(x · W_diff)[nbr] + x · (W_self − W_diff)``.  Under no activation or
+    a (leaky) ReLU it takes the streaming path: BatchNorm is a per-channel
+    affine ``a, b`` that folds into the gathered term before the max (the
+    per-centre term is constant over neighbours), and a monotone activation
+    commutes with the max: ``act(graph_max_pool(u · a, idx) + s · a + b)``.
+    In training ``a, b`` come from the batch statistics of the
+    never-materialised edge tensor: one sum-pool of ``[u, u²]`` gives both
+    u-moments, and ``var = E[u²] + 2 E[u·s] + E[s²] − mean²`` (unclamped, as
+    in JAX).  Any other activation (GELU) materialises the edge tensor with
+    the neighbour gather (``api.gather_neighbors``, whose gradient is the row
+    scatter), normalises it, activates it and keeps each channel's first
+    winner over the neighbours, so the gradient goes to that slot alone.
 
     ``weight`` is ``(F, 2C)``: the transpose of the flax ``kernel``."""
 
     def __init__(self, in_features: int, features: int, k: int, act: Act | None) -> None:
         super().__init__()
-        if act is not None and act_slope(act) is None:
-            raise ValueError('EdgeConvBlock: only monotone (leaky) ReLU activations take the streaming path')
         self.k = k
         self.act = act
+        self.monotone = act is None or act_slope(act) is not None
         self.weight = nn.Parameter(torch.empty(features, 2 * in_features))
         self.bn = BatchNorm(features)
 
@@ -47,6 +51,8 @@ class EdgeConvBlock(nn.Module):
         w_diff = self.weight[:, :c]
         u = torch.matmul(x, w_diff.T)  # gathered per neighbour
         s = torch.matmul(x, (self.weight[:, c:] - w_diff).T)  # per-centre term
+        if not self.monotone:
+            return self._materialised(u, s, idx)
         if self.training:
             a, b = self._batch_affine(u, s, idx)
         else:
@@ -70,6 +76,22 @@ class EdgeConvBlock(nn.Module):
         a = self.bn.weight * torch.rsqrt(batch_var + self.bn.eps)
         return a, self.bn.bias - batch_mean * a
 
+    def _materialised(self, u: torch.Tensor, s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The edge tensor ``(B, N, k, F)``, BatchNorm, the activation and the
+        first winner over the neighbours (``encoders.py:128-153``)."""
+        pre = api.gather_neighbors(u.contiguous(), idx) + s[:, :, None, :]
+        if self.training:
+            mean = torch.mean(pre, dim=(0, 1, 2))
+            var = torch.mean(pre * pre, dim=(0, 1, 2)) - mean * mean
+            self.bn.update_running(mean, var)
+        else:
+            mean, var = self.bn.running_mean, self.bn.running_var
+        pre = (pre - mean) * torch.rsqrt(var + self.bn.eps) * self.bn.weight + self.bn.bias
+        if self.act is not None:
+            pre = self.act(pre)
+        win = torch.argmax(pre, dim=2, keepdim=True)  # the first winner, as jnp.argmax
+        return torch.gather(pre, 2, win)[:, :, 0, :]
+
 
 class DGCNNEncoder(nn.Module):
     """Dynamic-graph CNN encoder (``encoders.py:154-179``): the kNN graph is
@@ -90,3 +112,38 @@ class DGCNNEncoder(nn.Module):
             idx = None  # dynamic graph: recompute on the new features
             xs.append(x)
         return torch.amax(self.final_conv(torch.cat(xs, dim=-1)), dim=1)  # (B, w_dim)
+
+
+class LDGCNNEncoder(nn.Module):
+    """Lighter DGCNN (``encoders.py:182-205``): one kNN graph on the input
+    cloud, one EdgeConv, then per width a graph max-pool over that graph and
+    a point-wise Dense + BatchNorm + act; the concatenation's final Dense,
+    max over the points."""
+
+    def __init__(self, w_dim: int, n_neighbors: int, conv_dims: tuple[int, ...], act: Act) -> None:
+        super().__init__()
+        self.n_neighbors = n_neighbors
+        self.edge_conv = EdgeConvBlock(IN_CHAN, conv_dims[0], n_neighbors, None)
+        self.points_conv = nn.ModuleList(DenseBlock(conv_dims[i], conv_dims[i + 1], act=act)
+                                         for i in range(len(conv_dims) - 1))
+        self.final_conv = DenseBlock(sum(conv_dims), w_dim, act=None, batch_norm=False)
+
+    def forward(self, cloud: torch.Tensor, indices: torch.Tensor | None = None) -> torch.Tensor:
+        idx = indices if indices is not None else api.knn(cloud, self.n_neighbors)
+        x = self.edge_conv(cloud, idx)
+        xs = [x]
+        for block in self.points_conv:
+            x = block(api.graph_max_pool(x.contiguous(), idx))
+            xs.append(x)
+        return torch.amax(self.final_conv(torch.cat(xs, dim=-1)), dim=1)  # (B, w_dim)
+
+
+def get_encoder(cfg: AutoEncoderConfig, n_neighbors: int) -> nn.Module:
+    """The encoder of ``autoencoder.model.encoder`` (``encoders.py:208-229``)."""
+    enc = cfg.encoder
+    act = get_act(enc.act_name)
+    if enc.class_name == 'DGCNN':
+        return DGCNNEncoder(cfg.w_dim, n_neighbors, act, enc.h_dim)
+    if enc.class_name == 'LDGCNN':
+        return LDGCNNEncoder(cfg.w_dim, n_neighbors, enc.conv_dims, act)
+    raise ValueError(f'Unknown encoder {enc.class_name}')

@@ -1,17 +1,22 @@
-"""Inner (W-space) transformer networks (``pccf/nn/w_networks.py``).
+"""Inner (W-space) networks (``pccf/nn/w_networks.py``).
 
 All operate on the code axis: inputs ``(B, n_codes, embedding_dim)``.  In
-eval, a net whose shape passes the stack gate (``w_networks.py:42-63``:
-exact GELU and the shapes the card's stack kernels cover,
-:func:`pccf_torch.kernels.wformer.supported`) runs its layer stack
-through :func:`pccf_torch.kernels.api.wformer_encoder` /
+eval, a transformer net whose shape passes the stack gate
+(``w_networks.py:42-63`` ``_fused_stack_ok``: the exact GELU and
+``wformer_supported``'s shape line, :func:`pccf_torch.kernels.wformer.supported`)
+runs its layer stack through :func:`pccf_torch.kernels.api.wformer_encoder` /
 ``wformer_decoder``, packed from the live weights on every call: the kernel
-on a CUDA tensor, its plain version on a CPU tensor.  In training the layers
-run one by one in plain PyTorch, as the JAX package leaves them to XLA, with
-dropout masks drawn from the ``generator`` passed in.  In eval with the gate
-failing they run one by one on a CPU tensor, and a CUDA tensor raises: the
-card has no kernel for such a stack.  The parameters also feed the CVAE chain's weight
-pack (:func:`pccf_torch.kernels.cvae.pack_cvae_cf`).
+on a CUDA tensor, its plain version on a CPU tensor.  A net whose gate fails
+runs its layers one by one, as the JAX package leaves such a net to its XLA
+layers, on either device; so does every net in training, with dropout masks
+drawn from the ``generator`` passed in.  The parameters also feed the CVAE
+chain's weight pack (:func:`pccf_torch.kernels.cvae.pack_cvae_cf`).
+
+The convolutional W-encoder (per-code Dense + BatchNorm stacks with no
+activation) and the linear W-decoder (per-code grouped Dense stacks) are
+module layers on either device, as in the JAX package; :func:`get_w_encoder`,
+:func:`get_w_decoder` and :func:`get_conditional_w_encoder` build each net
+from the configuration.
 """
 
 from __future__ import annotations
@@ -19,8 +24,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from pccf_torch.config import SliceConfig
 from pccf_torch.kernels import api, wformer
-from pccf_torch.nn.layers import Act, DenseBlock, TransformerDecoderLayer, TransformerEncoderLayer, gelu_exact
+from pccf_torch.nn.layers import (Act, DenseBlock, TransformerDecoderLayer, TransformerEncoderLayer, dropout,
+                                  gelu_exact, get_act)
 
 Generator = torch.Generator | None
 
@@ -43,23 +50,10 @@ class _TransformerNet(nn.Module):
 
     def stack_ok(self) -> bool:
         """``_fused_stack_ok`` (``w_networks.py:42-63``): eval, the exact GELU,
-        and the shapes the card's stack kernels cover, FF widths included
+        and ``wformer_supported``'s shape line
         (:func:`pccf_torch.kernels.wformer.supported`)."""
         return not self.training and self.act is gelu_exact and wformer.supported(
-            self.n_codes, self.proj_dim, self.n_heads, self.mlp_dims)
-
-    def use_kernel(self, x: torch.Tensor) -> bool:
-        """Whether the stack runs through its wformer wrapper; raises in eval
-        on a CUDA tensor when the gate fails."""
-        if self.stack_ok():
-            return True
-        if not self.training and x.is_cuda:
-            raise NotImplementedError(
-                f'{type(self).__name__}: the wformer stack gate failed (exact GELU, tokens a multiple of 128 up to '
-                f'{wformer.MAX_TOKENS}, width a multiple of 128, heads of {wformer.HEAD_DIM}, FF widths multiples '
-                f'of {wformer.FF_MULTIPLE}; here {self.n_codes} tokens, width {self.proj_dim}, {self.n_heads} heads, '
-                f'FF {self.mlp_dims}); the layer-by-layer eval path runs on CPU tensors only')
-        return False
+            self.n_codes, self.proj_dim, self.n_heads)
 
 
 class _TransformerEncoderNet(_TransformerNet):
@@ -70,7 +64,7 @@ class _TransformerEncoderNet(_TransformerNet):
                                     for f, r in zip(mlp_dims, rates))
 
     def stack(self, x: torch.Tensor, generator: Generator) -> torch.Tensor:
-        if self.use_kernel(x):
+        if self.stack_ok():
             return api.wformer_encoder(x.contiguous(), wformer.pack_encoder(self.layers), self.n_heads)
         for layer in self.layers:
             x = layer(x, generator)
@@ -138,7 +132,7 @@ class TransformerWDecoder(_TransformerNet):
         shape = (b, self.n_codes, self.proj_dim)
         memory = self.z1_proj(z1).expand(shape) + self.memory_positional_embedding
         x = self.z2_proj(z2).expand(shape) + self.positional_embedding
-        if self.use_kernel(x):
+        if self.stack_ok():
             x = api.wformer_decoder(x.contiguous(), memory.contiguous(), wformer.pack_decoder(self.layers),
                                     self.n_heads)
         else:
@@ -158,3 +152,75 @@ class ConditionalPrior(nn.Module):
 
     def forward(self, probs: torch.Tensor) -> torch.Tensor:
         return self.prior(probs).reshape(-1, self.n_codes, 2 * self.z2_dim)
+
+
+class ConvolutionalWEncoder(nn.Module):
+    """Per-code Dense + BatchNorm stack with no activation, then a Dense head
+    (``w_networks.py:66-81``: the reference builds its layers with no
+    activation, and the JAX package keeps that)."""
+
+    def __init__(self, embedding_dim: int, z1_dim: int, conv_dims: tuple[int, ...]) -> None:
+        super().__init__()
+        widths = (embedding_dim, *conv_dims)
+        self.conv = nn.ModuleList(DenseBlock(widths[i], widths[i + 1]) for i in range(len(conv_dims)))
+        self.head = DenseBlock(widths[-1], 2 * z1_dim, batch_norm=False)
+
+    def forward(self, x: torch.Tensor, generator: Generator = None) -> torch.Tensor:
+        for block in self.conv:
+            x = block(x)
+        return self.head(x)
+
+
+class LinearWDecoder(nn.Module):
+    """Grouped per-code MLP decoder (``w_networks.py:116-142``): z1 and z2
+    joined per code, flattened into one row, then Dense + BatchNorm + act
+    stacks grouped by code, each followed by dropout in training, and a
+    grouped Dense head to ``w_dim``.  A z1 of one row ``(B, 1, z1_dim)``
+    (drawn from the unconditional prior) is broadcast across the codes."""
+
+    def __init__(self, w_dim: int, z1_dim: int, z2_dim: int, n_codes: int, mlp_dims: tuple[int, ...], act: Act,
+                 dropout_rates: tuple[float, ...] = ()) -> None:
+        super().__init__()
+        self.n_codes = n_codes
+        widths = (n_codes * (z1_dim + z2_dim), *mlp_dims)
+        self.mlp = nn.ModuleList(DenseBlock(widths[i], widths[i + 1], act=act, groups=n_codes)
+                                 for i in range(len(mlp_dims)))
+        self.rates = _rates(dropout_rates, len(mlp_dims))
+        self.head = DenseBlock(widths[-1], w_dim, batch_norm=False, groups=n_codes)
+
+    def forward(self, z1: torch.Tensor, z2: torch.Tensor, generator: Generator = None) -> torch.Tensor:
+        if z1.shape[1] == 1 and z2.shape[1] != 1:
+            z1 = z1.expand(z1.shape[0], z2.shape[1], z1.shape[2])
+        x = torch.cat([z1, z2], dim=-1).reshape(z1.shape[0], 1, -1)
+        for block, rate in zip(self.mlp, self.rates):
+            x = dropout(block(x), rate if self.training else 0.0, generator)
+        return self.head(x)[:, 0, :]
+
+
+def get_w_encoder(cfg: SliceConfig) -> nn.Module:
+    """The W-encoder of ``w_autoencoder.model.w_encoder`` (``w_networks.py:239-255``)."""
+    ae, wae = cfg.autoencoder, cfg.w_autoencoder
+    we = wae.w_encoder
+    if we.class_name == 'Convolutional':
+        return ConvolutionalWEncoder(ae.embedding_dim, wae.z1_dim, we.conv_dims)
+    return TransformerWEncoder(ae.embedding_dim, wae.z1_dim, ae.n_codes, we.proj_dim, we.n_heads, we.mlp_dims,
+                               get_act(we.act_name), we.dropout_rates)
+
+
+def get_w_decoder(cfg: SliceConfig) -> nn.Module:
+    """The W-decoder of ``w_autoencoder.model.w_decoder`` (``w_networks.py:258-282``)."""
+    ae, wae = cfg.autoencoder, cfg.w_autoencoder
+    wd = wae.w_decoder
+    if wd.class_name == 'Linear':
+        return LinearWDecoder(ae.w_dim, wae.z1_dim, wae.z2_dim, ae.n_codes, wd.mlp_dims, get_act(wd.act_name),
+                              wd.dropout_rates)
+    return TransformerWDecoder(ae.embedding_dim, wae.z1_dim, wae.z2_dim, ae.n_codes, wd.proj_dim, wd.n_heads,
+                               wd.mlp_dims, get_act(wd.act_name), wd.dropout_rates)
+
+
+def get_conditional_w_encoder(cfg: SliceConfig) -> nn.Module:
+    """The posterior-difference net (``w_networks.py:285-298``)."""
+    ae, wae = cfg.autoencoder, cfg.w_autoencoder
+    cw = wae.conditional_w_encoder
+    return TransformerWConditionalEncoder(ae.embedding_dim, cfg.data.n_classes, wae.z2_dim, ae.n_codes, cw.proj_dim,
+                                          cw.n_heads, cw.mlp_dims, get_act(cw.act_name), cw.dropout_rates)

@@ -141,10 +141,44 @@ def get_annealing(n_epochs: int) -> Objective:
     return Loss(_anneal, 'Annealing')
 
 
-def get_kld_loss(cfg: WAutoEncoderTrainConfig) -> Objective:
-    """``annealing · (c_kld1 · KLD1 + c_kld2 · KLD2)``; the VampPrior term of
-    ``n_pseudo_inputs > 0`` is not ported (the flagship has none)."""
-    return get_annealing(cfg.n_epochs) * (cfg.c_kld1 * get_kld1_loss() + cfg.c_kld2 * get_kld2_loss())
+def gaussian_ll(x: torch.Tensor, mu: torch.Tensor, log_var: torch.Tensor) -> torch.Tensor:
+    """The Gaussian log-likelihood of ``pccf/train/losses.py:145-147``, with
+    its ``+ log(2π)`` sign kept as the reference has it."""
+    return -0.5 * (log_var + (x - mu) ** 2 / torch.exp(log_var)) + math.log(2 * math.pi)
+
+
+def get_kld_vamp_loss(n_pseudo_inputs: int) -> Objective:
+    """The VampPrior's KLD (``losses.py:172-186``): z1's posterior
+    log-likelihood less the log of the mean over the pseudo-inputs of its
+    likelihood under their z1 posteriors."""
+
+    def _vamp(data: Outputs, _t: WTargets) -> torch.Tensor:
+        posterior_ll = torch.sum(gaussian_ll(data.z1, data.mu1, data.log_var1), dim=(1, 2))
+        prior_ll = torch.logsumexp(torch.sum(gaussian_ll(data.z1[:, None], data.pseudo_mu1[None],
+                                                         data.pseudo_log_var1[None]), dim=(2, 3)), dim=1)
+        return posterior_ll - prior_ll + math.log(n_pseudo_inputs)
+
+    return Loss(_vamp, 'KLD2_VAMP')
+
+
+def get_kld_loss(cfg: WAutoEncoderTrainConfig, n_pseudo_inputs: int = 0) -> Objective:
+    """``annealing · (c_kld1 · KLD1 + c_kld2 · KLD2)``, the VampPrior's KLD in
+    place of KLD1 with pseudo-inputs (``losses.py:200-206``)."""
+    kld1 = get_kld_vamp_loss(n_pseudo_inputs) if n_pseudo_inputs > 0 else get_kld1_loss()
+    return get_annealing(cfg.n_epochs) * (cfg.c_kld1 * kld1 + cfg.c_kld2 * get_kld2_loss())
+
+
+def get_nll_loss() -> Objective:
+    """The codebook-distance NLL (``losses.py:212-228``), with the reference's
+    normaliser kept: the sum of the squared distances themselves, so the term
+    is ``log(Σ d²) + log(d²)`` of the selected entry."""
+
+    def _nll(data: Outputs, targets: WTargets) -> torch.Tensor:
+        w_weights = 1.0 / torch.clamp_min(data.w_dist_2, 1e-6)
+        sum_weights = torch.sum(data.w_dist_2, dim=2, keepdim=True)
+        return torch.sum((torch.log(sum_weights) - torch.log(w_weights)) * targets.one_hot_idx, dim=(1, 2))
+
+    return Loss(_nll, 'NLL')
 
 
 def get_mse_loss() -> Objective:
@@ -166,9 +200,9 @@ def get_w_accuracy() -> Objective:
     return Metric(_acc, 'Quantisation Accuracy', higher_is_better=True)
 
 
-def get_w_autoencoder_loss(cfg: WAutoEncoderTrainConfig) -> Objective:
+def get_w_autoencoder_loss(cfg: WAutoEncoderTrainConfig, n_pseudo_inputs: int = 0) -> Objective:
     """MSE + annealed KLD, with the quantisation accuracy reported."""
-    return (get_mse_loss() + get_kld_loss(cfg)) | get_w_accuracy()
+    return (get_mse_loss() + get_kld_loss(cfg, n_pseudo_inputs)) | get_w_accuracy()
 
 
 # ------------------------------------------------------------ classification

@@ -70,7 +70,7 @@ def train_w_autoencoder(
     w_model = build_w_train_model(cfg, vqvae, seed=seed)
     train_loader = Loader(WDatasetWithLogits(train_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
     test_loader = Loader(WDatasetWithLogits(test_clouds.to(device), vqvae, classifier), wcfg.batch_size, seed)
-    loss = get_w_autoencoder_loss(wcfg)
+    loss = get_w_autoencoder_loss(wcfg, cfg.w_autoencoder.n_pseudo_inputs)
     trainer = Trainer(w_model, loss, wcfg, train_loader.n_batches(), seed=seed)
     validation = Test(w_model, test_loader, loss, 'Validation', seed=seed)
     trainer.train_until(train_loader, wcfg.n_epochs if n_epochs is None else n_epochs, validation)

@@ -277,8 +277,9 @@ def test_cvae_chain_refuses_shapes_it_does_not_cover(dev):
 def test_failed_gates_raise_on_cuda(dev):
     """A W-autoencoder whose fused-chain gate fails runs its nets one by one
     on the card, each stack through the wformer kernels, and agrees with the
-    CPU; a PCGen decoder whose gate fails has no kernel path on the card and
-    raises instead of running the plain modules there."""
+    CPU; a PCGen decoder whose gate fails (one component: the JAX gate asks
+    for two) runs its modules on the card, as JAX runs its XLA layers, with
+    no launch of either PCGen kernel, and agrees with the CPU."""
     from pccf_torch.data.structures import WInputs
     from pccf_torch.models.w_autoencoders import WAutoEncoder
     from pccf_torch.nn import w_networks as tw
@@ -305,64 +306,93 @@ def test_failed_gates_raise_on_cuda(dev):
     assert (got.idx.cpu() == want.idx).float().mean() >= 0.99
 
     dec = PCGenDecoder(w_dim=128, sample_dim=4, n_components=1, map_dims=(8,), conv_dims=(128, 64, 16), tau=5.0,
-                       act=relu).to(dev).eval()
+                       act=relu).eval()
+    init_from_seed(dec, 1)
     assert not dec.fused_ok()
-    with pytest.raises(NotImplementedError, match='pcgen_mix gate'):
-        dec(_randn((2, 128), 4, dev), _randn((2, 64, 4), 5, dev))
+    args = (_randn((2, 128), 4, 'cpu'), _randn((2, 256, 4), 5, 'cpu'))
+    with torch.no_grad():
+        want = dec(*args)
+        api.reset_launch_counts()
+        got = dec.to(dev)(*(a.to(dev) for a in args))
+    assert api.launch_counts()['pcgen_mix'] == api.launch_counts()['pcgen_general'] == 0
+    assert _rel_l2(got.cpu(), want) <= 1e-4
 
 
 @pytest.mark.parametrize('why', ['tokens', 'activation', 'heads', 'ff'])
 def test_failed_stack_gates_raise_on_cuda(dev, why):
-    """A W-net whose wformer gate fails (96 tokens, LeakyReLU, proj 256 with
-    8 heads of 32, an FF width of 96) runs its layers one by one in training
-    on the card, and in eval raises the gate's error before any launch."""
+    """A W-net outside JAX's stack gate (96 tokens, LeakyReLU) runs its layers
+    one by one on the card in eval, as JAX runs its XLA layers, with no stack
+    launch; one inside it that the card's kernels did not cover before (proj
+    256 with 8 heads of 32, an FF width of 96) launches its stack kernel.
+    Either way it agrees with the CPU, and training runs the layers."""
     from pccf_torch.nn import w_networks as tw
     from pccf_torch.nn.layers import default_act, gelu_exact, init_from_seed
 
     t, d, heads, ff, act = {
         'tokens': (96, 128, 2, (128,), gelu_exact), 'activation': (128, 128, 2, (128,), default_act),
         'heads': (128, 256, 8, (256,), gelu_exact), 'ff': (128, 128, 2, (96,), gelu_exact)}[why]
+    launches = 1 if why in ('heads', 'ff') else 0
     nets = [tw.TransformerWEncoder(4, 8, t, d, heads, ff, act),
             tw.TransformerWDecoder(4, 8, 6, t, d, heads, ff, act)]
-    inputs = [(_randn((2, t, 4), 1, dev),), (_randn((2, 1, 8), 2, dev), _randn((2, t, 6), 3, dev))]
-    for net, args in zip(nets, inputs):
+    inputs = [(_randn((2, t, 4), 1, 'cpu'),), (_randn((2, 1, 8), 2, 'cpu'), _randn((2, t, 6), 3, 'cpu'))]
+    for net, args, name in zip(nets, inputs, ('wformer_encoder', 'wformer_decoder')):
         init_from_seed(net, 0)
-        net = net.to(dev)
-        api.reset_launch_counts()
         with torch.no_grad():
-            assert torch.isfinite(net.train()(*args, torch.Generator(device=dev).manual_seed(0))).all()
-            with pytest.raises(NotImplementedError, match='wformer stack gate'):
-                net.eval()(*args)
-        assert set(api.launch_counts().values()) == {0}
+            want = net.eval()(*args)
+            net = net.to(dev)
+            cargs = tuple(a.to(dev) for a in args)
+            api.reset_launch_counts()
+            assert torch.isfinite(net.train()(*cargs, torch.Generator(device=dev).manual_seed(0))).all()
+            assert set(api.launch_counts().values()) == {0}
+            got = net.eval()(*cargs)
+        assert api.launch_counts()[name] == launches
+        assert sum(api.launch_counts().values()) == launches
+        assert _rel_l2(got.cpu(), want) <= 1e-4
 
 
 def test_cvae_with_heads_of_32_raises_on_cuda(dev):
-    """A W-autoencoder whose nets have 32-wide heads: its chain gate and its
-    nets' stack gates fail; in eval on the card the counterfactual raises the
-    gate's error before any launch, and the training forward runs through
-    the plain layers."""
+    """A W-autoencoder whose nets have 32-wide heads: inside JAX's chain gate,
+    so in eval on the card the counterfactual launches the fused chain and
+    agrees with its CPU run (codes at >= 0.99), and the training forward runs
+    the plain layers with no launch.  Heads 256 wide (one head over 256) are
+    inside the gate too, but past the attention kernel's 128: the
+    counterfactual raises ``ValueError`` before any launch."""
     from pccf_torch.data.structures import WInputs
     from pccf_torch.models.w_autoencoders import WAutoEncoder
     from pccf_torch.nn import w_networks as tw
     from pccf_torch.nn.layers import gelu_exact, init_from_seed
 
-    wae = WAutoEncoder(
-        encoder=tw.TransformerWEncoder(4, 8, 128, 128, 4, (128,), gelu_exact),
-        decoder=tw.TransformerWDecoder(4, 8, 6, 128, 128, 4, (128,), gelu_exact),
-        z2_prior=tw.ConditionalPrior(3, 128, 6),
-        z2_posterior=tw.TransformerWConditionalEncoder(4, 3, 6, 128, 128, 4, (128,), gelu_exact),
-        n_codes=128, embedding_dim=4, z1_dim=8, z2_dim=6, n_classes=3,
-    )
-    init_from_seed(wae, 0)
-    wae = wae.to(dev)
-    assert not wae.fused_ok()
-    inputs, book = WInputs(_randn((2, 512), 1, dev), _randn((2, 3), 2, dev)), _randn((128, 8, 4), 3, dev)
-    api.reset_launch_counts()
+    def build(d, heads):
+        wae = WAutoEncoder(
+            encoder=tw.TransformerWEncoder(4, 8, 128, d, heads, (128,), gelu_exact),
+            decoder=tw.TransformerWDecoder(4, 8, 6, 128, d, heads, (128,), gelu_exact),
+            z2_prior=tw.ConditionalPrior(3, 128, 6),
+            z2_posterior=tw.TransformerWConditionalEncoder(4, 3, 6, 128, d, heads, (128,), gelu_exact),
+            n_codes=128, embedding_dim=4, z1_dim=8, z2_dim=6, n_classes=3,
+        )
+        init_from_seed(wae, 0)
+        return wae.eval()
+
+    wae = build(128, 4)
+    assert wae.fused_ok()
+    inputs, book = WInputs(_randn((2, 512), 1, 'cpu'), _randn((2, 3), 2, 'cpu')), _randn((128, 8, 4), 3, 'cpu')
     with torch.no_grad():
-        out = wae.train()(inputs, book, generator=torch.Generator(device=dev).manual_seed(0))
-        assert torch.isfinite(out.w_recon).all()
-        with pytest.raises(NotImplementedError, match='wformer stack gate'):
-            wae.eval().generate_counterfactual(inputs, book, 1)
+        want = wae.generate_counterfactual(inputs, book, 1)
+        wae = wae.to(dev)
+        cin, cbook = WInputs(inputs.w_q.to(dev), inputs.logits.to(dev)), book.to(dev)
+        api.reset_launch_counts()
+        out = wae.train()(cin, cbook, generator=torch.Generator(device=dev).manual_seed(0))
+        assert torch.isfinite(out.w_recon).all() and set(api.launch_counts().values()) == {0}
+        got = wae.eval().generate_counterfactual(cin, cbook, 1)
+    assert api.launch_counts()['cvae_cf'] == 1
+    assert _rel_l2(got.w_recon.cpu(), want.w_recon) <= 1e-4
+    assert (got.idx.cpu() == want.idx).float().mean() >= 0.99
+
+    wide = build(256, 1).to(dev)
+    assert wide.fused_ok()
+    api.reset_launch_counts()
+    with torch.no_grad(), pytest.raises(ValueError, match='heads up to 128'):
+        wide.generate_counterfactual(WInputs(_randn((2, 512), 1, dev), _randn((2, 3), 2, dev)), book.to(dev), 1)
     assert set(api.launch_counts().values()) == {0}
 
 
@@ -385,10 +415,12 @@ def test_wformer_stacks_match_plain(dev, decoder):
 def test_wformer_refuses_shapes_it_does_not_cover(dev):
     gen = torch.Generator().manual_seed(3)
     pack = [_layer(128, 128, gen, dev)]
-    with pytest.raises(ValueError, match='does not cover'):  # more keys than the attention kernel holds
-        wformer.wformer_encoder_cuda(_randn((1, 320, 128), 8, dev), pack, 2)
-    with pytest.raises(ValueError, match='does not cover'):  # heads of 32
-        wformer.wformer_encoder_cuda(_randn((1, 128, 128), 8, dev), pack, 4)
+    with pytest.raises(ValueError, match='does not cover'):  # 96 tokens: not whole 64-row attention tiles
+        wformer.wformer_encoder_cuda(_randn((1, 96, 128), 8, dev), pack, 2)
+    before = wformer.wformer_encoder_cuda.launches
+    with pytest.raises(ValueError, match='heads up to 128'):  # one head 256 wide, refused before any launch
+        wformer.wformer_encoder_cuda(_randn((1, 128, 256), 8, dev), [_layer(256, 128, gen, dev)], 1)
+    assert wformer.wformer_encoder_cuda.launches == before
 
 
 def test_w_nets_launch_stacks_in_eval_only(dev):
@@ -421,8 +453,8 @@ def test_wrappers_reject_bad_inputs(dev):
     x = _randn((1, 64, 6), 8, dev)
     with pytest.raises(ValueError):
         knn.knn_cuda(x, 33)  # above the kernel's k limit
-    with pytest.raises(ValueError):
-        gather.graph_max_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int32, device=dev))  # F % 4
+    with pytest.raises(ValueError):  # int64 indices
+        gather.graph_max_pool_cuda(x, torch.zeros((1, 64, 4), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):
         knn.knn_cuda(x.double(), 4)
 
@@ -662,9 +694,10 @@ def test_autograd_on_cuda_never_runs_plain(dev, monkeypatch):
 def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
     x = _randn((1, 64, 6), 24, dev)
     idx = _graph(1, 64, 4, dev, 25)
-    for call in (lambda: gather.graph_max_pool_src_cuda(x, idx), lambda: gather.graph_sum_pool_cuda(x, idx)):
-        with pytest.raises(ValueError, match='does not cover'):  # F % 4
-            call()
+    # F % 4 is covered now: the wrappers pad the channels to four and crop
+    out, slots6 = gather.graph_max_pool_src_cuda(x, idx)
+    assert out.shape == x.shape and torch.equal((out, slots6)[0], ops.graph_max_pool_slots_strict(x, idx)[0])
+    assert torch.equal(gather.graph_sum_pool_cuda(x, idx).cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))
     with pytest.raises(ValueError, match='does not cover'):  # slots are uint8
         gather.graph_max_pool_src_cuda(_randn((1, 300, 8), 26, dev), _graph(1, 300, 256, dev, 27))
     with pytest.raises(ValueError):
@@ -684,9 +717,9 @@ def test_new_wrappers_refuse_shapes_they_do_not_cover(dev):
         gather.scatter_add_slots_cuda(g, gidx, slots, gather.MAX_SLOT_SCATTER_ROWS + 1)
     with pytest.raises(ValueError, match='does not cover'):  # 9 row ranges, one past the plan's limit
         gather.scatter_add_slots_cuda(g, gidx, slots, 64, slice_width=4, ranges=9)
-    with pytest.raises(ValueError, match='does not cover'):  # F % 4
-        gather.scatter_add_slots_cuda(x, idx, torch.zeros(x.shape, dtype=torch.uint8, device=dev), 64)
     assert api.launch_counts()['graph_max_pool_src'] == api.launch_counts()['scatter_add_slots'] == 0
+    got = gather.scatter_add_slots_cuda(x, idx, slots6, 64)  # F % 4, padded
+    assert torch.equal(got.cpu(), ops.scatter_add_slots(x.cpu(), idx.cpu(), slots6.cpu(), 64))
 
 
 # ------------------------------------------------ graph filtering's fused pass
@@ -1227,3 +1260,132 @@ def test_wformer_decoder_with_a_one_row_memory(dev, b):
         memory = (_randn((b, z1_rows, 128), 163 + b, dev).expand(b, 128, 128) + pos).contiguous()
         got, want = wformer.wformer_decoder_cuda(x, memory, pack, 2), wformer.plain_decoder(x, memory, pack, 2)
         assert _rel_l2(got, want) <= 1e-4
+
+
+# ---------------------------------------------------------------- the widened kernels
+
+
+def _module_layer(d, heads, f, decoder, seed):
+    from pccf_torch.nn.layers import TransformerDecoderLayer, TransformerEncoderLayer, gelu_exact, init_from_seed
+
+    layer = (TransformerDecoderLayer if decoder else TransformerEncoderLayer)(d, heads, f, gelu_exact)
+    init_from_seed(layer, seed)
+    return layer.eval()
+
+
+@pytest.mark.parametrize('d,heads,ff', [(128, 16, 137), (256, 8, 1000), (512, 4, 700), (128, 128, 64),
+                                        (384, 16, 200), (384, 3, 256), (256, 32, 130), (512, 8, 1024)])
+@pytest.mark.parametrize('decoder', [False, True])
+def test_stacks_at_every_head_and_ff_width(dev, d, heads, ff, decoder):
+    """Heads of 8, 32, 128, 1, 24, 128, 8 and 64 (the flagship's), FF widths
+    off the GEMM's 64-column tiles (137, 1000, 700, 200, 130) packed as
+    zero-padded copies, against the plain stacks on the same layers; the
+    padded copy is made once and kept while the weights do not change."""
+    layers = [_module_layer(d, heads, ff, decoder, s) for s in (1, 2)]
+    for layer in layers:
+        layer.to(dev)
+    pack = (wformer.pack_decoder if decoder else wformer.pack_encoder)(layers)
+    x, memory = _randn((2, 256, d), 6, dev), _randn((2, 256, d), 7, dev)
+    if decoder:
+        got, want = wformer.wformer_decoder_cuda(x, memory, pack, heads), wformer.plain_decoder(x, memory, pack, heads)
+    else:
+        got, want = wformer.wformer_encoder_cuda(x, pack, heads), wformer.plain_encoder(x, pack, heads)
+    assert _rel_l2(got, want) <= 1e-4
+    again = (wformer.pack_decoder if decoder else wformer.pack_encoder)(layers)
+    assert again[0]['w1'].data_ptr() == pack[0]['w1'].data_ptr()  # no new copy
+    assert pack[0]['w1'].shape[0] == -(-ff // 64) * 64
+    assert (pack[0]['w1'].data_ptr() != layers[0].dense_0.weight.data_ptr()) == (ff % 64 != 0)
+
+
+@pytest.mark.parametrize('hd', [8, 16, 24, 32, 48, 64, 96, 128, 3])
+def test_attention_at_every_head_width(dev, hd):
+    """The streaming attention alone, 4 heads of hd (3: the element-by-element
+    staging), 384 keys, against the exact softmax in float64."""
+    heads, t = 4, 384
+    stacks = wformer.Stacks(2, t, heads * hd, dev)
+    q, k, v = (_randn((2 * t, heads * hd), s, dev) for s in (1, 2, 3))
+    out = torch.empty_like(q)
+    stacks.attend(q, k, v, out, heads)
+
+    def split(a):
+        return a.double().reshape(2, t, heads, hd).transpose(1, 2)
+
+    w = torch.softmax(split(q) @ split(k).transpose(-1, -2) / hd ** 0.5, dim=-1)
+    want = (w @ split(v)).transpose(1, 2).reshape(2 * t, heads * hd)
+    assert _rel_l2(out.double(), want) <= 1e-5
+
+
+@pytest.mark.parametrize('e,heads', [(4, (16, 8, 4)), (40, (4, 4, 4)), (128, (2, 2, 2))])
+def test_cvae_chain_at_wide_embeddings_and_heads(dev, e, heads):
+    """The chain at embeddings past the old 32 (to 128, JAX's bound) and
+    heads of 8, 32 and 64 (d = 128 with 16, 4 and 2 heads) in one chain."""
+    pack = _cvae_pack(dev, 128, e=e)
+    pack.heads = heads
+    x = _randn((3, 128, e), 5, dev)
+    probs = torch.softmax(_randn((3, 2), 6, dev), -1)
+    got = cvae.cvae_cf_cuda(x, probs, pack)
+    assert got.shape == (3, 128, e)
+    assert _rel_l2(got, ops.cvae_cf(x, probs, pack)) <= 1e-4
+
+
+def _general_pack(dev, dims, g, dm):
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    n_layers = len(dims) - 1
+    return pcgen.PCGenPack(
+        map_w=r(dims[0], dm, scale=dm ** -0.5), map_b=r(dims[0], scale=0.1),
+        layer_ws=tuple(r(g, dims[i + 1], dims[i], scale=dims[i] ** -0.5) for i in range(n_layers)),
+        layer_bs=tuple(r(g, dims[i + 1], scale=0.1) for i in range(n_layers)),
+        head_w=r(g, 3, dims[-1], scale=dims[-1] ** -0.5), head_b=r(g, 3, scale=0.1),
+        att_w=r(g, g * dims[-1], scale=0.1), att_b=r(g, scale=0.1),
+    )
+
+
+PCGEN_GENERAL_REL_L2 = 2e-3  # TF32 component products (the flagship kernel's fp16 mantissa), fp32 elsewhere
+
+
+@pytest.mark.parametrize('dims,g,dm,b,n', [
+    ((1024, 500, 300, 77), 8, 200, 16, 2048),  # path E's decoder
+    ((1024, 500, 300, 77), 8, 200, 1, 2048),
+    ((512, 256), 2, 8, 2, 512),  # one layer
+    ((256, 512, 300, 200, 64), 3, 256, 2, 512),  # four, expanding first
+    ((128, 96, 40, 9), 5, 16, 2, 300),  # a tail tile
+    ((1024, 1024, 256, 8), 8, 64, 2, 256),  # last width 8: the flagship kernel's n16 product refuses it
+    ((2048, 2048, 1024), 2, 8, 1, 256),  # activations past shared memory: the global scratch
+])
+@pytest.mark.parametrize('slope', [0.0, 0.2])
+def test_pcgen_general_matches_plain(dev, dims, g, dm, b, n, slope):
+    pack = _general_pack(dev, dims, g, dm)
+    assert not pcgen.flagship(dm, dims, g)
+    m, w = torch.relu(_randn((b, n, dm), 3, dev)), _randn((b, dims[0]), 4, dev)
+    api.reset_launch_counts()
+    got = api.pcgen_mix(m, w, pack, tau=5.0, act_slope=slope)
+    assert api.launch_counts()['pcgen_general'] == 1 and api.launch_counts()['pcgen_mix'] == 0
+    assert _rel_l2(got, pcgen.plain(m, w, pack, tau=5.0, act_slope=slope)) <= PCGEN_GENERAL_REL_L2
+
+
+def test_pcgen_general_refuses_five_layers(dev):
+    pack = _general_pack(dev, (256, 128, 64, 32, 16, 8), 2, 8)
+    with pytest.raises(ValueError, match='1 to 4 component layers'):  # the library's scratch query refuses it
+        pcgen.pcgen_general_cuda(_randn((1, 256, 8), 3, dev), _randn((1, 256), 4, dev), pack, tau=5.0, act_slope=0.0)
+
+
+@pytest.mark.parametrize('c', [17, 130, 511, 1, 34])
+def test_pools_at_any_width(dev, c):
+    """The eval max-pool, the training max-pool with its slot and the slot
+    scatter bit-exact, the sum-pool within 1e-5 and bit-equal to the slot
+    order on the CPU, at widths off the kernels' groups of four."""
+    x = _randn((8, 2048, c), c, dev)
+    idx = _graph(8, 2048, 25, dev, c)
+    assert torch.equal(gather.graph_max_pool_cuda(x, idx), ops.graph_max_pool(x, idx))
+    out, slots = gather.graph_max_pool_src_cuda(x, idx)
+    want, want_slots = ops.graph_max_pool_slots_strict(x, idx)
+    assert out.shape == x.shape and torch.equal(out, want) and torch.equal(slots, want_slots)
+    g = _randn((8, 2048, c), c + 1, dev)
+    got = gather.scatter_add_slots_cuda(g, idx, slots, 2048)
+    assert torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx.cpu(), slots.cpu(), 2048))
+    s = gather.graph_sum_pool_cuda(x, idx)
+    assert torch.equal(s.cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))

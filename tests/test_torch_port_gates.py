@@ -1,14 +1,17 @@
 """The gates that send eval work to the card's kernels, and the kNN
 candidate split, on the CPU.
 
-Each gate states what its kernels cover: ``wformer.supported`` the stack
-kernels' guards (64-wide heads, at most 256 tokens, FF widths in multiples
-of 64, beside the JAX shape line), ``WAutoEncoder.fused_ok`` the CVAE
-chain's (``cvae_cf_supported``'s shape test as the card's kernels state it),
-``PCGenDecoder.fused_ok`` the guard of ``pccf_pcgen_mix``.  On a CUDA tensor a
-net whose gate fails raises the gate's ``NotImplementedError`` before any
-launch; here, on the CPU, it runs its layers one by one and agrees with the
-stacked plain version.
+Each gate is the JAX package's own Pallas predicate without its VMEM budget
+(a TPU limit): ``wformer.supported`` / ``_TransformerNet.stack_ok``
+``_fused_stack_ok`` with ``wformer_supported``, ``WAutoEncoder.fused_ok``
+``_fused_cf_ok`` with ``cvae_cf_supported``, ``PCGenDecoder.fused_ok``
+``_fused_eval_ok`` with ``pcgen_fused_supported``.  Here each is held to the
+JAX predicate called with its budget lifted.  Inside a gate every shape
+launches the card's kernels (heads past 128 wide raise ``ValueError``);
+outside it the module runs its layers one by one, on either device, as JAX
+runs its XLA layers; here, on the CPU, the layers agree with the stacked
+plain version.  ``tests/test_torch_port_wide_gates.py`` sweeps the tuning
+spaces' corners.
 """
 
 import numpy as np
@@ -23,27 +26,44 @@ from pccf_torch.nn.layers import gelu_exact
 torch.set_num_threads(1)
 
 
+@pytest.fixture()
+def no_vmem(monkeypatch):
+    """The JAX predicates with their VMEM budget lifted."""
+    from pccf.kernels import pallas_cvae, pallas_gather, pallas_pcgen, pallas_wformer
+
+    for mod in (pallas_cvae, pallas_gather, pallas_pcgen, pallas_wformer):
+        monkeypatch.setattr(mod, '_VMEM_BUDGET', 10 ** 30)
+
+
 @pytest.mark.parametrize('t,d,heads,ff,ok', [
     (256, 512, 8, (1024, 1024), True),  # the flagship W-nets
     (128, 128, 2, (128, 256, 192), True),
-    (256, 256, 8, (1024,), False),  # heads of 32
-    (384, 384, 6, (256,), False),  # more tokens than the attention kernel's 256 keys
-    (256, 512, 8, (1000,), False),  # an FF width off the GEMM's 64-column tiles
-    (256, 512, 8, (96, 1024), False),
+    (256, 256, 8, (1024,), True),  # heads of 32
+    (384, 384, 6, (256,), True),  # more than 256 tokens
+    (256, 512, 8, (1000,), True),  # an FF width off the GEMM's 64-column tiles
+    (256, 512, 8, (96, 1024), True),
     (96, 128, 2, (128,), False),  # the JAX shape line: tokens in multiples of 128
+    (256, 128, 16, (137,), True),  # a tuning corner: heads of 8
+    (256, 512, 4, (700,), True),  # heads of 128
+    (256, 512, 2, (1024,), True),  # heads of 256: inside the gate, refused at launch
+    (128, 96, 2, (128,), False),  # width off 128
+    (128, 128, 3, (128,), False),  # heads that do not divide the width
 ])
-def test_wformer_gate_states_the_stack_kernels(t, d, heads, ff, ok):
-    assert wformer.supported(t, d, heads, ff) == ok
+def test_wformer_gate_states_the_stack_kernels(no_vmem, t, d, heads, ff, ok):
+    from pccf.kernels.pallas_wformer import wformer_supported
+
+    assert wformer_supported(t, d, max(ff), len(ff), heads) == ok
+    assert wformer.supported(t, d, heads) == ok
     net = tw.TransformerWEncoder(4, 8, t, d, heads, ff, gelu_exact).eval()
     assert net.stack_ok() == ok
 
 
 def test_failed_stack_gate_runs_layers_on_cpu():
-    """proj 256 with 8 heads (heads of 32): the gate fails, and the layers run
-    one by one on the CPU, equal to the packed plain stack."""
-    net = tw.TransformerWEncoder(4, 8, 128, 256, 8, (256,), gelu_exact).eval()
+    """96 tokens: the gate fails, and the layers run one by one on the CPU,
+    equal to the packed plain stack."""
+    net = tw.TransformerWEncoder(4, 8, 96, 256, 8, (256,), gelu_exact).eval()
     assert not net.stack_ok()
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 128, 4)).astype(np.float32))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 96, 4)).astype(np.float32))
     with torch.no_grad():
         layered = net(x)
         h = net.input_proj(x) + net.positional_encoding
@@ -63,47 +83,61 @@ def _wae(t, d, heads, ff=(256,), e=4):
     )
 
 
-@pytest.mark.parametrize('case,t,d,heads,ff,jax_ok,ok', [
-    ('flagship', 256, 512, 8, (1024, 1024), True, True),
-    ('96 tokens', 96, 128, 2, (256,), False, False),
-    ('heads of 32', 256, 256, 8, (256,), True, False),  # only the card's kernels refuse
-    ('FF 160', 128, 128, 2, (160,), True, False),
+@pytest.mark.parametrize('case,t,d,heads,ff,ok', [
+    ('flagship', 256, 512, 8, (1024, 1024), True),
+    ('96 tokens', 96, 128, 2, (256,), False),
+    ('heads of 32', 256, 256, 8, (256,), True),
+    ('FF 160', 128, 128, 2, (160,), True),
+    ('heads of 8, FF 137', 256, 128, 16, (137,), True),
+    ('heads of 128, FF 700', 128, 512, 4, (700,), True),
+    ('width 640, 3 heads', 128, 384, 3, (256,), True),
+    ('width off 128', 128, 192, 2, (256,), False),
 ])
-def test_cvae_gate_follows_cvae_cf_supported(case, t, d, heads, ff, jax_ok, ok):
+def test_cvae_gate_follows_cvae_cf_supported(no_vmem, case, t, d, heads, ff, ok):
     """The chain's gate against ``pccf.kernels.pallas_cvae.cvae_cf_supported``
-    on the same nets: it accepts what the TPU's accepts unless the card's
-    kernels do not cover it."""
+    on the same nets, its budget lifted."""
     from pccf.kernels.pallas_cvae import cvae_cf_supported
 
     wae = _wae(t, d, heads, ff)
-    assert cvae_cf_supported(t, d, max(ff), 3 * len(ff), (heads,) * 3, wae.embedding_dim) == jax_ok
+    assert cvae_cf_supported(t, d, max(ff), 3 * len(ff), (heads,) * 3, wae.embedding_dim) == ok
     assert wae.fused_ok() == ok
 
 
 def test_cvae_gate_refuses_embeddings_wider_than_the_chain_pads():
+    """JAX pads the token input to one 128-lane tile; the card's chain pads
+    to whole GEMM tiles and takes the same embeddings."""
     assert _wae(128, 128, 2, e=32).fused_ok()
-    assert not _wae(128, 128, 2, e=40).fused_ok()
+    assert _wae(128, 128, 2, e=40).fused_ok()
+    assert _wae(128, 128, 2, e=128).fused_ok()
+    assert not _wae(128, 128, 2, e=132).fused_ok()
 
 
 @pytest.mark.parametrize('w_dim,overrides,ok', [
     (1024, {}, True),  # the flagship: 1024-1024-256-16, 8 components, map input 64
     (512, dict(n_components=2, map_dims=(8,), conv_dims=(512, 64, 16)), True),
     (128, dict(n_components=2, map_dims=(8,), conv_dims=(128, 64, 16)), True),
-    (1024, dict(conv_dims=(1024, 192, 16)), False),  # layer 1 not a warpgroup-split chunk
-    (1024, dict(conv_dims=(1024, 256, 8)), False),  # layer 2 not one n16 product
-    (1024, dict(conv_dims=(1024, 512, 256, 16)), False),  # four component layers
-    (2048, dict(conv_dims=(2048, 256, 16)), False),  # the join does not fit in shared memory
-    (1024, dict(map_dims=(128,)), False),  # a map input wider than 64
-    (1024, dict(n_components=16), False),  # more components than a row's four lanes keep
+    (1024, dict(conv_dims=(1024, 192, 16)), True),  # the general kernel
+    (1024, dict(conv_dims=(1024, 256, 8)), True),
+    (1024, dict(conv_dims=(1024, 512, 256, 16)), True),  # four component layers
+    (2048, dict(conv_dims=(2048, 256, 16)), True),  # past JAX's VMEM budget only
+    (1024, dict(map_dims=(128,)), True),  # a map input wider than 64
+    (1024, dict(n_components=16), True),  # more than eight components
     (1024, dict(n_components=1), False),  # the JAX gate's: at least two
+    (1024, dict(conv_dims=(300, 500)), False),  # expanding after the first
+    (960, dict(conv_dims=(512, 64)), False),  # w_dim off 128
 ])
-def test_pcgen_gate_states_the_kernel_guard(w_dim, overrides, ok):
+def test_pcgen_gate_states_the_kernel_guard(no_vmem, w_dim, overrides, ok):
+    """``PCGenDecoder.fused_ok`` and ``pcgen.supported`` against
+    ``pcgen_fused_supported`` at 2048 points; at 2000 points (not whole
+    256-row tiles) both refuse."""
+    from pccf.kernels.pallas_pcgen import pcgen_fused_supported
     from pccf_torch.nn.decoders import build_decoder
 
     dec = build_decoder(tc.AutoEncoderConfig(w_dim=w_dim, decoder=tc.DecoderConfig(**overrides)))
-    assert dec.fused_ok() == ok
-    dims = (w_dim, *dec.conv_dims)
-    assert pcgen.supported(dec.map_out.dense.in_features, dims, dec.n_components) == ok
+    assert pcgen_fused_supported(2048, w_dim, dec.conv_dims, dec.n_components) == ok
+    assert dec.fused_ok(2048) == ok == dec.fused_ok()
+    assert pcgen.supported(2048, w_dim, dec.conv_dims, dec.n_components) == ok
+    assert not dec.fused_ok(2000) and not pcgen_fused_supported(2000, w_dim, dec.conv_dims, dec.n_components)
 
 
 @pytest.mark.parametrize('b,n,want', [(16, 2048, 1), (32, 2048, 1), (8, 2048, 1), (5, 2048, 1), (1, 2048, 4),

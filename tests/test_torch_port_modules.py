@@ -295,10 +295,11 @@ def test_pcgen_unfused_path_equals_fused_plain():
     dec = PCGenDecoder(**PCGEN, act=relu).eval()
     init_from_seed(dec, 3)
     rng = np.random.default_rng(9)
-    w, samp = t(rng.standard_normal((2, 128))), t(rng.standard_normal((2, 64, 4)))
+    w, samp = t(rng.standard_normal((2, 128))), t(rng.standard_normal((2, 256, 4)))
+    assert dec.fused_ok(samp.shape[1])  # JAX's gate: points in whole tiles of 256
     with torch.no_grad():
         fused = dec(w, samp)
-        dec.fused_ok = lambda: False
+        dec.fused_ok = lambda n_points=None: False
         unfused = dec(w, samp)
     np.testing.assert_allclose(fused.numpy(), unfused.numpy(), **FP32)
 

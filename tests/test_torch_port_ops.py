@@ -214,7 +214,8 @@ def test_cpu_tensors_take_the_plain_versions():
         cross.update({f'w{name}': eye, f'b{name}': zeros})
     assert api.wformer_encoder(tokens, [layer], 1).shape == tokens.shape
     assert api.wformer_decoder(tokens, tokens, [{**layer, **cross}], 1).shape == tokens.shape
-    assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'gather_neighbors',
+    assert set(api.launch_counts()) == {'knn', 'graph_max_pool', 'pcgen_mix', 'pcgen_general', 'cvae_cf',
+                                        'gather_neighbors',
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
                                         'wformer_decoder', 'nn_distance', 'sinkhorn_cost', 'graph_filter',

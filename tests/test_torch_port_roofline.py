@@ -238,3 +238,27 @@ def test_pcgen_work_is_bound_by_half_precision_operations():
     assert work.peak == roofline.FP16
     assert work.ops / 1e12 == pytest.approx(0.6937, abs=1e-3)
     assert roofline.bound_ms(work) == (pytest.approx(0.7014, abs=1e-3), 'operations')
+
+
+def test_pcgen_general_work_is_bound_by_tf32_operations():
+    """The general PCGen kernel multiplies TF32 operands: the tuning corner
+    1024-500-300-77 with a map of 200 and 8 components at batch 16 (0.37
+    TFLOP, the plain version's operations) is bound by operations at ~0.75
+    ms, and its fp32 weights move twice the fp16 kernel's bytes."""
+    from pccf_torch.kernels import pcgen
+
+    g, dims, dm = 8, (1024, 500, 300, 77), 200
+
+    def e(*shape):
+        return torch.empty(shape, device='meta')
+
+    pack = pcgen.PCGenPack(map_w=e(dims[0], dm), map_b=e(dims[0]),
+                           layer_ws=tuple(e(g, dims[i + 1], dims[i]) for i in range(3)),
+                           layer_bs=tuple(e(g, dims[i + 1]) for i in range(3)),
+                           head_w=e(g, 3, 77), head_b=e(g, 3), att_w=e(g, g * 77), att_b=e(g))
+    m, w = e(16, 2048, dm), e(16, dims[0])
+    work, half = roofline.pcgen_general_work(m, w, pack), roofline.pcgen_work(m, w, pack)
+    assert work.peak == roofline.TF32 and work.ops == half.ops
+    assert work.bytes - half.bytes == 2 * sum(lw.numel() for lw in pack.layer_ws)
+    assert work.ops / 1e12 == pytest.approx(0.3730, abs=1e-3)
+    assert roofline.bound_ms(work) == (pytest.approx(0.7536, abs=1e-3), 'operations')
