@@ -76,7 +76,18 @@ filtering on):
   exact and each path's card output against the CPU; before them the
   widened kernels at those shapes against their plain versions: E's stacks,
   the general PCGen kernel, the pools at 17, 130 and 511 channels, the
-  gather and the row scatter at D's (8, 2048, 25, F).
+  gather and the row scatter at D's (8, 2048, 25, F), and the kernels
+  widened past JAX's last limits: ``pcgen_general`` at 5 and 6 component
+  layers and the attention at heads of 256 and 512 (d = 512);
+- the experiment's own entry points (``cli_phase``): the five ``main``s of
+  ``pccf_torch`` run in this process on the card from the experiment tree,
+  the flagship model at 2048 points on ``data/dataset=synthetic`` (64 train
+  and 32 test clouds of 4096 points), epochs cut to 4 (the classifier,
+  early stopping at patience 1), 2 (stage 1) and 2 (stage 2); each stage's
+  seconds, epoch times and launches, every checkpoint reloaded to the same
+  eval output, a stage-1 resume bit-equal to the same epoch run on in
+  memory (deterministic algorithms on), and the compiled batch assembler
+  against its numpy version.
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
@@ -355,6 +366,21 @@ VARIANT_STEP_LAUNCHES = {
 # a chunk of generation under the VampPrior: the W-encoder on the
 # pseudo-inputs, then what every chunk runs
 VAMP_GENERATION_LAUNCHES = {'wformer_encoder': 1, 'wformer_decoder': 1, 'pcgen_mix': 1, 'graph_filter': 1}
+DEEP_PCGEN_DIMS = ((1024, 512, 256, 128, 64, 16), (1024, 512, 256, 128, 64, 32, 16))  # 5 and 6 layers
+WIDE_HEADS = (2, 1)  # heads over d = 512: 256 and 512 wide
+CLI_OVERRIDES = ('data/dataset=synthetic', 'autoencoder.train.n_epochs=2', 'w_autoencoder.train.n_epochs=2',
+                 'classifier.train.n_epochs=4', 'classifier.train.early_stopping.patience=1')
+RESUME_RUNS, RESUME_MARGIN = 3, 2.0  # the resume check's in-memory runs, and its bound in their largest difference
+CLI_STAGE_KERNELS = {  # the kernels each entry point must launch
+    'classifier': ('knn', 'graph_max_pool', 'graph_sum_pool', 'graph_max_pool_src', 'scatter_add_slots',
+                   'scatter_add_rows'),
+    'autoencoder': ('knn', 'graph_max_pool', 'pcgen_mix', 'graph_filter', 'graph_filter_backward',
+                    'scatter_add_rows', 'chamfer_match_cost'),
+    'w_autoencoder': ('knn', 'graph_max_pool', 'wformer_encoder', 'wformer_decoder'),
+    'evaluate_counterfactuals': ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter', 'wformer_encoder',
+                                 'wformer_decoder'),
+    'generate': ('wformer_decoder', 'pcgen_mix', 'graph_filter'),
+}
 # the tuning corner's graph pools and the widths off four channels checked beside them
 ODD_POOL_WIDTHS = (17, 130, 511)
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
@@ -722,6 +748,192 @@ def suite_outcomes(vq, judge, clouds: np.ndarray, labels: np.ndarray, seed: int,
             if i != j and (idx := np.nonzero((predictions == i) & (labels == j))[0]).size:
                 counterfactual(f'{i}_to_{j}', idx, j)
     return out
+
+
+def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
+    """The five entry points in this process on the card, as a user runs
+    them from the experiment tree: the flagship model unmodified at 2048
+    points on ``data/dataset=synthetic`` at the dataset file's own sizes (64
+    train and 32 test clouds of 4096 points, 2 classes), epochs cut to 4
+    (the classifier, early stopping on at patience 1), 2 (stage 1) and 2
+    (stage 2).  Each stage's seconds, epoch times and launches (the counts
+    zeroed just before it and read just after), every checkpoint reloaded to
+    the same eval output, a stage-1 resume against the same epoch run on in
+    memory from the same state (under deterministic algorithms, bit-equal),
+    and the compiled batch assembler against its plain version.
+    Returns the launches of all five stages."""
+    import tempfile
+
+    from pccf_torch import cli, evaluate_counterfactuals, generate
+    from pccf_torch.data import sampler
+    from pccf_torch.data.dataset import get_datasets
+    from pccf_torch.data.protocols import Singleton
+    from pccf_torch.data.structures import Inputs
+    from pccf_torch.experiment import Experiment
+    from pccf_torch.kernels import api
+    from pccf_torch.models import build_vqvae
+    from pccf_torch.nn import ClassifierTrainModule, build_classifier
+    from pccf_torch.train import autoencoder, classifier, w_autoencoder
+    from pccf_torch.train.checkpoint import Checkpoint
+    from pccf_torch.train.runners import Loader
+
+    args = [*CLI_OVERRIDES, f'user.seed={seed}']
+    root = tempfile.mkdtemp(prefix='pccf_cli_')
+    saved_env = {k: os.environ.get(k) for k in ('ROOT_EXP_DIR', 'DATASET_DIR')}
+    total = dict.fromkeys(KERNEL_INFO, 0)
+
+    def use_root(name: str) -> None:
+        os.environ['ROOT_EXP_DIR'] = os.path.join(root, name)
+        os.environ['DATASET_DIR'] = os.path.join(root, 'data')
+
+    def run_stage(module, argv: list[str], name: str):
+        api.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = api.launch_counts()
+        trainer = out.get('trainer') if isinstance(out, dict) else None
+        epochs = ', '.join(f'{s:.3f}' for s in trainer.epoch_seconds) if trainer is not None else 'none'
+        print(f'CLI {name}: {seconds:.2f} s, epoch seconds [{epochs}], launches '
+              f'{json.dumps({k: v for k, v in counts.items() if v})}', flush=True)
+        return out, counts, seconds
+
+    def record(name: str, counts: dict[str, int]) -> None:
+        for k, v in counts.items():
+            total[k] += v
+        missing = [k for k in CLI_STAGE_KERNELS[name] if not counts[k]]
+        check(not missing, f'CLI {name} launched every kernel of its path (none missing: {missing})')
+
+    @torch.no_grad()
+    def reloaded(cfg, build, name: str, model: torch.nn.Module, run) -> None:
+        """The checkpoint ``name`` wrote, loaded into a fresh model, gives the
+        eval output of the model that wrote it."""
+        fresh = build().to(dev)
+        with Experiment(cfg).create_run(record=False):
+            epoch = Checkpoint(name).load(fresh, -1)
+        a, b_ = run(model.eval()), run(fresh.eval())
+        check(torch.equal(a, b_), f'CLI checkpoint {name} epoch_{epoch} reloads to the same eval output '
+                                  f'{tuple(a.shape)} (max diff {float((a - b_).abs().max()):.3e})')
+
+    try:
+        Singleton.reset_all()
+        use_root('main')
+        cfg = cli.parse_args(args)[0]
+        t0 = time.perf_counter()
+        train_set, val_set = get_datasets(cfg, dev)
+        print(f'CLI dataset: {len(train_set)} train / {len(val_set)} val clouds of {train_set.pcd.shape[1]} points, '
+              f'{time.perf_counter() - t0:.2f} s (the val split\'s neighbour indices on the card)', flush=True)
+        pcd, ids = train_set.pcd, np.arange(TRAIN_BATCH, dtype=np.int64)
+        for kw in ({'jitter_sigma': cfg.data.jitter_sigma, 'jitter_clip': cfg.data.jitter_clip},
+                   {'jitter_sigma': 0.01, 'jitter_clip': 0.02, 'resample': True, 'rotate': True, 'translate': True}):
+            t0 = time.perf_counter()
+            got = sampler.compiled(pcd, ids, cfg.data.n_input_points, seed + 1, **kw)
+            t_c = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = sampler.plain(pcd, ids, cfg.data.n_input_points, seed + 1, **kw)
+            t_p = time.perf_counter() - t0
+            same = all(np.array_equal(x, y) for x, y in zip(got, want))
+            check(same, f'CLI batch assembler compiled vs plain ({TRAIN_BATCH} x {cfg.data.n_input_points} from '
+                        f'{pcd.shape[1]}, {sorted(k for k, v in kw.items() if v)}): bit-equal {same}; '
+                        f'{t_c * 1e3:.2f} ms (plain {t_p * 1e3:.1f} ms, host clock)')
+        val_set.set_inference(True)
+        batch_in = val_set.__getitems__(list(range(TRAIN_BATCH)))[0]
+
+        out, counts, _ = run_stage(classifier, args, 'classifier')
+        record('classifier', counts)
+        tr = out['trainer']
+        check(tr.epoch <= 4 and len(tr.validation_log) == tr.epoch and bool(np.isfinite(out['logits']).all()),
+              f'CLI classifier: {tr.epoch} epochs of 4 (early stopping at patience 1), validation '
+              f'{json.dumps(tr.validation_log[-1])}, test {json.dumps(out["test"])}')
+        reloaded(cfg, lambda: ClassifierTrainModule(build_classifier(cfg)), cfg.classifier.name, tr.model,
+                 lambda m: m(batch_in))
+
+        out, counts, _ = run_stage(autoencoder, args, 'autoencoder')
+        record('autoencoder', counts)
+        a_tr = out['trainer']
+        check(a_tr.epoch == 2 and bool(np.isfinite(out['loss'])),
+              f'CLI autoencoder: 2 epochs, validation {json.dumps(a_tr.validation_log[-1])}, final test '
+              f'{json.dumps(out["test"])}')
+        samp = torch.randn((TRAIN_BATCH, cfg.data.n_target_points, cfg.autoencoder.decoder.sample_dim),
+                           generator=torch.Generator().manual_seed(seed + 60)).to(dev)
+        fixed = Inputs(cloud=batch_in.cloud, indices=batch_in.indices, initial_sampling=samp)
+        reloaded(cfg, lambda: build_vqvae(cfg), cfg.autoencoder.name, a_tr.model,
+                 lambda m: m(fixed, None, torch.Generator(device=dev).manual_seed(seed)).recon)
+
+        # the resume: one epoch and its checkpoint, then a run resumed from it
+        # (user.load_checkpoint=-1) for the second, against the second epoch
+        # run on in memory from the same state, three times.  A stage-1 step
+        # on the card differs from run to run by PyTorch's atomic indexing
+        # backward unless deterministic algorithms are asked for (PERF.md §7),
+        # so these runs ask for them: the three in-memory runs of the same
+        # steps then agree bit for bit, and their largest distance from each
+        # other is the bound, the resumed run bit-equal where it is 0 and
+        # within RESUME_MARGIN times it otherwise
+        def flat(model) -> torch.Tensor:
+            return torch.cat([v.detach().flatten().double() for v in model.state_dict().values()
+                              if v.is_floating_point()])
+
+        prior = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            use_root('resume')
+            base = autoencoder.main([*args, 'autoencoder.train.n_epochs=1'])['trainer']
+            base.post_epoch_hooks.clear()  # the codebook hook runs every 10 epochs: not at epoch 2
+            snap = ({k: v.clone() for k, v in base.model.state_dict().items()},
+                    copy.deepcopy(base.optimizer.state_dict()), base.generator.get_state(), base.step)
+            resumed = flat(autoencoder.main([*args, 'user.load_checkpoint=-1'])['trainer'].model)
+            loader = Loader(get_datasets(cfg, dev)[0], cfg.autoencoder.train.batch_size, cfg.user.seed or 0)
+            runs = []
+            for _ in range(RESUME_RUNS):
+                base.model.load_state_dict(snap[0])
+                base.optimizer.load_state_dict(copy.deepcopy(snap[1]))
+                base.generator.set_state(snap[2])
+                base.step, base.epoch = snap[3], 1
+                base.train_until(loader, 2)
+                runs.append(flat(base.model))
+        finally:
+            torch.use_deterministic_algorithms(prior[0], warn_only=prior[1])
+            use_root('main')
+        run_to_run = max(rel_l2(runs[i], runs[j]) for i in range(len(runs)) for j in range(i))
+        resume = min(rel_l2(resumed, r) for r in runs)
+        equal = any(torch.equal(resumed, r) for r in runs)
+        check(equal if run_to_run == 0 else resume <= RESUME_MARGIN * run_to_run,
+              f'CLI stage-1 resume (1 epoch, checkpoint, load_checkpoint=-1, 1 more) against the second epoch run '
+              f'on in memory {RESUME_RUNS} times from the same state, deterministic algorithms on: rel L2 of all '
+              f'weights and statistics to the nearest {resume:.3e} <= {RESUME_MARGIN} x the largest run-to-run '
+              f'difference {run_to_run:.3e} (bit-equal where that is 0); bit-equal {equal}')
+
+        out, counts, _ = run_stage(w_autoencoder, args, 'w_autoencoder')
+        record('w_autoencoder', counts)
+        w_tr = out['trainer']
+        check(w_tr.epoch == 2 and bool(np.isfinite(out['loss'])),
+              f'CLI w_autoencoder: 2 epochs, validation {json.dumps(w_tr.validation_log[-1])}, test encoding '
+              f'{json.dumps(out["test"])}')
+        logits = out['classifier'](Inputs(cloud=batch_in.cloud))
+        target = torch.arange(TRAIN_BATCH, device=dev) % cfg.data.n_classes
+        reloaded(cfg, lambda: build_vqvae(cfg), cfg.autoencoder.name, out['vqvae'],
+                 lambda m: m.generate_counterfactual(fixed, logits, target).recon)
+
+        suites, counts, _ = run_stage(evaluate_counterfactuals, args, 'evaluate_counterfactuals')
+        record('evaluate_counterfactuals', counts)
+        check('ClassificationOriginal' in suites and all(np.isfinite(list(v.values())).all() for v in suites.values()),
+              f'CLI evaluate_counterfactuals: {len(suites)} suites, finite, original '
+              f'{json.dumps(suites["ClassificationOriginal"])}')
+        clouds, counts, _ = run_stage(generate, args, 'generate')
+        record('generate', counts)
+        check(clouds.shape == (cfg.user.generate.batch_size, cfg.data.n_target_points, 3)
+              and bool(np.isfinite(clouds).all()), f'CLI generate: finite {clouds.shape}')
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        Singleton.reset_all()
+        shutil.rmtree(root, ignore_errors=True)
+    return total
 
 
 def main() -> int:
@@ -2414,6 +2626,86 @@ def main() -> int:
         kernels['pcgen_general'] = {'max_abs_err': max(gen_errs), **gen_rows[b], 'library_ms': None,
                                     'shape': '(16, 2048, 200) -> (16, 2048, 3), G=8, 1024-500-300-77'}
 
+        # the general PCGen kernel past four component layers (its device
+        # table of layers): 5 and 6 layers at serving's batch 16, map 64, G=8
+        deep = {}
+        for dims in DEEP_PCGEN_DIMS:
+            gen = torch.Generator().manual_seed(args.seed + len(dims))
+            n_l = len(dims) - 1
+            pk = pcgen.PCGenPack(
+                map_w=(torch.randn((dims[0], 64), generator=gen) / 8).to(dev), map_b=torch.zeros(dims[0], device=dev),
+                layer_ws=tuple((torch.randn((8, dims[i + 1], dims[i]), generator=gen) * dims[i] ** -0.5).to(dev)
+                               for i in range(n_l)),
+                layer_bs=tuple((0.1 * torch.randn((8, dims[i + 1]), generator=gen)).to(dev) for i in range(n_l)),
+                head_w=(torch.randn((8, 3, dims[-1]), generator=gen) * dims[-1] ** -0.5).to(dev),
+                head_b=(0.1 * torch.randn((8, 3), generator=gen)).to(dev),
+                att_w=(0.1 * torch.randn((8, 8 * dims[-1]), generator=gen)).to(dev),
+                att_b=(0.1 * torch.randn(8, generator=gen)).to(dev))
+            m = torch.relu(torch.from_numpy(rng.standard_normal((b, n, 64)).astype(np.float32))).to(dev)
+            w = torch.from_numpy(rng.standard_normal((b, dims[0])).astype(np.float32)).to(dev)
+            api.reset_launch_counts()
+            got = api.pcgen_mix(m, w, pk, tau=5.0, act_slope=0.0)
+            launched = api.launch_counts()['pcgen_general']
+            want = pcgen.plain(m, w, pk, tau=5.0, act_slope=0.0)
+            r = rel_l2(got, want)
+            row = deep[n_l] = {'rel_l2': r, 'max_abs_err': float((got - want).abs().max()),
+                               'ms': time_ms(lambda m=m, w=w, pk=pk: pcgen.pcgen_general_cuda(m, w, pk, tau=5.0,
+                                                                                             act_slope=0.0), REPS),
+                               'plain_ms': time_ms(lambda m=m, w=w, pk=pk: pcgen.plain(m, w, pk, tau=5.0,
+                                                                                       act_slope=0.0), REPS),
+                               **bound(roofline.pcgen_general_work(m, w, pk))}
+            check(launched == 1 and r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()),
+                  f'pcgen_general {n_l} layers (B={b}, N={n}, map 64, G=8, {"-".join(map(str, dims))}): one launch '
+                  f'{launched == 1}, rel L2 {r:.3e} <= {PCGEN_REL_L2}; {row["ms"]:.4f} ms (plain '
+                  f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms, {row["bound_by"]}, share '
+                  f'{row["bound_ms"] / row["ms"]:.1%})')
+        kernels['pcgen_general']['deep'] = deep
+
+        # heads past 128 wide: the W-encoder stack at d = 512 with 2 and 1
+        # heads at stage 2's batch 32, and its attention launch alone
+        wide = {}
+        for heads in WIDE_HEADS:
+            d_w, hd = 512, 512 // heads
+            gen = torch.Generator().manual_seed(args.seed + heads)
+            pack_w = [{**{f'ln{i}_{p}': (1 + 0.1 * torch.randn(d_w, generator=gen) if p == 'w' else
+                                         0.1 * torch.randn(d_w, generator=gen)).to(dev)
+                          for i in (1, 2) for p in ('w', 'b')},
+                       **{f'w{x}': (torch.randn((d_w, d_w), generator=gen) * d_w ** -0.5).to(dev) for x in 'qkvo'},
+                       **{f'b{x}': (0.1 * torch.randn(d_w, generator=gen)).to(dev) for x in 'qkvo'},
+                       'w1': (torch.randn((1024, d_w), generator=gen) * d_w ** -0.5).to(dev),
+                       'b1': (0.1 * torch.randn(1024, generator=gen)).to(dev),
+                       'w2': (torch.randn((d_w, 1024), generator=gen) / 32).to(dev),
+                       'b2': (0.1 * torch.randn(d_w, generator=gen)).to(dev)} for _ in range(2)]
+            t_w = cfg.autoencoder.n_codes
+            x = torch.from_numpy(rng.standard_normal((bw, t_w, d_w)).astype(np.float32)).to(dev)
+            got = wformer.wformer_encoder_cuda(x, pack_w, heads)
+            stack_r = rel_l2(got, wformer.plain_encoder(x, pack_w, heads))
+            q, k_, v_ = (torch.from_numpy(rng.standard_normal((bw * t_w, d_w)).astype(np.float32)).to(dev)
+                         for _ in range(3))
+            out = torch.empty(bw * t_w, d_w, device=dev)
+            st = wformer.Stacks(bw, t_w, d_w, dev)
+            st.attend(q, k_, v_, out, heads)
+            want = ops.attention(q.double().view(bw, t_w, d_w), k_.double().view(bw, t_w, d_w),
+                                 v_.double().view(bw, t_w, d_w), heads)
+            r = rel_l2(out.view(bw, t_w, d_w), want)
+            q4, k4, v4 = (y.view(bw, -1, heads, hd).transpose(1, 2) for y in (q, k_, v_))
+            row = wide[hd] = {
+                'rel_l2': r, 'stack_rel_l2': stack_r,
+                'max_abs_err': float((out.view(bw, t_w, d_w).double() - want).abs().max()),
+                'ms': time_ms(functools.partial(st.attend, q, k_, v_, out, heads), REPS),
+                'plain_ms': time_ms(functools.partial(ops.attention, q.view(bw, t_w, d_w), k_.view(bw, t_w, d_w),
+                                                      v_.view(bw, t_w, d_w), heads), REPS),
+                'library_ms': time_ms(functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4),
+                                      REPS),
+                **bound(roofline.attention_work(bw, t_w, t_w, heads, hd))}
+            check(r <= ATTENTION_REL_L2 and stack_r <= CVAE_REL_L2,
+                  f'pccf_attention (B, T, T_kv) = ({bw}, {t_w}, {t_w}), {heads} heads of {hd} (the wide instance): '
+                  f'rel L2 vs float64 {r:.2e} <= {ATTENTION_REL_L2}; {row["ms"]:.4f} ms a launch (plain '
+                  f'{row["plain_ms"]:.4f}, library {row["library_ms"]:.4f}, bound {row["bound_ms"]:.4f} ms '
+                  f'({row["bound_by"]}), share {row["bound_ms"] / row["ms"]:.1%}); the 2-layer encoder stack at '
+                  f'({bw}, {t_w}, {d_w}) against its plain version rel L2 {stack_r:.2e} <= {CVAE_REL_L2}')
+        kernels['wformer_encoder']['wide_heads'] = wide
+
         # the graph pools at widths off four channels (E's LDGCNN pools at 17
         # and 130; 511 beside them): the eval max-pool at serving's 16, the
         # training max-pool with its slot and its slot scatter at stage 1's
@@ -2692,15 +2984,19 @@ def main() -> int:
     print('launches of the variants: ' + '; '.join(
         f'{key} {json.dumps({k: v for k, v in c.items() if v})}' for key, c in variant_launches.items()), flush=True)
 
+    # ---- the main path through the experiment's own entry points --------
+    cli_launches = cli_phase(args.seed, check, dev)
+
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
           f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
-          f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}', flush=True)
+          f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}; the five '
+          f'entry points {json.dumps({k: v for k, v in cli_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
-             gen_launches, *variant_launches.values())
+             gen_launches, *variant_launches.values(), cli_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
-          'variants A / B / C / D / E', flush=True)
+          'variants A / B / C / D / E / CLI pipeline', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

@@ -1,7 +1,7 @@
 // PCGen eval on Hopper for every decoder the JAX package's gate takes
-// (pallas_pcgen.py:60-74 pcgen_fused_supported): 1 to 4 component layers of
-// any widths, non-expanding after the first, any map input and number of
-// components.  The flagship's shapes run pcgen_mix.cu; this kernel runs the
+// (pallas_pcgen.py:60-74 pcgen_fused_supported): any number of component
+// layers of any widths, non-expanding after the first, any map input and
+// number of components.  The flagship's shapes run pcgen_mix.cu; this kernel runs the
 // rest, one launch.
 //
 // Replaces pccf/kernels/pallas_pcgen.py:133 pcgen_mix_tpu (body _kernel:82)
@@ -31,7 +31,9 @@
 // mix.  Where even 16 rows do not fit in 227 KB, the same buffers live in a
 // global scratch of a persistent grid.  A simple kernel: every block reads
 // all the component weights from L2, which bounds it at these widths
-// (PERF.md records its time).
+// (PERF.md records its time).  The layers' weight and bias pointers and
+// widths reach the kernel as one device table (int64: L weight pointers, L
+// bias pointers, L + 1 widths), so the depth has no limit.
 //
 // Precision: the component layers multiply TF32 operands (cvt.rna), whose
 // 10-bit mantissa is the flagship kernel's fp16 one, with fp32 range and
@@ -48,7 +50,7 @@ namespace {
 
 using namespace pccf;
 
-constexpr int kThreads = 256, kWarps = kThreads / 32, kMaxLayers = 4, kSmemMax = 232448;
+constexpr int kThreads = 256, kWarps = kThreads / 32, kSmemMax = 232448;
 constexpr int kPersistentBlocks = 2 * 132;  // the grid when the activations live in global scratch
 
 struct GenArgs {
@@ -56,15 +58,14 @@ struct GenArgs {
   const float* w;       // (B, D0)
   const float* map_w;   // (D0, Dm)
   const float* map_b;   // (D0)
-  const float* lw[kMaxLayers];  // (G, D_{i+1}, D_i)
-  const float* lb[kMaxLayers];  // (G, D_{i+1})
+  const long long* table;  // device: lw_i (G, D_{i+1}, D_i), lb_i (G, D_{i+1}) as pointers, then D_0 .. D_L
   const float* head_w;  // (G, 3, D_L)
   const float* head_b;  // (G, 3)
   const float* att_w;   // (G, G * D_L)
   const float* att_b;   // (G)
   float* out;           // (B, N, 3)
   float* scratch;       // a block's buffers in global memory, or null for shared memory
-  int n, dm, n_layers, dims[kMaxLayers + 1], g_count, rows, ldx, ldh, tiles_n, tiles;
+  int n, dm, n_layers, d0, dl, g_count, rows, ldx, ldh, tiles_n, tiles;
   float inv_tau, slope;
 };
 
@@ -194,7 +195,8 @@ __device__ __forceinline__ void product(const float* A, int lda, int a_rows, int
 
 __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_constant__ GenArgs p) {
   extern __shared__ __align__(16) float smem[];
-  const int R = p.rows, G = p.g_count, L = p.n_layers, d0 = p.dims[0], dl = p.dims[L];
+  const int R = p.rows, G = p.g_count, L = p.n_layers, d0 = p.d0, dl = p.dl;
+  const long long* dims = p.table + 2 * L;
   float* ring = smem;  // [kWarps][2][32][kStageLd]
   float* base = p.scratch ? p.scratch + (size_t)blockIdx.x * block_floats(R, p.ldx, p.ldh, G) : smem + kRingFloats;
   float* xs = base;                 // [R][ldx]
@@ -218,12 +220,13 @@ __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_co
       const float* src = xs;
       int lds = p.ldx;
       for (int i = 0; i < L; ++i) {
-        const int din = p.dims[i], dout = p.dims[i + 1], reps = i == 0 ? dout / din + 1 : 1;
+        const int din = (int)__ldg(dims + i), dout = (int)__ldg(dims + i + 1), reps = i == 0 ? dout / din + 1 : 1;
+        const float* lw = reinterpret_cast<const float*>(__ldg(p.table + i));
+        const float* bias = reinterpret_cast<const float*>(__ldg(p.table + L + i)) + (size_t)g * dout;
         float* dst = hbuf[i & 1];
-        const float* bias = p.lb[i] + (size_t)g * dout;
         const float slope = p.slope;
         const int ldh = p.ldh;
-        product<false>(src, lds, R, din, p.lw[i] + (size_t)g * dout * din, dout, R, ring, [&](int r, int c, float v) {
+        product<false>(src, lds, R, din, lw + (size_t)g * dout * din, dout, R, ring, [&](int r, int c, float v) {
           v += __ldg(bias + c);
           dst[r * ldh + c] = (v >= 0.f ? v : slope * v) + src[r * lds + c / reps];
         });
@@ -271,7 +274,7 @@ __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_co
 }
 
 bool valid_shape(int batch, int n, int dm, int n_layers, const int* dims, int g_count) {
-  if (batch < 1 || batch > 65535 || n < 1 || dm < 1 || n_layers < 1 || n_layers > kMaxLayers || g_count < 1)
+  if (batch < 1 || batch > 65535 || n < 1 || dm < 1 || n_layers < 1 || g_count < 1)
     return false;
   for (int i = 0; i <= n_layers; ++i)
     if (dims[i] < 1) return false;
@@ -309,11 +312,12 @@ extern "C" int pccf_pcgen_general_scratch(int batch, int n, int dm, int n_layers
 }
 
 // out (B, N, 3) from m (B, N, Dm) and w (B, D0) through n_layers component
-// layers of widths dims[0] -> ... -> dims[n_layers]; layers holds the
-// layers' weights (G, D_{i+1}, D_i) then their biases (G, D_{i+1}), all fp32;
+// layers of widths dims[0] -> ... -> dims[n_layers] (a host array); table is
+// the device copy of the layers' weight pointers (G, D_{i+1}, D_i), their
+// bias pointers (G, D_{i+1}), all fp32, then the widths, as int64;
 // scratch: pccf_pcgen_general_scratch floats, or null where that is 0
 extern "C" int pccf_pcgen_general(const float* m, const float* w, const float* map_w, const float* map_b,
-                                  const void* const* layers, int n_layers, const int* dims, const float* head_w,
+                                  const long long* table, int n_layers, const int* dims, const float* head_w,
                                   const float* head_b, const float* att_w, const float* att_b, float* out,
                                   float* scratch, int batch, int n, int dm, int g_count, float tau, float slope,
                                   cudaStream_t stream) {
@@ -323,10 +327,7 @@ extern "C" int pccf_pcgen_general(const float* m, const float* w, const float* m
   p.w = w;
   p.map_w = map_w;
   p.map_b = map_b;
-  for (int i = 0; i < n_layers; ++i) {
-    p.lw[i] = static_cast<const float*>(layers[i]);
-    p.lb[i] = static_cast<const float*>(layers[n_layers + i]);
-  }
+  p.table = table;
   p.head_w = head_w;
   p.head_b = head_b;
   p.att_w = att_w;
@@ -335,7 +336,8 @@ extern "C" int pccf_pcgen_general(const float* m, const float* w, const float* m
   p.n = n;
   p.dm = dm;
   p.n_layers = n_layers;
-  for (int i = 0; i <= n_layers; ++i) p.dims[i] = dims[i];
+  p.d0 = dims[0];
+  p.dl = dims[n_layers];
   p.g_count = g_count;
   p.inv_tau = 1.f / tau;
   p.slope = slope;

@@ -282,9 +282,10 @@ __global__ void layer_norm_kernel(const float* __restrict__ x, const float* __re
 // fragment reads V at the same two keys.  Up to 64-wide heads a warp keeps
 // its queries' 3xTF32 fragments in registers; 128-wide heads keep the
 // queries in shared memory and split them again for every key tile, which
-// leaves the registers to the 64 output columns.
+// leaves the registers to the 64 output columns.  Wider heads run
+// attention_wide_kernel below.
 
-constexpr int kQt = 64, kKt = 64, kMaxHd = 128;
+constexpr int kQt = 64, kKt = 64;
 
 template <int kHd>
 struct AttnShape {
@@ -509,6 +510,163 @@ __global__ void __launch_bounds__(128, kHd <= 64 ? 3 : 1)
   }
 }
 
+// ------------------------------------------------- attention, wide heads
+// Heads wider than 128 (up to the model width: 256 or 512 at d = 512 with 2
+// or 1 heads).  The head's columns split into chunks of kWideChunk = 128, the
+// last one padded with zero columns.  A block (64 queries of one (batch,
+// head), 4 warps x 16 queries, as above) produces one 128-column chunk of
+// the output: for every key tile it sums the scores over the head's chunks
+// (each a query chunk and a key chunk staged in shared memory, the queries
+// split into 3xTF32 fragments as the 128 instance does), updates the online
+// softmax, and adds P · V for its chunk's columns of V.  So a head of c
+// chunks computes its scores c times, once in each of its c blocks: a simple
+// kernel, right at every width, whose time PERF.md records.
+
+constexpr int kWideChunk = 128, kWideLd = kWideChunk + 4, kWideTile = kKt * kWideLd;
+
+// 64 rows x cw floats at src (row stride `stride`) into dst (stride
+// kWideLd), the columns cw .. 127 zero; 16-byte copies where vec (every row
+// and the chunk start 16-byte aligned, cw a multiple of 4), else scalar loads
+__device__ __forceinline__ void stage_chunk(float* dst, const float* src, int stride, int cw, bool vec, int tid) {
+  if (vec) {
+    for (int e = tid; e < kKt * (kWideChunk / 4); e += 128) {
+      const int r = e / (kWideChunk / 4), c4 = e % (kWideChunk / 4) * 4;
+      if (c4 < cw)
+        cp_async16(dst + r * kWideLd + c4, src + (size_t)r * stride + c4);
+      else
+        *reinterpret_cast<float4*>(dst + r * kWideLd + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = tid; e < kKt * kWideChunk; e += 128) {
+      const int r = e / kWideChunk, c = e % kWideChunk;
+      dst[r * kWideLd + c] = c < cw ? src[(size_t)r * stride + c] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128, 1)
+    attention_wide_kernel(const float* __restrict__ q, int q_stride, const float* __restrict__ k,
+                          const float* __restrict__ v, int kv_stride, float* __restrict__ out, int out_stride, int t_q,
+                          int t_k, int hd, float scale) {
+  constexpr int kSteps = kWideChunk / 8;
+  extern __shared__ float smem[];
+  float* qs = smem;                // [64][kWideLd]
+  float* ks = smem + kWideTile;    // [64][kWideLd]
+  float* vs = smem + 2 * kWideTile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, wr = warp * 16;
+  const int chunks = (hd + kWideChunk - 1) / kWideChunk, n_tiles = t_k / kKt;
+  const int q0 = blockIdx.x * kQt, h = blockIdx.y / chunks, oc = blockIdx.y % chunks, b = blockIdx.z;
+  const int head = h * hd;
+  const bool vec = hd % 4 == 0;
+  const float* qb = q + ((size_t)b * t_q + q0) * q_stride + head;
+  const float* kb = k + (size_t)b * t_k * kv_stride + head;
+  const float* vb = v + (size_t)b * t_k * kv_stride + head;
+
+  {
+    float o[kSteps][4];
+#pragma unroll
+    for (int nt = 0; nt < kSteps; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    for (int j = 0; j < n_tiles; ++j) {
+      // S = (q · scale) K^T summed over the head's chunks
+      float s[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+      for (int qc = 0; qc < chunks; ++qc) {
+        const int cw = min(kWideChunk, hd - qc * kWideChunk);
+        __syncthreads();  // every warp is done with the staged chunks
+        stage_chunk(qs, qb + qc * kWideChunk, q_stride, cw, vec, tid);
+        stage_chunk(ks, kb + (size_t)j * kKt * kv_stride + qc * kWideChunk, kv_stride, cw, vec, tid);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+#pragma unroll 4
+        for (int kk = 0; kk < kSteps; ++kk) {
+          uint32_t qf_big[4], qf_small[4];
+          q_fragment<kWideChunk>(qs, wr, g, t, kk, scale, qf_big, qf_small);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const float* kr = ks + (nt * 8 + g) * kWideLd + 8 * kk + t;
+            uint32_t bb[2], bs[2];
+            split_tf32(kr[0], bb[0], bs[0]);
+            split_tf32(kr[4], bb[1], bs[1]);
+            mma_3xtf32(s[nt], qf_big, qf_small, bb, bs);
+          }
+        }
+      }
+      // online softmax, as in attention_kernel
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * half], s[nt][2 * half + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[half], mx);
+        const float corr = expf(m_run[half] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          s[nt][2 * half] = expf(s[nt][2 * half] - m_new);
+          s[nt][2 * half + 1] = expf(s[nt][2 * half + 1] - m_new);
+          sum += s[nt][2 * half] + s[nt][2 * half + 1];
+        }
+#pragma unroll
+        for (int nt = 0; nt < kSteps; ++nt) {
+          o[nt][2 * half] *= corr;
+          o[nt][2 * half + 1] *= corr;
+        }
+        l_run[half] = l_run[half] * corr + sum;
+        m_run[half] = m_new;
+      }
+      // O += P · V for the output chunk's columns
+      stage_chunk(vs, vb + (size_t)j * kKt * kv_stride + oc * kWideChunk, kv_stride,
+                  min(kWideChunk, hd - oc * kWideChunk), vec, tid);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t p_big[4], p_small[4];
+        split_tf32(s[kk][0], p_big[0], p_small[0]);
+        split_tf32(s[kk][2], p_big[1], p_small[1]);
+        split_tf32(s[kk][1], p_big[2], p_small[2]);
+        split_tf32(s[kk][3], p_big[3], p_small[3]);
+        const float* v0 = vs + (8 * kk + 2 * t) * kWideLd + g;
+#pragma unroll
+        for (int nt = 0; nt < kSteps; ++nt) {
+          uint32_t bb[2], bs[2];
+          split_tf32(v0[nt * 8], bb[0], bs[0]);
+          split_tf32(v0[kWideLd + nt * 8], bb[1], bs[1]);
+          mma_3xtf32(o[nt], p_big, p_small, bb, bs);
+        }
+      }
+      __syncthreads();  // V is read before the next tile's chunks land
+    }
+    float* ob = out + ((size_t)b * t_q + q0 + wr) * out_stride + head + oc * kWideChunk;
+    const int cw = min(kWideChunk, hd - oc * kWideChunk);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float l = l_run[half];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / l;
+#pragma unroll
+      for (int nt = 0; nt < kSteps; ++nt) {
+        float* dst = ob + (size_t)(g + half * 8) * out_stride + nt * 8 + 2 * t;
+        const int c = nt * 8 + 2 * t;
+        if (c < cw) dst[0] = o[nt][2 * half] * inv;
+        if (c + 1 < cw) dst[1] = o[nt][2 * half + 1] * inv;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------ host: GEMM launch
 
 // a (rows, cols) row-major fp32 matrix in boxes of 32 columns x box_rows rows,
@@ -566,6 +724,19 @@ int launch_attention(const float* q, int q_stride, const float* k, const float* 
   return (int)cudaGetLastError();
 }
 
+int launch_attention_wide(const float* q, int q_stride, const float* k, const float* v, int kv_stride, float* out,
+                          int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim, float scale,
+                          cudaStream_t stream) {
+  constexpr int smem = 3 * kWideTile * sizeof(float);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int chunks = (head_dim + kWideChunk - 1) / kWideChunk;
+  attention_wide_kernel<<<dim3(t_q / kQt, n_heads * chunks, batch), 128, smem, stream>>>(
+      q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k, head_dim, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out_g = a · wt_gᵀ + bias_g [GELU] + res[row % res_rows] for g < groups (1 to
@@ -616,7 +787,7 @@ extern "C" int pccf_layer_norm(const float* x, const float* w, const float* b, f
 extern "C" int pccf_attention(const float* q, int q_stride, const float* k, const float* v, int kv_stride,
                               float* out, int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim,
                               cudaStream_t stream) {
-  if (head_dim < 1 || head_dim > kMaxHd || t_q % kQt || t_k % kKt || t_k <= 0 || q_stride % 4 || kv_stride % 4 ||
+  if (head_dim < 1 || t_q % kQt || t_k % kKt || t_k <= 0 || q_stride % 4 || kv_stride % 4 ||
       out_stride % 2 || n_heads < 1 || (long long)n_heads * head_dim > q_stride ||
       (long long)n_heads * head_dim > kv_stride || (long long)n_heads * head_dim > out_stride)
     return (int)cudaErrorInvalidValue;
@@ -635,6 +806,9 @@ extern "C" int pccf_attention(const float* q, int q_stride, const float* k, cons
                                                        t_k, n_heads, head_dim, scale, stream);
   if (head_dim < 64) return launch_attention<64, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
                                                        t_k, n_heads, head_dim, scale, stream);
-  return launch_attention<128, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q, t_k, n_heads,
-                                     head_dim, scale, stream);
+  if (head_dim < 128) return launch_attention<128, true>(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q,
+                                                         t_k, n_heads, head_dim, scale, stream);
+  if ((long long)n_heads * ((head_dim + kWideChunk - 1) / kWideChunk) > 65535) return (int)cudaErrorInvalidValue;
+  return launch_attention_wide(q, q_stride, k, v, kv_stride, out, out_stride, batch, t_q, t_k, n_heads, head_dim,
+                               scale, stream);
 }

@@ -27,24 +27,45 @@ Noise = tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]
 
 
 class WDatasetWithLogits:
-    """``(WInputs, WTargets)`` batches over a set of clouds ``(N, P, 3)``
-    (``processed.py:128-146``).  The two models are frozen: this dataset
-    puts them in eval mode and computes without gradients."""
+    """``(WInputs, WTargets)`` batches over a set of clouds
+    (``processed.py:128-146``): ``source`` is a cloud tensor ``(N, P, 3)`` or
+    a dataset of ``(Inputs, Targets)`` batches, whose inference switch and
+    numpy generator this dataset passes through.  The two models are frozen:
+    this dataset puts them in eval mode and computes without gradients."""
 
-    def __init__(self, clouds: torch.Tensor, vqvae: torch.nn.Module, classifier: torch.nn.Module) -> None:
-        self.clouds = clouds
+    def __init__(self, source, vqvae: torch.nn.Module, classifier: torch.nn.Module) -> None:
+        self.source = source
         self.vqvae, self.classifier = vqvae.eval(), classifier.eval()
 
     def __len__(self) -> int:
-        return self.clouds.shape[0]
+        return len(self.source)
+
+    def set_inference(self, inference: bool) -> None:
+        if hasattr(self.source, 'set_inference'):
+            self.source.set_inference(inference)
+
+    @property
+    def rng(self):
+        return self.source.rng  # AttributeError for a tensor: the loader then seeds nothing
+
+    @rng.setter
+    def rng(self, value) -> None:
+        self.source.rng = value
+
+    def _inputs(self, idx_list: Sequence[int]) -> Inputs:
+        if isinstance(self.source, torch.Tensor):
+            return Inputs(cloud=self.source[torch.as_tensor(idx_list, dtype=torch.long, device=self.source.device)])
+        return self.source.__getitems__(idx_list)[0]
 
     @torch.no_grad()
     def __getitems__(self, idx_list: Sequence[int]) -> tuple[WInputs, WTargets]:
         device = self.vqvae.codebook.device
-        idx = torch.as_tensor(idx_list, dtype=torch.long)
+        batch = self._inputs(idx_list)
         parts = []
-        for start in range(0, len(idx), MAX_BATCH):
-            inputs = Inputs(cloud=self.clouds[idx[start: start + MAX_BATCH].to(self.clouds.device)].to(device))
+        for start in range(0, len(idx_list), MAX_BATCH):
+            rows = slice(start, start + MAX_BATCH)
+            inputs = Inputs(cloud=batch.cloud[rows].to(device),
+                            indices=None if batch.indices is None else batch.indices[rows].to(device))
             data = self.vqvae.encode_quantize(inputs)
             parts.append((data.w_q, data.w_e, data.one_hot_idx, self.classifier(inputs)))
         w_q, w_e, one_hot, logits = (torch.cat(p) for p in zip(*parts))

@@ -16,10 +16,14 @@ The trained classifier judges clouds the VQ-VAE makes:
 Every suite is a :class:`~pccf_torch.train.Test` of the classifier in
 batches of ``classifier.train.batch_size`` (16) under the classification
 objective; the derived datasets run the VQ-VAE in chunks of 64
-(:mod:`pccf_torch.data.processed`).  The entry point takes cloud tensors and
-labels (the port has no dataset classes yet) and prints what the JAX script
-prints.
+(:mod:`pccf_torch.data.processed`).  The entry point loads both
+checkpoints of the current experiment
+(:func:`~pccf_torch.train.w_autoencoder.load_models`) and runs the suites
+over the val split (test where ``final``), printing what the JAX script
+prints; :func:`evaluate_counterfactuals` takes cloud tensors and labels, and
+:func:`run_suites` is the core both run.
 
+    python -m pccf_torch.evaluate_counterfactuals data/dataset=synthetic user.cpu=true
     metrics = evaluate_counterfactuals(cfg, classifier, vqvae, clouds, labels)
 """
 
@@ -28,8 +32,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pccf_torch import cli
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.clouds import LabelledClouds
+from pccf_torch.data.dataset import get_dataset
+from pccf_torch.data.protocols import Partitions
 from pccf_torch.data.processed import CounterfactualDatasetEncoder, DoubleReconstructedDatasetWithLogits
 from pccf_torch.nn.classifier import ClassifierTrainModule, DGCNNClassifier
 from pccf_torch.train.losses import get_classification_loss
@@ -63,9 +70,9 @@ class Subset:
         return int(getattr(self.dataset, 'seed', 0))
 
 
-def get_label_distribution(dataset: LabelledClouds, num_classes: int) -> np.ndarray:
+def get_label_distribution(dataset, num_classes: int) -> np.ndarray:
     """The labels on the host, their counts printed (``:45-50``)."""
-    labels = dataset.labels.cpu().numpy()
+    labels = torch.as_tensor(dataset.labels).cpu().numpy()
     distribution = {f'count_{i}': int((labels == i).sum()) for i in range(num_classes)}
     print('label distribution:', distribution)
     return labels
@@ -75,7 +82,8 @@ def _test(classifier: DGCNNClassifier, dataset, batch_size: int, name: str, suit
           store_outputs: bool = False) -> Test:
     """A classification test of ``classifier`` over ``dataset``, run,
     printed and recorded in ``suites``."""
-    test = Test(ClassifierTrainModule(classifier), Loader(dataset, batch_size), get_classification_loss(), name)
+    test = Test(ClassifierTrainModule(classifier), Loader(dataset, batch_size), get_classification_loss(), name,
+                model_name=getattr(classifier, 'name', None))
     test(store_outputs=store_outputs)
     print_suite(name, test)
     suites[name] = compute_metrics(test.objective)
@@ -151,10 +159,17 @@ def evaluate_counterfactuals(cfg: SliceConfig, classifier: DGCNNClassifier, vqva
     ``'OverallMisclassifiedCounterfeit'``; ``'ClassificationOriginal'`` holds
     what the JAX entry point returns."""
     device = torch.device(device)
+    classifier, vqvae = classifier.to(device).eval(), vqvae.to(device).eval()
+    return run_suites(cfg, classifier, vqvae, LabelledClouds(clouds.to(device), labels.to(device), seed))
+
+
+def run_suites(cfg: SliceConfig, classifier: DGCNNClassifier, vqvae: torch.nn.Module, dataset) -> Suites:
+    """The five suites over ``dataset`` (labelled ``(Inputs, Targets)``
+    batches in inference, a ``labels`` array, a ``seed``), the models on
+    the dataset's device."""
     num_classes, batch_size = cfg.data.n_classes, cfg.classifier.train.batch_size
     target_value = cfg.user.counterfactual_value
-    classifier, vqvae = classifier.to(device).eval(), vqvae.to(device).eval()
-    dataset = LabelledClouds(clouds.to(device), labels.to(device), seed)
+    dataset.set_inference(True)
     suites: Suites = {}
     host_labels = get_label_distribution(dataset, num_classes)
     original = evaluate_original(classifier, dataset, batch_size, suites)
@@ -165,3 +180,20 @@ def evaluate_counterfactuals(cfg: SliceConfig, classifier: DGCNNClassifier, vqva
     evaluate_class_transitions(classifier, dataset, vqvae, host_labels, predictions, num_classes, batch_size,
                                target_value, suites)
     return suites
+
+
+def stage(cfg: SliceConfig, device: torch.device) -> Suites:
+    """``evaluate_counterfactuals.py``'s run inside the current experiment."""
+    from pccf_torch.train.w_autoencoder import load_models
+
+    classifier, vqvae = load_models(cfg, device)
+    dataset = get_dataset(cfg, Partitions.test if cfg.final else Partitions.val, device)
+    return run_suites(cfg, classifier, vqvae, dataset)
+
+
+def main(argv: list[str] | None = None) -> Suites:
+    return cli.run(argv, stage)
+
+
+if __name__ == '__main__':
+    main()

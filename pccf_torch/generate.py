@@ -1,9 +1,12 @@
 """Random samples from the generative prior (``generate.py``).
 
-The entry point samples z1 and z2 from the priors (the Dirichlet class
-condition on the conditional model), decodes them through the codebook and
-PCGen, and returns the clouds.  Rendering, checkpoint loading and the Hydra
-CLI are not ported.
+The entry point loads the VQ-VAE of the current experiment's checkpoints,
+samples z1 and z2 from the priors (the Dirichlet class condition on the
+conditional model), decodes them through the codebook and PCGen, and
+returns the clouds.  Rendering them (``render_cloud``, matplotlib) is not
+ported.
+
+    python -m pccf_torch.generate data/dataset=synthetic user.cpu=true
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pccf_torch import cli
 from pccf_torch.config import SliceConfig
 from pccf_torch.models.autoencoders import VQVAE
 
@@ -32,3 +36,21 @@ def generate_random_samples(cfg: SliceConfig, vqvae: VQVAE, seed: int = 0,
     with torch.inference_mode():
         out = vqvae.generate(gen_cfg.batch_size, None, z1_bias, generator=torch.Generator().manual_seed(seed))
     return out.recon.float().cpu().numpy()
+
+
+def stage(cfg: SliceConfig, device: torch.device) -> np.ndarray:
+    """``generate.py``'s run inside the current experiment."""
+    from pccf_torch.train.w_autoencoder import load_models
+
+    _, vqvae = load_models(cfg, device)
+    clouds = generate_random_samples(cfg, vqvae, cfg.user.seed or 0, device)
+    print(f'generated {clouds.shape[0]} clouds of {clouds.shape[1]} points')
+    return clouds
+
+
+def main(argv: list[str] | None = None) -> np.ndarray:
+    return cli.run(argv, stage)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels.
 
 At first use on a CUDA tensor, ``nvcc`` compiles every ``pccf_torch/csrc/*.cu``
-for Hopper (``sm_90a``), one process per source, all started together, and
-links the objects into one shared library with a plain C interface, which
-``ctypes`` loads.  The library lands in ``pccf_torch/_build/``
+for Hopper (``sm_90a``), and the host C++ of ``csrc/*.cpp`` (the training
+batch assembler) with its host compiler, one process per source, all started
+together, and links the objects into one shared library with a plain C
+interface, which ``ctypes`` loads.  The library lands in ``pccf_torch/_build/``
 (git-ignored), named by a hash of the sources and flags, so an edited kernel
 is rebuilt and an unchanged one is reused within a checkout.
 
@@ -35,8 +36,10 @@ COMPILE_FLAGS = (*ARCH, '-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo')
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_int64
+U = ctypes.c_uint64
 
-# C entry point -> argument types; every entry point takes the stream last
+# C entry point -> argument types; every kernel's entry point takes the stream last
 SIGNATURES: dict[str, tuple] = {
     'pccf_knn': (P, P, P, P, P, I, I, I, I, I, P),
     'pccf_graph_max_pool': (P, P, P, I, I, I, I, I, P),
@@ -64,6 +67,7 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_graph_filter_backward': (P, P, P, P, P, P, P, I, I, I, I, P),
     'pccf_graph_filter_plan': (I, I, I, P),
     'pccf_empty': (P,),
+    'pccf_assemble_batch_aug': (P, L, L, P, L, L, U, I, F, F, I, I, I, P, P),
 }
 
 CUDA_ERROR_INVALID_VALUE = 1
@@ -81,7 +85,7 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[pathlib.Path]:
-    return sorted(CSRC.glob('*.cu'))
+    return sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cpp'))
 
 
 def library_path() -> pathlib.Path:
@@ -119,7 +123,7 @@ def build(verbose: bool = False) -> pathlib.Path:
         if failed:
             raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
         tmp = work / out.name
-        link = subprocess.run([nvcc, *ARCH, '-shared', '-o', str(tmp), *map(str, objects)],
+        link = subprocess.run([nvcc, *ARCH, '-shared', '-o', str(tmp), *map(str, objects), '-lpthread'],
                               capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f'nvcc link failed ({link.returncode}):\n{link.stderr[-8000:]}')

@@ -30,7 +30,7 @@ import dataclasses
 import torch
 
 from pccf_torch.kernels import _build, ops
-from pccf_torch.kernels.wformer import Stacks, check_heads, pack_decoder, pack_encoder, split_small, stack_weights
+from pccf_torch.kernels.wformer import Stacks, pack_decoder, pack_encoder, split_small, stack_weights
 
 MAX_EMBEDDING = 128  # the widest token the chain takes (pallas_cvae.py:53 _IN_PAD)
 IN_TILE = 32  # the token input is padded to whole GEMM k tiles
@@ -152,7 +152,7 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     """``x (B, T, e)``, ``probs (B, C)`` float32 on the card -> ``(B, T, e)``.
 
     The guards of ``pccf_gemm`` and ``pccf_attention`` state the shapes the
-    chain covers (64-row tiles over tokens, heads up to 128 wide, 64-multiple
+    chain covers (64-row tiles over tokens, heads of any width, 64-multiple
     widths); this wrapper checks what it lays out itself and the heads, and
     raises ``ValueError`` before any launch."""
     _build.require(x, 'x', torch.float32)
@@ -164,7 +164,6 @@ def cvae_cf_cuda(x: torch.Tensor, probs: torch.Tensor, pack: CVAEPack) -> torch.
     if pack.add1.shape[0] != t or e > MAX_EMBEDDING or e != pack.wcomp.shape[1] or any(d % h for h in pack.heads):
         raise ValueError(f'cvae_cf: tokens {tuple(x.shape)} do not fit a pack of T={pack.add1.shape[0]}, d={d}, '
                          f'heads={pack.heads} (token width at most {MAX_EMBEDDING})')
-    check_heads(d, *pack.heads)
     w = pack.cuda_operands()
     if w['aw'].device != x.device:
         raise ValueError(f'cvae_cf: weights on {w["aw"].device}, inputs on {x.device}')

@@ -8,9 +8,9 @@ second and third are one warpgroup-split chunk and one n16 product) run the
 fp16 ``wgmma`` kernel of ``pcgen_mix.cu``, whose wrapper derives its device
 layout (fp16 component weights, transposed map head) and the bounds of its
 fp16 operand scales from the pack once and keeps them on the pack.  Every
-other shape of the JAX package's gate (:func:`supported`: 1 to 4 layers, any
-widths, any map input and number of components) runs ``pcgen_general.cu``
-on the pack's fp32 weights as they are.
+other shape of the JAX package's gate (:func:`supported`: any number of
+layers of any widths, any map input and number of components) runs
+``pcgen_general.cu`` on the pack's fp32 weights as they are.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ MAX_COMPONENTS = 8  # kMaxG: a mix thread keeps a point's logit and head output 
 ROWS = 64  # kRows: points per block
 FP16_MAX = 65504.0  # the largest finite fp16: the kernel's component weights past it would be inf
 TILE = 256  # pcgen_fused_supported's row tile: the JAX gate takes points in multiples of it
-MAX_LAYERS = 4  # kMaxLayers of csrc/pcgen_general.cu
 
 
 def supported(n: int, w_dim: int, conv_dims: tuple[int, ...], n_components: int) -> bool:
@@ -40,9 +39,7 @@ def supported(n: int, w_dim: int, conv_dims: tuple[int, ...], n_components: int)
     ``w_dim``, at least two components, and component layers that shrink
     strictly after the first (their residual is a prefix slice).  The card
     runs every such decoder: :func:`flagship` shapes on the ``pcgen_mix``
-    kernel, the others on the general kernel, which takes up to
-    :data:`MAX_LAYERS` layers and raises ``ValueError`` past them before any
-    launch."""
+    kernel, the others on the general kernel, at any depth."""
     dims = (w_dim, *conv_dims)
     return (n % TILE == 0 and w_dim % 128 == 0 and n_components >= 2 and len(conv_dims) >= 1
             and all(dims[i + 1] < dims[i] for i in range(1, len(dims) - 1)))
@@ -167,10 +164,11 @@ def pcgen_mix_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: fl
 def pcgen_general_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau: float,
                        act_slope: float) -> torch.Tensor:
     """``m (B, N, Dm)``, ``w (B, D0)`` float32 on the card -> ``(B, N, 3)``
-    for any decoder of the JAX gate (:func:`supported`): 1 to 4 component
-    layers of any widths, non-expanding after the first, any map input and
+    for any decoder of the JAX gate (:func:`supported`): component layers of
+    any number and widths, non-expanding after the first, any map input and
     number of components (``csrc/pcgen_general.cu``, whose guard states the
-    shapes).  Raises ``ValueError`` past 4 layers, before any launch."""
+    shapes).  The layers' pointers and widths go to the kernel as one device
+    table."""
     _build.require(m, 'm', torch.float32)
     if m.dim() != 3:
         raise ValueError(f'm: expected (B, N, Dm), got {tuple(m.shape)}')
@@ -187,15 +185,17 @@ def pcgen_general_cuda(m: torch.Tensor, w: torch.Tensor, pack: PCGenPack, *, tau
     dims_c = (ctypes.c_int * len(dims))(*dims)
     words = lib.pccf_pcgen_general_scratch(b, n, dm, n_layers, dims_c, g)
     if words < 0:
-        raise ValueError(f'pccf_pcgen_general: the kernel does not cover N={n}, dims={dims}, Dm={dm}, G={g} (1 to '
-                         f'{MAX_LAYERS} component layers, non-expanding after the first)')
+        raise ValueError(f'pccf_pcgen_general: the kernel does not cover N={n}, dims={dims}, Dm={dm}, G={g} '
+                         f'(component layers non-expanding after the first)')
     scratch = torch.empty(max(words, 1), dtype=torch.float32, device=m.device)
     out = torch.empty((b, n, 3), dtype=torch.float32, device=m.device)
-    ptrs = (ctypes.c_void_p * len(layers))(*(t.data_ptr() for t in layers))
-    err = lib.pccf_pcgen_general(m.data_ptr(), w.data_ptr(), map_w.data_ptr(), map_b.data_ptr(), ptrs, n_layers,
-                                 dims_c, head_w.data_ptr(), head_b.data_ptr(), att_w.data_ptr(), att_b.data_ptr(),
-                                 out.data_ptr(), scratch.data_ptr() if words > 0 else None, b, n, dm, g, float(tau),
-                                 float(act_slope), _build.stream())
+    # from pinned memory without waiting: a pageable upload would wait for the work queued before it
+    table = torch.tensor([t.data_ptr() for t in layers] + list(dims), dtype=torch.int64).pin_memory().to(
+        m.device, non_blocking=True)
+    err = lib.pccf_pcgen_general(m.data_ptr(), w.data_ptr(), map_w.data_ptr(), map_b.data_ptr(), table.data_ptr(),
+                                 n_layers, dims_c, head_w.data_ptr(), head_b.data_ptr(), att_w.data_ptr(),
+                                 att_b.data_ptr(), out.data_ptr(), scratch.data_ptr() if words > 0 else None, b, n,
+                                 dm, g, float(tau), float(act_slope), _build.stream())
     _build.check('pccf_pcgen_general', err, f'N={n}, dims={dims}, Dm={dm}, G={g}')
     pcgen_general_cuda.launches += 1
     return out

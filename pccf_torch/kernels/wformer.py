@@ -40,7 +40,6 @@ from pccf_torch.kernels import _build, ops
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
 TF32_BIG = -(1 << 13)  # int32 mask keeping the sign, exponent and 10 mantissa bits a tensor core reads
-MAX_HEAD_DIM = 128  # pccf_attention: heads up to kMaxHd = 128 wide
 FF_MULTIPLE = 64  # pccf_gemm: N % 64 and K % 32; other FF widths are padded in the pack
 
 
@@ -48,18 +47,10 @@ def supported(t: int, d: int, n_heads: int) -> bool:
     """The shape line of the JAX package's fused stacks
     (``pallas_wformer.py:41-49`` ``wformer_supported``): tokens and width in
     multiples of 128, whole heads.  Its VMEM budget is a TPU limit and is not
-    carried over.  Inside it the card's kernels cover every net but those
-    with heads wider than :data:`MAX_HEAD_DIM`, which raise ``ValueError``
-    before any launch (:func:`check_heads`)."""
+    carried over.  Inside it the card's kernels cover every net, heads of
+    any width included (past 128 wide, ``pccf_attention`` runs its wide
+    instance)."""
     return t % 128 == 0 and d % 128 == 0 and n_heads > 0 and d % n_heads == 0
-
-
-def check_heads(d: int, *heads: int) -> None:
-    """Raise ``ValueError`` for a head wider than the attention kernel takes."""
-    for h in heads:
-        if d // h > MAX_HEAD_DIM:
-            raise ValueError(f'wformer: the attention kernel takes heads up to {MAX_HEAD_DIM} wide, not {d // h} '
-                             f'({h} heads over {d})')
 
 
 # ------------------------------------------------------------------ pack
@@ -306,11 +297,9 @@ def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int
 def wformer_encoder_cuda(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
     """``x (B, T, d)`` float32 on the card -> ``(B, T, d)`` through the
     encoder stack.  The guards of ``pccf_gemm`` and ``pccf_attention`` state
-    the shapes covered (64-row tiles over tokens, heads up to 128 wide,
-    widths in multiples of 64); a head past 128 raises ``ValueError`` before
-    any launch."""
+    the shapes covered (64-row tiles over tokens, widths in multiples of
+    64, heads of any width)."""
     b, t, d = _tokens(x, 'x', pack)
-    check_heads(d, n_heads)
     stacks = Stacks(b, t, d, x.device)
     res = x.reshape(b * t, d).clone()
     stacks.encoder(res, pack, n_heads)
@@ -325,7 +314,6 @@ def wformer_decoder_cuda(x: torch.Tensor, memory: torch.Tensor, pack: list[dict]
     bm, t_mem, dm = _tokens(memory, 'memory', pack)
     if (bm, dm) != (b, d):
         raise ValueError(f'wformer: memory {tuple(memory.shape)} does not match x {tuple(x.shape)}')
-    check_heads(d, n_heads)
     stacks = Stacks(b, t, d, x.device)
     res = x.reshape(b * t, d).clone()
     stacks.decoder(res, memory.reshape(b * t_mem, d), pack, n_heads)

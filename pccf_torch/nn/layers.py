@@ -349,3 +349,23 @@ def init_from_seed(module: nn.Module, seed: int) -> None:
                 normal(p, 0.02)
             else:  # codebook, positional encodings
                 normal(p, 1.0)
+
+
+@torch.no_grad()
+def init_for_training(module: nn.Module, seed: int) -> None:
+    """The initial weights of a model an entry point trains, from ``seed``,
+    as flax initialises the JAX package's modules: matrices ``N(0,
+    1/fan_in)`` (flax's LeCun normal without its truncation), biases and
+    norm shifts 0, norm scales 1, running means 0 and variances 1; codebooks,
+    positional encodings and pseudo-inputs ``N(0, 1)``."""
+    gen = torch.Generator().manual_seed(seed)
+    for mod in module.modules():
+        for name, p in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
+            if isinstance(mod, (BatchNorm, nn.LayerNorm)):
+                p.fill_(1.0 if name in ('weight', 'running_var') else 0.0)
+            elif name == 'weight':
+                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(p.shape[-1]))
+            elif name == 'bias':
+                p.zero_()
+            elif p.is_floating_point():
+                p.copy_(torch.randn(p.shape, generator=gen))

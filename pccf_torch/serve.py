@@ -114,6 +114,15 @@ class CounterfactualServer:
         self.stats: dict[str, Any] = {'served': 0, 'batches': 0, 'padded': 0}
         vqvae.prepack()
 
+    @classmethod
+    def from_config(cls, cfg, device: torch.device | str, **kwargs) -> 'CounterfactualServer':
+        """A server of the models in the current experiment's checkpoints,
+        loaded as the evaluation entry points load them (``serve.py:222-231``)."""
+        from pccf_torch.train.w_autoencoder import load_models
+
+        classifier, vqvae = load_models(cfg, torch.device(device))
+        return cls(vqvae, classifier, **kwargs)
+
     def _to_device(self, t: torch.Tensor) -> torch.Tensor:
         """Move a host tensor to the server's device; to the card through
         pinned memory without waiting (a pageable source would wait for the

@@ -4,26 +4,35 @@
 The reconstruction objective is the one ``autoencoder.train.recon_loss``
 names (ChamferEMD, Chamfer or ChamferSinkhorn) plus the embedding term.  The
 inner CVAE stays frozen.  After every epoch a validation pass runs the model
-in eval over the test clouds, then, every ``diagnose_every`` epochs, the
-codebook hook (:class:`~pccf_torch.train.hooks.DiscreteSpaceOptimizer`).  A
-final test follows, with ApproxMatch EMD attached as a metric when the
-objective has no ``'EMD'`` term.  Early stopping (off in the flagship),
-checkpoints, trackers, the reconstruction-logging hooks, the dataset classes
-with their augmentations and data-parallel training are not ported: the
-entry point takes cloud tensors.
+in eval over the test set (unless ``final``), then, every ``diagnose_every``
+epochs, the codebook hook (:class:`~pccf_torch.train.hooks.
+DiscreteSpaceOptimizer`), early stopping on the reconstruction objective
+where ``autoencoder.train.early_stopping.active`` (off in the flagship) and
+the checkpoint every ``user.checkpoint_every`` epochs.  A checkpoint is saved
+at the end and a final test follows, with ApproxMatch EMD attached as a
+metric when the objective has no ``'EMD'`` term.  ``user.load_checkpoint``
+resumes from a checkpoint (-1 the latest).  The reconstruction-logging hooks
+(TensorBoard figures) and data-parallel training are not ported.
 
-    result = train_autoencoder(cfg, vqvae, train_clouds, test_clouds)
+    python -m pccf_torch.train.autoencoder data/dataset=synthetic user.cpu=true
+
+:func:`train_autoencoder` takes cloud tensors and trains ``n_epochs``
+without those harness features; :func:`fit` is the core both run.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pccf_torch import cli
 from pccf_torch.config import SliceConfig
+from pccf_torch.data.dataset import get_datasets
 from pccf_torch.data.structures import Inputs, Targets
-from pccf_torch.models.autoencoders import VQVAE
-from pccf_torch.train.hooks import DiscreteSpaceOptimizer, call_every
-from pccf_torch.train.losses import get_autoencoder_loss, get_emd_loss
+from pccf_torch.models.autoencoders import VQVAE, build_vqvae
+from pccf_torch.nn.layers import init_for_training
+from pccf_torch.train.hooks import (DiscreteSpaceOptimizer, EarlyStoppingCallback, call_every, get_trailing_mean,
+                                    saving_hook)
+from pccf_torch.train.losses import get_autoencoder_loss, get_emd_loss, get_recon_loss
 from pccf_torch.train.runners import Diagnostic, Loader, Test, Trainer
 
 
@@ -49,6 +58,38 @@ class CloudLoader(Loader):
         super().__init__(_Clouds(clouds), batch_size, seed)
 
 
+def fit(cfg: SliceConfig, vqvae: VQVAE, train_set, test_set, *, n_epochs: int, seed: int, device: torch.device,
+        validate: bool = True, early_stopping: bool = False, checkpoint_every: int = 0, load_checkpoint: int = 0,
+        save: bool = False) -> dict:
+    """Train ``vqvae`` on ``train_set`` with the codebook hook, validating on
+    ``test_set`` where ``validate``, then test."""
+    tcfg = cfg.autoencoder.train
+    vqvae = vqvae.to(device)
+    train_loader = Loader(train_set, tcfg.batch_size, seed)
+    test_loader = Loader(test_set, tcfg.batch_size, seed)
+    loss = get_autoencoder_loss(cfg)
+    name = cfg.autoencoder.name
+    trainer = Trainer(vqvae, loss, tcfg, train_loader.n_batches(), seed=seed, name=name)
+    if load_checkpoint:
+        trainer.load_checkpoint(load_checkpoint)
+    codebook_hook = DiscreteSpaceOptimizer(Diagnostic(vqvae, train_loader, loss, seed=seed, model_name=name),
+                                           cfg.autoencoder.vq_noise, n_epochs, seed)
+    trainer.post_epoch_hooks.append(call_every(cfg.autoencoder.diagnose_every)(codebook_hook))
+    if early_stopping:
+        es = tcfg.early_stopping
+        trainer.post_epoch_hooks.append(
+            EarlyStoppingCallback(get_recon_loss(cfg), filter_fn=get_trailing_mean(es.window), patience=es.patience))
+    if checkpoint_every:
+        trainer.post_epoch_hooks.append(call_every(checkpoint_every)(saving_hook))
+    validation = Test(vqvae, test_loader, loss, 'Validation', seed=seed, model_name=name) if validate else None
+    trainer.train_until(train_loader, n_epochs, validation)
+    if save:
+        trainer.save_checkpoint()
+    test_metric = loss if 'EMD' in loss.calculations else loss | get_emd_loss()
+    results = Test(vqvae, test_loader, test_metric, 'FinalTest', seed=seed, model_name=name)(trainer.epoch)
+    return {'trainer': trainer, 'test': results, 'loss': results['Chamfer'], 'codebook_hook': codebook_hook}
+
+
 def train_autoencoder(
     cfg: SliceConfig,
     vqvae: VQVAE,
@@ -67,17 +108,30 @@ def train_autoencoder(
     ``last_usage`` holds the latest code counts), the final test metrics and
     their Chamfer distance."""
     device = torch.device(device)
-    tcfg = cfg.autoencoder.train
-    n_epochs = tcfg.n_epochs if n_epochs is None else n_epochs
-    vqvae = vqvae.to(device)
-    train_loader = CloudLoader(train_clouds.to(device), tcfg.batch_size, seed)
-    test_loader = CloudLoader(test_clouds.to(device), tcfg.batch_size, seed)
-    loss = get_autoencoder_loss(cfg)
-    trainer = Trainer(vqvae, loss, tcfg, train_loader.n_batches(), seed=seed)
-    codebook_hook = DiscreteSpaceOptimizer(Diagnostic(vqvae, train_loader, loss, seed=seed),
-                                           cfg.autoencoder.vq_noise, n_epochs, seed)
-    trainer.post_epoch_hooks.append(call_every(cfg.autoencoder.diagnose_every)(codebook_hook))
-    trainer.train_until(train_loader, n_epochs, Test(vqvae, test_loader, loss, 'Validation', seed=seed))
-    test_metric = loss if 'EMD' in loss.calculations else loss | get_emd_loss()
-    results = Test(vqvae, test_loader, test_metric, 'FinalTest', seed=seed)(trainer.epoch)
-    return {'trainer': trainer, 'test': results, 'loss': results['Chamfer'], 'codebook_hook': codebook_hook}
+    return fit(cfg, vqvae, _Clouds(train_clouds.to(device)), _Clouds(test_clouds.to(device)),
+               n_epochs=cfg.autoencoder.train.n_epochs if n_epochs is None else n_epochs, seed=seed, device=device)
+
+
+def build(cfg: SliceConfig, seed: int) -> VQVAE:
+    """The VQ-VAE with its initial weights from ``seed``."""
+    vqvae = build_vqvae(cfg)
+    init_for_training(vqvae, seed)
+    return vqvae
+
+
+def stage(cfg: SliceConfig, device: torch.device) -> dict:
+    """``train_autoencoder.py``'s run inside the current experiment."""
+    seed = cfg.user.seed or 0
+    train_set, test_set = get_datasets(cfg, device)
+    es = cfg.autoencoder.train.early_stopping
+    return fit(cfg, build(cfg, seed), train_set, test_set, n_epochs=cfg.autoencoder.train.n_epochs, seed=seed,
+               device=device, validate=not cfg.final, early_stopping=not cfg.final and es.active,
+               checkpoint_every=cfg.user.checkpoint_every, load_checkpoint=cfg.user.load_checkpoint, save=True)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    return cli.run(argv, stage)
+
+
+if __name__ == '__main__':
+    main()

@@ -1,12 +1,14 @@
-"""Post-epoch hooks of stage-1 training (``pccf/train/hooks.py:41-51,
-155-226``): the every-n-epochs combinator and the codebook maintenance that
-re-seeds VQ codebook entries no sample selects.
+"""Post-epoch hooks (``pccf/train/hooks.py``): the every-n-epochs
+combinator, the checkpoint cadence, early stopping and the codebook
+maintenance that re-seeds VQ codebook entries no sample selects.
 
 A hook is a callable taking the :class:`~pccf_torch.train.runners.Trainer`;
-``trainer.post_epoch_hooks`` runs them after each epoch's validation.  The
-port trains in one process, so one process rewrites the codebook; the
-broadcast of the rewritten codebook across processes (``hooks.py:181-193``)
-comes with data-parallel training.
+``trainer.post_epoch_hooks`` runs them after each epoch's validation, and
+:class:`EarlyStoppingCallback` ends training by raising
+:class:`~pccf_torch.train.runners.StopTraining`.  The port trains in one
+process, so one process rewrites the codebook; the broadcast of the
+rewritten codebook across processes (``hooks.py:181-193``) comes with
+data-parallel training.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from pccf_torch.train.runners import Diagnostic, Trainer
+from pccf_torch.train.objectives import Objective
+from pccf_torch.train.runners import Diagnostic, StopTraining, Trainer
 
 Hook = Callable[[Trainer], None]
 
@@ -34,6 +37,101 @@ def call_every(n: int) -> Callable[[Hook], Hook]:
         return wrapped
 
     return wrapper
+
+
+def saving_hook(trainer: Trainer) -> None:
+    """Save the trainer's checkpoint (``hooks.py:54``); registered under
+    ``call_every(user.checkpoint_every)``."""
+    trainer.save_checkpoint()
+
+
+# ------------------------------------------------------------- metric filters
+
+
+def get_trailing_mean(window: int) -> Callable[[list[float]], float]:
+    """Mean of the last ``window`` values (``hooks.py:60-66``)."""
+
+    def f(history: list[float]) -> float:
+        return float(np.mean(history[-window:])) if history else float('inf')
+
+    return f
+
+
+def get_moving_average(alpha: float = 0.9) -> Callable[[list[float]], float]:
+    """Exponential moving average over the history (``hooks.py:69-80``)."""
+
+    def f(history: list[float]) -> float:
+        if not history:
+            return float('inf')
+        ema = history[0]
+        for v in history[1:]:
+            ema = alpha * ema + (1 - alpha) * v
+        return float(ema)
+
+    return f
+
+
+# ------------------------------------------------------------ early stopping
+
+
+def resolve_monitored_value(metric: Objective, row: dict[str, float]) -> tuple[str, float | None]:
+    """The value of ``metric`` in a logged metrics row (``hooks.py:86-105``).
+    A composite criterion is named ``'Loss'``, as is the training loss in the
+    row, so its loss expression is evaluated over the row's logged means of
+    its leaves instead."""
+    if metric.name != 'Loss' and metric.name in row:
+        return metric.name, row[metric.name]
+    if metric.loss_expr is not None:
+        names = list(dict.fromkeys(metric.leaves))
+        if names and all(name in row for name in names):
+            return '+'.join(names), metric.evaluate(row)
+    return metric.name, row.get(metric.name)
+
+
+class EarlyStoppingCallback:
+    """Stop when the smoothed validation metric stops improving
+    (``hooks.py:108-152``): after every epoch the monitored value of the
+    latest validation row (the training row without validation), negated
+    where higher is better, joins the history; ``filter_fn`` of the history
+    that does not beat the best by 1e-12 is a stale epoch, and ``patience``
+    stale epochs in a row raise :class:`StopTraining`."""
+
+    def __init__(self, metric: Objective, filter_fn: Callable[[list[float]], float] | None = None,
+                 patience: int = 10, monitor: str | None = None) -> None:
+        self.metric = metric
+        self.monitor = monitor
+        self.metric_name = monitor or metric.name
+        self.higher_is_better = metric.higher_is_better.get(self.metric_name, False)
+        self.filter_fn = filter_fn or (lambda h: h[-1])
+        self.patience = patience
+        self.best = float('inf')
+        self.stale = 0
+        self.history: list[float] = []
+
+    def __call__(self, trainer: Trainer) -> None:
+        log = trainer.validation_log or trainer.metrics_log
+        if not log:
+            return
+        if self.monitor is not None:
+            value = log[-1].get(self.monitor)
+        else:
+            self.metric_name, value = resolve_monitored_value(self.metric, log[-1])
+        if value is None:
+            return
+        if self.higher_is_better:
+            value = -value
+        self.history.append(float(value))
+        smoothed = self.filter_fn(self.history)
+        if smoothed < self.best - 1e-12:
+            self.best = smoothed
+            self.stale = 0
+        else:
+            self.stale += 1
+            if self.stale >= self.patience:
+                raise StopTraining(f'early stop on {self.metric_name} after {self.stale} stale epochs')
+
+
+# -------------------------------------------------------- codebook optimiser
 
 
 def rewritten_codebook(codebook: np.ndarray, usage: np.ndarray, rng: np.random.Generator, vq_noise: float,

@@ -29,10 +29,12 @@ class Objective:
     """Named per-sample calculations and one loss expression over them
     (``None`` for a metric-only objective)."""
 
-    def __init__(self, calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str) -> None:
+    def __init__(self, calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str,
+                 leaves: tuple[str, ...] = ()) -> None:
         self.calculations = dict(calculations)
         self.loss_expr = loss_expr
         self.name = name
+        self.leaves = leaves  # the calculations the loss expression reads, in order
         self._state: dict[str, tuple[float, float]] = {}  # name -> (weighted sum, count)
         self.higher_is_better: dict[str, bool] = {}
 
@@ -71,9 +73,13 @@ class Objective:
 
     def copy(self) -> 'Objective':
         """The same calculations with a copy of the running state."""
-        new = _objective(self.calculations, self.loss_expr, self.name, self.higher_is_better)
+        new = _objective(self.calculations, self.loss_expr, self.name, self.higher_is_better, self.leaves)
         new._state = dict(self._state)
         return new
+
+    def evaluate(self, row: dict[str, float]) -> float:
+        """The loss expression over logged means ``row`` of its leaves."""
+        return float(self._expr()({name: torch.tensor(row[name], dtype=torch.float64) for name in self.leaves}))
 
     # -------------------------------------------------------------- algebra
     @staticmethod
@@ -88,32 +94,33 @@ class Objective:
             raise ValueError(f'{self.name} is metric-only; it cannot join a loss')
         return self.loss_expr
 
-    def _join(self, other: 'Objective', loss_expr: LossExpr | None, name: str) -> 'Objective':
+    def _join(self, other: 'Objective', loss_expr: LossExpr | None, name: str,
+              leaves: tuple[str, ...]) -> 'Objective':
         return _objective(self._merge(self.calculations, other.calculations), loss_expr, name,
-                          {**self.higher_is_better, **other.higher_is_better})
+                          {**self.higher_is_better, **other.higher_is_better}, leaves)
 
     def __add__(self, other: 'Objective') -> 'Objective':
         ea, eb = self._expr(), other._expr()
-        return self._join(other, lambda v: ea(v) + eb(v), 'Loss')
+        return self._join(other, lambda v: ea(v) + eb(v), 'Loss', self.leaves + other.leaves)
 
     def __mul__(self, other: 'Objective | float') -> 'Objective':
         ea = self._expr()
         if isinstance(other, Objective):
             eb = other._expr()
-            return self._join(other, lambda v: ea(v) * eb(v), 'Loss')
+            return self._join(other, lambda v: ea(v) * eb(v), 'Loss', self.leaves + other.leaves)
         s = float(other)
-        return _objective(self.calculations, lambda v: s * ea(v), self.name, self.higher_is_better)
+        return _objective(self.calculations, lambda v: s * ea(v), self.name, self.higher_is_better, self.leaves)
 
     __rmul__ = __mul__
 
     def __or__(self, metric: 'Objective') -> 'Objective':
-        return self._join(metric, self.loss_expr, self.name)
+        return self._join(metric, self.loss_expr, self.name, self.leaves)
 
 
 def _objective(calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str,
-               higher_is_better: dict[str, bool]) -> Objective:
+               higher_is_better: dict[str, bool], leaves: tuple[str, ...]) -> Objective:
     """A new objective with an empty running state."""
-    new = Objective(calculations, loss_expr, name)
+    new = Objective(calculations, loss_expr, name, leaves)
     new.higher_is_better = dict(higher_is_better)
     return new
 
@@ -122,7 +129,7 @@ class Loss(Objective):
     """A named, optimised per-sample term."""
 
     def __init__(self, fn: CalcFn, name: str) -> None:
-        super().__init__({name: fn}, lambda v: v[name], name)
+        super().__init__({name: fn}, lambda v: v[name], name, (name,))
 
 
 class Metric(Objective):

@@ -30,29 +30,44 @@ eval mode over every batch, metrics averaged with the batch sizes as weights;
 logits), moved to the host, in ``outputs_list``.
 :class:`Diagnostic` is the same pass over the training set for the codebook
 hook (``runners.py:151-156``).  After every epoch's validation, the trainer
-runs its ``post_epoch_hooks``.  :class:`Loader` batches a dataset held by the
-main process for the entry points.
+runs its ``post_epoch_hooks``; a hook that raises :class:`StopTraining` (early
+stopping) ends training after that epoch.  :class:`Loader` batches a dataset
+held by the main process for the entry points.
+
+Every epoch's training row and every pass's metrics go to the current
+experiment's trackers under the model's name (``runners.py:127-137``).
+:meth:`Trainer.save_checkpoint` and :meth:`Trainer.load_checkpoint` write
+and read the model's checkpoint with its sidecar
+(:mod:`pccf_torch.train.checkpoint`), so a resumed run continues as the
+uninterrupted one would.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
 
 from pccf_torch.data.structures import Outputs
+from pccf_torch.train.checkpoint import Checkpoint
 from pccf_torch.train.grad_ops import get_grad_op
 from pccf_torch.train.objectives import Objective
 from pccf_torch.train.schedulers import get_scheduler
+from pccf_torch.train.trackers import dispatch_metrics
 
 FROZEN = 'w_autoencoder'  # the submodule stage 1 does not train
 
 
 class ConvergenceError(RuntimeError):
     """The epoch's loss is not finite (``runners.py:49``)."""
+
+
+class StopTraining(Exception):
+    """Raised by a post-epoch hook (early stopping) to end training."""
 
 
 class Loader:
@@ -102,10 +117,14 @@ class Trainer:
     (:class:`~pccf_torch.config.AutoEncoderTrainConfig`,
     :class:`~pccf_torch.config.WAutoEncoderTrainConfig` or
     :class:`~pccf_torch.config.ClassifierTrainConfig`).  The trainer's
-    objective starts with an empty running state."""
+    objective starts with an empty running state.  ``name`` is the model's,
+    which names its checkpoints and its rows in the trackers."""
 
-    def __init__(self, model: torch.nn.Module, objective: Objective, cfg, steps_per_epoch: int, seed: int = 0) -> None:
+    def __init__(self, model: torch.nn.Module, objective: Objective, cfg, steps_per_epoch: int, seed: int = 0,
+                 name: str | None = None) -> None:
         self.model = model
+        self.name = name or type(model).__name__
+        self.checkpoint = Checkpoint(self.name)
         self.objective = objective.copy()
         self.objective.reset_state()
         self.base_lr = cfg.learning_rate
@@ -124,6 +143,7 @@ class Trainer:
         self.generator = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
         self.metrics_log: list[dict[str, float]] = []
         self.validation_log: list[dict[str, float]] = []
+        self.epoch_seconds: list[float] = []  # host seconds of each epoch's steps, metrics read
         self.post_epoch_hooks: list[Callable[['Trainer'], None]] = []
 
     def lr_at(self, step: int) -> float:
@@ -152,8 +172,10 @@ class Trainer:
         """Train from the completed epochs up to ``n_epochs``
         (``runners.py:364-423``): per epoch the mean of the step metrics and
         the lr applied, a non-finite loss raises, then the validation pass
-        and the post-epoch hooks, in registration order."""
+        and the post-epoch hooks, in registration order; a hook's
+        :class:`StopTraining` ends training there."""
         for epoch in range(self.epoch + 1, n_epochs + 1):
+            t0 = time.perf_counter()
             self.objective.reset_state()
             step_metrics = [self.run_step(inputs, targets, epoch=epoch) for inputs, targets in loader.epoch_iterator(epoch)]
             for metrics in step_metrics:
@@ -161,13 +183,44 @@ class Trainer:
             self.epoch = epoch
             epoch_metrics = self.objective.compute_metrics()
             epoch_metrics['lr'] = self.base_lr * self.schedule(epoch - 1)
+            self.epoch_seconds.append(time.perf_counter() - t0)
             self.metrics_log.append(epoch_metrics)
             if not math.isfinite(epoch_metrics.get(self.objective.name, 0.0)):
                 raise ConvergenceError(f'{self.objective.name} diverged: {epoch_metrics[self.objective.name]}')
+            dispatch_metrics(self.name, 'Train', epoch, {**epoch_metrics, 'epoch_time_s': self.epoch_seconds[-1]})
             if validation is not None:
                 self.validation_log.append(validation(epoch))
-            for hook in self.post_epoch_hooks:
-                hook(self)
+            try:
+                for hook in self.post_epoch_hooks:
+                    hook(self)
+            except StopTraining:
+                break
+
+    def save_checkpoint(self) -> None:
+        """The model at the completed epoch, and the sidecar with the
+        optimiser's and gradient operation's state, the step and the
+        generator (``runners.py:441-453``)."""
+        self.checkpoint.save(self.model, self.epoch)
+        torch.save({'optimizer': self.optimizer.state_dict(), 'step': self.step,
+                    'grad_op': self.grad_op.state_dict() if self.grad_op is not None else {},
+                    'generator': self.generator.get_state()}, self.checkpoint.sidecar(self.epoch))
+
+    def load_checkpoint(self, checkpoint: int = -1) -> None:
+        """The model's weights of ``checkpoint`` (-1 the latest) and, where
+        its sidecar exists, the rest of the state; without it the step
+        follows the epoch and the optimiser and gradient operation start
+        afresh (``runners.py:455-488``)."""
+        self.epoch = self.checkpoint.load(self.model, checkpoint)
+        sidecar = self.checkpoint.sidecar(self.epoch)
+        if not sidecar.exists():
+            self.step = self.epoch * self.steps_per_epoch
+            return
+        state = torch.load(sidecar, map_location='cpu', weights_only=False)
+        self.optimizer.load_state_dict(state['optimizer'])
+        if self.grad_op is not None:
+            self.grad_op.load_state_dict(state['grad_op'])
+        self.step = int(state['step'])
+        self.generator.set_state(state['generator'])
 
 
 class Test:
@@ -177,8 +230,9 @@ class Test:
     agree.  The objective starts with an empty running state."""
 
     def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, name: str = 'Test',
-                 seed: int = 0) -> None:
+                 seed: int = 0, model_name: str | None = None) -> None:
         self.model, self.loader, self.name = model, loader, name
+        self.model_name = model_name or type(model).__name__
         self.objective = objective.copy()
         self.objective.reset_state()
         self.seed = seed + 17
@@ -203,7 +257,9 @@ class Test:
                 self.outputs_list.append(outputs.cpu())
         for metrics, count in pending:  # read to the host once the pass is enqueued
             self.objective.update_state(metrics, count)
-        return self.objective.compute_metrics()
+        results = self.objective.compute_metrics()
+        dispatch_metrics(self.model_name, self.name, epoch, results)
+        return results
 
     def _observe(self, outputs) -> None:
         """What a subclass keeps of each batch's outputs; a test keeps none."""
@@ -215,8 +271,9 @@ class Diagnostic(Test):
     codebook entry, ``code_usage (n_codes, book_size)``, summed on the
     device (``runners.py:151-156``, ``hooks.py:203-205``)."""
 
-    def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, seed: int = 0) -> None:
-        super().__init__(model, loader, objective, 'Diagnostic', seed)
+    def __init__(self, model: torch.nn.Module, loader: Loader, objective: Objective, seed: int = 0,
+                 model_name: str | None = None) -> None:
+        super().__init__(model, loader, objective, 'Diagnostic', seed, model_name)
         self.code_usage: torch.Tensor | None = None
 
     def __call__(self, epoch: int = 0) -> dict[str, float]:

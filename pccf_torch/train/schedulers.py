@@ -42,6 +42,14 @@ def warmup(base: Schedule, warmup_steps: int) -> Schedule:
 
 
 def get_scheduler(cfg: SchedulerConfig) -> Schedule:
-    """The flagship schedule: cosine with restarts and warmup."""
-    base = restart(cosine_scheduler(cfg.min_decay, cfg.decay_steps), cfg.restart_interval, cfg.restart_fraction)
-    return warmup(base, cfg.warmup_steps)
+    """``cfg.function``'s base schedule (the flagship's cosine, constant or
+    exponential) with restarts and warmup (``schedulers.py`` ``get_scheduler``)."""
+    if cfg.function == 'Cosine':
+        base = cosine_scheduler(cfg.min_decay, cfg.decay_steps)
+    elif cfg.function == 'Constant':
+        base = lambda epoch: 1.0  # noqa: E731
+    elif cfg.function == 'Exponential':
+        base = lambda epoch: cfg.exp_decay**epoch  # noqa: E731
+    else:
+        raise ValueError(f'Scheduler {cfg.function} not supported.')
+    return warmup(restart(base, cfg.restart_interval, cfg.restart_fraction), cfg.warmup_steps)

@@ -355,8 +355,8 @@ def test_cvae_with_heads_of_32_raises_on_cuda(dev):
     so in eval on the card the counterfactual launches the fused chain and
     agrees with its CPU run (codes at >= 0.99), and the training forward runs
     the plain layers with no launch.  Heads 256 wide (one head over 256) are
-    inside the gate too, but past the attention kernel's 128: the
-    counterfactual raises ``ValueError`` before any launch."""
+    inside the gate too: the chain launches the wide attention instance and
+    agrees with its CPU run the same way."""
     from pccf_torch.data.structures import WInputs
     from pccf_torch.models.w_autoencoders import WAutoEncoder
     from pccf_torch.nn import w_networks as tw
@@ -388,12 +388,15 @@ def test_cvae_with_heads_of_32_raises_on_cuda(dev):
     assert _rel_l2(got.w_recon.cpu(), want.w_recon) <= 1e-4
     assert (got.idx.cpu() == want.idx).float().mean() >= 0.99
 
-    wide = build(256, 1).to(dev)
+    wide = build(256, 1)
     assert wide.fused_ok()
-    api.reset_launch_counts()
-    with torch.no_grad(), pytest.raises(ValueError, match='heads up to 128'):
-        wide.generate_counterfactual(WInputs(_randn((2, 512), 1, dev), _randn((2, 3), 2, dev)), book.to(dev), 1)
-    assert set(api.launch_counts().values()) == {0}
+    with torch.no_grad():
+        want = wide.generate_counterfactual(inputs, book, 1)
+        api.reset_launch_counts()
+        got = wide.to(dev).generate_counterfactual(cin, cbook, 1)
+    assert api.launch_counts()['cvae_cf'] == 1
+    assert _rel_l2(got.w_recon.cpu(), want.w_recon) <= 1e-4
+    assert (got.idx.cpu() == want.idx).float().mean() >= 0.99
 
 
 @pytest.mark.parametrize('decoder', [False, True])
@@ -417,10 +420,21 @@ def test_wformer_refuses_shapes_it_does_not_cover(dev):
     pack = [_layer(128, 128, gen, dev)]
     with pytest.raises(ValueError, match='does not cover'):  # 96 tokens: not whole 64-row attention tiles
         wformer.wformer_encoder_cuda(_randn((1, 96, 128), 8, dev), pack, 2)
-    before = wformer.wformer_encoder_cuda.launches
-    with pytest.raises(ValueError, match='heads up to 128'):  # one head 256 wide, refused before any launch
-        wformer.wformer_encoder_cuda(_randn((1, 128, 256), 8, dev), [_layer(256, 128, gen, dev)], 1)
-    assert wformer.wformer_encoder_cuda.launches == before
+
+
+@pytest.mark.parametrize('d,heads', [(512, 2), (512, 1), (384, 2), (640, 2)])
+@pytest.mark.parametrize('decoder', [False, True])
+def test_wformer_wide_heads_match_plain(dev, d, heads, decoder):
+    """Heads past 128 wide (256, 512, and 192 and 320 with the last chunk
+    padded) run the wide attention instance, within the stacks' 1e-4."""
+    gen = torch.Generator().manual_seed(4)
+    pack = [_layer(d, 256, gen, dev, decoder)]
+    x, memory = _randn((2, 128, d), 10, dev), _randn((2, 128, d), 11, dev)
+    if decoder:
+        got, want = wformer.wformer_decoder_cuda(x, memory, pack, heads), wformer.plain_decoder(x, memory, pack, heads)
+    else:
+        got, want = wformer.wformer_encoder_cuda(x, pack, heads), wformer.plain_encoder(x, pack, heads)
+    assert _rel_l2(got, want) <= 1e-4
 
 
 def test_w_nets_launch_stacks_in_eval_only(dev):
@@ -1367,10 +1381,13 @@ def test_pcgen_general_matches_plain(dev, dims, g, dm, b, n, slope):
     assert _rel_l2(got, pcgen.plain(m, w, pack, tau=5.0, act_slope=slope)) <= PCGEN_GENERAL_REL_L2
 
 
-def test_pcgen_general_refuses_five_layers(dev):
-    pack = _general_pack(dev, (256, 128, 64, 32, 16, 8), 2, 8)
-    with pytest.raises(ValueError, match='1 to 4 component layers'):  # the library's scratch query refuses it
-        pcgen.pcgen_general_cuda(_randn((1, 256, 8), 3, dev), _randn((1, 256), 4, dev), pack, tau=5.0, act_slope=0.0)
+@pytest.mark.parametrize('dims', [(256, 128, 64, 32, 16, 8), (256, 256, 128, 64, 32, 16, 8)])
+def test_pcgen_general_any_depth_matches_plain(dev, dims):
+    """Five and six component layers, through the kernel's device table."""
+    pack = _general_pack(dev, dims, 2, 8)
+    m, w = torch.relu(_randn((2, 512, 8), 3, dev)), _randn((2, dims[0]), 4, dev)
+    got = pcgen.pcgen_general_cuda(m, w, pack, tau=5.0, act_slope=0.0)
+    assert _rel_l2(got, pcgen.plain(m, w, pack, tau=5.0, act_slope=0.0)) <= PCGEN_GENERAL_REL_L2
 
 
 @pytest.mark.parametrize('c', [17, 130, 511, 1, 34])

@@ -7,10 +7,9 @@ Each gate is the JAX package's own Pallas predicate without its VMEM budget
 ``_fused_cf_ok`` with ``cvae_cf_supported``, ``PCGenDecoder.fused_ok``
 ``_fused_eval_ok`` with ``pcgen_fused_supported``.  Here each is held to the
 JAX predicate called with its budget lifted.  Inside a gate every shape
-launches the card's kernels (heads past 128 wide raise ``ValueError``);
-outside it the module runs its layers one by one, on either device, as JAX
-runs its XLA layers; here, on the CPU, the layers agree with the stacked
-plain version.  ``tests/test_torch_port_wide_gates.py`` sweeps the tuning
+launches the card's kernels, heads of any width included; outside it the
+module runs its layers one by one, on either device, as JAX runs its XLA
+layers; here, on the CPU, the layers agree with the stacked plain version.  ``tests/test_torch_port_wide_gates.py`` sweeps the tuning
 spaces' corners.
 """
 

@@ -642,10 +642,14 @@ def test_param_hist_clipper_matches_optax(criterion):
 
 
 def test_grad_op_registry():
+    """Every name of JAX's registry builds its op; any other raises as
+    JAX's ``get_grad_op`` does."""
+    from pccf.config.options import GradOp
     from pccf_torch.train.grad_ops import get_grad_op
 
     p = torch.nn.Parameter(torch.zeros(2))
     assert get_grad_op(None, [('p', p)]) is None
-    for name in ('GradNormClipper', 'HistClipper', 'nonsense'):
-        with pytest.raises(ValueError, match='not ported'):
-            get_grad_op(name, [('p', p)])
+    for name in GradOp:
+        assert type(get_grad_op(str(name.value), [('p', p)])).__name__ == name.value
+    with pytest.raises(ValueError, match='unknown gradient op'):
+        get_grad_op('nonsense', [('p', p)])
