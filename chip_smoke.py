@@ -86,8 +86,19 @@ filtering on):
   early stopping at patience 1), 2 (stage 1) and 2 (stage 2); each stage's
   seconds, epoch times and launches, every checkpoint reloaded to the same
   eval output, a stage-1 resume bit-equal to the same epoch run on in
-  memory (deterministic algorithms on), and the compiled batch assembler
-  against its numpy version.
+  memory (in default mode), and the compiled batch assembler against its
+  numpy version;
+- tuning and the dataset readers (``tuning_and_readers_phase``), at the CLI
+  phase's sizes: ``tune_autoencoder`` (3 trials of the learning space, one
+  of the decoder's) and ``tune_w_autoencoder`` (2 trials over the CLI
+  phase's models), each trial's launches those of its stage's entry point,
+  the sqlite studies read back; the ModelNet reader's kNN precompute at the
+  desk / table split's 778 clouds of 2048 points against the plain kNN
+  (and the reader on h5 files it writes where ``h5py`` imports, else its
+  refusal); a PC15k tree it writes, the stage-1 and classifier entry points
+  on it with 0 and 2 loader worker processes (stage 1 bit-equal), and the
+  first epoch's batches through the workers bit-equal to the in-process
+  ones.
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
@@ -309,11 +320,11 @@ TRAINING_KERNELS = ('knn', 'graph_filter', 'graph_filter_backward', 'scatter_add
 # the exact launches of one request (one bucket): 4 kNN graphs and 4
 # max-pools each in the encoder and the classifier, the CVAE chain, PCGen and
 # graph filtering once, nothing else; a stage-1 step builds the encoder's 4
-# graphs, filters once and scatters 5 times (4 sum-pool backwards, the
-# filter's backward)
+# graphs, filters once and scatters 7 times (4 sum-pool backwards, the
+# filter's backward, the Chamfer term's backward in each direction)
 REQUEST_LAUNCHES = {'knn': 8, 'graph_max_pool': 8, 'cvae_cf': 1, 'pcgen_mix': 1, 'graph_filter': 1}
 STEP_LAUNCHES = {'knn': 4, 'gather_neighbors': 0, 'graph_filter': 1, 'graph_filter_backward': 1,
-                 'scatter_add_rows': 5}
+                 'scatter_add_rows': 7}
 LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
 ENTRY_TRAIN, ENTRY_TEST, ENTRY_EPOCHS = 16, 8, 2  # the stage-1 entry point's clouds and epochs
 # the evaluation suites: 186 test clouds (ModelNet desk / table's test split,
@@ -356,12 +367,13 @@ VARIANT_REQUEST_LAUNCHES = {
 }
 # a ChamferEMD stage-1 step: A's one graph, its EdgeConv's sum-pool and 4
 # training max-pools; D's three GELU EdgeConvs on the gather (whose backward
-# is the row scatter) after a streaming first block
+# is the row scatter) after a streaming first block; both scatter the
+# Chamfer term's gradient twice
 VARIANT_STEP_LAUNCHES = {
-    'A': {'knn': 1, 'graph_sum_pool': 1, 'graph_max_pool_src': 4, 'scatter_add_slots': 4, 'scatter_add_rows': 2,
+    'A': {'knn': 1, 'graph_sum_pool': 1, 'graph_max_pool_src': 4, 'scatter_add_slots': 4, 'scatter_add_rows': 4,
           'graph_filter': 1, 'graph_filter_backward': 1, 'chamfer_match_cost': 1},
     'D': {'knn': 4, 'graph_sum_pool': 1, 'graph_max_pool_src': 1, 'scatter_add_slots': 1, 'gather_neighbors': 3,
-          'scatter_add_rows': 5, 'graph_filter': 1, 'graph_filter_backward': 1, 'chamfer_match_cost': 1},
+          'scatter_add_rows': 7, 'graph_filter': 1, 'graph_filter_backward': 1, 'chamfer_match_cost': 1},
 }
 # a chunk of generation under the VampPrior: the W-encoder on the
 # pseudo-inputs, then what every chunk runs
@@ -370,7 +382,17 @@ DEEP_PCGEN_DIMS = ((1024, 512, 256, 128, 64, 16), (1024, 512, 256, 128, 64, 32, 
 WIDE_HEADS = (2, 1)  # heads over d = 512: 256 and 512 wide
 CLI_OVERRIDES = ('data/dataset=synthetic', 'autoencoder.train.n_epochs=2', 'w_autoencoder.train.n_epochs=2',
                  'classifier.train.n_epochs=4', 'classifier.train.early_stopping.patience=1')
-RESUME_RUNS, RESUME_MARGIN = 3, 2.0  # the resume check's in-memory runs, and its bound in their largest difference
+RESUME_RUNS = 3  # the resume check's in-memory runs
+# the tuning phase: trials of each entry point's learning space, at the CLI
+# phase's sizes
+TUNE_TRIALS, TUNE_W_TRIALS = 3, 2
+# the ModelNet reader's kNN precompute at the desk / table train split's size
+# (modelnet40_hdf5_2048: 778 clouds of 2048 points), k = data.n_neighbors
+MODELNET_SPLIT, MODELNET_CHUNK = (778, 2048, 25), 64
+# the PC15k tree chip_smoke writes: (train, val, test) clouds of 15000 points
+# of the two synsets of data/dataset=shapenet
+SHAPENET_CLOUDS, SHAPENET_POINTS = {'bench': (12, 4, 4), 'sofa': (12, 4, 4)}, 15000
+LOADER_WORKERS = 2
 CLI_STAGE_KERNELS = {  # the kernels each entry point must launch
     'classifier': ('knn', 'graph_max_pool', 'graph_sum_pool', 'graph_max_pool_src', 'scatter_add_slots',
                    'scatter_add_rows'),
@@ -750,7 +772,7 @@ def suite_outcomes(vq, judge, clouds: np.ndarray, labels: np.ndarray, seed: int,
     return out
 
 
-def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
+def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
     """The five entry points in this process on the card, as a user runs
     them from the experiment tree: the flagship model unmodified at 2048
     points on ``data/dataset=synthetic`` at the dataset file's own sizes (64
@@ -759,11 +781,9 @@ def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
     (stage 2).  Each stage's seconds, epoch times and launches (the counts
     zeroed just before it and read just after), every checkpoint reloaded to
     the same eval output, a stage-1 resume against the same epoch run on in
-    memory from the same state (under deterministic algorithms, bit-equal),
-    and the compiled batch assembler against its plain version.
-    Returns the launches of all five stages."""
-    import tempfile
-
+    memory from the same state (bit-equal, in default mode), and the
+    compiled batch assembler against its plain version.  The experiments go
+    under ``root``.  Returns the launches of all five stages."""
     from pccf_torch import cli, evaluate_counterfactuals, generate
     from pccf_torch.data import sampler
     from pccf_torch.data.dataset import get_datasets
@@ -778,7 +798,6 @@ def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
     from pccf_torch.train.runners import Loader
 
     args = [*CLI_OVERRIDES, f'user.seed={seed}']
-    root = tempfile.mkdtemp(prefix='pccf_cli_')
     saved_env = {k: os.environ.get(k) for k in ('ROOT_EXP_DIR', 'DATASET_DIR')}
     total = dict.fromkeys(KERNEL_INFO, 0)
 
@@ -865,20 +884,15 @@ def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
         # the resume: one epoch and its checkpoint, then a run resumed from it
         # (user.load_checkpoint=-1) for the second, against the second epoch
         # run on in memory from the same state, three times.  A stage-1 step
-        # on the card differs from run to run by PyTorch's atomic indexing
-        # backward unless deterministic algorithms are asked for (PERF.md §7),
-        # so these runs ask for them: the three in-memory runs of the same
-        # steps then agree bit for bit, and their largest distance from each
-        # other is the bound, the resumed run bit-equal where it is 0 and
-        # within RESUME_MARGIN times it otherwise
+        # on the card adds in a fixed order (PERF.md §7), so in default mode
+        # the three in-memory runs agree bit for bit and the resumed run
+        # equals them
         def flat(model) -> torch.Tensor:
             return torch.cat([v.detach().flatten().double() for v in model.state_dict().values()
                               if v.is_floating_point()])
 
-        prior = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
-        torch.use_deterministic_algorithms(True, warn_only=True)
+        use_root('resume')
         try:
-            use_root('resume')
             base = autoencoder.main([*args, 'autoencoder.train.n_epochs=1'])['trainer']
             base.post_epoch_hooks.clear()  # the codebook hook runs every 10 epochs: not at epoch 2
             snap = ({k: v.clone() for k, v in base.model.state_dict().items()},
@@ -894,16 +908,15 @@ def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
                 base.train_until(loader, 2)
                 runs.append(flat(base.model))
         finally:
-            torch.use_deterministic_algorithms(prior[0], warn_only=prior[1])
             use_root('main')
-        run_to_run = max(rel_l2(runs[i], runs[j]) for i in range(len(runs)) for j in range(i))
-        resume = min(rel_l2(resumed, r) for r in runs)
-        equal = any(torch.equal(resumed, r) for r in runs)
-        check(equal if run_to_run == 0 else resume <= RESUME_MARGIN * run_to_run,
+        same_runs = all(torch.equal(runs[0], r) for r in runs[1:])
+        equal = all(torch.equal(resumed, r) for r in runs)
+        check(not torch.are_deterministic_algorithms_enabled() and same_runs and equal,
               f'CLI stage-1 resume (1 epoch, checkpoint, load_checkpoint=-1, 1 more) against the second epoch run '
-              f'on in memory {RESUME_RUNS} times from the same state, deterministic algorithms on: rel L2 of all '
-              f'weights and statistics to the nearest {resume:.3e} <= {RESUME_MARGIN} x the largest run-to-run '
-              f'difference {run_to_run:.3e} (bit-equal where that is 0); bit-equal {equal}')
+              f'on in memory {RESUME_RUNS} times from the same state, in default mode: the in-memory runs bit-equal '
+              f'{same_runs} (rel L2 of all weights and statistics, largest '
+              f'{max(rel_l2(runs[0], r) for r in runs):.3e}), the resumed run bit-equal to them {equal} (rel L2 '
+              f'{rel_l2(resumed, runs[0]):.3e})')
 
         out, counts, _ = run_stage(w_autoencoder, args, 'w_autoencoder')
         record('w_autoencoder', counts)
@@ -932,8 +945,222 @@ def cli_phase(seed: int, check, dev: torch.device) -> dict[str, int]:
             else:
                 os.environ[k] = v
         Singleton.reset_all()
-        shutil.rmtree(root, ignore_errors=True)
     return total
+
+
+def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> tuple[dict[str, int], dict[str, int]]:
+    """The entry points of tuning and the dataset readers on the card, at
+    the CLI phase's sizes (the flagship model on ``data/dataset=synthetic``,
+    2 epochs a stage), after it and in its ``root``:
+
+    - ``tune_autoencoder tune=learn`` for ``TUNE_TRIALS`` trials, its
+      launches exactly ``TUNE_TRIALS`` times those of the stage-1 entry point
+      run once with the same overrides, and one trial of an architecture
+      space (``tune=decoder``); ``tune_w_autoencoder tune=learn`` for
+      ``TUNE_W_TRIALS`` trials over the CLI phase's checkpoints, its
+      launches exactly ``TUNE_W_TRIALS`` times those of the stage-2 entry
+      point; each study's sqlite rows (every trial COMPLETE with a finite
+      value and a report a epoch);
+    - the ModelNet reader's kNN precompute (``index_k_neighbours``) at the
+      desk / table train split's size, ``ceil(778 / 64)`` kNN launches and
+      nothing else, against the plain kNN, and the reader on h5 files this
+      script writes where ``h5py`` imports (else its refusal, which names
+      it);
+    - a PC15k tree this script writes (``SHAPENET_CLOUDS``), the stage-1
+      and classifier entry points on ``data/dataset=shapenet`` with
+      ``user.n_workers`` 0 and ``LOADER_WORKERS`` (the same launches; stage
+      1's weights bit-equal), and the first epoch's batches of the training
+      split through ``LOADER_WORKERS`` worker processes bit-equal to the
+      in-process ones at both stages' batch sizes.
+
+    Returns the launches of the tuning path and of the readers' path."""
+    import sqlite3
+
+    from pccf_torch import cli, tune_autoencoder, tune_w_autoencoder
+    from pccf_torch.config import paths
+    from pccf_torch.data import synthetic
+    from pccf_torch.data.dataset import get_dataset, get_datasets
+    from pccf_torch.data.modelnet import ModelNet40Dataset, index_k_neighbours
+    from pccf_torch.data.protocols import Partitions, Singleton
+    from pccf_torch.kernels import api, knn
+    from pccf_torch.train import autoencoder, classifier, w_autoencoder
+    from pccf_torch.train.runners import Loader
+
+    saved_env = {k: os.environ.get(k) for k in ('ROOT_EXP_DIR', 'DATASET_DIR')}
+    tuning, readers = dict.fromkeys(KERNEL_INFO, 0), dict.fromkeys(KERNEL_INFO, 0)
+    args = [*CLI_OVERRIDES, f'user.seed={seed}']
+    db = os.path.join(root, 'db')
+
+    def use_root(name: str) -> None:
+        os.environ['ROOT_EXP_DIR'] = os.path.join(root, name)
+        os.environ['DATASET_DIR'] = os.path.join(root, 'data')
+
+    def counted(total: dict[str, int], fn):
+        api.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = api.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        return out, counts, seconds
+
+    def nonzero(counts: dict[str, int]) -> str:
+        return json.dumps({k: v for k, v in counts.items() if v})
+
+    def quoted(overrides: list[str]) -> str:
+        return 'overrides=[' + ','.join(f'"{o}"' for o in overrides) + ']'
+
+    def stored(study: str, n: int, label: str, db_name: str, epochs: int = 2) -> None:
+        with contextlib.closing(sqlite3.connect(os.path.join(db, f'{db_name}.db'))) as conn:
+            rows = conn.execute('SELECT number, state, value, intermediate FROM trials WHERE study = ? ORDER BY '
+                                'number', (study,)).fetchall()
+        ok = len(rows) == n and all(r[1] == 'COMPLETE' and r[2] is not None and math.isfinite(r[2])
+                                    and len(json.loads(r[3])) == epochs for r in rows)
+        check(ok, f'{label}: study {study} holds {len(rows)} trials of {n}, each COMPLETE with a finite value and '
+                  f'{epochs} reports: {[(r[0], r[1], r[2]) for r in rows]}')
+
+    try:
+        # ---- tuning: stage 1 -------------------------------------------------
+        Singleton.reset_all()
+        use_root('tune_reference')
+        cfg = cli.get_config(args)[0]
+        get_datasets(cfg, dev)  # the splits and their indices, once a process, before any count
+        out, stage1, ref_s = counted(dict.fromkeys(KERNEL_INFO, 0), lambda: autoencoder.main(args))
+        use_root('main')
+        study, counts, tune_s = counted(tuning, lambda: tune_autoencoder.main(
+            ['tune=learn', f'tune.n_trials={TUNE_TRIALS}', f'db_location={db}', quoted(args)]))
+        want = {k: TUNE_TRIALS * v for k, v in stage1.items()}
+        check(counts == want, f'tune_autoencoder tune=learn, {TUNE_TRIALS} trials of 2 epochs: {tune_s:.2f} s '
+                              f'(the stage alone {ref_s:.2f} s); launches {nonzero(counts)} == {TUNE_TRIALS} x the '
+                              f'stage-1 entry point\'s {nonzero(stage1)}')
+        stored(study.study_name, TUNE_TRIALS, 'tune_autoencoder', 'autoencoder_optimization')
+        print(f'tune_autoencoder trials: {json.dumps([(t.params, t.value) for t in study.get_trials()])}',
+              flush=True)
+        study, counts, arch_s = counted(tuning, lambda: tune_autoencoder.main(
+            ['tune=decoder', 'tune.n_trials=1', f'db_location={db}', quoted(args)]))
+        missing = [k for k in TRAINING_KERNELS + ('chamfer_match_cost',) if not counts[k]]
+        check(not missing, f'tune_autoencoder tune=decoder, 1 trial: {arch_s:.2f} s, params '
+                           f'{json.dumps(study.get_trials()[0].params)}; launches {nonzero(counts)} (none of the '
+                           f'stage-1 kernels missing: {missing})')
+        stored(study.study_name, 1, 'tune_autoencoder tune=decoder', 'autoencoder_optimization')
+
+        # ---- tuning: stage 2, over the CLI phase's checkpoints ---------------
+        w_args = [*args, f'variation={cli.parse_args(args)[0].name}']
+        study, counts, tune_w_s = counted(tuning, lambda: tune_w_autoencoder.main(
+            ['tune=learn', f'tune.n_trials={TUNE_W_TRIALS}', f'db_location={db}', quoted(w_args)]))
+        _, stage2, ref2_s = counted(dict.fromkeys(KERNEL_INFO, 0), lambda: w_autoencoder.main(args))
+        want = {k: TUNE_W_TRIALS * v for k, v in stage2.items()}
+        check(counts == want, f'tune_w_autoencoder tune=learn, {TUNE_W_TRIALS} trials of 2 epochs over the CLI '
+                              f'phase\'s models: {tune_w_s:.2f} s (the stage alone {ref2_s:.2f} s); launches '
+                              f'{nonzero(counts)} == {TUNE_W_TRIALS} x the stage-2 entry point\'s {nonzero(stage2)}')
+        stored(study.study_name, TUNE_W_TRIALS, 'tune_w_autoencoder', 'w_autoencoder_optimization')
+
+        # ---- the ModelNet reader ---------------------------------------------
+        n_clouds, n_points, k = MODELNET_SPLIT
+        pcs = synthetic.batch(seed + 70, n_clouds, n_points)
+        idx, counts, index_s = counted(readers, lambda: index_k_neighbours(pcs, k, dev, MODELNET_CHUNK))
+        chunks = -(-n_clouds // MODELNET_CHUNK)
+        agree, err, self_first = [], 0.0, bool((idx[..., 0] == np.arange(n_points)).all())
+        for i in range(0, n_clouds, MODELNET_CHUNK):
+            x = torch.from_numpy(pcs[i: i + MODELNET_CHUNK]).to(dev)
+            a, e = knn_check(x, k, torch.from_numpy(idx[i: i + MODELNET_CHUNK]).to(dev), knn.plain(x, k))
+            agree.append(a)
+            err = max(err, e)
+        check(nonzero(counts) == json.dumps({'knn': chunks}) and min(agree) >= KNN_SET_AGREEMENT and self_first
+              and idx.shape == (n_clouds, n_points, k) and idx.dtype == np.int32,
+              f'ModelNet index_k_neighbours at ({n_clouds}, {n_points}, 3), k={k}: {index_s * 1e3:.1f} ms for '
+              f'{chunks} chunks of {MODELNET_CHUNK} (host clock, synchronised, the copies to the host included); '
+              f'launches {nonzero(counts)}; against the plain kNN set agreement {min(agree):.5f} >= '
+              f'{KNN_SET_AGREEMENT}, sorted distance gap {err:.2e}, self first {self_first}')
+        model_args = [o for o in args if not o.startswith(('data/dataset=', 'data.dataset.'))]
+        m_args = ['data/dataset=modelnet_desk_table', *model_args]
+        m_cfg = cli.get_config(m_args)[0]
+        folder = os.path.join(root, 'data', 'modelnet40_hdf5_2048')
+        os.makedirs(folder, exist_ok=True)  # present, so the reader never fetches the archive
+        try:
+            import h5py
+        except ImportError:
+            h5py = None
+        if h5py is None:
+            try:
+                ModelNet40Dataset(m_cfg, dev)
+                refused = 'no error'
+            except ImportError as e:
+                refused = str(e)
+            check('h5py' in refused, f'ModelNet reader without h5py refuses, naming it: {refused!r}')
+        else:
+            rng = np.random.default_rng(seed + 71)
+            classes = (paths().metadata_dir / 'modelnet_classes.txt').read_text().splitlines()
+            picks = [classes.index(c) for c in ('desk', 'table', 'chair')]
+            for name, n in (('ply_data_train0.h5', 20), ('ply_data_test0.h5', 8)):
+                with h5py.File(os.path.join(folder, name), 'w') as f:
+                    f.create_dataset('data', data=synthetic.batch(seed + 72 + n, n, n_points))
+                    f.create_dataset('label', data=rng.choice(picks, (n, 1)).astype(np.uint8))
+            Singleton.reset_all()
+            (train_m, val_m), counts, read_s = counted(readers, lambda: get_datasets(m_cfg, dev))
+            with h5py.File(os.path.join(folder, 'ply_data_train0.h5'), 'r') as f:
+                cached = f'index_{m_cfg.data.n_neighbors}_{m_cfg.data.n_input_points}' in f
+            check(len(train_m) + len(val_m) > 0 and cached and counts['knn'] == 2,
+                  f'ModelNet reader on h5 files: {len(train_m)} train / {len(val_m)} val clouds, {read_s:.2f} s, '
+                  f'launches {nonzero(counts)}, index cached {cached}')
+
+        # ---- ShapeNet, the loader's worker processes ---------------------------
+        rng = np.random.default_rng(seed + 73)
+        metadata = json.loads((paths().metadata_dir / 'shapenet_PointFlow_classes.json').read_text())
+        synsets = {name: synset for synset, name in metadata.items()}
+        for kind, (cls, counts_) in enumerate(SHAPENET_CLOUDS.items()):
+            for split, n in zip(('train', 'val', 'test'), counts_):
+                d = os.path.join(root, 'data', 'ShapeNetCore.v2.PC15k', synsets[cls], split)
+                os.makedirs(d, exist_ok=True)
+                for i in range(n):
+                    np.save(os.path.join(d, f'{i:04d}.npy'), synthetic.shape_cloud(rng, kind, SHAPENET_POINTS, 0.3))
+        s_args = ['data/dataset=shapenet', *model_args]
+        s_cfg = cli.get_config(s_args)[0]
+        Singleton.reset_all()
+        split = get_dataset(s_cfg, Partitions.train, dev)
+        for batch_size in (s_cfg.autoencoder.train.batch_size, s_cfg.classifier.train.batch_size):
+            in_process = list(Loader(split, batch_size, seed).epoch_iterator(1))
+            loader = Loader(split, batch_size, seed, LOADER_WORKERS)
+            t0 = time.perf_counter()
+            try:
+                from_workers = list(loader.epoch_iterator(1))
+            finally:
+                loader.close()
+            same = len(from_workers) == len(in_process) > 0 and all(
+                torch.equal(a[0].cloud, b[0].cloud) and torch.equal(a[1].ref_cloud, b[1].ref_cloud)
+                and torch.equal(a[1].label, b[1].label) for a, b in zip(from_workers, in_process))
+            check(same, f'ShapeNet train split ({len(split)} clouds of {SHAPENET_POINTS} points): epoch 1\'s '
+                        f'{len(in_process)} batches of {batch_size} through {LOADER_WORKERS} worker processes '
+                        f'bit-equal to the in-process ones {same} ({time.perf_counter() - t0:.2f} s with the pool\'s '
+                        f'start)')
+        for module, name in ((autoencoder, 'autoencoder'), (classifier, 'classifier')):
+            runs = []
+            for workers in (0, LOADER_WORKERS):
+                use_root(f'shapenet_{name}_{workers}')
+                out, counts, seconds = counted(readers, lambda: module.main([*s_args, f'user.n_workers={workers}']))
+                runs.append((out, counts))
+                print(f'ShapeNet {name} entry point, user.n_workers={workers}: {seconds:.2f} s, launches '
+                      f'{nonzero(counts)}', flush=True)
+            (a, ca), (b, cb) = runs
+            weights = all(torch.equal(x, y) for x, y in zip(a['trainer'].model.state_dict().values(),
+                                                             b['trainer'].model.state_dict().values()))
+            missing = [k_ for k_ in CLI_STAGE_KERNELS[name] if not cb[k_]]
+            finite = bool(np.isfinite(a['loss'] if name == 'autoencoder' else a['logits']).all())
+            check(ca == cb and not missing and finite and (weights or name == 'classifier'),
+                  f'ShapeNet {name} entry point with {LOADER_WORKERS} loader workers against none: the same '
+                  f'launches {ca == cb} (none of its kernels missing: {missing}), finite, trained weights '
+                  f'bit-equal {weights}')
+    finally:
+        for key, v in saved_env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        Singleton.reset_all()
+    return tuning, readers
 
 
 def main() -> int:
@@ -2984,19 +3211,29 @@ def main() -> int:
     print('launches of the variants: ' + '; '.join(
         f'{key} {json.dumps({k: v for k, v in c.items() if v})}' for key, c in variant_launches.items()), flush=True)
 
-    # ---- the main path through the experiment's own entry points --------
-    cli_launches = cli_phase(args.seed, check, dev)
+    # ---- the main path through the experiment's own entry points, then --
+    # tuning and the dataset readers
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix='pccf_cli_')
+    try:
+        cli_launches = cli_phase(args.seed, check, dev, root)
+        tune_launches, reader_launches = tuning_and_readers_phase(args.seed, check, dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
           f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
           f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}; the five '
-          f'entry points {json.dumps({k: v for k, v in cli_launches.items() if v})}', flush=True)
+          f'entry points {json.dumps({k: v for k, v in cli_launches.items() if v})}; tuning '
+          f'{json.dumps({k: v for k, v in tune_launches.items() if v})}; the readers '
+          f'{json.dumps({k: v for k, v in reader_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
-             gen_launches, *variant_launches.values(), cli_launches)
+             gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
-          'variants A / B / C / D / E / CLI pipeline', flush=True)
+          'variants A / B / C / D / E / CLI pipeline / tuning / readers', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

@@ -103,13 +103,10 @@ def device(cfg: SliceConfig) -> torch.device:
 
 def run(argv: list[str] | None, stage: Callable[[SliceConfig, torch.device], Any]) -> Any:
     """``stage(cfg, device)`` inside the experiment the arguments (by default
-    ``sys.argv[1:]``) configure.  Loader worker processes are not ported
-    (``ROADMAP.md``): ``user.n_workers`` above 0 raises."""
+    ``sys.argv[1:]``) configure."""
     from pccf_torch.train.trackers import get_trackers
 
     cfg, tree = parse_args(sys.argv[1:] if argv is None else list(argv))
-    if cfg.user.n_workers:
-        raise NotImplementedError('user.n_workers: loader worker processes are not ported (ROADMAP.md)')
     dev = device(cfg)
     exp = Experiment(cfg, tree)
     for tracker in get_trackers(cfg):

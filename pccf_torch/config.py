@@ -88,6 +88,7 @@ class ClassifierTrainConfig:
     learning_rate: float = 0.01  # train/learn/default_learn.yaml:6
     momentum: float = 0.0  # train/learn/default_learn.yaml sets none: optax.sgd without momentum (specs.py:81-84)
     weight_decay: float = 0.0  # train/learn/default_learn.yaml:10
+    opt_settings: tuple[tuple[str, Any], ...] = ()  # Adam's or RMSprop's optax settings (OPT_SETTINGS)
     grad_op: str | None = None  # train/learn/default_learn.yaml:7
     clip_criterion: str = 'ZStat'  # train/learn/default_learn.yaml:8
     # train/learn/scheduler/cosine.yaml: restart and decay over n_epochs, no warmup
@@ -160,6 +161,7 @@ class WAutoEncoderTrainConfig:
     optimizer_name: str = 'AdamW'  # train/learn/default_learn.yaml:5
     learning_rate: float = 0.0014  # train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # train/learn/default_learn.yaml:10 (AdamW, :5)
+    opt_settings: tuple[tuple[str, Any], ...] = ()  # Adam's or RMSprop's optax settings (OPT_SETTINGS)
     grad_op: str | None = 'ParamHistClipper'  # train/learn/default_learn.yaml:7
     clip_criterion: str = 'EMA'  # train/learn/default_learn.yaml:8
     # train/learn/scheduler/cosine.yaml: restart and decay over n_epochs, warmup 6
@@ -194,6 +196,7 @@ class AutoEncoderTrainConfig:
     optimizer_name: str = 'AdamW'  # autoencoder/train/learn/default_learn.yaml:5
     learning_rate: float = 0.004  # autoencoder/train/learn/default_learn.yaml:6
     weight_decay: float = 0.001  # autoencoder/train/learn/default_learn.yaml:10 (AdamW, :5)
+    opt_settings: tuple[tuple[str, Any], ...] = ()  # Adam's or RMSprop's optax settings (OPT_SETTINGS)
     grad_op: str | None = None  # autoencoder/train/learn/default_learn.yaml: none
     clip_criterion: str = 'ZStat'
     scheduler: SchedulerConfig = SchedulerConfig()
@@ -344,8 +347,9 @@ class SliceConfig:
             name=str(cm['name']), n_neighbors=int(cm['n_neighbors']), conv_dims=_tuple(cm['conv_dims']),
             act_name=str(cm.get('act_name', '')), dropout_rates=tuple(float(r) for r in cm.get('dropout_rates') or ()),
             feature_dim=int(cm['feature_dim']), mlp_dims=_tuple(cm['mlp_dims']),
-            train=ClassifierTrainConfig(momentum=float((c['train']['learn'].get('opt_settings') or {}).get('momentum',
-                                                                                                          0.0)), **ct))
+            train=ClassifierTrainConfig(
+                momentum=float((c['train']['learn'].get('opt_settings') or {}).get('momentum', 0.0))
+                if ct['optimizer_name'] == 'SGD' else 0.0, **ct))
         am, enc, dec, obj = a['model'], a['model']['encoder'], a['model']['decoder'], a['objective']
         autoencoder = AutoEncoderConfig(
             name=str(am['name']), class_name=str(am['class_name']), book_size=int(am['book_size']),
@@ -422,18 +426,37 @@ def _scheduler(s: dict) -> SchedulerConfig:
                            exp_decay=float(settings.get('exp_decay', base.exp_decay)))
 
 
+# the settings ``pccf/config/specs.py:69-91`` takes for each optimiser beside
+# weight_decay: for Adam and RMSprop the keywords optax.adam and
+# optax.rmsprop (0.2.6) take, which its lambdas pass on
+OPT_SETTINGS = {
+    'AdamW': set(),
+    'SGD': {'momentum'},
+    'Adam': {'b1', 'b2', 'eps', 'eps_root', 'mu_dtype', 'nesterov'},
+    'RMSprop': {'decay', 'eps', 'initial_scale', 'eps_in_sqrt', 'centered', 'momentum', 'nesterov', 'bias_correction'},
+}
+# Adam's settings whose other values torch.optim.Adam does not compute
+ADAM_FIXED = {'eps_root': 0.0, 'mu_dtype': None, 'nesterov': False}
+
+
 def _learn(train: dict) -> dict:
     """The optimiser fields of ``<stage>.train`` shared by the three train configs."""
     learn = train['learn']
     opt = dict(learn.get('opt_settings') or {})
     name = str(learn['optimizer_name'])
-    known = {'AdamW': {'weight_decay'}, 'SGD': {'weight_decay', 'momentum'}}
-    if name not in known:
-        raise NotImplementedError(f'optimizer {name!r} is not ported (pccf_torch has AdamW and SGD; ROADMAP.md)')
-    _check(set(opt) <= known[name], f'{name} settings {sorted(set(opt) - known[name])} are not ported')
+    if name not in OPT_SETTINGS:
+        raise ValueError(f'optimizer {name!r} is not one of {sorted(OPT_SETTINGS)} (pccf/config/specs.py)')
+    extra = set(opt) - {'weight_decay'} - OPT_SETTINGS[name]
+    _check(not extra, f'{name} takes no settings {sorted(extra)}')
+    if name == 'Adam':
+        for key, value in ADAM_FIXED.items():
+            if opt.get(key, value) != value:
+                raise NotImplementedError(f'Adam {key}={opt[key]!r} is not ported (pccf_torch runs Adam with {key}='
+                                          f'{value!r})')
+    settings = {k: v for k, v in opt.items() if k != 'weight_decay'} if name in ('Adam', 'RMSprop') else {}
     return dict(batch_size=int(train['batch_size']), n_epochs=int(train['n_epochs']), optimizer_name=name,
                 learning_rate=float(learn['learning_rate']), weight_decay=float(opt.get('weight_decay', 0.0)),
-                grad_op=learn['grad_op'], clip_criterion=str(learn['clip_criterion']),
+                opt_settings=_freeze(settings), grad_op=learn['grad_op'], clip_criterion=str(learn['clip_criterion']),
                 scheduler=_scheduler(learn['scheduler']), early_stopping=EarlyStoppingConfig(
                     active=bool(train['early_stopping']['active']), window=int(train['early_stopping']['window']),
                     patience=int(train['early_stopping']['patience'])))

@@ -26,15 +26,15 @@ class LabelledClouds:
     ``pccf/data/modelnet.py:85-103`` does: ``data.n_input_points`` of its
     points drawn with replacement, normalised to the unit sphere, jittered,
     and rotated or scaled and translated as ``data`` says, with the numpy
-    generator ``rng`` (which the loader seeds anew for every batch).
+    generator ``rng`` (which the loader seeds anew for every batch); where
+    ``data.resample``, the reference cloud is a second draw from the
+    normalised full cloud, augmented with it.
     ``seed`` is what derived datasets seed their noise from."""
 
     def __init__(self, clouds: torch.Tensor, labels: torch.Tensor, seed: int = 0,
                  data: DataConfig | None = None) -> None:
         if clouds.shape[0] != labels.shape[0]:
             raise ValueError(f'{clouds.shape[0]} clouds but {labels.shape[0]} labels')
-        if data is not None and data.resample:
-            raise ValueError('LabelledClouds: resampled reference clouds (data.resample) are not ported')
         self.clouds, self.labels, self.seed, self.data = clouds, labels.to(clouds.device).long(), seed, data
         self.inference = True
         self.rng = np.random.default_rng(seed)
@@ -49,17 +49,25 @@ class LabelledClouds:
     def __getitems__(self, idx_list: Sequence[int]) -> tuple[Inputs, Targets]:
         idx = torch.as_tensor(idx_list, dtype=torch.long, device=self.clouds.device)
         if self.inference or self.data is None:
-            cloud = self.clouds[idx]
+            cloud = ref = self.clouds[idx]
         else:
-            cloud = torch.from_numpy(np.stack([self._augmented(int(i)) for i in idx_list])).to(self.clouds.device)
-        return Inputs(cloud), Targets(ref_cloud=cloud, label=self.labels[idx])
+            pairs = [self._augmented(int(i)) for i in idx_list]
+            cloud = torch.from_numpy(np.stack([c for c, _ in pairs])).to(self.clouds.device)
+            ref = cloud if not self.data.resample else torch.from_numpy(np.stack([r for _, r in pairs])).to(
+                self.clouds.device)
+        return Inputs(cloud), Targets(ref_cloud=ref, label=self.labels[idx])
 
-    def _augmented(self, i: int) -> np.ndarray:
-        """``modelnet.py:89-101`` without ``resample``: the reference cloud
-        is the input cloud."""
+    def _augmented(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """``modelnet.py:89-103``: the input cloud and the reference cloud,
+        where ``resample`` a second draw of points from the normalised full
+        cloud, augmented together, else the input cloud."""
         pool = self._host[i]
         sampled = self.rng.choice(pool.shape[0], size=self.data.n_input_points, replace=True)
         cloud = augmentations.normalise(pool[sampled].copy())[0].astype(np.float32)
         cloud = augmentations.jitter_cloud(self.data)(self.rng, cloud)
+        if self.data.resample:
+            sampled2 = self.rng.choice(pool.shape[0], size=self.data.n_input_points, replace=True)
+            ref = augmentations.normalise(pool.copy())[0][sampled2].astype(np.float32)
+            return tuple(augmentations.augment_clouds(self.data)(self.rng, [cloud, ref]))
         (cloud,) = augmentations.augment_clouds(self.data)(self.rng, [cloud])
-        return cloud
+        return cloud, cloud

@@ -1,8 +1,7 @@
 """Dataset getters (``pccf/data/dataset.py``): the split creator that
-``data.dataset_name`` names, built once a process on the run's device, and
-the (train, eval) pair with the ``final`` switch.  Only the synthetic
-dataset is ported; the ModelNet and ShapeNet readers wait for their files
-and ``h5py`` (``ROADMAP.md``)."""
+``data.dataset_name`` names (the ModelNet40 and ShapeNet readers or the
+synthetic dataset), built once a process on the run's device, and the
+(train, eval) pair with the ``final`` switch."""
 
 from __future__ import annotations
 
@@ -10,19 +9,19 @@ import torch
 
 from pccf_torch.data.protocols import Partitions, PointCloudDataset
 
-NOT_PORTED = ('ModelNet', 'ShapenetFlow')
-
 
 def get_dataset(cfg, partition: Partitions, device: torch.device | str = 'cpu') -> PointCloudDataset:
+    from pccf_torch.config import paths
+    from pccf_torch.data.modelnet import ModelNet40Dataset
+    from pccf_torch.data.shapenet import ShapeNetDatasetFlow
     from pccf_torch.data.synthetic import SyntheticDataset
 
+    registry = {'ModelNet': ModelNet40Dataset, 'ShapenetFlow': ShapeNetDatasetFlow, 'Synthetic': SyntheticDataset}
     name = cfg.data.dataset_name
-    if name in NOT_PORTED:
-        raise NotImplementedError(f'the {name} reader is not ported (it waits for the dataset files and h5py; '
-                                  f'ROADMAP.md): run data/dataset=synthetic')
-    if name != 'Synthetic':
-        raise ValueError(f'unknown dataset {name!r}')
-    return SyntheticDataset(cfg, device).split(partition)
+    if name not in registry:
+        raise ValueError(f'unknown dataset {name!r}; choose from {sorted(registry)}')
+    paths().data_dir.mkdir(parents=True, exist_ok=True)
+    return registry[name](cfg, device).split(partition)
 
 
 def get_datasets(cfg, device: torch.device | str = 'cpu') -> tuple[PointCloudDataset, PointCloudDataset]:

@@ -33,6 +33,8 @@ class WDatasetWithLogits:
     numpy generator this dataset passes through.  The two models are frozen:
     this dataset puts them in eval mode and computes without gradients."""
 
+    supports_workers = False  # its batches are derived on the device
+
     def __init__(self, source, vqvae: torch.nn.Module, classifier: torch.nn.Module) -> None:
         self.source = source
         self.vqvae, self.classifier = vqvae.eval(), classifier.eval()
@@ -92,6 +94,8 @@ class ProcessedDataset:
     instead."""
 
     stochastic = False  # whether the inner CVAE's posterior is sampled
+
+    supports_workers = False  # its batches are derived on the device
 
     def __init__(self, dataset, autoencoder: torch.nn.Module, noise: Callable[[int], Noise] | None = None) -> None:
         self.dataset, self.autoencoder, self.noise = dataset, autoencoder.eval(), noise

@@ -38,9 +38,15 @@ class AbstractSingleton(Singleton, abc.ABCMeta):
 
 class PointCloudDataset(abc.ABC):
     """A dataset of ``(Inputs, Targets)`` with an inference switch: the
-    loader sets it for evaluation passes and clears it for training."""
+    loader sets it for evaluation passes and clears it for training.
+    ``supports_workers``: its batches come in two halves, ``host_batch``
+    (host arrays only, which a loader worker process may run) and
+    ``upload`` (to the run's device, in the main process), as the readers'
+    and the synthetic splits' do; a dataset that derives its batches on the
+    device does not (``pccf/data/protocols.py``)."""
 
     inference: bool = False
+    supports_workers: bool = True
 
     def set_inference(self, inference: bool) -> None:
         self.inference = inference

@@ -7,7 +7,8 @@ caller, the data-parallel Chamfer of ``pccf/dist/sp.py``, is not ported).  The
 forward returns
 each point's nearest squared distance and index in the other cloud; the
 backward gathers the nearest points and scatter-adds with plain tensor
-operations, as JAX does outside its kernel (``pallas_chamfer.py:109-153``).
+operations, as JAX does outside its kernel (``pallas_chamfer.py:109-153``),
+the scatter through the row scatter's kernel on the card.
 :func:`nn_distance_grads` is that backward, shared by every loss that holds
 Chamfer's argmins (:mod:`~pccf_torch.kernels.emd`,
 :mod:`~pccf_torch.kernels.sinkhorn`).
@@ -26,7 +27,7 @@ import functools
 
 import torch
 
-from pccf_torch.kernels import _build, ops
+from pccf_torch.kernels import _build, gather, ops
 
 
 def plain(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -96,7 +97,11 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _scatter_rows(like: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(like).scatter_add_(1, idx.long()[..., None].expand(-1, -1, like.shape[-1]), g)
+    """``g (B, N, C)`` added into the rows ``idx (B, N)`` of a zero ``like``,
+    each row's terms in ascending order: the row scatter's kernel on the
+    card (``scatter_add_`` adds there with atomics, so a step would differ
+    from run to run), its plain version on the CPU."""
+    return gather.scatter_rows(g, idx.to(torch.int32)[..., None].contiguous(), like.shape[1])
 
 
 def nn_distance_grads(x, y, i1, i2, g1, g2) -> tuple[torch.Tensor, torch.Tensor]:

@@ -359,7 +359,9 @@ for _fn in (graph_max_pool_cuda, graph_max_pool_src_cuda, scatter_add_slots_cuda
     _fn.launches = 0
 
 
-def _scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+def scatter_rows(g: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """The row scatter (:func:`ops.scatter_add_rows`) by device: the kernel
+    on the card, the plain version on the CPU."""
     g = g.contiguous()
     return scatter_add_rows_cuda(g, idx, n) if _build.on_cuda(g) else ops.scatter_add_rows(g, idx, n)
 
@@ -399,7 +401,7 @@ class GraphSumPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return _scatter_rows(g, idx, idx.shape[1]), None
+        return scatter_rows(g, idx, idx.shape[1]), None
 
 
 class GatherNeighbors(torch.autograd.Function):
@@ -417,4 +419,4 @@ class GatherNeighbors(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         b, n, k, c = g.shape
-        return _scatter_rows(g.reshape(b, n * k, c), idx.reshape(b, n * k, 1), n), None
+        return scatter_rows(g.reshape(b, n * k, c), idx.reshape(b, n * k, 1), n), None

@@ -113,12 +113,39 @@ def graph_sum_pool_slot_order(x: Tensor, idx: Tensor) -> Tensor:
 def scatter_add_rows(g: Tensor, idx: Tensor, n: int) -> Tensor:
     """Transpose of the row gather: ``dx[b, idx[b, i, j]] += g[b, i]``,
     ``g (B, M, C)``, ``idx (B, M, k)`` -> ``(B, n, C)``
-    (``pallas_gather.py:182``; the backward of sum-pool and gather)."""
+    (``pallas_gather.py:182``; the backward of sum-pool and gather).  Every
+    row adds its terms one at a time in ascending edge order ``(i, j)`` on
+    every device, the order of the card's kernel: on the CPU ``index_add_``
+    adds so; elsewhere it may add in any order (atomics on the card), so
+    there each row's edges are listed in that order, padded to the largest
+    in-degree with a zero row, and added one list slot at a time."""
     b, m, c = g.shape
     k = idx.shape[-1]
     rows = (idx.long() + n * torch.arange(b, device=g.device)[:, None, None]).reshape(-1)
-    src = g[:, :, None, :].expand(b, m, k, c).reshape(-1, c)
-    return torch.zeros((b * n, c), dtype=g.dtype, device=g.device).index_add_(0, rows, src).reshape(b, n, c)
+    if g.device.type == 'cpu':
+        src = g[:, :, None, :].expand(b, m, k, c).reshape(-1, c)
+        return torch.zeros((b * n, c), dtype=g.dtype, device=g.device).index_add_(0, rows, src).reshape(b, n, c)
+    return scatter_add_rows_listed(g, rows, k, n)
+
+
+def scatter_add_rows_listed(g: Tensor, rows: Tensor, k: int, n: int) -> Tensor:
+    """:func:`scatter_add_rows` off the CPU, given each edge's flat target
+    row ``rows (B * M * k,)``: each row's edges listed in ascending order
+    (a stable sort), padded with a zero row to the largest in-degree, and
+    added one list slot at a time."""
+    b, m, c = g.shape
+    n_edges = rows.numel()
+    sorted_rows, order = torch.sort(rows, stable=True)
+    targets = torch.arange(b * n, device=g.device)
+    starts = torch.searchsorted(sorted_rows, targets)
+    depth = int((torch.searchsorted(sorted_rows, targets, right=True) - starts).max()) if n_edges else 0
+    table = torch.full((b * n, depth), b * m, dtype=torch.long, device=g.device)  # b * m: the zero row
+    table[sorted_rows, torch.arange(n_edges, device=g.device) - starts[sorted_rows]] = order // k
+    src = torch.cat([g.reshape(b * m, c), g.new_zeros((1, c))])
+    out = g.new_zeros((b * n, c))
+    for slot in range(depth):
+        out += src[table[:, slot]]
+    return out.reshape(b, n, c)
 
 
 def graph_filtering_with_idx(x: Tensor, idx: Tensor, gather_fn=None) -> Tensor:

@@ -30,8 +30,8 @@ from pccf_torch.data.dataset import get_datasets
 from pccf_torch.data.structures import Inputs, Targets
 from pccf_torch.models.autoencoders import VQVAE, build_vqvae
 from pccf_torch.nn.layers import init_for_training
-from pccf_torch.train.hooks import (DiscreteSpaceOptimizer, EarlyStoppingCallback, call_every, get_trailing_mean,
-                                    saving_hook)
+from pccf_torch.train.hooks import (DiscreteSpaceOptimizer, EarlyStoppingCallback, call_every, get_moving_average,
+                                    get_trailing_mean, saving_hook)
 from pccf_torch.train.losses import get_autoencoder_loss, get_emd_loss, get_recon_loss
 from pccf_torch.train.runners import Diagnostic, Loader, Test, Trainer
 
@@ -60,12 +60,17 @@ class CloudLoader(Loader):
 
 def fit(cfg: SliceConfig, vqvae: VQVAE, train_set, test_set, *, n_epochs: int, seed: int, device: torch.device,
         validate: bool = True, early_stopping: bool = False, checkpoint_every: int = 0, load_checkpoint: int = 0,
-        save: bool = False) -> dict:
+        save: bool = False, trial=None, n_workers: int = 0) -> dict:
     """Train ``vqvae`` on ``train_set`` with the codebook hook, validating on
-    ``test_set`` where ``validate``, then test."""
+    ``test_set`` where ``validate``, then test.  With a tuning ``trial``
+    (:class:`pccf_torch.tuning.Trial`) the trial's callback (the moving
+    average of the reconstruction objective, reported and pruned on every
+    epoch) takes the checkpoint hook's place (``train_autoencoder.py:109-117``).
+    ``n_workers`` loader worker processes assemble the training batches
+    where the dataset allows it (``train_autoencoder.py:51-53``)."""
     tcfg = cfg.autoencoder.train
     vqvae = vqvae.to(device)
-    train_loader = Loader(train_set, tcfg.batch_size, seed)
+    train_loader = Loader(train_set, tcfg.batch_size, seed, n_workers)
     test_loader = Loader(test_set, tcfg.batch_size, seed)
     loss = get_autoencoder_loss(cfg)
     name = cfg.autoencoder.name
@@ -79,10 +84,17 @@ def fit(cfg: SliceConfig, vqvae: VQVAE, train_set, test_set, *, n_epochs: int, s
         es = tcfg.early_stopping
         trainer.post_epoch_hooks.append(
             EarlyStoppingCallback(get_recon_loss(cfg), filter_fn=get_trailing_mean(es.window), patience=es.patience))
-    if checkpoint_every:
+    if trial is not None:
+        from pccf_torch.tuning import TrialCallback
+
+        trainer.post_epoch_hooks.append(TrialCallback(trial, get_recon_loss(cfg), filter_fn=get_moving_average()))
+    elif checkpoint_every:
         trainer.post_epoch_hooks.append(call_every(checkpoint_every)(saving_hook))
     validation = Test(vqvae, test_loader, loss, 'Validation', seed=seed, model_name=name) if validate else None
-    trainer.train_until(train_loader, n_epochs, validation)
+    try:
+        trainer.train_until(train_loader, n_epochs, validation)
+    finally:
+        train_loader.close()
     if save:
         trainer.save_checkpoint()
     test_metric = loss if 'EMD' in loss.calculations else loss | get_emd_loss()
@@ -119,14 +131,16 @@ def build(cfg: SliceConfig, seed: int) -> VQVAE:
     return vqvae
 
 
-def stage(cfg: SliceConfig, device: torch.device) -> dict:
-    """``train_autoencoder.py``'s run inside the current experiment."""
+def stage(cfg: SliceConfig, device: torch.device, trial=None) -> dict:
+    """``train_autoencoder.py``'s run inside the current experiment; a
+    tuning ``trial`` reports to it and may prune it."""
     seed = cfg.user.seed or 0
     train_set, test_set = get_datasets(cfg, device)
     es = cfg.autoencoder.train.early_stopping
     return fit(cfg, build(cfg, seed), train_set, test_set, n_epochs=cfg.autoencoder.train.n_epochs, seed=seed,
                device=device, validate=not cfg.final, early_stopping=not cfg.final and es.active,
-               checkpoint_every=cfg.user.checkpoint_every, load_checkpoint=cfg.user.load_checkpoint, save=True)
+               checkpoint_every=cfg.user.checkpoint_every, load_checkpoint=cfg.user.load_checkpoint, save=True,
+               trial=trial, n_workers=cfg.user.n_workers)
 
 
 def main(argv: list[str] | None = None) -> dict:

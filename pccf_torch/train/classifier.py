@@ -49,14 +49,15 @@ def confusion_matrix(predictions: np.ndarray, labels: np.ndarray, n_classes: int
 def fit(cfg: SliceConfig, classifier: DGCNNClassifier, train_set, test_set, test_labels: np.ndarray, *,
         n_epochs: int, seed: int, device: torch.device, validate: bool = True, early_stopping: bool = False,
         checkpoint_every: int = 0, load_checkpoint: int = 0, save: bool = False,
-        class_names: list[str] | None = None) -> dict:
+        class_names: list[str] | None = None, n_workers: int = 0) -> dict:
     """Train on ``train_set``, validating on ``test_set`` after every epoch
     where ``validate``, then test with stored outputs and print what
     ``train_classifier.py:73-103`` prints (the classes by ``class_names``,
-    by default their indices)."""
+    by default their indices).  ``n_workers`` loader worker processes
+    assemble the training batches where the dataset allows it."""
     ccfg = cfg.classifier.train
     model = ClassifierTrainModule(classifier).to(device)
-    train_loader = Loader(train_set, ccfg.batch_size, seed)
+    train_loader = Loader(train_set, ccfg.batch_size, seed, n_workers)
     test_loader = Loader(test_set, ccfg.batch_size, seed)
     loss = get_classification_loss()
     name = cfg.classifier.name
@@ -71,7 +72,10 @@ def fit(cfg: SliceConfig, classifier: DGCNNClassifier, train_set, test_set, test
     if checkpoint_every:
         trainer.post_epoch_hooks.append(call_every(checkpoint_every)(saving_hook))
     validation = Test(model, test_loader, loss, 'Validation', seed=seed, model_name=name) if validate else None
-    trainer.train_until(train_loader, n_epochs, validation)
+    try:
+        trainer.train_until(train_loader, n_epochs, validation)
+    finally:
+        train_loader.close()
     if save:
         trainer.save_checkpoint()
     results = final_test(trainer.epoch, store_outputs=True)
@@ -133,7 +137,8 @@ def stage(cfg: SliceConfig, device: torch.device) -> dict:
                seed=seed, device=device, validate=not cfg.final,
                early_stopping=not cfg.final and cfg.classifier.train.early_stopping.active,
                checkpoint_every=cfg.user.checkpoint_every, load_checkpoint=cfg.user.load_checkpoint, save=True,
-               class_names=list(cfg.data.setting('select_classes', [str(i) for i in range(cfg.data.n_classes)])))
+               class_names=list(cfg.data.setting('select_classes', [str(i) for i in range(cfg.data.n_classes)])),
+               n_workers=cfg.user.n_workers)
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -6,8 +6,10 @@ operation and the optimiser its configuration names
 ``optax.adamw(lr, weight_decay)`` is (betas 0.9 / 0.999, eps 1e-8, decoupled
 decay on every trained parameter), SGD for the classifier (the weight decay
 added to the gradient, then momentum, as ``optax.chain(add_decayed_weights,
-sgd)``).  A step runs the model in train mode, injects the 1-based epoch
-into ``Outputs.model_epoch`` (``runners.py:69-73, 303``), backpropagates,
+sgd)``), and Adam or RMSprop where ``optimizer_name`` asks for them (the
+decay added to the gradient, then optax's rules).  A step runs the model in
+train mode, injects the 1-based epoch into ``Outputs.model_epoch``
+(``runners.py:69-73, 303``), backpropagates,
 applies the gradient operation (stage 2's per-parameter history clipper),
 then the optimiser at ``base_lr · schedule(step // steps_per_epoch)``, the
 0-based epoch (``runners.py:226-229``).  The VQ-VAE's embedded inner CVAE is frozen
@@ -44,8 +46,11 @@ uninterrupted one would.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
 import math
+import multiprocessing
 import time
 from typing import Callable, Iterator
 
@@ -70,18 +75,51 @@ class StopTraining(Exception):
     """Raised by a post-epoch hook (early stopping) to end training."""
 
 
-class Loader:
-    """Batches of a dataset held by the main process
-    (``pccf/train/loader.py:58-200``): training epochs shuffled by ``(seed,
-    epoch)`` with the trailing partial batch dropped, evaluation in order with
-    it kept.  The dataset has a length and ``__getitems__(indices) -> (inputs,
-    targets)``; as the JAX loader does, it is told whether a batch is for
-    inference (``set_inference``) and, where it augments with a numpy
-    generator ``rng``, that generator is seeded anew by ``(seed, epoch,
-    batch)`` before each training batch."""
+# One dataset copy lives in each loader worker process, shipped once through
+# the pool's initializer; a task carries an index list and the generator's
+# seed.  Workers build host arrays only and never touch the card.
+_WORKER_DATASET = None
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0) -> None:
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_fetch(task: tuple[list[int], tuple[int, ...]]) -> dict:
+    idx_list, rng_key = task
+    ds = _WORKER_DATASET
+    if hasattr(ds, 'rng'):
+        ds.rng = np.random.default_rng(rng_key)
+    ds.set_inference(False)
+    return ds.host_batch(idx_list)
+
+
+class Loader:
+    """Batches of a dataset (``pccf/train/loader.py:58-200``): training
+    epochs shuffled by ``(seed, epoch)`` with the trailing partial batch
+    dropped, evaluation in order with it kept.  The dataset has a length and
+    ``__getitems__(indices) -> (inputs, targets)``; as the JAX loader does,
+    it is told whether a batch is for inference (``set_inference``) and,
+    where it augments with a numpy generator ``rng``, that generator is
+    seeded anew by ``(seed, epoch, batch)`` before each training batch.
+
+    With ``n_workers`` > 0 and a dataset that ``supports_workers``,
+    training batches are built in that many ``spawn`` worker processes
+    (``loader.py:19-44, 173-190``), each with its own copy of the dataset:
+    a worker runs the dataset's ``host_batch`` under the same reseed, the
+    main process its ``upload``, so the batches are bit-equal for any
+    ``n_workers``; at most ``PREFETCH + n_workers`` batches are in flight.
+    The pool starts at the first epoch, once the kernel library (the
+    compiled batch assembler) is built, and :meth:`close` ends it.
+    Evaluation batches are built in the main process."""
+
+    PREFETCH = 2
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, n_workers: int = 0) -> None:
         self.dataset, self.batch_size, self.seed = dataset, batch_size, seed
+        self.n_workers = n_workers if getattr(dataset, 'supports_workers', False) else 0
+        self._pool = None
 
     def n_batches(self) -> int:
         """Training batches per epoch."""
@@ -94,10 +132,41 @@ class Loader:
         order = np.arange(len(self.dataset))
         np.random.default_rng((self.seed, epoch)).shuffle(order)
         self._set_inference(False)
-        for b in range(self.n_batches()):
+        batches = [order[b * self.batch_size: (b + 1) * self.batch_size].tolist() for b in range(self.n_batches())]
+        if self.n_workers:
+            yield from self._from_workers(epoch, batches)
+            return
+        for b, idx in enumerate(batches):
             if hasattr(self.dataset, 'rng'):
                 self.dataset.rng = np.random.default_rng((self.seed, epoch, b))
-            yield self.dataset.__getitems__(order[b * self.batch_size: (b + 1) * self.batch_size].tolist())
+            yield self.dataset.__getitems__(idx)
+
+    def _from_workers(self, epoch: int, batches: list[list[int]]) -> Iterator[tuple]:
+        pool = self._executor()
+        pending: collections.deque = collections.deque()
+        for b, idx in enumerate(batches):
+            pending.append(pool.submit(_worker_fetch, (idx, (self.seed, epoch, b))))
+            if len(pending) >= self.PREFETCH + self.n_workers:
+                yield self.dataset.upload(pending.popleft().result())
+        while pending:
+            yield self.dataset.upload(pending.popleft().result())
+
+    def _executor(self) -> concurrent.futures.ProcessPoolExecutor:
+        if self._pool is None:
+            if getattr(self.dataset, 'device', torch.device('cpu')).type == 'cuda':
+                from pccf_torch.kernels import _build
+
+                _build.lib()  # the workers load the library the main process built
+            self._pool = concurrent.futures.ProcessPoolExecutor(
+                max_workers=self.n_workers, mp_context=multiprocessing.get_context('spawn'),
+                initializer=_worker_init, initargs=(self.dataset,))
+        return self._pool
+
+    def close(self) -> None:
+        """End the worker processes, if any started."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
 
     def batches(self) -> Iterator[tuple]:
         n = len(self.dataset)
@@ -285,15 +354,74 @@ class Diagnostic(Test):
         self.code_usage = usage if self.code_usage is None else self.code_usage + usage
 
 
+class RMSprop(torch.optim.Optimizer):
+    """``optax.chain(add_decayed_weights(weight_decay), rmsprop(lr, ...))``
+    (``pccf/config/specs.py:86-89``, optax 0.2.6), which
+    ``torch.optim.RMSprop`` does not compute (its decay 0.99 and eps outside
+    the root): ``g += weight_decay * p``; ``nu = (1 - decay) g² + decay nu``
+    from ``initial_scale`` (``mu`` likewise from 0 where ``centered``);
+    both divided by ``1 - decay^t`` where ``bias_correction``; the update
+    ``-lr g / sqrt(nu - mu² + eps)`` (``/ (sqrt(nu - mu²) + eps)`` unless
+    ``eps_in_sqrt``), then optax's ``trace`` where ``momentum`` is set:
+    ``t = u + momentum t``, the update ``t`` (``u + momentum t`` with
+    ``nesterov``).  The trace sums updates already scaled by the lr."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0, eps_in_sqrt: bool = True, centered: bool = False,
+                 momentum: float | None = None, nesterov: bool = False, bias_correction: bool = False) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, decay=decay, eps=eps,
+                                      initial_scale=initial_scale, eps_in_sqrt=eps_in_sqrt, centered=centered,
+                                      momentum=momentum, nesterov=nesterov, bias_correction=bias_correction))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay, eps, momentum = group['decay'], group['eps'], group['momentum']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                g = p.grad + group['weight_decay'] * p if group['weight_decay'] else p.grad
+                state = self.state[p]
+                if not state:
+                    state['count'] = 0
+                    state['nu'] = torch.full_like(p, group['initial_scale'])
+                    if group['centered']:
+                        state['mu'] = torch.zeros_like(p)
+                    if momentum is not None:
+                        state['trace'] = torch.zeros_like(p)
+                state['count'] += 1
+                nu = state['nu'].mul_(decay).add_((1 - decay) * (g * g))
+                mu = state['mu'].mul_(decay).add_((1 - decay) * g) if group['centered'] else None
+                if group['bias_correction']:
+                    correction = 1 - decay ** state['count']
+                    nu = nu / correction
+                    mu = None if mu is None else mu / correction
+                var = nu if mu is None else nu - mu * mu
+                scaled = g * torch.rsqrt(var + eps) if group['eps_in_sqrt'] else g / (torch.sqrt(var) + eps)
+                update = -group['lr'] * scaled
+                if momentum is not None:
+                    trace = state['trace'].mul_(momentum).add_(update)
+                    update = update + momentum * trace if group['nesterov'] else trace
+                p.add_(update)
+
+
 def make_optimizer(cfg, params: list[torch.nn.Parameter], lr: float) -> torch.optim.Optimizer:
     """The optimiser ``cfg.optimizer_name`` names, as ``pccf/config/specs.py``
-    ``get_optimizer`` builds it: AdamW with decoupled decay, or SGD with the
-    decay added to the gradient and optional momentum (no dampening)."""
+    ``get_optimizer`` builds it: AdamW with decoupled decay; SGD with the
+    decay added to the gradient and optional momentum (no dampening); Adam
+    with the decay added to the gradient (``torch.optim.Adam``'s
+    ``weight_decay``, optax's ``b1``, ``b2`` and ``eps``); :class:`RMSprop`."""
+    settings = dict(cfg.opt_settings)
     if cfg.optimizer_name == 'AdamW':
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.optimizer_name == 'SGD':
         return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
-    raise ValueError(f'optimizer {cfg.optimizer_name!r} is not ported; pccf_torch has AdamW and SGD')
+    if cfg.optimizer_name == 'Adam':
+        return torch.optim.Adam(params, lr=lr, betas=(float(settings.get('b1', 0.9)), float(settings.get('b2', 0.999))),
+                                eps=float(settings.get('eps', 1e-8)), weight_decay=cfg.weight_decay)
+    if cfg.optimizer_name == 'RMSprop':
+        return RMSprop(params, lr=lr, weight_decay=cfg.weight_decay, **settings)
+    raise ValueError(f'optimizer {cfg.optimizer_name!r} is not one of AdamW, SGD, Adam, RMSprop')
 
 
 def with_epoch(outputs, epoch: float):

@@ -34,7 +34,7 @@ from pccf_torch.models.w_autoencoders import WAETrainModule, build_w_autoencoder
 from pccf_torch.nn.classifier import ClassifierTrainModule, build_classifier
 from pccf_torch.nn.layers import init_for_training, init_from_seed
 from pccf_torch.train.checkpoint import Checkpoint
-from pccf_torch.train.hooks import EarlyStoppingCallback, get_trailing_mean
+from pccf_torch.train.hooks import EarlyStoppingCallback, get_moving_average, get_trailing_mean
 from pccf_torch.train.losses import get_w_autoencoder_loss
 from pccf_torch.train.runners import Loader, Test, Trainer
 
@@ -62,9 +62,11 @@ def merge_back(vqvae: VQVAE, w_model: WAETrainModule) -> None:
 
 
 def fit(cfg: SliceConfig, vqvae: VQVAE, w_model: WAETrainModule, train_set, test_set, *, n_epochs: int, seed: int,
-        validate: bool = True, early_stopping: bool = False, train: bool = True) -> dict:
+        validate: bool = True, early_stopping: bool = False, train: bool = True, trial=None) -> dict:
     """Train ``w_model`` on ``train_set`` of latent codes where ``train``,
-    validating on ``test_set`` where ``validate``, test, and merge back."""
+    validating on ``test_set`` where ``validate``, test, and merge back.  A
+    tuning ``trial``'s callback (the moving average of the loss) runs after
+    early stopping (``train_w_autoencoder.py:124-129``)."""
     wcfg = cfg.w_autoencoder.train
     train_loader = Loader(train_set, wcfg.batch_size, seed)
     test_loader = Loader(test_set, wcfg.batch_size, seed)
@@ -75,6 +77,10 @@ def fit(cfg: SliceConfig, vqvae: VQVAE, w_model: WAETrainModule, train_set, test
         es = wcfg.early_stopping
         trainer.post_epoch_hooks.append(
             EarlyStoppingCallback(loss, filter_fn=get_trailing_mean(es.window), patience=es.patience))
+    if trial is not None:
+        from pccf_torch.tuning import TrialCallback
+
+        trainer.post_epoch_hooks.append(TrialCallback(trial, loss, filter_fn=get_moving_average()))
     if train:
         validation = Test(w_model, test_loader, loss, 'Validation', seed=seed, model_name=name) if validate else None
         trainer.train_until(train_loader, n_epochs, validation)
@@ -122,20 +128,29 @@ def load_models(cfg: SliceConfig, device: torch.device) -> tuple[torch.nn.Module
     return shell.classifier.eval(), vqvae.eval()
 
 
-def stage(cfg: SliceConfig, device: torch.device) -> dict:
-    """``train_w_autoencoder.py``'s run inside the current experiment: load
-    both models, train, merge back and save the VQ-VAE."""
+def train_stage(cfg: SliceConfig, classifier: torch.nn.Module, vqvae: VQVAE, device: torch.device,
+                trial=None) -> dict:
+    """``train_w_autoencoder.py`` ``train_w_autoencoder``: the inner CVAE of
+    ``vqvae`` trained on the codes of the configured dataset, tested and
+    merged back; a tuning ``trial`` reports to it and may prune it."""
     seed = cfg.user.seed or 0
-    classifier, vqvae = load_models(cfg, device)
     w_model = build_w_train_model(cfg, vqvae, reset=not cfg.user.load_checkpoint, seed=seed, init=init_for_training)
     train_set, test_set = get_datasets(cfg, device)
     es = cfg.w_autoencoder.train.early_stopping
     out = fit(cfg, vqvae, w_model, WDatasetWithLogits(train_set, vqvae, classifier),
               WDatasetWithLogits(test_set, vqvae, classifier), n_epochs=cfg.w_autoencoder.train.n_epochs, seed=seed,
               validate=not cfg.final, early_stopping=not cfg.final and es.active,
-              train=cfg.user.load_checkpoint >= 0)
-    Checkpoint(cfg.autoencoder.name).save(vqvae, vqvae.epoch)
+              train=cfg.user.load_checkpoint >= 0, trial=trial)
     return {**out, 'vqvae': vqvae, 'classifier': classifier}
+
+
+def stage(cfg: SliceConfig, device: torch.device) -> dict:
+    """``train_w_autoencoder.py``'s run inside the current experiment: load
+    both models, train, merge back and save the VQ-VAE."""
+    classifier, vqvae = load_models(cfg, device)
+    out = train_stage(cfg, classifier, vqvae, device)
+    Checkpoint(cfg.autoencoder.name).save(vqvae, vqvae.epoch)
+    return out
 
 
 def main(argv: list[str] | None = None) -> dict:

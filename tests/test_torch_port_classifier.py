@@ -270,8 +270,8 @@ def test_three_sgd_steps_match_jax():
 
 
 def test_optimizer_by_name():
-    """AdamW for the autoencoders as before, SGD for the classifier, and any
-    other name refused."""
+    """AdamW for the autoencoders as before, SGD for the classifier, Adam and
+    the port's RMSprop where named, and any other name refused."""
     import dataclasses
 
     from pccf_torch.train.runners import make_optimizer
@@ -283,8 +283,14 @@ def test_optimizer_by_name():
     assert isinstance(make_optimizer(tc.WAutoEncoderTrainConfig(), p, 0.1), torch.optim.AdamW)
     sgd = make_optimizer(tc.ClassifierTrainConfig(), p, 0.1)
     assert isinstance(sgd, torch.optim.SGD) and sgd.defaults['momentum'] == 0.0
-    with pytest.raises(ValueError, match='not ported'):
-        make_optimizer(dataclasses.replace(tc.ClassifierTrainConfig(), optimizer_name='RMSprop'), p, 0.1)
+    assert isinstance(make_optimizer(dataclasses.replace(tc.ClassifierTrainConfig(), optimizer_name='Adam'), p, 0.1),
+                      torch.optim.Adam)
+    from pccf_torch.train.runners import RMSprop
+
+    assert isinstance(make_optimizer(dataclasses.replace(tc.ClassifierTrainConfig(), optimizer_name='RMSprop'), p, 0.1),
+                      RMSprop)
+    with pytest.raises(ValueError, match='not one of'):
+        make_optimizer(dataclasses.replace(tc.ClassifierTrainConfig(), optimizer_name='Adagrad'), p, 0.1)
 
 
 def test_classifier_config_matches_composed_yaml():
@@ -372,6 +378,36 @@ def test_training_batch_matches_modelnet_numpy_path(rotate, translate):
     assert targets.label.tolist() == [int(w[1].label) for w in want]
     port.set_inference(True)
     assert torch.equal(port.__getitems__([2])[0].cloud, torch.from_numpy(pool[2:3]))
+
+
+@pytest.mark.parametrize('rotate,translate', [(False, False), (True, True)])
+def test_resampled_training_batch_matches_modelnet_numpy_path(rotate, translate):
+    """``data.resample``: the input and reference clouds of a training batch
+    against ``ModelNet40Split.__getitem__`` (``modelnet.py:89-103``: the
+    second draw from the normalised full cloud, both augmented in one call),
+    bit-equal on the same generator."""
+    import dataclasses
+
+    from pccf.data.modelnet import ModelNet40Split
+    from pccf_torch.data.clouds import LabelledClouds
+
+    pool = _clouds(6, 42, points=300)
+    labels = np.arange(6) % 2
+    data = dataclasses.replace(port_config().data, n_input_points=128, rotate=rotate, translate=translate,
+                               resample=True)
+    jdata = types.SimpleNamespace(n_input_points=128, resample=True, rotate=rotate, translate=translate,
+                                  jitter_sigma=data.jitter_sigma, jitter_clip=data.jitter_clip)
+    split = ModelNet40Split(pool, np.zeros((6, 300, 4), np.int32), labels, jdata, seed=0)
+    split.set_inference(False)
+    split.rng = np.random.default_rng((0, 2, 1))
+    want = [split[i] for i in (5, 0, 3, 0)]
+    port = LabelledClouds(torch.from_numpy(pool), torch.from_numpy(labels), data=data)
+    port.set_inference(False)
+    port.rng = np.random.default_rng((0, 2, 1))
+    inputs, targets = port.__getitems__([5, 0, 3, 0])
+    assert np.array_equal(inputs.cloud.numpy(), np.stack([w[0].cloud for w in want]))
+    assert np.array_equal(targets.ref_cloud.numpy(), np.stack([w[1].ref_cloud for w in want]))
+    assert not np.array_equal(targets.ref_cloud.numpy(), inputs.cloud.numpy())
 
 
 def test_loader_seeds_the_augmentations_per_batch():

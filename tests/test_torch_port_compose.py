@@ -57,6 +57,11 @@ OVERRIDE_SETS = {
     'final_seed': ['final=true', 'user.seed=3', 'user.load_checkpoint=-1', '+user.extra=[1, 2]', '~user.export'],
     'wide_heads': ['w_autoencoder.model.w_encoder.n_heads=2',
                    'autoencoder.model.decoder.conv_dims=[512,256,128,64,32]'],
+    'adam_rmsprop': ['autoencoder.train.learn.optimizer_name=Adam', '+autoencoder.train.learn.opt_settings.b2=0.99',
+                     'w_autoencoder.train.learn.optimizer_name=RMSprop',
+                     '+w_autoencoder.train.learn.opt_settings.centered=true',
+                     '+w_autoencoder.train.learn.opt_settings.momentum=0.5',
+                     'classifier.train.learn.optimizer_name=RMSprop'],
 }
 
 
@@ -111,7 +116,10 @@ def _jax_fields(cfg) -> dict:
         ln, tr = exp.train.learn, exp.train
         s = ln.scheduler
         return (tr.batch_size, tr.n_epochs, ln.optimizer_name, ln.learning_rate,
-                ln.opt_settings.get('weight_decay', 0.0), ln.grad_op and str(ln.grad_op), str(ln.clip_criterion),
+                ln.opt_settings.get('weight_decay', 0.0),
+                {k: v for k, v in ln.opt_settings.items() if k != 'weight_decay'}
+                if ln.optimizer_name in ('Adam', 'RMSprop') else {},
+                ln.grad_op and str(ln.grad_op), str(ln.clip_criterion),
                 (str(s.function), s.restart_interval, s.restart_fraction, s.warmup_steps, dict(s.settings)),
                 (tr.early_stopping.active, tr.early_stopping.window, tr.early_stopping.patience))
 
@@ -124,7 +132,8 @@ def _jax_fields(cfg) -> dict:
                  d.jitter_sigma, d.jitter_clip, d.resample, str(d.dataset.name), dict(d.dataset.settings)),
         'classifier': (c.model.name, c.model.n_neighbors, tuple(c.model.conv_dims), c.model.act_name,
                        tuple(c.model.dropout_rates), c.model.feature_dim, tuple(c.model.mlp_dims), learn(c),
-                       c.train.learn.opt_settings.get('momentum', 0.0)),
+                       c.train.learn.opt_settings.get('momentum', 0.0) if c.train.learn.optimizer_name == 'SGD'
+                       else 0.0),
         'autoencoder': (a.model.name, str(a.model.class_name), a.model.book_size, a.model.embedding_dim,
                         a.model.w_dim, a.model.vq_noise, a.diagnose_every, str(a.model.encoder.class_name),
                         tuple(a.model.encoder.conv_dims), a.model.encoder.act_name, a.model.decoder.sample_dim,
@@ -151,7 +160,8 @@ def _port_fields(cfg: SliceConfig) -> dict:
         s = t.scheduler
         sched = {'Cosine': {'min_decay': s.min_decay, 'decay_steps': s.decay_steps},
                  'Exponential': {'exp_decay': s.exp_decay}, 'Constant': {}}[s.function]
-        return (t.batch_size, t.n_epochs, t.optimizer_name, t.learning_rate, t.weight_decay, t.grad_op,
+        return (t.batch_size, t.n_epochs, t.optimizer_name, t.learning_rate, t.weight_decay, dict(t.opt_settings),
+                t.grad_op,
                 t.clip_criterion, (s.function, s.restart_interval, s.restart_fraction, s.warmup_steps, sched),
                 (t.early_stopping.active, t.early_stopping.window, t.early_stopping.patience))
 
@@ -194,8 +204,12 @@ def test_from_tree_of_the_flagship_is_the_flagship():
 def test_from_tree_refuses_what_the_port_does_not_run():
     with pytest.raises(NotImplementedError, match='n_subprocesses'):
         cli.get_config(['user.n_subprocesses=2'])
-    with pytest.raises(NotImplementedError, match='optimizer'):
-        cli.get_config(['classifier.train.learn.optimizer_name=RMSprop'])
+    with pytest.raises(NotImplementedError, match='nesterov'):
+        cli.get_config(['classifier.train.learn.optimizer_name=Adam',
+                        '+classifier.train.learn.opt_settings.nesterov=true'])
+    with pytest.raises(ValueError, match='alpha'):
+        cli.get_config(['classifier.train.learn.optimizer_name=RMSprop',
+                        '+classifier.train.learn.opt_settings.alpha=0.9'])
     with pytest.raises(ValueError, match='n_neighbours|neighbours'):
         cli.get_config(['autoencoder.model.encoder.n_neighbors=7'])
 

@@ -776,7 +776,11 @@ def test_graph_filter_matches_plain(dev, b, n, duplicates):
 def test_graph_filter_backward_matches_plain(dev, b, n, scale):
     """dx against the closed-form plain backward on the card and on the CPU
     (scale 0.002: the 0.005 clamp active); one backward kernel call and one
-    row scatter; a second call gives the same bits."""
+    row scatter; a second call gives the same bits.  The plain row scatter
+    adds in ascending edge order on both devices: on the card it once summed
+    with ``index_add_``'s atomics, whose order differs run to run (at
+    (8, 2048, 0.5) 50 distinct results over 50 runs, 4.4e-8 apart at most,
+    on an H100), and this case once read 2.68e-5 against its bound."""
     x = _randn((b, n, 3), 50 + b, dev) * scale
     g = _randn((b, n, 3), 51 + b, dev)
     _, idx, mean = graph_filter.graph_filter_cuda(x)
@@ -935,6 +939,9 @@ def _loss_grads(fn, x, y):
 
 @pytest.mark.parametrize('loss', ['chamfer', 'chamfer_sinkhorn'])
 def test_loss_gradients_on_cuda_match_cpu(dev, loss):
+    """The loss kernel once, and the row scatter twice for the Chamfer
+    term's backward (one a direction, in a fixed order); values and
+    gradients against the CPU."""
     fn = {'chamfer': api.chamfer, 'chamfer_sinkhorn': api.chamfer_sinkhorn_cost}[loss]
     x, y = _clouds(512, 384, 32, 'cpu')
     api.reset_launch_counts()
@@ -942,7 +949,7 @@ def test_loss_gradients_on_cuda_match_cpu(dev, loss):
     counts = api.launch_counts()
     want = _loss_grads(fn, x, y)
     assert counts['sinkhorn_cost' if 'sinkhorn' in loss else 'nn_distance'] == 1
-    assert sum(counts.values()) == 1
+    assert counts['scatter_add_rows'] == 2 and sum(counts.values()) == 3
     tol = 1e-3 if 'sinkhorn' in loss else 1e-4
     for g, w in zip(got[0], want[0]):
         torch.testing.assert_close(g, w, rtol=tol, atol=0.0)
@@ -1406,3 +1413,49 @@ def test_pools_at_any_width(dev, c):
     assert torch.equal(got.cpu(), ops.scatter_add_slots(g.cpu(), idx.cpu(), slots.cpu(), 2048))
     s = gather.graph_sum_pool_cuda(x, idx)
     assert torch.equal(s.cpu(), ops.graph_sum_pool_slot_order(x.cpu(), idx.cpu()))
+
+
+def test_stage1_step_is_bit_reproducible_by_default(dev):
+    """Two flagship stage-1 steps (ChamferEMD, batch 4 x 2048) from the same
+    state in default mode give bit-equal gradients: no operation of the step
+    adds in an order that changes from run to run."""
+    from pccf_torch.config import SliceConfig
+    from pccf_torch.data import synthetic
+    from pccf_torch.data.structures import Inputs, Targets
+    from pccf_torch.models import build_vqvae
+    from pccf_torch.nn.layers import init_for_training
+    from pccf_torch.train import Trainer, get_autoencoder_loss
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = SliceConfig()
+    model = build_vqvae(cfg)
+    init_for_training(model, 0)
+    state = model.state_dict()
+    batch = torch.from_numpy(synthetic.batch(3, 4, cfg.data.n_input_points)).to(dev)
+
+    def grads():
+        m = build_vqvae(cfg)
+        m.load_state_dict(state)
+        m = m.to(dev)
+        Trainer(m, get_autoencoder_loss(cfg), cfg.autoencoder.train, 100, seed=0).run_step(Inputs(batch),
+                                                                                            Targets(batch))
+        return {k: p.grad for k, p in m.named_parameters() if p.grad is not None}
+
+    a, b = grads(), grads()
+    assert a.keys() == b.keys() and len(a) == 32
+    assert [k for k in a if not torch.equal(a[k], b[k])] == []
+
+
+@pytest.mark.parametrize('n_clouds', [130, 778])
+def test_index_k_neighbours_on_the_card(dev, n_clouds):
+    """The ModelNet reader's precompute (chunks of 64 clouds of 2048 points,
+    k = 25, the desk / table split's 778 clouds) on the card against the
+    plain kNN, neighbour sets up to near-ties, int32 host indices."""
+    from pccf_torch.data.modelnet import index_k_neighbours
+
+    pcs = np.random.default_rng(n_clouds).standard_normal((n_clouds, 2048, 3)).astype(np.float32)
+    got = index_k_neighbours(pcs, 25, dev)
+    assert got.dtype == np.int32 and got.shape == (n_clouds, 2048, 25)
+    for i in range(0, n_clouds, 64):
+        x = torch.from_numpy(pcs[i: i + 64]).to(dev)
+        assert _knn_agrees(x, torch.from_numpy(got[i: i + 64]).to(dev), knn.plain(x, 25), 25)

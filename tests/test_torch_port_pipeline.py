@@ -117,12 +117,23 @@ def test_final_turns_early_stopping_and_validation_off(exp_root):
 
 
 def test_entry_points_refuse_what_is_not_ported(exp_root, monkeypatch):
+    """Data parallelism is refused; the flagship's ModelNet reader without
+    its files tries the archive's download and, offline, raises with the
+    manual instructions; without a card and without ``user.cpu`` an entry
+    point raises."""
+    import urllib.request
+
     from pccf_torch.train import classifier
 
-    with pytest.raises(NotImplementedError, match='ModelNet reader is not ported'):
+    with pytest.raises(NotImplementedError, match='n_subprocesses'):
+        classifier.main([*CPU, 'user.n_subprocesses=2'])
+
+    def offline(url, path):
+        raise OSError('no network')
+
+    monkeypatch.setattr(urllib.request, 'urlretrieve', offline)
+    with pytest.raises(FileNotFoundError, match='Download it manually'):
         classifier.main(['user.cpu=true'])
-    with pytest.raises(NotImplementedError, match='n_workers'):
-        classifier.main([*CPU, 'user.n_workers=2'])
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         classifier.main(TINY)

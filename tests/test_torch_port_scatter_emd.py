@@ -117,6 +117,19 @@ def test_scatter_rows_is_the_sequential_sum_in_edge_order(case):
 
 
 @pytest.mark.parametrize('case', CASES)
+def test_listed_scatter_rows_is_the_sequential_sum_in_edge_order(case):
+    """The plain row scatter's form off the CPU (each row's edges listed in
+    ascending order, added one list slot at a time), run here on the CPU:
+    bit-equal to the sequential sum and to ``index_add_``'s."""
+    g, idx, n = _graph(case, CASES.index(case))
+    gt, it = torch.from_numpy(g), torch.from_numpy(idx)
+    rows = (it.long() + n * torch.arange(g.shape[0])[:, None, None]).reshape(-1)
+    got = ops.scatter_add_rows_listed(gt, rows, idx.shape[-1], n)
+    np.testing.assert_array_equal(got.numpy(), sequential_scatter(g, idx, n))
+    assert torch.equal(got, ops.scatter_add_rows(gt, it, n))
+
+
+@pytest.mark.parametrize('case', CASES)
 def test_scatter_rows_matches_jax_pallas(case, interpret_pallas):
     from pccf.kernels.pallas_gather import _scatter_add_rows
 
