@@ -20,6 +20,20 @@ filtering on):
   (bit-equal to the synchronous ones, their host buffers pinned; the host
   clock of the four pipelined against four sequential) and ``warmup`` over
   every bucket (``stats`` as they were);
+- serving with the bf16 weight cast (``cast_phase``):
+  ``CounterfactualServer(cast_bf16=True)`` of the same models beside the
+  f32 server, its copy storing bf16 parameters, buffers and codebook and
+  the caller's model left f32, the stacks' matrices bf16 in the CVAE pack;
+  the requests of batch 1, 16 and 64 and generation at 16 with exact
+  launches (``gemm_bf16w``, the stacks' GEMM with bf16 weights, a matrix
+  product of the chain and of the W-decoder), against the f32 server
+  (JAX's own bound, 0.3) and against the same cast on the CPU; the chain at
+  64, 1 and 16 and the W stacks at (32, 256, 512) on bf16 packs against
+  their plain versions beside the f32 instance, ``pcgen_mix`` and
+  ``pcgen_general`` on the pack folded from the rounded parameters; every
+  GEMM shape of the cast paths against float64, timed beside the f32
+  instance; the server's parameter and pack bytes; request latency and
+  device busy time of both servers in turns;
 - generation: ``CounterfactualServer.generate`` at 1, 16 and 70 clouds
   (chunks of 64 and 6), without and with ``probs``, and the entry point
   ``pccf_torch.generate.generate_random_samples`` at its batch of 16 with a
@@ -79,7 +93,7 @@ filtering on):
   gather and the row scatter at D's (8, 2048, 25, F), and the kernels
   widened past JAX's last limits: ``pcgen_general`` at 5 and 6 component
   layers and the attention at heads of 256 and 512 (d = 512);
-- the experiment's own entry points (``cli_phase``): the five ``main``s of
+- the experiment's own entry points (``cli_phase``): the ``main``s of
   ``pccf_torch`` run in this process on the card from the experiment tree,
   the flagship model at 2048 points on ``data/dataset=synthetic`` (64 train
   and 32 test clouds of 4096 points), epochs cut to 4 (the classifier,
@@ -87,12 +101,14 @@ filtering on):
   seconds, epoch times and launches, every checkpoint reloaded to the same
   eval output, a stage-1 resume bit-equal to the same epoch run on in
   memory (in default mode), and the compiled batch assembler against its
-  numpy version;
+  numpy version; then ``generate``'s rendered files and clouds against the
+  CPU, and ``visualize_counterfactuals`` at five of the plot indices (its
+  seconds, its files, one sample against the CPU);
 - tuning and the dataset readers (``tuning_and_readers_phase``), at the CLI
   phase's sizes: ``tune_autoencoder`` (3 trials of the learning space, one
   of the decoder's) and ``tune_w_autoencoder`` (2 trials over the CLI
   phase's models), each trial's launches those of its stage's entry point,
-  the sqlite studies read back; the ModelNet reader's kNN precompute at the
+  the sqlite studies read back, both plot entry points over them; the ModelNet reader's kNN precompute at the
   desk / table split's 778 clouds of 2048 points against the plain kNN
   (and the reader on h5 files it writes where ``h5py`` imports, else its
   refusal); a PC15k tree it writes, the stage-1 and classifier entry points
@@ -312,6 +328,8 @@ KERNEL_INFO = {
     'sinkhorn_cost': ('pccf_torch/csrc/sinkhorn.cu', 'pccf/kernels/pallas_sinkhorn.py:163'),
     'graph_filter': ('pccf_torch/csrc/graph_filter.cu', 'pccf/kernels/pallas_gather.py:309'),
     'graph_filter_backward': ('pccf_torch/csrc/graph_filter.cu', 'pccf/kernels/pallas_gather.py:341'),
+    # the stacks' GEMM with bf16 weights, which the CVAE chain and the W-decoder run under the server's cast
+    'gemm_bf16w': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_cvae.py:203'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter')
 # every stage-1 step launches these, and the kernel of its reconstruction loss
@@ -402,7 +420,11 @@ CLI_STAGE_KERNELS = {  # the kernels each entry point must launch
     'evaluate_counterfactuals': ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter', 'wformer_encoder',
                                  'wformer_decoder'),
     'generate': ('wformer_decoder', 'pcgen_mix', 'graph_filter'),
+    'visualize_counterfactuals': ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter', 'wformer_encoder',
+                                  'wformer_decoder'),
 }
+# user_settings.yaml's plot indices that fall inside the CLI phase's 16 validation clouds
+VIS_SAMPLE_INDICES = (0, 9)
 # the tuning corner's graph pools and the widths off four channels checked beside them
 ODD_POOL_WIDTHS = (17, 130, 511)
 TRAIN_BATCH, WARM_STEPS, TIMED_STEPS = 8, 2, 10
@@ -519,7 +541,8 @@ class LaunchLog:
 
 def launch_shapes(build, run) -> list[tuple]:
     """The distinct shapes at which ``run`` launches ``pccf_gemm`` (``('gemm',
-    M, N, K, groups, bias, gelu, res_rows or 0, out aliases res)``) and
+    M, N, K, groups, bias, gelu, res_rows or 0, out aliases res)``), its bf16
+    instance (the same with ``'gemm_bf16w'``) and
     ``pccf_attention`` (``('attention', B, T, T_kv, heads, head_dim)``), in
     order of first launch."""
     real = build.lib
@@ -536,6 +559,10 @@ def launch_shapes(build, run) -> list[tuple]:
             _, groups, ops, res, m, n, k, res_rows, gelu, _ = args
             key = ('gemm', m, n, k, groups, all(ops[2 * groups: 3 * groups]), bool(gelu), res_rows if res else 0,
                    res == ops[3 * groups])
+        elif name == 'pccf_gemm_bf16w':
+            _, groups, ops, res, m, n, k, res_rows, gelu, _ = args
+            key = ('gemm_bf16w', m, n, k, groups, all(ops[groups: 2 * groups]), bool(gelu), res_rows if res else 0,
+                   res == ops[2 * groups])
         elif name == 'pccf_attention':
             key = ('attention', *args[7:12])
         else:
@@ -772,8 +799,260 @@ def suite_outcomes(vq, judge, clouds: np.ndarray, labels: np.ndarray, seed: int,
     return out
 
 
+def tensor_bytes(obj) -> int:
+    """The bytes of the tensors in ``obj`` (nested dicts, lists, tuples)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
+def pack_bytes(model) -> int:
+    """What a server's folds and kernel layouts hold on the card beside the
+    model's own tensors: the CVAE chain's folds and its CUDA snapshot (stack
+    copies, small parts; its list of matrices only refers to them), and the
+    PCGen pack's tensors and kernel layout."""
+    cp, dp = model.w_autoencoder.packed, model.decoder.packed
+    folds = [getattr(cp, f) for f in ('win1', 'add1', 'aw', 'ab', 'win2', 'add2', 'bw', 'addd', 'wcomp', 'bcomp',
+                                       'prior_z2p', 'wp', 'bp')]
+    snapshot = {k: v for k, v in cp.cuda_operands().items() if k != 'weights'}
+    return tensor_bytes(folds) + tensor_bytes(snapshot) + tensor_bytes(dp.tensors()) + tensor_bytes(
+        dp.cuda_operands())
+
+
+def cast_phase(seed: int, check, dev: torch.device, cfg, vqvae, classifier, server, requests, kernels: dict,
+               bound) -> dict[str, int]:
+    """The main path, serving with the bf16 weight cast
+    (``CounterfactualServer(cast_bf16=True)``) beside the f32 ``server``:
+    what the cast stores and packs (bf16 parameters, buffers and codebook;
+    the stacks' matrices bf16 in the packs, no fp32 copy of them), the
+    requests of batch 1, 16 and 64 and generation at 16 with exact launches
+    (the bf16-weight GEMM ``gemm_bf16w`` a matrix product of the CVAE chain
+    and of the W-decoder), the card against the same cast on the CPU, the
+    kernels on the cast packs against their plain versions (the chain at the
+    suites' and serving's batches and the W stacks at (32, 256, 512) beside
+    the f32 instance, ``pcgen_mix`` and ``pcgen_general`` on the pack folded
+    from the rounded parameters), every GEMM shape of the cast paths against
+    float64 beside the f32 instance, the parameter and pack bytes on the card,
+    and warm request latency and device busy time of both servers in turns
+    (f32, cast, cast, f32).  Returns the launches of the cast requests and
+    generation."""
+    from pccf_torch.data.structures import Inputs
+    from pccf_torch.kernels import _build, api, cvae, ops, pcgen, roofline, wformer
+    from pccf_torch.serve import CounterfactualServer, stored_dtypes
+
+    cast = CounterfactualServer(vqvae, classifier, seed=seed, cast_bf16=True)
+    cp, dp = cast.vqvae.w_autoencoder.packed, cast.vqvae.decoder.packed
+    operands = cp.cuda_operands()
+    layers = operands['enc1'] + operands['enc2'] + operands['dec']
+    stack_mats = {w.dtype for w in wformer.stack_weights(layers)}
+    check(stored_dtypes(cast.vqvae) == stored_dtypes(cast.classifier) == {torch.bfloat16}
+          and stored_dtypes(vqvae) == stored_dtypes(classifier) == {torch.float32},
+          f'cast server: the copy stores {stored_dtypes(cast.vqvae)} (codebook '
+          f'{cast.vqvae.parametrizations.codebook.original.dtype}), the caller\'s model stays {stored_dtypes(vqvae)}')
+    check(cp.bf16 and stack_mats == {torch.bfloat16} and all(w.dtype == torch.bfloat16 for w in
+                                                              (operands['win1'], operands['win2'], operands['wcomp']))
+          and not any(w.data_ptr() in operands['small'] for w in wformer.stack_weights(layers)),
+          f'cast CVAE pack: the stacks\' matrices {stack_mats}, the projections bf16, no small part split for them; '
+          f'the folds {operands["aw"].dtype}')
+    f32_bytes = {'parameters and buffers': tensor_bytes([*vqvae.parameters(), *vqvae.buffers(),
+                                                         *classifier.parameters(), *classifier.buffers()]),
+                 'packs': pack_bytes(server.vqvae)}
+    cast_bytes = {'parameters and buffers': tensor_bytes([*cast.vqvae.parameters(), *cast.vqvae.buffers(),
+                                                          *cast.classifier.parameters(), *cast.classifier.buffers()]),
+                  'packs': pack_bytes(cast.vqvae)}
+    print(f'server bytes on the card, f32 {json.dumps(f32_bytes)}; bf16 cast {json.dumps(cast_bytes)}', flush=True)
+
+    # the cast requests and generation, launches exact
+    per_chain = 3 + 4 * (len(cp.enc1) + len(cp.enc2)) + 7 * len(cp.dec)
+    per_decoder = 7 * len(cast.vqvae.w_autoencoder.decoder.layers)
+    cast_requests = [requests[i] for i in (0, 2, 4)]  # batch 1, 16, 64
+    api.reset_launch_counts()
+    outs = [cast.counterfactual(cl, tdim, sampling_seed=seeds) for cl, tdim, seeds in cast_requests]
+    torch.cuda.synchronize()
+    launches = api.launch_counts()
+    for name in KERNEL_INFO:
+        want = (REQUEST_LAUNCHES.get(name, 0) + (per_chain if name == 'gemm_bf16w' else 0)) * len(cast_requests)
+        check(launches[name] == want, f'{name}: {launches[name]} launches on the cast serving path == {want}')
+    api.reset_launch_counts()
+    generated = cast.generate(16, seed=seed + 5)
+    torch.cuda.synchronize()
+    gen = api.launch_counts()
+    for name in KERNEL_INFO:
+        want = per_decoder if name == 'gemm_bf16w' else int(name in GENERATION_KERNELS)
+        check(gen[name] == want, f'{name}: {gen[name]} launches on the cast generation path (16) == {want}')
+        launches[name] += gen[name]
+    for (cl, _, _), out in zip(cast_requests, outs):
+        check(out.shape == (cl.shape[0], cfg.data.n_target_points, 3) and bool(np.isfinite(out).all()),
+              f'cast request of {cl.shape[0]}: output {out.shape} finite')
+    check(generated.shape == (16, cfg.data.n_target_points, 3) and bool(np.isfinite(generated).all()),
+          f'cast generate 16: {generated.shape} finite')
+    cl, tdim, seeds = cast_requests[1]
+    f32_out = server.counterfactual(cl, tdim, sampling_seed=seeds)
+    print(f'cast against f32 server, request of 16 (random weights): max |diff| '
+          f'{float(np.abs(f32_out - outs[1]).max()):.3e}, rel L2 '
+          f'{float(np.linalg.norm(f32_out - outs[1]) / np.linalg.norm(f32_out)):.3e}', flush=True)
+
+    # the card against the same cast on the CPU: a request of 2 and a generation chunk of 2
+    cpu_cast = CounterfactualServer(copy.deepcopy(vqvae).cpu(), copy.deepcopy(classifier).cpu(), seed=seed,
+                                    cast_bf16=True)
+    pair = torch.from_numpy(cast_requests[2][0][:2])
+    samp = cast.initial_sampling(np.asarray([1, 2])).cpu()
+    noise, gsamp = cast.generation_draws(2, seed + 5, 0)
+
+    def run(srv, device):
+        with torch.inference_mode():
+            cloud = pair.to(device)
+            logits = srv.classifier(Inputs(cloud=cloud))
+            out = srv.vqvae.generate_counterfactual(Inputs(cloud=cloud, initial_sampling=samp.to(device)), logits,
+                                                    torch.tensor([1, 0], device=device))
+            g = srv.vqvae.generate(2, gsamp, 0.0, None, tuple(x.to(device) for x in noise))
+            return logits.cpu(), out.idx.cpu(), out.recon.cpu(), g.idx.cpu(), g.recon.cpu()
+
+    gpu, cpu = run(cast, dev), run(cpu_cast, torch.device('cpu'))
+    lerr = float((gpu[0] - cpu[0]).abs().max() / (cpu[0].abs().max() + 1e-12))
+    check(lerr <= 1e-3, f'cast card vs CPU logits: rel max diff {lerr:.2e}')
+    for what, i in (('counterfactual', 1), ('generation', 3)):
+        agree = float((gpu[i] == cpu[i]).float().mean())
+        same = (gpu[i] == cpu[i]).all(dim=1)
+        r = rel_l2(gpu[i + 1][same], cpu[i + 1][same]) if same.any() else float('nan')
+        check(agree >= CODE_AGREEMENT and bool(same.any()) and r <= RECON_REL_L2,
+              f'cast card vs CPU {what}: code agreement {agree:.4f} >= {CODE_AGREEMENT}, {int(same.sum())} of 2 '
+              f'with all codes equal, their recon rel L2 {r:.3e} <= {RECON_REL_L2}')
+
+    # the kernels on the cast packs against their plain versions, beside the f32 instance
+    gen_dev = torch.Generator(device=dev).manual_seed(seed + 70)
+
+    def randn(*shape: int) -> torch.Tensor:
+        return torch.randn(shape, generator=gen_dev, device=dev)
+
+    wae, fwae = cast.vqvae.w_autoencoder, server.vqvae.w_autoencoder
+    fpack = fwae.packed
+    stack_runs = {}
+    for bb in (SUITE_CHUNKS[0], 1, 16):  # 16 last: the headline
+        x = randn(bb, wae.n_codes, wae.embedding_dim)
+        pr = torch.softmax(randn(bb, cfg.data.n_classes), -1)
+        run_k = functools.partial(cvae.cvae_cf_cuda, x, pr, cp)
+        got, want = run_k(), cvae.plain(x, pr, cp)
+        r = rel_l2(got, want)
+        row = (time_ms(run_k, REPS), time_ms(functools.partial(cvae.cvae_cf_cuda, x, pr, fpack), REPS),
+               time_ms(functools.partial(cvae.plain, x, pr, cp), REPS), bound(roofline.cvae_work(x, pr, cp)))
+        check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+              f'cvae_cf bf16 weights B={bb}: rel L2 {r:.3e} <= {CVAE_REL_L2}; {row[0]:.4f} ms (f32 weights '
+              f'{row[1]:.4f}, plain {row[2]:.4f}, bound {row[3]["bound_ms"]:.4f} ms, {row[3]["bound_by"]})')
+        stack_runs[f'CVAE b{bb}'] = run_k
+    t, d = wae.n_codes, wae.encoder.proj_dim
+    for name, net, fnet in (('W-encoder', wae.encoder, fwae.encoder), ('W-decoder', wae.decoder, fwae.decoder)):
+        x = randn(32, t, d)
+        if name == 'W-decoder':
+            memory = randn(32, t, d)
+            spack, fspack = wformer.pack_decoder(net.layers), wformer.pack_decoder(fnet.layers)
+            run_k = functools.partial(wformer.wformer_decoder_cuda, x, memory, spack, net.n_heads)
+            run_f = functools.partial(wformer.wformer_decoder_cuda, x, memory, fspack, net.n_heads)
+            run_p = functools.partial(wformer.plain_decoder, x, memory, spack, net.n_heads)
+            work = roofline.decoder_stack_work(x, memory, spack)
+        else:
+            spack, fspack = wformer.pack_encoder(net.layers), wformer.pack_encoder(fnet.layers)
+            run_k = functools.partial(wformer.wformer_encoder_cuda, x, spack, net.n_heads)
+            run_f = functools.partial(wformer.wformer_encoder_cuda, x, fspack, net.n_heads)
+            run_p = functools.partial(wformer.plain_encoder, x, spack, net.n_heads)
+            work = roofline.encoder_stack_work(x, spack)
+        got, want = run_k(), run_p()
+        r = rel_l2(got, want)
+        row = (time_ms(run_k, REPS), time_ms(run_f, REPS), time_ms(run_p, REPS), bound(work))
+        check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+              f'{name} stack bf16 weights (32, {t}, {d}): rel L2 {r:.3e} <= {CVAE_REL_L2}; {row[0]:.4f} ms (f32 '
+              f'weights {row[1]:.4f}, plain {row[2]:.4f}, bound {row[3]["bound_ms"]:.4f} ms, {row[3]["bound_by"]})')
+        stack_runs[name] = run_k
+    for fn_name, fn in (('pcgen_mix', pcgen.pcgen_mix_cuda), ('pcgen_general', pcgen.pcgen_general_cuda)):
+        m = torch.relu(randn(16, cfg.data.n_target_points, dp.map_w.shape[1]))
+        w = randn(16, dp.map_w.shape[0])
+        got, want = fn(m, w, dp, tau=cast.vqvae.decoder.tau, act_slope=0.0), pcgen.plain(
+            m, w, dp, tau=cast.vqvae.decoder.tau, act_slope=0.0)
+        r = rel_l2(got, want)
+        check(r <= PCGEN_REL_L2 and bool(torch.isfinite(got).all()),
+              f'{fn_name} on the pack folded from the cast parameters, B=16: rel L2 {r:.3e} <= {PCGEN_REL_L2}')
+
+    # every GEMM shape of the cast paths, against float64 on the widened weights
+    shapes: dict[tuple, list[str]] = {}
+    for who, run_k in stack_runs.items():
+        for key in launch_shapes(_build, run_k):
+            if key[0] == 'gemm_bf16w':
+                shapes.setdefault(key, []).append(who)
+    errs, head = [], None
+    for key, who in shapes.items():
+        _, m, nn, k, groups, has_bias, gelu, res_rows, alias = key
+        a = randn(m, k)
+        wts = [(randn(nn, k) * k ** -0.5).to(torch.bfloat16) for _ in range(groups)]
+        wide = [w.float() for w in wts]
+        biases = [randn(nn) if has_bias else None for _ in range(groups)]
+        res = randn(res_rows, nn) if res_rows else None
+        st = wformer.Stacks(1, m, k, dev)
+        want = [wformer.gemm_plain(a.double(), w.double(), None if bb is None else bb.double(),
+                                   None if res is None else res.double(), gelu) for w, bb in zip(wts, biases)]
+        outs = [res.clone()] if alias else [torch.empty(m, nn, device=dev) for _ in wts]
+        st.gemm(a, wts, biases, outs, outs[0] if alias else res, res_rows, gelu)
+        r = max(rel_l2(o, x) for o, x in zip(outs, want))
+        errs.append(max(float((o - x).abs().max()) for o, x in zip(outs, want)))
+        if alias:
+            outs = [res]
+        plain = functools.partial(lambda a, wts, biases, res, gelu: [wformer.gemm_plain(a, w, bb, res, gelu)
+                                                                    for w, bb in zip(wts, biases)],
+                                  a, wts, biases, res, gelu)
+        w_cat, b_cat = torch.cat(wide), torch.cat(biases) if has_bias else None
+        row = {'ms': time_ms(functools.partial(st.gemm, a, wts, biases, outs, res, res_rows, gelu), REPS),
+               'f32_ms': time_ms(functools.partial(st.gemm, a, wide, biases, outs, res, res_rows, gelu), REPS),
+               'plain_ms': time_ms(plain, REPS),
+               'library_ms': time_ms(functools.partial(torch.nn.functional.linear, a, w_cat, b_cat), REPS),
+               **bound(roofline.gemm_work(m, nn, k, groups, has_bias, res_rows, weight_bytes=2))}
+        grouped = f' x {groups} groups' if groups > 1 else ''
+        check(r <= GEMM_REL_L2, f'pccf_gemm_bf16w (M, N, K) = ({m}, {nn}, {k}){grouped}'
+                                f', bias {has_bias}, GELU {gelu}, res rows {res_rows}{", in place" if alias else ""} '
+                                f'[{", ".join(who)}]: rel L2 vs float64 {r:.2e} <= {GEMM_REL_L2}; {row["ms"]:.4f} ms '
+                                f'a launch (the f32 instance {row["f32_ms"]:.4f}, plain {row["plain_ms"]:.4f}, '
+                                f'library {row["library_ms"]:.4f}, bound {row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
+                                f'share {row["bound_ms"] / row["ms"]:.1%})')
+        if 'CVAE b16' in who and groups == 3:
+            head = (key, row)
+    if head is not None:
+        (_, m, nn, k, groups, *_), row = head
+        kernels['gemm_bf16w'] = {'max_abs_err': max(errs), **row,
+                                 'shape': f'({m}, {nn}, {k}) x {groups} groups, bf16 weights [CVAE b16 q, k, v]'}
+    check(head is not None, 'gemm_bf16w: the CVAE chain at batch 16 launches its grouped q, k, v product')
+
+    # latency and device busy time, the two servers in turns
+    lat: dict[str, dict[int, list[float]]] = {'f32': {}, 'bf16': {}}
+    for srv_name in ('f32', 'bf16', 'bf16', 'f32'):
+        srv = server if srv_name == 'f32' else cast
+        for cl, tdim, seeds in cast_requests:
+            srv.counterfactual(cl, tdim, sampling_seed=seeds)
+            torch.cuda.synchronize()
+            for _ in range(REPS // 2):
+                t0 = time.perf_counter()
+                srv.counterfactual(cl, tdim, sampling_seed=seeds)
+                torch.cuda.synchronize()
+                lat[srv_name].setdefault(cl.shape[0], []).append((time.perf_counter() - t0) * 1e3)
+    busy = {}
+    for srv_name, srv in (('f32', server), ('bf16', cast)):
+        for cl, tdim, seeds in cast_requests:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                srv.counterfactual(cl, tdim, sampling_seed=seeds)
+                torch.cuda.synchronize()
+            busy[srv_name, cl.shape[0]] = summed_ms(device_events(prof))
+    for srv_name in ('f32', 'bf16'):
+        for bb, times in lat[srv_name].items():
+            q1, med, q3 = np.percentile(times, [25, 50, 75])
+            print(f'{srv_name} server request batch {bb}: median {med:.3f} ms, quartiles {q1:.3f} / {q3:.3f} over '
+                  f'{len(times)} (host clock incl. copies, in turns f32, bf16, bf16, f32); device busy '
+                  f'{busy[srv_name, bb]:.3f} ms (traced durations summed)', flush=True)
+    return launches
+
+
 def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
-    """The five entry points in this process on the card, as a user runs
+    """The entry points in this process on the card, as a user runs
     them from the experiment tree: the flagship model unmodified at 2048
     points on ``data/dataset=synthetic`` at the dataset file's own sizes (64
     train and 32 test clouds of 4096 points, 2 classes), epochs cut to 4
@@ -782,9 +1061,15 @@ def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
     zeroed just before it and read just after), every checkpoint reloaded to
     the same eval output, a stage-1 resume against the same epoch run on in
     memory from the same state (bit-equal, in default mode), and the
-    compiled batch assembler against its plain version.  The experiments go
-    under ``root``.  Returns the launches of all five stages."""
-    from pccf_torch import cli, evaluate_counterfactuals, generate
+    compiled batch assembler against its plain version.  Then ``generate``'s
+    rendered files and its clouds against the CPU, and
+    ``visualize_counterfactuals`` at ``VIS_SAMPLE_INDICES`` (its seconds,
+    its files, the PNGs or, without matplotlib, the HTML viewers, and one
+    sample's clouds and probabilities against the CPU on the same draws).
+    The experiments go under ``root``.  Returns the launches of all six
+    entry points."""
+    from pccf_torch import cli, evaluate_counterfactuals, generate, visualize_counterfactuals
+    from pccf_torch.config import paths
     from pccf_torch.data import sampler
     from pccf_torch.data.dataset import get_datasets
     from pccf_torch.data.protocols import Singleton
@@ -796,6 +1081,7 @@ def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
     from pccf_torch.train import autoencoder, classifier, w_autoencoder
     from pccf_torch.train.checkpoint import Checkpoint
     from pccf_torch.train.runners import Loader
+    from pccf_torch.train.w_autoencoder import load_models
 
     args = [*CLI_OVERRIDES, f'user.seed={seed}']
     saved_env = {k: os.environ.get(k) for k in ('ROOT_EXP_DIR', 'DATASET_DIR')}
@@ -938,6 +1224,54 @@ def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
         record('generate', counts)
         check(clouds.shape == (cfg.user.generate.batch_size, cfg.data.n_target_points, 3)
               and bool(np.isfinite(clouds).all()), f'CLI generate: finite {clouds.shape}')
+        images = paths().version_dir / 'images' / cfg.name
+        rendered = sorted(p.name for p in (images / 'generated').iterdir())
+        check(len(rendered) == len(clouds) and all(re.fullmatch(r'\d+\.(png|html)', f) for f in rendered),
+              f'CLI generate rendered {len(rendered)} files ({", ".join(sorted({f.split(".")[1] for f in rendered}))}; '
+              f'HTML viewers where matplotlib is missing)')
+        with Experiment(cfg).create_run(record=False):
+            cls_card, vq_card = load_models(cfg, dev)
+        vq_cpu, cls_cpu = copy.deepcopy(vq_card).cpu(), copy.deepcopy(cls_card).cpu()
+        z1_bias = torch.zeros((len(clouds), cfg.autoencoder.n_codes, cfg.w_autoencoder.z1_dim))
+        with torch.inference_mode():
+            g_card, g_cpu = (vq.generate(len(clouds), None, z1_bias, generator=torch.Generator().manual_seed(seed))
+                             for vq in (vq_card, vq_cpu))
+        same = (g_card.idx.cpu() == g_cpu.idx).all(dim=1)
+        agree = float((g_card.idx.cpu() == g_cpu.idx).float().mean())
+        r = rel_l2(g_card.recon.cpu()[same], g_cpu.recon[same]) if same.any() else float('nan')
+        check(np.array_equal(g_card.recon.cpu().numpy(), clouds) and agree >= CODE_AGREEMENT and bool(same.any())
+              and r <= RECON_REL_L2,
+              f'CLI generate against the CPU on the same host draws: the entry point\'s clouds equal the model\'s '
+              f'generate, code agreement {agree:.4f}, {int(same.sum())} of {len(clouds)} with all codes equal, their '
+              f'rel L2 {r:.3e} <= {RECON_REL_L2}')
+
+        vis_args = [*args, f'user.plot.sample_indices=[{",".join(map(str, VIS_SAMPLE_INDICES))}]']
+        vis, counts, seconds = run_stage(visualize_counterfactuals, vis_args, 'visualize_counterfactuals')
+        record('visualize_counterfactuals', counts)
+        files = {i: sorted(p.name for p in (images / f'sample_{i}').iterdir()) for i in VIS_SAMPLE_INDICES}
+        check(sorted(vis) == list(VIS_SAMPLE_INDICES) and all(
+            len(f) >= 3 and all(n.endswith(('.png', '.html')) for n in f) for f in files.values()),
+            f'CLI visualize_counterfactuals: samples {sorted(vis)} in {seconds:.2f} s '
+            f'({seconds / len(VIS_SAMPLE_INDICES):.3f} s a sample), files a sample '
+            f'{[len(f) for f in files.values()]}')
+        val_set.set_inference(True)
+        inputs0 = val_set.__getitems__([VIS_SAMPLE_INDICES[0]])[0]
+        sampling, eps = visualize_counterfactuals.draws(vq_cpu, torch.Generator().manual_seed(seed))
+        cpu_clouds = visualize_counterfactuals.sample_clouds(
+            cls_cpu, vq_cpu, Inputs(cloud=inputs0.cloud.cpu(), indices=None if inputs0.indices is None else
+                                    inputs0.indices.cpu()), cfg.user.counterfactual_value, cfg.data.n_classes,
+            sampling, eps)
+        worst_p, worst_r, flipped = 0.0, 0.0, []
+        for (name, c, p_, _, idx), (_, c_cpu, p_cpu, _, idx_cpu) in zip(vis[VIS_SAMPLE_INDICES[0]], cpu_clouds):
+            worst_p = max(worst_p, float(np.abs(p_ - p_cpu).max()))
+            if idx is not None and not np.array_equal(idx, idx_cpu):
+                flipped.append(name)
+                continue
+            worst_r = max(worst_r, float(np.linalg.norm(c - c_cpu) / np.linalg.norm(c_cpu)))
+        check(worst_p <= 1e-2 and worst_r <= RECON_REL_L2 and len(flipped) <= 1,
+              f'CLI visualize_counterfactuals sample {VIS_SAMPLE_INDICES[0]} against the CPU on the same draws: '
+              f'probabilities max |diff| {worst_p:.2e} <= 1e-2, clouds of equal codes rel L2 {worst_r:.3e} <= '
+              f'{RECON_REL_L2}, clouds whose codes differ {flipped} (at most one)')
     finally:
         for k, v in saved_env.items():
             if v is None:
@@ -960,7 +1294,9 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
       ``TUNE_W_TRIALS`` trials over the CLI phase's checkpoints, its
       launches exactly ``TUNE_W_TRIALS`` times those of the stage-2 entry
       point; each study's sqlite rows (every trial COMPLETE with a finite
-      value and a report a epoch);
+      value and a report a epoch), the samplers seeded from ``seed``; then
+      ``plot_optimization_decoder`` and ``plot_optimization_w_decoder``
+      over the studies' storage (no plots without matplotlib);
     - the ModelNet reader's kNN precompute (``index_k_neighbours``) at the
       desk / table train split's size, ``ceil(778 / 64)`` kNN launches and
       nothing else, against the plain kNN, and the reader on h5 files this
@@ -976,8 +1312,10 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
     Returns the launches of the tuning path and of the readers' path."""
     import sqlite3
 
-    from pccf_torch import cli, tune_autoencoder, tune_w_autoencoder
-    from pccf_torch.config import paths
+    from pccf_torch import (cli, plot_optimization_decoder, plot_optimization_w_decoder, tune_autoencoder,
+                            tune_w_autoencoder, tuning as tuning_engine)
+    from pccf_torch.compose import compose
+    from pccf_torch.config import VERSION, paths
     from pccf_torch.data import synthetic
     from pccf_torch.data.dataset import get_dataset, get_datasets
     from pccf_torch.data.modelnet import ModelNet40Dataset, index_k_neighbours
@@ -1022,6 +1360,10 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
         check(ok, f'{label}: study {study} holds {len(rows)} trials of {n}, each COMPLETE with a finite value and '
                   f'{epochs} reports: {[(r[0], r[1], r[2]) for r in rows]}')
 
+    # the studies' samplers draw from --seed, so a run repeats its trials: with
+    # fresh entropy a sampled learning rate can send a 2-epoch trial past
+    # float32's range and its trial ends pruned, which no check here foresees
+    sampler_seed = f'+tune.seed={seed}'
     try:
         # ---- tuning: stage 1 -------------------------------------------------
         Singleton.reset_all()
@@ -1031,7 +1373,7 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
         out, stage1, ref_s = counted(dict.fromkeys(KERNEL_INFO, 0), lambda: autoencoder.main(args))
         use_root('main')
         study, counts, tune_s = counted(tuning, lambda: tune_autoencoder.main(
-            ['tune=learn', f'tune.n_trials={TUNE_TRIALS}', f'db_location={db}', quoted(args)]))
+            ['tune=learn', f'tune.n_trials={TUNE_TRIALS}', f'db_location={db}', sampler_seed, quoted(args)]))
         want = {k: TUNE_TRIALS * v for k, v in stage1.items()}
         check(counts == want, f'tune_autoencoder tune=learn, {TUNE_TRIALS} trials of 2 epochs: {tune_s:.2f} s '
                               f'(the stage alone {ref_s:.2f} s); launches {nonzero(counts)} == {TUNE_TRIALS} x the '
@@ -1040,7 +1382,7 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
         print(f'tune_autoencoder trials: {json.dumps([(t.params, t.value) for t in study.get_trials()])}',
               flush=True)
         study, counts, arch_s = counted(tuning, lambda: tune_autoencoder.main(
-            ['tune=decoder', 'tune.n_trials=1', f'db_location={db}', quoted(args)]))
+            ['tune=decoder', 'tune.n_trials=1', f'db_location={db}', sampler_seed, quoted(args)]))
         missing = [k for k in TRAINING_KERNELS + ('chamfer_match_cost',) if not counts[k]]
         check(not missing, f'tune_autoencoder tune=decoder, 1 trial: {arch_s:.2f} s, params '
                            f'{json.dumps(study.get_trials()[0].params)}; launches {nonzero(counts)} (none of the '
@@ -1050,13 +1392,29 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
         # ---- tuning: stage 2, over the CLI phase's checkpoints ---------------
         w_args = [*args, f'variation={cli.parse_args(args)[0].name}']
         study, counts, tune_w_s = counted(tuning, lambda: tune_w_autoencoder.main(
-            ['tune=learn', f'tune.n_trials={TUNE_W_TRIALS}', f'db_location={db}', quoted(w_args)]))
+            ['tune=learn', f'tune.n_trials={TUNE_W_TRIALS}', f'db_location={db}', sampler_seed, quoted(w_args)]))
         _, stage2, ref2_s = counted(dict.fromkeys(KERNEL_INFO, 0), lambda: w_autoencoder.main(args))
         want = {k: TUNE_W_TRIALS * v for k, v in stage2.items()}
         check(counts == want, f'tune_w_autoencoder tune=learn, {TUNE_W_TRIALS} trials of 2 epochs over the CLI '
                               f'phase\'s models: {tune_w_s:.2f} s (the stage alone {ref2_s:.2f} s); launches '
                               f'{nonzero(counts)} == {TUNE_W_TRIALS} x the stage-2 entry point\'s {nonzero(stage2)}')
         stored(study.study_name, TUNE_W_TRIALS, 'tune_w_autoencoder', 'w_autoencoder_optimization')
+
+        # ---- the plot entry points over the studies' storage -----------------
+        # the stage-1 decoder study holds the trial above; the stage-2
+        # w_decoder study none (the phase runs stage 2's learning space).  The
+        # card's machine has no matplotlib: each draws nothing, with a log line
+        for module, group, over, n in ((plot_optimization_decoder, 'decoder', args, 1),
+                                       (plot_optimization_w_decoder, 'w_decoder', w_args, 0)):
+            argv = [f'db_location={db}', quoted(over)]
+            drawn = module.main(argv)
+            tune_cfg = compose(module.TUNING_DIR, 'defaults', overrides=[f'tune={group}', *argv])
+            name = tuning_engine.get_study_name(f'v{VERSION}', 'main', tune_cfg['tune']['study_name'],
+                                                tune_cfg.get('overrides', []))
+            trials = tuning_engine.create_study(name, tune_cfg['storage']).get_trials()
+            check(len(trials) == n and all(pth.is_file() for pth in drawn),
+                  f'plot_optimization_{group}: study {name} read back with {len(trials)} trial(s) == {n}; '
+                  f'{len(drawn)} plot(s) drawn (none without matplotlib)')
 
         # ---- the ModelNet reader ---------------------------------------------
         n_clouds, n_points, k = MODELNET_SPLIT
@@ -2019,6 +2377,11 @@ def main() -> int:
     torch.cuda.synchronize()
     check(server.stats == before, f'warmup over buckets {server.buckets} in {time.perf_counter() - t0:.2f} s: '
                                   f'stats {server.stats} as before')
+
+    # ---- the main path, serving with the bf16 weight cast ----------------
+    t_cast = time.perf_counter()
+    cast_launches = cast_phase(args.seed, check, dev, cfg, vqvae, classifier, server, requests, kernels, bound)
+    print(f'cast phase: {time.perf_counter() - t_cast:.1f} s', flush=True)
 
     # ---- the main path, generation: sampling from the prior --------------
     # server.generate at n = 1, 16 and 70 (chunks of 64 and 6, the second at
@@ -3225,15 +3588,16 @@ def main() -> int:
     print(f'launches: serving {json.dumps(launches)}; stage-1 ChamferEMD steps {json.dumps(train_launches)}; '
           f'stage 2 {json.dumps(stage2_launches)}; stage-1 Chamfer and ChamferSinkhorn steps and entry point '
           f'{json.dumps(objective_launches)}; classifier steps and entry point {json.dumps(classifier_launches)}; '
-          f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}; the five '
+          f'evaluation suites {json.dumps(suite_launches)}; generation {json.dumps(gen_launches)}; the '
           f'entry points {json.dumps({k: v for k, v in cli_launches.items() if v})}; tuning '
           f'{json.dumps({k: v for k, v in tune_launches.items() if v})}; the readers '
-          f'{json.dumps({k: v for k, v in reader_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in reader_launches.items() if v})}; bf16 cast serving '
+          f'{json.dumps({k: v for k, v in cast_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
-             gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches)
+             gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
-          'variants A / B / C / D / E / CLI pipeline / tuning / readers', flush=True)
+          'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving', flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

@@ -237,6 +237,16 @@ class GenerateConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PlotConfig:
+    """Rendering (user/user_settings.yaml:36-39): ``visualize_counterfactuals``
+    renders the test (or, outside ``final``, validation) samples at
+    ``sample_indices``; ``interactive`` adds the HTML orbit viewer."""
+
+    interactive: bool = False
+    sample_indices: tuple[int, ...] = (0, 9, 16, 20, 25, 34, 39, 44, 46, 66, 91, 98)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrackerConfig:
     """user/user_settings.yaml:13-18"""
 
@@ -253,6 +263,7 @@ class UserConfig:
     # class probabilities towards the target (1: all the way)
     counterfactual_value: float = 1.0
     generate: GenerateConfig = GenerateConfig()  # user/user_settings.yaml:25
+    plot: PlotConfig = PlotConfig()  # user/user_settings.yaml:37
     seed: int | None = None  # user/user_settings.yaml:3
     cpu: bool = False  # user/user_settings.yaml:6; the card unless set
     n_workers: int = 0  # user/user_settings.yaml:7
@@ -372,11 +383,14 @@ class SliceConfig:
             conditional_w_encoder=_net(wm['conditional_w_encoder']),
             train=WAutoEncoderTrainConfig(c_kld1=float(w['objective']['c_kld1']),
                                           c_kld2=float(w['objective']['c_kld2']), **_learn(w['train'])))
-        g, t = u['generate'], u['trackers']
+        g, t, pl = u['generate'], u['trackers'], u['plot']
+        _check(all(int(i) >= 0 for i in pl['sample_indices']), 'user.plot.sample_indices must be non-negative')
         user = UserConfig(
             counterfactual_value=float(u['counterfactual_value']),
             generate=GenerateConfig(batch_size=int(g['batch_size']), bias_dim=int(g['bias_dim']),
                                     bias_value=float(g['bias_value'])),
+            plot=PlotConfig(interactive=bool(pl['interactive']),
+                            sample_indices=tuple(int(i) for i in pl['sample_indices'])),
             seed=None if u['seed'] is None else int(u['seed']), cpu=bool(u['cpu']), n_workers=int(u['n_workers']),
             checkpoint_every=int(u['checkpoint_every']), load_checkpoint=int(u.get('load_checkpoint', -1)),
             trackers=TrackerConfig(**{k: bool(t[k]) for k in ('hydra', 'tensorboard', 'wandb', 'sqlalchemy', 'csv')}))

@@ -48,6 +48,20 @@
 // ~2e-7. The tile is 128x128 where that gives the 132 SMs a full wave, else
 // 128x64, else 64x64 (the block count of a 64x64 grid, 32 at M = 256, N = 512).
 //
+// The bf16-weight instance (pccf_gemm_bf16w, the same kernel with kBf16W):
+// the server's bf16 cast keeps the stacks' projection and FF weights in
+// bfloat16 (pccf/serve.py:216-220 _cast), and the product is float32
+// arithmetic on those rounded weights, as JAX computes it (an f32 activation
+// times a bf16 parameter promotes to f32).  The producer loads each weight
+// tile as bf16 by TMA (32 x BN, 64-byte rows, unswizzled), half the bytes of
+// the fp32 weight and a quarter of the fp32 weight and its small part; the
+// consumer warpgroups widen it into the 128-byte-swizzled fp32 tile the
+// tensor cores read (a bf16 value is the top 16 bits of its fp32 word), fence
+// the generic-proxy writes for the async proxy and meet at a named barrier
+// before the products.  A bf16 value has 8 significant bits and TF32 11, so
+// the widened tile is its own TF32 big part with no small part: the 3xTF32
+// product needs two MMAs, small(A)·B + big(A)·B, not three.
+//
 // Attention design (attention_kernel): a block holds 64 queries of one
 // (batch, head), their 3xTF32 fragments in registers, and walks the keys in
 // tiles of 64 with K and V double-buffered in 68 KB of shared memory by
@@ -88,8 +102,8 @@ constexpr int kMaxGroups = 3, kBk = 32, kStages = 4;
 
 struct GemmArgs {
   CUtensorMap a;                     // A (M, K), boxes of 32 x (64 * warpgroups)
-  CUtensorMap wt[kMaxGroups];        // Wt_g (N, K), boxes of 32 x BN
-  CUtensorMap wt_small[kMaxGroups];  // the TF32 small parts of Wt_g
+  CUtensorMap wt[kMaxGroups];        // Wt_g (N, K), boxes of 32 x BN, fp32 or (kBf16W) bf16
+  CUtensorMap wt_small[kMaxGroups];  // the TF32 small parts of fp32 Wt_g (unused for bf16 weights)
   const float* bias[kMaxGroups];
   float* out[kMaxGroups];
   const float* res;
@@ -136,10 +150,43 @@ __device__ __forceinline__ void store_tile(const float (&acc)[kBn / 2], const Ge
   }
 }
 
-template <int kWg, int kBn>
+// the bytes of one pipeline stage: A, the fp32 B tile the tensor cores read,
+// and B's TF32 small part (fp32 weights) or the bf16 tile TMA loads (kBf16W)
+template <int kWg, int kBn, bool kBf16W>
+struct GemmStage {
+  static constexpr int a = 64 * kWg * kBk * 4, b = kBn * kBk * 4, b2 = kBf16W ? kBn * kBk * 2 : b;
+  static constexpr int bytes = a + b + b2;
+  static constexpr int loaded = a + b2 + (kBf16W ? 0 : b);  // what TMA writes
+  static constexpr int smem = kStages * bytes + 1024 + 2 * kStages * 8;
+};
+
+// widen the staged bf16 tile (kBn rows of 32, 64-byte rows) into the
+// swizzled fp32 tile: 8 values a thread at a time, row r's columns 8 c8 .. 8 c8
+// + 7 to the 16-byte chunks 2 c8 and 2 c8 + 1 of the row, each at chunk index
+// ^ (r % 8) as TMA's 128-byte swizzle places them
+template <int kBn, int kThreads>
+__device__ __forceinline__ void widen_bf16_tile(float* dst, const uint4* src, int tid) {
+#pragma unroll
+  for (int e = tid; e < kBn * 4; e += kThreads) {
+    const int r = e >> 2, c8 = e & 3;
+    const uint4 v = src[e];  // little-endian: the low half of each word is the earlier column
+    const float4 lo = make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xFFFF0000u),
+                                  __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xFFFF0000u));
+    const float4 hi = make_float4(__uint_as_float(v.z << 16), __uint_as_float(v.z & 0xFFFF0000u),
+                                  __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xFFFF0000u));
+    *reinterpret_cast<float4*>(dst + r * 32 + (((2 * c8) ^ (r & 7)) << 2)) = lo;
+    *reinterpret_cast<float4*>(dst + r * 32 + (((2 * c8 + 1) ^ (r & 7)) << 2)) = hi;
+  }
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <int kWg, int kBn, bool kBf16W>
 __global__ void __launch_bounds__(kWg * 128 + 32, 1) gemm_kernel(const __grid_constant__ GemmArgs args) {
-  constexpr int kBm = 64 * kWg;
-  constexpr int kABytes = kBm * kBk * 4, kBBytes = kBn * kBk * 4, kStageBytes = kABytes + 2 * kBBytes;
+  using S = GemmStage<kWg, kBn, kBf16W>;
+  constexpr int kABytes = S::a, kBBytes = S::b, kStageBytes = S::bytes, kBm = 64 * kWg;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
@@ -164,10 +211,14 @@ __global__ void __launch_bounds__(kWg * 128 + 32, 1) gemm_kernel(const __grid_co
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) + 1) & 1);
         uint8_t* st = smem + s * kStageBytes;
-        mbar_expect_tx(&full[s], kStageBytes);
+        mbar_expect_tx(&full[s], S::loaded);
         tma_load_2d(st, &args.a, &full[s], kt * kBk, m0);
-        tma_load_2d(st + kABytes, &args.wt[group], &full[s], kt * kBk, n0);
-        tma_load_2d(st + kABytes + kBBytes, &args.wt_small[group], &full[s], kt * kBk, n0);
+        if constexpr (kBf16W) {
+          tma_load_2d(st + kABytes + kBBytes, &args.wt[group], &full[s], kt * kBk, n0);
+        } else {
+          tma_load_2d(st + kABytes, &args.wt[group], &full[s], kt * kBk, n0);
+          tma_load_2d(st + kABytes + kBBytes, &args.wt_small[group], &full[s], kt * kBk, n0);
+        }
       }
     }
     return;
@@ -202,11 +253,21 @@ __global__ void __launch_bounds__(kWg * 128 + 32, 1) gemm_kernel(const __grid_co
       }
     }
     const uint64_t db = desc_sw128(st + kABytes), dbs = desc_sw128(st + kABytes + kBBytes);
+    if constexpr (kBf16W) {
+      // every consumer thread widens its share of the tile; the fence orders
+      // its writes before the tensor cores' reads, the barrier waits for all
+      widen_bf16_tile<kBn, kWg * 128>(reinterpret_cast<float*>(const_cast<uint8_t*>(st + kABytes)),
+                                      reinterpret_cast<const uint4*>(st + kABytes + kBBytes), threadIdx.x);
+      fence_proxy_async();
+      named_barrier(1, kWg * 128);
+    }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_small[kk], db + 2 * kk, kk > 0);  // small(A) · big(B)
+    if constexpr (!kBf16W) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_big[kk], dbs + 2 * kk, 1);  // big(A) · small(B)
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_big[kk], dbs + 2 * kk, 1);  // big(A) · small(B)
+    }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_rs(part, a_big[kk], db + 2 * kk, 1);  // big(A) · big(B)
     wgmma_commit();
@@ -669,6 +730,8 @@ __global__ void __launch_bounds__(128, 1)
 
 // ------------------------------------------------------ host: GEMM launch
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 // a (rows, cols) row-major fp32 matrix in boxes of 32 columns x box_rows rows,
 // 128-byte swizzled
 bool encode(EncodeTiled fn, CUtensorMap* map, const float* ptr, int rows, int cols, int box_rows) {
@@ -681,22 +744,40 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const float* ptr, int rows, int co
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int kWg, int kBn>
+// a (rows, cols) row-major bf16 matrix in boxes of 32 columns x box_rows rows,
+// unswizzled (64-byte rows: the consumers swizzle as they widen)
+bool encode_bf16(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBk, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ops: the groups' weights, then (fp32 weights only) their small parts, then
+// the biases, then the outputs
+template <int kWg, int kBn, bool kBf16W>
 int launch_gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K,
                 int res_rows, int gelu, cudaStream_t stream) {
-  constexpr int smem = kStages * (64 * kWg + 2 * kBn) * kBk * 4 + 1024 + 2 * kStages * 8;
+  constexpr int smem = GemmStage<kWg, kBn, kBf16W>::smem;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(gemm_kernel<kWg, kBn>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(gemm_kernel<kWg, kBn, kBf16W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   GemmArgs args = {};
   bool ok = encode(fn, &args.a, a, M, K, 64 * kWg);
+  const int per = kBf16W ? 3 : 4;  // pointers of one group in ops
   for (int i = 0; i < groups; ++i) {
-    ok = ok && encode(fn, &args.wt[i], static_cast<const float*>(ops[i]), N, K, kBn) &&
-         encode(fn, &args.wt_small[i], static_cast<const float*>(ops[groups + i]), N, K, kBn);
-    args.bias[i] = static_cast<const float*>(ops[2 * groups + i]);
-    args.out[i] = static_cast<float*>(const_cast<void*>(ops[3 * groups + i]));
+    if (kBf16W)
+      ok = ok && encode_bf16(fn, &args.wt[i], ops[i], N, K, kBn);
+    else
+      ok = ok && encode(fn, &args.wt[i], static_cast<const float*>(ops[i]), N, K, kBn) &&
+           encode(fn, &args.wt_small[i], static_cast<const float*>(ops[groups + i]), N, K, kBn);
+    args.bias[i] = static_cast<const float*>(ops[(per - 2) * groups + i]);
+    args.out[i] = static_cast<float*>(const_cast<void*>(ops[(per - 1) * groups + i]));
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   args.res = res;
@@ -705,11 +786,27 @@ int launch_gemm(const float* a, int groups, const void* const* ops, const float*
   args.gelu = gelu;
   args.k_tiles = K / kBk;
   args.n_tiles = N / kBn;
-  gemm_kernel<kWg, kBn><<<dim3(groups * (N / kBn), M / (64 * kWg)), kWg * 128 + 32, smem, stream>>>(args);
+  gemm_kernel<kWg, kBn, kBf16W><<<dim3(groups * (N / kBn), M / (64 * kWg)), kWg * 128 + 32, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+// the guard both instances share and the tile choice: 128x128 where that
+// gives the 132 SMs a full wave, else 128x64, else 64x64
+template <bool kBf16W>
+int gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K, int res_rows,
+         int gelu, cudaStream_t stream) {
+  bool ok = groups >= 1 && groups <= kMaxGroups && M % 64 == 0 && N % 64 == 0 && K % kBk == 0 && M > 0 && N > 0 &&
+            K > 0 && aligned16(a) && (!res || res_rows > 0);
+  for (int i = 0; ok && i < (kBf16W ? 1 : 2) * groups; ++i) ok = aligned16(ops[i]);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (!res) res_rows = M;
+  const long long row_tiles = (long long)groups * (M / 128);
+  if (M % 128 == 0 && N % 128 == 0 && row_tiles * (N / 128) >= 132)
+    return launch_gemm<2, 128, kBf16W>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+  if (M % 128 == 0 && row_tiles * (N / 64) >= 132)
+    return launch_gemm<2, 64, kBf16W>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+  return launch_gemm<1, 64, kBf16W>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+}
 
 template <int kHd, bool kPad>
 int launch_attention(const float* q, int q_stride, const float* k, const float* v, int kv_stride, float* out,
@@ -745,17 +842,14 @@ int launch_attention_wide(const float* q, int q_stride, const float* k, const fl
 // (may be null), then out_g (M, N).
 extern "C" int pccf_gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K,
                          int res_rows, int gelu, cudaStream_t stream) {
-  bool ok = groups >= 1 && groups <= kMaxGroups && M % 64 == 0 && N % 64 == 0 && K % kBk == 0 && M > 0 && N > 0 &&
-            K > 0 && aligned16(a) && (!res || res_rows > 0);
-  for (int i = 0; ok && i < 2 * groups; ++i) ok = aligned16(ops[i]);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  if (!res) res_rows = M;
-  const long long row_tiles = (long long)groups * (M / 128);
-  if (M % 128 == 0 && N % 128 == 0 && row_tiles * (N / 128) >= 132)
-    return launch_gemm<2, 128>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
-  if (M % 128 == 0 && row_tiles * (N / 64) >= 132)
-    return launch_gemm<2, 64>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
-  return launch_gemm<1, 64>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+  return gemm<false>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
+}
+
+// the same with bf16 weights: ops is a host array of 3 * groups device
+// pointers, wt_g (N, K) bf16, then bias_g (fp32, may be null), then out_g (M, N)
+extern "C" int pccf_gemm_bf16w(const float* a, int groups, const void* const* ops, const float* res, int M, int N,
+                               int K, int res_rows, int gelu, cudaStream_t stream) {
+  return gemm<true>(a, groups, ops, res, M, N, K, res_rows, gelu, stream);
 }
 
 // dst_i[j] = the TF32 small part of src_i[j], j < n_i, for i < count

@@ -2,21 +2,26 @@
 
 The entry point loads the VQ-VAE of the current experiment's checkpoints,
 samples z1 and z2 from the priors (the Dirichlet class condition on the
-conditional model), decodes them through the codebook and PCGen, and
-returns the clouds.  Rendering them (``render_cloud``, matplotlib) is not
-ported.
+conditional model), decodes them through the codebook and PCGen, renders
+each cloud into ``<version_dir>/images/<name>/generated/<i>.png``
+(:func:`pccf_torch.utils.visualization.render_cloud`: the HTML viewer too
+with ``user.plot.interactive``, the viewer alone where matplotlib is
+missing) and returns the clouds.
 
     python -m pccf_torch.generate data/dataset=synthetic user.cpu=true
 """
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 import torch
 
 from pccf_torch import cli
-from pccf_torch.config import SliceConfig
+from pccf_torch.config import SliceConfig, paths
 from pccf_torch.models.autoencoders import VQVAE
+from pccf_torch.utils.visualization import render_cloud
 
 
 def generate_random_samples(cfg: SliceConfig, vqvae: VQVAE, seed: int = 0,
@@ -45,7 +50,16 @@ def stage(cfg: SliceConfig, device: torch.device) -> np.ndarray:
     _, vqvae = load_models(cfg, device)
     clouds = generate_random_samples(cfg, vqvae, cfg.user.seed or 0, device)
     print(f'generated {clouds.shape[0]} clouds of {clouds.shape[1]} points')
+    save_dir = images_dir(cfg) / 'generated'
+    for i, cloud in enumerate(clouds):
+        render_cloud((cloud,), title=str(i), interactive=cfg.user.plot.interactive, save_dir=save_dir)
     return clouds
+
+
+def images_dir(cfg: SliceConfig) -> pathlib.Path:
+    """Where the entry points render: ``<version_dir>/images/<name>``
+    (``generate.py:22``, ``visualize_counterfactuals.py:31``)."""
+    return paths().version_dir / 'images' / cfg.name
 
 
 def main(argv: list[str] | None = None) -> np.ndarray:

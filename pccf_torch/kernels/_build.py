@@ -48,6 +48,7 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_pcgen_general': (P, P, P, P, P, I, P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     'pccf_pcgen_general_scratch': (I, I, I, I, P, I),
     'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),
+    'pccf_gemm_bf16w': (P, I, P, P, I, I, I, I, I, P),
     'pccf_tf32_split': (P, P, P, I, P),
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),
     'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),

@@ -29,6 +29,7 @@ KERNELS = {
     'chamfer_match_cost': emd.chamfer_match_cost_cuda,
     'wformer_encoder': wformer.wformer_encoder_cuda,
     'wformer_decoder': wformer.wformer_decoder_cuda,
+    'gemm_bf16w': wformer.gemm_bf16w_cuda,  # each bf16-weight GEMM of the stacks (the server's bf16 cast)
     'nn_distance': chamfer_mod.nn_distance_cuda,
     'sinkhorn_cost': sinkhorn.sinkhorn_cost_cuda,
     'graph_filter': graph_filter.graph_filter_cuda,

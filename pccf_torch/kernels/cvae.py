@@ -21,6 +21,13 @@ the folds transposed and padded, copies of the stacks' layers, and the TF32
 small part of each of their matrices.  The folds are a snapshot already, and
 copying the layers keeps each matrix and its small part from drifting apart
 if the live weights change.
+
+Under the server's bf16 cast (:func:`pccf_torch.serve.bf16_copy`) the
+stacks' matrices stay bfloat16 in the pack, as the parameters store them,
+and so do the unfolded input projections and the compress head in the CUDA
+snapshot (exactly: their values are bf16's); the GEMMs read them through
+``pccf_gemm_bf16w``.  The folds are products, computed in float32 from the
+rounded parameters, and stay float32.
 """
 
 from __future__ import annotations
@@ -63,28 +70,31 @@ class CVAEPack:
     wp: torch.Tensor  # (C, d)
     bp: torch.Tensor  # (d,)
     heads: tuple[int, int, int]
+    bf16: bool = False  # the stacks' matrices are bf16 (the server's cast)
     _cuda: dict | None = dataclasses.field(default=None, repr=False)
 
     def cuda_operands(self) -> dict:
         """The folded weights as ``(out, in)`` contiguous fp32 for the GEMM
         kernel, built on first use, token input and compress head
-        zero-padded; under ``'enc1'``, ``'enc2'`` and ``'dec'`` copies of the
-        stacks' layers; under ``'weights'`` every matrix the GEMMs read, and
-        under ``'small'`` their TF32 small parts
+        zero-padded (bf16 under the cast, the folds fp32); under ``'enc1'``,
+        ``'enc2'`` and ``'dec'`` copies of the stacks' layers; under
+        ``'weights'`` every matrix the GEMMs read, and under ``'small'`` the
+        TF32 small parts of the fp32 ones
         (:func:`pccf_torch.kernels.wformer.split_small`)."""
         if self._cuda is None:
             def t(w):  # (in, out) -> (out, in)
                 return w.detach().T.contiguous()
 
             e = self.wcomp.shape[1]
+            stored = torch.bfloat16 if self.bf16 else self.wcomp.dtype
 
             def pad_in(w):  # (e, d) -> (d, e padded to IN_TILE)
-                out = torch.zeros(w.shape[1], _pad(e, IN_TILE), dtype=w.dtype, device=w.device)
+                out = torch.zeros(w.shape[1], _pad(e, IN_TILE), dtype=stored, device=w.device)
                 out[:, : w.shape[0]] = w.T
                 return out
 
             out_pad = _pad(e, OUT_TILE)
-            wcomp = torch.zeros(out_pad, self.wcomp.shape[0], dtype=self.wcomp.dtype, device=self.wcomp.device)
+            wcomp = torch.zeros(out_pad, self.wcomp.shape[0], dtype=stored, device=self.wcomp.device)
             wcomp[:e] = self.wcomp.T
             bcomp = torch.zeros(out_pad, dtype=self.bcomp.dtype, device=self.bcomp.device)
             bcomp[:e] = self.bcomp
@@ -97,7 +107,8 @@ class CVAEPack:
             weights = [self._cuda[name] for name in ('win1', 'aw', 'win2', 'bw', 'wcomp')]
             weights += stack_weights(self._cuda['enc1'] + self._cuda['enc2'] + self._cuda['dec'])
             self._cuda['weights'] = weights
-            self._cuda['small'] = split_small(weights)
+            fp32 = [w for w in weights if w.dtype == torch.float32]
+            self._cuda['small'] = split_small(fp32) if fp32 else {}
         return self._cuda
 
 
@@ -136,12 +147,14 @@ def pack_cvae_cf(wae) -> CVAEPack:
 
     wcomp, bcomp = _lin(dec.compress.dense)
     wp, bp = _lin(post.prob_proj.dense)
+    enc1, enc2, dec_layers = pack_encoder(enc.layers), pack_encoder(post.layers), pack_decoder(dec.layers)
     return CVAEPack(
-        win1=win1, add1=add1, enc1=pack_encoder(enc.layers),
-        aw=aw, ab=ab, win2=win2, add2=add2, enc2=pack_encoder(post.layers),
-        bw=bw, addd=addd, dec=pack_decoder(dec.layers),
+        win1=win1, add1=add1, enc1=enc1,
+        aw=aw, ab=ab, win2=win2, add2=add2, enc2=enc2,
+        bw=bw, addd=addd, dec=dec_layers,
         wcomp=wcomp, bcomp=bcomp, prior_z2p=prior_z2p, wp=wp, bp=bp,
         heads=(enc.n_heads, post.n_heads, dec.n_heads),
+        bf16=any(w.dtype == torch.bfloat16 for w in stack_weights(enc1 + enc2 + dec_layers)),
     )
 
 

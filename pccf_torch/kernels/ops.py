@@ -375,17 +375,6 @@ def leaky(x: Tensor, slope: float) -> Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
-def fold_bn_affine(
-    weight: Tensor, scale: Tensor, bias: Tensor, mean: Tensor, var: Tensor, eps: float = 1e-5
-) -> tuple[Tensor, Tensor]:
-    """Fold a running-stat BatchNorm into the preceding dense weight
-    (``pccf/kernels/pallas_pcgen.py:223``): ``a = γ / √(σ² + ε)``,
-    ``W' = W · a`` (rows of the torch ``(…, out, in)`` layout),
-    ``b' = β − μ · a``.  Stays float32; the kernel wrapper rounds."""
-    a = scale * torch.rsqrt(var + eps)
-    return weight * a[..., :, None], bias - mean * a
-
-
 # ------------------------------------------------------------------ PCGen mix
 
 
@@ -412,7 +401,8 @@ def pcgen_mix(
         w: ``(B, D0)`` latent.
         map_w / map_b: ``(D0, Dm)`` / ``(D0,)`` Hardtanh map head.
         layer_ws / layer_bs: per layer ``(G, Dout, Din)`` / ``(G, Dout)``,
-            BatchNorm folded in (:func:`fold_bn_affine`).
+            BatchNorm folded in (``PCGenDecoder.pack``: ``W · a``, ``β − μ · a``
+            with ``(a, β − μ · a)`` of ``BatchNorm.affine``).
         head_w / head_b: ``(G, 3, D_last)`` / ``(G, 3)``.
         att_w / att_b: ``(G, G * D_last)`` / ``(G,)``.
 
@@ -466,7 +456,8 @@ def attention(q: Tensor, k: Tensor, v: Tensor, n_heads: int, weight_scale: Tenso
 
 
 def _dense(x: Tensor, p: dict, name: str) -> Tensor:
-    return F.linear(x, p[f'w{name}'], p[f'b{name}'])
+    # a bf16 weight (the server's cast) widens exactly: f32 arithmetic on the rounded weight
+    return F.linear(x, p[f'w{name}'].float(), p[f'b{name}'])
 
 
 def _feed_forward(x: Tensor, p: dict) -> Tensor:

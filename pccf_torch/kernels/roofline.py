@@ -177,13 +177,15 @@ def pcgen_general_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
     return Work(work.ops, work.bytes + 2 * sum(lw.numel() for lw in pack.layer_ws), TF32)
 
 
-def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0) -> Work:
+def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0,
+              weight_bytes: int = F32) -> Work:
     """One ``pccf_gemm`` launch: ``groups`` products ``(m, k) · (k, n)``, 2·m·n·k
     operations each as :func:`_stack_ops` counts them (the epilogue's adds
-    and GELU uncounted); ``a``, the weights, biases and ``res_rows`` rows of
-    the residual read once, the outputs written once."""
-    read = m * k + groups * (n * k + (n if bias else 0)) + res_rows * n
-    return Work(2.0 * groups * m * n * k, F32 * (read + groups * m * n), TF32)
+    and GELU uncounted); ``a``, the weights (``weight_bytes`` an element: 2
+    for ``pccf_gemm_bf16w``), biases and ``res_rows`` rows of the residual
+    read once, the outputs written once."""
+    read = F32 * (m * k + groups * (n if bias else 0) + res_rows * n) + weight_bytes * groups * n * k
+    return Work(2.0 * groups * m * n * k, read + F32 * groups * m * n, TF32)
 
 
 def attention_work(b: int, t_q: int, t_k: int, n_heads: int, head_dim: int) -> Work:

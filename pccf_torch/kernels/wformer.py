@@ -22,7 +22,13 @@ launchers.
 The pack is a list of per-layer dicts of the live module weights, each in
 its ``nn.Linear``'s own ``(out, in)`` layout: detached views, no copies, so
 packing on every eval call costs nothing and no pack outlives a training
-step.  Differing FF widths need no padding: each layer's GEMMs take its own
+step.  A server's bf16 cast (:func:`pccf_torch.serve.bf16_copy`) stores the
+weights in bfloat16 behind a widening parametrisation: the pack then holds
+the stored bf16 matrices (:func:`stored`), and the GEMM reads them through
+its bf16-weight instance (``pccf_gemm_bf16w``: half the bytes of an fp32
+weight, two TF32 products instead of three, since a bf16 value is exact in
+TF32), while LayerNorm parameters and biases are widened to fp32.
+Differing FF widths need no padding: each layer's GEMMs take its own
 width.  The GEMM takes widths in multiples of 64; a layer whose FF width is
 not one packs a zero-padded copy of its FF weights instead (zero rows of the
 first, zero bias, zero columns of the second: the exact GELU of 0 is 0, so
@@ -35,6 +41,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.nn.utils import parametrize
 
 from pccf_torch.kernels import _build, ops
 
@@ -56,13 +63,23 @@ def supported(t: int, d: int, n_heads: int) -> bool:
 # ------------------------------------------------------------------ pack
 
 
+def stored(module: torch.nn.Module, name: str) -> torch.Tensor:
+    """The tensor ``module`` stores under ``name``: under a parametrisation
+    (the server's bf16 cast) the stored original, not the widened value
+    ``getattr`` computes."""
+    if parametrize.is_parametrized(module, name):
+        return getattr(module.parametrizations, name).original.detach()
+    return getattr(module, name).detach()
+
+
 def _linears(prefix: str, linears: dict[str, torch.nn.Linear]) -> dict:
     """``w{prefix}{name}`` ``(out, in)`` and ``b{prefix}{name}`` of each
-    Linear, as the GEMM kernel reads them."""
+    Linear, as the GEMM kernel reads them: the weight as stored (fp32, or
+    bf16 under the server's cast), the bias fp32."""
     out = {}
     for name, linear in linears.items():
-        out[f'w{prefix}{name}'] = linear.weight.detach().contiguous()
-        out[f'b{prefix}{name}'] = linear.bias.detach()
+        out[f'w{prefix}{name}'] = stored(linear, 'weight').contiguous()
+        out[f'b{prefix}{name}'] = linear.bias.detach().float()
     return out
 
 
@@ -71,30 +88,32 @@ def _attn(attn, prefix: str = '') -> dict:
 
 
 def _ln(norm, name: str) -> dict:
-    return {f'{name}_w': norm.weight.detach(), f'{name}_b': norm.bias.detach()}
+    return {f'{name}_w': norm.weight.detach().float(), f'{name}_b': norm.bias.detach().float()}
 
 
 def _feed_forward(layer) -> dict:
     """The FF weights of a layer as the GEMM reads them: the live weights
     where the width is a multiple of :data:`FF_MULTIPLE`, else a zero-padded
-    copy kept on the layer while its parameters keep their storage and
-    version."""
+    copy (in the stored type) kept on the layer while its stored parameters
+    keep their storage and version."""
     d0, d1 = layer.dense_0, layer.dense_1
     f = d0.out_features
     if f % FF_MULTIPLE == 0:
         return _linears('', {'1': d0, '2': d1})
-    key = tuple((p.data_ptr(), p._version) for p in (d0.weight, d0.bias, d1.weight, d1.bias))
+    params = [stored(m, n) for m in (d0, d1) for n in ('weight', 'bias')]
+    key = tuple((p.data_ptr(), p._version) for p in params)
     cached = getattr(layer, '_ff_padded', None)
     if cached is None or cached[0] != key:
+        w0, b0, w1_, b1_ = params
         width = -(-f // FF_MULTIPLE) * FF_MULTIPLE
-        w1 = d0.weight.new_zeros(width, d0.in_features)
-        b1 = d0.bias.new_zeros(width)
-        w2 = d1.weight.new_zeros(d1.out_features, width)
+        w1 = w0.new_zeros(width, d0.in_features)
+        b1 = torch.zeros(width, dtype=torch.float32, device=b0.device)
+        w2 = w1_.new_zeros(d1.out_features, width)
         with torch.no_grad():
-            w1[:f] = d0.weight
-            b1[:f] = d0.bias
-            w2[:, :f] = d1.weight
-        cached = layer._ff_padded = (key, {'w1': w1, 'b1': b1, 'w2': w2, 'b2': d1.bias.detach()})
+            w1[:f] = w0
+            b1[:f] = b0
+            w2[:, :f] = w1_
+        cached = layer._ff_padded = (key, {'w1': w1, 'b1': b1, 'w2': w2, 'b2': b1_.float()})
     return dict(cached[1])
 
 
@@ -152,6 +171,19 @@ def stack_weights(pack: list[dict]) -> list[torch.Tensor]:
     return [v for p in pack for name, v in p.items() if name.startswith('w')]
 
 
+def gemm_plain(a: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor | None = None, res: torch.Tensor | None = None,
+               gelu: bool = False) -> torch.Tensor:
+    """What one group of ``pccf_gemm`` / ``pccf_gemm_bf16w`` computes, in
+    ``a``'s type (float32; float64 for a reference): ``a · wtᵀ + bias [GELU]
+    + res[row % rows(res)]``, a bf16 ``wt`` widened exactly."""
+    out = torch.nn.functional.linear(a, wt.to(a.dtype), bias)
+    if gelu:
+        out = ops.gelu_exact(out)
+    if res is not None:
+        out = out + res.repeat(a.shape[0] // res.shape[0], 1)
+    return out
+
+
 def split_small(weights: list[torch.Tensor]) -> dict[int, torch.Tensor]:
     """The TF32 small part of each weight by one ``pccf_tf32_split`` launch,
     keyed by the weight's ``data_ptr``: views into one buffer, each starting
@@ -199,9 +231,9 @@ class Stacks:
         self._scratch: dict[str, torch.Tensor] = {}
 
     def split(self, weights: list[torch.Tensor]) -> None:
-        """Split the TF32 small parts of the weights not split yet, in one
-        launch."""
-        new = {w.data_ptr(): w for w in weights if w.data_ptr() not in self.small}
+        """Split the TF32 small parts of the fp32 weights not split yet, in
+        one launch; a bf16 weight has none."""
+        new = {w.data_ptr(): w for w in weights if w.dtype == torch.float32 and w.data_ptr() not in self.small}
         if new:
             self.small.update(split_small(list(new.values())))
 
@@ -219,8 +251,14 @@ class Stacks:
         for every group ``g`` (at most 3, all ``(N, K)``) in one launch."""
         n, k = wts[0].shape
         m, groups = a.shape[0], len(wts)
-        if any(tuple(w.shape) != (n, k) for w in wts):
-            raise ValueError(f'pccf_gemm: the grouped weights differ in shape: {[tuple(w.shape) for w in wts]}')
+        if any(tuple(w.shape) != (n, k) or w.dtype != wts[0].dtype for w in wts):
+            raise ValueError(f'pccf_gemm: the grouped weights differ in shape or type: '
+                             f'{[(tuple(w.shape), w.dtype) for w in wts]}')
+        if wts[0].dtype == torch.bfloat16:
+            gemm_bf16w_cuda(self, a, wts, biases, outs, res, res_rows, gelu)
+            return
+        if wts[0].dtype != torch.float32:
+            raise ValueError(f'pccf_gemm: weights must be float32 or bfloat16, got {wts[0].dtype}')
         self.split(wts)
         ops = _pointers([*wts, *(self.small[w.data_ptr()] for w in wts), *biases, *outs])
         err = self.lib.pccf_gemm(a.data_ptr(), groups, ops, res.data_ptr() if res is not None else None,
@@ -283,6 +321,27 @@ class Stacks:
             self.self_attention(res, p, n_heads)
             self.cross_attention(res, memory, p, n_heads)
             self.feed_forward(res, p)
+
+
+def gemm_bf16w_cuda(stacks: Stacks, a, wts: list, biases: list, outs: list, res=None, res_rows: int = 0,
+                    gelu: bool = False) -> None:
+    """One launch of ``pccf_gemm_bf16w``: :meth:`Stacks.gemm` with bf16
+    weights, ``outs[g] = a · wts[g]ᵀ + biases[g] [GELU] + res[row %
+    res_rows]`` in float32 arithmetic on the weights widened exactly
+    (:func:`gemm_plain`).  Counts its launches: the server's bf16 cast runs
+    the CVAE chain's and the stacks' GEMMs through it."""
+    n, k = wts[0].shape
+    m, groups = a.shape[0], len(wts)
+    if not all(w.is_contiguous() for w in wts):
+        raise ValueError('pccf_gemm_bf16w: the weights must be contiguous')
+    ops = _pointers([*wts, *biases, *outs])
+    err = stacks.lib.pccf_gemm_bf16w(a.data_ptr(), groups, ops, res.data_ptr() if res is not None else None,
+                                     m, n, k, res_rows or m, int(gelu), stacks.stream)
+    _build.check('pccf_gemm_bf16w', err, f'M={m}, N={n}, K={k}, {groups} group(s)')
+    gemm_bf16w_cuda.launches += 1
+
+
+gemm_bf16w_cuda.launches = 0
 
 
 def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int]:

@@ -122,12 +122,14 @@ class PCGenDecoder(nn.Module):
 
     @torch.no_grad()
     def pack(self) -> PCGenPack:
-        """Fold each component layer's BatchNorm into its weight."""
+        """Fold each component layer's BatchNorm into its weight
+        (``pccf/kernels/pallas_pcgen.py:223``): ``W · a`` (rows of the torch
+        ``(…, out, in)`` layout) and ``β − μ · a``, ``a`` as the module
+        computes it (:meth:`~pccf_torch.nn.layers.BatchNorm.affine`)."""
         ws, bs = [], []
         for layer in self.components.conv:
-            bn = layer.bn
-            w, b = ops.fold_bn_affine(layer.dense.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
-            ws.append(w)
+            a, b = layer.bn.affine()
+            ws.append(layer.dense.weight * a[..., :, None])
             bs.append(b)
         heads = self.component_heads.dense
         return PCGenPack(

@@ -22,6 +22,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.utils import parametrize
 
 from pccf_torch.kernels import ops
 
@@ -107,8 +108,17 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         # flax order: (x − μ) · (γ · rsqrt(σ² + ε)) + β
-        a = self.weight * torch.rsqrt(var + self.eps)
+        a = self.scale(var)
         return (x - mean.view(view)) * a.view(view) + self.bias.view(view)
+
+    def scale(self, var: Tensor) -> Tensor:
+        """``γ · rsqrt(σ² + ε)`` as JAX computes it.  Under the server's bf16
+        cast (:func:`pccf_torch.serve.bf16_copy`) every JAX parameter is bf16:
+        its compiled graph rounds the sum and the rsqrt to bf16 and fuses the
+        product with γ into the float32 products that read it."""
+        if not parametrize.is_parametrized(self):
+            return self.weight * torch.rsqrt(var + self.eps)
+        return self.weight * torch.rsqrt((var + self.eps).to(torch.bfloat16).float()).to(torch.bfloat16).float()
 
     @torch.no_grad()
     def update_running(self, mean: Tensor, var: Tensor) -> None:
@@ -116,8 +126,9 @@ class BatchNorm(nn.Module):
         self.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
 
     def affine(self) -> tuple[Tensor, Tensor]:
-        """``(a, b)`` with ``bn(x) = x · a + b`` under the running statistics."""
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
+        """``(a, b)`` with ``bn(x) = x · a + b`` under the running statistics
+        (the EdgeConv and PCGen folds), ``a`` as :meth:`scale` computes it."""
+        a = self.scale(self.running_var)
         return a, self.bias - self.running_mean * a
 
 

@@ -22,18 +22,34 @@ Kept from the JAX server:
 - :meth:`CounterfactualServer.warmup`, which drives every entry point once
   per bucket and leaves ``stats`` as they were;
 - the weights the fused paths read are folded once, when the server starts
-  (the ``packed`` cache of ``serve.py:315-328``).
+  (the ``packed`` cache of ``serve.py:315-328``);
+- the opt-in bf16 weight cast (``cast_bf16``, ``serve.py:92-93, 216-220``):
+  the server serves a copy of the models whose float32 parameters and
+  buffers (BatchNorm statistics and the codebook included) are rounded to
+  bfloat16 and held so on the device (:func:`bf16_copy`); the caller's
+  models stay float32.  A module reads each one widened to float32 through a
+  parametrisation, so the activations and the arithmetic stay float32 on
+  the rounded values, as JAX's cast computes on the CPU (an f32 activation
+  and a bf16 parameter promote to f32).  The stacks' matrices stay bf16 in
+  the CVAE chain's pack and the W-decoder's, and the card's GEMM reads them
+  through its bf16-weight instance; the folds (the chain's head products,
+  PCGen's BatchNorm folds) are computed in float32 from the rounded values.
+  Arithmetic on parameters alone is bf16 in JAX's cast (all its operands are
+  bf16); where its compiled graph rounds it, BatchNorm's ``rsqrt(σ² + ε)``,
+  the port rounds it too (:meth:`pccf_torch.nn.layers.BatchNorm.scale`).
 
-The mesh and the bf16 weight cast are not ported yet.
+The mesh is not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import threading
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from pccf_torch.data.structures import Inputs
 from pccf_torch.models.w_autoencoders import GenerationNoise
@@ -56,6 +72,44 @@ def pad_batch(x: np.ndarray, b: int) -> np.ndarray:
     if x.shape[0] == b:
         return x
     return np.pad(x, [(0, b - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+
+
+class _Widen(torch.nn.Module):
+    """What a module reads of a tensor the cast stores in bf16: its float32
+    value, exactly."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float()
+
+
+def bf16_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``model`` in eval whose float32 parameters and buffers are
+    rounded to bfloat16 and stored so (``pccf/serve.py:216-220`` ``_cast``),
+    each behind a widening parametrisation: ``module.weight`` reads float32,
+    ``parametrizations.weight.original`` holds the bf16 values, and nothing
+    else keeps a float32 copy.  Folded packs are dropped from the copy, to
+    be folded again from the rounded values.  ``model`` is left as it was."""
+    model = copy.deepcopy(model).eval()
+    for module in list(model.modules()):
+        if getattr(module, 'packed', None) is not None:
+            module.packed = None
+        for kind in ('_parameters', '_buffers'):
+            for name, t in list(getattr(module, kind).items()):
+                if t is None or t.dtype != torch.float32:
+                    continue
+                rounded = t.detach().to(torch.bfloat16)
+                if kind == '_parameters':
+                    module._parameters[name] = torch.nn.Parameter(rounded, requires_grad=False)
+                else:
+                    module._buffers[name] = rounded
+                parametrize.register_parametrization(module, name, _Widen(), unsafe=True)
+    return model
+
+
+def stored_dtypes(model: torch.nn.Module) -> set[torch.dtype]:
+    """The types of the floating-point tensors ``model`` stores, parameters
+    and buffers: ``{torch.bfloat16}`` for a :func:`bf16_copy`."""
+    return {t.dtype for t in (*model.parameters(), *model.buffers()) if t.is_floating_point()}
 
 
 def _host_generator(entropy: list[int], spawn_key: tuple[int, ...] = ()) -> torch.Generator:
@@ -87,7 +141,8 @@ class CounterfactualServer:
     an optional classifier, both already on ``device``.  ``classify``,
     ``counterfactual``, ``generate``, ``submit`` and ``flush`` may be called
     from several threads; each public method runs in inference mode on the
-    thread that calls it (PyTorch keeps that mode per thread)."""
+    thread that calls it (PyTorch keeps that mode per thread).  With
+    ``cast_bf16`` the server serves :func:`bf16_copy` of both models."""
 
     def __init__(
         self,
@@ -95,10 +150,15 @@ class CounterfactualServer:
         classifier=None,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         seed: int = 0,
+        cast_bf16: bool = False,
     ) -> None:
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f'buckets must be ascending and unique, got {buckets}')
         self.buckets = tuple(int(b) for b in buckets)
+        self.cast_bf16 = bool(cast_bf16)
+        if self.cast_bf16:
+            vqvae = bf16_copy(vqvae)
+            classifier = bf16_copy(classifier) if classifier is not None else None
         self.vqvae = vqvae.eval()
         self.classifier = classifier.eval() if classifier is not None else None
         self.device = vqvae.codebook.device
@@ -113,6 +173,14 @@ class CounterfactualServer:
         self._stats_lock = threading.Lock()
         self.stats: dict[str, Any] = {'served': 0, 'batches': 0, 'padded': 0}
         vqvae.prepack()
+        if self.cast_bf16:
+            # never an f32 server under the cast's name
+            for name, model in (('vqvae', vqvae), ('classifier', classifier)):
+                if model is not None and stored_dtypes(model) - {torch.bfloat16}:
+                    raise RuntimeError(f'cast_bf16: the {name} stores {stored_dtypes(model)}')
+            pack = vqvae.w_autoencoder.packed
+            if pack is not None and not pack.bf16:
+                raise RuntimeError('cast_bf16: the CVAE chain packed fp32 stack weights')
 
     @classmethod
     def from_config(cls, cfg, device: torch.device | str, **kwargs) -> 'CounterfactualServer':

@@ -22,6 +22,8 @@ without those harness features; :func:`fit` is the core both run.
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 from pccf_torch import cli
@@ -30,10 +32,13 @@ from pccf_torch.data.dataset import get_datasets
 from pccf_torch.data.structures import Inputs, Targets
 from pccf_torch.models.autoencoders import VQVAE, build_vqvae
 from pccf_torch.nn.layers import init_for_training
-from pccf_torch.train.hooks import (DiscreteSpaceOptimizer, EarlyStoppingCallback, call_every, get_moving_average,
-                                    get_trailing_mean, saving_hook)
+from pccf_torch.train.hooks import (DiscreteSpaceOptimizer, EarlyStoppingCallback, TensorBoardLogReconstruction,
+                                    call_every, get_moving_average, get_trailing_mean, saving_hook)
 from pccf_torch.train.losses import get_autoencoder_loss, get_emd_loss, get_recon_loss
 from pccf_torch.train.runners import Diagnostic, Loader, Test, Trainer
+from pccf_torch.train.trackers import TrackerNotUsedError
+
+logger = logging.getLogger('pccf_torch')
 
 
 class _Clouds:
@@ -80,6 +85,11 @@ def fit(cfg: SliceConfig, vqvae: VQVAE, train_set, test_set, *, n_epochs: int, s
     codebook_hook = DiscreteSpaceOptimizer(Diagnostic(vqvae, train_loader, loss, seed=seed, model_name=name),
                                            cfg.autoencoder.vq_noise, n_epochs, seed)
     trainer.post_epoch_hooks.append(call_every(cfg.autoencoder.diagnose_every)(codebook_hook))
+    try:  # train_autoencoder.py:90-97: with a TensorBoard tracker on, every restart interval
+        trainer.post_epoch_hooks.append(
+            call_every(tcfg.scheduler.restart_interval)(TensorBoardLogReconstruction(train_set)))
+    except (TrackerNotUsedError, ImportError) as err:
+        logger.info('reconstruction logs skipped: %s', err)
     if early_stopping:
         es = tcfg.early_stopping
         trainer.post_epoch_hooks.append(

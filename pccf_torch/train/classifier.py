@@ -7,10 +7,13 @@ drops out in its head with masks from the trainer's generator.  A
 validation pass over the test set follows every epoch unless ``final``,
 then the final test keeps its logits, from which come the predictions, the
 confusion matrix and the misclassified indices, printed as the JAX entry
-point prints them without TensorBoard (the confusion-matrix figure is not
-ported).  Early stopping (``classifier/train/early_stopping``: window 5,
-patience 10 in the flagship) stops training unless ``final``; checkpoints
-are saved every ``user.checkpoint_every`` epochs and at the end, and
+point prints them without TensorBoard; with a TensorBoard tracker on, the
+confusion-matrix heatmap and the misclassified indices also go to it as a
+figure and a text (``train_classifier.py:86-100``; skipped with a log line
+where the tracker, tensorboardX or matplotlib is missing).  Early stopping
+(``classifier/train/early_stopping``: window 5, patience 10 in the
+flagship) stops training unless ``final``; checkpoints are saved every
+``user.checkpoint_every`` epochs and at the end, and
 ``user.load_checkpoint`` resumes from one.
 
     python -m pccf_torch.train.classifier data/dataset=synthetic user.cpu=true
@@ -22,6 +25,8 @@ both run.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -35,15 +40,12 @@ from pccf_torch.nn.layers import init_for_training
 from pccf_torch.train.hooks import EarlyStoppingCallback, call_every, get_trailing_mean, saving_hook
 from pccf_torch.train.losses import get_classification_loss
 from pccf_torch.train.runners import Loader, Test, Trainer
+from pccf_torch.train.trackers import TensorBoardTracker, TrackerNotUsedError
+from pccf_torch.utils.visualization import confusion_matrix, plot_confusion_matrix_heatmap
+
+logger = logging.getLogger('pccf_torch')
 
 MAX_LOG = 100  # misclassified indices printed at most (train_classifier.py:81)
-
-
-def confusion_matrix(predictions: np.ndarray, labels: np.ndarray, n_classes: int) -> np.ndarray:
-    """Row = true class, column = prediction (``pccf/utils/visualization.py:335-339``)."""
-    cm = np.zeros((n_classes, n_classes), dtype=np.int64)
-    np.add.at(cm, (labels, predictions), 1)
-    return cm
 
 
 def fit(cfg: SliceConfig, classifier: DGCNNClassifier, train_set, test_set, test_labels: np.ndarray, *,
@@ -91,8 +93,26 @@ def fit(cfg: SliceConfig, classifier: DGCNNClassifier, train_set, test_set, test
     print(f'Confusion Matrix for classes {names}')
     print(cm)
     print(f'Misclassified indices: {mis_str}')
+    log_confusion(cm, names, name, final_test.name, misclassified, mis_str, trainer.epoch)
     return {'trainer': trainer, 'test': results, 'logits': logits, 'predictions': predictions,
             'confusion_matrix': cm, 'misclassified': misclassified}
+
+
+def log_confusion(cm: np.ndarray, names: list[str], model_name: str, test_name: str, misclassified: list[int],
+                  mis_str: str, epoch: int) -> bool:
+    """The confusion-matrix figure and the misclassified indices to the
+    current TensorBoard tracker (``train_classifier.py:86-100``); False, with
+    a log line, where there is none or tensorboardX or matplotlib is missing."""
+    try:
+        writer = TensorBoardTracker.get_current().writer
+        fig = plot_confusion_matrix_heatmap(cm, list(names), title='Model Confusion Matrix')
+    except (TrackerNotUsedError, ImportError) as err:
+        logger.info('confusion-matrix figure skipped: %s', err)
+        return False
+    writer.add_figure(f'{model_name}/{test_name}-Confusion Matrix', fig)
+    writer.add_text(f'{model_name}/{test_name}-Misclassified Indices',
+                    f'Total misclassified samples: {len(misclassified)}\nIndices: {mis_str}', global_step=epoch)
+    return True
 
 
 def train_classifier(

@@ -8,16 +8,22 @@ A hook is a callable taking the :class:`~pccf_torch.train.runners.Trainer`;
 :class:`~pccf_torch.train.runners.StopTraining`.  The port trains in one
 process, so one process rewrites the codebook; the broadcast of the
 rewritten codebook across processes (``hooks.py:181-193``) comes with
-data-parallel training.
+data-parallel training.  :class:`TensorBoardLogReconstruction` and
+:class:`WandbLogReconstruction` (``hooks.py:229-288``) log the first samples
+and, when called, their reconstructions as 3-D point sets to the current
+run's TensorBoard or wandb tracker; built without that tracker they raise
+:class:`~pccf_torch.train.trackers.TrackerNotUsedError`, without its
+package ``ImportError``, and the stage skips them.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from pccf_torch.data.structures import Inputs
 from pccf_torch.train.objectives import Objective
 from pccf_torch.train.runners import Diagnostic, StopTraining, Trainer
 
@@ -184,3 +190,85 @@ class DiscreteSpaceOptimizer:
                                  trainer.epoch == self.final_epoch)
         if new is not None:
             codebook.copy_(torch.from_numpy(new))
+
+
+# ------------------------------------------------------- reconstruction logs
+
+RECON_SEED = 7  # the decoder's sampling of the logged reconstructions (hooks.py:243's key)
+
+
+def _first(dataset: Any, num: int) -> tuple[torch.Tensor, list[int | None]]:
+    """The first ``num`` clouds of ``dataset`` and their labels (None for an
+    unlabelled set), fetched as one inference batch: the clouds as stored,
+    no augmentation drawn, so the training batches' draws are untouched; the
+    dataset's switch is restored."""
+    switch = getattr(dataset, 'set_inference', None)
+    was = getattr(dataset, 'inference', True)
+    if switch is not None:
+        switch(True)
+    try:
+        inputs, targets = dataset.__getitems__(list(range(num)))
+    finally:
+        if switch is not None:
+            switch(was)
+    labels = [None] * num if targets.label is None else [int(v) for v in targets.label.cpu()]
+    return inputs.cloud, labels
+
+
+@torch.no_grad()
+def _reconstruct(trainer: Trainer, dataset: Any, num: int) -> np.ndarray:
+    """The eval reconstructions of the first ``num`` samples of ``dataset``,
+    on the host (``hooks.py:232-243``); the decoder's sampling from a
+    generator seeded with :data:`RECON_SEED`, so every epoch draws the
+    same."""
+    model = trainer.model
+    cloud, _ = _first(dataset, num)
+    device = next(model.parameters()).device
+    was_training = model.training
+    model.eval()
+    try:
+        outputs = model(Inputs(cloud=cloud.to(device)), None, torch.Generator(device=device).manual_seed(RECON_SEED))
+    finally:
+        model.train(was_training)
+    return outputs.recon.float().cpu().numpy()
+
+
+class TensorBoardLogReconstruction:
+    """Log sample reconstructions as 3-D meshes (``hooks.py:246-265``): the
+    first ``num_samples`` clouds of ``dataset`` once, their reconstructions
+    at every call, at the completed epoch."""
+
+    def __init__(self, dataset: Any, num_samples: int = 1) -> None:
+        from pccf_torch.train.trackers import TensorBoardTracker
+
+        self._dataset = dataset
+        self._num = num_samples
+        self.writer = TensorBoardTracker.require_current().writer
+        clouds, labels = _first(dataset, num_samples)
+        for i, (cloud, label) in enumerate(zip(clouds.cpu().numpy(), labels)):
+            self.writer.add_mesh(f'Sample {i} with label: {label}', vertices=cloud[None], global_step=0)
+
+    def __call__(self, trainer: Trainer) -> None:
+        for i, recon in enumerate(_reconstruct(trainer, self._dataset, self._num)):
+            self.writer.add_mesh(f'Recon {i}', vertices=recon[None], global_step=trainer.epoch)
+
+
+class WandbLogReconstruction:
+    """The wandb variant (``hooks.py:268-288``); needs the wandb tracker."""
+
+    def __init__(self, dataset: Any, num_samples: int = 1) -> None:
+        import wandb
+
+        from pccf_torch.train.trackers import WandbTracker
+
+        self._wandb = wandb
+        self._dataset = dataset
+        self._num = num_samples
+        self.run = WandbTracker.require_current().run
+        clouds, labels = _first(dataset, num_samples)
+        for i, (cloud, label) in enumerate(zip(clouds.cpu().numpy(), labels)):
+            self.run.log({f'Sample {i} with label: {label}': wandb.Object3D(cloud)})
+
+    def __call__(self, trainer: Trainer) -> None:
+        for i, recon in enumerate(_reconstruct(trainer, self._dataset, self._num)):
+            self.run.log({f'Recon {i}': self._wandb.Object3D(recon)})

@@ -265,14 +265,18 @@ class Trainer:
             except StopTraining:
                 break
 
-    def save_checkpoint(self) -> None:
+    def save_checkpoint(self, generator_seed: int | None = None) -> None:
         """The model at the completed epoch, and the sidecar with the
         optimiser's and gradient operation's state, the step and the
-        generator (``runners.py:441-453``)."""
+        generator (``runners.py:441-453``); with ``generator_seed``, that
+        seed in the generator state's place (an imported run's, which has no
+        state of a port generator)."""
         self.checkpoint.save(self.model, self.epoch)
+        draws = {'generator': self.generator.get_state()} if generator_seed is None else {
+            'generator_seed': int(generator_seed)}
         torch.save({'optimizer': self.optimizer.state_dict(), 'step': self.step,
-                    'grad_op': self.grad_op.state_dict() if self.grad_op is not None else {},
-                    'generator': self.generator.get_state()}, self.checkpoint.sidecar(self.epoch))
+                    'grad_op': self.grad_op.state_dict() if self.grad_op is not None else {}, **draws},
+                   self.checkpoint.sidecar(self.epoch))
 
     def load_checkpoint(self, checkpoint: int = -1) -> None:
         """The model's weights of ``checkpoint`` (-1 the latest) and, where
@@ -289,7 +293,10 @@ class Trainer:
         if self.grad_op is not None:
             self.grad_op.load_state_dict(state['grad_op'])
         self.step = int(state['step'])
-        self.generator.set_state(state['generator'])
+        if 'generator' in state:
+            self.generator.set_state(state['generator'])
+        else:
+            self.generator.manual_seed(state['generator_seed'])
 
 
 class Test:

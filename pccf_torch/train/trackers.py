@@ -7,7 +7,11 @@ experiment's trackers (``runners.py:127-137``).  :func:`get_trackers` builds
 the list the ``user.trackers`` flags ask for; the TensorBoard and wandb
 trackers need ``tensorboardX`` and ``wandb``, and where the package is
 missing they are skipped with a log line, as ``get_trackers`` does
-(``trackers.py:223-246``).
+(``trackers.py:223-246``).  While a run is on, ``TensorBoardTracker`` and
+``WandbTracker`` are reachable through ``require_current`` /
+``get_current``, which raise :class:`TrackerNotUsedError` when no such
+tracker was started (``trackers.py:23-35``): the reconstruction hooks and
+the classifier's figure write through them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,26 @@ from pccf_torch.config import VERSION
 from pccf_torch.experiment import Experiment
 
 logger = logging.getLogger('pccf_torch')
+
+
+class TrackerNotUsedError(RuntimeError):
+    """The tracker asked for is not subscribed to the current run."""
+
+
+class _CurrentMixin:
+    """The started instance of a tracker class, while its run is on."""
+
+    _current: Any = None
+
+    @classmethod
+    def require_current(cls):
+        if cls._current is None:
+            raise TrackerNotUsedError(f'{cls.__name__} is not active')
+        return cls._current
+
+    @classmethod
+    def get_current(cls):
+        return cls.require_current()
 
 
 class BuiltinLogger:
@@ -147,7 +171,7 @@ class HydraLinkTracker:
         pass
 
 
-class TensorBoardTracker:
+class TensorBoardTracker(_CurrentMixin):
     """tensorboardX event files under ``exp_dir/tb``."""
 
     def __init__(self) -> None:
@@ -158,6 +182,7 @@ class TensorBoardTracker:
 
     def start(self, exp) -> None:
         self.writer = self._writer_cls(logdir=str(exp.exp_dir / 'tb'))
+        TensorBoardTracker._current = self
 
     def log_metrics(self, model: str, source: str, epoch: int, metrics: dict[str, float]) -> None:
         if self.writer is not None:
@@ -167,9 +192,11 @@ class TensorBoardTracker:
     def stop(self) -> None:
         if self.writer is not None:
             self.writer.close()
+        if TensorBoardTracker._current is self:
+            TensorBoardTracker._current = None
 
 
-class WandbTracker:
+class WandbTracker(_CurrentMixin):
     def __init__(self) -> None:
         import wandb
 
@@ -179,6 +206,7 @@ class WandbTracker:
     def start(self, exp) -> None:
         self.run = self._wandb.init(project=f'PointCloudCounterfactualv{VERSION}', name=exp.exp_name,
                                     tags=exp.tags)
+        WandbTracker._current = self
 
     def log_metrics(self, model: str, source: str, epoch: int, metrics: dict[str, float]) -> None:
         if self.run is not None:
@@ -187,6 +215,8 @@ class WandbTracker:
     def stop(self) -> None:
         if self.run is not None:
             self.run.finish()
+        if WandbTracker._current is self:
+            WandbTracker._current = None
 
 
 def get_trackers(cfg) -> list[Any]:

@@ -699,7 +699,9 @@ def run_study(tuning_dir: str | pathlib.Path, set_objective, argv: list[str] | N
     Shared runner of the two tuning entry points (the reference duplicates
     this block in tune_autoencoder.py:49-67 and tune_w_autoencoder.py);
     ``set_objective(tune_cfg) -> objective(trial)`` supplies the per-script
-    trial body."""
+    trial body.  ``+tune.seed=N`` seeds the sampler, so that a run repeats
+    its suggestions (``chip_smoke.py``); without it the sampler draws fresh
+    entropy, as JAX's engine does."""
     import sys
 
     from pccf_torch.compose import compose
@@ -720,7 +722,7 @@ def run_study(tuning_dir: str | pathlib.Path, set_objective, argv: list[str] | N
     )
     study = create_study(
         study_name=study_name, storage=tune_cfg['storage'], pruner=pruner,
-        sampler=make_sampler(t.get('sampler', 'gp'), n_startup=t['n_startup_trials']),
+        sampler=make_sampler(t.get('sampler', 'gp'), n_startup=t['n_startup_trials'], seed=t.get('seed')),
     )
     study.optimize(set_objective(tune_cfg), n_trials=t['n_trials'])
     visualize_study(study, pathlib.Path(tune_cfg['db_location']) / study_name)

@@ -1044,6 +1044,41 @@ def test_gemm_refuses_shapes_it_does_not_cover(dev):
         stacks.gemm(a, wts, biases, [torch.empty(64, 64, device=dev) for _ in wts])
 
 
+@pytest.mark.parametrize('k', [32, 512, 1024])
+@pytest.mark.parametrize('n', [64, 512, 1024])
+@pytest.mark.parametrize('m', [64, 4096, 8192])
+def test_gemm_bf16_weights_match_float64(dev, m, n, k):
+    """``pccf_gemm_bf16w`` over every tile shape: float32 arithmetic on
+    bf16 weights widened exactly, two TF32 products, against float64 on the
+    widened weights; the f32 instance's bound."""
+    a, (wt,), (bias,), stacks = _gemm_case(m, n, k, 1, m + n + k + 1, dev)
+    wt = wt.to(torch.bfloat16)
+    out = torch.empty(m, n, device=dev)
+    before = wformer.gemm_bf16w_cuda.launches
+    stacks.gemm(a, [wt], [bias], [out])
+    assert wformer.gemm_bf16w_cuda.launches == before + 1
+    assert _rel_l2(out.double(), wformer.gemm_plain(a.double(), wt, bias.double())) <= 5e-6
+
+
+@pytest.mark.parametrize('epilogue', ['gelu', 'alias', 'grouped'])
+def test_gemm_bf16_weights_epilogues_match_float64(dev, epilogue):
+    m, n, k = 4096, 512, 512
+    groups = 3 if epilogue == 'grouped' else 1
+    a, wts, biases, stacks = _gemm_case(m, n, k, groups, 90, dev)
+    wts = [w.to(torch.bfloat16) for w in wts]
+    outs = [torch.empty(m, n, device=dev) for _ in wts]
+    if epilogue == 'alias':
+        res = _randn((m, n), 91, dev)
+        want = [wformer.gemm_plain(a.double(), wts[0], None, res.double())]
+        outs = [res]
+        stacks.gemm(a, wts, [None], outs, res)
+    else:
+        stacks.gemm(a, wts, biases, outs, gelu=epilogue == 'gelu')
+        want = [wformer.gemm_plain(a.double(), w, b.double(), gelu=epilogue == 'gelu') for w, b in zip(wts, biases)]
+    for got, ref in zip(outs, want):
+        assert _rel_l2(got.double(), ref) <= 5e-6
+
+
 def test_tf32_split_kernel_is_bit_exact(dev):
     ws = [_randn((512, 512), 70, dev), _randn((1024, 512), 71, dev) * 1e-3, _randn((64, 32), 72, dev) * 1e4]
     small = wformer.split_small(ws)

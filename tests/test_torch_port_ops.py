@@ -127,13 +127,19 @@ def test_interleave_residual_column_order(d_in, d_out):
 
 def test_bn_fold_matches_pallas_pcgen():
     from pccf.kernels.pallas_pcgen import fold_bn_affine
+    from pccf_torch.nn.layers import BatchNorm
 
     rng = np.random.default_rng(7)
     w = rng.standard_normal((2, 8, 6)).astype(np.float32)  # flax (G, in, out)
     scale, bias, mean = (rng.standard_normal((2, 6)).astype(np.float32) for _ in range(3))
     var = rng.uniform(0.5, 2.0, (2, 6)).astype(np.float32)
     wj, bj = fold_bn_affine(*(jnp.asarray(a) for a in (w, scale, bias, mean, var)))
-    wt, bt = ops.fold_bn_affine(*(torch.from_numpy(a) for a in (np.swapaxes(w, -1, -2), scale, bias, mean, var)))
+    bn = BatchNorm(2, 6)  # the stacked BatchNorm of the PCGen components, folded as PCGenDecoder.pack folds it
+    bn.load_state_dict({k: torch.from_numpy(v) for k, v in zip(('weight', 'bias', 'running_mean', 'running_var'),
+                                                                (scale, bias, mean, var))})
+    with torch.no_grad():
+        a_t, bt = bn.affine()
+        wt = torch.from_numpy(np.swapaxes(w, -1, -2)) * a_t[..., :, None]
     a = scale / np.sqrt(var + 1e-5)
     np.testing.assert_allclose(bt.numpy(), bias - mean * a, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(np.asarray(bj), bt.numpy(), rtol=1e-6, atol=1e-6)
@@ -218,8 +224,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                         'gather_neighbors',
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
-                                        'wformer_decoder', 'nn_distance', 'sinkhorn_cost', 'graph_filter',
-                                        'graph_filter_backward'}
+                                        'wformer_decoder', 'gemm_bf16w', 'nn_distance', 'sinkhorn_cost',
+                                        'graph_filter', 'graph_filter_backward'}
     assert set(api.launch_counts().values()) == {0}
 
 

@@ -176,7 +176,9 @@ def test_port_imports_no_jax():
         'import sys, pccf_torch, pccf_torch.serve, pccf_torch.generate, pccf_torch.convert, pccf_torch.models, pccf_torch.nn, '
         'pccf_torch.kernels.api, pccf_torch.train, pccf_torch.train.autoencoder, pccf_torch.train.w_autoencoder, '
         'pccf_torch.train.classifier, pccf_torch.evaluate_counterfactuals, pccf_torch.data.clouds, '
-        'pccf_torch.data.augmentations, pccf_torch.data.processed; '
+        'pccf_torch.data.augmentations, pccf_torch.data.processed, pccf_torch.visualize_counterfactuals, '
+        'pccf_torch.utils.visualization, pccf_torch.plot_optimization_decoder, '
+        'pccf_torch.plot_optimization_w_decoder; '
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "pydantic", "yaml") '
         'or m.startswith("pccf.")); print(bad); sys.exit(1 if bad else 0)'
     )

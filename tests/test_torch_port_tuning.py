@@ -199,6 +199,18 @@ def test_run_study_over_the_tuning_tree_matches_jax(tmp_path):
         assert db.execute('SELECT COUNT(*) FROM trials').fetchone() == (2,)
 
 
+def test_run_study_takes_a_sampler_seed(tmp_path):
+    """``+tune.seed=N`` seeds the study's sampler: two studies of one seed
+    suggest the same trials (the default draws fresh entropy)."""
+    d = ROOT / 'configs' / 'tuning' / 'autoencoder'
+    suggested = []
+    for sub in ('a', 'b'):
+        study = pt.run_study(d, lambda cfg: (lambda trial: len(pt.suggest_overrides(cfg, trial)) + trial.number),
+                             ['tune=learn', 'tune.n_trials=3', '+tune.seed=5', f'db_location={tmp_path / sub}'])
+        suggested.append([t.params for t in study.get_trials()])
+    assert suggested[0] == suggested[1] and len({str(p) for p in suggested[0]}) == 3
+
+
 @pytest.fixture()
 def exp_root(tmp_path, monkeypatch):
     """Temporary experiment and data directories.  The study's plots are
