@@ -29,7 +29,8 @@ filtering on):
   product of the chain and of the W-decoder), against the f32 server
   (JAX's own bound, 0.3) and against the same cast on the CPU; the chain at
   64, 1 and 16 and the W stacks at (32, 256, 512) on bf16 packs against
-  their plain versions beside the f32 instance, ``pcgen_mix`` and
+  their plain versions beside the f32 instance and ``nn.TransformerEncoder``
+  / ``nn.TransformerDecoder`` on the widened weights, ``pcgen_mix`` and
   ``pcgen_general`` on the pack folded from the rounded parameters; every
   GEMM shape of the cast paths against float64, timed beside the f32
   instance; the server's parameter and pack bytes; request latency and
@@ -114,7 +115,25 @@ filtering on):
   refusal); a PC15k tree it writes, the stage-1 and classifier entry points
   on it with 0 and 2 loader worker processes (stage 1 bit-equal), and the
   first epoch's batches through the workers bit-equal to the in-process
-  ones.
+  ones;
+- data parallelism (``dp_phase``) on the one card: NCCL refuses two ranks
+  on one device, so two ranks under gloo on ``cuda:0`` (``pccf_torch.dist.
+  launch``) take the flagship's steps, stage 1 under ChamferEMD at 8 x 2048
+  (4 clouds a rank) at statistic groups 1 and 2, stage 2 at 32 (16 a rank)
+  and the classifier at 16 x 2048 with dropout (8 a rank), the noise drawn
+  by the trainers; each rank's step against the one-rank step in this
+  process from the same weights, batch, generator seed and kNN graphs
+  (metrics,
+  gradients, BatchNorm statistics, parameters after the optimiser, the
+  ranks bit-equal to each other), each rank's launches equal to the
+  one-rank step's, the host clock of both and the gradient all-reduce's
+  bytes and time; then ``python -m pccf_torch.train.autoencoder
+  user.n_subprocesses=1`` through the launcher (one rank on ``cuda:0`` under
+  NCCL) at the CLI phase's sizes,
+  and the data-parallel server over ``[cuda:0, cuda:0]`` against the
+  single-device server at requests of 16 and 64 (exact launches, outputs,
+  latency in turns).  Two ranks share one card: these numbers show the
+  collectives' cost, not how the port scales.
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
@@ -953,19 +972,25 @@ def cast_phase(seed: int, check, dev: torch.device, cfg, vqvae, classifier, serv
             run_k = functools.partial(wformer.wformer_decoder_cuda, x, memory, spack, net.n_heads)
             run_f = functools.partial(wformer.wformer_decoder_cuda, x, memory, fspack, net.n_heads)
             run_p = functools.partial(wformer.plain_decoder, x, memory, spack, net.n_heads)
+            lib_stack = library_stack(spack, net.n_heads, True)  # the bf16 weights widened into float32
+            run_l = torch.inference_mode()(functools.partial(lib_stack, x, memory))
             work = roofline.decoder_stack_work(x, memory, spack)
         else:
             spack, fspack = wformer.pack_encoder(net.layers), wformer.pack_encoder(fnet.layers)
             run_k = functools.partial(wformer.wformer_encoder_cuda, x, spack, net.n_heads)
             run_f = functools.partial(wformer.wformer_encoder_cuda, x, fspack, net.n_heads)
             run_p = functools.partial(wformer.plain_encoder, x, spack, net.n_heads)
+            lib_stack = library_stack(spack, net.n_heads, False)
+            run_l = torch.inference_mode()(functools.partial(lib_stack, x))
             work = roofline.encoder_stack_work(x, spack)
-        got, want = run_k(), run_p()
-        r = rel_l2(got, want)
-        row = (time_ms(run_k, REPS), time_ms(run_f, REPS), time_ms(run_p, REPS), bound(work))
-        check(r <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
-              f'{name} stack bf16 weights (32, {t}, {d}): rel L2 {r:.3e} <= {CVAE_REL_L2}; {row[0]:.4f} ms (f32 '
-              f'weights {row[1]:.4f}, plain {row[2]:.4f}, bound {row[3]["bound_ms"]:.4f} ms, {row[3]["bound_by"]})')
+        got, want, lib_out = run_k(), run_p(), run_l()
+        r, r_lib = rel_l2(got, want), rel_l2(lib_out, want)
+        row = (time_ms(run_k, REPS), time_ms(run_f, REPS), time_ms(run_p, REPS), bound(work), time_ms(run_l, REPS))
+        check(r <= CVAE_REL_L2 and r_lib <= CVAE_REL_L2 and bool(torch.isfinite(got).all()),
+              f'{name} stack bf16 weights (32, {t}, {d}): rel L2 {r:.3e} <= {CVAE_REL_L2} (the library stack on the '
+              f'widened weights against the plain version {r_lib:.3e}); {row[0]:.4f} ms (f32 weights {row[1]:.4f}, '
+              f'plain {row[2]:.4f}, library {row[4]:.4f} nn.Transformer{"Decoder" if "decoder" in name else "Encoder"}'
+              f', bound {row[3]["bound_ms"]:.4f} ms, {row[3]["bound_by"]})')
         stack_runs[name] = run_k
     for fn_name, fn in (('pcgen_mix', pcgen.pcgen_mix_cuda), ('pcgen_general', pcgen.pcgen_general_cuda)):
         m = torch.relu(randn(16, cfg.data.n_target_points, dp.map_w.shape[1]))
@@ -1519,6 +1544,333 @@ def tuning_and_readers_phase(seed: int, check, dev: torch.device, root: str) -> 
                 os.environ[key] = v
         Singleton.reset_all()
     return tuning, readers
+
+
+# ---- the data-parallel phase: two gloo ranks on one card against the one-rank
+# steps, the launcher under NCCL from an entry point, and the server over two
+# replicas on the card
+DP_RANKS = 2
+DP_TIMED_STEPS = 3  # steps after the checked one, timed on the host clock
+DP_ALLREDUCE_REPS = 5
+DP_SERVER_REQUESTS = (16, 64)
+# a rank's step against the one-rank step on the same kNN graphs: metrics,
+# BatchNorm statistics and parameters after the optimiser at the CPU tests'
+# tolerances (tests/test_torch_port_dist.py; the classifier's parameters as
+# one vector: SGD moves each by lr x grad, and its biases start at 0); the
+# moments add in another order (each rank's sums, then gloo's), so a
+# max-pool winner at a near-tie (an EdgeConv slot, the classifier's max over
+# the points) may take another element and send its gradient elsewhere: the
+# gradients are held per parameter as the card-vs-CPU steps hold them
+# (STEP_GRAD_REL_L2)
+DP_LOSS_RTOL = 1e-4
+DP_STATS_RTOL, DP_STATS_ATOL = 1e-4, 1e-6
+DP_SGD_REL_L2 = 1e-4
+
+
+def dp_cases(cfg, seed: int) -> list[dict]:
+    """The flagship's steps of the data-parallel phase: stage 1 under
+    ChamferEMD at 8 x 2048 (statistic groups 1 and 2), stage 2 at 32 and the
+    classifier at 16 x 2048 with dropout, from weights, batches and a
+    generator seed drawn from ``seed``; the noise is drawn by the trainer."""
+    from pccf_torch.data.structures import Inputs, Targets, WInputs, WTargets
+    from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
+    from pccf_torch.nn import build_classifier
+    from pccf_torch.nn.layers import init_for_training
+
+    n = cfg.data.n_input_points
+    vq = build_vqvae(cfg)
+    init_for_training(vq, seed + 40)
+    clouds, _ = labelled_clouds(seed + 41, (TRAIN_BATCH // 2,) * 2, n)
+    cloud = torch.from_numpy(clouds)
+    stage1 = dict(kind='vqvae', groups=1, state=vq.state_dict(), batch=(Inputs(cloud), Targets(cloud), None))
+    wae = WAETrainModule(build_w_autoencoder(cfg), cfg.autoencoder.book_size)
+    init_for_training(wae.wae, seed + 42)
+    gen = torch.Generator().manual_seed(seed + 43)
+    wb, ae = cfg.w_autoencoder.train.batch_size, cfg.autoencoder
+    wae.codebook.copy_(torch.randn(wae.codebook.shape, generator=gen))
+    idx = torch.randint(0, ae.book_size, (wb, ae.n_codes), generator=gen)
+    logits = torch.randn((wb, cfg.data.n_classes), generator=gen) * 2
+    w_batch = (WInputs(torch.randn((wb, ae.w_dim), generator=gen), logits),
+               WTargets(torch.randn((wb, ae.w_dim), generator=gen),
+                        torch.nn.functional.one_hot(idx, ae.book_size).float(), logits), None)
+    cls = build_classifier(cfg)
+    init_for_training(cls, seed + 44)
+    c_clouds, c_labels = labelled_clouds(seed + 45, (cfg.classifier.train.batch_size // 2,) * 2, n)
+    c_cloud = torch.from_numpy(c_clouds)
+    return [stage1, {**stage1, 'groups': 2},
+            dict(kind='wae', groups=1, state=wae.state_dict(), batch=w_batch),
+            dict(kind='classifier', groups=1, state=cls.state_dict(),
+                 batch=(Inputs(c_cloud), Targets(c_cloud, torch.from_numpy(c_labels)), None))]
+
+
+def dp_steps(cfg, case: dict, seed: int, dev: torch.device, graphs: list | None = None) -> dict:
+    """One checked step of ``case`` on ``dev`` (its launches, metrics,
+    gradients and state after it, on the host), then ``DP_TIMED_STEPS``
+    steps on the host clock, and, in a process group, the all-reduce of the
+    step's gradient bytes on its own.  In a process group the batch is the
+    global one, as every rank reads it.  The checked step's kNN lists are
+    returned (``graphs``); given ``graphs``, the checked step takes those
+    lists in their place and returns how many neighbours its own kNN would
+    have given alike (``graph_agreement``).  The EdgeConv graphs are rebuilt
+    on the features before every block, so a near-tie that rounding in
+    another order swaps changes every later graph, and a step then differs
+    from another by more than rounding (as the card-vs-CPU classifier step
+    finds): held to the one-rank step, the ranks' step runs on the same
+    graphs."""
+    from pccf_torch.dist import mesh
+    from pccf_torch.kernels import api
+    from pccf_torch.models import WAETrainModule, build_vqvae, build_w_autoencoder
+    from pccf_torch.nn import ClassifierTrainModule, build_classifier
+    from pccf_torch.train import Trainer, get_autoencoder_loss, get_classification_loss, get_w_autoencoder_loss
+
+    kind = case['kind']
+    if kind == 'vqvae':
+        model, loss, tcfg = build_vqvae(cfg), get_autoencoder_loss(cfg), cfg.autoencoder.train
+    elif kind == 'wae':
+        model = WAETrainModule(build_w_autoencoder(cfg), cfg.autoencoder.book_size)
+        loss, tcfg = get_w_autoencoder_loss(cfg.w_autoencoder.train), cfg.w_autoencoder.train
+    else:
+        model, loss, tcfg = build_classifier(cfg), get_classification_loss(), cfg.classifier.train
+    model.load_state_dict(case['state'])
+    model = (ClassifierTrainModule(model) if kind == 'classifier' else model).to(dev)
+    inputs, targets, noise = (to_device(x, dev) for x in case['batch'])
+    os.environ['PCCF_BN_GROUPS'] = str(case['groups'])
+    try:
+        trainer = Trainer(model, loss, tcfg, STEPS_PER_EPOCH, seed=seed)
+        build_graph, built, agreement = api.knn, [], []
+
+        def graph(x: torch.Tensor, k: int) -> torch.Tensor:
+            idx = build_graph(x, k)
+            if graphs is None:
+                built.append(idx.cpu())
+                return idx
+            given = graphs[len(agreement)].to(x.device)
+            agreement.append(float((torch.sort(idx, dim=-1)[0] == torch.sort(given, dim=-1)[0]).float().mean()))
+            return given
+
+        torch.cuda.synchronize()
+        api.reset_launch_counts()
+        api.knn = graph
+        try:
+            metrics = {k: float(v) for k, v in trainer.run_step(inputs, targets, noise).items()}
+        finally:
+            api.knn = build_graph
+        torch.cuda.synchronize()
+        counts = api.launch_counts()
+        inner = model.classifier if kind == 'classifier' else model
+        out = {'metrics': metrics, 'launches': counts, 'graphs': built, 'graph_agreement': agreement,
+               'state': {k: v.detach().to('cpu', copy=True) for k, v in inner.state_dict().items()},
+               'grads': {k: p.grad.detach().to('cpu', copy=True) for k, p in inner.named_parameters()
+                         if p.grad is not None},
+               'allreduce_bytes': trainer.allreduce_bytes, 'lr': trainer.lr_at(0)}
+        times, total = [], dict.fromkeys(counts, 0)
+        for _ in range(DP_TIMED_STEPS):
+            api.reset_launch_counts()
+            t0 = time.perf_counter()
+            trainer.run_step(inputs, targets, noise)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            step = api.launch_counts()
+            out.setdefault('same_launches', []).append(step == counts)
+            for k, v in step.items():
+                total[k] += v
+    finally:
+        del os.environ['PCCF_BN_GROUPS']
+    out['step_ms'] = float(np.median(times))
+    out['launches_all'] = {k: total[k] + counts[k] for k in counts}
+    if mesh.world_size() > 1:
+        import torch.distributed as dist
+
+        buf = torch.ones(out['allreduce_bytes'] // 4, device=dev)
+        reps = []
+        for _ in range(DP_ALLREDUCE_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        out['allreduce_ms'] = float(np.median(reps[1:]))
+    return out
+
+
+def to_device(x, dev: torch.device):
+    """A batch structure (a tensor, a dataclass or a tuple of them, None) on ``dev``."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        return tuple(to_device(v, dev) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_device(getattr(x, f.name), dev) for f in dataclasses.fields(x)})
+    return x.to(dev)
+
+
+def dp_rank(payload: str, out_dir: str) -> None:
+    """A rank of a data-parallel run, on its current card (``cuda:rank``
+    under NCCL, ``cuda:0`` for gloo ranks sharing it): every case's steps,
+    saved to ``out_dir/rank<r>.pt``."""
+    from pccf_torch.dist import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, seed, cases = torch.load(payload, weights_only=False)
+    results = [dp_steps(cfg, case, seed, torch.device('cuda', torch.cuda.current_device())) for case in cases]
+    torch.save(results, os.path.join(out_dir, f'rank{mesh.rank()}.pt'))
+
+
+def dp_check(check, cfg, seed: int, dev: torch.device, cases: list[dict], names: tuple[str, ...],
+             ranks: list[list[dict]], where: str) -> tuple[dict[str, int], list[dict]]:
+    """Each rank's results (``ranks[r][i]``, ``dp_steps`` of ``cases[i]``)
+    against the one-rank step on ``dev`` on the ranks' kNN graphs: launches,
+    metrics, BatchNorm statistics, gradients and parameters after the
+    optimiser, and every rank bit-equal to rank 0; prints both steps' host
+    clock and the all-reduce alone (``where`` names the ranks' placement).
+    Returns the ranks' launches and the one-rank results."""
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    # a cloud's kNN lists are its own, so the global batch's are the
+    # shards' one after the other
+    one = [dp_steps(cfg, case, seed, dev, [torch.cat(lists) for lists in zip(*(r[i]['graphs'] for r in ranks))])
+           for i, case in enumerate(cases)]
+    for name, case, want, got in zip(names, cases, one, zip(*ranks)):
+        for r, res in enumerate(got):
+            for k in total:
+                total[k] += res['launches_all'][k]
+            path = [k for k, v in want['launches'].items() if v]
+            # stage 2 trains its W-nets through PyTorch's GEMMs (the wformer
+            # kernels run in eval): its step launches no kernel of the port
+            check(res['launches'] == want['launches'] and all(res['same_launches'])
+                  and bool(path) == (case['kind'] != 'wae'),
+                  f'data-parallel {name}, rank {r}: launches '
+                  f'{json.dumps({k: v for k, v in res["launches"].items() if v})} equal the one-rank step\'s, '
+                  'every step')
+            loss_err = max(abs(res['metrics'][k] - v) / max(abs(v), 1e-12) for k, v in want['metrics'].items())
+            check(set(res['metrics']) == set(want['metrics']) and loss_err <= DP_LOSS_RTOL,
+                  f'data-parallel {name}, rank {r}: metrics '
+                  f'{json.dumps({k: round(v, 6) for k, v in res["metrics"].items()})}'
+                  f', largest rel diff to one rank {loss_err:.2e} <= {DP_LOSS_RTOL}')
+            stats = [k for k in want['state'] if k.endswith(('running_mean', 'running_var'))]
+            stats_ok = all(torch.allclose(res['state'][k], want['state'][k], rtol=DP_STATS_RTOL, atol=DP_STATS_ATOL)
+                           for k in stats)
+            compared = [k for k in want['grads'] if not rounding_gradient(k) and k != CLASSIFIER_ZERO_GRADIENT]
+            errs = {k: rel_l2(res['grads'][k], want['grads'][k]) for k in compared}
+            worst_grad = max(errs, key=errs.get)
+            grads_ok = errs[worst_grad] <= STEP_GRAD_REL_L2
+            trained = list(want['grads'])
+            if case['kind'] == 'classifier':  # SGD moves each by lr x grad
+                err = rel_l2(torch.cat([res['state'][k].reshape(-1) for k in trained]),
+                             torch.cat([want['state'][k].reshape(-1) for k in trained]))
+                params_ok = err <= DP_SGD_REL_L2
+                bound = f'rel L2 of all {len(trained)} together {err:.2e} <= {DP_SGD_REL_L2}'
+            else:  # AdamW's first step moves an element by about lr x sign(g)
+                p_errs = {k: float((res['state'][k] - want['state'][k]).abs().max()) for k in trained}
+                worst = max(p_errs, key=p_errs.get)
+                params_ok = p_errs[worst] <= 2 * want['lr'] + 1e-6
+                bound = f'max |diff| {p_errs[worst]:.3g} ({worst}) <= 2 lr = {2 * want["lr"]:.4g}'
+            check(stats_ok and grads_ok and params_ok,
+                  f'data-parallel {name}, rank {r}: {len(stats)} BatchNorm statistics within rtol {DP_STATS_RTOL} '
+                  f'{stats_ok}; per-parameter gradient rel L2 median {float(np.median(list(errs.values()))):.2e}, '
+                  f'worst {errs[worst_grad]:.2e} ({worst_grad}) <= {STEP_GRAD_REL_L2}; parameters after the '
+                  f'optimiser: {bound}')
+        same = all(torch.equal(g['state'][k], got[0]['state'][k]) for g in got[1:] for k in got[0]['state'])
+        check(same, f'data-parallel {name}: the {len(got)} ranks hold the same bits after the step')
+        if want['graph_agreement']:
+            print(f'data-parallel {name}: the one-rank step took the ranks\' kNN lists; its own agree with them at '
+                  + ', '.join(f'{a:.6f}' for a in want['graph_agreement']) + ' of the neighbours, graph by graph',
+                  flush=True)
+        print(f'data-parallel {name}: step ms (host clock, synchronised, median of {DP_TIMED_STEPS}) one rank '
+              f'{want["step_ms"]:.3f}, {where} {[round(g["step_ms"], 3) for g in got]}; all-reduce '
+              f'{got[0]["allreduce_bytes"]} bytes a step (the trained gradients, float32) '
+              f'{[round(g["allreduce_ms"], 3) for g in got]} ms alone (median of {DP_ALLREDUCE_REPS})', flush=True)
+    return total, one
+
+
+def dp_phase(seed: int, check, dev: torch.device, root: str, cfg, vqvae, classifier) -> dict[str, int]:
+    """Data parallelism on the one card.  NCCL refuses two ranks on one
+    device, so two ranks under gloo on ``cuda:0`` take the flagship's steps
+    (``dp_cases``), each held against the one-rank step from the same
+    weights, batch and noise (the generators' draws: each rank keeps its
+    rows of the global batch's) and kNN graphs (``dp_steps``) and each
+    rank's launches equal to the one-rank step's; the host clock of both and
+    the all-reduce's time and bytes.  Then ``python -m
+    pccf_torch.train.autoencoder user.n_subprocesses=1`` through the
+    launcher under NCCL at the CLI phase's sizes, and the data-parallel
+    server over ``[cuda:0, cuda:0]`` against the single-device server at
+    requests of 16 and 64.  Two ranks share one card: the numbers show the
+    collectives' cost, not how the port scales.  ``cfg`` is the flagship's
+    configuration, ``vqvae`` and ``classifier`` the served models.  Returns
+    the data-parallel path's launches: both ranks' steps and the server's
+    requests."""
+    from pccf_torch.dist import launch
+    from pccf_torch.kernels import api
+    from pccf_torch.serve import DEFAULT_BUCKETS, CounterfactualServer
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    cases = dp_cases(cfg, seed)
+    payload = os.path.join(root, 'dp_payload.pt')
+    torch.save((cfg, seed, cases), payload)
+    t0 = time.perf_counter()
+    launch(dp_rank, DP_RANKS, 'gloo', payload, root)
+    print(f'data-parallel: {DP_RANKS} gloo ranks on cuda:0 took {time.perf_counter() - t0:.1f} s, the processes\' '
+          'start included', flush=True)
+    ranks = [torch.load(os.path.join(root, f'rank{r}.pt'), weights_only=False) for r in range(DP_RANKS)]
+    names = ('stage 1 ChamferEMD 8 x 2048', 'stage 1 ChamferEMD 8 x 2048, PCCF_BN_GROUPS=2', 'stage 2 at 32',
+             'classifier 16 x 2048, dropout')
+    for k, v in dp_check(check, cfg, seed, dev, cases, names, ranks, 'two ranks on one card, gloo')[0].items():
+        total[k] += v
+
+    # the launcher under NCCL, from the entry point's command line, at the
+    # CLI phase's sizes
+    from pccf_torch import cli
+    from pccf_torch.config import VERSION
+
+    argv = [*CLI_OVERRIDES, f'user.seed={seed}', 'autoencoder.train.n_epochs=1', 'user.n_subprocesses=1']
+    env = {**os.environ, 'ROOT_EXP_DIR': os.path.join(root, 'dp_exp'), 'DATASET_DIR': os.path.join(root, 'dp_data')}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, '-m', 'pccf_torch.train.autoencoder', *argv], env=env, capture_output=True,
+                         text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    ckpt = os.path.join(env['ROOT_EXP_DIR'], f'v{VERSION}', cli.parse_args(argv)[0].name, 'models',
+                        cfg.autoencoder.name, 'checkpoints', 'epoch_1')
+    state = torch.load(ckpt, weights_only=True)['state_dict'] if os.path.exists(ckpt) else {}
+    finite = bool(state) and all(bool(torch.isfinite(v).all()) for v in state.values() if v.is_floating_point())
+    check(run.returncode == 0 and finite,
+          f'python -m pccf_torch.train.autoencoder user.n_subprocesses=1 (the launcher, one rank on cuda:0 under '
+          f'NCCL): exit {run.returncode} in {seconds:.1f} s, the processes\' start included; its checkpoint finite '
+          f'{finite}' + ('' if run.returncode == 0 else f'; stderr: {run.stderr[-2000:]}'))
+
+    # the server over two replicas on the card against the single-device server
+    buckets = [b for b in DEFAULT_BUCKETS if b % 2 == 0]  # each cut in two
+    single = CounterfactualServer(vqvae, classifier, buckets, seed=seed)
+    dp = CounterfactualServer(vqvae, classifier, buckets, seed=seed, devices=[dev, dev])
+    rng = np.random.default_rng(seed + 46)
+    n = cfg.data.n_target_points
+    for size in DP_SERVER_REQUESTS:
+        clouds, _ = labelled_clouds(seed + 47 + size, (size // 2,) * 2, n)
+        tdim, seeds = rng.integers(0, 2, size), rng.integers(0, 1000, size)
+        api.reset_launch_counts()
+        got = dp.counterfactual(clouds, tdim, sampling_seed=seeds)
+        torch.cuda.synchronize()
+        counts = api.launch_counts()
+        for k in total:
+            total[k] += counts[k]
+        want_counts = {k: len(dp.replicas) * REQUEST_LAUNCHES.get(k, 0) for k in counts}
+        want = single.counterfactual(clouds, tdim, sampling_seed=seeds)
+        diff = float(np.abs(got - want).max() / (np.sqrt(np.mean(want ** 2)) + 1e-12))
+        check(counts == want_counts and diff <= BATCH_INVARIANCE and got.shape == (size, n, 3),
+              f'data-parallel server over [cuda:0, cuda:0], request of {size}: launches '
+              f'{json.dumps({k: v for k, v in counts.items() if v})} (a request\'s a replica), rel max diff to the '
+              f'single-device server {diff:.2e} <= {BATCH_INVARIANCE}')
+        lat = {'single': [], 'dp': []}
+        for which in ('single', 'dp', 'dp', 'single'):
+            srv = single if which == 'single' else dp
+            for _ in range(REPS // 2):
+                t0 = time.perf_counter()
+                srv.counterfactual(clouds, tdim, sampling_seed=seeds)
+                torch.cuda.synchronize()
+                lat[which].append((time.perf_counter() - t0) * 1e3)
+        print(f'data-parallel server, request of {size}: median latency {np.median(lat["dp"]):.3f} ms over two '
+              f'replicas on one card, {np.median(lat["single"]):.3f} ms single-device (host clock incl. copies, '
+              f'{len(lat["dp"])} each, in turns)', flush=True)
+    return total
 
 
 def main() -> int:
@@ -3582,6 +3934,9 @@ def main() -> int:
     try:
         cli_launches = cli_phase(args.seed, check, dev, root)
         tune_launches, reader_launches = tuning_and_readers_phase(args.seed, check, dev, root)
+        t0 = time.perf_counter()
+        dp_launches = dp_phase(args.seed, check, dev, root, cfg, vqvae, classifier)
+        print(f'data-parallel phase: {time.perf_counter() - t0:.1f} s', flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3592,12 +3947,15 @@ def main() -> int:
           f'entry points {json.dumps({k: v for k, v in cli_launches.items() if v})}; tuning '
           f'{json.dumps({k: v for k, v in tune_launches.items() if v})}; the readers '
           f'{json.dumps({k: v for k, v in reader_launches.items() if v})}; bf16 cast serving '
-          f'{json.dumps({k: v for k, v in cast_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in cast_launches.items() if v})}; data parallelism '
+          f'{json.dumps({k: v for k, v in dp_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
-             gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches)
+             gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
+             dp_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
-          'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving', flush=True)
+          'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel',
+          flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
         lib = 'none' if k['library_ms'] is None else f'{k["library_ms"]:.4f}'

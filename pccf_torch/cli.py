@@ -14,12 +14,18 @@ generator with ``user.seed`` where it is set, as ``get_config_all`` does;
 
 :func:`run` is what every ``main`` does: parse the arguments, pick the
 device, subscribe the trackers to the :class:`~pccf_torch.experiment.
-Experiment` and run the stage inside it.
+Experiment` and run the stage inside it.  For the training stages, with
+``user.n_subprocesses`` set, it hands the stage to
+:class:`~pccf_torch.dist.DistributedWorker`, as the JAX scripts do
+(``train_autoencoder.py:137-140``): every rank runs the stage inside the
+experiment, rank 0 with its directory and trackers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 import pathlib
 import sys
 from typing import Any, Callable
@@ -101,15 +107,46 @@ def device(cfg: SliceConfig) -> torch.device:
     return torch.device('cuda')
 
 
-def run(argv: list[str] | None, stage: Callable[[SliceConfig, torch.device], Any]) -> Any:
+def run(argv: list[str] | None, stage: Callable[[SliceConfig, torch.device], Any],
+        data_parallel: bool = False) -> Any:
     """``stage(cfg, device)`` inside the experiment the arguments (by default
-    ``sys.argv[1:]``) configure."""
+    ``sys.argv[1:]``) configure.  Where ``data_parallel`` and
+    ``user.n_subprocesses`` is set, each of that many ranks runs it
+    (:func:`run_rank`) and this returns None; ``stage`` is then a
+    module-level function, which the ranks import."""
+    cfg, tree = parse_args(sys.argv[1:] if argv is None else list(argv))
+    if data_parallel and cfg.user.n_subprocesses:
+        from pccf_torch.dist import DistributedWorker
+
+        module = stage.__module__
+        if module == '__main__':  # python -m <entry point>: the ranks import it by its name
+            module = sys.modules['__main__'].__spec__.name
+        DistributedWorker(functools.partial(run_rank, module, stage.__qualname__, tree),
+                          cfg.user.n_subprocesses).spawn(cfg)
+        return None
+    return _run_stage(cfg, tree, stage, device(cfg))
+
+
+def run_rank(module: str, name: str, tree: dict, cfg: SliceConfig) -> Any:
+    """One data-parallel rank's run of the stage ``module.name``: on the
+    CPU under ``user.cpu``, else on its card, ``cuda:rank``."""
+    from pccf_torch.dist import mesh
+
+    stage = getattr(importlib.import_module(module), name)
+    dev = device(cfg)
+    if dev.type == 'cuda':
+        dev = torch.device('cuda', mesh.rank())
+    return _run_stage(cfg, tree, stage, dev)
+
+
+def _run_stage(cfg: SliceConfig, tree: dict, stage: Callable[[SliceConfig, torch.device], Any],
+               dev: torch.device) -> Any:
+    from pccf_torch.dist import mesh
     from pccf_torch.train.trackers import get_trackers
 
-    cfg, tree = parse_args(sys.argv[1:] if argv is None else list(argv))
-    dev = device(cfg)
     exp = Experiment(cfg, tree)
-    for tracker in get_trackers(cfg):
+    main = mesh.is_main_process()
+    for tracker in get_trackers(cfg) if main else ():
         exp.subscribe(tracker)
-    with exp.create_run():
+    with exp.create_run(record=main):
         return stage(cfg, dev)

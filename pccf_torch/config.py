@@ -78,8 +78,20 @@ class EarlyStoppingConfig:
 CLASSIFIER_EPOCHS = 45  # classifier/train/default_train.yaml:7
 
 
+class _DataParallel:
+    """``batch_size_per_device`` of a train configuration
+    (``pccf/config/specs.py:262-266``)."""
+
+    batch_size: int
+    n_subprocesses: int
+
+    @property
+    def batch_size_per_device(self) -> int:
+        return self.batch_size // self.n_subprocesses if self.n_subprocesses else self.batch_size
+
+
 @dataclasses.dataclass(frozen=True)
-class ClassifierTrainConfig:
+class ClassifierTrainConfig(_DataParallel):
     """classifier/train/**: SGD with the cosine schedule, no gradient operation."""
 
     batch_size: int = 16  # train/default_train.yaml:6
@@ -95,6 +107,7 @@ class ClassifierTrainConfig:
     scheduler: SchedulerConfig = SchedulerConfig(restart_interval=CLASSIFIER_EPOCHS, min_decay=0.01,
                                                  decay_steps=CLASSIFIER_EPOCHS)
     early_stopping: EarlyStoppingConfig = EarlyStoppingConfig(active=True, window=5, patience=10)
+    n_subprocesses: int = 0  # train/default_train.yaml:8, user.n_subprocesses: data-parallel ranks (0: one process)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +166,7 @@ W_EPOCHS = 500  # w_autoencoder/train/default_train.yaml:7
 
 
 @dataclasses.dataclass(frozen=True)
-class WAutoEncoderTrainConfig:
+class WAutoEncoderTrainConfig(_DataParallel):
     """Stage 2: w_autoencoder/train/** and w_autoencoder/objective/vae_objective.yaml."""
 
     batch_size: int = 32  # train/default_train.yaml:6
@@ -170,6 +183,7 @@ class WAutoEncoderTrainConfig:
     c_kld1: float = 0.1  # objective/vae_objective.yaml:1
     c_kld2: float = 4.0  # objective/vae_objective.yaml:2
     early_stopping: EarlyStoppingConfig = EarlyStoppingConfig(active=False, window=50, patience=50)
+    n_subprocesses: int = 0  # train/default_train.yaml:8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,7 +204,7 @@ class WAutoEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class AutoEncoderTrainConfig:
+class AutoEncoderTrainConfig(_DataParallel):
     batch_size: int = 8  # autoencoder/train/default_train.yaml:6
     n_epochs: int = 1000  # autoencoder/train/default_train.yaml:7
     optimizer_name: str = 'AdamW'  # autoencoder/train/learn/default_learn.yaml:5
@@ -205,6 +219,7 @@ class AutoEncoderTrainConfig:
     recon_loss: str = 'ChamferEMD'  # autoencoder/objective/chamfer_emd.yaml:2
     c_embedding: float = 8.0  # autoencoder/objective/chamfer_emd.yaml:3 (the same in the other two)
     early_stopping: EarlyStoppingConfig = EarlyStoppingConfig(active=False, window=10, patience=400)
+    n_subprocesses: int = 0  # autoencoder/train/default_train.yaml:8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +282,7 @@ class UserConfig:
     seed: int | None = None  # user/user_settings.yaml:3
     cpu: bool = False  # user/user_settings.yaml:6; the card unless set
     n_workers: int = 0  # user/user_settings.yaml:7
+    n_subprocesses: int = 0  # user/user_settings.yaml:8: data-parallel ranks of the training stages (0: one process)
     checkpoint_every: int = 100  # user/user_settings.yaml:9
     load_checkpoint: int = 0  # user/user_settings.yaml:10: 0 fresh, -1 the latest, n epoch n
     trackers: TrackerConfig = TrackerConfig()
@@ -338,8 +354,6 @@ class SliceConfig:
         a value the port does not take and ``NotImplementedError`` for what it
         has not ported (``ROADMAP.md``)."""
         d, c, a, w, u = (tree[k] for k in ('data', 'classifier', 'autoencoder', 'w_autoencoder', 'user'))
-        if u.get('n_subprocesses'):
-            raise NotImplementedError('user.n_subprocesses: data-parallel training is not ported (ROADMAP.md)')
         _check(a['n_training_output_points'] == d['n_input_points'] and
                a['objective']['n_inference_output_points'] == d['n_target_points'],
                'the port decodes data.n_input_points points in training and data.n_target_points in eval')
@@ -392,6 +406,7 @@ class SliceConfig:
             plot=PlotConfig(interactive=bool(pl['interactive']),
                             sample_indices=tuple(int(i) for i in pl['sample_indices'])),
             seed=None if u['seed'] is None else int(u['seed']), cpu=bool(u['cpu']), n_workers=int(u['n_workers']),
+            n_subprocesses=_count(u.get('n_subprocesses', 0), 'user.n_subprocesses'),
             checkpoint_every=int(u['checkpoint_every']), load_checkpoint=int(u.get('load_checkpoint', -1)),
             trackers=TrackerConfig(**{k: bool(t[k]) for k in ('hydra', 'tensorboard', 'wandb', 'sqlalchemy', 'csv')}))
         return SliceConfig(data=data, classifier=classifier, autoencoder=autoencoder, w_autoencoder=w_autoencoder,
@@ -468,12 +483,22 @@ def _learn(train: dict) -> dict:
                 raise NotImplementedError(f'Adam {key}={opt[key]!r} is not ported (pccf_torch runs Adam with {key}='
                                           f'{value!r})')
     settings = {k: v for k, v in opt.items() if k != 'weight_decay'} if name in ('Adam', 'RMSprop') else {}
-    return dict(batch_size=int(train['batch_size']), n_epochs=int(train['n_epochs']), optimizer_name=name,
-                learning_rate=float(learn['learning_rate']), weight_decay=float(opt.get('weight_decay', 0.0)),
+    n_subprocesses = _count(train.get('_n_subprocesses', 0), '_n_subprocesses')
+    if n_subprocesses and int(train['batch_size']) % n_subprocesses:  # specs.py:255-260
+        raise ValueError(f"Global batch size {train['batch_size']} not divisible by number of devices "
+                         f'{n_subprocesses}.')
+    return dict(batch_size=int(train['batch_size']), n_subprocesses=n_subprocesses, n_epochs=int(train['n_epochs']),
+                optimizer_name=name, learning_rate=float(learn['learning_rate']),
+                weight_decay=float(opt.get('weight_decay', 0.0)),
                 opt_settings=_freeze(settings), grad_op=learn['grad_op'], clip_criterion=str(learn['clip_criterion']),
                 scheduler=_scheduler(learn['scheduler']), early_stopping=EarlyStoppingConfig(
                     active=bool(train['early_stopping']['active']), window=int(train['early_stopping']['window']),
                     patience=int(train['early_stopping']['patience'])))
+
+
+def _count(v, name: str) -> int:
+    _check(int(v) >= 0, f'{name} must be non-negative')
+    return int(v)
 
 
 def _net(n: dict) -> TransformerNetConfig:

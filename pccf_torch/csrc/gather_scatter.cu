@@ -649,8 +649,8 @@ __global__ void __launch_bounds__(32 * S * slot_parts(S)) slot_scatter_kernel(co
 
 template <int S>
 int launch_slot_scatter(const SlotScatterPlan& p, const SlotScatterArgs& a, int b, cudaStream_t stream) {
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(slot_scatter_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize, SLOT_MAX_SMEM);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)slot_scatter_kernel<S>, SLOT_MAX_SMEM);
   if (attr != cudaSuccess) return (int)attr;
   slot_scatter_kernel<S><<<dim3(a.f / S, p.ranges, b), 32 * S * slot_parts(S), p.smem, stream>>>(a);
   return (int)cudaGetLastError();

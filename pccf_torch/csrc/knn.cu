@@ -43,6 +43,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -444,11 +445,10 @@ extern "C" int pccf_knn(const float* x, float* sq, float* part_d, int* part_i, i
       splits > tiles || !sq || (splits > 1 && (!part_d || !part_i)))
     return (int)cudaErrorInvalidValue;
   const bool tc = c > kFmaMaxC;
-  static const cudaError_t attr_tc =
-      cudaFuncSetAttribute(knn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)knn_smem(kMaxC));
-  static const cudaError_t attr_fma =
-      cudaFuncSetAttribute(knn_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)knn_smem(kFmaMaxC));
-  if ((tc ? attr_tc : attr_fma) != cudaSuccess) return (int)(tc ? attr_tc : attr_fma);
+  static MaxSmem max_smem_tc, max_smem_fma;
+  const cudaError_t attr = tc ? max_smem_tc((const void*)knn_kernel<true>, (int)knn_smem(kMaxC))
+                              : max_smem_fma((const void*)knn_kernel<false>, (int)knn_smem(kFmaMaxC));
+  if (attr != cudaSuccess) return (int)attr;
   const int points = b * n;
   if (tc)
     knn_norms_tc_kernel<<<(points + 63) / 64, 256, 0, stream>>>(x, sq, points, c);

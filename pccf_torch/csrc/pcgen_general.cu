@@ -44,6 +44,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -350,8 +351,8 @@ extern "C" int pccf_pcgen_general(const float* m, const float* w, const float* m
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.tiles = (int)tiles;
   const int smem = (int)((in_smem ? block_floats(p.rows, p.ldx, p.ldh, g_count) : 0) + kRingFloats) * 4;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(pcgen_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)pcgen_general_kernel, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
   const int blocks = in_smem ? p.tiles : (p.tiles < kPersistentBlocks ? p.tiles : kPersistentBlocks);
   pcgen_general_kernel<<<blocks, kThreads, smem, stream>>>(p);

@@ -74,6 +74,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -527,8 +528,8 @@ int launch(Args& args, const uint16_t* w0, const uint16_t* w1, const uint16_t* w
   if (!encode_f16(&args.w0, w0, g * args.d1, args.d0, kD2) || !encode_f16(&args.w1, w1, g * kD2, args.d1, kD2) ||
       !encode_f16(&args.w2, w2, g * kD3, kD2, kD3))
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(pcgen_mix_kernel<kD2>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)pcgen_mix_kernel<kD2>, kSmemMax);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((args.n + kRows - 1) / kRows, batch);
   pcgen_mix_kernel<kD2><<<grid, kThreads, fixed + stages * kStageBytes, stream>>>(args);

@@ -55,6 +55,7 @@
 
 #include <algorithm>
 
+#include "device_attr.cuh"
 #include "hopper.cuh"
 
 namespace pccf {
@@ -276,8 +277,8 @@ inline int device_sms() {
 template <int S, class Reduce>
 int launch_slice_pool(const SlicePlan& p, const float* x, const int* idx, float* out, uint8_t* slot, int b, int n,
                       int c, int k, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      slice_pool_kernel<S, Reduce>, cudaFuncAttributeMaxDynamicSharedMemorySize, kPoolMaxSmem);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)slice_pool_kernel<S, Reduce>, kPoolMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;

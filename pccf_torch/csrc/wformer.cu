@@ -79,6 +79,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "device_attr.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -762,8 +763,8 @@ template <int kWg, int kBn, bool kBf16W>
 int launch_gemm(const float* a, int groups, const void* const* ops, const float* res, int M, int N, int K,
                 int res_rows, int gelu, cudaStream_t stream) {
   constexpr int smem = GemmStage<kWg, kBn, kBf16W>::smem;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(gemm_kernel<kWg, kBn, kBf16W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)gemm_kernel<kWg, kBn, kBf16W>, smem);
   if (attr != cudaSuccess) return (int)attr;
   const EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
@@ -813,8 +814,8 @@ int launch_attention(const float* q, int q_stride, const float* k, const float* 
                      int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim, float scale,
                      cudaStream_t stream) {
   constexpr size_t smem = AttnShape<kHd>::smem;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_kernel<kHd, kPad>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)attention_kernel<kHd, kPad>, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   attention_kernel<kHd, kPad><<<dim3(t_q / kQt, n_heads, batch), 128, smem, stream>>>(
       q, q_stride, k, v, kv_stride, out, out_stride, t_q, t_k, head_dim, scale);
@@ -825,8 +826,8 @@ int launch_attention_wide(const float* q, int q_stride, const float* k, const fl
                           int out_stride, int batch, int t_q, int t_k, int n_heads, int head_dim, float scale,
                           cudaStream_t stream) {
   constexpr int smem = 3 * kWideTile * sizeof(float);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)attention_wide_kernel, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int chunks = (head_dim + kWideChunk - 1) / kWideChunk;
   attention_wide_kernel<<<dim3(t_q / kQt, n_heads * chunks, batch), 128, smem, stream>>>(

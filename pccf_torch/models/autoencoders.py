@@ -13,6 +13,7 @@ from torch import nn
 
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Inputs, Outputs, WInputs
+from pccf_torch.dist import mesh
 from pccf_torch.kernels import ops
 from pccf_torch.kernels.cvae import pack_cvae_cf
 from pccf_torch.models.w_autoencoders import GenerationNoise, WAutoEncoder, build_w_autoencoder
@@ -77,12 +78,14 @@ class VQVAE(nn.Module):
         uniforms, needed in training.  Where ``inputs.initial_sampling`` or, in
         training, ``noise`` is missing, it is drawn from ``generator``: the
         sampling of ``n_training_output_points`` points in train mode, of
-        ``n_inference_output_points`` in eval."""
+        ``n_inference_output_points`` in eval; in a data-parallel step the
+        global batch's draws, of which this rank keeps its rows."""
         if generator is not None:
             n = self.n_training_output_points if self.training else self.n_inference_output_points
             batch, dev = inputs.cloud.shape[0], inputs.cloud.device
             if inputs.initial_sampling is None:
-                sampling = torch.randn((batch, n, self.decoder.sample_dim), generator=generator, device=dev)
+                sampling = mesh.draw(lambda s: torch.randn(s, generator=generator, device=dev),
+                                     (batch, n, self.decoder.sample_dim))
                 inputs = type(inputs)(inputs.cloud, inputs.indices, sampling)
             if noise is None and self.training:
                 noise = gumbel_uniform((batch, n, self.decoder.n_components), generator, dev)

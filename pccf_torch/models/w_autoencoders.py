@@ -10,6 +10,7 @@ from torch import nn
 
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Outputs, WInputs
+from pccf_torch.dist import mesh
 from pccf_torch.kernels import api, ops
 from pccf_torch.kernels.cvae import MAX_EMBEDDING, CVAEPack, pack_cvae_cf
 from pccf_torch.nn.layers import gelu_exact
@@ -114,7 +115,8 @@ class WAutoEncoder(nn.Module):
         if eps is None:
             if generator is None:
                 raise ValueError('sample_posterior: pass the noise or a torch.Generator to draw it')
-            eps = tuple(torch.randn(m.shape, generator=generator, device=m.device) for m in (data.mu1, mu2))
+            eps = tuple(mesh.draw(lambda s, d=m.device: torch.randn(s, generator=generator, device=d), m.shape)
+                        for m in (data.mu1, mu2))
         eps1, eps2 = eps
         return data.replace(z1=eps1 * torch.exp(0.5 * data.log_var1) + data.mu1,
                             z2=eps2 * torch.exp(0.5 * log_var2) + mu2)

@@ -7,8 +7,9 @@ import torch
 from torch import nn
 
 from pccf_torch.config import AutoEncoderConfig
+from pccf_torch.dist import mesh
 from pccf_torch.kernels import api
-from pccf_torch.nn.layers import Act, BatchNorm, DenseBlock, act_slope, get_act
+from pccf_torch.nn.layers import Act, BatchNorm, DenseBlock, act_slope, bn_groups, get_act
 
 IN_CHAN = 3
 
@@ -61,29 +62,47 @@ class EdgeConvBlock(nn.Module):
         return self.act(out) if self.act is not None else out
 
     def _batch_affine(self, u: torch.Tensor, s: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """BatchNorm affine from the edge tensor's batch statistics
-        (``encoders.py:89-123``); updates the running statistics."""
+        """BatchNorm affine from the edge tensor's batch statistics per
+        statistic group (``encoders.py:89-123``): the five terms (the
+        neighbour sums of u and u², the cross term s · Σu, s and s²) reduced
+        by one :func:`~pccf_torch.dist.mesh.group_moments` call; updates the
+        running statistics with the groups' mean."""
         f, k = u.shape[-1], idx.shape[-1]
         sums = api.graph_sum_pool(torch.cat([u, u * u], dim=-1), idx)
         usum, u2sum = sums[..., :f], sums[..., f:]
-
-        def mean(t):
-            return torch.mean(t, dim=(0, 1))
-
-        batch_mean = mean(usum) / k + mean(s)
-        batch_var = mean(u2sum) / k + 2.0 * (mean(s * usum) / k) + mean(s * s) - batch_mean * batch_mean
-        self.bn.update_running(batch_mean, batch_var)
+        groups = bn_groups()
+        moments = mesh.group_moments([usum, s, u2sum, lambda: s * usum, lambda: s * s], groups)  # (G, F) each
+        e_u, e_s, e_u2, e_cross, e_s2 = (m.squeeze(0) for m in moments) if groups == 1 else moments
+        batch_mean = e_u / k + e_s
+        batch_var = e_u2 / k + 2.0 * (e_cross / k) + e_s2 - batch_mean * batch_mean
+        if groups == 1:
+            self.bn.update_running(batch_mean, batch_var)
+            a = self.bn.weight * torch.rsqrt(batch_var + self.bn.eps)
+            return a, self.bn.bias - batch_mean * a
+        self.bn.update_running(batch_mean.mean(dim=0), batch_var.mean(dim=0))
         a = self.bn.weight * torch.rsqrt(batch_var + self.bn.eps)
-        return a, self.bn.bias - batch_mean * a
+        b = self.bn.bias - batch_mean * a
+        n = u.shape[0]
+        return mesh.expand_groups(a, n, groups)[:, None, :], mesh.expand_groups(b, n, groups)[:, None, :]
 
     def _materialised(self, u: torch.Tensor, s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        """The edge tensor ``(B, N, k, F)``, BatchNorm, the activation and the
-        first winner over the neighbours (``encoders.py:128-153``)."""
+        """The edge tensor ``(B, N, k, F)``, BatchNorm per statistic group,
+        the activation and the first winner over the neighbours
+        (``encoders.py:128-153``)."""
         pre = api.gather_neighbors(u.contiguous(), idx) + s[:, :, None, :]
         if self.training:
-            mean = torch.mean(pre, dim=(0, 1, 2))
-            var = torch.mean(pre * pre, dim=(0, 1, 2)) - mean * mean
-            self.bn.update_running(mean, var)
+            groups = bn_groups()
+            mean, sq = mesh.group_moments([pre, lambda: pre * pre], groups)  # (G, F)
+            if groups == 1:
+                mean, sq = mean.squeeze(0), sq.squeeze(0)
+            var = sq - mean * mean
+            if groups == 1:
+                self.bn.update_running(mean, var)
+            else:
+                self.bn.update_running(mean.mean(dim=0), var.mean(dim=0))
+                n = pre.shape[0]
+                mean = mesh.expand_groups(mean, n, groups)[:, None, None, :]
+                var = mesh.expand_groups(var, n, groups)[:, None, None, :]
         else:
             mean, var = self.bn.running_mean, self.bn.running_var
         pre = (pre - mean) * torch.rsqrt(var + self.bn.eps) * self.bn.weight + self.bn.bias

@@ -17,6 +17,7 @@ conversion is mechanical.
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable
 
 import torch
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import parametrize
 
+from pccf_torch.dist import mesh
 from pccf_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -78,16 +80,27 @@ def act_slope(act: Act | None) -> float | None:
 BN_MOMENTUM = 0.9  # flax's momentum: running = 0.9 * running + 0.1 * batch
 
 
+def bn_groups() -> int:
+    """BatchNorm statistic groups, ``PCCF_BN_GROUPS`` (``pccf/nn/layers.py:27-40``):
+    1 (the default) takes the statistics over the global batch, as GSPMD
+    does; G > 1 over each contiguous group of B/G samples of the global
+    batch, the reference's per-replica DDP BatchNorm with G replicas."""
+    return max(1, int(os.environ.get('PCCF_BN_GROUPS', '1')))
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis (flax ``nn.BatchNorm``, one statistics
-    group: ``PCCF_BN_GROUPS`` is not ported).
+    """BatchNorm over the last axis (flax ``nn.BatchNorm``, and
+    ``GroupedBatchNorm`` under :func:`bn_groups`, ``layers.py:43-87``).
 
     ``shape`` may carry leading stack axes (the vmapped PCGen components); in
     training the statistics are then taken per stack entry, over every axis
     between the stack axes and the features.  Training normalises with the
-    batch mean and the biased variance ``max(E[x²] − E[x]², 0)`` and moves
-    the running statistics towards them with momentum 0.9 — the biased
-    variance, unlike ``torch.nn.BatchNorm1d``'s unbiased update."""
+    batch mean and the biased variance ``max(E[x²] − E[x]², 0)`` of each
+    statistic group (:func:`pccf_torch.dist.mesh.group_moments`: over the
+    global batch in a data-parallel step) and moves the running statistics
+    towards their mean over the groups with momentum 0.9 — the biased
+    variance, unlike ``torch.nn.BatchNorm1d``'s unbiased update.  The
+    parameter and buffer names do not depend on the groups."""
 
     def __init__(self, *shape: int, eps: float = BN_EPS) -> None:
         super().__init__()
@@ -100,13 +113,22 @@ class BatchNorm(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         stack = self.weight.dim() - 1
         view = x.shape[:stack] + (1,) * (x.dim() - stack - 1) + x.shape[-1:]
-        if self.training:
-            axes = tuple(range(stack, x.dim() - 1))
-            mean = torch.mean(x, dim=axes)
-            var = torch.clamp_min(torch.mean(x * x, dim=axes) - mean * mean, 0.0)
-            self.update_running(mean, var)
-        else:
+        if not self.training:
             mean, var = self.running_mean, self.running_var
+        else:
+            groups = bn_groups()
+            mean, sq = mesh.group_moments([x, lambda: x * x], groups, stack)  # (*S, G, F)
+            if groups == 1:
+                mean, sq = mean.squeeze(-2), sq.squeeze(-2)  # views: no copy in the backward
+            var = torch.clamp_min(sq - mean * mean, 0.0)
+            if groups > 1:
+                self.update_running(mean.mean(dim=-2), var.mean(dim=-2))
+                n = x.shape[stack]
+                rows = x.shape[:stack + 1] + (1,) * (x.dim() - stack - 2) + x.shape[-1:]
+                a = self.weight.unsqueeze(-2) * torch.rsqrt(var + self.eps)
+                return ((x - mesh.expand_groups(mean, n, groups).view(rows))
+                        * mesh.expand_groups(a, n, groups).view(rows) + self.bias.view(view))
+            self.update_running(mean, var)
         # flax order: (x − μ) · (γ · rsqrt(σ² + ε)) + β
         a = self.scale(var)
         return (x - mean.view(view)) * a.view(view) + self.bias.view(view)
@@ -211,8 +233,9 @@ def gumbel_softmax(logits: Tensor, tau: float, uniform: Tensor, dim: int = -1) -
 
 def gumbel_uniform(shape: tuple[int, ...], generator: torch.Generator, device: torch.device) -> Tensor:
     """``U[1e-20, 1)`` noise for :func:`gumbel_softmax` (``jax.random.uniform``
-    with ``minval=1e-20``), from an explicit generator on ``device``."""
-    return torch.rand(shape, generator=generator, device=device).clamp_min_(1e-20)
+    with ``minval=1e-20``), from an explicit generator on ``device``; axis 0
+    is the batch (:func:`pccf_torch.dist.mesh.draw`)."""
+    return mesh.draw(lambda s: torch.rand(s, generator=generator, device=device), shape).clamp_min_(1e-20)
 
 
 class MLPHead(nn.Module):
@@ -239,10 +262,12 @@ class MLPHead(nn.Module):
 
 def dropout(x: Tensor, rate: float, generator: torch.Generator | None) -> Tensor:
     """flax ``nn.Dropout`` in training: each element kept with probability
-    ``1 - rate`` by its own draw and scaled by ``1 / (1 - rate)``."""
+    ``1 - rate`` by its own draw and scaled by ``1 / (1 - rate)``.  Axis 0
+    is the batch: in a data-parallel step the mask is the global batch's
+    (:func:`pccf_torch.dist.mesh.draw`)."""
     if rate == 0.0:
         return x
-    keep = _keep(x.shape, rate, generator, x.device)
+    keep = mesh.draw(lambda shape: _keep(shape, rate, generator, x.device), x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

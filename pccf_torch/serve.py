@@ -36,13 +36,18 @@ Kept from the JAX server:
   PCGen's BatchNorm folds) are computed in float32 from the rounded values.
   Arithmetic on parameters alone is bf16 in JAX's cast (all its operands are
   bf16); where its compiled graph rounds it, BatchNorm's ``rsqrt(σ² + ε)``,
-  the port rounds it too (:meth:`pccf_torch.nn.layers.BatchNorm.scale`).
-
-The mesh is not ported yet.
+  the port rounds it too (:meth:`pccf_torch.nn.layers.BatchNorm.scale`);
+- data-parallel serving (``devices=``, the counterpart of ``mesh=``,
+  ``serve.py:80-136``): each listed device holds a replica of the served
+  models (after the cast, prepacked), every bucket is cut into contiguous
+  shards of ``bucket / len(devices)`` rows, one a replica, and the results
+  come back in row order.  A device may be listed twice (two replicas on
+  it).  Buckets that the device count does not divide raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 from typing import Any, Sequence
@@ -112,6 +117,12 @@ def stored_dtypes(model: torch.nn.Module) -> set[torch.dtype]:
     return {t.dtype for t in (*model.parameters(), *model.buffers()) if t.is_floating_point()}
 
 
+def on_device(device: torch.device) -> contextlib.AbstractContextManager:
+    """``device`` as the current card, nothing on the CPU: a kernel launches
+    on the current card's stream, so a replica's work runs under its card."""
+    return torch.cuda.device(device) if device.type == 'cuda' else contextlib.nullcontext()
+
+
 def _host_generator(entropy: list[int], spawn_key: tuple[int, ...] = ()) -> torch.Generator:
     state = np.random.SeedSequence(entropy, spawn_key=spawn_key).generate_state(2, np.uint32)
     return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
@@ -142,7 +153,10 @@ class CounterfactualServer:
     ``counterfactual``, ``generate``, ``submit`` and ``flush`` may be called
     from several threads; each public method runs in inference mode on the
     thread that calls it (PyTorch keeps that mode per thread).  With
-    ``cast_bf16`` the server serves :func:`bf16_copy` of both models."""
+    ``cast_bf16`` the server serves :func:`bf16_copy` of both models.  With
+    ``devices`` it serves a replica of them on each device, each bucket
+    sharded over the replicas by rows; the caller's models are left where
+    they are."""
 
     def __init__(
         self,
@@ -151,17 +165,25 @@ class CounterfactualServer:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         seed: int = 0,
         cast_bf16: bool = False,
+        devices: Sequence[torch.device | str] | None = None,
     ) -> None:
         if not buckets or list(buckets) != sorted(set(int(b) for b in buckets)):
             raise ValueError(f'buckets must be ascending and unique, got {buckets}')
         self.buckets = tuple(int(b) for b in buckets)
+        if devices is not None:
+            bad = [b for b in self.buckets if b % len(devices)]
+            if not devices or bad:
+                raise ValueError(f'buckets {bad} are not divisible by the {len(devices)} devices')
         self.cast_bf16 = bool(cast_bf16)
         if self.cast_bf16:
             vqvae = bf16_copy(vqvae)
             classifier = bf16_copy(classifier) if classifier is not None else None
-        self.vqvae = vqvae.eval()
-        self.classifier = classifier.eval() if classifier is not None else None
-        self.device = vqvae.codebook.device
+        # (vqvae, classifier) per replica; one replica: the models as given
+        self.replicas = [(vqvae.eval(), classifier.eval() if classifier is not None else None)] if devices is None \
+            else [(copy.deepcopy(vqvae).to(d).eval(),
+                   copy.deepcopy(classifier).to(d).eval() if classifier is not None else None) for d in devices]
+        self.vqvae, self.classifier = self.replicas[0]
+        self.device = self.vqvae.codebook.device
         self.seed = int(seed)
         self.n_out = int(vqvae.n_inference_output_points)
         self.sample_dim = int(vqvae.decoder.sample_dim)
@@ -172,35 +194,45 @@ class CounterfactualServer:
         self._queue_lock = threading.Lock()
         self._stats_lock = threading.Lock()
         self.stats: dict[str, Any] = {'served': 0, 'batches': 0, 'padded': 0}
-        vqvae.prepack()
-        if self.cast_bf16:
-            # never an f32 server under the cast's name
-            for name, model in (('vqvae', vqvae), ('classifier', classifier)):
-                if model is not None and stored_dtypes(model) - {torch.bfloat16}:
-                    raise RuntimeError(f'cast_bf16: the {name} stores {stored_dtypes(model)}')
-            pack = vqvae.w_autoencoder.packed
-            if pack is not None and not pack.bf16:
-                raise RuntimeError('cast_bf16: the CVAE chain packed fp32 stack weights')
+        for vqvae, classifier in self.replicas:
+            with on_device(vqvae.codebook.device):
+                vqvae.prepack()
+            if self.cast_bf16:
+                # never an f32 server under the cast's name
+                for name, model in (('vqvae', vqvae), ('classifier', classifier)):
+                    if model is not None and stored_dtypes(model) - {torch.bfloat16}:
+                        raise RuntimeError(f'cast_bf16: the {name} stores {stored_dtypes(model)}')
+                pack = vqvae.w_autoencoder.packed
+                if pack is not None and not pack.bf16:
+                    raise RuntimeError('cast_bf16: the CVAE chain packed fp32 stack weights')
 
     @classmethod
     def from_config(cls, cfg, device: torch.device | str, **kwargs) -> 'CounterfactualServer':
         """A server of the models in the current experiment's checkpoints,
-        loaded as the evaluation entry points load them (``serve.py:222-231``)."""
+        loaded as the evaluation entry points load them (``serve.py:222-231``),
+        on ``device``; ``devices=`` in ``kwargs`` replicates them there."""
         from pccf_torch.train.w_autoencoder import load_models
 
         classifier, vqvae = load_models(cfg, torch.device(device))
         return cls(vqvae, classifier, **kwargs)
 
-    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
-        """Move a host tensor to the server's device; to the card through
-        pinned memory without waiting (a pageable source would wait for the
-        device work already queued)."""
-        if self.device.type == 'cuda':
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+    def _to_device(self, t: torch.Tensor, device: torch.device | None = None) -> torch.Tensor:
+        """Move a host tensor to ``device`` (the server's by default); to the
+        card through pinned memory without waiting (a pageable source would
+        wait for the device work already queued)."""
+        device = self.device if device is None else device
+        if device.type == 'cuda' and t.device.type == 'cpu':
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
-    def _tensor(self, x: np.ndarray, dtype: np.dtype = np.float32) -> torch.Tensor:
-        return self._to_device(torch.from_numpy(np.array(x, dtype=dtype)))
+    def _tensor(self, x: np.ndarray, dtype: np.dtype = np.float32, device: torch.device | None = None) -> torch.Tensor:
+        return self._to_device(torch.from_numpy(np.array(x, dtype=dtype)), device)
+
+    def _shards(self, b: int) -> list[tuple[torch.nn.Module, torch.nn.Module | None, torch.device, slice]]:
+        """Each replica's models, device and contiguous rows of a bucket of ``b``."""
+        size = b // len(self.replicas)
+        return [(vq, cls, vq.codebook.device, slice(i * size, (i + 1) * size))
+                for i, (vq, cls) in enumerate(self.replicas)]
 
     def initial_sampling(self, seeds: np.ndarray) -> torch.Tensor:
         """``(len(seeds), n_out, sample_dim)`` decoder scaffold, one generator
@@ -234,8 +266,13 @@ class CounterfactualServer:
         b = next_bucket(clouds.shape[0], self.buckets)
         if clouds.shape[0] > b:
             return np.concatenate([self.classify(clouds[i : i + b]) for i in range(0, clouds.shape[0], b)])
-        logits = self.classifier(Inputs(cloud=self._tensor(pad_batch(clouds, b))))
-        return logits[: clouds.shape[0]].float().cpu().numpy()
+        padded = pad_batch(clouds, b)
+        # every replica's launches first, then the copies: the devices overlap
+        logits = []
+        for _, cls, dev, rows in self._shards(b):
+            with on_device(dev):
+                logits.append(cls(Inputs(cloud=self._tensor(padded[rows], device=dev))))
+        return torch.cat([x.float().cpu() for x in logits])[: clouds.shape[0]].numpy()
 
     @torch.inference_mode()
     def counterfactual(
@@ -281,16 +318,21 @@ class CounterfactualServer:
         parts = []
         for i in range(0, n, b):
             m = min(b, n - i)
-            out = self.vqvae.generate_counterfactual(
-                Inputs(
-                    cloud=self._tensor(pad_batch(clouds[i : i + b], b)),
-                    initial_sampling=self.initial_sampling(pad_batch(seeds[i : i + b], b)),
-                ),
-                self._tensor(pad_batch(logits[i : i + b], b)),
-                self._tensor(pad_batch(tdim[i : i + b], b), np.int64),
-                self._tensor(pad_batch(tval[i : i + b], b)[:, None]),
-            )
-            parts.append(self._fetch(out.recon[:m].float()))
+            chunk = [pad_batch(x[i : i + b], b) for x in (clouds, seeds, logits, tdim, tval)]
+            for vq, _, dev, rows in self._shards(b):
+                valid = min(max(m - rows.start, 0), rows.stop - rows.start)
+                if valid == 0:
+                    continue
+                c, s, lg, td, tv = (x[rows] for x in chunk)
+                with on_device(dev):
+                    out = vq.generate_counterfactual(
+                        Inputs(cloud=self._tensor(c, device=dev),
+                               initial_sampling=self._to_device(self.initial_sampling(s), dev)),
+                        self._tensor(lg, device=dev),
+                        self._tensor(td, np.int64, dev),
+                        self._tensor(tv[:, None], device=dev),
+                    )
+                    parts.append(self._fetch(out.recon[:valid].float()))
             self._bump_stats(m, b)
         return ServeFuture(parts)
 
@@ -334,12 +376,15 @@ class CounterfactualServer:
         """One chunk: the draws at the bucket's size, cut to ``n``."""
         b = next_bucket(n, self.buckets)
         noise, sampling = self.generation_draws(b, seed, chunk)
-        p = None if probs is None else self._tensor(pad_batch(np.asarray(probs, np.float32), b))
-        out = self.vqvae.generate(b, self._to_device(sampling), float(z1_bias), p,
-                                  tuple(self._to_device(x) for x in noise))
-        recon = out.recon[:n].float().cpu().numpy()
+        p = None if probs is None else pad_batch(np.asarray(probs, np.float32), b)
+        recon = []
+        for vq, _, dev, rows in self._shards(b):
+            with on_device(dev):
+                recon.append(vq.generate(rows.stop - rows.start, self._to_device(sampling[rows], dev), float(z1_bias),
+                                         None if p is None else self._tensor(p[rows], device=dev),
+                                         tuple(self._to_device(x[rows], dev) for x in noise)).recon)
         self._bump_stats(n, b)
-        return recon
+        return torch.cat([x.float().cpu() for x in recon])[:n].numpy()
 
     # ------------------------------------------------------ microbatching
     @torch.inference_mode()

@@ -11,8 +11,8 @@ where ``autoencoder.train.early_stopping.active`` (off in the flagship) and
 the checkpoint every ``user.checkpoint_every`` epochs.  A checkpoint is saved
 at the end and a final test follows, with ApproxMatch EMD attached as a
 metric when the objective has no ``'EMD'`` term.  ``user.load_checkpoint``
-resumes from a checkpoint (-1 the latest).  The reconstruction-logging hooks
-(TensorBoard figures) and data-parallel training are not ported.
+resumes from a checkpoint (-1 the latest).  ``user.n_subprocesses=N`` trains
+on N data-parallel ranks (:mod:`pccf_torch.dist`).
 
     python -m pccf_torch.train.autoencoder data/dataset=synthetic user.cpu=true
 
@@ -153,8 +153,10 @@ def stage(cfg: SliceConfig, device: torch.device, trial=None) -> dict:
                trial=trial, n_workers=cfg.user.n_workers)
 
 
-def main(argv: list[str] | None = None) -> dict:
-    return cli.run(argv, stage)
+def main(argv: list[str] | None = None) -> dict | None:
+    """The stage in one process, or, with ``user.n_subprocesses``, on that
+    many data-parallel ranks (then None)."""
+    return cli.run(argv, stage, data_parallel=True)
 
 
 if __name__ == '__main__':

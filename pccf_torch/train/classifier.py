@@ -14,7 +14,9 @@ where the tracker, tensorboardX or matplotlib is missing).  Early stopping
 (``classifier/train/early_stopping``: window 5, patience 10 in the
 flagship) stops training unless ``final``; checkpoints are saved every
 ``user.checkpoint_every`` epochs and at the end, and
-``user.load_checkpoint`` resumes from one.
+``user.load_checkpoint`` resumes from one.  ``user.n_subprocesses=N``
+trains on N data-parallel ranks (:mod:`pccf_torch.dist`); rank 0 prints and
+saves.
 
     python -m pccf_torch.train.classifier data/dataset=synthetic user.cpu=true
 
@@ -35,6 +37,7 @@ from pccf_torch import cli
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.clouds import LabelledClouds
 from pccf_torch.data.dataset import get_datasets
+from pccf_torch.dist import mesh
 from pccf_torch.nn.classifier import ClassifierTrainModule, DGCNNClassifier, build_classifier
 from pccf_torch.nn.layers import init_for_training
 from pccf_torch.train.hooks import EarlyStoppingCallback, call_every, get_trailing_mean, saving_hook
@@ -90,10 +93,11 @@ def fit(cfg: SliceConfig, classifier: DGCNNClassifier, train_set, test_set, test
         mis_str += f' ... (and {len(misclassified) - MAX_LOG} more)'
     names = class_names or [str(i) for i in range(cfg.data.n_classes)]
     cm = confusion_matrix(predictions, test_labels, cfg.data.n_classes)
-    print(f'Confusion Matrix for classes {names}')
-    print(cm)
-    print(f'Misclassified indices: {mis_str}')
-    log_confusion(cm, names, name, final_test.name, misclassified, mis_str, trainer.epoch)
+    if mesh.is_main_process():  # train_classifier.py:73-74
+        print(f'Confusion Matrix for classes {names}')
+        print(cm)
+        print(f'Misclassified indices: {mis_str}')
+        log_confusion(cm, names, name, final_test.name, misclassified, mis_str, trainer.epoch)
     return {'trainer': trainer, 'test': results, 'logits': logits, 'predictions': predictions,
             'confusion_matrix': cm, 'misclassified': misclassified}
 
@@ -161,8 +165,10 @@ def stage(cfg: SliceConfig, device: torch.device) -> dict:
                n_workers=cfg.user.n_workers)
 
 
-def main(argv: list[str] | None = None) -> dict:
-    return cli.run(argv, stage)
+def main(argv: list[str] | None = None) -> dict | None:
+    """The stage in one process, or, with ``user.n_subprocesses``, on that
+    many data-parallel ranks (then None)."""
+    return cli.run(argv, stage, data_parallel=True)
 
 
 if __name__ == '__main__':

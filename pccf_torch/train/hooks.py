@@ -5,10 +5,11 @@ maintenance that re-seeds VQ codebook entries no sample selects.
 A hook is a callable taking the :class:`~pccf_torch.train.runners.Trainer`;
 ``trainer.post_epoch_hooks`` runs them after each epoch's validation, and
 :class:`EarlyStoppingCallback` ends training by raising
-:class:`~pccf_torch.train.runners.StopTraining`.  The port trains in one
-process, so one process rewrites the codebook; the broadcast of the
-rewritten codebook across processes (``hooks.py:181-193``) comes with
-data-parallel training.  :class:`TensorBoardLogReconstruction` and
+:class:`~pccf_torch.train.runners.StopTraining`.  In a data-parallel run
+rank 0 rewrites the codebook and broadcasts it, so every rank installs the
+same book (``hooks.py:181-193``); early stopping reads the epoch rows, which
+are equal on every rank, so every rank stops at the same epoch.
+:class:`TensorBoardLogReconstruction` and
 :class:`WandbLogReconstruction` (``hooks.py:229-288``) log the first samples
 and, when called, their reconstructions as 3-D point sets to the current
 run's TensorBoard or wandb tracker; built without that tracker they raise
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from pccf_torch.data.structures import Inputs
+from pccf_torch.dist import mesh
 from pccf_torch.train.objectives import Objective
 from pccf_torch.train.runners import Diagnostic, StopTraining, Trainer
 
@@ -172,7 +174,9 @@ class DiscreteSpaceOptimizer:
     pass over the training set counts how often each code slot selects each
     entry, and :func:`rewritten_codebook` re-seeds the entries no sample
     selects.  ``final_epoch`` is the last epoch training runs; the draws come
-    from ``np.random.default_rng(seed)``."""
+    from ``np.random.default_rng(seed)``.  In a data-parallel run rank 0
+    alone rewrites, with its generator, and every rank installs rank 0's
+    book (:func:`~pccf_torch.dist.mesh.broadcast_from_main`)."""
 
     def __init__(self, diagnostic: Diagnostic, vq_noise: float, final_epoch: int, seed: int = 0) -> None:
         self.diagnostic = diagnostic
@@ -186,10 +190,14 @@ class DiscreteSpaceOptimizer:
         self.diagnostic(trainer.epoch)
         self.last_usage = self.diagnostic.code_usage.round().to(torch.int64).cpu().numpy()
         codebook = trainer.model.codebook
-        new = rewritten_codebook(codebook.detach().cpu().numpy(), self.last_usage, self.rng, self.vq_noise,
-                                 trainer.epoch == self.final_epoch)
+        new = None
+        if mesh.is_main_process():
+            new = rewritten_codebook(codebook.detach().cpu().numpy(), self.last_usage, self.rng, self.vq_noise,
+                                     trainer.epoch == self.final_epoch)
+            new = None if new is None else torch.from_numpy(new).to(codebook.device)
+        new = mesh.broadcast_from_main(new, codebook)
         if new is not None:
-            codebook.copy_(torch.from_numpy(new))
+            codebook.copy_(new)
 
 
 # ------------------------------------------------------- reconstruction logs

@@ -225,21 +225,30 @@ def get_accuracy() -> Objective:
     return Metric(_correct, 'Accuracy', higher_is_better=True)
 
 
+def _macro_sums(logits: torch.Tensor, targets: Targets) -> torch.Tensor:
+    """Each class's correct predictions and samples in the batch, ``(2, C)``."""
+    onehot = F.one_hot(targets.label.long(), logits.shape[1]).to(torch.float32)
+    return torch.stack([torch.sum(onehot * _correct(logits, targets)[:, None], dim=0), torch.sum(onehot, dim=0)])
+
+
+def _macro_from_sums(sums: torch.Tensor) -> torch.Tensor:
+    per_class_correct, per_class_count = sums[0], sums[1]
+    present = per_class_count > 0
+    recalls = torch.where(present, per_class_correct / torch.clamp_min(per_class_count, 1.0), 0.0)
+    return torch.sum(recalls) / torch.clamp_min(torch.sum(present), 1)
+
+
 def get_macro_accuracy() -> Objective:
     """The recall of each class present in the batch, averaged over those
     classes: one value per batch (``losses.py:267-281``), which the running
     state weighs by the batch size, so a pass's macro accuracy is a mean of
-    per-batch values, not the dataset's macro recall."""
+    per-batch values, not the dataset's macro recall.  A data-parallel step
+    pools the per-class counts over the global batch."""
 
     def _macro(logits: torch.Tensor, targets: Targets) -> torch.Tensor:
-        onehot = F.one_hot(targets.label.long(), logits.shape[1]).to(torch.float32)
-        per_class_correct = torch.sum(onehot * _correct(logits, targets)[:, None], dim=0)
-        per_class_count = torch.sum(onehot, dim=0)
-        present = per_class_count > 0
-        recalls = torch.where(present, per_class_correct / torch.clamp_min(per_class_count, 1.0), 0.0)
-        return torch.sum(recalls) / torch.clamp_min(torch.sum(present), 1)
+        return _macro_from_sums(_macro_sums(logits, targets))
 
-    return Metric(_macro, 'Macro Accuracy', higher_is_better=True)
+    return Metric(_macro, 'Macro Accuracy', higher_is_better=True, pooled=(_macro_sums, _macro_from_sums))
 
 
 def get_f1() -> Objective:

@@ -6,6 +6,10 @@ multiplies two (the KLD annealing), ``a | m`` attaches the calculations of
 ``m`` as metrics that are reported but not optimised; ``Metric`` is such a
 calculation on its own.  :meth:`Objective.loss_and_metrics` returns the batch
 mean of the loss expression and the batch mean of every named calculation.
+A metric whose value is not a mean over the samples (the macro accuracy)
+also gives its additive sums and the value from them, ``pooled``, so that a
+data-parallel step computes it over the global batch
+(:func:`pccf_torch.dist.mesh.reduce_metrics`).
 An objective also keeps a running state of batch means weighted by batch
 size (``update_state`` / ``compute_metrics``), as the evaluation runners
 aggregate it; :meth:`Objective.copy` keeps that state and
@@ -22,6 +26,7 @@ from typing import Any, Callable
 import torch
 
 CalcFn = Callable[[Any, Any], torch.Tensor]
+PooledFn = tuple[CalcFn, Callable[[torch.Tensor], torch.Tensor]]  # (outputs, targets) -> sums; sums -> value
 LossExpr = Callable[[dict[str, torch.Tensor]], torch.Tensor]  # per-sample values -> (B,)
 
 
@@ -37,6 +42,7 @@ class Objective:
         self.leaves = leaves  # the calculations the loss expression reads, in order
         self._state: dict[str, tuple[float, float]] = {}  # name -> (weighted sum, count)
         self.higher_is_better: dict[str, bool] = {}
+        self.pooled: dict[str, PooledFn] = {}  # a batch-level metric's additive sums and its value from them
 
     def compute_all(self, outputs: Any, targets: Any) -> dict[str, torch.Tensor]:
         return {name: fn(outputs, targets) for name, fn in self.calculations.items()}
@@ -73,7 +79,8 @@ class Objective:
 
     def copy(self) -> 'Objective':
         """The same calculations with a copy of the running state."""
-        new = _objective(self.calculations, self.loss_expr, self.name, self.higher_is_better, self.leaves)
+        new = _objective(self.calculations, self.loss_expr, self.name, self.higher_is_better, self.leaves,
+                         self.pooled)
         new._state = dict(self._state)
         return new
 
@@ -97,7 +104,8 @@ class Objective:
     def _join(self, other: 'Objective', loss_expr: LossExpr | None, name: str,
               leaves: tuple[str, ...]) -> 'Objective':
         return _objective(self._merge(self.calculations, other.calculations), loss_expr, name,
-                          {**self.higher_is_better, **other.higher_is_better}, leaves)
+                          {**self.higher_is_better, **other.higher_is_better}, leaves,
+                          {**self.pooled, **other.pooled})
 
     def __add__(self, other: 'Objective') -> 'Objective':
         ea, eb = self._expr(), other._expr()
@@ -109,7 +117,8 @@ class Objective:
             eb = other._expr()
             return self._join(other, lambda v: ea(v) * eb(v), 'Loss', self.leaves + other.leaves)
         s = float(other)
-        return _objective(self.calculations, lambda v: s * ea(v), self.name, self.higher_is_better, self.leaves)
+        return _objective(self.calculations, lambda v: s * ea(v), self.name, self.higher_is_better, self.leaves,
+                          self.pooled)
 
     __rmul__ = __mul__
 
@@ -118,10 +127,12 @@ class Objective:
 
 
 def _objective(calculations: dict[str, CalcFn], loss_expr: LossExpr | None, name: str,
-               higher_is_better: dict[str, bool], leaves: tuple[str, ...]) -> Objective:
+               higher_is_better: dict[str, bool], leaves: tuple[str, ...],
+               pooled: dict[str, PooledFn] | None = None) -> Objective:
     """A new objective with an empty running state."""
     new = Objective(calculations, loss_expr, name, leaves)
     new.higher_is_better = dict(higher_is_better)
+    new.pooled = dict(pooled or {})
     return new
 
 
@@ -133,11 +144,13 @@ class Loss(Objective):
 
 
 class Metric(Objective):
-    """A named per-sample calculation that is reported, never optimised."""
+    """A named per-sample calculation that is reported, never optimised;
+    ``pooled`` for a batch-level value (see :attr:`Objective.pooled`)."""
 
-    def __init__(self, fn: CalcFn, name: str, higher_is_better: bool = False) -> None:
+    def __init__(self, fn: CalcFn, name: str, higher_is_better: bool = False, pooled: PooledFn | None = None) -> None:
         super().__init__({name: fn}, None, name)
         self.higher_is_better = {name: higher_is_better}
+        self.pooled = {name: pooled} if pooled is not None else {}
 
 
 def compute_metrics(objective: Objective) -> dict[str, float]:

@@ -42,6 +42,19 @@ experiment's trackers under the model's name (``runners.py:127-137``).
 and read the model's checkpoint with its sidecar
 (:mod:`pccf_torch.train.checkpoint`), so a resumed run continues as the
 uninterrupted one would.
+
+In a process group of two or more ranks (:mod:`pccf_torch.dist`), every
+rank reads the same global batch from its :class:`Loader` and
+:meth:`Trainer.run_step` computes the one-device step on it, as JAX's step on
+a ``dp`` mesh does: each rank takes its contiguous slice, draws the global
+batch's noise from the shared generator and keeps its rows, takes BatchNorm's
+statistics over the global batch (or its statistic groups), and the
+gradients are averaged over the ranks, as one flat all-reduce, before the
+gradient operation (which so clips the global gradient) and the optimiser;
+the step metrics are all-reduced into the global batch's.  The evaluation
+passes run whole on every rank, so every rank holds the one-rank numbers
+(the code usage counts included).  Checkpoints are written by rank 0 only;
+every rank loads them.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ import numpy as np
 import torch
 
 from pccf_torch.data.structures import Outputs
+from pccf_torch.dist import mesh
 from pccf_torch.train.checkpoint import Checkpoint
 from pccf_torch.train.grad_ops import get_grad_op
 from pccf_torch.train.objectives import Objective
@@ -205,7 +219,8 @@ class Trainer:
                 p.requires_grad_(False)
             else:
                 trained.append((name, p))
-        self.optimizer = make_optimizer(cfg, [p for _, p in trained], self.lr_at(0))
+        self.trained = [p for _, p in trained]
+        self.optimizer = make_optimizer(cfg, self.trained, self.lr_at(0))
         self.grad_op = get_grad_op(cfg.grad_op, trained, cfg.clip_criterion)
         self.step = 0
         self.epoch = 0  # completed epochs
@@ -214,6 +229,7 @@ class Trainer:
         self.validation_log: list[dict[str, float]] = []
         self.epoch_seconds: list[float] = []  # host seconds of each epoch's steps, metrics read
         self.post_epoch_hooks: list[Callable[['Trainer'], None]] = []
+        self.allreduce_bytes = 0  # the gradient bytes the last step all-reduced (0 in one process)
 
     def lr_at(self, step: int) -> float:
         return self.base_lr * self.schedule(step // self.steps_per_epoch)
@@ -222,15 +238,22 @@ class Trainer:
         """One step: forward in train mode, loss, backward, gradient
         operation, optimiser.  ``epoch`` (1-based) defaults to the one after the
         completed epochs, as ``runners.py:357-358``.  Returns the batch-mean
-        metrics (device tensors: reading them waits for the step)."""
+        metrics (device tensors: reading them waits for the step).  In a
+        process group the arguments are the global batch (and its noise),
+        and the metrics are the global batch's."""
         self.model.train()
         for group in self.optimizer.param_groups:
             group['lr'] = self.lr_at(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         epoch = float(self.epoch + 1 if epoch is None else epoch)
-        outputs = with_epoch(self.model(inputs, noise, self.generator), epoch)
-        loss, metrics = self.objective.loss_and_metrics(outputs, targets)
-        loss.backward()
+        if mesh.world_size() > 1:
+            inputs, targets, noise = mesh.shard_batch((inputs, targets, noise))
+        with mesh.sharded(_batch_size(inputs)):
+            outputs = with_epoch(self.model(inputs, noise, self.generator), epoch)
+            loss, metrics = self.objective.loss_and_metrics(outputs, targets)
+            loss.backward()
+        self.allreduce_bytes = mesh.average_gradients(self.trained)
+        metrics = mesh.reduce_metrics(self.objective, metrics, outputs, targets)
         if self.grad_op is not None:
             self.grad_op()
         self.optimizer.step()
@@ -270,7 +293,9 @@ class Trainer:
         optimiser's and gradient operation's state, the step and the
         generator (``runners.py:441-453``); with ``generator_seed``, that
         seed in the generator state's place (an imported run's, which has no
-        state of a port generator)."""
+        state of a port generator).  Rank 0 alone writes."""
+        if not mesh.is_main_process():
+            return
         self.checkpoint.save(self.model, self.epoch)
         draws = {'generator': self.generator.get_state()} if generator_seed is None else {
             'generator_seed': int(generator_seed)}

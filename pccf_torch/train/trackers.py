@@ -24,6 +24,7 @@ import sqlite3
 from typing import Any
 
 from pccf_torch.config import VERSION
+from pccf_torch.dist import mesh
 from pccf_torch.experiment import Experiment
 
 logger = logging.getLogger('pccf_torch')
@@ -243,7 +244,10 @@ def get_trackers(cfg) -> list[Any]:
 
 
 def dispatch_metrics(model: str, source: str, epoch: int, metrics: dict[str, float]) -> None:
-    """Hand a row to the current experiment's trackers, if a run is on."""
+    """Hand a row to the current experiment's trackers, if a run is on and
+    this is rank 0 of a data-parallel run (or the only process)."""
+    if not mesh.is_main_process():
+        return
     try:
         exp = Experiment.current()
     except RuntimeError:

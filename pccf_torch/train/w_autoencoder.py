@@ -12,8 +12,8 @@ weights are merged back into the VQ-VAE.  The entry point loads the latest
 classifier and VQ-VAE checkpoints (:func:`load_models`) and saves the merged
 VQ-VAE at its epoch.  As in JAX, ``user.load_checkpoint`` is a boolean here:
 set, the inner CVAE starts from the VQ-VAE's own instead of fresh weights,
-and -1 skips training (test and merge only).  Data-parallel training is not
-ported.
+and -1 skips training (test and merge only).  ``user.n_subprocesses=N``
+trains on N data-parallel ranks (:mod:`pccf_torch.dist`); rank 0 saves.
 
     python -m pccf_torch.train.w_autoencoder data/dataset=synthetic user.cpu=true
 
@@ -29,6 +29,7 @@ from pccf_torch import cli
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.dataset import get_datasets
 from pccf_torch.data.processed import WDatasetWithLogits
+from pccf_torch.dist import mesh
 from pccf_torch.models.autoencoders import VQVAE, build_vqvae
 from pccf_torch.models.w_autoencoders import WAETrainModule, build_w_autoencoder
 from pccf_torch.nn.classifier import ClassifierTrainModule, build_classifier
@@ -149,12 +150,15 @@ def stage(cfg: SliceConfig, device: torch.device) -> dict:
     both models, train, merge back and save the VQ-VAE."""
     classifier, vqvae = load_models(cfg, device)
     out = train_stage(cfg, classifier, vqvae, device)
-    Checkpoint(cfg.autoencoder.name).save(vqvae, vqvae.epoch)
+    if mesh.is_main_process():
+        Checkpoint(cfg.autoencoder.name).save(vqvae, vqvae.epoch)
     return out
 
 
-def main(argv: list[str] | None = None) -> dict:
-    return cli.run(argv, stage)
+def main(argv: list[str] | None = None) -> dict | None:
+    """The stage in one process, or, with ``user.n_subprocesses``, on that
+    many data-parallel ranks (then None)."""
+    return cli.run(argv, stage, data_parallel=True)
 
 
 if __name__ == '__main__':

@@ -46,6 +46,7 @@ OVERRIDE_SETS = {
     'conv_linear': ['w_autoencoder/model/w_encoder=convolutional_w_encoder',
                     'w_autoencoder/model/w_decoder=linear_w_decoder'],
     'vamp': ['w_autoencoder.model.n_pseudo_inputs=8'],
+    'data_parallel': ['user.n_subprocesses=2'],
     'gelu': ['autoencoder.model.encoder.act_name=GELU'],
     'corner': CORNER,
     'grad_norm': ['w_autoencoder.train.learn.grad_op=GradNormClipper'],
@@ -121,7 +122,8 @@ def _jax_fields(cfg) -> dict:
                 if ln.optimizer_name in ('Adam', 'RMSprop') else {},
                 ln.grad_op and str(ln.grad_op), str(ln.clip_criterion),
                 (str(s.function), s.restart_interval, s.restart_fraction, s.warmup_steps, dict(s.settings)),
-                (tr.early_stopping.active, tr.early_stopping.window, tr.early_stopping.patience))
+                (tr.early_stopping.active, tr.early_stopping.window, tr.early_stopping.patience),
+                (tr.n_subprocesses, tr.batch_size_per_device))
 
     def net(n):
         return (str(n.class_name), n.proj_dim, n.n_heads, tuple(n.mlp_dims), n.act_name, tuple(n.dropout_rates),
@@ -144,7 +146,7 @@ def _jax_fields(cfg) -> dict:
                           w.model.n_pseudo_inputs, net(w.model.w_encoder), net(w.model.w_decoder),
                           net(w.model.conditional_w_encoder), w.objective.c_kld1, w.objective.c_kld2, learn(w)),
         'user': (u.counterfactual_value, (u.generate.batch_size, u.generate.bias_dim, u.generate.bias_value), u.seed,
-                 u.cpu, u.n_workers, u.checkpoint_every, u.load_checkpoint,
+                 u.cpu, u.n_workers, u.n_subprocesses, u.checkpoint_every, u.load_checkpoint,
                  tuple(getattr(u.trackers, k) for k in ('hydra', 'tensorboard', 'wandb', 'sqlalchemy', 'csv'))),
         'run': (cfg.variation, cfg.final, cfg.name),
     }
@@ -163,7 +165,8 @@ def _port_fields(cfg: SliceConfig) -> dict:
         return (t.batch_size, t.n_epochs, t.optimizer_name, t.learning_rate, t.weight_decay, dict(t.opt_settings),
                 t.grad_op,
                 t.clip_criterion, (s.function, s.restart_interval, s.restart_fraction, s.warmup_steps, sched),
-                (t.early_stopping.active, t.early_stopping.window, t.early_stopping.patience))
+                (t.early_stopping.active, t.early_stopping.window, t.early_stopping.patience),
+                (t.n_subprocesses, t.batch_size_per_device))
 
     def net(n):
         return (n.class_name, n.proj_dim, n.n_heads, n.mlp_dims, n.act_name, n.dropout_rates, n.conv_dims)
@@ -182,7 +185,7 @@ def _port_fields(cfg: SliceConfig) -> dict:
                           net(w.w_decoder), net(w.conditional_w_encoder), w.train.c_kld1, w.train.c_kld2,
                           learn(w.train)),
         'user': (u.counterfactual_value, (u.generate.batch_size, u.generate.bias_dim, u.generate.bias_value), u.seed,
-                 u.cpu, u.n_workers, u.checkpoint_every, u.load_checkpoint,
+                 u.cpu, u.n_workers, u.n_subprocesses, u.checkpoint_every, u.load_checkpoint,
                  tuple(getattr(u.trackers, k) for k in ('hydra', 'tensorboard', 'wandb', 'sqlalchemy', 'csv'))),
         'run': (cfg.variation, cfg.final, cfg.name),
     }
@@ -202,8 +205,8 @@ def test_from_tree_of_the_flagship_is_the_flagship():
 
 
 def test_from_tree_refuses_what_the_port_does_not_run():
-    with pytest.raises(NotImplementedError, match='n_subprocesses'):
-        cli.get_config(['user.n_subprocesses=2'])
+    with pytest.raises(ValueError, match='Global batch size 16 not divisible by number of devices 3'):
+        cli.get_config(['user.n_subprocesses=3'])
     with pytest.raises(NotImplementedError, match='nesterov'):
         cli.get_config(['classifier.train.learn.optimizer_name=Adam',
                         '+classifier.train.learn.opt_settings.nesterov=true'])

@@ -117,16 +117,16 @@ def test_final_turns_early_stopping_and_validation_off(exp_root):
 
 
 def test_entry_points_refuse_what_is_not_ported(exp_root, monkeypatch):
-    """Data parallelism is refused; the flagship's ModelNet reader without
-    its files tries the archive's download and, offline, raises with the
-    manual instructions; without a card and without ``user.cpu`` an entry
-    point raises."""
+    """A global batch the data-parallel ranks do not divide is refused; the
+    flagship's ModelNet reader without its files tries the archive's
+    download and, offline, raises with the manual instructions; without a
+    card and without ``user.cpu`` an entry point raises."""
     import urllib.request
 
     from pccf_torch.train import classifier
 
-    with pytest.raises(NotImplementedError, match='n_subprocesses'):
-        classifier.main([*CPU, 'user.n_subprocesses=2'])
+    with pytest.raises(ValueError, match='not divisible by number of devices 3'):
+        classifier.main([*CPU, 'user.n_subprocesses=3'])
 
     def offline(url, path):
         raise OSError('no network')
