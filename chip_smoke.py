@@ -133,7 +133,22 @@ filtering on):
   and the data-parallel server over ``[cuda:0, cuda:0]`` against the
   single-device server at requests of 16 and 64 (exact launches, outputs,
   latency in turns).  Two ranks share one card: these numbers show the
-  collectives' cost, not how the port scales.
+  collectives' cost, not how the port scales;
+- the auction EMD and the sharded-point-axis losses (``auction_sp_phase``):
+  ``api.auction_emd`` at bench.py's operating points, (1, 2048, 3)^2 at the
+  train (eps 0.005, 50 rounds) and eval (0.002, 10000) contracts, (8, 2048),
+  1536 against 2048 points and (1, 16384, 3)^2 (the state in global
+  scratch), one launch a call, the kernel's distances, assignment, nearest
+  indices and rounds and bids bit-equal to its plain version, the eval
+  contract converged to a permutation within 1.10 of scipy's optimal
+  assignment, the gradient of ``dis`` against the CPU, kernel and plain
+  times and the rounds; ``nn_distance`` at the SP shard's (8, 1024) x
+  (8, 2048); then ``sp_chamfer``, ``sp_match_cost`` and ``sp_knn`` on two
+  gloo ranks on ``cuda:0`` (a 1-D grid, ``pccf_torch.dist.make_2d_grid``)
+  at (8, 2048, 3) and (1, 16384, 3), values and gradients against the
+  one-device functions on the card, ``nn_distance`` launched once a rank a
+  Chamfer call, each rank's peak memory for ``sp_match_cost`` beside the
+  one device's.
 
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
@@ -194,8 +209,9 @@ printed beside the special-function floor of its schedule; an empty
 kernel's time is printed as the launch floor.
 
 It also prints the compiler's registers and spills of the row scatter's,
-the EMD's, the graph pools', the slot scatter's, the nearest-neighbour and the
-Sinkhorn kernels on one line, a
+the EMD's, the graph pools', the slot scatter's, the nearest-neighbour, the
+Sinkhorn, graph filtering's, the PCGen mix and the auction kernels on one
+line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
 each stage (stage 1 under each objective, with its device busy time, both
 the sum of its activities' durations and the union of their intervals, and
@@ -349,6 +365,8 @@ KERNEL_INFO = {
     'graph_filter_backward': ('pccf_torch/csrc/graph_filter.cu', 'pccf/kernels/pallas_gather.py:341'),
     # the stacks' GEMM with bf16 weights, which the CVAE chain and the W-decoder run under the server's cast
     'gemm_bf16w': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_cvae.py:203'),
+    # the auction EMD, which JAX runs in XLA (a while_loop), not as a pallas_call
+    'auction_emd': ('pccf_torch/csrc/auction_emd.cu', 'pccf/kernels/auction_emd.py:46'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter')
 # every stage-1 step launches these, and the kernel of its reconstruction loss
@@ -481,6 +499,23 @@ def time_ms(fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def call_ms(fn, reps: int) -> float:
+    """Median device time of single calls of ``fn`` between CUDA events,
+    after one call: for a function whose calls wait on the host themselves
+    (and run long enough that the host's dispatch does not matter)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
     return float(np.median(times))
 
 
@@ -1873,6 +1908,301 @@ def dp_phase(seed: int, check, dev: torch.device, root: str, cfg, vqvae, classif
     return total
 
 
+# ---- the auction EMD and the sharded-point-axis losses: the kernel against
+# its plain version at bench.py's operating points, then two gloo ranks on the
+# card against the one-device losses
+AUCTION_CONTRACTS = {'train': (0.005, 50), 'eval': (0.002, 10000)}  # bench.py:419-440 (eps, rounds at most)
+AUCTION_CASES = ((1, 2048, 2048, 'eval'), (8, 2048, 2048, 'train'), (1, 1536, 2048, 'train'),
+                 (1, 16384, 16384, 'train'), (1, 2048, 2048, 'train'))  # the last is the headline
+AUCTION_OPTIMUM_RATIO = 1.10  # the cost against the optimal assignment's (tests/test_auction_emd.py:37-54)
+# the plain version's samples where a call takes about a second (thousands of
+# rounds at eval, each a host read of any(assignment < 0); 16384 points)
+AUCTION_SLOW_REPS = 3
+# the gradient of dis on the card (the kernel's assignment, the row scatter)
+# against the plain version on the CPU (the same assignment, index_add_ in
+# the same order): the same float32 operations
+AUCTION_GRAD_REL_L2 = 1e-6
+SP_RANKS = 2
+SP_SHAPES = ((8, 2048), (1, 16384))
+SP_KNN_K = 20
+# each rank's SP losses against the one-device functions on the card (the
+# match cost's against the same function on a one-rank grid): the sums over
+# the ranks in another order than the one-device sums, and the match cost's
+# plan, whose top level exp(-4^7 d) turns the rounding of d (cuBLAS at
+# another shape) into relative errors of ~1e-3 of its weights
+SP_VALUE_RTOL = 1e-5
+SP_CHAMFER_GRAD_REL_L2 = 1e-5
+SP_MATCH_GRAD_REL_L2 = 1e-4
+
+
+def sp_rank(payload: str, out_dir: str) -> None:
+    """A rank of the SP phase on its current card: ``sp_losses`` of the
+    payload's clouds, saved to ``out_dir/sp_rank<r>.pt``."""
+    from pccf_torch.dist import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clouds = torch.load(payload, weights_only=False)
+    out = sp_losses(clouds, torch.device('cuda', torch.cuda.current_device()))
+    torch.save(out, os.path.join(out_dir, f'sp_rank{mesh.rank()}.pt'))
+
+
+def sp_losses(clouds: list[tuple[np.ndarray, np.ndarray]], dev: torch.device) -> list[dict]:
+    """This rank's part of the SP phase: for each pair of global clouds, its
+    slab (the points cut over a 1-D grid of every rank) through
+    ``sp_chamfer`` (the launches of that call), ``sp_match_cost`` (its peak
+    memory above what was allocated before it) and ``sp_knn``, values and
+    slab gradients, each loss timed on a second call."""
+    from pccf_torch.dist import make_2d_grid, mesh, slab, sp_chamfer, sp_knn, sp_match_cost
+    from pccf_torch.kernels import api
+
+    grid = make_2d_grid(mesh.world_size(), mp=mesh.world_size())
+    out = []
+    for xs, ys in clouds:
+        x = slab(torch.from_numpy(xs), grid).to(dev).requires_grad_(True)
+        y = slab(torch.from_numpy(ys), grid).to(dev).requires_grad_(True)
+        res = {}
+        for name, loss in (('chamfer', sp_chamfer), ('match', sp_match_cost)):
+            times = []
+            for _ in range(2):
+                x.grad = y.grad = None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                api.reset_launch_counts()
+                t0 = time.perf_counter()
+                value = loss(x, y, grid)
+                value.sum().backward()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not res.get(name):
+                    res[name] = (value.detach().cpu(), x.grad.cpu(), y.grad.cpu())
+                    res[f'{name}_launches'] = api.launch_counts()
+                    res[f'{name}_peak'] = torch.cuda.max_memory_allocated() - base
+            res[f'{name}_ms'] = times[1]
+        api.reset_launch_counts()
+        res['knn'] = sp_knn(x.detach(), SP_KNN_K, grid).cpu()
+        torch.cuda.synchronize()
+        res['knn_launches'] = api.launch_counts()
+        out.append(res)
+        del x, y, value
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_clouds(rng: np.random.Generator) -> list[tuple[np.ndarray, np.ndarray]]:
+    """The SP phase's pairs of global clouds, one a shape of ``SP_SHAPES``."""
+    return [tuple((rng.standard_normal((b, n, 3)) / 2).astype(np.float32) for _ in range(2)) for b, n in SP_SHAPES]
+
+
+def sp_check(check, dev: torch.device, clouds: list, ranks: list[list[dict]], where: str) -> dict[str, int]:
+    """Each rank's SP results (``ranks[r][i]``, ``sp_losses`` of
+    ``clouds[i]``) against the one-device functions on ``dev``: values,
+    gradients (the ranks' slabs in order along the points), ``nn_distance``
+    once a rank a Chamfer call, each rank's peak memory for
+    ``sp_match_cost`` beside the one device's (each above what was allocated
+    before the call), the host clock of both
+    (``where`` names the ranks' placement).  Returns the ranks' launches."""
+    from pccf_torch.dist import make_2d_grid, sp_match_cost
+    from pccf_torch.kernels import api, ops
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    one_rank = make_2d_grid(1, mp=1)
+    for (b, n), (xs, ys), got in zip(SP_SHAPES, clouds, zip(*ranks)):
+        label = f'({b}, {n}, 3)^2 on {len(ranks)} {where}'
+        for res in got:
+            for name in ('chamfer', 'match', 'knn'):
+                for k in total:
+                    total[k] += res[f'{name}_launches'][k]
+        x = torch.from_numpy(xs).to(dev).requires_grad_(True)
+        y = torch.from_numpy(ys).to(dev).requires_grad_(True)
+        with torch.enable_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value = api.chamfer(x, y)
+            value.sum().backward()
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+        gx = torch.cat([res['chamfer'][1] for res in got], dim=1)
+        gy = torch.cat([res['chamfer'][2] for res in got], dim=1)
+        v_err = max(float(((res['chamfer'][0] - value.detach().cpu()).abs() / value.detach().cpu().abs()).max())
+                    for res in got)
+        r1, r2 = rel_l2(gx, x.grad.cpu()), rel_l2(gy, y.grad.cpu())
+        nn_once = all(res['chamfer_launches']['nn_distance'] == 1 and res['chamfer_launches']['scatter_add_rows'] == 2
+                      and sum(res['chamfer_launches'].values()) == 3 for res in got)
+        check(v_err <= SP_VALUE_RTOL and max(r1, r2) <= SP_CHAMFER_GRAD_REL_L2 and nn_once,
+              f'sp_chamfer {label}: values rel err {v_err:.2e} <= {SP_VALUE_RTOL}, gradients rel L2 {r1:.2e} / '
+              f'{r2:.2e} <= {SP_CHAMFER_GRAD_REL_L2} against api.chamfer on one device; each rank launched '
+              f'nn_distance once and the row scatter twice (its backward) {nn_once}; ms (host clock, forward and '
+              f'backward, a second call) ranks {[round(res["chamfer_ms"], 3) for res in got]}, one device '
+              f'{one_ms:.3f}')
+        x.grad = y.grad = None
+        del value
+        torch.cuda.empty_cache()
+        # the same function on one device (a one-rank grid: sp.py on a one-device mesh), then the golden's
+        # formula, whose gradients take rsqrt of the coordinate differences where sp.py takes it of the
+        # expanded |x|^2 - 2 x.y + |y|^2 (4.4e-5 apart at 4096 points on the CPU, more as points crowd)
+        with torch.enable_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            cost = sp_match_cost(x, y, one_rank)
+            cost.sum().backward()
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+        one_peak = torch.cuda.max_memory_allocated() - base
+        gx = torch.cat([res['match'][1] for res in got], dim=1)
+        gy = torch.cat([res['match'][2] for res in got], dim=1)
+        cost = cost.detach().cpu()
+        v_err = max(float(((res['match'][0] - cost).abs() / cost.abs()).max()) for res in got)
+        r1, r2 = rel_l2(gx, x.grad.cpu()), rel_l2(gy, y.grad.cpu())
+        none = all(sum(res['match_launches'].values()) == 0 for res in got)
+        golden, g1, g2 = (t.cpu() for t in ops.emd_forward(x.detach(), y.detach()))
+        gold_err = max(float(((res['match'][0] - golden).abs() / golden.abs()).max()) for res in got)
+        check(max(v_err, gold_err) <= SP_VALUE_RTOL and max(r1, r2) <= SP_MATCH_GRAD_REL_L2 and none,
+              f'sp_match_cost {label}: values rel err {v_err:.2e} against the one device\'s sp_match_cost and '
+              f'{gold_err:.2e} against ops.emd_forward <= {SP_VALUE_RTOL}, gradients rel L2 {r1:.2e} / {r2:.2e} <= '
+              f'{SP_MATCH_GRAD_REL_L2} against the one device\'s ({rel_l2(gx, g1):.2e} / {rel_l2(gy, g2):.2e} '
+              f'against ops.emd_forward\'s formula), no kernel launched {none}; peak memory a rank '
+              f'{[round(res["match_peak"] / 2**30, 3) for res in got]} GiB, one device {one_peak / 2**30:.3f} GiB; '
+              f'ms (host clock, forward and backward, a second call on the ranks) ranks '
+              f'{[round(res["match_ms"], 3) for res in got]}, one device {one_ms:.3f}')
+        del cost, golden, g1, g2
+        x.grad = y.grad = None
+        torch.cuda.empty_cache()
+        xd = x.detach()
+        want = torch.sort(ops.square_distance(xd, xd), dim=-1, stable=True).indices[..., :SP_KNN_K].to(torch.int32)
+        idx = torch.cat([res['knn'] for res in got], dim=1).to(dev)
+        agree, err = knn_check(xd, SP_KNN_K, idx, want)
+        equal = float((idx == want).float().mean())
+        check(agree >= KNN_SET_AGREEMENT and all(sum(res['knn_launches'].values()) == 0 for res in got),
+              f'sp_knn {label}, k={SP_KNN_K}: neighbour-set agreement with the one-device sort {agree:.6f} >= '
+              f'{KNN_SET_AGREEMENT} (index for index {equal:.6f}), sorted distance gap {err:.2e}')
+        del x, y, xd, want, idx
+        torch.cuda.empty_cache()
+    return total
+
+
+def auction_sp_phase(seed: int, check, dev: torch.device, root: str, kernels: dict) -> dict[str, int]:
+    """The auction EMD through ``api.auction_emd`` at bench.py's operating
+    points (one launch a call, the kernel bit-equal to its plain version, the
+    eval contract converged and within ``AUCTION_OPTIMUM_RATIO`` of scipy's
+    optimal assignment, the gradient of ``dis`` against the CPU, each cloud's
+    rounds and bids), ``nn_distance`` at the SP shard's shape, then
+    ``sp_chamfer``, ``sp_match_cost`` and ``sp_knn`` on ``SP_RANKS`` gloo
+    ranks on the card (``sp_rank``) against the one-device functions in this
+    process: values, gradients, ``nn_distance`` once a rank a Chamfer call,
+    each rank's peak memory beside the one device's.  Adds the auction's
+    row (and the shard shape's) to ``kernels``; returns the path's
+    launches: the counted API calls and the ranks' loss calls."""
+    from scipy.optimize import linear_sum_assignment
+
+    from pccf_torch.dist import launch
+    from pccf_torch.kernels import _build, api, auction_emd, chamfer, ops, roofline
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    rng = np.random.default_rng([seed, 19])
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        api.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = api.launch_counts()
+        for k in total:
+            total[k] += counts[k]
+        return out, counts
+
+    def unit_box(*shape: int) -> torch.Tensor:
+        return torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+
+    entry = kernels.setdefault('auction_emd', {'max_abs_err': 0.0, 'shapes': {}})
+    for b, n, m, contract in AUCTION_CASES:
+        eps, iters = AUCTION_CONTRACTS[contract]
+        x1, x2 = unit_box(b, n, 3), unit_box(b, m, 3)
+        (dis, assignment), counts = counted(lambda: api.auction_emd(x1, x2, eps, iters))
+        got = auction_emd.auction_emd_cuda(x1, x2, eps, iters)  # with the side tensor of rounds and bids
+        want = auction_emd.plain(x1, x2, eps, iters)
+        same = all(torch.equal(a, w) for a, w in zip(got, want)) and torch.equal(dis, got[0]) \
+            and torch.equal(assignment, got[1])
+        rounds, bids = got[3][:, 0].tolist(), got[3][:, 1].tolist()
+        shape = f'({b}, {n}, 3) x ({b}, {m}, 3) {contract}'
+        slow = contract == 'eval' or n > 8192
+        ms, by = roofline.bound_ms(roofline.auction_work(x1, x2, sum(bids)))
+        run_p = functools.partial(auction_emd.plain, x1, x2, eps, iters)
+        row = {'ms': time_ms(lambda: auction_emd.auction_emd_cuda(x1, x2, eps, iters), REPS),
+               'plain_ms': call_ms(run_p, AUCTION_SLOW_REPS) if slow else time_ms(run_p, REPS), 'bound_ms': ms,
+               'bound_by': by, 'library_ms': None, 'rounds': rounds, 'bids': bids}
+        entry['max_abs_err'] = max(entry['max_abs_err'], float((got[0] - want[0]).abs().max()))
+        entry['shapes'][shape] = row
+        unassigned = int((assignment < 0).sum())
+        smem = auction_emd.smem_bytes(n, m, auction_emd.bidder_cap(n, None))
+        same = same and smem == _build.lib().pccf_auction_smem_bytes(n, m, auction_emd.bidder_cap(n, None))
+        where = f'shared memory ({smem} bytes, the library\'s plan too)' if smem else 'global scratch'
+        what = ''
+        if contract == 'eval':
+            perm = all(len(set(a.tolist())) == n for a in assignment.cpu())
+            d2 = ops.pair_square_distance(x1[:1], x2[:1])[0].double().cpu().numpy()
+            r, c = linear_sum_assignment(d2)
+            ratio = float(dis[0].double().sum()) / float(d2[r, c].sum())
+            same = same and unassigned == 0 and perm and ratio <= AUCTION_OPTIMUM_RATIO
+            what = (f'; converged to a permutation {unassigned == 0 and perm}, cost {ratio:.5f} x scipy\'s optimal '
+                    f'assignment <= {AUCTION_OPTIMUM_RATIO}')
+        check(same and counts['auction_emd'] == 1 and sum(counts.values()) == 1,
+              f'auction_emd {shape} (eps {eps}, {iters} rounds at most): one launch through api.auction_emd '
+              f'{counts["auction_emd"] == 1 and sum(counts.values()) == 1}, dis, assignment, nearest indices and '
+              f'counts bit-equal to the plain version {same}{what}; rounds {rounds}, bids {bids}, {unassigned} '
+              f'unassigned; state in {where}; '
+              f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}, bound {ms:.4f} ms, {by})')
+    headline = '(1, 2048, 3) x (1, 2048, 3) train'
+    entry.update(entry['shapes'][headline], shape=headline)
+    # the gradient of dis, the kernel's forward and the row scatter, against the CPU
+    x1 = unit_box(1, 2048, 3).requires_grad_(True)
+    x2 = unit_box(1, 2048, 3).requires_grad_(True)
+    def forward_backward():
+        out = api.auction_emd(x1, x2, *AUCTION_CONTRACTS['train'])
+        out[0].sum().backward()
+        return out
+
+    with torch.enable_grad():
+        (dis, assignment), counts = counted(forward_backward)
+        c1, c2 = x1.detach().cpu().requires_grad_(True), x2.detach().cpu().requires_grad_(True)
+        cdis, cassignment = api.auction_emd(c1, c2, *AUCTION_CONTRACTS['train'])
+        cdis.sum().backward()
+    r1, r2 = rel_l2(x1.grad.cpu(), c1.grad), rel_l2(x2.grad.cpu(), c2.grad)
+    check(torch.equal(assignment.cpu(), cassignment) and max(r1, r2) <= AUCTION_GRAD_REL_L2
+          and counts['auction_emd'] == 1 and counts['scatter_add_rows'] == 1,
+          f'auction_emd (1, 2048, 3)^2 train, gradient of sum(dis): the assignment equal to the CPU\'s '
+          f'{torch.equal(assignment.cpu(), cassignment)}, rel L2 {r1:.2e} / {r2:.2e} <= {AUCTION_GRAD_REL_L2} '
+          f'against the CPU, launches {json.dumps({k: v for k, v in counts.items() if v})}')
+
+    # nn_distance at the SP shard's shape: a rank's (8, 1024) rows against all (8, 2048) of the other cloud
+    y1, y2 = (0.5 * torch.randn((8, 1024, 3), device=dev)).contiguous(), 0.5 * torch.randn((8, 2048, 3), device=dev)
+    got, want = chamfer.nn_distance_cuda(y1, y2), chamfer.plain(y1, y2)
+    exact = all(torch.equal(a, w) for a, w in zip(got, want))
+    shape = '(8, 1024, 3) x (8, 2048, 3) SP shard'
+    ms, by = roofline.bound_ms(roofline.nn_distance_work(y1, y2))
+    row = {'ms': time_ms(lambda: chamfer.nn_distance_cuda(y1, y2), REPS),
+           'plain_ms': time_ms(lambda: chamfer.plain(y1, y2), REPS), 'bound_ms': ms, 'bound_by': by,
+           'library_ms': None}
+    kernels['nn_distance']['shapes'][shape] = row
+    check(exact, f'nn_distance {shape}: minima and argmins bit-exact {exact}; {row["ms"]:.4f} ms (plain '
+                 f'{row["plain_ms"]:.4f}, bound {ms:.4f} ms, {by})')
+
+    # the SP losses on two gloo ranks on the card against the one-device functions
+    clouds = sp_clouds(rng)
+    payload = os.path.join(root, 'sp_payload.pt')
+    torch.save(clouds, payload)
+    t0 = time.perf_counter()
+    launch(sp_rank, SP_RANKS, 'gloo', payload, root)
+    print(f'SP: {SP_RANKS} gloo ranks on cuda:0 took {time.perf_counter() - t0:.1f} s, the processes\' start '
+          'included', flush=True)
+    ranks = [torch.load(os.path.join(root, f'sp_rank{r}.pt'), weights_only=False) for r in range(SP_RANKS)]
+    for k, v in sp_check(check, dev, clouds, ranks, 'ranks').items():
+        total[k] += v
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1933,7 +2263,8 @@ def main() -> int:
                             ('gather_scatter.cu', 'slot_scatter_kernel'),
                             ('nn_distance.cu', DEVICE_NAMES['nn_distance'][0]),
                             ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel'),
-                            ('graph_filter.cu', r'filter_\w+_kernel'), ('pcgen_mix.cu', 'pcgen_mix_kernel')):
+                            ('graph_filter.cu', r'filter_\w+_kernel'), ('pcgen_mix.cu', 'pcgen_mix_kernel'),
+                            ('auction_emd.cu', 'auction_kernel')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
@@ -1941,7 +2272,7 @@ def main() -> int:
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
     print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour, '
-          'Sinkhorn, graph filter and PCGen mix kernels: '
+          'Sinkhorn, graph filter, PCGen mix and auction kernels: '
           + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
     empty = _build.lib().pccf_empty
     print(f'launch floor: an empty kernel (one warp) {time_ms(lambda: empty(_build.stream()), REPS):.4f} ms '
@@ -3937,6 +4268,9 @@ def main() -> int:
         t0 = time.perf_counter()
         dp_launches = dp_phase(args.seed, check, dev, root, cfg, vqvae, classifier)
         print(f'data-parallel phase: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        sp_launches = auction_sp_phase(args.seed, check, dev, root, kernels)
+        print(f'auction and SP phase: {time.perf_counter() - t0:.1f} s', flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3948,13 +4282,15 @@ def main() -> int:
           f'{json.dumps({k: v for k, v in tune_launches.items() if v})}; the readers '
           f'{json.dumps({k: v for k, v in reader_launches.items() if v})}; bf16 cast serving '
           f'{json.dumps({k: v for k, v in cast_launches.items() if v})}; data parallelism '
-          f'{json.dumps({k: v for k, v in dp_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in dp_launches.items() if v})}; auction and SP '
+          f'{json.dumps({k: v for k, v in sp_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
              gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
-             dp_launches)
+             dp_launches, sp_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
-          'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel',
+          'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel / '
+          'auction and SP',
           flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from pccf_torch.kernels import (_build, chamfer as chamfer_mod, cvae, emd, gather, graph_filter, knn as knn_mod, pcgen,
-                                sinkhorn, wformer)
+from pccf_torch.kernels import (_build, auction_emd as auction_mod, chamfer as chamfer_mod, cvae, emd, gather,
+                                graph_filter, knn as knn_mod, ops, pcgen, sinkhorn, wformer)
 
 # name -> the CUDA wrapper that counts its launches
 KERNELS = {
@@ -34,6 +34,7 @@ KERNELS = {
     'sinkhorn_cost': sinkhorn.sinkhorn_cost_cuda,
     'graph_filter': graph_filter.graph_filter_cuda,
     'graph_filter_backward': graph_filter.graph_filter_backward_cuda,
+    'auction_emd': auction_mod.auction_emd_cuda,
 }
 
 
@@ -83,6 +84,26 @@ def chamfer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Chamfer distance ``(B,)``: the mean over the points of each direction
     of the squared distance to the nearest point of the other cloud."""
     return chamfer_mod.Chamfer.apply(x, y)
+
+
+def nn_distance(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Bidirectional nearest neighbours ``d1 (B, N), i1 (B, N) int32, d2
+    (B, M), i2 (B, M) int32``, differentiable in the distances
+    (``pccf/kernels/api.py:184-190``).  Where both point counts are
+    multiples of 256 (the Pallas gate without its VMEM term) the kernel's
+    autograd function runs (the kernel on the card, its plain version on the
+    CPU); elsewhere the plain operations, on either device, as JAX runs
+    XLA."""
+    if x.shape[1] % 256 == 0 and y.shape[1] % 256 == 0:
+        return chamfer_mod.NNDistance.apply(x, y)
+    return ops.nn_distance(x, y)
+
+
+def auction_emd(x1: torch.Tensor, x2: torch.Tensor, eps: float = 0.005, iters: int = 50,
+                k_active: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Auction EMD ``(dis (B, N), assignment (B, N) int32)``, differentiable
+    in ``dis`` (:func:`pccf_torch.kernels.auction_emd.auction_emd`)."""
+    return auction_mod.auction_emd(x1, x2, eps, iters, k_active)
 
 
 def chamfer_match_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

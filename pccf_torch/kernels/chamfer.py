@@ -2,9 +2,10 @@
 ``csrc/nn_distance.cu``, its plain version, and the autograd functions.
 
 Replaces ``pccf/kernels/pallas_chamfer.py:78`` ``_nn_distance_raw``, which
-serves ``chamfer_tpu:127`` through ``nn_distance_tpu:66`` (whose other
-caller, the data-parallel Chamfer of ``pccf/dist/sp.py``, is not ported).  The
-forward returns
+serves ``chamfer_tpu:127`` and, through ``kernels/api.py:184``,
+``nn_distance_tpu:66`` (:class:`NNDistance`, ``api.nn_distance``; the
+sharded-point-axis Chamfer of :mod:`pccf_torch.dist.sp` takes its indices
+from it).  The forward returns
 each point's nearest squared distance and index in the other cloud; the
 backward gathers the nearest points and scatter-adds with plain tensor
 operations, as JAX does outside its kernel (``pallas_chamfer.py:109-153``),
@@ -96,12 +97,12 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def _scatter_rows(like: torch.Tensor, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``g (B, N, C)`` added into the rows ``idx (B, N)`` of a zero ``like``,
+def _scatter_rows(rows: int, idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g (B, N, C)`` added into the rows ``idx (B, N)`` of zeros ``(B, rows, C)``,
     each row's terms in ascending order: the row scatter's kernel on the
     card (``scatter_add_`` adds there with atomics, so a step would differ
     from run to run), its plain version on the CPU."""
-    return gather.scatter_rows(g, idx.to(torch.int32)[..., None].contiguous(), like.shape[1])
+    return gather.scatter_rows(g, idx.to(torch.int32)[..., None].contiguous(), rows)
 
 
 def nn_distance_grads(x, y, i1, i2, g1, g2) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,7 +112,41 @@ def nn_distance_grads(x, y, i1, i2, g1, g2) -> tuple[torch.Tensor, torch.Tensor]
     (``pallas_chamfer.py:109-120``)."""
     gx1 = 2.0 * (x - _gather_rows(y, i1)) * g1[..., None]
     gy2 = 2.0 * (y - _gather_rows(x, i2)) * g2[..., None]
-    return gx1 + _scatter_rows(x, i2, -gy2), _scatter_rows(y, i1, -gx1) + gy2
+    return gx1 + _scatter_rows(x.shape[1], i2, -gy2), _scatter_rows(y.shape[1], i1, -gx1) + gy2
+
+
+class GatherRows(torch.autograd.Function):
+    """``x[b, idx[b, i]]``, ``(B, N, C)`` from ``x (B, M, C)`` and ``idx
+    (B, N)``: ``take_along_axis``, whose gradient adds each row's terms
+    through the ordered row scatter."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[1]
+        return _gather_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return _scatter_rows(ctx.rows, idx, g), None
+
+
+class NNDistance(torch.autograd.Function):
+    """``d1, i1, d2, i2`` with the analytic gradients of the distances, the
+    indices held constant (``pallas_chamfer.py:57-123``, ``nn_distance_tpu``)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        d1, i1, d2, i2 = _forward(x, y)
+        ctx.save_for_backward(x, y, i1, i2)
+        ctx.mark_non_differentiable(i1, i2)
+        return d1, i1, d2, i2
+
+    @staticmethod
+    def backward(ctx, g1, _, g2, __):
+        x, y, i1, i2 = ctx.saved_tensors
+        return nn_distance_grads(x, y, i1, i2, g1, g2)
 
 
 class Chamfer(torch.autograd.Function):

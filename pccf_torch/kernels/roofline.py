@@ -42,6 +42,12 @@ NN_OPS_PER_PAIR = 8 + 3
 SINKHORN_OPS_PER_PAIR = 8 + 4 + 23 * 2 + (4 + 2 + 3 + 3 + 3) + 2
 
 
+# auction EMD, operations per (bidder, item) pair of a bid: the squared
+# distance (3 sub, 3 mul, 2 add) and the benefit's subtraction; the compares
+# that keep the running best and second are not counted
+AUCTION_OPS_PER_PAIR = 8 + 1
+
+
 @dataclasses.dataclass(frozen=True)
 class Work:
     ops: float  # operations the function needs
@@ -141,6 +147,14 @@ def nn_distance_work(x: torch.Tensor, y: torch.Tensor) -> Work:
     b, n, _ = x.shape
     m = y.shape[1]
     return Work(float(NN_OPS_PER_PAIR * b * n * m), _nbytes(x, y) + _nn_out_bytes(b, n, m), FP32)
+
+
+def auction_work(x1: torch.Tensor, x2: torch.Tensor, bids: int) -> Work:
+    """``bids`` bids (the bidders of every round summed over the clouds: what
+    this run's data needed, from the kernel's counts), each over all ``M``
+    items; the bytes are the clouds in and ``dis`` and the assignment out."""
+    b, n, _ = x1.shape
+    return Work(AUCTION_OPS_PER_PAIR * bids * x2.shape[1], _nbytes(x1, x2) + b * n * 8, FP32)
 
 
 def sinkhorn_work(x: torch.Tensor, y: torch.Tensor) -> Work:

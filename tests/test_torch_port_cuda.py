@@ -48,14 +48,20 @@ the server's requests in flight bit-equal to its synchronous ones;
 generation on the card against the CPU on the same host draws: codes at
 >= 0.99 agreement and the clouds whose codes agree at rel-L2 1e-2 (the fp16
 PCGen kernel, RECON_REL_L2), the decoder stack on a memory of one z1 row
-broadcast over the tokens at 1e-4 like every stack.
+broadcast over the tokens at 1e-4 like every stack; the auction EMD's
+assignment, nearest indices and counts bit-equal to its plain version (the
+same squared distances and the same float operations in each bid), its
+distances equal, with its state in shared memory and in global scratch, its
+gradient rel-L2 1e-6 against the CPU; api.nn_distance's outputs bit-exact
+inside the kernel's gate and its gradient rel-L2 1e-6 against the CPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pccf_torch.kernels import api, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, sinkhorn, wformer
+from pccf_torch.kernels import (api, auction_emd, chamfer, cvae, emd, gather, graph_filter, knn, ops, pcgen, sinkhorn,
+                                wformer)
 
 pytestmark = pytest.mark.cuda
 
@@ -1494,3 +1500,89 @@ def test_index_k_neighbours_on_the_card(dev, n_clouds):
     for i in range(0, n_clouds, 64):
         x = torch.from_numpy(pcs[i: i + 64]).to(dev)
         assert _knn_agrees(x, torch.from_numpy(got[i: i + 64]).to(dev), knn.plain(x, 25), 25)
+
+
+# ------------------------------------------------------------- the auction EMD
+
+AUCTION_TRAIN = dict(eps=0.005, iters=50)
+AUCTION_EVAL = dict(eps=0.002, iters=10000)
+
+
+@pytest.mark.parametrize('b,n,m,contract,k_active', [
+    (1, 2048, 2048, AUCTION_TRAIN, None),
+    (1, 512, 512, AUCTION_EVAL, None),
+    (2, 300, 512, AUCTION_TRAIN, None),
+    (3, 700, 700, AUCTION_TRAIN, 64),
+    (1, 8192, 8192, AUCTION_TRAIN, None),  # the state in global scratch
+    (2, 5, 40, AUCTION_EVAL, None),
+])
+def test_auction_emd_matches_plain(dev, b, n, m, contract, k_active):
+    x1, x2 = torch.rand((b, n, 3), device=dev), torch.rand((b, m, 3), device=dev)
+    k = auction_emd.bidder_cap(n, k_active)
+    assert bool(auction_emd.smem_bytes(n, m, k)) == (n < 8192)
+    assert auction_emd.smem_bytes(n, m, k) == auction_emd._build.lib().pccf_auction_smem_bytes(n, m, k)
+    got = auction_emd.auction_emd_cuda(x1, x2, **contract, k_active=k_active)
+    want = auction_emd.plain(x1, x2, **contract, k_active=k_active)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert int(got[3][:, 0].max()) <= contract['iters']
+    if contract is AUCTION_EVAL:
+        assert int(got[1].min()) >= 0
+    again = auction_emd.auction_emd_cuda(x1, x2, **contract, k_active=k_active)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+def test_auction_emd_launches_once_and_its_gradient_matches_the_cpu(dev):
+    x1 = torch.rand((2, 1024, 3), device=dev).requires_grad_(True)
+    x2 = torch.rand((2, 1024, 3), device=dev).requires_grad_(True)
+    api.reset_launch_counts()
+    dis, assignment = api.auction_emd(x1, x2, **AUCTION_TRAIN)
+    dis.sum().backward()
+    torch.cuda.synchronize()
+    counts = api.launch_counts()
+    assert counts['auction_emd'] == 1 and counts['scatter_add_rows'] == 1
+    c1, c2 = x1.detach().cpu().requires_grad_(True), x2.detach().cpu().requires_grad_(True)
+    cdis, cassignment = api.auction_emd(c1, c2, **AUCTION_TRAIN)
+    cdis.sum().backward()
+    assert torch.equal(assignment.cpu(), cassignment) and torch.equal(dis.cpu(), cdis)
+    assert _rel_l2(x1.grad.cpu(), c1.grad) <= 1e-6 and _rel_l2(x2.grad.cpu(), c2.grad) <= 1e-6
+
+
+def test_auction_dispatch_raises_rather_than_falling_back(dev, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError('the plain auction ran on CUDA tensors')
+
+    monkeypatch.setattr(auction_emd, 'plain', boom)
+    x = torch.rand((1, 64, 3), device=dev)
+    with pytest.raises(ValueError, match='N <= M'):
+        api.auction_emd(x, x[:, :32])
+    with pytest.raises(ValueError):
+        auction_emd.auction_emd_cuda(x.double(), x.double())
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(auction_emd._build, 'lib', lambda: Refusing())
+    with pytest.raises(ValueError, match='pccf_auction_emd: the kernel does not cover'):
+        api.auction_emd(x, x)
+
+
+@pytest.mark.parametrize('n,m', [(1024, 2048), (256, 512), (100, 300)])
+def test_nn_distance_dispatch_on_the_card(dev, n, m):
+    """Inside the gate (both counts multiples of 256) one kernel launch,
+    bit-exact to the plain version; outside it the plain operations."""
+    x = (_randn((2, n, 3), 40, dev) * 0.5).requires_grad_(True)
+    y = (_randn((2, m, 3), 41, dev) * 0.5).requires_grad_(True)
+    api.reset_launch_counts()
+    got = api.nn_distance(x, y)
+    inside = n % 256 == 0 and m % 256 == 0
+    assert api.launch_counts()['nn_distance'] == int(inside)
+    if inside:
+        for a, w in zip(got, chamfer.plain(x.detach(), y.detach())):
+            assert torch.equal(a, w)
+    (got[0].sum() + 2 * got[2].sum()).backward()
+    cx, cy = x.detach().cpu().requires_grad_(True), y.detach().cpu().requires_grad_(True)
+    want = api.nn_distance(cx, cy)
+    (want[0].sum() + 2 * want[2].sum()).backward()
+    assert _rel_l2(x.grad.cpu(), cx.grad) <= 1e-6 and _rel_l2(y.grad.cpu(), cy.grad) <= 1e-6

@@ -209,7 +209,8 @@ def test_cpu_tensors_take_the_plain_versions():
     xg = x.clone().requires_grad_(True)
     (api.graph_max_pool(xg, idx).sum() + api.graph_sum_pool(xg, idx).sum() + api.graph_filtering(xg[..., :3]).sum()
      + sum(api.chamfer_match_cost(xg[..., :3], x[..., 1:])).sum() + api.chamfer(xg[..., :3], x[..., 1:]).sum()
-     + sum(api.chamfer_sinkhorn_cost(xg[..., :3], x[..., 1:])).sum()).backward()
+     + sum(api.chamfer_sinkhorn_cost(xg[..., :3], x[..., 1:])).sum()
+     + api.auction_emd(xg[..., :3], x[..., 1:])[0].sum() + api.nn_distance(xg[..., :3], x[..., 1:])[0].sum()).backward()
     tokens = torch.from_numpy(_cloud((1, 64, 64), seed=12))
     eye, ones, zeros = torch.eye(64), torch.ones(64), torch.zeros(64)
     layer = {'ln1_w': ones, 'ln1_b': zeros, 'ln2_w': ones, 'ln2_b': zeros}
@@ -225,7 +226,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
                                         'wformer_decoder', 'gemm_bf16w', 'nn_distance', 'sinkhorn_cost',
-                                        'graph_filter', 'graph_filter_backward'}
+                                        'graph_filter', 'graph_filter_backward', 'auction_emd'}
     assert set(api.launch_counts().values()) == {0}
 
 

@@ -1,10 +1,12 @@
-"""What each rank of the data-parallel CPU tests runs (tests/test_torch_port_dist.py).
+"""What each rank of the distributed CPU tests runs (tests/test_torch_port_dist.py,
+tests/test_torch_port_sp.py).
 
 A plain module, free of JAX, so that the spawned gloo ranks import only
 torch and pccf_torch: :func:`train_cases` takes training steps from a
 payload the test wrote and saves each rank's results; :func:`hook_cases`
 runs the codebook hook and a stage-1 ``fit`` with early stopping and
-checkpoints under two ranks.
+checkpoints under two ranks; :func:`sp_cases` runs the sharded-point-axis
+losses on four.
 """
 
 from __future__ import annotations
@@ -124,3 +126,44 @@ def run_all(steps: str, hooks: str, out_dir: str) -> None:
 def fail_on_rank_one(cfg) -> None:
     if mesh.rank() == 1:
         raise RuntimeError('rank 1 fails')
+
+
+def sp_cases(payload: str, out_dir: str) -> None:
+    """The sharded-point-axis losses on this rank (tests/test_torch_port_sp.py):
+    the grid errors, a 1-D grid of every rank and a 2 x 2 grid (rows first),
+    then each case of the payload on its grid, this rank's slab of the
+    global clouds in, its value, index and slab gradients out, saved to
+    ``out_dir/sp<r>.pt``."""
+    from pccf_torch.dist import make_2d_grid, slab, sp_chamfer, sp_knn, sp_match_cost
+
+    cases = torch.load(payload, weights_only=False)
+    errors = {}
+    for name, call in (('indivisible', lambda: make_2d_grid(4, mp=3)), ('too_few', lambda: make_2d_grid(8, mp=2))):
+        try:
+            call()
+        except (RuntimeError, ValueError) as e:
+            errors[name] = (type(e).__name__, str(e))
+    grids = {'1d': make_2d_grid(mesh.world_size(), mp=mesh.world_size()), '2x2': make_2d_grid(4, mp=2)}
+    try:
+        slab(torch.zeros(1, 30, 3), grids['1d'])
+    except ValueError as e:
+        errors['points'] = (type(e).__name__, str(e))
+    layout = {name: {'dp': (g.index('dp'), g.dp), 'mp': (g.index('mp'), g.mp),
+                     'groups': {a: None if g.group(a) is None else torch.distributed.get_process_group_ranks(g.group(a))
+                                for a in ('dp', 'mp')}}
+              for name, g in grids.items()}
+    results = []
+    for case in cases:
+        grid, batch_axis = grids[case['grid']], case['batch_axis']
+        x = slab(torch.from_numpy(case['x']), grid, batch_axis=batch_axis).clone().requires_grad_(True)
+        if case['kind'] == 'knn':
+            results.append({'idx': sp_knn(x, case['k'], grid, batch_axis=batch_axis)})
+            continue
+        y = slab(torch.from_numpy(case['y']), grid, batch_axis=batch_axis).clone().requires_grad_(True)
+        if case['kind'] == 'chamfer':
+            value = sp_chamfer(x, y, grid, batch_axis=batch_axis, reduction=case['reduction'])
+        else:
+            value = sp_match_cost(x, y, grid, batch_axis=batch_axis)
+        value.sum().backward()
+        results.append({'value': value.detach(), 'gx': x.grad, 'gy': y.grad})
+    torch.save({'errors': errors, 'layout': layout, 'results': results}, pathlib.Path(out_dir) / f'sp{mesh.rank()}.pt')
