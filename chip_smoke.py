@@ -93,7 +93,10 @@ filtering on):
   the general PCGen kernel, the pools at 17, 130 and 511 channels, the
   gather and the row scatter at D's (8, 2048, 25, F), and the kernels
   widened past JAX's last limits: ``pcgen_general`` at 5 and 6 component
-  layers and the attention at heads of 256 and 512 (d = 512);
+  layers and the attention at heads of 256 and 512 (d = 512: the wide
+  instance ``attention_wide``, its launches counted as a path of their own,
+  "wide heads": the W-encoder stack at those heads, the stack once and the
+  wide attention once a layer, its plan against the library's);
 - the experiment's own entry points (``cli_phase``): the ``main``s of
   ``pccf_torch`` run in this process on the card from the experiment tree,
   the flagship model at 2048 points on ``data/dataset=synthetic`` (64 train
@@ -210,8 +213,8 @@ kernel's time is printed as the launch floor.
 
 It also prints the compiler's registers and spills of the row scatter's,
 the EMD's, the graph pools', the slot scatter's, the nearest-neighbour, the
-Sinkhorn, graph filtering's, the PCGen mix and the auction kernels on one
-line, a
+Sinkhorn, graph filtering's, the PCGen mix, the auction, the bf16-weight
+GEMM's and the wide attention's kernels on one line, a
 ``torch.profiler`` table of one batch-16 request, of one training step of
 each stage (stage 1 under each objective, with its device busy time, both
 the sum of its activities' durations and the union of their intervals, and
@@ -367,6 +370,8 @@ KERNEL_INFO = {
     'gemm_bf16w': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_cvae.py:203'),
     # the auction EMD, which JAX runs in XLA (a while_loop), not as a pallas_call
     'auction_emd': ('pccf_torch/csrc/auction_emd.cu', 'pccf/kernels/auction_emd.py:46'),
+    # the stacks' attention at heads past 128 wide, its launches counted apart from the stacks'
+    'attention_wide': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:335'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter')
 # every stage-1 step launches these, and the kernel of its reconstruction loss
@@ -2264,7 +2269,7 @@ def main() -> int:
                             ('nn_distance.cu', DEVICE_NAMES['nn_distance'][0]),
                             ('sinkhorn.cu', r'sinkhorn_(build|sweep)_kernel'),
                             ('graph_filter.cu', r'filter_\w+_kernel'), ('pcgen_mix.cu', 'pcgen_mix_kernel'),
-                            ('auction_emd.cu', 'auction_kernel')):
+                            ('auction_emd.cu', 'auction_kernel'), ('wformer.cu', r'gemm_bf16w_kernel|attention_wide')):
         for mangled, regs, stores, loads in _build.kernel_resources(_build.ptxas_logs.get(source, '')):
             if re.search(pattern, mangled):
                 filt = subprocess.run(['c++filt'], input=mangled, capture_output=True, text=True) \
@@ -2272,7 +2277,7 @@ def main() -> int:
                 kernel = short_kernel_name(filt.stdout.strip() + '(') if filt and filt.returncode == 0 else mangled
                 resources.append(f'{source} {kernel}: {regs} registers, spill stores / loads {stores} / {loads} bytes')
     print('registers and spills (nvcc -Xptxas -v), the row scatter, EMD, graph pool, slot scatter, nearest-neighbour, '
-          'Sinkhorn, graph filter, PCGen mix and auction kernels: '
+          'Sinkhorn, graph filter, PCGen mix, auction, bf16-weight GEMM and wide attention kernels: '
           + ('; '.join(resources) if resources else 'none read: the library was built before this run'), flush=True)
     empty = _build.lib().pccf_empty
     print(f'launch floor: an empty kernel (one warp) {time_ms(lambda: empty(_build.stream()), REPS):.4f} ms '
@@ -3935,8 +3940,12 @@ def main() -> int:
         kernels['pcgen_general']['deep'] = deep
 
         # heads past 128 wide: the W-encoder stack at d = 512 with 2 and 1
-        # heads at stage 2's batch 32, and its attention launch alone
+        # heads at stage 2's batch 32 (a user's n_heads override; its launches
+        # counted from 0 as a path of their own: the stack once and the wide
+        # attention once a layer), and its attention launch alone against
+        # float64, SDPA and the bound, its plan against the library's
         wide = {}
+        wide_launches = dict.fromkeys(KERNEL_INFO, 0)
         for heads in WIDE_HEADS:
             d_w, hd = 512, 512 // heads
             gen = torch.Generator().manual_seed(args.seed + heads)
@@ -3951,8 +3960,20 @@ def main() -> int:
                        'b2': (0.1 * torch.randn(d_w, generator=gen)).to(dev)} for _ in range(2)]
             t_w = cfg.autoencoder.n_codes
             x = torch.from_numpy(rng.standard_normal((bw, t_w, d_w)).astype(np.float32)).to(dev)
+            api.reset_launch_counts()
             got = wformer.wformer_encoder_cuda(x, pack_w, heads)
+            counts = api.launch_counts()
+            for name, count in counts.items():
+                wide_launches[name] += count
+            check(counts['attention_wide'] == len(pack_w) and counts['wformer_encoder'] == 1
+                  and sum(counts.values()) == 1 + len(pack_w),
+                  f'the W-encoder stack at heads of {hd}: launches {json.dumps({k: v for k, v in counts.items() if v})}'
+                  f' == the stack once and the wide attention once a layer ({len(pack_w)})')
             stack_r = rel_l2(got, wformer.plain_encoder(x, pack_w, heads))
+            plan, kplan = wformer.wide_plan(t_w, hd), wformer.kernel_wide_plan(t_w, hd)
+            check(plan == kplan and plan.smem <= wformer.MAX_SMEM,
+                  f'the wide attention\'s plan at T_kv = {t_w}, heads of {hd}: {tuple(kplan)} == the mirror\'s '
+                  f'{tuple(plan)}, {plan.smem} <= {wformer.MAX_SMEM} bytes')
             q, k_, v_ = (torch.from_numpy(rng.standard_normal((bw * t_w, d_w)).astype(np.float32)).to(dev)
                          for _ in range(3))
             out = torch.empty(bw * t_w, d_w, device=dev)
@@ -3970,14 +3991,17 @@ def main() -> int:
                                                       v_.view(bw, t_w, d_w), heads), REPS),
                 'library_ms': time_ms(functools.partial(torch.nn.functional.scaled_dot_product_attention, q4, k4, v4),
                                       REPS),
-                **bound(roofline.attention_work(bw, t_w, t_w, heads, hd))}
+                **bound(roofline.attention_work(bw, t_w, t_w, heads, hd)),
+                'shape': f'({bw}, {t_w}, {t_w}), d {d_w}, {heads} head(s) of {hd}'}
             check(r <= ATTENTION_REL_L2 and stack_r <= CVAE_REL_L2,
                   f'pccf_attention (B, T, T_kv) = ({bw}, {t_w}, {t_w}), {heads} heads of {hd} (the wide instance): '
                   f'rel L2 vs float64 {r:.2e} <= {ATTENTION_REL_L2}; {row["ms"]:.4f} ms a launch (plain '
                   f'{row["plain_ms"]:.4f}, library {row["library_ms"]:.4f}, bound {row["bound_ms"]:.4f} ms '
                   f'({row["bound_by"]}), share {row["bound_ms"] / row["ms"]:.1%}); the 2-layer encoder stack at '
                   f'({bw}, {t_w}, {d_w}) against its plain version rel L2 {stack_r:.2e} <= {CVAE_REL_L2}')
-        kernels['wformer_encoder']['wide_heads'] = wide
+        # the headline: one head of 512
+        kernels['attention_wide'] = {**wide[512], 'heads_256': wide[256],
+                                     'max_abs_err': max(w['max_abs_err'] for w in wide.values())}
 
         # the graph pools at widths off four channels (E's LDGCNN pools at 17
         # and 130; 511 beside them): the eval max-pool at serving's 16, the
@@ -4283,14 +4307,15 @@ def main() -> int:
           f'{json.dumps({k: v for k, v in reader_launches.items() if v})}; bf16 cast serving '
           f'{json.dumps({k: v for k, v in cast_launches.items() if v})}; data parallelism '
           f'{json.dumps({k: v for k, v in dp_launches.items() if v})}; auction and SP '
-          f'{json.dumps({k: v for k, v in sp_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in sp_launches.items() if v})}; wide heads '
+          f'{json.dumps({k: v for k, v in wide_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
              gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
-             dp_launches, sp_launches)
+             dp_launches, sp_launches, wide_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
           'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel / '
-          'auction and SP',
+          'auction and SP / wide heads',
           flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]

@@ -52,6 +52,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_tf32_split': (P, P, P, I, P),
     'pccf_layer_norm': (P, P, P, P, I, I, F, P),
     'pccf_attention': (P, I, P, P, I, P, I, I, I, I, I, I, P),
+    'pccf_attention_wide_plan': (I, I, P),
+    'pccf_gemm_plan': (I, I, I, I, P),
     'pccf_gather_neighbors': (P, P, P, I, I, I, I, P),
     'pccf_scatter_add_rows': (P, P, P, P, I, I, I, I, I, P),
     'pccf_scatter_add_rows_scratch': (I, I, I, I),

@@ -30,6 +30,7 @@ KERNELS = {
     'wformer_encoder': wformer.wformer_encoder_cuda,
     'wformer_decoder': wformer.wformer_decoder_cuda,
     'gemm_bf16w': wformer.gemm_bf16w_cuda,  # each bf16-weight GEMM of the stacks (the server's bf16 cast)
+    'attention_wide': wformer.attention_wide_cuda,  # each attention of the stacks at heads past 128
     'nn_distance': chamfer_mod.nn_distance_cuda,
     'sinkhorn_cost': sinkhorn.sinkhorn_cost_cuda,
     'graph_filter': graph_filter.graph_filter_cuda,

@@ -197,9 +197,11 @@ def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_ro
     operations each as :func:`_stack_ops` counts them (the epilogue's adds
     and GELU uncounted); ``a``, the weights (``weight_bytes`` an element: 2
     for ``pccf_gemm_bf16w``), biases and ``res_rows`` rows of the residual
-    read once, the outputs written once."""
+    read once, the outputs written once.  The peak is the class each
+    instance issues: TF32 for fp32 weights, bf16 for ``pccf_gemm_bf16w``
+    (its products are bf16 MMAs on the weights as stored)."""
     read = F32 * (m * k + groups * (n if bias else 0) + res_rows * n) + weight_bytes * groups * n * k
-    return Work(2.0 * groups * m * n * k, read + F32 * groups * m * n, TF32)
+    return Work(2.0 * groups * m * n * k, read + F32 * groups * m * n, BF16 if weight_bytes == 2 else TF32)
 
 
 def attention_work(b: int, t_q: int, t_k: int, n_heads: int, head_dim: int) -> Work:

@@ -25,9 +25,14 @@ packing on every eval call costs nothing and no pack outlives a training
 step.  A server's bf16 cast (:func:`pccf_torch.serve.bf16_copy`) stores the
 weights in bfloat16 behind a widening parametrisation: the pack then holds
 the stored bf16 matrices (:func:`stored`), and the GEMM reads them through
-its bf16-weight instance (``pccf_gemm_bf16w``: half the bytes of an fp32
-weight, two TF32 products instead of three, since a bf16 value is exact in
-TF32), while LayerNorm parameters and biases are widened to fp32.
+its bf16-weight instance (``pccf_gemm_bf16w``, ``gemm_bf16w_kernel``: the
+bf16 weight tile goes to the tensor cores as TMA loads it, a quarter of the
+bytes of an fp32 weight and its small part, and the fp32 activation as three
+bf16 parts, six bf16 products a 32-wide k tile where the fp32 instance
+issues twelve TF32 ones), while LayerNorm parameters and biases are widened
+to fp32.  Heads past 128 wide run the attention's wide instance
+(``attention_wide_kernel``, :func:`attention_wide_cuda`: each score of a
+head computed once, on wgmma).
 Differing FF widths need no padding: each layer's GEMMs take its own
 width.  The GEMM takes widths in multiples of 64; a layer whose FF width is
 not one packs a zero-padded copy of its FF weights instead (zero rows of the
@@ -39,6 +44,7 @@ change.  The stacks are eval only: no dropout and no gradient.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.nn.utils import parametrize
@@ -48,6 +54,8 @@ from pccf_torch.kernels import _build, ops
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default (pallas_wformer.py:38)
 TF32_BIG = -(1 << 13)  # int32 mask keeping the sign, exponent and 10 mantissa bits a tensor core reads
 FF_MULTIPLE = 64  # pccf_gemm: N % 64 and K % 32; other FF widths are padded in the pack
+WIDE_HEAD = 128  # heads wider than this run pccf_attention's wide instance
+MAX_SMEM = 232_448  # dynamic shared memory a block may take on an H100
 
 
 def supported(t: int, d: int, n_heads: int) -> bool:
@@ -55,8 +63,8 @@ def supported(t: int, d: int, n_heads: int) -> bool:
     (``pallas_wformer.py:41-49`` ``wformer_supported``): tokens and width in
     multiples of 128, whole heads.  Its VMEM budget is a TPU limit and is not
     carried over.  Inside it the card's kernels cover every net, heads of
-    any width included (past 128 wide, ``pccf_attention`` runs its wide
-    instance)."""
+    any width included (past :data:`WIDE_HEAD` wide, ``pccf_attention`` runs
+    its wide instance, ``attention_wide_kernel``)."""
     return t % 128 == 0 and d % 128 == 0 and n_heads > 0 and d % n_heads == 0
 
 
@@ -184,6 +192,82 @@ def gemm_plain(a: torch.Tensor, wt: torch.Tensor, bias: torch.Tensor | None = No
     return out
 
 
+# ------------------------------------------------------------------ plans
+# the constants of csrc/wformer.cu the plans below are made of
+
+GEMM_BK, GEMM_STAGES, BF16_STAGES = 32, 4, 8  # kBk, kStages, kBf16Stages
+WIDE_KEYS, WIDE_CHUNK, WIDE_OUT, WIDE_QUERIES = 256, 32, 128, 64  # kWideKeys, kBk, kWideOut, kQt
+
+
+class GemmPlan(NamedTuple):
+    warpgroups: int  # 64 rows of the tile each
+    columns: int
+    stages: int
+    smem: int  # dynamic shared memory, bytes
+
+
+class WidePlan(NamedTuple):
+    score_tiles: int  # of up to WIDE_KEYS keys
+    score_chunks: int  # WIDE_CHUNK head columns each
+    out_chunks: int  # WIDE_OUT head columns each
+    smem: int
+
+
+def gemm_plan(m: int, n: int, groups: int, bf16: bool) -> GemmPlan:
+    """The tile ``pccf_gemm`` and ``pccf_gemm_bf16w`` take at ``(m, n)``:
+    128x128 where that gives the 132 SMs a full wave, else 128x64, else
+    64x64; and its ring: a stage holds A's 32-wide k slice and the weight's
+    (fp32 and its small part; or bf16), plus the 1024-byte alignment and
+    two mbarriers a stage (``pccf_gemm_plan`` mirrored)."""
+    row_tiles = groups * (m // 128)
+    wg, bn = 1, 64
+    if m % 128 == 0 and n % 128 == 0 and row_tiles * (n // 128) >= 132:
+        wg, bn = 2, 128
+    elif m % 128 == 0 and row_tiles * (n // 64) >= 132:
+        wg = 2
+    stages = BF16_STAGES if bf16 else GEMM_STAGES
+    stage = 64 * wg * GEMM_BK * 4 + bn * GEMM_BK * (2 if bf16 else 8)
+    return GemmPlan(wg, bn, stages, stages * stage + 1024 + 2 * stages * 8)
+
+
+def wide_plan(t_k: int, head_dim: int) -> WidePlan:
+    """The wide attention's plan for ``t_k`` keys and heads of ``head_dim``
+    (past :data:`WIDE_HEAD`): score tiles of up to :data:`WIDE_KEYS` keys,
+    the head's columns in score chunks of 32 and output chunks of 128 (for a
+    head that starts on 16 bytes; a head of a width off 4 may start up to 3
+    columns into its first chunk and take one more), and shared memory that
+    does not depend on the shape: P and its small part (64 queries x 256
+    keys, twice; the two score stages of Q, its small part and 256 keys of K
+    lie inside it), two V stages of 64 keys x 128 columns, the warps'
+    partial maxima and sums, the running max and sum of two score tiles, 1 /
+    sum and the stored output's factor, eleven mbarriers and the 1024-byte
+    alignment (``pccf_attention_wide_plan`` mirrored)."""
+    if head_dim <= WIDE_HEAD or t_k <= 0 or t_k % 64:
+        raise ValueError(f'the wide attention takes heads past {WIDE_HEAD} and keys in 64s, got {head_dim}, {t_k}')
+    box = 64 * WIDE_CHUNK * 4
+    p_bytes = 2 * (WIDE_KEYS // 32) * box
+    assert 2 * (2 + WIDE_KEYS // 64) * box <= p_bytes  # the score ring inside P's bytes
+    v_bytes = 2 * (WIDE_OUT // WIDE_CHUNK) * box
+    smem = p_bytes + v_bytes + 2 * 8 * WIDE_QUERIES * 4 + 3 * 2 * WIDE_QUERIES * 4 + 11 * 8 + 1024
+    return WidePlan(-(-t_k // WIDE_KEYS), -(-head_dim // WIDE_CHUNK), -(-head_dim // WIDE_OUT), smem)
+
+
+def kernel_gemm_plan(m: int, n: int, groups: int, bf16: bool) -> GemmPlan:
+    """The GEMM plan the kernel library takes, to hold :func:`gemm_plan` to it."""
+    out = (ctypes.c_int * 4)()
+    _build.check('pccf_gemm_plan', _build.lib().pccf_gemm_plan(m, n, groups, int(bf16), out), f'({m}, {n}) x {groups}')
+    return GemmPlan(*out)
+
+
+def kernel_wide_plan(t_k: int, head_dim: int) -> WidePlan:
+    """The wide attention's plan the kernel library takes, to hold
+    :func:`wide_plan` to it."""
+    out = (ctypes.c_int * 4)()
+    _build.check('pccf_attention_wide_plan', _build.lib().pccf_attention_wide_plan(t_k, head_dim, out),
+                 f't_k={t_k}, heads of {head_dim}')
+    return WidePlan(*out)
+
+
 def split_small(weights: list[torch.Tensor]) -> dict[int, torch.Tensor]:
     """The TF32 small part of each weight by one ``pccf_tf32_split`` launch,
     keyed by the weight's ``data_ptr``: views into one buffer, each starting
@@ -272,7 +356,14 @@ class Stacks:
 
     def attend(self, q, k, v, out, n_heads: int) -> None:
         """Multi-head attention, ``q, out (b * t, d)`` and ``k, v (b * t_k, d)``,
-        each a row-strided 2-D view (``k`` and ``v`` with one stride)."""
+        each a row-strided 2-D view (``k`` and ``v`` with one stride); heads
+        past :data:`WIDE_HEAD` wide through :func:`attention_wide_cuda`."""
+        if self.d // n_heads > WIDE_HEAD:
+            attention_wide_cuda(self, q, k, v, out, n_heads)
+        else:
+            self._attention(q, k, v, out, n_heads)
+
+    def _attention(self, q, k, v, out, n_heads: int) -> None:
         d, t_k = self.d, k.shape[0] // self.b
         if k.stride(0) != v.stride(0):
             raise ValueError(f'pccf_attention: k and v strides differ ({k.stride(0)}, {v.stride(0)})')
@@ -342,6 +433,20 @@ def gemm_bf16w_cuda(stacks: Stacks, a, wts: list, biases: list, outs: list, res=
 
 
 gemm_bf16w_cuda.launches = 0
+
+
+def attention_wide_cuda(stacks: Stacks, q, k, v, out, n_heads: int) -> None:
+    """One launch of ``pccf_attention`` at heads past :data:`WIDE_HEAD`,
+    which runs its wide instance (``attention_wide_kernel``): :meth:`Stacks.attend`
+    at such heads.  The instance reads q, k and v through TMA, so each must
+    start on 16 bytes.  Counts its launches apart from the stacks' own: a
+    stack or chain whose heads are this wide launches it once a layer's
+    attention."""
+    stacks._attention(q, k, v, out, n_heads)
+    attention_wide_cuda.launches += 1
+
+
+attention_wide_cuda.launches = 0
 
 
 def _tokens(x: torch.Tensor, name: str, pack: list[dict]) -> tuple[int, int, int]:

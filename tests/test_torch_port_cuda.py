@@ -1085,6 +1085,106 @@ def test_gemm_bf16_weights_epilogues_match_float64(dev, epilogue):
         assert _rel_l2(got.double(), ref) <= 5e-6
 
 
+@pytest.mark.parametrize('epilogue', ['bias', 'gelu', 'alias', 'grouped'])
+@pytest.mark.parametrize('k', [32, 96, 512, 1024])
+@pytest.mark.parametrize('m,n', [(64, 512), (4096, 512), (8192, 512)])
+def test_gemm_bf16_weights_every_tile_and_k(dev, m, n, k, epilogue):
+    """``pccf_gemm_bf16w`` at each tile it takes (64x64, 128x64 and 128x128
+    at N = 512), K of one, three (an odd count: the last tile has no next
+    to prefetch), 16 and 32 k tiles, with each epilogue, against float64 on
+    the widened weights; one launch a call, and the tile the library took
+    is the mirror's."""
+    groups = 3 if epilogue == 'grouped' else 1
+    a, wts, biases, stacks = _gemm_case(m, n, k, groups, 7 * m + n + k, dev)
+    wts = [w.to(torch.bfloat16) for w in wts]
+    outs = [torch.empty(m, n, device=dev) for _ in wts]
+    before = wformer.gemm_bf16w_cuda.launches
+    if epilogue == 'alias':
+        res = _randn((m, n), 92, dev)
+        want = [wformer.gemm_plain(a.double(), wts[0], None, res.double())]
+        outs = [res]
+        stacks.gemm(a, wts, [None], outs, res)
+    else:
+        stacks.gemm(a, wts, biases, outs, gelu=epilogue == 'gelu')
+        want = [wformer.gemm_plain(a.double(), w, b.double(), gelu=epilogue == 'gelu') for w, b in zip(wts, biases)]
+    assert wformer.gemm_bf16w_cuda.launches == before + 1
+    for got, ref in zip(outs, want):
+        assert _rel_l2(got.double(), ref) <= 5e-6
+    assert wformer.kernel_gemm_plan(m, n, groups, True) == wformer.gemm_plan(m, n, groups, True)
+
+
+@pytest.mark.parametrize('bf16', [False, True])
+def test_gemm_plan_is_the_kernels(dev, bf16):
+    """``wformer.gemm_plan`` mirrors the tile, ring and shared memory the
+    library takes, and fits the card."""
+    for m in (64, 128, 256, 4096, 8192):
+        for n in (64, 128, 512, 1024):
+            for groups in (1, 2, 3):
+                plan = wformer.gemm_plan(m, n, groups, bf16)
+                assert wformer.kernel_gemm_plan(m, n, groups, bf16) == plan, (m, n, groups)
+                assert plan.smem <= wformer.MAX_SMEM
+
+
+def test_wide_attention_plan_is_the_kernels(dev):
+    for t_k in (64, 128, 256, 384, 640):
+        for hd in (129, 130, 136, 192, 256, 320, 512, 1024):
+            assert wformer.kernel_wide_plan(t_k, hd) == wformer.wide_plan(t_k, hd), (t_k, hd)
+    with pytest.raises(ValueError, match='does not cover'):
+        wformer.kernel_wide_plan(256, 128)
+
+
+def _wide_want(q, k, v, b, heads, hd):
+    def split(x):
+        return x.double().reshape(b, -1, heads, hd).transpose(1, 2)
+
+    w = torch.softmax(split(q) @ split(k).transpose(-1, -2) / hd ** 0.5, dim=-1)
+    return (w @ split(v)).transpose(1, 2).reshape(-1, heads * hd)
+
+
+@pytest.mark.parametrize('t_q,t_k', [(256, 256), (128, 384), (64, 640)])
+@pytest.mark.parametrize('hd,heads', [(192, 2), (256, 2), (320, 1), (512, 1), (136, 2), (130, 2)])
+def test_wide_attention_matches_float64(dev, hd, heads, t_q, t_k):
+    """The wide instance alone against the exact softmax in float64: heads
+    of 192, 256, 320 and 512, and of 136 and 130 (a last 32-column chunk
+    partly past the head); self-attention at 256 keys (one score tile),
+    cross-attention of 128 queries against 384 keys and of 64 against 640
+    (score tiles of 256, 256 and 128, the softmax running on across them);
+    q from a (rows, 3d) buffer and k, v from a (rows, 2d) one at their row
+    strides; one launch a call, counted apart."""
+    b, d = 2, heads * hd
+    qbuf, kvbuf = _randn((b * t_q, 3 * d), hd + t_q, dev), _randn((b * t_k, 2 * d), hd + t_k + 1, dev)
+    q, k, v = qbuf[:, d: 2 * d], kvbuf[:, :d], kvbuf[:, d:]
+    out = torch.empty(b * t_q, d, device=dev)
+    before = wformer.attention_wide_cuda.launches
+    wformer.Stacks(b, t_q, d, dev).attend(q, k, v, out, heads)
+    assert wformer.attention_wide_cuda.launches == before + 1
+    assert _rel_l2(out.double(), _wide_want(q, k, v, b, heads, hd)) <= 1e-5
+
+
+def test_wide_attention_slices_of_one_buffer(dev):
+    """q, k and v as column slices of one (rows, 3d) projection buffer (the
+    grouped q, k, v launch), two heads of 256, written into a column slice
+    of a wider output; the columns around it untouched."""
+    b, t, heads, hd = 3, 128, 2, 256
+    d = heads * hd
+    qkv = _randn((b * t, 3 * d), 5, dev)
+    q, k, v = qkv[:, :d], qkv[:, d: 2 * d], qkv[:, 2 * d:]
+    wide_out = torch.full((b * t, d + 64), 7.0, device=dev)
+    wformer.Stacks(b, t, d, dev).attend(q, k, v, wide_out[:, 32: 32 + d], heads)
+    assert _rel_l2(wide_out[:, 32: 32 + d].double(), _wide_want(q, k, v, b, heads, hd)) <= 1e-5
+    assert bool((wide_out[:, :32] == 7.0).all()) and bool((wide_out[:, 32 + d:] == 7.0).all())
+
+
+def test_wide_attention_refuses_views_off_16_bytes(dev):
+    """The wide instance reads q, k and v by TMA: a view that does not start
+    on 16 bytes is refused, not read."""
+    b, t, heads, hd = 1, 64, 1, 256
+    buf = _randn((b * t, hd + 4), 6, dev)
+    q = buf[:, 1: 1 + hd]
+    with pytest.raises(ValueError, match='does not cover'):
+        wformer.Stacks(b, t, hd, dev).attend(q, buf[:, :hd], buf[:, :hd], torch.empty(b * t, hd, device=dev), heads)
+
+
 def test_tf32_split_kernel_is_bit_exact(dev):
     ws = [_randn((512, 512), 70, dev), _randn((1024, 512), 71, dev) * 1e-3, _randn((64, 32), 72, dev) * 1e4]
     small = wformer.split_small(ws)

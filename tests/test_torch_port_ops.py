@@ -226,7 +226,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
                                         'wformer_decoder', 'gemm_bf16w', 'nn_distance', 'sinkhorn_cost',
-                                        'graph_filter', 'graph_filter_backward', 'auction_emd'}
+                                        'graph_filter', 'graph_filter_backward', 'auction_emd', 'attention_wide'}
     assert set(api.launch_counts().values()) == {0}
 
 
