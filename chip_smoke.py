@@ -140,12 +140,14 @@ filtering on):
 - the auction EMD and the sharded-point-axis losses (``auction_sp_phase``):
   ``api.auction_emd`` at bench.py's operating points, (1, 2048, 3)^2 at the
   train (eps 0.005, 50 rounds) and eval (0.002, 10000) contracts, (8, 2048),
-  1536 against 2048 points and (1, 16384, 3)^2 (the state in global
-  scratch), one launch a call, the kernel's distances, assignment, nearest
-  indices and rounds and bids bit-equal to its plain version, the eval
+  1536 against 2048 points and (1, 16384, 3)^2, one launch a call, the
+  kernel's distances, assignment, nearest indices and rounds and bids
+  bit-equal to its plain version, its plan held to the library's, the eval
   contract converged to a permutation within 1.10 of scipy's optimal
   assignment, the gradient of ``dis`` against the CPU, kernel and plain
-  times and the rounds; ``nn_distance`` at the SP shard's (8, 1024) x
+  times, the rounds, the cluster size and the clusters resident at once,
+  the rounds from which every unassigned row bid and one block ran the
+  tail, the time a round; ``nn_distance`` at the SP shard's (8, 1024) x
   (8, 2048); then ``sp_chamfer``, ``sp_match_cost`` and ``sp_knn`` on two
   gloo ranks on ``cuda:0`` (a 1-D grid, ``pccf_torch.dist.make_2d_grid``)
   at (8, 2048, 3) and (1, 16384, 3), values and gradients against the
@@ -2088,12 +2090,43 @@ def sp_check(check, dev: torch.device, clouds: list, ranks: list[list[dict]], wh
     return total
 
 
+def rounds_until(run, x1: torch.Tensor, x2: torch.Tensor, eps: float, iters: int, k_active: int | None,
+                 below: int) -> list[int | None]:
+    """For each cloud, the first round at whose start fewer than ``below``
+    rows are unassigned, or None if no round it bid in starts so: a binary
+    search over the rounds with ``run`` (``auction_emd.plain`` or
+    ``auction_emd.auction_emd_cuda``) capped at each, since the unassigned count
+    never rises.  ``below = k + 1`` gives the round from which every
+    unassigned row bids; ``min(plan.tail, k + 1)`` the tail's first round."""
+    out = []
+    for c in range(x1.shape[0]):
+        a, b = x1[c:c + 1], x2[c:c + 1]
+        rounds = int(run(a, b, eps, iters, k_active)[3][0, 0])
+
+        def left(r):
+            return int((run(a, b, eps, r, k_active)[1] < 0).sum())
+
+        if left(rounds) >= below:
+            out.append(None)
+            continue
+        lo, hi = 0, rounds  # left(hi) < below
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if left(mid) < below:
+                hi = mid
+            else:
+                lo = mid + 1
+        out.append(lo)
+    return out
+
+
 def auction_sp_phase(seed: int, check, dev: torch.device, root: str, kernels: dict) -> dict[str, int]:
     """The auction EMD through ``api.auction_emd`` at bench.py's operating
     points (one launch a call, the kernel bit-equal to its plain version, the
     eval contract converged and within ``AUCTION_OPTIMUM_RATIO`` of scipy's
     optimal assignment, the gradient of ``dis`` against the CPU, each cloud's
-    rounds and bids), ``nn_distance`` at the SP shard's shape, then
+    rounds and bids, the plan against the library's, the rounds at which the
+    compaction and the cluster gave way), ``nn_distance`` at the SP shard's shape, then
     ``sp_chamfer``, ``sp_match_cost`` and ``sp_knn`` on ``SP_RANKS`` gloo
     ranks on the card (``sp_rank``) against the one-device functions in this
     process: values, gradients, ``nn_distance`` once a rank a Chamfer call,
@@ -2141,9 +2174,19 @@ def auction_sp_phase(seed: int, check, dev: torch.device, root: str, kernels: di
         entry['max_abs_err'] = max(entry['max_abs_err'], float((got[0] - want[0]).abs().max()))
         entry['shapes'][shape] = row
         unassigned = int((assignment < 0).sum())
-        smem = auction_emd.smem_bytes(n, m, auction_emd.bidder_cap(n, None))
-        same = same and smem == _build.lib().pccf_auction_smem_bytes(n, m, auction_emd.bidder_cap(n, None))
-        where = f'shared memory ({smem} bytes, the library\'s plan too)' if smem else 'global scratch'
+        # the plan (held to the library's), and the rounds from which every unassigned row bid (no compaction)
+        # and from which one block ran them (the tail), found with the kernel capped at fewer rounds
+        k = auction_emd.bidder_cap(n, None)
+        plan, held = auction_emd.library_plan(b, n, m, k), auction_emd.resident_clusters()
+        same = same and plan == auction_emd.plan(b, n, m, k, held) and plan.cluster > 1
+        where = (f'shared memory ({plan.smem} bytes a block, the library\'s plan too)' if plan.shared
+                 else f'global scratch ({plan.region} bytes a block, the library\'s plan too)')
+        run_k = auction_emd.auction_emd_cuda
+        listed = rounds_until(run_k, x1, x2, eps, iters, None, k + 1)
+        tail = rounds_until(run_k, x1, x2, eps, iters, None, min(plan.tail, k + 1)) if plan.tail \
+            else [None] * b
+        row.update(cluster=plan.cluster, resident=held[plan.cluster.bit_length() - 1], list_from=listed,
+                   tail_from=tail, ms_round=row['ms'] / max(max(rounds), 1))
         what = ''
         if contract == 'eval':
             perm = all(len(set(a.tolist())) == n for a in assignment.cpu())
@@ -2157,8 +2200,11 @@ def auction_sp_phase(seed: int, check, dev: torch.device, root: str, kernels: di
               f'auction_emd {shape} (eps {eps}, {iters} rounds at most): one launch through api.auction_emd '
               f'{counts["auction_emd"] == 1 and sum(counts.values()) == 1}, dis, assignment, nearest indices and '
               f'counts bit-equal to the plain version {same}{what}; rounds {rounds}, bids {bids}, {unassigned} '
-              f'unassigned; state in {where}; '
-              f'{row["ms"]:.4f} ms (plain {row["plain_ms"]:.4f}, bound {ms:.4f} ms, {by})')
+              f'unassigned; state in {where}; {plan.cluster}-block clusters ({row["resident"]} resident at '
+              f'once), every unassigned row bids (no compaction) from round {listed}, one block from round {tail} '
+              f'({f"below {plan.tail} bidders" if plan.tail else "no room for the tail"}); '
+              f'{row["ms"]:.4f} ms, {1000 * row["ms_round"]:.3f} us a round (plain {row["plain_ms"]:.4f}, bound '
+              f'{ms:.4f} ms, {by})')
     headline = '(1, 2048, 3) x (1, 2048, 3) train'
     entry.update(entry['shapes'][headline], shape=headline)
     # the gradient of dis, the kernel's forward and the row scatter, against the CPU

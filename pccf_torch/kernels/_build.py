@@ -65,7 +65,8 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_chamfer_match_cost': (P, P, I, I, I, F, F, P, P, P, P, P, P, P, P, P),
     'pccf_nn_distance': (P, P, I, I, I, P, P, P, P, P, I, P),
     'pccf_auction_emd': (P, P, I, I, I, I, F, I, P, P, P, P, P, P),
-    'pccf_auction_smem_bytes': (I, I, I),
+    'pccf_auction_plan': (I, I, I, I, P),
+    'pccf_auction_resident': (P,),
     'pccf_sinkhorn_cost': (P, P, I, I, I, F, F, F, I, P, P, P, P, P, P, P, P, P),
     'pccf_sinkhorn_plan': (I, I, I, I, P),
     'pccf_graph_filter': (P, P, P, P, P, I, I, I, I, P),

@@ -15,24 +15,39 @@ is left unassigned.
 :func:`plain` repeats JAX's rounds op for op over the batch (the loop runs
 while any cloud has an unassigned point).  A cloud that is fully assigned has
 no bidder, so it places no bid and its state stays as it is: running each
-cloud's loop on its own gives the same result, and the kernel runs one block
-a cloud, all rounds in one launch, with no host synchronisation.  Both take
-the squared distances in :func:`ops.pair_square_distance`'s rounding (no
-FMA), so on the card the kernel's assignment equals the plain version's bit
-for bit.  The gradient of ``dis`` holds the assignment constant: each row's
-distance is re-expressed through the two clouds at its matched (or nearest)
-index, and ``x2``'s rows are summed through the ordered row scatter, as the
-Chamfer backward does (:mod:`pccf_torch.kernels.chamfer`).
+cloud's loop on its own gives the same result, and the kernel runs each
+cloud on a thread-block cluster (:func:`plan`), all rounds in one launch,
+with no host synchronisation; once fewer than ``plan.tail`` rows are left,
+one block of the cluster runs the remaining rounds alone.  Two facts let it
+drop the compaction once every unassigned row bids: the unassigned count
+never rises, and slots are filled in row order, so the lowest slot on a tie
+is the lowest row.  Both take the squared distances in
+:func:`ops.pair_square_distance`'s rounding (no FMA), so on the card the
+kernel's outputs equal the plain version's bit for bit.  The gradient of
+``dis`` holds the assignment constant: each row's distance is re-expressed
+through the two clouds at its matched (or nearest) index, and ``x2``'s rows
+are summed through the ordered row scatter, as the Chamfer backward does
+(:mod:`pccf_torch.kernels.chamfer`).
 """
 
 from __future__ import annotations
+
+import ctypes
+from collections.abc import Sequence
+from typing import NamedTuple
 
 import torch
 
 from pccf_torch.kernels import _build, chamfer, ops
 
 NEG = -1e30  # the sentinel of an absent bid and of the second-best benefit (auction_emd.py:43)
-MAX_SMEM = 232448 - 1024  # kAuctionMaxSmem: the state's shared memory at most, beside the static arrays
+# csrc/auction_emd.cu's constants
+MAX_SMEM = 232448 - 1024  # kAuctionMaxSmem: a block's dynamic shared memory at most, beside the static arrays
+MAX_CLUSTER = 16  # kMaxCluster: blocks a cloud at most
+CLUSTER_SIZES = 5  # kClusterSizes: clusters of 1, 2, 4, 8, 16 blocks
+MIN_ITEMS = 64  # kMinItems: items a block owns at least
+TAIL_BIDDERS = 32  # kTailBidders: bidders below which one block runs the rounds (one warp resolves them)
+WARPS = 32  # kAuctionWarps
 
 
 def bidder_cap(n: int, k_active: int | None) -> int:
@@ -47,20 +62,97 @@ def _check(n: int, m: int) -> None:
         raise ValueError(f'auction_emd requires N <= M, got N={n} > M={m}')
 
 
-def state_bytes(n: int, m: int, k: int, shared: bool) -> int:
-    """Bytes of one cloud's auction state (``auction_bytes`` in
-    ``csrc/auction_emd.cu``): each item's coordinates and price (16), its
-    best bid's key (8) and owner (4); each bidder slot's row, item and bid
-    (12); in shared memory also the assignment (4 a row); rounded up to 16."""
-    size = 28 * m + 12 * k + (4 * n if shared else 0)
+def _align16(size: int) -> int:
     return -(-size // 16) * 16
 
 
-def smem_bytes(n: int, m: int, k: int) -> int:
-    """The kernel's dynamic shared memory: the whole state while it fits in
-    :data:`MAX_SMEM`, else 0 (the state lives in global scratch)."""
-    size = state_bytes(n, m, k, True)
-    return size if size <= MAX_SMEM else 0
+class Plan(NamedTuple):
+    """A cloud's auction on the card (``auction_plan`` in
+    ``csrc/auction_emd.cu``, whose ``pccf_auction_plan`` gives the same
+    fields in this order)."""
+
+    cluster: int  # blocks a cloud
+    items: int  # items a block owns (block r: [r items, (r + 1) items))
+    rows: int  # rows a block owns
+    handled: int  # bidder slots a block handles at most (slot s: block s mod cluster)
+    shared: int  # 1: the state in shared memory, 0: in global scratch
+    tail: int  # bidders below which one block runs the rounds (0: never)
+    smem: int  # dynamic shared memory a block
+    region: int  # bytes of a block's cluster state
+
+
+def region_bytes(p: Plan, k: int) -> int:
+    """A block's cluster state (``layout``): its items' float4 (coordinates
+    and price), 64-bit keys and owners; its rows' assignment; its list of
+    k rows (its own first k unassigned, or the losers and evicted owners of
+    the bids on its items: every bid of a round may land there); every
+    block's list count; the round's bidders (k); the partials of the
+    slots it handles (16 bytes from each block); its inbox, a 16-byte bid
+    (key, item) for each handled slot of each block; its list's count."""
+    return (_align16(16 * p.items) + _align16(8 * p.items) + _align16(4 * p.items) + _align16(4 * p.rows)
+            + _align16(4 * k) + _align16(4 * MAX_CLUSTER) + _align16(4 * k) + 2 * 16 * p.handled * p.cluster + 16)
+
+
+def tail_bytes(n: int, m: int) -> int:
+    """The leader's tail state (``tail_layout``): every item's float4, key
+    and owner, every row's assignment, two lists of :data:`TAIL_BIDDERS`
+    bidders' (x, y, z, row), a partial a warp."""
+    return _align16(16 * m) + _align16(8 * m) + _align16(4 * m) + _align16(4 * n) + 2 * TAIL_BIDDERS * 16 + 16 * WARPS
+
+
+def _plan_for(n: int, m: int, k: int, c: int) -> Plan:
+    items, rows, handled = -(-m // c), -(-n // c), -(-k // c)
+    p = Plan(c, items, rows, handled, 0, 0, 0, 0)
+    region, tail = region_bytes(p, k), tail_bytes(n, m)
+    shared = region <= MAX_SMEM
+    tail_ok = shared and region + tail <= MAX_SMEM
+    return p._replace(shared=int(shared), tail=TAIL_BIDDERS if tail_ok else 0,
+                      smem=(region + (tail if tail_ok else 0)) if shared else 0, region=region)
+
+
+def plan(b: int, n: int, m: int, k: int, resident: Sequence[int]) -> Plan:
+    """The plan of ``b`` clouds on a card that holds ``resident[i]``
+    clusters of ``2**i`` blocks at once (:func:`resident_clusters`): the
+    cluster (the largest power of two up to :data:`MAX_CLUSTER` that leaves
+    each block :data:`MIN_ITEMS` items, halved while the card holds fewer
+    than ``b`` such clusters, unless the halved state would leave shared
+    memory: one wave of smaller clusters beats waves of larger ones), each
+    block's share, where the state lives (shared memory while a block's share fits
+    in :data:`MAX_SMEM`, else global scratch) and whether one block can take
+    over the tail (its gathered state fits beside the cluster's)."""
+    c = MAX_CLUSTER
+    while c > 1 and m < c * MIN_ITEMS:
+        c //= 2
+    p = _plan_for(n, m, k, c)
+    while c > 1 and b > resident[c.bit_length() - 1]:
+        half = _plan_for(n, m, k, c // 2)
+        if p.shared and not half.shared:
+            break
+        p, c = half, c // 2
+    return p
+
+
+def library_plan(b: int, n: int, m: int, k: int) -> Plan:
+    """The plan on the current card from the kernel library
+    (``pccf_auction_plan``: :func:`plan` with the card's
+    :func:`resident_clusters`)."""
+    out = (ctypes.c_int * len(Plan._fields))()
+    err = _build.lib().pccf_auction_plan(b, n, m, k, out)
+    _build.check('pccf_auction_plan', err, f'b={b}, n={n}, m={m}, k={k}')
+    return Plan(*out)
+
+
+def resident_clusters() -> tuple[int, ...]:
+    """Clusters of 1, 2, 4, 8 and 16 blocks the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``, ``pccf_auction_resident``)."""
+    out = (ctypes.c_int * CLUSTER_SIZES)()
+    _build.check('pccf_auction_resident', _build.lib().pccf_auction_resident(out), 'the current card')
+    return tuple(out)
+
+
+def scratch_bytes(b: int, p: Plan) -> int:
+    """The global scratch of a call whose state does not fit in shared memory."""
+    return 0 if p.shared else b * p.cluster * p.region
 
 
 def _first_max(v: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -137,8 +229,9 @@ def auction_emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float = 0.005, ite
                      k_active: int | None = None) -> tuple[torch.Tensor, ...]:
     """``x1 (B, N, 3)``, ``x2 (B, M, 3)`` float32 on the card, ``N <= M`` ->
     ``dis, assignment, near, counts`` as :func:`plain`, from one launch of
-    one block a cloud.  The state lives in shared memory while it fits
-    (:func:`smem_bytes`), else in global scratch of this call."""
+    a cluster of blocks a cloud (:func:`library_plan`).  The state lives in shared
+    memory while it fits, else in global scratch of this call.  A cluster
+    the card cannot launch raises, naming the shapes."""
     _build.require(x1, 'x1', torch.float32)
     if x1.dim() != 3 or x1.shape[-1] != 3:
         raise ValueError(f'x1: expected (B, N, 3), got {tuple(x1.shape)}')
@@ -152,9 +245,11 @@ def auction_emd_cuda(x1: torch.Tensor, x2: torch.Tensor, eps: float = 0.005, ite
     dev = x1.device
     out = (torch.empty((b, n), dtype=torch.float32, device=dev), torch.empty((b, n), dtype=torch.int32, device=dev),
            torch.empty((b, n), dtype=torch.int32, device=dev), torch.empty((b, 2), dtype=torch.int32, device=dev))
-    # the state's global scratch where it does not fit in shared memory
-    scratch = None if smem_bytes(n, m, k) else torch.empty(b * state_bytes(n, m, k, False), dtype=torch.uint8,
-                                                           device=dev)
+    # the state's global scratch where it does not fit in shared memory: a narrower cluster gives each
+    # block more, and the plan narrows only within shared memory, so the widest plan tells
+    widest = plan(b, n, m, k, (b,) * CLUSTER_SIZES)
+    p = widest if widest.shared else library_plan(b, n, m, k)
+    scratch = None if p.shared else torch.empty(scratch_bytes(b, p), dtype=torch.uint8, device=dev)
     err = _build.lib().pccf_auction_emd(x1.data_ptr(), x2.data_ptr(), b, n, m, k, eps, iters,
                                         *(t.data_ptr() for t in out), None if scratch is None else scratch.data_ptr(),
                                         _build.stream())

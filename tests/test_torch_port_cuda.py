@@ -1608,19 +1608,46 @@ AUCTION_TRAIN = dict(eps=0.005, iters=50)
 AUCTION_EVAL = dict(eps=0.002, iters=10000)
 
 
+def _grid_clouds(b, n, m, seed, dev):
+    """Clouds on a grid of 1/8 in the unit box (every squared distance exact
+    in float32, equal distances tie exactly): the second holds each of its
+    points twice, the first pairs of equal points (equal bids on one item)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 9, (b, m // 2, 3)) / 8
+    x = rng.integers(0, 9, (b, n, 3)) / 8
+    x[:, 1::2] = x[:, 0:n - 1:2]
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(np.concatenate([y, y], axis=1).astype(np.float32)).to(dev))
+
+
 @pytest.mark.parametrize('b,n,m,contract,k_active', [
     (1, 2048, 2048, AUCTION_TRAIN, None),
     (1, 512, 512, AUCTION_EVAL, None),
     (2, 300, 512, AUCTION_TRAIN, None),
     (3, 700, 700, AUCTION_TRAIN, 64),
-    (1, 8192, 8192, AUCTION_TRAIN, None),  # the state in global scratch
+    (1, 8192, 8192, AUCTION_TRAIN, None),
     (2, 5, 40, AUCTION_EVAL, None),
+    (1, 2048, 2048, AUCTION_EVAL, None),  # below the tail's threshold for thousands of rounds
+    (1, 1024, 1024, AUCTION_EVAL, 600),  # the compaction, then the list on the cluster, then the tail
+    (1, 5216, 5216, AUCTION_TRAIN, None),  # the largest with room for the tail
+    (1, 5224, 5224, AUCTION_TRAIN, None),  # the smallest without: every round on the cluster
+    (1, 16384, 16384, AUCTION_TRAIN, None),
+    (1, 19264, 19264, AUCTION_TRAIN, None),  # the largest state in shared memory
+    (1, 19272, 19272, AUCTION_TRAIN, None),  # the smallest in global scratch
+    (40, 2048, 2048, AUCTION_TRAIN, None),  # more clouds than the card holds clusters of 16 or 8 at once
+    (8, 16384, 16384, AUCTION_TRAIN, None),  # clusters of 8 at 16384 points
+    (140, 256, 256, AUCTION_TRAIN, None),  # more clouds than the card holds clusters of one block: waves
 ])
 def test_auction_emd_matches_plain(dev, b, n, m, contract, k_active):
     x1, x2 = torch.rand((b, n, 3), device=dev), torch.rand((b, m, 3), device=dev)
     k = auction_emd.bidder_cap(n, k_active)
-    assert bool(auction_emd.smem_bytes(n, m, k)) == (n < 8192)
-    assert auction_emd.smem_bytes(n, m, k) == auction_emd._build.lib().pccf_auction_smem_bytes(n, m, k)
+    p, held = auction_emd.library_plan(b, n, m, k), auction_emd.resident_clusters()
+    assert p == auction_emd.plan(b, n, m, k, held)
+    assert bool(p.shared) == (n <= 19264) and bool(p.tail) == (n <= 5216)
+    widest = 16 if m >= 1024 else 8 if m >= 512 else 4 if m >= 256 else 1
+    assert p.cluster == widest or b > held[widest.bit_length() - 1]  # halved only where the clouds outnumber
+    assert b <= held[p.cluster.bit_length() - 1] or p.cluster == 1  # one wave where the card allows
+    assert (b > held[0]) == (b == 140)
     got = auction_emd.auction_emd_cuda(x1, x2, **contract, k_active=k_active)
     want = auction_emd.plain(x1, x2, **contract, k_active=k_active)
     for a, w in zip(got, want):
@@ -1630,6 +1657,53 @@ def test_auction_emd_matches_plain(dev, b, n, m, contract, k_active):
         assert int(got[1].min()) >= 0
     again = auction_emd.auction_emd_cuda(x1, x2, **contract, k_active=k_active)
     assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+@pytest.mark.parametrize('b,n,m,contract,k_active', [
+    (2, 48, 48, AUCTION_EVAL, None),
+    (1, 2048, 2048, AUCTION_TRAIN, None),
+    (1, 2048, 2048, AUCTION_EVAL, None),
+    (2, 1000, 1024, AUCTION_TRAIN, 100),
+])
+def test_auction_emd_ties_match_plain(dev, b, n, m, contract, k_active):
+    """Exact ties in the distances, the benefits and the bids: the kernel's
+    key on the row picks what the plain version's lowest slot picks."""
+    x1, x2 = _grid_clouds(b, n, m, 7 + n, dev)
+    got = auction_emd.auction_emd_cuda(x1, x2, **contract, k_active=k_active)
+    want = auction_emd.plain(x1, x2, **contract, k_active=k_active)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize('contract', [AUCTION_TRAIN, AUCTION_EVAL])
+def test_auction_emd_concentrated_bids_match_plain(dev, contract):
+    """256 coincident points in x1: once the other rows are assigned they
+    all bid on one item, so one block's items take every bid of a round and
+    its list every loser."""
+    gen = torch.Generator().manual_seed(23)
+    x1, x2 = torch.rand((1, 2048, 3), generator=gen), torch.rand((1, 2048, 3), generator=gen)
+    x1[0, torch.randperm(2048, generator=gen)[:256]] = x1[0, 0].clone()
+    x1, x2 = x1.to(dev), x2.to(dev)
+    got = auction_emd.auction_emd_cuda(x1, x2, **contract)
+    want = auction_emd.plain(x1, x2, **contract)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_auction_plan_matches_the_library(dev):
+    """The Python mirror of ``auction_plan``, given the card's clusters at
+    once (``pccf_auction_resident``: one block a cloud on every SM, fewer
+    clusters as they widen, each size launchable), against
+    ``pccf_auction_plan``."""
+    held = auction_emd.resident_clusters()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert held[0] == sms and all(0 < c * 2 ** i <= sms for i, c in enumerate(held))
+    assert all(a >= b for a, b in zip(held, held[1:]))
+    for n, m, k in [(5, 40, 5), (64, 64, 64), (300, 512, 256), (700, 700, 64), (1024, 1024, 600),
+                    (1536, 2048, 384), (2048, 2048, 512), (4096, 4096, 1024), (16384, 16384, 4096),
+                    (19264, 19264, 4816), (19272, 19272, 4818), (100000, 100000, 25000)]:
+        for b in (1, 7, 8, 16, 40, 140):
+            assert auction_emd.plan(b, n, m, k, held) == auction_emd.library_plan(b, n, m, k), (b, n, m, k)
 
 
 def test_auction_emd_launches_once_and_its_gradient_matches_the_cpu(dev):
