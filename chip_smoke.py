@@ -247,6 +247,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import faulthandler
 import io
 import json
 import math
@@ -257,6 +258,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -374,6 +376,9 @@ KERNEL_INFO = {
     'auction_emd': ('pccf_torch/csrc/auction_emd.cu', 'pccf/kernels/auction_emd.py:46'),
     # the stacks' attention at heads past 128 wide, its launches counted apart from the stacks'
     'attention_wide': ('pccf_torch/csrc/wformer.cu', 'pccf/kernels/pallas_wformer.py:335'),
+    # the PCGen kernels' partial mode: a rank's share of the expert-parallel decode
+    'pcgen_mix_partial': ('pccf_torch/csrc/pcgen_mix.cu', 'pccf/kernels/pallas_pcgen.py:133'),
+    'pcgen_general_partial': ('pccf_torch/csrc/pcgen_general.cu', 'pccf/kernels/pallas_pcgen.py:133'),
 }
 SERVING_KERNELS = ('knn', 'graph_max_pool', 'pcgen_mix', 'cvae_cf', 'graph_filter')
 # every stage-1 step launches these, and the kernel of its reconstruction loss
@@ -2251,6 +2256,522 @@ def auction_sp_phase(seed: int, check, dev: torch.device, root: str, kernels: di
     ranks = [torch.load(os.path.join(root, f'sp_rank{r}.pt'), weights_only=False) for r in range(SP_RANKS)]
     for k, v in sp_check(check, dev, clouds, ranks, 'ranks').items():
         total[k] += v
+    return total
+
+
+# ---- tensor, expert and pipeline parallelism: two gloo ranks on the card
+# (the grid make_2d_grid(2, mp=2)) against one device, at flagship width
+TEP_RANKS = 2
+TEP_TRAINER_STEPS = 12  # TPTrainer's steps on one batch, each timed on the host clock, as stage 1's path takes
+PP_MICRO = (2, 4)
+# the TP probe at (dp 1, mp 2) against the one-device step on the same inputs:
+# the gathered weights are the one-device weights, so the arithmetic is the
+# same; the CPU tests' tolerances (tests/test_torch_port_tp.py)
+TP_GRAD_REL_L2 = 1e-4
+TP_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+TP_LIVE_GRAD = 1e-5
+PP_SMALL = dict(d=16, heads=2, ff=32, layers=4, batch=8, tokens=12, micro=4)  # tests/test_pp.py's stack
+EP_GRAD_REL_L2 = 1e-4  # the module path in fp32: the attention's sums over the gathered features in another order
+PP_GRAD_TOL = dict(rtol=2e-4, atol=1e-6)  # tests/test_pp.py's gradients
+# the C entry points of the pools and scatters, and the argument that is their channel width
+POOL_WIDTH_ARG = {'pccf_graph_max_pool': 5, 'pccf_graph_sum_pool': 5, 'pccf_graph_max_pool_src': 6,
+                  'pccf_scatter_add_slots': 7, 'pccf_scatter_add_slots_split': 7, 'pccf_scatter_add_rows': 7}
+
+
+def pool_widths(run) -> tuple[object, dict[str, list[int]]]:
+    """``run()``'s result and the channel widths at which it launched each
+    pool and scatter (``POOL_WIDTH_ARG``), in order of first launch."""
+    from pccf_torch.kernels import _build
+
+    real = _build.lib
+    log = LaunchLog(real())
+    _build.lib = lambda: log
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        _build.lib = real
+    widths: dict[str, list[int]] = {}
+    for name, args in log.calls:
+        if name in POOL_WIDTH_ARG and args[POOL_WIDTH_ARG[name]] not in widths.setdefault(name, []):
+            widths[name].append(args[POOL_WIDTH_ARG[name]])
+    return out, widths
+
+
+def sharded_layer_bytes(model, run) -> tuple[object, dict[str, tuple[int, int]]]:
+    """``run()``'s result and, for each parameter of ``model`` that the TP
+    rule shards over ``TEP_RANKS`` at ``min_size`` 32, its bytes (what a TP
+    layer gathers) and the largest output of its layer in the run (what a
+    layer computing its column slice would gather instead)."""
+    from pccf_torch.dist import tp_layout
+
+    modules = dict(model.named_modules())
+    seen: dict[str, tuple[int, int]] = {}
+    hooks = []
+    for name in tp_layout(model, TEP_RANKS, 32):
+        prefix, _, attr = name.rpartition('.')
+        weight = 4 * getattr(modules[prefix], attr).numel()
+
+        def hook(mod, args, out, name=name, weight=weight):
+            if torch.is_tensor(out):
+                seen[name] = (weight, max(seen.get(name, (weight, 0))[1], out.numel() * out.element_size()))
+
+        hooks.append(modules[prefix].register_forward_hook(hook))
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+def traced(run, traces: int = TRACE_ATTEMPTS) -> tuple[object, float, float]:
+    """``run()``'s result, its host-clock ms (synchronised; the median of
+    ``traces`` calls) and the device busy ms of its trace (the union of its
+    device activities; the largest of the traces, since a session may lose
+    device records but never adds any, PERF.md §7)."""
+    hosts, busy = [], 0.0
+    for _ in range(traces):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            hosts.append((time.perf_counter() - t0) * 1e3)
+        busy = max(busy, busy_ms(device_events(prof)))
+    return out, float(np.median(hosts)), busy
+
+
+def tep_models(cfg, seed: int) -> dict:
+    """What the TP/EP/PP phase runs, on the host: the stage-1 step's weights
+    and batch (``dp_cases``), the served VQ-VAE's weights, the decoders of
+    the expert-parallel cases (the flagship's and path E's, graph filtering
+    off, and ``dryrun_multichip``'s for the gradient) with their inputs, the
+    W-autoencoder whose stacks the pipeline runs, and the small stack of the
+    pipeline gradient."""
+    from pccf_torch.models import build_w_autoencoder
+    from pccf_torch.nn.decoders import PCGenDecoder, build_decoder
+    from pccf_torch.nn.layers import TransformerEncoderLayer, gelu_exact, init_from_seed, relu
+
+    gen = torch.Generator().manual_seed(seed + 60)
+    stage1 = dp_cases(cfg, seed)[0]
+    decoders = {}
+    for name, ae in (('flagship', cfg.autoencoder), ('path E', variant_configs(cfg)['E'].autoencoder)):
+        dec = build_decoder(ae)
+        init_from_seed(dec, seed + 61)
+        dec.filtering = False
+        decoders[name] = (dec, torch.randn((16, ae.w_dim), generator=gen),
+                          torch.randn((16, cfg.data.n_target_points, ae.decoder.sample_dim), generator=gen))
+    small = PCGenDecoder(w_dim=32, sample_dim=4, n_components=8, map_dims=(8,), conv_dims=(16, 8), tau=5.0, act=relu)
+    init_from_seed(small, seed + 62)
+    wae = build_w_autoencoder(cfg)
+    init_from_seed(wae, seed + 63)
+    p = PP_SMALL
+    layers = [TransformerEncoderLayer(p['d'], p['heads'], p['ff'], gelu_exact) for _ in range(p['layers'])]
+    for i, layer in enumerate(layers):
+        init_from_seed(layer, seed + 64 + i)
+    t, d = wae.n_codes, wae.decoder.proj_dim
+    return dict(stage1=stage1, decoders=decoders, small=(small, torch.randn((4, 32), generator=gen),
+                                                          torch.randn((4, 64, 4), generator=gen)),
+                wae=wae.state_dict(), pp_x=torch.randn((cfg.w_autoencoder.train.batch_size, t, d), generator=gen),
+                pp_memory=torch.randn((cfg.w_autoencoder.train.batch_size, t, d), generator=gen),
+                small_stack=[l.state_dict() for l in layers],
+                small_x=torch.randn((p['batch'], p['tokens'], p['d']), generator=gen),
+                small_target=torch.randn((p['batch'], p['tokens'], p['d']), generator=gen))
+
+
+def gathered_grads(trainer) -> dict[str, torch.Tensor]:
+    """A TP trainer's gradients in the one-device layout on the host, each
+    slice gathered (a collective: every rank calls it)."""
+    from pccf_torch.dist import tp
+
+    grads = {}
+    for n, p in trainer.model.named_parameters():
+        if p.grad is not None:
+            key = tp.one_device_name(n)
+            g = trainer.shards[key].full(p.grad) if key in trainer.shards else p.grad
+            grads[key] = g.detach().to('cpu', copy=True)
+    return grads
+
+
+def tep_work(cfg, seed: int, case: dict, dev: torch.device) -> dict:
+    """The TP/EP/PP phase's work on ``dev``: in a process group the grid of
+    every rank as ``mp`` and the sharded paths, else (``grid`` None) the
+    one-device references."""
+    import copy
+
+    from torch.func import functional_call
+
+    from pccf_torch.dist import (make_2d_grid, mesh, pipeline_apply, pipeline_run, shard_params_tp,
+                                 shard_stacked_params, shard_variables_ep, stack_layer_params, tp)
+    from pccf_torch.dist.pp import stage_of
+    from pccf_torch.kernels import api, wformer
+    from pccf_torch.models import build_vqvae, build_w_autoencoder
+    from pccf_torch.nn.layers import TransformerEncoderLayer, gelu_exact
+    from pccf_torch.train import TPTrainer, Trainer, get_autoencoder_loss, tp_train_step
+
+    sharded = mesh.world_size() > 1
+    grid = make_2d_grid(mesh.world_size(), mp=mesh.world_size()) if sharded else None
+    out: dict = {}
+
+    def cpu(x):
+        return x.detach().to('cpu', copy=True)
+
+    # TP: one stage-1 ChamferEMD step (the probe), the trainer, the eval forward
+    st = case['stage1']
+    inputs, targets, noise = (to_device(x, dev) for x in st['batch'])
+
+    def vqvae(state):
+        m = build_vqvae(cfg)
+        m.load_state_dict(state)
+        return m.to(dev)
+
+    def trainer(state=st['state']):
+        return Trainer(vqvae(state), get_autoencoder_loss(cfg), cfg.autoencoder.train, STEPS_PER_EPOCH, seed=seed)
+
+    api.reset_launch_counts()
+    if sharded:
+        (metrics, probe), widths = pool_widths(lambda: tp_train_step(trainer(), grid, inputs, targets, noise,
+                                                                     min_size=32, return_state=True))
+        rec = dict(state={k: cpu(v) for k, v in tp.one_device_state(probe.model).items()},
+                   grads=gathered_grads(probe),
+                   slice_bytes=sum(p.numel() * 4 for n, p in probe.model.named_parameters()
+                                   if '.parametrizations.' in n),
+                   moment_bytes=sum(v.numel() * 4 for st_ in probe.optimizer.state.values()
+                                    for k, v in st_.items() if k != 'step'),
+                   one_device_bytes=sum(4 * math.prod(s.shape) for s in probe.shards.values()))
+        del probe
+    else:
+        one = trainer()
+        (metrics, layer_bytes), widths = pool_widths(lambda: sharded_layer_bytes(
+            one.model, lambda: {k: float(v) for k, v in one.run_step(inputs, targets, noise).items()}))
+        rec = dict(state={k: cpu(v) for k, v in one.model.state_dict().items()},
+                   grads={k: cpu(p.grad) for k, p in one.model.named_parameters() if p.grad is not None},
+                   lr=one.lr_at(0), layer_bytes=layer_bytes)
+        del one
+    torch.cuda.synchronize()
+    out['probe'] = dict(rec, launches=api.launch_counts(), metrics=metrics, widths=widths)
+    torch.cuda.empty_cache()
+    # the trainer from the served weights (init_from_seed), whose stage-1 loss falls over the main path's 12 steps
+    if sharded:
+        tpt = TPTrainer(vqvae(case['served']), get_autoencoder_loss(cfg), cfg.autoencoder.train, STEPS_PER_EPOCH, grid,
+                        seed=seed, min_size=32)
+    else:
+        tpt = trainer(case['served'])
+    losses, times = [], []
+    api.reset_launch_counts()
+    for _ in range(TEP_TRAINER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(tpt.run_step(inputs, targets, noise)['Loss']))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = api.launch_counts()
+    _, host, busy = traced(lambda: tpt.run_step(inputs, targets, noise), traces=1)
+    out['trainer'] = dict(losses=losses, step=tpt.step, step_ms=float(np.median(times)), host_ms=host, busy_ms=busy,
+                          launches=launches)
+    del tpt
+    b_eval = TRAIN_BATCH
+    sampling = torch.randn((b_eval, cfg.data.n_target_points, cfg.autoencoder.decoder.sample_dim),
+                           generator=torch.Generator().manual_seed(seed + 65))
+    rows = to_device(type(st['batch'][0])(st['batch'][0].cloud[:b_eval], None, sampling), dev)
+    m = vqvae(case['served']).eval()
+    if sharded:
+        shard_params_tp(m, grid, min_size=32)
+    with torch.no_grad(), torch.nn.utils.parametrize.cached():
+        api.reset_launch_counts()
+        (recon, layer_bytes), widths = pool_widths(lambda: (m(rows).recon, {}) if sharded
+                                                   else sharded_layer_bytes(m, lambda: m(rows).recon))
+        launches = api.launch_counts()
+        _, host, busy = traced(lambda: m(rows).recon)
+    out['eval'] = dict(recon=cpu(recon), widths=widths, launches=launches, host_ms=host, busy_ms=busy,
+                       layer_bytes=layer_bytes, rows=b_eval)
+    del m
+    torch.cuda.empty_cache()
+
+    # EP: the flagship's and path E's decoders at 16 x 2048, then a gradient
+    out['ep'] = {}
+    for name, (dec, w, samp) in case['decoders'].items():
+        dec = copy.deepcopy(dec).to(dev).eval()
+        if sharded:
+            shard_variables_ep(dec, grid, n_components=dec.n_components)
+        w, samp = w.to(dev), samp.to(dev)
+        with torch.no_grad():
+            dec(w, samp)
+            api.reset_launch_counts()
+            recon = dec(w, samp)
+            torch.cuda.synchronize()
+            launches = api.launch_counts()
+            _, host, busy = traced(lambda: dec(w, samp))
+        out['ep'][name] = dict(recon=cpu(recon), launches=launches, host_ms=host, busy_ms=busy)
+    dec, w, samp = case['small']
+    dec = copy.deepcopy(dec).to(dev).eval()
+    if sharded:
+        shard_variables_ep(dec, grid, n_components=dec.n_components)
+    value = torch.sum(dec(w.to(dev), samp.to(dev)) ** 2)
+    value.backward()
+    out['ep_grad'] = dict(value=float(value.detach()), grads={k: cpu(p.grad) for k, p in dec.named_parameters()},
+                          g0=dec.ep.g0 if sharded else 0, count=dec.ep.count if sharded else dec.n_components)
+
+    # PP: the W-decoder and the W-encoder through the stack kernels a stage, then a gradient
+    wae = build_w_autoencoder(cfg)
+    wae.load_state_dict(case['wae'])
+    wae = wae.to(dev).eval()
+    x, memory = case['pp_x'].to(dev), case['pp_memory'].to(dev)
+    out['pp'] = {}
+    for name, net in (('W-decoder', wae.decoder), ('W-encoder', wae.encoder)):
+        decoder = name == 'W-decoder'
+        pack = wformer.pack_decoder(net.layers) if decoder else wformer.pack_encoder(net.layers)
+        for micro in PP_MICRO if sharded else (None,):
+            with torch.no_grad():
+                if sharded:
+                    stage = stage_of(pack, grid)
+
+                    def block(h, e, _, stage=stage, net=net, decoder=decoder):
+                        if decoder:
+                            return api.wformer_decoder(h, e, stage, net.n_heads)
+                        return api.wformer_encoder(h, stage, net.n_heads)
+
+                    def run(micro=micro, block=block, decoder=decoder):
+                        return pipeline_run(block, x, grid, n_micro=micro, extra=memory if decoder else None)
+                else:
+                    def run(decoder=decoder, pack=pack, net=net):
+                        if decoder:
+                            return api.wformer_decoder(x, memory, pack, net.n_heads)
+                        return api.wformer_encoder(x, pack, net.n_heads)
+                run()
+                api.reset_launch_counts()
+                y = run()
+                torch.cuda.synchronize()
+                launches = api.launch_counts()
+                _, host, busy = traced(run)
+            out['pp'][name, micro] = dict(out=cpu(y), launches=launches, host_ms=host, busy_ms=busy, layers=len(pack))
+    p = PP_SMALL
+    layer = TransformerEncoderLayer(p['d'], p['heads'], p['ff'], gelu_exact).to(dev)
+    params = [{k: v.to(dev) for k, v in s.items()} for s in case['small_stack']]
+    sx, target = case['small_x'].to(dev).requires_grad_(True), case['small_target'].to(dev)
+    if sharded:
+        stage = shard_stacked_params(stack_layer_params(params), grid)
+        for v in stage.layers.values():
+            v.requires_grad_(True)
+        y = pipeline_apply(lambda q, h: functional_call(layer, q, (h,)), stage, sx, grid, n_micro=p['micro'])
+        value = torch.mean((y - target) ** 2)
+        value.backward()
+        grads = [{k: cpu(v.grad[i]) for k, v in stage.layers.items()} for i in range(stage.count)]
+        first = stage.first
+    else:
+        mine = [{k: v.clone().requires_grad_(True) for k, v in q.items()} for q in params]
+        h = sx
+        for q in mine:
+            h = functional_call(layer, q, (h,))
+        value = torch.mean((h - target) ** 2)
+        value.backward()
+        grads, first = [{k: cpu(v.grad) for k, v in q.items()} for q in mine], 0
+    out['pp_grad'] = dict(value=float(value), grads=grads, first=first, dx=cpu(sx.grad))
+    return out
+
+
+def tep_rank(payload: str, out_dir: str) -> None:
+    """A rank of the TP/EP/PP phase on its current card: ``tep_work``,
+    saved to ``out_dir/tep_rank<r>.pt``."""
+    from pccf_torch.dist import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, seed, case = torch.load(payload, weights_only=False)
+    out = tep_work(cfg, seed, case, torch.device('cuda', torch.cuda.current_device()))
+    torch.save(out, os.path.join(out_dir, f'tep_rank{mesh.rank()}.pt'))
+
+
+def partial_kernels(check, dev: torch.device, case: dict, kernels: dict) -> None:
+    """Both partial modes against their plain versions at the expert-parallel
+    shares of the flagship's and path E's decoders (two ranks, four
+    components each), each share's logits and heads; timed beside the plain
+    version and the bound, into ``kernels``."""
+    from pccf_torch.kernels import pcgen, roofline
+    from pccf_torch.nn.layers import act_slope
+
+    for name, kernel, general in (('flagship', 'pcgen_mix_partial', False), ('path E', 'pcgen_general_partial', True)):
+        dec, w, samp = case['decoders'][name]
+        dec = dec.to(dev).eval()
+        w, samp = w.to(dev), samp.to(dev)
+        with torch.inference_mode():
+            m = samp
+            for block in dec.map:
+                m = block(m)
+            m = m.contiguous()
+            pack = dec.pack()
+            count = dec.n_components // TEP_RANKS
+            fn = getattr(pcgen, f'{kernel}_cuda')
+            errs, rels, rows = [], [], []
+            for r in range(TEP_RANKS):
+                share = pack.share(r * count, count, r == 0)
+                slope = act_slope(dec.act)
+                got, want = fn(m, w, share, act_slope=slope), pcgen.plain_partial(m, w, share, act_slope=slope)
+                errs.append(max(float((g - x).abs().max()) for g, x in zip(got, want)))
+                rels.append(max(rel_l2(g, x) for g, x in zip(got, want)))
+                work = roofline.pcgen_partial_work(m, w, share, general=general)
+                rows.append({'ms': time_ms(lambda: fn(m, w, share, act_slope=slope), REPS),
+                             'plain_ms': time_ms(lambda: pcgen.plain_partial(m, w, share, act_slope=slope), REPS),
+                             **dict(zip(('bound_ms', 'bound_by'), roofline.bound_ms(work)))})
+            row = rows[0]
+            check(max(rels) <= PCGEN_REL_L2 and all(math.isfinite(e) for e in errs),
+                  f'{kernel} ({name}: {tuple(m.shape)}, {count} of {dec.n_components} components a share, dims '
+                  f'{pack.dims()}): logits and heads against the plain version, rel L2 '
+                  f'{", ".join(f"{v:.2e}" for v in rels)} <= {PCGEN_REL_L2}; {row["ms"]:.4f} ms a share (plain '
+                  f'{row["plain_ms"]:.3f} ms, bound {row["bound_ms"]:.4f} ms, {row["bound_by"]})')
+            kernels[kernel] = {'max_abs_err': max(errs), **row, 'library_ms': None,
+                               'shape': f'{tuple(m.shape)}, {count} of {dec.n_components} components'}
+
+
+def tp_ep_pp_phase(seed: int, check, dev: torch.device, root: str, cfg, served_state: dict,
+                   kernels: dict) -> dict[str, int]:
+    """Tensor, expert and pipeline parallelism on two gloo ranks on
+    ``cuda:0`` (the grid ``make_2d_grid(2, mp=2)``), each case against the
+    same work on one device in this process (``tep_work``): TP's one-shot
+    stage-1 ChamferEMD step at 8 x 2048 (losses, every parameter, launches,
+    gradients, BatchNorm statistics, the pools' widths, each sharded layer's
+    weight bytes beside its output's), twelve ``TPTrainer`` steps, the eval
+    forward; EP's decode of the flagship's and path E's decoders through the
+    partial modes, and a gradient of ``dryrun_multichip``'s decoder; PP's
+    W-decoder and W-encoder at 2 and 4 microbatches through one stack-kernel
+    call a stage and microbatch, and a pipeline gradient of a small stack.  Both partial
+    modes are timed beside their plain versions (``partial_kernels``).
+    Returns the ranks' launches."""
+    from pccf_torch.dist import launch
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    case = tep_models(cfg, seed)
+    case['served'] = served_state
+    payload = os.path.join(root, 'tep_payload.pt')
+    torch.save((cfg, seed, case), payload)
+    t0 = time.perf_counter()
+    launch(tep_rank, TEP_RANKS, 'gloo', payload, root)
+    print(f'TP/EP/PP: {TEP_RANKS} gloo ranks on cuda:0 took {time.perf_counter() - t0:.1f} s, the processes\' start '
+          'included', flush=True)
+    ranks = [torch.load(os.path.join(root, f'tep_rank{r}.pt'), weights_only=False) for r in range(TEP_RANKS)]
+    one = tep_work(cfg, seed, case, dev)
+    partial_kernels(check, dev, case, kernels)
+
+    def count(res_launches):
+        for k in total:
+            total[k] += res_launches.get(k, 0)
+
+    step_bytes, eval_bytes, rows = one['probe']['layer_bytes'], one['eval']['layer_bytes'], one['eval']['rows']
+    lines = []
+    for name, (w, out_step) in step_bytes.items():
+        out_eval = eval_bytes[name][1] if name in eval_bytes else None
+        lines.append(f'{name} {w} / {out_step} / '
+                     + ('-' if out_eval is None else f'{out_eval} / {out_eval // rows}'))
+    smaller = sum(w < o for w, o in step_bytes.values())
+    smaller_one = sum(w < o // rows for w, o in eval_bytes.values())
+    print(f'TP: each sharded layer gathers its weight; its bytes beside its output\'s (what gathering the output '
+          f'would move), weight / step output / eval output at {rows} clouds / at one cloud ("-": the eval path '
+          f'reads the weight into a kernel\'s pack): ' + '; '.join(lines) + f'. The weight is the smaller at '
+          f'{smaller} of {len(step_bytes)} layers in the step, and at {smaller_one} of the {len(eval_bytes)} run '
+          f'module by module in eval at one cloud', flush=True)
+    for r, res in enumerate(ranks):
+        # TP: the probe step against the one-rank step
+        ref, got = one['probe'], res['probe']
+        loss_err = max(abs(got['metrics'][k] - v) / max(abs(v), 1e-12) for k, v in ref['metrics'].items())
+        compared = [k for k in ref['grads'] if not rounding_gradient(k)]
+        g_errs = {k: rel_l2(got['grads'][k], ref['grads'][k]) for k in compared}
+        g_worst = max(g_errs, key=g_errs.get)
+        grads_ok = set(got['grads']) == set(ref['grads']) and g_errs[g_worst] <= TP_GRAD_REL_L2
+        stats = [k for k in ref['state'] if k.endswith(('running_mean', 'running_var'))]
+        stats_ok = all(torch.allclose(got['state'][k], ref['state'][k], rtol=DP_STATS_RTOL, atol=DP_STATS_ATOL)
+                       for k in stats)
+        # AdamW's first step moves an element by about lr x sign(g): an element
+        # with a live gradient is held to TP_PARAM_TOL, one whose gradient is
+        # near zero within 2 lr; an untrained tensor to TP_PARAM_TOL
+        n_live, p_off, near_zero = 0, {}, 0.0
+        for k, v in ref['state'].items():
+            if not v.is_floating_point() or k in stats:
+                continue
+            close = torch.isclose(got['state'][k], v, **TP_PARAM_TOL)
+            live = ref['grads'][k].abs() > TP_LIVE_GRAD if k in ref['grads'] else torch.ones_like(close)
+            n_live += int(live.sum())
+            p_off[k] = int((live & ~close).sum())
+            if k in ref['grads'] and bool((~live).any()):
+                near_zero = max(near_zero, float((got['state'][k] - v)[~live].abs().max()))
+        params_ok = sum(p_off.values()) == 0 and near_zero <= 2 * ref['lr'] + 1e-6
+        count(got['launches'])
+        check(got['launches'] == ref['launches'] and loss_err <= DP_LOSS_RTOL and grads_ok and stats_ok and params_ok
+              and got['slice_bytes'] * TEP_RANKS == got['one_device_bytes'],
+              f'TP stage-1 ChamferEMD step 8 x 2048, rank {r} of (dp 1, mp {TEP_RANKS}): metrics '
+              f'{json.dumps({k: round(v, 6) for k, v in got["metrics"].items()})}, largest rel diff to one device '
+              f'{loss_err:.2e} <= {DP_LOSS_RTOL}; gradients gathered, per-parameter rel L2 worst '
+              f'{g_errs[g_worst]:.2e} ({g_worst}) <= {TP_GRAD_REL_L2} over {len(compared)} of {len(ref["grads"])}; '
+              f'{len(stats)} BatchNorm statistics within rtol {DP_STATS_RTOL} {stats_ok}; after AdamW '
+              f'{sum(p_off.values())} of {n_live} elements with a live gradient (|g| > {TP_LIVE_GRAD}) or untrained '
+              f'outside rtol {TP_PARAM_TOL["rtol"]} / atol {TP_PARAM_TOL["atol"]}, the rest within max |diff| '
+              f'{near_zero:.3g} <= 2 lr; launches equal the one-device step\'s '
+              f'{json.dumps({k: v for k, v in got["launches"].items() if v})}; each sharded parameter holds '
+              f'1/{TEP_RANKS} of its one-device bytes ({got["slice_bytes"]} of {got["one_device_bytes"]}; its '
+              f'AdamW moments {got["moment_bytes"]} bytes)')
+        print(f'TP rank {r}: the widths the pools and scatters saw in the step {json.dumps(got["widths"])} (one '
+              f'device {json.dumps(ref["widths"])})', flush=True)
+        t, t1 = res['trainer'], one['trainer']
+        step_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(t['losses'], t1['losses']))
+        count(t['launches'])
+        check(t['step'] == TEP_TRAINER_STEPS + 1 and t['losses'][-1] < t['losses'][0] and step_err <= DP_LOSS_RTOL
+              and t['launches'] == {k: TEP_TRAINER_STEPS * v for k, v in ref['launches'].items()},
+              f'TPTrainer rank {r}: {TEP_TRAINER_STEPS} steps on one batch and a traced one, step count {t["step"]}, '
+              f'loss {t["losses"][0]:.4f} at step 1 -> {t["losses"][-1]:.4f} at step {TEP_TRAINER_STEPS}, each '
+              f'step\'s within rel {step_err:.2e} <= {DP_LOSS_RTOL} of the one-device trainer\'s, the launches '
+              f'{TEP_TRAINER_STEPS} one-device steps\' ({json.dumps({k: v for k, v in t["launches"].items() if v})})')
+        print(f'TPTrainer rank {r}: losses {json.dumps([round(v, 4) for v in t["losses"]])}; step ms (host clock, '
+              f'synchronised, median of {TEP_TRAINER_STEPS}) {t["step_ms"]:.3f} (one device {t1["step_ms"]:.3f}); a '
+              f'traced step {t["host_ms"]:.3f} ms host, {t["busy_ms"]:.3f} ms device busy (one device '
+              f'{t1["host_ms"]:.3f} / {t1["busy_ms"]:.3f}; the other rank shares the card)', flush=True)
+        want, ev = one['eval'], res['eval']
+        r_eval = rel_l2(ev['recon'], want['recon'])
+        count(ev['launches'])
+        check(r_eval <= BATCH_INVARIANCE and ev['launches'] == want['launches'],
+              f'TP eval forward 8 x 2048, rank {r}: rel L2 to one device {r_eval:.2e} <= {BATCH_INVARIANCE}, '
+              f'launches {json.dumps({k: v for k, v in ev["launches"].items() if v})} equal one device\'s; pool '
+              f'widths {json.dumps(ev["widths"])}; {ev["host_ms"]:.3f} ms host, {ev["busy_ms"]:.3f} ms device busy '
+              f'(one device {want["host_ms"]:.3f} / {want["busy_ms"]:.3f})')
+        # EP
+        for name, ep in res['ep'].items():
+            ref = one['ep'][name]
+            kernel = 'pcgen_mix_partial' if name == 'flagship' else 'pcgen_general_partial'
+            r_ep = rel_l2(ep['recon'], ref['recon'])
+            count(ep['launches'])
+            check(r_ep <= PCGEN_REL_L2 and ep['launches'][kernel] == 1
+                  and sum(ep['launches'].values()) == 1,
+                  f'EP decode {name} 16 x 2048, 4 of 8 components, rank {r}: rel L2 to the one-device decode '
+                  f'{r_ep:.2e} <= {PCGEN_REL_L2}; launches {json.dumps({k: v for k, v in ep["launches"].items() if v})}'
+                  f'; {ep["host_ms"]:.3f} ms host, {ep["busy_ms"]:.3f} ms device busy (one device '
+                  f'{ref["host_ms"]:.3f} / {ref["busy_ms"]:.3f})')
+        g, ref = res['ep_grad'], one['ep_grad']
+        sl = slice(g['g0'], g['g0'] + g['count'])
+        g_errs = {k: rel_l2(v, ref['grads'][k][sl] if v.shape != ref['grads'][k].shape else ref['grads'][k])
+                  for k, v in g['grads'].items()}
+        g_worst = max(g_errs, key=g_errs.get)
+        check(abs(g['value'] - ref['value']) <= 1e-5 * abs(ref['value']) and g_errs[g_worst] <= EP_GRAD_REL_L2,
+              f'EP gradient (dryrun_multichip\'s decoder), rank {r}: value {g["value"]:.6f} against '
+              f'{ref["value"]:.6f}, gradient rel L2 worst {g_errs[g_worst]:.2e} ({g_worst}) <= {EP_GRAD_REL_L2}')
+        # PP
+        for (name, micro), pp in res['pp'].items():
+            ref = one['pp'][name, None]
+            r_pp = rel_l2(pp['out'], ref['out'])
+            kernel = 'wformer_decoder' if name == 'W-decoder' else 'wformer_encoder'
+            count(pp['launches'])
+            check(r_pp <= CVAE_REL_L2 and pp['launches'][kernel] == micro and sum(pp['launches'].values()) == micro,
+                  f'PP {name} ({pp["layers"]} layers, {tuple(pp["out"].shape)}) on {TEP_RANKS} stages, {micro} '
+                  f'microbatches, rank {r}: rel L2 to the one-device stack {r_pp:.2e} <= {CVAE_REL_L2}; '
+                  f'{kernel} launched {pp["launches"][kernel]} times (once a microbatch); {pp["host_ms"]:.3f} ms '
+                  f'host, {pp["busy_ms"]:.3f} ms device busy (one device {ref["host_ms"]:.3f} / {ref["busy_ms"]:.3f})')
+        g, ref = res['pp_grad'], one['pp_grad']
+        ok = (abs(g['value'] - ref['value']) <= 1e-5 * abs(ref['value'])
+              and torch.allclose(g['dx'], ref['dx'], **PP_GRAD_TOL))
+        for i, layer in enumerate(g['grads']):
+            ok = ok and all(torch.allclose(v, ref['grads'][g['first'] + i][k], **PP_GRAD_TOL) for k, v in layer.items())
+        check(ok, f'PP gradient of a {PP_SMALL["layers"]}-layer stack (d {PP_SMALL["d"]}) on {TEP_RANKS} stages, '
+                  f'{PP_SMALL["micro"]} microbatches, rank {r}: value, the stage\'s layer gradients and the input\'s '
+                  f'gradient against the sequential stack within rtol {PP_GRAD_TOL["rtol"]}')
     return total
 
 
@@ -4341,6 +4862,10 @@ def main() -> int:
         t0 = time.perf_counter()
         sp_launches = auction_sp_phase(args.seed, check, dev, root, kernels)
         print(f'auction and SP phase: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        tep_launches = tp_ep_pp_phase(args.seed, check, dev, root, cfg,
+                                      {k: v.cpu() for k, v in vqvae.state_dict().items()}, kernels)
+        print(f'TP/EP/PP phase: {time.perf_counter() - t0:.1f} s', flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4354,14 +4879,15 @@ def main() -> int:
           f'{json.dumps({k: v for k, v in cast_launches.items() if v})}; data parallelism '
           f'{json.dumps({k: v for k, v in dp_launches.items() if v})}; auction and SP '
           f'{json.dumps({k: v for k, v in sp_launches.items() if v})}; wide heads '
-          f'{json.dumps({k: v for k, v in wide_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in wide_launches.items() if v})}; TP/EP/PP '
+          f'{json.dumps({k: v for k, v in tep_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
              gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
-             dp_launches, sp_launches, wide_launches)
+             dp_launches, sp_launches, wide_launches, tep_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
           'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel / '
-          'auction and SP / wide heads',
+          'auction and SP / wide heads / TP/EP/PP',
           flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]
@@ -4385,4 +4911,15 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    faulthandler.enable()  # a fatal signal prints the Python stack on standard error
+    try:
+        code = main()
+    except Exception:
+        # a phase that raised (a CUDA error, say): its traceback last on
+        # standard error, and out at once, as freeing the card's tensors after
+        # a CUDA error aborts the interpreter and buries the traceback
+        sys.stdout.flush()
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.exit(code)

@@ -14,6 +14,13 @@
 // with BatchNorm folded into W and b by the wrapper; interleave(x, D)[c] is
 // x[c / (D / D0 + 1)] (pccf/kernels/ops.py:146-161).
 //
+// Partial mode (pccf_pcgen_general_partial, the expert-parallel decode): the
+// block runs the G_l components a rank holds of a decoder's G_t, att_w
+// (G_t, G_l * D_L) their columns, and writes each point's partial logits
+// (B, N, G_t) (att_b added, zero on all ranks but one) and its local head
+// outputs (B, N, G_l, 3) in place of the mix, which the wrapper finishes
+// after summing the logits over the ranks.
+//
 // Design: a block owns R points of one cloud (R = 64, 32 or 16, the most
 // whose activations fit in shared memory; rows past N are computed on a
 // repeated row and not stored) and loops over the components.  The joined
@@ -65,16 +72,18 @@ struct GenArgs {
   const float* att_w;   // (G, G * D_L)
   const float* att_b;   // (G)
   float* out;           // (B, N, 3)
+  float* part_logits;   // partial mode: (B, N, G_t), else null
+  float* part_heads;    // partial mode: (B, N, G_l, 3)
   float* scratch;       // a block's buffers in global memory, or null for shared memory
-  int n, dm, n_layers, d0, dl, g_count, rows, ldx, ldh, tiles_n, tiles;
+  int n, dm, n_layers, d0, dl, g_count, g_total, rows, ldx, ldh, tiles_n, tiles;
   float inv_tau, slope;
 };
 
 __host__ __device__ inline int row_stride(int d) { return (d + 31) / 32 * 32 + 4; }
 
-// floats of a block's buffers: x, two layer buffers, the mix logits and the heads' outputs
-__host__ __device__ inline long long block_floats(int rows, int ldx, int ldh, int g) {
-  return (long long)rows * (ldx + 2 * ldh + 4 * g);
+// floats of a block's buffers: x, two layer buffers, the gt mix logits and the g heads' outputs
+__host__ __device__ inline long long block_floats(int rows, int ldx, int ldh, int g, int gt) {
+  return (long long)rows * (ldx + 2 * ldh + gt + 3 * g);
 }
 
 // a warp's weight stage: 32 rows (output columns) x 32 k of W, row stride
@@ -196,21 +205,21 @@ __device__ __forceinline__ void product(const float* A, int lda, int a_rows, int
 
 __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_constant__ GenArgs p) {
   extern __shared__ __align__(16) float smem[];
-  const int R = p.rows, G = p.g_count, L = p.n_layers, d0 = p.d0, dl = p.dl;
+  const int R = p.rows, G = p.g_count, GT = p.g_total, L = p.n_layers, d0 = p.d0, dl = p.dl;
   const long long* dims = p.table + 2 * L;
   float* ring = smem;  // [kWarps][2][32][kStageLd]
-  float* base = p.scratch ? p.scratch + (size_t)blockIdx.x * block_floats(R, p.ldx, p.ldh, G) : smem + kRingFloats;
+  float* base = p.scratch ? p.scratch + (size_t)blockIdx.x * block_floats(R, p.ldx, p.ldh, G, GT) : smem + kRingFloats;
   float* xs = base;                 // [R][ldx]
   float* hbuf[2] = {xs + (size_t)R * p.ldx, xs + (size_t)R * p.ldx + (size_t)R * p.ldh};  // [R][ldh] each
-  float* logit = hbuf[1] + (size_t)R * p.ldh;  // [R][G]
-  float* comp = logit + R * G;                 // [R][G][3]
+  float* logit = hbuf[1] + (size_t)R * p.ldh;  // [R][GT]
+  float* comp = logit + R * GT;                // [R][G][3]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
     const int b = tile / p.tiles_n, p0 = (tile % p.tiles_n) * R;
     const int valid = min(R, p.n - p0);
     const float* wb = p.w + (size_t)b * d0;
-    for (int i = threadIdx.x; i < R * G; i += kThreads) logit[i] = __ldg(p.att_b + i % G);
+    for (int i = threadIdx.x; i < R * GT; i += kThreads) logit[i] = __ldg(p.att_b + i % GT);
     // the join: x = w ⊙ hardtanh(m · map_w^T + map_b)
     product<true>(p.m + ((size_t)b * p.n + p0) * p.dm, p.dm, valid, p.dm, p.map_w, d0, R, ring,
                   [&](int r, int c, float v) {
@@ -236,8 +245,8 @@ __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_co
         lds = ldh;
       }
       // component g's head outputs and its share of every mix logit: a warp a dot product
-      for (int task = warp; task < R * (3 + G); task += kWarps) {
-        const int r = task / (3 + G), o = task % (3 + G);
+      for (int task = warp; task < R * (3 + GT); task += kWarps) {
+        const int r = task / (3 + GT), o = task % (3 + GT);
         const float* wv = o < 3 ? p.head_w + ((size_t)g * 3 + o) * dl : p.att_w + ((size_t)(o - 3) * G + g) * dl;
         float s = 0.f;
         for (int c = lane; c < dl; c += 32) s = fmaf(src[r * lds + c], __ldg(wv + c), s);
@@ -247,10 +256,18 @@ __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_co
           if (o < 3)
             comp[(r * G + g) * 3 + o] = s + __ldg(p.head_b + g * 3 + o);
           else
-            logit[r * G + o - 3] += s;
+            logit[r * GT + o - 3] += s;
         }
       }
       __syncthreads();
+    }
+    if (p.part_logits) {  // partial mode: the logits and the heads as they are
+      for (int i = threadIdx.x; i < valid * GT; i += kThreads)
+        p.part_logits[((size_t)b * p.n + p0) * GT + i] = logit[i];
+      for (int i = threadIdx.x; i < valid * G * 3; i += kThreads)
+        p.part_heads[((size_t)b * p.n + p0) * G * 3 + i] = comp[i];
+      __syncthreads();
+      continue;
     }
     // the tempered-softmax mix, a thread a point
     for (int r = threadIdx.x; r < valid; r += kThreads) {
@@ -274,8 +291,8 @@ __global__ void __launch_bounds__(kThreads) pcgen_general_kernel(const __grid_co
   }
 }
 
-bool valid_shape(int batch, int n, int dm, int n_layers, const int* dims, int g_count) {
-  if (batch < 1 || batch > 65535 || n < 1 || dm < 1 || n_layers < 1 || g_count < 1)
+bool valid_shape(int batch, int n, int dm, int n_layers, const int* dims, int g_count, int g_total) {
+  if (batch < 1 || batch > 65535 || n < 1 || dm < 1 || n_layers < 1 || g_count < 1 || g_total < g_count)
     return false;
   for (int i = 0; i <= n_layers; ++i)
     if (dims[i] < 1) return false;
@@ -285,31 +302,89 @@ bool valid_shape(int batch, int n, int dm, int n_layers, const int* dims, int g_
 }
 
 // rows a block and whether its buffers fit in shared memory
-void plan(int n_layers, const int* dims, int g_count, int* rows, bool* in_smem, int* ldx, int* ldh) {
+void plan(int n_layers, const int* dims, int g_count, int g_total, int* rows, bool* in_smem, int* ldx, int* ldh) {
   int dh = 0;
   for (int i = 1; i <= n_layers; ++i) dh = dims[i] > dh ? dims[i] : dh;
   *ldx = row_stride(dims[0]);
   *ldh = row_stride(dh);
   for (int r = 64; r >= 16; r /= 2) {
     *rows = r;
-    *in_smem = (block_floats(r, *ldx, *ldh, g_count) + kRingFloats) * 4 <= kSmemMax;
+    *in_smem = (block_floats(r, *ldx, *ldh, g_count, g_total) + kRingFloats) * 4 <= kSmemMax;
     if (*in_smem) return;
   }
+}
+
+
+// floats of global scratch the kernel needs (0: none) for g_count components
+// and g_total logits (equal but in partial mode), -1 for shapes it does not
+// cover
+int scratch_floats(int batch, int n, int dm, int n_layers, const int* dims, int g_count, int g_total) {
+  if (!valid_shape(batch, n, dm, n_layers, dims, g_count, g_total)) return -1;
+  int rows, ldx, ldh;
+  bool in_smem;
+  plan(n_layers, dims, g_count, g_total, &rows, &in_smem, &ldx, &ldh);
+  if (in_smem) return 0;
+  const long long tiles = (long long)batch * ((n + rows - 1) / rows);
+  const long long blocks = tiles < kPersistentBlocks ? tiles : kPersistentBlocks;
+  const long long floats = blocks * block_floats(rows, ldx, ldh, g_count, g_total);
+  return floats > 0x7fffffffLL ? -1 : (int)floats;
+}
+
+int run(const float* m, const float* w, const float* map_w, const float* map_b, const long long* table, int n_layers,
+        const int* dims, const float* head_w, const float* head_b, const float* att_w, const float* att_b, float* out,
+        float* part_logits, float* part_heads, float* scratch, int batch, int n, int dm, int g_count, int g_total,
+        float tau, float slope, cudaStream_t stream) {
+  if (!valid_shape(batch, n, dm, n_layers, dims, g_count, g_total)) return (int)cudaErrorInvalidValue;
+  GenArgs p = {};
+  p.m = m;
+  p.w = w;
+  p.map_w = map_w;
+  p.map_b = map_b;
+  p.table = table;
+  p.head_w = head_w;
+  p.head_b = head_b;
+  p.att_w = att_w;
+  p.att_b = att_b;
+  p.out = out;
+  p.part_logits = part_logits;
+  p.part_heads = part_heads;
+  p.n = n;
+  p.dm = dm;
+  p.n_layers = n_layers;
+  p.d0 = dims[0];
+  p.dl = dims[n_layers];
+  p.g_count = g_count;
+  p.g_total = g_total;
+  p.inv_tau = 1.f / tau;
+  p.slope = slope;
+  bool in_smem;
+  plan(n_layers, dims, g_count, g_total, &p.rows, &in_smem, &p.ldx, &p.ldh);
+  if (!in_smem && !scratch) return (int)cudaErrorInvalidValue;
+  p.scratch = in_smem ? nullptr : scratch;
+  p.tiles_n = (n + p.rows - 1) / p.rows;
+  const long long tiles = (long long)batch * p.tiles_n;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.tiles = (int)tiles;
+  const int smem = (int)((in_smem ? block_floats(p.rows, p.ldx, p.ldh, g_count, g_total) : 0) + kRingFloats) * 4;
+  static MaxSmem max_smem;
+  const cudaError_t attr = max_smem((const void*)pcgen_general_kernel, kSmemMax);
+  if (attr != cudaSuccess) return (int)attr;
+  const int blocks = in_smem ? p.tiles : (p.tiles < kPersistentBlocks ? p.tiles : kPersistentBlocks);
+  pcgen_general_kernel<<<blocks, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // floats of global scratch pccf_pcgen_general needs (0: none), -1 for shapes it does not cover
 extern "C" int pccf_pcgen_general_scratch(int batch, int n, int dm, int n_layers, const int* dims, int g_count) {
-  if (!valid_shape(batch, n, dm, n_layers, dims, g_count)) return -1;
-  int rows, ldx, ldh;
-  bool in_smem;
-  plan(n_layers, dims, g_count, &rows, &in_smem, &ldx, &ldh);
-  if (in_smem) return 0;
-  const long long tiles = (long long)batch * ((n + rows - 1) / rows);
-  const long long blocks = tiles < kPersistentBlocks ? tiles : kPersistentBlocks;
-  const long long floats = blocks * block_floats(rows, ldx, ldh, g_count);
-  return floats > 0x7fffffffLL ? -1 : (int)floats;
+  return scratch_floats(batch, n, dm, n_layers, dims, g_count, g_count);
+}
+
+// the same for pccf_pcgen_general_partial with g_local of g_total components
+extern "C" int pccf_pcgen_general_partial_scratch(int batch, int n, int dm, int n_layers, const int* dims,
+                                                  int g_local, int g_total) {
+  return scratch_floats(batch, n, dm, n_layers, dims, g_local, g_total);
 }
 
 // out (B, N, 3) from m (B, N, Dm) and w (B, D0) through n_layers component
@@ -322,39 +397,20 @@ extern "C" int pccf_pcgen_general(const float* m, const float* w, const float* m
                                   const float* head_b, const float* att_w, const float* att_b, float* out,
                                   float* scratch, int batch, int n, int dm, int g_count, float tau, float slope,
                                   cudaStream_t stream) {
-  if (!valid_shape(batch, n, dm, n_layers, dims, g_count)) return (int)cudaErrorInvalidValue;
-  GenArgs p = {};
-  p.m = m;
-  p.w = w;
-  p.map_w = map_w;
-  p.map_b = map_b;
-  p.table = table;
-  p.head_w = head_w;
-  p.head_b = head_b;
-  p.att_w = att_w;
-  p.att_b = att_b;
-  p.out = out;
-  p.n = n;
-  p.dm = dm;
-  p.n_layers = n_layers;
-  p.d0 = dims[0];
-  p.dl = dims[n_layers];
-  p.g_count = g_count;
-  p.inv_tau = 1.f / tau;
-  p.slope = slope;
-  bool in_smem;
-  plan(n_layers, dims, g_count, &p.rows, &in_smem, &p.ldx, &p.ldh);
-  if (!in_smem && !scratch) return (int)cudaErrorInvalidValue;
-  p.scratch = in_smem ? nullptr : scratch;
-  p.tiles_n = (n + p.rows - 1) / p.rows;
-  const long long tiles = (long long)batch * p.tiles_n;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  p.tiles = (int)tiles;
-  const int smem = (int)((in_smem ? block_floats(p.rows, p.ldx, p.ldh, g_count) : 0) + kRingFloats) * 4;
-  static MaxSmem max_smem;
-  const cudaError_t attr = max_smem((const void*)pcgen_general_kernel, kSmemMax);
-  if (attr != cudaSuccess) return (int)attr;
-  const int blocks = in_smem ? p.tiles : (p.tiles < kPersistentBlocks ? p.tiles : kPersistentBlocks);
-  pcgen_general_kernel<<<blocks, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+  return run(m, w, map_w, map_b, table, n_layers, dims, head_w, head_b, att_w, att_b, out, nullptr, nullptr, scratch,
+             batch, n, dm, g_count, g_count, tau, slope, stream);
+}
+
+// partial mode: the g_local components of a rank (weights as above), att_w
+// (g_total, g_local * D_L) and att_b (g_total) -> logits (B, N, g_total) and
+// heads (B, N, g_local, 3); scratch: pccf_pcgen_general_partial_scratch
+// floats.  Any g_local from 1 (mp = G) to g_total.
+extern "C" int pccf_pcgen_general_partial(const float* m, const float* w, const float* map_w, const float* map_b,
+                                          const long long* table, int n_layers, const int* dims, const float* head_w,
+                                          const float* head_b, const float* att_w, const float* att_b, float* logits,
+                                          float* heads, float* scratch, int batch, int n, int dm, int g_local,
+                                          int g_total, float slope, cudaStream_t stream) {
+  if (!logits || !heads) return (int)cudaErrorInvalidValue;
+  return run(m, w, map_w, map_b, table, n_layers, dims, head_w, head_b, att_w, att_b, nullptr, logits, heads, scratch,
+             batch, n, dm, g_local, g_total, 1.f, slope, stream);
 }

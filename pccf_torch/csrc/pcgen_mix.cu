@@ -10,6 +10,15 @@
 //   out = Σ_g softmax((concat_g h2) · att_w + att_b) / τ)[g] · comp[g]
 // with BatchNorm folded into W and b by the wrapper.
 //
+// Partial mode (pccf_pcgen_mix_partial, the expert-parallel decode of
+// pccf_torch/nn/decoders.py): the block runs the G_l components a rank holds
+// of the G_t a decoder has, att_w being (G_t, G_l * D3), the columns of
+// those components.  A mix thread writes its point's partial logits
+// Σ_{g local} h2_g · att_w[:, g] (+ att_b, which the wrapper zeroes on all
+// ranks but one), (B, N, G_t), and its local head outputs (B, N, G_l, 3),
+// in place of the softmax: the wrapper sums the logits over the ranks, takes
+// the tempered softmax and mixes.
+//
 // What bounds it: ~0.69 TFLOP per batch of 16 clouds of 2048 points at the
 // flagship widths (D0 = D1 = 1024, D2 = 256, D3 = 16, G = 8) against the
 // fp16 tensor-core peak (the bf16 one), and the component weights (21 MB in
@@ -135,7 +144,9 @@ struct Args {
   const float* att_w;      // (G, G * D3)
   const float* att_b;      // (G)
   float* out;              // (B, N, 3)
-  int n, dm, d0, d1, g_count, stages;
+  float* part_logits;      // partial mode: (B, N, G_t), else null
+  float* part_heads;       // partial mode: (B, N, G_l, 3)
+  int n, dm, d0, d1, g_count, g_total, stages;
   float inv_tau, slope;
   float a0, c0, a1, c1;  // layers 0 and 1: largest absolute weight row sum, largest |bias|
 };
@@ -356,14 +367,15 @@ __device__ __forceinline__ float dot16(const float4 (&h)[kD3 / 4], const float* 
 
 // the mix warps: one point each.  Per component, the point's h2 from hs gives
 // its head output and its share of every mix logit (fp32, on the CUDA cores);
-// after the last, the tempered softmax over the logits mixes the heads.
+// after the last, the tempered softmax over the logits mixes the heads, or,
+// in partial mode, the logits and the heads go out as they are.
 __device__ __forceinline__ void mix(const Args& p, const uint8_t* hs, int point) {
-  const int G = p.g_count;
+  const int G = p.g_count, GT = p.g_total;
   const float* h2s = reinterpret_cast<const float*>(hs);
   float logit[kMaxG], comp[kMaxG][3];
 #pragma unroll
   for (int q = 0; q < kMaxG; ++q) {
-    logit[q] = q < G ? __ldg(p.att_b + q) : -INFINITY;
+    logit[q] = q < GT ? __ldg(p.att_b + q) : -INFINITY;
     comp[q][0] = comp[q][1] = comp[q][2] = 0.f;
   }
   for (int g = 0; g < G; ++g) {
@@ -374,11 +386,26 @@ __device__ __forceinline__ void mix(const Args& p, const uint8_t* hs, int point)
     if (g + 1 < G) bar_arrive(kBarMixEmpty, kMixSync);
 #pragma unroll
     for (int q = 0; q < kMaxG; ++q) {  // constant indices keep logit and comp in registers
-      if (q < G) logit[q] += dot16(h2, p.att_w + ((size_t)q * G + g) * kD3);
+      if (q < GT) logit[q] += dot16(h2, p.att_w + ((size_t)q * G + g) * kD3);
       if (q == g)
 #pragma unroll
         for (int o = 0; o < 3; ++o) comp[q][o] = __ldg(p.head_b + g * 3 + o) + dot16(h2, p.head_w + (g * 3 + o) * kD3);
     }
+  }
+  const int b = blockIdx.y, r = blockIdx.x * kRows + point;
+  if (p.part_logits) {
+    if (r < p.n) {
+      float* lo = p.part_logits + ((size_t)b * p.n + r) * GT;
+      float* ho = p.part_heads + ((size_t)b * p.n + r) * G * 3;
+#pragma unroll
+      for (int q = 0; q < kMaxG; ++q) {
+        if (q < GT) lo[q] = logit[q];
+        if (q < G)
+#pragma unroll
+          for (int o = 0; o < 3; ++o) ho[3 * q + o] = comp[q][o];
+      }
+    }
+    return;
   }
   float mx = -INFINITY;
 #pragma unroll
@@ -392,7 +419,6 @@ __device__ __forceinline__ void mix(const Args& p, const uint8_t* hs, int point)
 #pragma unroll
     for (int o = 0; o < 3; ++o) o3[o] = fmaf(e, comp[q][o], o3[o]);
   }
-  const int b = blockIdx.y, r = blockIdx.x * kRows + point;
   if (r < p.n) {
     float* out = p.out + ((size_t)b * p.n + r) * 3;
     out[0] = o3[0] / den;
@@ -538,19 +564,17 @@ int launch(Args& args, const uint16_t* w0, const uint16_t* w1, const uint16_t* w
 
 }  // namespace
 
-// out (B, N, 3) from m (B, N, Dm) and w (B, D0), for three component layers
-// D0 -> D1 -> D2 -> D3; the component weights (G, Dout, Din) in fp16, the
-// rest fp32; a0 / a1 the largest absolute row sum of the fp16 W0 / W1, c0 /
-// c1 the largest |b0| / |b1| (the bounds of the operands' scales).
-extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_wt, const float* map_b,
-                              const uint16_t* w0, const float* b0, const uint16_t* w1, const float* b1,
-                              const uint16_t* w2, const float* b2, const float* head_w, const float* head_b,
-                              const float* att_w, const float* att_b, float* out, int batch, int n, int dm,
-                              int d0, int d1, int d2, int d3, int g_count, float tau, float slope, float a0,
-                              float c0, float a1, float c1, cudaStream_t stream) {
-  // the shapes this kernel covers (pccf_torch/kernels/pcgen.py supported)
+namespace {
+
+// the shapes the kernel covers (pccf_torch/kernels/pcgen.py flagship): three
+// component layers D0 -> D1 -> D2 -> D3, G_l components a block, G_t logits
+int run(const float* m, const float* w, const float* map_wt, const float* map_b, const uint16_t* w0, const float* b0,
+        const uint16_t* w1, const float* b1, const uint16_t* w2, const float* b2, const float* head_w,
+        const float* head_b, const float* att_w, const float* att_b, float* out, float* part_logits,
+        float* part_heads, int batch, int n, int dm, int d0, int d1, int d2, int d3, int g_count, int g_total,
+        float tau, float slope, float a0, float c0, float a1, float c1, cudaStream_t stream) {
   if (batch < 1 || n < 1 || d0 < 64 || d0 > kMaxD0 || d0 % 64 || (d2 != 64 && d2 != 128 && d2 != 256) || d1 % d2 ||
-      d1 <= d2 || d3 != kD3 || dm < 1 || dm > kMaxDm || g_count < 2 || g_count > kMaxG)
+      d1 <= d2 || d3 != kD3 || dm < 1 || dm > kMaxDm || g_count < 1 || g_total > kMaxG || g_count > g_total)
     return (int)cudaErrorInvalidValue;
   Args args = {};
   args.m = m;
@@ -565,11 +589,14 @@ extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_w
   args.att_w = att_w;
   args.att_b = att_b;
   args.out = out;
+  args.part_logits = part_logits;
+  args.part_heads = part_heads;
   args.n = n;
   args.dm = dm;
   args.d0 = d0;
   args.d1 = d1;
   args.g_count = g_count;
+  args.g_total = g_total;
   args.inv_tau = 1.f / tau;
   args.slope = slope;
   args.a0 = a0;
@@ -579,4 +606,38 @@ extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_w
   if (d2 == 64) return launch<64>(args, w0, w1, w2, batch, stream);
   if (d2 == 128) return launch<128>(args, w0, w1, w2, batch, stream);
   return launch<256>(args, w0, w1, w2, batch, stream);
+}
+
+}  // namespace
+
+// out (B, N, 3) from m (B, N, Dm) and w (B, D0), for three component layers
+// D0 -> D1 -> D2 -> D3 and 2 to 8 components; the component weights (G, Dout,
+// Din) in fp16, the rest fp32; a0 / a1 the largest absolute row sum of the
+// fp16 W0 / W1, c0 / c1 the largest |b0| / |b1| (the bounds of the operands'
+// scales).
+extern "C" int pccf_pcgen_mix(const float* m, const float* w, const float* map_wt, const float* map_b,
+                              const uint16_t* w0, const float* b0, const uint16_t* w1, const float* b1,
+                              const uint16_t* w2, const float* b2, const float* head_w, const float* head_b,
+                              const float* att_w, const float* att_b, float* out, int batch, int n, int dm,
+                              int d0, int d1, int d2, int d3, int g_count, float tau, float slope, float a0,
+                              float c0, float a1, float c1, cudaStream_t stream) {
+  if (g_count < 2) return (int)cudaErrorInvalidValue;
+  return run(m, w, map_wt, map_b, w0, b0, w1, b1, w2, b2, head_w, head_b, att_w, att_b, out, nullptr, nullptr, batch,
+             n, dm, d0, d1, d2, d3, g_count, g_count, tau, slope, a0, c0, a1, c1, stream);
+}
+
+// partial mode: the g_local components of a rank, their weights as above,
+// att_w (g_total, g_local * D3) and att_b (g_total) -> logits (B, N,
+// g_total) and heads (B, N, g_local, 3).  At least one local component and
+// at most 8 logits: with as many ranks as components (mp = G) a block runs
+// one component.
+extern "C" int pccf_pcgen_mix_partial(const float* m, const float* w, const float* map_wt, const float* map_b,
+                                      const uint16_t* w0, const float* b0, const uint16_t* w1, const float* b1,
+                                      const uint16_t* w2, const float* b2, const float* head_w, const float* head_b,
+                                      const float* att_w, const float* att_b, float* logits, float* heads, int batch,
+                                      int n, int dm, int d0, int d1, int d2, int d3, int g_local, int g_total,
+                                      float slope, float a0, float c0, float a1, float c1, cudaStream_t stream) {
+  if (!logits || !heads) return (int)cudaErrorInvalidValue;
+  return run(m, w, map_wt, map_b, w0, b0, w1, b1, w2, b2, head_w, head_b, att_w, att_b, nullptr, logits, heads, batch,
+             n, dm, d0, d1, d2, d3, g_local, g_total, 1.f, slope, a0, c0, a1, c1, stream);
 }

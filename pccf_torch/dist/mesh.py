@@ -21,6 +21,12 @@ one-device step on the same global batch:
   gradients and the step metrics as one flat buffer each, in a fixed order;
 - :func:`broadcast_from_main` sends rank 0's tensor to every rank.
 
+The batch is cut over the whole world by default.  Under tensor
+parallelism (:mod:`pccf_torch.train.tp`) it is cut over the grid's ``dp``
+column instead (an :class:`Axis`): the ``mp`` ranks of a row hold the same
+rows, draw the same noise and take BatchNorm's statistics, the gradients'
+average and the metrics over their column only.
+
 A row may also be replicated on every rank: the VampPrior's pseudo-inputs
 follow the batch's rows (``w_autoencoders.py:246-254``).  Such rows come
 after the rank's shard and stand after the global batch in the global
@@ -67,12 +73,29 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-def shard_batch(batch: Any) -> Any:
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """The ranks a step's batch is cut over: this rank's ``index`` among
+    them, their ``size`` and their ``group`` (None: the whole world)."""
+
+    index: int
+    size: int
+    group: Any = None
+
+
+def world_axis() -> Axis:
+    """Every rank of the process group, or this process alone."""
+    return Axis(rank(), world_size())
+
+
+def shard_batch(batch: Any, axis: Axis | None = None) -> Any:
     """This rank's contiguous slice along axis 0 of every tensor of
     ``batch`` (a tensor, a tuple of them or a dataclass of them, ``None``
-    leaves kept).  A batch that the world size does not divide raises, as a
-    training batch does in JAX (``mesh.py:101-131``, strict)."""
-    n, r = world_size(), rank()
+    leaves kept), cut over ``axis`` (the world by default).  A batch that
+    the axis's size does not divide raises, as a training batch does in JAX
+    (``mesh.py:101-131``, strict)."""
+    axis = axis or world_axis()
+    n, r = axis.size, axis.index
 
     def cut(x):
         if x is None:
@@ -93,11 +116,13 @@ def shard_batch(batch: Any) -> Any:
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """This rank's place in a sharded step: ``batch`` rows of its own at
-    global rows ``[rank · batch, (rank + 1) · batch)``."""
+    global rows ``[rank · batch, (rank + 1) · batch)`` of the ``world`` ranks
+    of ``group`` (None: the whole world)."""
 
     rank: int
     world: int
     batch: int
+    group: Any = None
 
     def parts(self, n: int) -> tuple[int, list[tuple[int, int, int, bool]]]:
         """The global row count of a tensor with ``n`` local rows and its
@@ -116,14 +141,16 @@ _SHARD: contextvars.ContextVar[Shard | None] = contextvars.ContextVar('pccf_torc
 
 
 @contextlib.contextmanager
-def sharded(batch: int) -> Iterator[Shard | None]:
-    """The scope of one rank's share of a step of ``batch`` rows a rank:
-    :func:`draw` and :func:`group_moments` inside it act for the global
-    batch.  Outside a process group of two or more it changes nothing."""
-    if world_size() == 1:
+def sharded(batch: int, axis: Axis | None = None) -> Iterator[Shard | None]:
+    """The scope of one rank's share of a step of ``batch`` rows a rank,
+    the batch cut over ``axis`` (the world by default): :func:`draw` and
+    :func:`group_moments` inside it act for the global batch.  Over an axis
+    of one rank it changes nothing."""
+    axis = axis or world_axis()
+    if axis.size == 1:
         yield None
         return
-    token = _SHARD.set(Shard(rank(), world_size(), batch))
+    token = _SHARD.set(Shard(axis.index, axis.size, batch, axis.group))
     try:
         yield _SHARD.get()
     finally:
@@ -166,21 +193,23 @@ class _AllReduceSum(torch.autograd.Function):
     incoming gradients."""
 
     @staticmethod
-    def forward(ctx, x: Tensor) -> Tensor:
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
-    def backward(ctx, g: Tensor) -> Tensor:
+    def backward(ctx, g: Tensor) -> tuple[Tensor, None]:
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: Tensor) -> Tensor:
-    """The sum of ``x`` over the ranks, differentiable."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: Tensor, group=None) -> Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (the world by default),
+    differentiable."""
+    return _AllReduceSum.apply(x, group)
 
 
 def group_moments(terms: Sequence[Tensor | Callable[[], Tensor]], groups: int, batch_dim: int = 0) -> list[Tensor]:
@@ -221,7 +250,7 @@ def group_moments(terms: Sequence[Tensor | Callable[[], Tensor]], groups: int, b
         partial.append(torch.stack([zero if s is None else s for s in sums], dim=-2))
     if not partial:
         return means
-    flat = all_reduce_sum(torch.cat([p.reshape(-1) for p in partial]))
+    flat = all_reduce_sum(torch.cat([p.reshape(-1) for p in partial]), _SHARD.get().group)
     count = float(size * per_row)
     return [m.view(p.shape) / count for m, p in zip(flat.split([p.numel() for p in partial]), partial)]
 
@@ -235,18 +264,20 @@ def expand_groups(stat: Tensor, n: int, groups: int) -> Tensor:
                       for g, _, length, _ in segments], dim=-2)
 
 
-def average_gradients(params: Sequence[torch.nn.Parameter]) -> int:
-    """Average the gradients of ``params`` over the ranks in place: one
-    all-reduce of their concatenation in the order given, divided by the
-    world size.  Parameters without a gradient (none on any rank: the ranks
-    run the same graph) are left out.  Returns the bytes all-reduced; with
-    one process it runs no collective and returns 0."""
-    n = world_size()
+def average_gradients(params: Sequence[torch.nn.Parameter], axis: Axis | None = None) -> int:
+    """Average the gradients of ``params`` over the ranks of ``axis`` (the
+    world by default) in place: one all-reduce of their concatenation in the
+    order given, divided by the axis's size.  Parameters without a gradient
+    (none on any rank: the ranks run the same graph) are left out.  Returns
+    the bytes all-reduced; over one rank it runs no collective and returns
+    0."""
+    axis = axis or world_axis()
+    n = axis.size
     grads = [p.grad for p in params if p.grad is not None]
     if n == 1 or not grads:
         return 0
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=axis.group)
     flat /= n
     offset = 0
     for g in grads:
@@ -255,12 +286,15 @@ def average_gradients(params: Sequence[torch.nn.Parameter]) -> int:
     return flat.numel() * flat.element_size()
 
 
-def reduce_metrics(objective, metrics: dict[str, Tensor], outputs: Any, targets: Any) -> dict[str, Tensor]:
+def reduce_metrics(objective, metrics: dict[str, Tensor], outputs: Any, targets: Any,
+                   axis: Axis | None = None) -> dict[str, Tensor]:
     """The global batch's step metrics from this rank's: the mean over the
-    ranks of each batch mean (the shards are equal), and each pooled metric
+    ranks of ``axis`` (the world by default) of each batch mean (the shards
+    are equal), and each pooled metric
     (:attr:`~pccf_torch.train.objectives.Objective.pooled`) finished from the
     sum over the ranks of its sums, in one all-reduce."""
-    n = world_size()
+    axis = axis or world_axis()
+    n = axis.size
     if n == 1:
         return metrics
     names = list(metrics)
@@ -269,7 +303,7 @@ def reduce_metrics(objective, metrics: dict[str, Tensor], outputs: Any, targets:
     flat = torch.cat([torch.stack([metrics[name].detach().float() for name in means]).reshape(-1) / n
                       if means else metrics[names[0]].new_zeros(0),
                       *(pooled[name].detach().float().reshape(-1) for name in pooled)])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=axis.group)
     out = dict(zip(means, flat[:len(means)]))
     offset = len(means)
     for name, sums in pooled.items():

@@ -47,6 +47,9 @@ SIGNATURES: dict[str, tuple] = {
     'pccf_pcgen_mix': (P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, F, F, F, F, P),
     'pccf_pcgen_general': (P, P, P, P, P, I, P, P, P, P, P, P, P, I, I, I, I, F, F, P),
     'pccf_pcgen_general_scratch': (I, I, I, I, P, I),
+    'pccf_pcgen_mix_partial': (P,) * 16 + (I,) * 9 + (F,) * 5 + (P,),
+    'pccf_pcgen_general_partial': (P, P, P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P),
+    'pccf_pcgen_general_partial_scratch': (I, I, I, I, P, I, I),
     'pccf_gemm': (P, I, P, P, I, I, I, I, I, P),
     'pccf_gemm_bf16w': (P, I, P, P, I, I, I, I, I, P),
     'pccf_tf32_split': (P, P, P, I, P),

@@ -20,6 +20,8 @@ KERNELS = {
     'graph_max_pool': gather.graph_max_pool_cuda,
     'pcgen_mix': pcgen.pcgen_mix_cuda,
     'pcgen_general': pcgen.pcgen_general_cuda,
+    'pcgen_mix_partial': pcgen.pcgen_mix_partial_cuda,  # a rank's share of the expert-parallel decode
+    'pcgen_general_partial': pcgen.pcgen_general_partial_cuda,
     'cvae_cf': cvae.cvae_cf_cuda,
     'gather_neighbors': gather.gather_neighbors_cuda,
     'scatter_add_rows': gather.scatter_add_rows_cuda,
@@ -135,6 +137,21 @@ def pcgen_mix(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *, tau: f
     else:
         fn = pcgen.pcgen_general_cuda
     return fn(m, w, pack, tau=tau, act_slope=act_slope)
+
+
+def pcgen_partial(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *,
+                  act_slope: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """A share's partial mix logits ``(B, N, G_t)`` and head outputs
+    ``(B, N, G_l, 3)`` (:meth:`~pccf_torch.kernels.pcgen.PCGenPack.share`):
+    on the card the flagship's kernel in partial mode where it covers the
+    share, else the general one's."""
+    if not _build.on_cuda(m):
+        fn = pcgen.plain_partial
+    elif pcgen.flagship(m.shape[-1], pack.dims(), pack.head_w.shape[0], pack.n_logits()):
+        fn = pcgen.pcgen_mix_partial_cuda
+    else:
+        fn = pcgen.pcgen_general_partial_cuda
+    return fn(m, w, pack, act_slope=act_slope)
 
 
 def cvae_cf(x: torch.Tensor, probs: torch.Tensor, pack: cvae.CVAEPack) -> torch.Tensor:

@@ -378,6 +378,21 @@ def leaky(x: Tensor, slope: float) -> Tensor:
 # ------------------------------------------------------------------ PCGen mix
 
 
+def _pcgen_components(m, w, map_w, map_b, layer_ws, layer_bs, head_w, head_b, act_slope):
+    """Each component's last features ``(B, N, D_last)`` and head output
+    ``(B, N, 3)``."""
+    x = w[:, None, :] * torch.clamp(torch.matmul(m, map_w.T) + map_b, -1.0, 1.0)
+    rep0 = interleave_residual(x, layer_ws[0].shape[1])
+    feats, comps = [], []
+    for g in range(head_w.shape[0]):
+        h = leaky(torch.matmul(x, layer_ws[0][g].T) + layer_bs[0][g], act_slope) + rep0
+        for wl, bl in zip(layer_ws[1:], layer_bs[1:]):
+            h = leaky(torch.matmul(h, wl[g].T) + bl[g], act_slope) + h[..., : wl.shape[1]]
+        feats.append(h)
+        comps.append(torch.matmul(h, head_w[g].T) + head_b[g])
+    return feats, comps
+
+
 def pcgen_mix(
     m: Tensor,
     w: Tensor,
@@ -409,18 +424,43 @@ def pcgen_mix(
     Returns:
         ``(B, N, 3)`` mixed components.
     """
-    x = w[:, None, :] * torch.clamp(torch.matmul(m, map_w.T) + map_b, -1.0, 1.0)
-    rep0 = interleave_residual(x, layer_ws[0].shape[1])
-    feats, comps = [], []
-    for g in range(head_w.shape[0]):
-        h = leaky(torch.matmul(x, layer_ws[0][g].T) + layer_bs[0][g], act_slope) + rep0
-        for wl, bl in zip(layer_ws[1:], layer_bs[1:]):
-            h = leaky(torch.matmul(h, wl[g].T) + bl[g], act_slope) + h[..., : wl.shape[1]]
-        feats.append(h)
-        comps.append(torch.matmul(h, head_w[g].T) + head_b[g])
+    feats, comps = _pcgen_components(m, w, map_w, map_b, layer_ws, layer_bs, head_w, head_b, act_slope)
     logits = torch.matmul(torch.cat(feats, dim=-1), att_w.T) + att_b
     att = temperature_softmax(logits, tau)
     return sum(att[..., g : g + 1] * comps[g] for g in range(len(comps)))
+
+
+def pcgen_partial(
+    m: Tensor,
+    w: Tensor,
+    map_w: Tensor,
+    map_b: Tensor,
+    layer_ws: Sequence[Tensor],
+    layer_bs: Sequence[Tensor],
+    head_w: Tensor,
+    head_b: Tensor,
+    att_w: Tensor,
+    att_b: Tensor,
+    *,
+    act_slope: float,
+) -> tuple[Tensor, Tensor]:
+    """The share of :func:`pcgen_mix` of ``G_l`` of a decoder's ``G_t``
+    components (the expert-parallel decode): ``att_w (G_t, G_l · D_last)``
+    holds those components' columns.  Returns their partial logits
+    ``(B, N, G_t)`` (``att_b`` added) and head outputs ``(B, N, G_l, 3)``;
+    the sum of the logits over the component shares is ``pcgen_mix``'s, and
+    :func:`pcgen_mix_share` mixes a share with its slice of the softmax."""
+    feats, comps = _pcgen_components(m, w, map_w, map_b, layer_ws, layer_bs, head_w, head_b, act_slope)
+    logits = torch.matmul(torch.cat(feats, dim=-1), att_w.T) + att_b
+    return logits, torch.stack(comps, dim=-2)
+
+
+def pcgen_mix_share(logits: Tensor, heads: Tensor, g0: int, tau: float) -> Tensor:
+    """``Σ_g softmax(logits / τ)[g0 + g] · heads[..., g, :]`` over a share's
+    ``G_l`` components: ``logits (B, N, G_t)`` summed over every share,
+    ``heads (B, N, G_l, 3)``; the sum over the shares is the mixture."""
+    att = temperature_softmax(logits, tau)[..., g0:g0 + heads.shape[-2]]
+    return torch.einsum('bng,bngc->bnc', att, heads)
 
 
 # ------------------------------------------------------------- CVAE chain

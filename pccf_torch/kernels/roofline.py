@@ -191,6 +191,16 @@ def pcgen_general_work(m: torch.Tensor, w: torch.Tensor, pack) -> Work:
     return Work(work.ops, work.bytes + 2 * sum(lw.numel() for lw in pack.layer_ws), TF32)
 
 
+def pcgen_partial_work(m: torch.Tensor, w: torch.Tensor, pack, general: bool = False) -> Work:
+    """A share's partial mode (:meth:`~pccf_torch.kernels.pcgen.PCGenPack.share`):
+    :func:`pcgen_work` (or :func:`pcgen_general_work`) of its components,
+    writing ``G_t`` logits and ``G_l`` heads a point in place of the mix."""
+    work = (pcgen_general_work if general else pcgen_work)(m, w, pack)
+    b, n = m.shape[:2]
+    extra = b * n * (pack.att_w.shape[0] + 3 * pack.head_w.shape[0] - 3) * F32
+    return Work(work.ops, work.bytes + extra, work.peak)
+
+
 def gemm_work(m: int, n: int, k: int, groups: int = 1, bias: bool = True, res_rows: int = 0,
               weight_bytes: int = F32) -> Work:
     """One ``pccf_gemm`` launch: ``groups`` products ``(m, k) · (k, n)``, 2·m·n·k

@@ -13,6 +13,20 @@ BatchNorm and Gumbel-softmax attention, whose products are plain
 ``torch.matmul`` as in JAX.  Either way graph filtering (kNN with k=4, then
 the neighbour gather kernel) sharpens the mixed cloud when ``filtering`` is
 on, as the flagship configuration has it.
+
+Expert parallelism (:func:`pccf_torch.dist.sharding.shard_variables_ep`)
+leaves a rank ``G / mp`` of the components (``self.ep``).  The mix is a
+softmax over every component's logit, so a rank cannot mix alone.  In eval
+on the fused path the kernel's partial mode gives the rank's share of the
+logits and its heads; the logits are summed over ``mp``, the rank mixes its
+heads with its slice of the softmax and the mixtures are summed (two small
+all-reduces, ``G`` and 3 floats a point).  With a gradient (the module
+path) the placement is GSPMD's (``pccf/dist/sharding.py:52-56``): the
+joined latent enters this rank's components through ``copy_to_mp`` (its
+gradient summed over ``mp``), the components' features are gathered, the
+attention runs replicated (its gradient whole on every rank), each rank
+mixes its heads, and the sum over ``mp`` of the mixtures is the output, its
+backward the identity.
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ import torch
 from torch import nn
 
 from pccf_torch.config import AutoEncoderConfig
+from pccf_torch.dist import tp
 from pccf_torch.kernels import api, ops, pcgen
 from pccf_torch.kernels.pcgen import PCGenPack
 from pccf_torch.nn.layers import (Act, BatchNorm, DenseBlock, StackedLinear, act_slope, get_act, gumbel_softmax,
@@ -109,6 +124,8 @@ class PCGenDecoder(nn.Module):
         # weights folded for the kernel; set once by a server (prepack), else
         # folded on every call
         self.packed: PCGenPack | None = None
+        self.ep: tp.ExpertShard | None = None  # this rank's components under expert parallelism
+        self._share: tuple[PCGenPack, PCGenPack] | None = None
 
     def fused_ok(self, n_points: int | None = None) -> bool:
         """The gate of the fused path (``decoders.py:135-155``): a (leaky) ReLU
@@ -154,20 +171,39 @@ class PCGenDecoder(nn.Module):
             x = self._mix_modules(x, w, gumbel_uniform)
         elif self.fused_ok(x.shape[1]):
             pack = self.packed if self.packed is not None else self.pack()
-            x = api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
+            if self.ep is None:
+                x = api.pcgen_mix(x.contiguous(), w.contiguous(), pack, tau=self.tau, act_slope=act_slope(self.act))
+            else:
+                x = self._mix_shares(x.contiguous(), w.contiguous(), pack)
         else:
             x = self._mix_modules(x, w, None)
         return api.graph_filtering(x.contiguous()) if self.filtering else x
 
+    def _mix_shares(self, m: torch.Tensor, w: torch.Tensor, pack: PCGenPack) -> torch.Tensor:
+        """The expert-parallel fused decode: this rank's share of the logits
+        and its heads from the kernel's partial mode, the logits summed over
+        ``mp``, this rank's mixture, the mixtures summed."""
+        ep = self.ep
+        if self._share is None or self._share[0] is not pack:  # a prepacked decoder folds its share once
+            self._share = (pack, pack.share(ep.g0, ep.count, ep.grid.index(ep.axis) == 0))
+        share = self._share[1]
+        logits, heads = api.pcgen_partial(m, w, share, act_slope=act_slope(self.act))
+        return ep.summed(ops.pcgen_mix_share(ep.summed(logits), heads, ep.g0, self.tau))
+
     def _mix_modules(self, m: torch.Tensor, w: torch.Tensor, gumbel_uniform: torch.Tensor | None) -> torch.Tensor:
         """Map head, join, components, heads and the attention mix, module by
-        module (``decoders.py:87-128``)."""
+        module (``decoders.py:87-128``); under expert parallelism this rank's
+        components, their features gathered for the attention."""
         x = w[:, None, :] * self.map_out(m)  # join (decoders.py:92)
         g = self.n_components
+        if self.ep is not None:  # the joined latent feeds this rank's components: its gradient summed over mp
+            g, x = self.ep.count, self.ep.copy(x)
         feats = self.components(x.expand(g, *x.shape))  # (G, B, N, D_last)
         comps = self.component_heads(feats)  # (G, B, N, 3)
-        if g == 1:
+        if self.n_components == 1:
             return comps[0]
+        if self.ep is not None:
+            feats = self.ep.gather(feats)
         att = self.att(torch.cat(list(feats), dim=-1))
         if self.training:
             if gumbel_uniform is None:
@@ -175,7 +211,9 @@ class PCGenDecoder(nn.Module):
             att = gumbel_softmax(att, self.tau, gumbel_uniform)
         else:
             att = ops.temperature_softmax(att, self.tau)
-        return torch.einsum('bng,gbnc->bnc', att, comps)
+        if self.ep is None:
+            return torch.einsum('bng,gbnc->bnc', att, comps)
+        return self.ep.psum(torch.einsum('bng,gbnc->bnc', self.ep.columns(att), comps))
 
 
 def build_decoder(cfg: AutoEncoderConfig) -> PCGenDecoder:

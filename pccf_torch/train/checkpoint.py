@@ -40,10 +40,12 @@ class Checkpoint:
     def sidecar(self, epoch: int) -> pathlib.Path:
         return self.directory / f'epoch_{epoch}_opt'
 
-    def save(self, model: torch.nn.Module, epoch: int) -> pathlib.Path:
+    def save(self, model: torch.nn.Module, epoch: int, state: dict | None = None) -> pathlib.Path:
+        """Write ``model``'s ``state_dict`` (or ``state``, the one-device
+        state of a sharded model) at ``epoch``."""
         path = self.path(epoch)
         path.parent.mkdir(parents=True, exist_ok=True)
-        torch.save({'state_dict': model.state_dict(), 'epoch': epoch}, path)
+        torch.save({'state_dict': model.state_dict() if state is None else state, 'epoch': epoch}, path)
         return path
 
     def resolve(self, checkpoint: int = -1) -> int:
@@ -56,10 +58,12 @@ class Checkpoint:
             raise FileNotFoundError(f'Checkpoint epoch {epoch} not in {epochs}')
         return epoch
 
-    def load(self, model: torch.nn.Module, checkpoint: int = -1) -> int:
-        """Load the weights of ``checkpoint`` into ``model``; returns its epoch."""
+    def load(self, model: torch.nn.Module, checkpoint: int = -1, load=None) -> int:
+        """Load the weights of ``checkpoint`` into ``model`` (through
+        ``load(state_dict)`` where given: a sharded model takes its slices);
+        returns its epoch."""
         epoch = self.resolve(checkpoint)
         payload = torch.load(self.path(epoch), map_location=next(iter(model.state_dict().values())).device,
                              weights_only=True)
-        model.load_state_dict(payload['state_dict'])
+        (load or model.load_state_dict)(payload['state_dict'])
         return int(payload['epoch'])

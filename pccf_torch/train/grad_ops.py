@@ -23,11 +23,17 @@ statistics live on the parameters' device, so a step never waits for the
 host; ``seen`` counts the steps taken and is not the optimiser's step, so a
 weights-only resume starts the history afresh.  :meth:`GradOp.state_dict`
 and :meth:`GradOp.load_state_dict` carry the state through a checkpoint.
+
+Under tensor parallelism (:mod:`pccf_torch.train.tp`) some gradients are
+this rank's slice of a parameter's: :meth:`GradOp.shard_over` names them and
+the sum over the ranks holding the other slices, so that every norm, mean
+and deviation is the one-device gradient's (the slices' sums of squares
+summed over the ranks, a replicated gradient counted once).
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable
 
 import torch
 
@@ -40,6 +46,21 @@ class GradOp:
 
     def __init__(self, named_params: Iterable[tuple[str, torch.nn.Parameter]]) -> None:
         self.names, self.params = map(list, zip(*named_params))
+        self.sharded: torch.Tensor | None = None  # which gradients are slices (shard_over)
+        self.reduce: Callable[[torch.Tensor], torch.Tensor] | None = None
+
+    def shard_over(self, sharded: list[bool], reduce: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """Mark the gradients that are this rank's slices; ``reduce`` sums a
+        tensor over the ranks that hold the other slices."""
+        self.sharded = torch.tensor(sharded, device=self.params[0].device)
+        self.reduce = reduce
+
+    def norms(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        """Each gradient's L2 norm, a sliced one's over every slice."""
+        norms = torch.stack(torch._foreach_norm(grads))
+        if self.reduce is None:
+            return norms
+        return torch.where(self.sharded, torch.sqrt(self.reduce(torch.where(self.sharded, norms * norms, 0.0))), norms)
 
     def grads(self) -> list[torch.Tensor]:
         """Every parameter's gradient, a zero one set where none was computed."""
@@ -61,15 +82,23 @@ class GradOp:
 class GradParamNormalizer(GradOp):
     @torch.no_grad()
     def __call__(self) -> None:
-        for g in self.grads():
-            g.div_(torch.clamp_min(torch.linalg.vector_norm(g), EPS))
+        grads = self.grads()
+        norms = self.norms(grads) if self.reduce is not None else [torch.linalg.vector_norm(g) for g in grads]
+        for g, norm in zip(grads, norms):
+            g.div_(torch.clamp_min(norm, EPS))
 
 
 class GradZScoreNormalizer(GradOp):
     @torch.no_grad()
     def __call__(self) -> None:
-        for g in self.grads():
-            std, mean = torch.std_mean(g, correction=0)
+        grads = self.grads()
+        for i, g in enumerate(grads):
+            if self.reduce is not None and bool(self.sharded[i]):
+                total = self.reduce(torch.stack([g.sum(), (g * g).sum(), g.new_tensor(float(g.numel()))]))
+                mean = total[0] / total[2]
+                std = torch.sqrt(torch.clamp_min(total[1] / total[2] - mean * mean, 0.0))
+            else:
+                std, mean = torch.std_mean(g, correction=0)
             g.sub_(mean).div_(torch.clamp_min(std, EPS))
 
 
@@ -97,7 +126,7 @@ class GradNormClipper(GradOp):
     @torch.no_grad()
     def __call__(self) -> None:
         grads = self.grads()
-        norm = global_norm(grads)
+        norm = global_norm(grads) if self.reduce is None else torch.linalg.vector_norm(self.norms(grads))
         scale = torch.where(norm < self.max_norm, torch.ones_like(norm), self.max_norm / norm)
         torch._foreach_mul_(grads, scale)
 
@@ -154,7 +183,8 @@ class HistClipper(_History):
     @torch.no_grad()
     def __call__(self) -> None:
         grads = self.grads()
-        torch._foreach_mul_(grads, self.clip(global_norm(grads).reshape(1))[0])
+        norm = global_norm(grads) if self.reduce is None else torch.linalg.vector_norm(self.norms(grads))
+        torch._foreach_mul_(grads, self.clip(norm.reshape(1))[0])
 
 
 class ParamHistClipper(_History):
@@ -169,7 +199,7 @@ class ParamHistClipper(_History):
     @torch.no_grad()
     def __call__(self) -> None:
         grads = self.grads()
-        scale = self.clip(torch.stack(torch._foreach_norm(grads)))
+        scale = self.clip(self.norms(grads))
         for g, s in zip(grads, scale):
             g.mul_(s)
 

@@ -206,6 +206,7 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, objective: Objective, cfg, steps_per_epoch: int, seed: int = 0,
                  name: str | None = None) -> None:
         self.model = model
+        self.cfg = cfg
         self.name = name or type(model).__name__
         self.checkpoint = Checkpoint(self.name)
         self.objective = objective.copy()
@@ -220,6 +221,7 @@ class Trainer:
             else:
                 trained.append((name, p))
         self.trained = [p for _, p in trained]
+        self.trained_names = [name for name, _ in trained]
         self.optimizer = make_optimizer(cfg, self.trained, self.lr_at(0))
         self.grad_op = get_grad_op(cfg.grad_op, trained, cfg.clip_criterion)
         self.step = 0
@@ -246,19 +248,28 @@ class Trainer:
             group['lr'] = self.lr_at(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         epoch = float(self.epoch + 1 if epoch is None else epoch)
-        if mesh.world_size() > 1:
-            inputs, targets, noise = mesh.shard_batch((inputs, targets, noise))
-        with mesh.sharded(_batch_size(inputs)):
-            outputs = with_epoch(self.model(inputs, noise, self.generator), epoch)
+        axis = self.data_axis()
+        if axis.size > 1:
+            inputs, targets, noise = mesh.shard_batch((inputs, targets, noise), axis)
+        with mesh.sharded(_batch_size(inputs), axis):
+            outputs = with_epoch(self.forward(inputs, noise), epoch)
             loss, metrics = self.objective.loss_and_metrics(outputs, targets)
             loss.backward()
-        self.allreduce_bytes = mesh.average_gradients(self.trained)
-        metrics = mesh.reduce_metrics(self.objective, metrics, outputs, targets)
+        self.allreduce_bytes = mesh.average_gradients(self.trained, axis)
+        metrics = mesh.reduce_metrics(self.objective, metrics, outputs, targets, axis)
         if self.grad_op is not None:
             self.grad_op()
         self.optimizer.step()
         self.step += 1
         return {name: v.detach() for name, v in metrics.items()}
+
+    def data_axis(self) -> mesh.Axis:
+        """The ranks the batch is cut over: every rank of the process group."""
+        return mesh.world_axis()
+
+    def forward(self, inputs, noise):
+        """The model's train-mode forward on this rank's rows."""
+        return self.model(inputs, noise, self.generator)
 
     def train_until(self, loader: Loader, n_epochs: int, validation: 'Test | None' = None) -> None:
         """Train from the completed epochs up to ``n_epochs``
@@ -294,30 +305,50 @@ class Trainer:
         generator (``runners.py:441-453``); with ``generator_seed``, that
         seed in the generator state's place (an imported run's, which has no
         state of a port generator).  Rank 0 alone writes."""
+        weights, sidecar = self.weights_state(), self.optimizer_state()
         if not mesh.is_main_process():
             return
-        self.checkpoint.save(self.model, self.epoch)
+        if weights is None:
+            self.checkpoint.save(self.model, self.epoch)
+        else:
+            self.checkpoint.save(self.model, self.epoch, weights)
         draws = {'generator': self.generator.get_state()} if generator_seed is None else {
             'generator_seed': int(generator_seed)}
-        torch.save({'optimizer': self.optimizer.state_dict(), 'step': self.step,
-                    'grad_op': self.grad_op.state_dict() if self.grad_op is not None else {}, **draws},
-                   self.checkpoint.sidecar(self.epoch))
+        torch.save({**sidecar, **draws}, self.checkpoint.sidecar(self.epoch))
+
+    def weights_state(self) -> dict | None:
+        """The checkpoint's weights: None for the model's ``state_dict``."""
+        return None
+
+    def load_weights(self, state: dict) -> None:
+        """A checkpoint's weights into the model."""
+        self.model.load_state_dict(state)
+
+    def optimizer_state(self) -> dict:
+        """The sidecar's optimiser and gradient operation state and step."""
+        return {'optimizer': self.optimizer.state_dict(), 'step': self.step,
+                'grad_op': self.grad_op.state_dict() if self.grad_op is not None else {}}
+
+    def load_optimizer_state(self, state: dict) -> None:
+        """:meth:`optimizer_state`'s state back."""
+        self.optimizer.load_state_dict(state['optimizer'])
+        if self.grad_op is not None:
+            self.grad_op.load_state_dict(state['grad_op'])
+        self.step = int(state['step'])
 
     def load_checkpoint(self, checkpoint: int = -1) -> None:
         """The model's weights of ``checkpoint`` (-1 the latest) and, where
         its sidecar exists, the rest of the state; without it the step
         follows the epoch and the optimiser and gradient operation start
         afresh (``runners.py:455-488``)."""
-        self.epoch = self.checkpoint.load(self.model, checkpoint)
+        self.epoch = self.checkpoint.load(self.model, checkpoint, self.load_weights)
         sidecar = self.checkpoint.sidecar(self.epoch)
         if not sidecar.exists():
             self.step = self.epoch * self.steps_per_epoch
+            align_counts(self.optimizer, self.step)
             return
         state = torch.load(sidecar, map_location='cpu', weights_only=False)
-        self.optimizer.load_state_dict(state['optimizer'])
-        if self.grad_op is not None:
-            self.grad_op.load_state_dict(state['grad_op'])
-        self.step = int(state['step'])
+        self.load_optimizer_state(state)
         if 'generator' in state:
             self.generator.set_state(state['generator'])
         else:
@@ -454,6 +485,29 @@ def make_optimizer(cfg, params: list[torch.nn.Parameter], lr: float) -> torch.op
     if cfg.optimizer_name == 'RMSprop':
         return RMSprop(params, lr=lr, weight_decay=cfg.weight_decay, **settings)
     raise ValueError(f'optimizer {cfg.optimizer_name!r} is not one of AdamW, SGD, Adam, RMSprop')
+
+
+@torch.no_grad()
+def align_counts(optimizer: torch.optim.Optimizer, step: int) -> None:
+    """Set the optimiser's step counts to ``step`` where a resume from
+    weights alone starts it afresh (``runners.py:515-536``
+    ``_set_opt_counts``): Adam's and AdamW's bias correction and
+    :class:`RMSprop`'s count continue from the restored epoch, with zero
+    moments; SGD keeps no count.  At step 0 nothing changes."""
+    if not step:
+        return
+    for group in optimizer.param_groups:
+        for p in group['params']:
+            if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
+                optimizer.state[p] = {'step': torch.tensor(float(step)), 'exp_avg': torch.zeros_like(p),
+                                      'exp_avg_sq': torch.zeros_like(p)}
+            elif isinstance(optimizer, RMSprop):
+                state = {'count': step, 'nu': torch.full_like(p, group['initial_scale'])}
+                if group['centered']:
+                    state['mu'] = torch.zeros_like(p)
+                if group['momentum'] is not None:
+                    state['trace'] = torch.zeros_like(p)
+                optimizer.state[p] = state
 
 
 def with_epoch(outputs, epoch: float):

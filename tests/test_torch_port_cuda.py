@@ -12,7 +12,9 @@ with the lowest index first on exact duplicates, and the same lists index for
 index whatever the candidate split or the batch; max-pool bit-exact; pcgen_mix
 rel-L2 2e-3 (fp16 weights and product inputs, ~3e-4 at the flagship, where
 a bf16 version read ~4e-3), and 1e-2 (RECON_REL_L2) where the activations
-pass fp16's range and the kernel scales its operands; the CVAE chain and the transformer stacks rel-L2
+pass fp16's range and the kernel scales its operands; both PCGen kernels'
+partial mode (a rank's share of the expert-parallel decode) the same on
+each share's logits and heads and on the shares' mixture; the CVAE chain and the transformer stacks rel-L2
 1e-4 (3xTF32 products); the stacks' GEMM against the float64 product and
 epilogue rel-L2 5e-6 (3xTF32 drops the small-small term, ~2^-22 of each
 product; the tensor cores sum only each 32-wide k tile, whose partial sums
@@ -1760,3 +1762,49 @@ def test_nn_distance_dispatch_on_the_card(dev, n, m):
     want = api.nn_distance(cx, cy)
     (want[0].sum() + 2 * want[2].sum()).backward()
     assert _rel_l2(x.grad.cpu(), cx.grad) <= 1e-6 and _rel_l2(y.grad.cpu(), cy.grad) <= 1e-6
+
+
+def _shares(pack, mp):
+    """The packs of ``mp`` ranks' components, ``att_b`` on the first."""
+    count = pack.head_w.shape[0] // mp
+    return [(r * count, pack.share(r * count, count, r == 0)) for r in range(mp)]
+
+
+@pytest.mark.parametrize('mp', [2, 4])
+@pytest.mark.parametrize('kind', ['flagship', 'general'])
+def test_pcgen_partial_matches_plain(dev, kind, mp):
+    """The partial mode of either kernel on each of ``mp`` ranks' shares of
+    eight components against its plain version (logits and heads), through
+    ``api.pcgen_partial``'s dispatch; the shares' logits summed and their
+    mixtures summed against the unsharded plain mix."""
+    if kind == 'flagship':
+        pack, dm, n, tol, name = _pcgen_pack(dev, g=8, dims=(1024, 1024, 256, 16), dm=64), 64, 2048, \
+            PCGEN_REL_L2, 'pcgen_mix_partial'
+    else:
+        pack, dm, n, tol, name = _general_pack(dev, (512, 300, 200, 77), 8, 40), 40, 1000, PCGEN_GENERAL_REL_L2, \
+            'pcgen_general_partial'
+    m, w = torch.relu(_randn((2, n, dm), 3, dev)), _randn((2, pack.map_w.shape[0]), 4, dev)
+    logits, mixed = 0, []
+    for g0, share in _shares(pack, mp):
+        api.reset_launch_counts()
+        got_l, got_h = api.pcgen_partial(m, w, share, act_slope=0.0)
+        assert api.launch_counts()[name] == 1 and sum(api.launch_counts().values()) == 1
+        want_l, want_h = pcgen.plain_partial(m, w, share, act_slope=0.0)
+        assert got_l.shape == (2, n, 8) and got_h.shape == (2, n, 8 // mp, 3)
+        assert _rel_l2(got_l, want_l) <= tol and _rel_l2(got_h, want_h) <= tol
+        logits = logits + got_l
+        mixed.append((g0, got_h))
+    out = sum(ops.pcgen_mix_share(logits, h, g0, 5.0) for g0, h in mixed)
+    assert _rel_l2(out, pcgen.plain(m, w, pack, tau=5.0, act_slope=0.0)) <= tol
+
+
+@pytest.mark.parametrize('n', [48, 200])
+def test_pcgen_partial_masks_the_tail_tile(dev, n):
+    """The flagship kernel's partial mode with one component a rank (mp = G
+    = 3) at N off the 64-point tile: the rows past N are not stored."""
+    pack = _pcgen_pack(dev)
+    m, w = torch.relu(_randn((2, n, 8), 3, dev)), _randn((2, 256), 4, dev)
+    for _, share in _shares(pack, 3):
+        got_l, got_h = pcgen.pcgen_mix_partial_cuda(m, w, share, act_slope=0.0)
+        want_l, want_h = pcgen.plain_partial(m, w, share, act_slope=0.0)
+        assert _rel_l2(got_l, want_l) <= PCGEN_REL_L2 and _rel_l2(got_h, want_h) <= PCGEN_REL_L2

@@ -226,7 +226,8 @@ def test_cpu_tensors_take_the_plain_versions():
                                         'scatter_add_rows', 'graph_max_pool_src', 'scatter_add_slots',
                                         'graph_sum_pool', 'chamfer_match_cost', 'wformer_encoder',
                                         'wformer_decoder', 'gemm_bf16w', 'nn_distance', 'sinkhorn_cost',
-                                        'graph_filter', 'graph_filter_backward', 'auction_emd', 'attention_wide'}
+                                        'graph_filter', 'graph_filter_backward', 'auction_emd', 'attention_wide',
+                                        'pcgen_mix_partial', 'pcgen_general_partial'}
     assert set(api.launch_counts().values()) == {0}
 
 
