@@ -35,6 +35,20 @@ filtering on):
   GEMM shape of the cast paths against float64, timed beside the f32
   instance; the server's parameter and pack bytes; request latency and
   device busy time of both servers in turns;
+- serving from exported artifacts (``export_phase``): the flagship server
+  at buckets 1, 16 and 32 exported (``pccf_torch.export.export_server``)
+  for the card and the CPU, each endpoint's seconds, bytes and whether its
+  symbolic batch held; the card artifact served by this script in a process
+  of its own that imports no model code (``--artifact-worker``), requests of
+  1, 16, 20 and 70 and generation at 16 with and without probs against the
+  live server (within 1e-5, launches equal), then in this process (the
+  "export" launch column) with latency and device busy time in turns with
+  the live server at batch 1 and 16, and the model call alone on device
+  inputs; the CPU artifact against the model on the CPU; the cast server's
+  artifact at bucket 16; ``torch.library.opcheck`` of each ``torch.ops.pccf``
+  op on the card; the host time of a call through each op against its
+  wrapper called directly; a request under ``enable_nan_debugging``
+  bit-equal to one without it, and a NaN cloud raising in an encoder module;
 - generation: ``CounterfactualServer.generate`` at 1, 16 and 70 clouds
   (chunks of 64 and 6), without and with ``probs``, and the entry point
   ``pccf_torch.generate.generate_random_samples`` at its batch of 16 with a
@@ -50,7 +64,8 @@ filtering on):
   then Chamfer and ChamferSinkhorn, each + embedding loss), checked for
   finite and falling losses and for the launches of that objective's loss
   kernel alone, and one step at batch 2 and 512 points against the same step
-  on the CPU under each; then the entry point
+  on the CPU under each, and under ChamferEMD once more with Adam at optax's
+  ``nesterov`` and ``eps_root`` (``OptaxAdam``); then the entry point
   ``pccf_torch.train.autoencoder.train_autoencoder`` under Chamfer and
   ChamferSinkhorn for 2 epochs of 16 clouds (validation, the codebook hook
   after every epoch, the final test);
@@ -393,6 +408,7 @@ REQUEST_LAUNCHES = {'knn': 8, 'graph_max_pool': 8, 'cvae_cf': 1, 'pcgen_mix': 1,
 STEP_LAUNCHES = {'knn': 4, 'gather_neighbors': 0, 'graph_filter': 1, 'graph_filter_backward': 1,
                  'scatter_add_rows': 7}
 LOSS_KERNELS = {'ChamferEMD': 'chamfer_match_cost', 'Chamfer': 'nn_distance', 'ChamferSinkhorn': 'sinkhorn_cost'}
+ADAM_KNOBS = (('nesterov', True), ('eps_root', 1e-8))  # the card-vs-CPU step of the port's own Adam
 ENTRY_TRAIN, ENTRY_TEST, ENTRY_EPOCHS = 16, 8, 2  # the stage-1 entry point's clouds and epochs
 # the evaluation suites: 186 test clouds (ModelNet desk / table's test split,
 # 86 + 100) in chunks of 64 give the derived datasets chunks of 64 and 58
@@ -1121,6 +1137,315 @@ def cast_phase(seed: int, check, dev: torch.device, cfg, vqvae, classifier, serv
                   f'{len(times)} (host clock incl. copies, in turns f32, bf16, bf16, f32); device busy '
                   f'{busy[srv_name, bb]:.3f} ms (traced durations summed)', flush=True)
     return launches
+
+
+# the export phase: the flagship server's endpoints exported for the card
+# and the CPU with these buckets, and the requests the artifact serves (70:
+# chunks of 32, 32 and 6 at bucket 16); the artifact holds the live server
+# within EXPORT_ATOL (the same kernels on the same inputs: bit-equal where
+# the exported graph keeps the eager one's operations)
+EXPORT_BUCKETS = (1, 16, 32)
+EXPORT_REQUESTS = (1, 16, 20, 70)
+EXPORT_ATOL = 1e-5
+EXPORT_LATENCY_TURNS = 5  # rounds of (live, artifact, artifact, live) a batch
+EXPORT_DISPATCH_REPS = 50  # host-clock samples of one call, through the op and the wrapper directly
+# the modules a process that serves an artifact must not have imported
+MODEL_MODULES = ('pccf_torch.models', 'pccf_torch.nn', 'pccf_torch.serve', 'pccf_torch.config',
+                 'pccf_torch.compose', 'pccf_torch.train')
+
+
+def export_requests(seed: int, n: int, n_classes: int) -> dict[str, np.ndarray]:
+    """The export phase's requests: 70 clouds (a request of ``s`` takes the
+    first ``s``, target ``i % 2``, seed ``1000 + i``) and the class
+    probabilities of a generation of 16."""
+    rng = np.random.default_rng([seed, 23])
+    return {'clouds': (rng.standard_normal((max(EXPORT_REQUESTS), n, 3)) / 2).astype(np.float32),
+            'probs': rng.dirichlet(np.ones(n_classes), 16).astype(np.float32)}
+
+
+def serve_export_requests(srv, req: dict[str, np.ndarray], seed: int) -> tuple[dict, dict]:
+    """Each request through ``srv`` (a live server or an artifact): outputs
+    and each one's launches, by name."""
+    from pccf_torch.kernels import api
+
+    outs, counts = {}, {}
+    calls = {f'counterfactual {s}': functools.partial(srv.counterfactual, req['clouds'][:s], np.arange(s) % 2, None,
+                                                      1.0, 1000 + np.arange(s)) for s in EXPORT_REQUESTS}
+    calls['generate 16'] = functools.partial(srv.generate, 16, seed=seed + 5)
+    calls['generate 16 probs'] = functools.partial(srv.generate, 16, probs=req['probs'], seed=seed + 5)
+    for name, call in calls.items():
+        api.reset_launch_counts()
+        outs[name] = call()
+        torch.cuda.synchronize()
+        counts[name] = api.launch_counts()
+    return outs, counts
+
+
+def artifact_worker(path: str, out_dir: str, seed: int) -> int:
+    """Serve the exported card artifact at ``path`` in a process that
+    imports no model code (``python3 chip_smoke.py --artifact-worker``): the
+    export phase's requests, their outputs and launches to ``out_dir``, and
+    the ``pccf_torch`` modules this process imported."""
+    from pccf_torch.export import load_artifact
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    req = dict(np.load(os.path.join(out_dir, 'requests.npz')))
+    t0 = time.perf_counter()
+    art = load_artifact(path, 'cuda')
+    outs, counts = serve_export_requests(art, req, seed)
+    np.savez(os.path.join(out_dir, 'worker_outs.npz'), **outs)
+    with open(os.path.join(out_dir, 'worker.json'), 'w') as f:
+        json.dump({'counts': counts, 'seconds': time.perf_counter() - t0,
+                   'modules': sorted(m for m in sys.modules if m.startswith('pccf'))}, f)
+    return 0
+
+
+def export_phase(seed: int, check, dev: torch.device, root: str, cfg, vqvae, classifier) -> dict[str, int]:
+    """Serving artifacts (``pccf_torch.export``) of the flagship server
+    (f32, buckets 1, 16 and 32): the three endpoints exported for the card
+    and the CPU (seconds, bytes, symbolic batch or one program a bucket); the
+    card artifact served in a process that imports no model code, each
+    request's output within ``EXPORT_ATOL`` of the live server's and its
+    launches equal to the live request's; the CPU artifact against the same
+    model on the CPU; the cast server's artifact at bucket 16 against the
+    live cast server; request latency and device busy time of the artifact
+    against the live server in turns at batch 1 and 16; ``opcheck`` of every
+    serving op on the card at a path's shapes; a request under
+    ``enable_nan_debugging`` bit-equal to one without it, and a NaN cloud
+    raising in an encoder module.  Returns the launches of the requests the
+    card artifact served in this process."""
+    from pccf_torch.data.structures import Inputs
+    from pccf_torch.export import export_server, load_artifact
+    from pccf_torch.kernels import api, library, wformer
+    from pccf_torch.nn.layers import act_slope
+    from pccf_torch.serve import CounterfactualServer
+    from pccf_torch.utils import debug
+
+    n, n_classes = cfg.data.n_input_points, cfg.data.n_classes
+    server = CounterfactualServer(vqvae, classifier, buckets=EXPORT_BUCKETS, seed=seed)
+    path = os.path.join(root, 'artifact')
+    manifest = export_server(server, path, n, n_classes, platforms=['cuda', 'cpu'])
+    for name, per in manifest['endpoints'].items():
+        for platform, e in per.items():
+            mode = 'one program, symbolic batch' if 'poly' in e else \
+                f'one program a bucket (symbolic batch refused: {e["poly_error"]})'
+            print(f'export {name} for {platform}: {e["seconds"]:.2f} s, {e["bytes"]} bytes, {mode}', flush=True)
+    check(set(manifest['endpoints']) == {'counterfactual', 'classify', 'generate'}
+          and all(set(per) == {'cuda', 'cpu'} for per in manifest['endpoints'].values()),
+          f'export: {sorted(manifest["endpoints"])} for {manifest["platforms"]}')
+
+    # the card artifact in a process of its own, against the live server
+    req = export_requests(seed, n, n_classes)
+    np.savez(os.path.join(root, 'requests.npz'), **req)
+    live, live_counts = serve_export_requests(server, req, seed)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), '--seed', str(seed), '--artifact-worker', path,
+                           root], capture_output=True, text=True, timeout=600)
+    worker_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f'artifact worker process: exit {proc.returncode} in {worker_s:.1f} s '
+                                f'{proc.stderr[-2000:] if proc.returncode else ""}')
+    if proc.returncode == 0:
+        with open(os.path.join(root, 'worker.json')) as f:
+            worker = json.load(f)
+        got = dict(np.load(os.path.join(root, 'worker_outs.npz')))
+        leaked = [m for m in worker['modules'] if m.startswith(MODEL_MODULES) or m == 'pccf' or m.startswith('pccf.')]
+        check(not leaked, f'artifact worker: loaded and served in {worker["seconds"]:.1f} s importing '
+                          f'{len(worker["modules"])} pccf_torch modules, none of the model code {leaked}')
+        for name, want in live.items():
+            diff = float(np.abs(got[name] - want).max())
+            same = worker['counts'][name] == live_counts[name]
+            check(got[name].shape == want.shape and diff <= EXPORT_ATOL and same,
+                  f'artifact (other process) {name}: max |diff| {diff:.3e} <= {EXPORT_ATOL} to the live server, '
+                  f'bit-equal {bool(np.array_equal(got[name], want))}; launches equal to the live request\'s {same} '
+                  f'{json.dumps({k: v for k, v in live_counts[name].items() if v})}')
+
+    # in this process: the artifact's launches, and latency in turns
+    art = load_artifact(path, 'cuda')
+    outs, counts = serve_export_requests(art, req, seed)
+    phase = dict.fromkeys(api.KERNELS, 0)
+    for name, c in counts.items():
+        diff = float(np.abs(outs[name] - live[name]).max())
+        check(c == live_counts[name] and outs[name].shape == live[name].shape and diff <= EXPORT_ATOL,
+              f'artifact (this process) {name}: max |diff| {diff:.3e} <= {EXPORT_ATOL}, launches equal to the live '
+              f'request\'s {c == live_counts[name]}')
+        for k, v in c.items():
+            phase[k] += v
+    for bb in (1, 16):
+        cl, tdim, seeds = req['clouds'][:bb], np.arange(bb) % 2, 1000 + np.arange(bb)
+        logits = server.classify(cl)
+        ms = {'live': [], 'artifact': []}
+        for _ in range(EXPORT_LATENCY_TURNS):
+            for who in ('live', 'artifact', 'artifact', 'live'):
+                srv = server if who == 'live' else art
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.counterfactual(cl, tdim, logits, 1.0, seeds)
+                torch.cuda.synchronize()
+                ms[who].append((time.perf_counter() - t0) * 1e3)
+        # the model call alone on the same device inputs: the live model's
+        # generate_counterfactual against the exported program, in turns
+        with torch.inference_mode():
+            ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
+                   (cl, logits, tdim.astype(np.int64), np.ones((bb, 1), np.float32))]
+            ins.append(server.initial_sampling(seeds))
+            program = art.program('counterfactual', bb)
+            calls = {'live': lambda: server.vqvae.generate_counterfactual(
+                Inputs(cloud=ins[0], initial_sampling=ins[4]), *ins[1:4]).recon, 'artifact': lambda: program(*ins)}
+            alone = {'live': [], 'artifact': []}
+            for _ in range(EXPORT_LATENCY_TURNS):
+                for who in ('live', 'artifact', 'artifact', 'live'):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    calls[who]()
+                    torch.cuda.synchronize()
+                    alone[who].append((time.perf_counter() - t0) * 1e3)
+        busy = {}
+        for who, srv in (('live', server), ('artifact', art)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                srv.counterfactual(cl, tdim, logits, 1.0, seeds)
+                torch.cuda.synchronize()
+            busy[who] = busy_ms(device_events(prof))
+        print(f'export latency batch {bb} (logits given, host clock incl. copies, {2 * EXPORT_LATENCY_TURNS} each in '
+              f'turns live / artifact / artifact / live): live median {np.median(ms["live"]):.3f} ms (quartiles '
+              f'{np.percentile(ms["live"], 25):.3f} / {np.percentile(ms["live"], 75):.3f}), artifact median '
+              f'{np.median(ms["artifact"]):.3f} ms (quartiles {np.percentile(ms["artifact"], 25):.3f} / '
+              f'{np.percentile(ms["artifact"], 75):.3f}); device busy {busy["live"]:.3f} / {busy["artifact"]:.3f} ms; '
+              f'the model call alone on device inputs: live generate_counterfactual median '
+              f'{np.median(alone["live"]):.3f} ms, exported program median {np.median(alone["artifact"]):.3f} ms',
+              flush=True)
+
+    # the CPU artifact against the same model on the CPU
+    cpu_vq = copy.deepcopy(vqvae).cpu()
+    for module in cpu_vq.modules():
+        if getattr(module, 'packed', None) is not None:
+            module.packed = None
+    cpu_server = CounterfactualServer(cpu_vq, copy.deepcopy(classifier).cpu(), buckets=EXPORT_BUCKETS, seed=seed)
+    cpu_art = load_artifact(path, 'cpu')
+    for name, call in (('counterfactual 1', lambda s: s.counterfactual(req['clouds'][:1], 1, None, 1.0, 1000)),
+                       ('generate 1', lambda s: s.generate(1, seed=seed + 5))):
+        t0 = time.perf_counter()
+        got, want = call(cpu_art), call(cpu_server)
+        diff = float(np.abs(got - want).max())
+        check(diff <= EXPORT_ATOL, f'cpu artifact {name} against the model on the CPU: max |diff| {diff:.3e} <= '
+                                   f'{EXPORT_ATOL}, bit-equal {bool(np.array_equal(got, want))} '
+                                   f'({time.perf_counter() - t0:.1f} s)')
+
+    # the cast server's artifact at bucket 16
+    cast = CounterfactualServer(vqvae, classifier, buckets=(16,), seed=seed, cast_bf16=True)
+    cast_path = os.path.join(root, 'artifact_cast')
+    cast_manifest = export_server(cast, cast_path, n, n_classes, platforms=['cuda'])
+    cast_art = load_artifact(cast_path, 'cuda')
+    cl = req['clouds'][:16]
+    for name, call in (('counterfactual 16', lambda s: s.counterfactual(cl, np.arange(16) % 2, None, 1.0,
+                                                                         1000 + np.arange(16))),
+                       ('generate 16', lambda s: s.generate(16, seed=seed + 5))):
+        api.reset_launch_counts()
+        want = call(cast)
+        torch.cuda.synchronize()
+        want_counts = api.launch_counts()
+        got = call(cast_art)
+        torch.cuda.synchronize()
+        got_counts = {k: v - want_counts[k] for k, v in api.launch_counts().items()}
+        diff = float(np.abs(got - want).max())
+        check(cast_manifest['cast_bf16'] and diff <= EXPORT_ATOL and got_counts == want_counts,
+              f'cast artifact {name}: max |diff| {diff:.3e} <= {EXPORT_ATOL} to the live cast server, bit-equal '
+              f'{bool(np.array_equal(got, want))}, launches equal {got_counts == want_counts} (gemm_bf16w '
+              f'{got_counts["gemm_bf16w"]})')
+
+    # opcheck of every serving op on the card, at a path's shapes
+    wae, dec = server.vqvae.w_autoencoder, server.vqvae.decoder
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.from_numpy(req['clouds'][:1]).to(dev)
+    idx = library.knn(x, cfg.data.n_neighbors)
+    feats = torch.randn((1, n, 64), device=dev, generator=g)
+    cvae_t, layers = library.cvae_tensors(wae.packed)
+    t, e, d = wae.n_codes, wae.embedding_dim, wae.encoder.proj_dim
+    out_x = torch.randn((1, cfg.data.n_target_points, 3), device=dev, generator=g)
+    f_out, f_idx, f_mean = library.graph_filter(out_x)
+    cases = {
+        'knn': (x, cfg.data.n_neighbors),
+        'graph_max_pool': (feats, idx),
+        'cvae_cf': (torch.randn((1, t, e), device=dev, generator=g), torch.full((1, n_classes), 1.0 / n_classes,
+                                                                                 device=dev),
+                    cvae_t, layers, list(wae.packed.heads), wae.packed.bf16),
+        'pcgen_mix': (torch.randn((1, cfg.data.n_target_points, dec.packed.map_w.shape[1]), device=dev, generator=g),
+                      torch.randn((1, dec.w_dim), device=dev, generator=g), library.pcgen_tensors(dec.packed),
+                      dec.tau, 0.0),
+        'wformer_encoder': (torch.randn((1, t, d), device=dev, generator=g),
+                            library.stack_tensors(wformer.pack_encoder(wae.encoder.layers), library.ENCODER_KEYS),
+                            wae.encoder.n_heads),
+        'wformer_decoder': (torch.randn((1, t, d), device=dev, generator=g), torch.randn((1, t, d), device=dev,
+                                                                                          generator=g),
+                            library.stack_tensors(wformer.pack_decoder(wae.decoder.layers), library.DECODER_KEYS),
+                            wae.decoder.n_heads),
+        'graph_filter': (out_x.clone().requires_grad_(True),),
+        'graph_filter_backward': (out_x, f_idx, f_mean, torch.randn(out_x.shape, device=dev, generator=g)),
+    }
+    cases['pcgen_general'] = cases['pcgen_mix']
+    for name, op in library.OPS.items():
+        t0 = time.perf_counter()
+        try:
+            result = torch.library.opcheck(op, cases[name])
+            ok, what = all(v == 'SUCCESS' for v in result.values()), json.dumps(result)
+        except Exception as err:  # reported by the check
+            ok, what = False, f'{type(err).__name__}: {str(err)[:300]}'
+        check(ok, f'opcheck pccf::{name} on the card: {what} ({time.perf_counter() - t0:.1f} s)')
+
+    # the ops' dispatch: host time of one call through the op (api) against
+    # the kernel's wrapper called directly, at a batch-1 request's shapes
+    from pccf_torch.kernels import cvae, gather, graph_filter, knn, pcgen
+
+    def host_us(fn) -> float:
+        times = []
+        for _ in range(EXPORT_DISPATCH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return float(np.median(times))
+
+    k = cfg.data.n_neighbors
+    chain_x = torch.randn((1, wae.n_codes, wae.embedding_dim), device=dev, generator=g)
+    chain_p = torch.full((1, n_classes), 1.0 / n_classes, device=dev)
+    m_in, w_in = cases['pcgen_mix'][0], cases['pcgen_mix'][1]
+    slope = act_slope(dec.act)
+    pairs = {
+        'knn': (lambda: api.knn(x, k), lambda: knn.knn_cuda(x, k)),
+        'graph_max_pool': (lambda: api.graph_max_pool(feats, idx), lambda: gather.graph_max_pool_cuda(feats, idx)),
+        'cvae_cf': (lambda: api.cvae_cf(chain_x, chain_p, wae.packed),
+                    lambda: cvae.cvae_cf_cuda(chain_x, chain_p, wae.packed)),
+        'pcgen_mix': (lambda: api.pcgen_mix(m_in, w_in, dec.packed, tau=dec.tau, act_slope=slope),
+                      lambda: pcgen.pcgen_mix_cuda(m_in, w_in, dec.packed, tau=dec.tau, act_slope=slope)),
+        'graph_filter': (lambda: api.graph_filtering(out_x), lambda: graph_filter.graph_filter_cuda(out_x)),
+    }
+    with torch.inference_mode():
+        dispatch = {name: (host_us(via_op), host_us(direct)) for name, (via_op, direct) in pairs.items()}
+    extra = sum(REQUEST_LAUNCHES[name] * (a - b) for name, (a, b) in dispatch.items()) / 1e3
+    print('dispatch, host us a call through the op / the wrapper directly (batch-1 shapes, median of '
+          f'{EXPORT_DISPATCH_REPS}): ' + ', '.join(f'{name} {a:.1f} / {b:.1f}' for name, (a, b) in dispatch.items())
+          + f'; a request\'s launches: {extra:.3f} ms more through the ops', flush=True)
+
+    # NaN debugging: bit-equal requests, and a NaN cloud raising in an encoder module
+    plain = server.counterfactual(req['clouds'][:2], [1, 0], None, 1.0, [7, 8])
+    debug.enable_nan_debugging()
+    try:
+        t0 = time.perf_counter()
+        guarded = server.counterfactual(req['clouds'][:2], [1, 0], None, 1.0, [7, 8])
+        guarded_s = time.perf_counter() - t0
+        bad = req['clouds'][:1].copy()
+        bad[0, 17, 1] = np.nan
+        try:
+            server.counterfactual(bad, 1, np.zeros((1, n_classes), np.float32))
+            raised = 'nothing raised'
+        except FloatingPointError as err:
+            raised = str(err)
+    finally:
+        debug.disable_nan_debugging()
+    check(np.array_equal(guarded, plain), f'enable_nan_debugging: a request of 2 bit-equal to one without it '
+                                          f'({guarded_s * 1e3:.1f} ms with the checks)')
+    check('Encoder' in raised and raised.startswith('NaN'), f'enable_nan_debugging: a NaN cloud raises: {raised}')
+    return phase
 
 
 def cli_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
@@ -2778,11 +3103,15 @@ def tp_ep_pp_phase(seed: int, check, dev: torch.device, root: str, cfg, served_s
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--artifact-worker', nargs=2, metavar=('ARTIFACT', 'DIR'),
+                    help='serve an exported artifact in this process (the export phase starts it)')
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    if args.artifact_worker:
+        return artifact_worker(*args.artifact_worker, args.seed)
     started = time.perf_counter()
     from pccf_torch import config as pc
     from pccf_torch.config import SliceConfig
@@ -3638,6 +3967,17 @@ def main() -> int:
     cast_launches = cast_phase(args.seed, check, dev, cfg, vqvae, classifier, server, requests, kernels, bound)
     print(f'cast phase: {time.perf_counter() - t_cast:.1f} s', flush=True)
 
+    # ---- the main path, serving from exported artifacts -------------------
+    import tempfile
+
+    t_export = time.perf_counter()
+    export_root = tempfile.mkdtemp(prefix='pccf_export_')
+    try:
+        export_launches = export_phase(args.seed, check, dev, export_root, cfg, vqvae, classifier)
+    finally:
+        shutil.rmtree(export_root, ignore_errors=True)
+    print(f'export phase: {time.perf_counter() - t_export:.1f} s', flush=True)
+
     # ---- the main path, generation: sampling from the prior --------------
     # server.generate at n = 1, 16 and 70 (chunks of 64 and 6, the second at
     # bucket 8), without and with probs, then the entry point at its
@@ -3893,11 +4233,12 @@ def main() -> int:
     sampling = torch.randn((2, pts, cfg.autoencoder.decoder.sample_dim), generator=gen)
     noise = gumbel_uniform((2, pts, cfg.autoencoder.decoder.n_components), gen, torch.device('cpu'))
 
-    def one_step(device: torch.device, recon_loss: str):
+    def one_step(device: torch.device, recon_loss: str, train_cfg=tcfg):
         m = build_vqvae(cfg)
         m.load_state_dict(base_state)
         m = m.to(device)
-        tr = Trainer(m, get_autoencoder_loss(objective_cfg(recon_loss)), tcfg, STEPS_PER_EPOCH)
+        tr = Trainer(m, get_autoencoder_loss(objective_cfg(recon_loss)), train_cfg, STEPS_PER_EPOCH)
+        one_step.optimizer = type(tr.optimizer).__name__
         before = {k: p.detach().clone() for k, p in m.named_parameters()}
         cl = small.to(device)
         out = tr.run_step(Inputs(cl, initial_sampling=sampling.to(device)), Targets(cl), noise.to(device))
@@ -3926,6 +4267,18 @@ def main() -> int:
         check(upd <= STEP_UPDATE_REL_L2 and frozen_still,
               f'{label}: AdamW update rel L2 {upd:.2e} <= {STEP_UPDATE_REL_L2}; frozen inner CVAE unmoved '
               f'{frozen_still}')
+
+    # Adam at optax's nesterov and eps_root (pccf_torch.train.runners.OptaxAdam):
+    # one ChamferEMD step on the card against the same step on the CPU
+    adam_cfg = dataclasses.replace(tcfg, optimizer_name='Adam', opt_settings=ADAM_KNOBS)
+    label = f'card vs CPU ChamferEMD step, Adam {dict(ADAM_KNOBS)}'
+    gpu_step, cpu_step = one_step(dev, 'ChamferEMD', adam_cfg), one_step(torch.device('cpu'), 'ChamferEMD', adam_cfg)
+    loss_r = max(abs(gpu_step[0][k] - v) / abs(v) for k, v in cpu_step[0].items())
+    upd = rel_l2(torch.cat([gpu_step[2][k].flatten() for k in cpu_step[1]]),
+                 torch.cat([cpu_step[2][k].flatten() for k in cpu_step[1]]))
+    check(one_step.optimizer == 'OptaxAdam' and loss_r <= STEP_LOSS_RTOL and upd <= STEP_UPDATE_REL_L2,
+          f'{label}: {one_step.optimizer}, losses rel {loss_r:.2e} <= {STEP_LOSS_RTOL}, update rel L2 {upd:.2e} <= '
+          f'{STEP_UPDATE_REL_L2}')
 
     # ---- the main path, the stage-1 entry point under Chamfer and ----------
     # ChamferSinkhorn: the flagship width, its depth cut to 2 epochs over 16
@@ -4850,8 +5203,6 @@ def main() -> int:
 
     # ---- the main path through the experiment's own entry points, then --
     # tuning and the dataset readers
-    import tempfile
-
     root = tempfile.mkdtemp(prefix='pccf_cli_')
     try:
         cli_launches = cli_phase(args.seed, check, dev, root)
@@ -4880,14 +5231,15 @@ def main() -> int:
           f'{json.dumps({k: v for k, v in dp_launches.items() if v})}; auction and SP '
           f'{json.dumps({k: v for k, v in sp_launches.items() if v})}; wide heads '
           f'{json.dumps({k: v for k, v in wide_launches.items() if v})}; TP/EP/PP '
-          f'{json.dumps({k: v for k, v in tep_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in tep_launches.items() if v})}; export '
+          f'{json.dumps({k: v for k, v in export_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
              gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
-             dp_launches, sp_launches, wide_launches, tep_launches)
+             dp_launches, sp_launches, wide_launches, tep_launches, export_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
           'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel / '
-          'auction and SP / wide heads / TP/EP/PP',
+          'auction and SP / wide heads / TP/EP/PP / export',
           flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]

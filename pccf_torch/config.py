@@ -252,6 +252,16 @@ class GenerateConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExportConfig:
+    """The serving artifact's export (user/user_settings.yaml:30-33,
+    ``pccf_torch.export_artifact``)."""
+
+    path: str | None = None  # default: <version_dir>/artifacts/<name>
+    platforms: tuple[str, ...] = ()  # cuda, cpu; () the device the entry point runs on
+    include_generate: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class PlotConfig:
     """Rendering (user/user_settings.yaml:36-39): ``visualize_counterfactuals``
     renders the test (or, outside ``final``, validation) samples at
@@ -278,6 +288,7 @@ class UserConfig:
     # class probabilities towards the target (1: all the way)
     counterfactual_value: float = 1.0
     generate: GenerateConfig = GenerateConfig()  # user/user_settings.yaml:25
+    export: ExportConfig = ExportConfig()  # user/user_settings.yaml:30
     plot: PlotConfig = PlotConfig()  # user/user_settings.yaml:37
     seed: int | None = None  # user/user_settings.yaml:3
     cpu: bool = False  # user/user_settings.yaml:6; the card unless set
@@ -351,8 +362,7 @@ class SliceConfig:
     def from_tree(cls, tree: dict) -> 'SliceConfig':
         """The fields of a composed tree (:func:`pccf_torch.compose.compose`),
         as ``pccf/config/specs.py`` validates them.  Raises ``ValueError`` for
-        a value the port does not take and ``NotImplementedError`` for what it
-        has not ported (``ROADMAP.md``)."""
+        a value the port does not take."""
         d, c, a, w, u = (tree[k] for k in ('data', 'classifier', 'autoencoder', 'w_autoencoder', 'user'))
         _check(a['n_training_output_points'] == d['n_input_points'] and
                a['objective']['n_inference_output_points'] == d['n_target_points'],
@@ -398,11 +408,15 @@ class SliceConfig:
             train=WAutoEncoderTrainConfig(c_kld1=float(w['objective']['c_kld1']),
                                           c_kld2=float(w['objective']['c_kld2']), **_learn(w['train'])))
         g, t, pl = u['generate'], u['trackers'], u['plot']
+        e = {**dataclasses.asdict(ExportConfig()), **(u.get('export') or {})}  # ~user.export: the defaults
         _check(all(int(i) >= 0 for i in pl['sample_indices']), 'user.plot.sample_indices must be non-negative')
         user = UserConfig(
             counterfactual_value=float(u['counterfactual_value']),
             generate=GenerateConfig(batch_size=int(g['batch_size']), bias_dim=int(g['bias_dim']),
                                     bias_value=float(g['bias_value'])),
+            export=ExportConfig(path=None if e['path'] is None else str(e['path']),
+                                platforms=tuple(str(p) for p in e['platforms'] or ()),
+                                include_generate=bool(e['include_generate'])),
             plot=PlotConfig(interactive=bool(pl['interactive']),
                             sample_indices=tuple(int(i) for i in pl['sample_indices'])),
             seed=None if u['seed'] is None else int(u['seed']), cpu=bool(u['cpu']), n_workers=int(u['n_workers']),
@@ -464,8 +478,8 @@ OPT_SETTINGS = {
     'Adam': {'b1', 'b2', 'eps', 'eps_root', 'mu_dtype', 'nesterov'},
     'RMSprop': {'decay', 'eps', 'initial_scale', 'eps_in_sqrt', 'centered', 'momentum', 'nesterov', 'bias_correction'},
 }
-# Adam's settings whose other values torch.optim.Adam does not compute
-ADAM_FIXED = {'eps_root': 0.0, 'mu_dtype': None, 'nesterov': False}
+# the types Adam's first moment may be stored in (optax's mu_dtype; None: the parameter's)
+ADAM_MU_DTYPES = (None, 'float32', 'float16', 'bfloat16')
 
 
 def _learn(train: dict) -> dict:
@@ -478,10 +492,8 @@ def _learn(train: dict) -> dict:
     extra = set(opt) - {'weight_decay'} - OPT_SETTINGS[name]
     _check(not extra, f'{name} takes no settings {sorted(extra)}')
     if name == 'Adam':
-        for key, value in ADAM_FIXED.items():
-            if opt.get(key, value) != value:
-                raise NotImplementedError(f'Adam {key}={opt[key]!r} is not ported (pccf_torch runs Adam with {key}='
-                                          f'{value!r})')
+        _check(opt.get('mu_dtype') in ADAM_MU_DTYPES, f"Adam mu_dtype={opt.get('mu_dtype')!r} is not one of "
+                                                      f'{ADAM_MU_DTYPES}')
     settings = {k: v for k, v in opt.items() if k != 'weight_decay'} if name in ('Adam', 'RMSprop') else {}
     n_subprocesses = _count(train.get('_n_subprocesses', 0), '_n_subprocesses')
     if n_subprocesses and int(train['batch_size']) % n_subprocesses:  # specs.py:255-260

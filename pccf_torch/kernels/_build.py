@@ -186,6 +186,12 @@ def check(name: str, err: int, shapes: str) -> None:
         raise RuntimeError(f'{name}: CUDA error {err} at launch ({shapes})')
 
 
+def check_device(t: torch.Tensor) -> None:
+    """Raise for a tensor on a device with neither a kernel nor a plain
+    version (any but CUDA and the CPU)."""
+    on_cuda(t)
+
+
 def on_cuda(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor (run
     the plain version); any other device has neither and raises."""

@@ -1,10 +1,13 @@
 """Kernel dispatch by tensor device.
 
 A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
-CPU tensor runs the plain PyTorch version.  There is no environment switch
-and no fallback: a kernel that fails to build or launch raises.  The
-functions that training differentiates go through autograd functions whose
-forward and backward dispatch the same way.
+CPU tensor runs the plain PyTorch version; any other device raises.  There
+is no environment switch and no fallback: a kernel that fails to build or
+launch raises.  The kernels the serving endpoints reach are ``torch.ops.pccf``
+custom ops (:mod:`pccf_torch.kernels.library`), which PyTorch dispatches by
+device and ``torch.export`` traces; the functions that only training
+differentiates go through autograd functions whose forward and backward
+dispatch the same way.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from pccf_torch.kernels import (_build, auction_emd as auction_mod, chamfer as chamfer_mod, cvae, emd, gather,
-                                graph_filter, knn as knn_mod, ops, pcgen, sinkhorn, wformer)
+                                graph_filter, knn as knn_mod, library, ops, pcgen, sinkhorn, wformer)
 
 # name -> the CUDA wrapper that counts its launches
 KERNELS = {
@@ -52,8 +55,8 @@ def reset_launch_counts() -> None:
 
 def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     """Self-kNN indices ``(B, N, k)`` int32, self included, distance-sorted."""
-    x = x.detach()
-    return knn_mod.knn_cuda(x, k) if _build.on_cuda(x) else knn_mod.plain(x, k)
+    _build.check_device(x)
+    return library.knn(x.detach(), k)
 
 
 def graph_max_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,8 @@ def graph_max_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cotangent there; otherwise it runs the eval kernel."""
     if torch.is_grad_enabled() and x.requires_grad:
         return gather.GraphMaxPool.apply(x, idx)
-    return gather.graph_max_pool_cuda(x, idx) if _build.on_cuda(x) else gather.plain(x, idx)
+    _build.check_device(x)
+    return library.graph_max_pool(x, idx)
 
 
 def graph_sum_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -79,8 +83,10 @@ def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def graph_filtering(x: torch.Tensor) -> torch.Tensor:
     """PCGen output sharpening (``pccf/kernels/api.py:178-181``): the k = 4
     neighbours, self included, and the three after slot 0 weighted by
-    distance, as one fused pass forward and backward on the card."""
-    return graph_filter.GraphFilter.apply(x)
+    distance, as one fused pass forward and backward on the card (the
+    ``graph_filter`` op and its gradient, ``graph_filter_backward``)."""
+    _build.check_device(x)
+    return library.graph_filter(x)[0]
 
 
 def chamfer(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -129,14 +135,13 @@ def chamfer_sinkhorn_cost(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tenso
 def pcgen_mix(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *, tau: float, act_slope: float) -> torch.Tensor:
     """PCGen map head + components + mix, ``(B, N, 3)``: on the card the
     flagship's kernel where it covers the pack's shapes, else the general
-    one."""
-    if not _build.on_cuda(m):
-        fn = pcgen.plain
-    elif pcgen.flagship(m.shape[-1], pack.dims(), pack.head_w.shape[0]):
-        fn = pcgen.pcgen_mix_cuda
-    else:
-        fn = pcgen.pcgen_general_cuda
-    return fn(m, w, pack, tau=tau, act_slope=act_slope)
+    one (the ``pcgen_mix`` and ``pcgen_general`` ops; on the CPU both are
+    the plain version)."""
+    _build.check_device(m)
+    op = library.pcgen_mix if pcgen.flagship(m.shape[-1], pack.dims(), pack.head_w.shape[0]) else library.pcgen_general
+    tensors = library.pcgen_tensors(pack)
+    with library.caller_pack(tensors, pack):
+        return op(m, w, tensors, tau, act_slope)
 
 
 def pcgen_partial(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *,
@@ -156,18 +161,19 @@ def pcgen_partial(m: torch.Tensor, w: torch.Tensor, pack: pcgen.PCGenPack, *,
 
 def cvae_cf(x: torch.Tensor, probs: torch.Tensor, pack: cvae.CVAEPack) -> torch.Tensor:
     """The deterministic counterfactual CVAE chain, ``(B, T, e)``."""
-    return cvae.cvae_cf_cuda(x, probs, pack) if _build.on_cuda(x) else cvae.plain(x, probs, pack)
+    _build.check_device(x)
+    tensors, layers = library.cvae_tensors(pack)
+    with library.caller_pack(tensors, pack):
+        return library.cvae_cf(x, probs, tensors, layers, list(pack.heads), pack.bf16)
 
 
 def wformer_encoder(x: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
     """A pre-norm encoder stack in eval, ``(B, T, d)``."""
-    if _build.on_cuda(x):
-        return wformer.wformer_encoder_cuda(x, pack, n_heads)
-    return wformer.plain_encoder(x, pack, n_heads)
+    _build.check_device(x)
+    return library.wformer_encoder(x, library.stack_tensors(pack, library.ENCODER_KEYS), n_heads)
 
 
 def wformer_decoder(x: torch.Tensor, memory: torch.Tensor, pack: list[dict], n_heads: int) -> torch.Tensor:
     """A pre-norm decoder stack (self, cross on ``memory``, FF) in eval, ``(B, T, d)``."""
-    if _build.on_cuda(x):
-        return wformer.wformer_decoder_cuda(x, memory, pack, n_heads)
-    return wformer.plain_decoder(x, memory, pack, n_heads)
+    _build.check_device(x)
+    return library.wformer_decoder(x, memory, library.stack_tensors(pack, library.DECODER_KEYS), n_heads)

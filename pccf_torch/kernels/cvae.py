@@ -72,6 +72,8 @@ class CVAEPack:
     heads: tuple[int, int, int]
     bf16: bool = False  # the stacks' matrices are bf16 (the server's cast)
     _cuda: dict | None = dataclasses.field(default=None, repr=False)
+    # the pack as the cvae_cf op takes it (pccf_torch.kernels.library.cvae_tensors), built on first use
+    _flat: tuple | None = dataclasses.field(default=None, repr=False)
 
     def cuda_operands(self) -> dict:
         """The folded weights as ``(out, in)`` contiguous fp32 for the GEMM
@@ -148,11 +150,13 @@ def pack_cvae_cf(wae) -> CVAEPack:
     wcomp, bcomp = _lin(dec.compress.dense)
     wp, bp = _lin(post.prob_proj.dense)
     enc1, enc2, dec_layers = pack_encoder(enc.layers), pack_encoder(post.layers), pack_decoder(dec.layers)
+    # the transposed weights stored as tensors of their own: an exported
+    # program keeps each constant's storage, not a view into a parameter's
     return CVAEPack(
-        win1=win1, add1=add1, enc1=enc1,
-        aw=aw, ab=ab, win2=win2, add2=add2, enc2=enc2,
+        win1=win1.contiguous(), add1=add1, enc1=enc1,
+        aw=aw, ab=ab, win2=win2.contiguous(), add2=add2, enc2=enc2,
         bw=bw, addd=addd, dec=dec_layers,
-        wcomp=wcomp, bcomp=bcomp, prior_z2p=prior_z2p, wp=wp, bp=bp,
+        wcomp=wcomp.contiguous(), bcomp=bcomp, prior_z2p=prior_z2p, wp=wp.contiguous(), bp=bp,
         heads=(enc.n_heads, post.n_heads, dec.n_heads),
         bf16=any(w.dtype == torch.bfloat16 for w in stack_weights(enc1 + enc2 + dec_layers)),
     )

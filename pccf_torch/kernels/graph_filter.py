@@ -1,5 +1,7 @@
-"""Graph filtering as one fused pass: the CUDA kernels ``csrc/graph_filter.cu``,
-their plain versions, and the autograd function behind ``api.graph_filtering``.
+"""Graph filtering as one fused pass: the CUDA kernels ``csrc/graph_filter.cu``
+and their plain versions, which the ``graph_filter`` op and its gradient,
+the ``graph_filter_backward`` op (:mod:`pccf_torch.kernels.library`), run
+behind ``api.graph_filtering``.
 
 Replaces what ``pccf/kernels/api.py:178-181`` composes for graph filtering:
 ``knn_tpu`` at k = 4 (``pallas_knn.py:183``), ``gather_neighbors_tpu``
@@ -177,20 +179,3 @@ def graph_filter_backward_cuda(x: torch.Tensor, idx: torch.Tensor, mean: torch.T
 
 graph_filter_cuda.launches = 0
 graph_filter_backward_cuda.launches = 0
-
-
-class GraphFilter(torch.autograd.Function):
-    """Graph filtering ``(B, N, 3) -> (B, N, 3)``: the fused kernels on a
-    CUDA tensor, the plain versions on a CPU tensor."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out, idx, mean = graph_filter_cuda(x) if _build.on_cuda(x) else plain(x)
-        ctx.save_for_backward(x, idx, mean)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, idx, mean = ctx.saved_tensors
-        g = g.contiguous()
-        return (graph_filter_backward_cuda if _build.on_cuda(g) else plain_backward)(x, idx, mean, g)

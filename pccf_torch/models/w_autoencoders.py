@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pccf_torch import host
 from pccf_torch.config import SliceConfig
 from pccf_torch.data.structures import Outputs, WInputs
 from pccf_torch.dist import mesh
@@ -192,22 +193,19 @@ class WAutoEncoder(nn.Module):
         :meth:`z1_draws`; the class probabilities ``(B, n_classes)``; z2's
         standard normal ``(B, n_codes, z2_dim)``) and returned as ``(z1's
         standard normal, z2's, the probabilities)``, with the chosen
-        pseudo-inputs last where the model has them."""
-        z1 = self.z1_draws(batch_size, generator)
-        probs = self.sample_prob(batch_size, generator)
-        eps2 = torch.randn((batch_size, self.n_codes, self.z2_dim), generator=generator, device=generator.device)
-        return (z1[0], eps2, probs, *z1[1:])
+        pseudo-inputs last where the model has them
+        (:func:`pccf_torch.host.generation_noise`, which an exported
+        artifact draws without the model)."""
+        return host.generation_noise(batch_size, generator, n_codes=self.n_codes, z1_dim=self.z1_dim,
+                                     z2_dim=self.z2_dim, n_classes=self.n_classes, conditional=self.conditional,
+                                     n_pseudo_inputs=self.n_pseudo_inputs)
 
     def z1_draws(self, batch_size: int, generator: torch.Generator) -> tuple[torch.Tensor, ...]:
         """The draws of z1's prior: a standard normal ``(B, 1, z1_dim)``; with
         pseudo-inputs, a standard normal ``(B, n_codes, z1_dim)`` and the
         pseudo-input each sample is drawn from ``(B,)`` (JAX draws the
         choice first)."""
-        dev = generator.device
-        if self.n_pseudo_inputs == 0:
-            return (torch.randn((batch_size, 1, self.z1_dim), generator=generator, device=dev),)
-        which = torch.randint(0, self.n_pseudo_inputs, (batch_size,), generator=generator, device=dev)
-        return torch.randn((batch_size, self.n_codes, self.z1_dim), generator=generator, device=dev), which
+        return host.z1_draws(batch_size, generator, self.n_codes, self.z1_dim, self.n_pseudo_inputs)
 
     def sample_z1_prior(self, batch_size: int = 1, generator: torch.Generator | None = None,
                         draws: tuple[torch.Tensor, ...] | None = None) -> torch.Tensor:
@@ -228,15 +226,10 @@ class WAutoEncoder(nn.Module):
         return eps * torch.exp(0.5 * pseudo.pseudo_log_var1[which]) + pseudo.pseudo_mu1[which]
 
     def sample_prob(self, batch_size: int, generator: torch.Generator) -> torch.Tensor:
-        """Class probabilities ``(B, n_classes)`` (``w_autoencoders.py:225-231``):
-        Dirichlet(1) for the conditional model, else uniform.  With every
-        concentration 1 the Dirichlet is i.i.d. Exp(1) draws divided by their
-        sum, drawn with ``exponential_`` because
-        ``torch.distributions.Dirichlet.sample`` takes no generator."""
-        if not self.conditional:
-            return torch.full((batch_size, self.n_classes), 1.0 / self.n_classes, device=generator.device)
-        e = torch.empty((batch_size, self.n_classes), device=generator.device).exponential_(generator=generator)
-        return e / e.sum(dim=1, keepdim=True)
+        """Class probabilities ``(B, n_classes)`` (``w_autoencoders.py:225-231``,
+        :func:`pccf_torch.host.class_probs`): Dirichlet(1) for the
+        conditional model, else uniform."""
+        return host.class_probs(batch_size, generator, self.n_classes, self.conditional)
 
     def fused_ok(self) -> bool:
         """``_fused_cf_ok`` (``w_autoencoders.py:115-148``): transformer nets

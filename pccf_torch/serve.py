@@ -10,7 +10,8 @@ Kept from the JAX server:
   ``initial_sampling`` of each request is drawn from a ``torch.Generator``
   seeded by ``(server seed, request seed)``, so a request's output does not
   depend on how it was batched or padded.  The numbers differ from JAX's
-  ``fold_in`` draws.
+  ``fold_in`` draws.  The buckets and the draws live in :mod:`pccf_torch.host`,
+  which an exported artifact (:mod:`pccf_torch.export`) draws from too.
 - :meth:`CounterfactualServer.counterfactual_async`, which dispatches every
   chunk, schedules each result's copy into pinned host memory and returns a
   :class:`ServeFuture` without waiting; :meth:`counterfactual` is its
@@ -56,27 +57,13 @@ import numpy as np
 import torch
 from torch.nn.utils import parametrize
 
+from pccf_torch import host
 from pccf_torch.data.structures import Inputs
+from pccf_torch.host import DEFAULT_BUCKETS, next_bucket, pad_batch
 from pccf_torch.models.w_autoencoders import GenerationNoise
 
-DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
-# the spawn key of generation's seed sequences: their entropy is then longer
-# than any request's (server seed, request seed), so the streams of the two
-# never coincide
-GENERATION_STREAM = 1
-
-
-def next_bucket(n: int, buckets: Sequence[int]) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return int(buckets[-1])
-
-
-def pad_batch(x: np.ndarray, b: int) -> np.ndarray:
-    if x.shape[0] == b:
-        return x
-    return np.pad(x, [(0, b - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+__all__ = ['DEFAULT_BUCKETS', 'CounterfactualServer', 'ServeFuture', 'bf16_copy', 'next_bucket', 'on_device',
+           'pad_batch', 'stored_dtypes']
 
 
 class _Widen(torch.nn.Module):
@@ -121,11 +108,6 @@ def on_device(device: torch.device) -> contextlib.AbstractContextManager:
     """``device`` as the current card, nothing on the CPU: a kernel launches
     on the current card's stream, so a replica's work runs under its card."""
     return torch.cuda.device(device) if device.type == 'cuda' else contextlib.nullcontext()
-
-
-def _host_generator(entropy: list[int], spawn_key: tuple[int, ...] = ()) -> torch.Generator:
-    state = np.random.SeedSequence(entropy, spawn_key=spawn_key).generate_state(2, np.uint32)
-    return torch.Generator().manual_seed(int(state[0]) << 32 | int(state[1]))
 
 
 class ServeFuture:
@@ -237,15 +219,13 @@ class CounterfactualServer:
     def initial_sampling(self, seeds: np.ndarray) -> torch.Tensor:
         """``(len(seeds), n_out, sample_dim)`` decoder scaffold, one generator
         per request seeded by (server seed, request seed)."""
-        draws = [torch.randn((self.n_out, self.sample_dim), generator=_host_generator([self.seed, int(s)]))
-                 for s in seeds]
-        return self._to_device(torch.stack(draws))
+        return self._to_device(host.initial_sampling(self.seed, seeds, self.n_out, self.sample_dim))
 
     def generation_draws(self, b: int, seed: int, chunk: int) -> tuple[GenerationNoise, torch.Tensor]:
         """The latent draws and the decoder scaffold of one generation chunk
         at bucket ``b``, on the host from one generator seeded by (server
         seed, seed, chunk) under generation's own spawn key."""
-        gen = _host_generator([self.seed, int(seed), int(chunk)], (GENERATION_STREAM,))
+        gen = host.generation_generator(self.seed, seed, chunk)
         noise = self.vqvae.w_autoencoder.sample_noise(b, gen)
         return noise, torch.randn((b, self.n_out, self.sample_dim), generator=gen)
 

@@ -468,18 +468,91 @@ class RMSprop(torch.optim.Optimizer):
                 p.add_(update)
 
 
+# Adam's settings at which torch.optim.Adam computes optax.adam; any other
+# value of one of them runs :class:`OptaxAdam`
+TORCH_ADAM = {'eps_root': 0.0, 'mu_dtype': None, 'nesterov': False}
+
+
+def _bias_corrected(x: torch.Tensor, decay: float, n: int) -> torch.Tensor:
+    """``x / (1 - decay^n)``, the correction in float32 as optax's."""
+    return x / (1 - torch.tensor(decay, dtype=torch.float32) ** n).to(x.dtype)
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.chain(add_decayed_weights(weight_decay), adam(lr, b1, b2, eps,
+    eps_root, mu_dtype, nesterov))`` (``pccf/config/specs.py:77-80``, optax
+    0.2.6) in its own arithmetic, for the settings ``torch.optim.Adam`` does
+    not take: ``g += weight_decay * p``; ``mu = (1 - b1) g + b1 mu`` and
+    ``nu = (1 - b2) g² + b2 nu``, the first moment stored in ``mu_dtype``
+    (optax's ``b1 * mu`` is in that type, its weak-typed ``b1`` rounded to
+    it); ``m̂ = mu / (1 - b1^t)``, or with ``nesterov``
+    ``b1 mu / (1 - b1^(t+1)) + (1 - b1) g / (1 - b1^t)``; ``v̂ = nu / (1 -
+    b2^t)``, the corrections ``1 - b^t`` in float32; the update ``-lr m̂ /
+    (sqrt(v̂ + eps_root) + eps)``.  A default Adam runs ``torch.optim.Adam``
+    and keeps its bits."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, eps_root: float = 0.0, mu_dtype: str | None = None,
+                 nesterov: bool = False) -> None:
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
+                                      mu_dtype=mu_dtype, nesterov=nesterov))
+
+    @staticmethod
+    def mu_type(group: dict, p: torch.Tensor) -> torch.dtype:
+        return getattr(torch, group['mu_dtype']) if group['mu_dtype'] else p.dtype
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """The state back, the first moment in ``mu_dtype`` again
+        (``Optimizer.load_state_dict`` casts every moment to its parameter's
+        type; the values are exact in both)."""
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group['params']:
+                if 'mu' in self.state.get(p, {}):
+                    self.state[p]['mu'] = self.state[p]['mu'].to(self.mu_type(group, p))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group['b1'], group['b2']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                g = p.grad + group['weight_decay'] * p if group['weight_decay'] else p.grad
+                state = self.state[p]
+                if not state:
+                    state['count'] = 0
+                    state['mu'] = torch.zeros_like(p, dtype=self.mu_type(group, p))
+                    state['nu'] = torch.zeros_like(p)
+                mu = (1 - b1) * g + torch.tensor(b1, dtype=state['mu'].dtype) * state['mu']
+                nu = (1 - b2) * (g * g) + b2 * state['nu']
+                state['count'] += 1
+                t = state['count']
+                if group['nesterov']:
+                    mu_hat = b1 * _bias_corrected(mu, b1, t + 1) + (1 - b1) * _bias_corrected(g, b1, t)
+                else:
+                    mu_hat = _bias_corrected(mu, b1, t)
+                update = mu_hat / (torch.sqrt(_bias_corrected(nu, b2, t) + group['eps_root']) + group['eps'])
+                p.add_(update * -group['lr'])
+                state['mu'], state['nu'] = mu.to(state['mu'].dtype), nu
+
+
 def make_optimizer(cfg, params: list[torch.nn.Parameter], lr: float) -> torch.optim.Optimizer:
     """The optimiser ``cfg.optimizer_name`` names, as ``pccf/config/specs.py``
     ``get_optimizer`` builds it: AdamW with decoupled decay; SGD with the
     decay added to the gradient and optional momentum (no dampening); Adam
     with the decay added to the gradient (``torch.optim.Adam``'s
-    ``weight_decay``, optax's ``b1``, ``b2`` and ``eps``); :class:`RMSprop`."""
+    ``weight_decay``, optax's ``b1``, ``b2`` and ``eps``; :class:`OptaxAdam`
+    where ``eps_root``, ``mu_dtype`` or ``nesterov`` leaves its default);
+    :class:`RMSprop`."""
     settings = dict(cfg.opt_settings)
     if cfg.optimizer_name == 'AdamW':
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.optimizer_name == 'SGD':
         return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum, weight_decay=cfg.weight_decay)
     if cfg.optimizer_name == 'Adam':
+        if any(settings.get(k, v) != v for k, v in TORCH_ADAM.items()):
+            return OptaxAdam(params, lr=lr, weight_decay=cfg.weight_decay, **settings)
         return torch.optim.Adam(params, lr=lr, betas=(float(settings.get('b1', 0.9)), float(settings.get('b2', 0.999))),
                                 eps=float(settings.get('eps', 1e-8)), weight_decay=cfg.weight_decay)
     if cfg.optimizer_name == 'RMSprop':
@@ -492,8 +565,9 @@ def align_counts(optimizer: torch.optim.Optimizer, step: int) -> None:
     """Set the optimiser's step counts to ``step`` where a resume from
     weights alone starts it afresh (``runners.py:515-536``
     ``_set_opt_counts``): Adam's and AdamW's bias correction and
-    :class:`RMSprop`'s count continue from the restored epoch, with zero
-    moments; SGD keeps no count.  At step 0 nothing changes."""
+    :class:`OptaxAdam`'s and :class:`RMSprop`'s counts continue from the
+    restored epoch, with zero moments; SGD keeps no count.  At step 0
+    nothing changes."""
     if not step:
         return
     for group in optimizer.param_groups:
@@ -501,6 +575,9 @@ def align_counts(optimizer: torch.optim.Optimizer, step: int) -> None:
             if isinstance(optimizer, (torch.optim.Adam, torch.optim.AdamW)):
                 optimizer.state[p] = {'step': torch.tensor(float(step)), 'exp_avg': torch.zeros_like(p),
                                       'exp_avg_sq': torch.zeros_like(p)}
+            elif isinstance(optimizer, OptaxAdam):
+                optimizer.state[p] = {'count': step, 'mu': torch.zeros_like(p, dtype=optimizer.mu_type(group, p)),
+                                      'nu': torch.zeros_like(p)}
             elif isinstance(optimizer, RMSprop):
                 state = {'count': step, 'nu': torch.full_like(p, group['initial_scale'])}
                 if group['centered']:

@@ -207,9 +207,9 @@ def test_from_tree_of_the_flagship_is_the_flagship():
 def test_from_tree_refuses_what_the_port_does_not_run():
     with pytest.raises(ValueError, match='Global batch size 16 not divisible by number of devices 3'):
         cli.get_config(['user.n_subprocesses=3'])
-    with pytest.raises(NotImplementedError, match='nesterov'):
+    with pytest.raises(ValueError, match='mu_dtype'):
         cli.get_config(['classifier.train.learn.optimizer_name=Adam',
-                        '+classifier.train.learn.opt_settings.nesterov=true'])
+                        '+classifier.train.learn.opt_settings.mu_dtype=int8'])
     with pytest.raises(ValueError, match='alpha'):
         cli.get_config(['classifier.train.learn.optimizer_name=RMSprop',
                         '+classifier.train.learn.opt_settings.alpha=0.9'])

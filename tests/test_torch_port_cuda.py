@@ -55,7 +55,11 @@ assignment, nearest indices and counts bit-equal to its plain version (the
 same squared distances and the same float operations in each bid), its
 distances equal, with its state in shared memory and in global scratch, its
 gradient rel-L2 1e-6 against the CPU; api.nn_distance's outputs bit-exact
-inside the kernel's gate and its gradient rel-L2 1e-6 against the CPU.
+inside the kernel's gate and its gradient rel-L2 1e-6 against the CPU; the
+serving kernels as torch.ops.pccf ops under torch.library.opcheck on CUDA
+tensors; an exported artifact's requests, classification and generation on
+the card within 1e-5 of the live server with the same launches, and its CPU
+programs within 1e-5 of the same model on the CPU.
 """
 
 import numpy as np
@@ -1808,3 +1812,73 @@ def test_pcgen_partial_masks_the_tail_tile(dev, n):
         got_l, got_h = pcgen.pcgen_mix_partial_cuda(m, w, share, act_slope=0.0)
         want_l, want_h = pcgen.plain_partial(m, w, share, act_slope=0.0)
         assert _rel_l2(got_l, want_l) <= PCGEN_REL_L2 and _rel_l2(got_h, want_h) <= PCGEN_REL_L2
+
+
+# -------------------------------------------- the serving ops and artifacts
+
+
+def _op_cases(dev):
+    """Each serving op's arguments on the card, at the small models' shapes."""
+    from pccf_torch.kernels import library
+
+    vq, _ = _small_models()
+    vq = vq.to(dev)
+    vq.prepack()
+    wae = vq.w_autoencoder
+    x = _randn((2, 256, 3), 30, dev)
+    out_x = _randn((2, 256, 3), 31, dev)
+    _, f_idx, f_mean = library.graph_filter(out_x)
+    tokens = _randn((2, 128, 128), 32, dev)
+    m = torch.relu(_randn((2, 256, 8), 33, dev))
+    cases = {
+        'knn': (x, 8),
+        'graph_max_pool': (_randn((2, 256, 64), 34, dev), library.knn(x, 8)),
+        'cvae_cf': (_randn((2, 128, 4), 35, dev), torch.softmax(_randn((2, 2), 36, dev), -1),
+                    *library.cvae_tensors(wae.packed), list(wae.packed.heads), False),
+        'pcgen_mix': (m, _randn((2, 512), 37, dev), library.pcgen_tensors(vq.decoder.packed), 5.0, 0.0),
+        'wformer_encoder': (tokens, library.stack_tensors(wformer.pack_encoder(wae.encoder.layers),
+                                                          library.ENCODER_KEYS), 2),
+        'wformer_decoder': (tokens, _randn((2, 128, 128), 38, dev),
+                            library.stack_tensors(wformer.pack_decoder(wae.decoder.layers), library.DECODER_KEYS), 2),
+        'graph_filter': (out_x.clone().requires_grad_(True),),
+        'graph_filter_backward': (out_x, f_idx, f_mean, _randn((2, 256, 3), 39, dev)),
+    }
+    cases['pcgen_general'] = cases['pcgen_mix']
+    return cases
+
+
+@pytest.mark.parametrize('name', ['knn', 'graph_max_pool', 'cvae_cf', 'pcgen_mix', 'pcgen_general', 'wformer_encoder',
+                                  'wformer_decoder', 'graph_filter', 'graph_filter_backward'])
+def test_serving_ops_pass_opcheck_on_cuda(dev, name):
+    """Schema, autograd registration, fake kernel (shapes and types of the
+    kernel's outputs, kNN's int32) and AOT dispatch of each ``torch.ops.pccf``
+    op on CUDA tensors, where it launches the hand-written kernel."""
+    from pccf_torch.kernels import library
+
+    before = api.launch_counts()
+    torch.library.opcheck(library.OPS[name], _op_cases(dev)[name])
+    assert api.launch_counts()[name] > before[name]
+
+
+def test_artifact_on_the_card_matches_the_live_server(card_and_cpu_servers, tmp_path):
+    """The card server exported for the card and the CPU: the card artifact's
+    requests (a chunked one too) and generation within 1e-5 of the live
+    server's with the same launches, the CPU artifact within 1e-5 of the
+    same model on the CPU."""
+    from pccf_torch.export import export_server, load_artifact
+
+    card, cpu = card_and_cpu_servers
+    manifest = export_server(card, tmp_path, 256, 2, platforms=['cuda', 'cpu'])
+    assert manifest['platforms'] == ['cuda', 'cpu']
+    art, cpu_art = load_artifact(tmp_path, 'cuda'), load_artifact(tmp_path, 'cpu')
+    clouds = (np.random.default_rng(21).standard_normal((6, 256, 3)) / 2).astype(np.float32)
+    for call in (lambda s: s.counterfactual(clouds, np.arange(6) % 2, None, 0.75, np.arange(6)),
+                 lambda s: s.classify(clouds[:3]), lambda s: s.generate(5, seed=4)):
+        api.reset_launch_counts()
+        want = call(card)
+        want_counts = api.launch_counts()
+        api.reset_launch_counts()
+        got = call(art)
+        assert api.launch_counts() == want_counts
+        assert np.abs(got - want).max() <= 1e-5
+        assert np.abs(call(cpu_art) - call(cpu)).max() <= 1e-5

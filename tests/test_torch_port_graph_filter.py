@@ -1,7 +1,9 @@
 """Graph filtering's fused pass (``pccf_torch/kernels/graph_filter.py``) on the CPU.
 
-``api.graph_filtering`` runs ``GraphFilter``, whose CPU path is the plain
-forward (``knn.plain``, then ``ops.graph_filtering_with_idx``) and the
+``api.graph_filtering`` runs the ``pccf::graph_filter`` op and its gradient,
+the ``pccf::graph_filter_backward`` op (``pccf_torch/kernels/library.py``),
+whose CPU implementations are the plain forward (``knn.plain``, then
+``ops.graph_filtering_with_idx``) and the
 closed-form backward written in the order of ``csrc/graph_filter.cu``'s
 backward kernels (four rows a point, then the row scatter).  Its value and
 gradient are held against ``pccf.kernels.api.graph_filtering`` and
@@ -35,7 +37,7 @@ import pytest
 import torch
 
 from pccf.kernels import api as japi, ops as jops
-from pccf_torch.kernels import api, graph_filter, ops
+from pccf_torch.kernels import api, graph_filter, library, ops
 
 torch.set_num_threads(1)
 
@@ -91,6 +93,7 @@ def test_closed_form_backward_matches_autograd(kind):
     xr = x.clone().requires_grad_(True)
     torch.sum(ops.graph_filtering_with_idx(xr, idx) * g).backward()
     want, got = xr.grad, graph_filter.plain_backward(x, idx, mean, g)
+    assert torch.equal(library.graph_filter_backward(x, idx, mean, g), got)  # the op's CPU implementation
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-5
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
