@@ -170,6 +170,23 @@ filtering on):
   Chamfer call, each rank's peak memory for ``sp_match_cost`` beside the
   one device's.
 
+- the quality tools (``quality_phase``), through their ``main``s as
+  ``python -m pccf_torch.tools.<name>`` runs them: ``quality_run --smoke``
+  (every key of the JAX tool's record), then ``quality_run`` at the flagship
+  widths (2048 points, k = 25, w_dim 1024) with epochs cut to 1 / 1 / 1 on
+  64 train and 32 test clouds of the 4-class surrogate (its launches: kNN,
+  the EMD, the CVAE chain, PCGen and graph filtering among them),
+  ``cf_anatomy`` on that run's checkpoints (its ``full`` mode, the nets one
+  by one, against ``generate_counterfactual``'s fused chain on a batch of
+  16: codes and clouds), and ``flip_probe``'s regression case
+  (``tests/test_flip_probe.py``: seed 0, a flip rate of at least 0.6, a
+  final MSE below 60);
+- the stage attribution (``attribution_phase``): ``profile_cf``,
+  ``profile_enc``, ``profile_wae`` and ``tools/profile_train`` at the JAX
+  scripts' sizes on ``pccf_torch.utils.timing.marginal_time`` (every
+  marginal positive), and the knn step of ``profile_enc`` at C = 128 timed
+  by ``marginal_time`` and by ``time_ms`` in the same run, within 10%.
+
 Each path must have launched every kernel it runs (launch counts set to 0
 just before the path and read just after); every stage-1 step also the
 exact counts of the kernels graph filtering's fused pass took over
@@ -188,6 +205,15 @@ versions and the same on a second call, its plan (``graph_filter.filter_plan``)
 equal to the library's, each timed beside the chain it replaced (kNN, the
 gather and the eager tail; autograd through the gather and the tail
 backward).
+
+kNN and graph filtering on clouds with a NaN point (``nan_cloud_phase``):
+kNN at batch 1, 5 and 16 x C 3, 64, 128 x k 4, 25 and the filter at batch 1,
+8 and 16, one cloud of each batch with a NaN point, on integer coordinates
+(exact distances on every route): every list equal to the plain version's
+index for index (the NaN after every number, the NaN centre's list 0 ..
+k-1), the other clouds' lists as without the NaN cloud, NaN points at the
+batch-1 split boundaries, the filter's NaN cloud NaN as the plain
+version's.
 
 kNN is checked and timed at serving's batch 1, 5 and 16, at stage 1's 8, at
 stage 2's 32 and at the suites' chunks of 64 and 58; at batch 1 the kernel
@@ -3100,6 +3126,220 @@ def tp_ep_pp_phase(seed: int, check, dev: torch.device, root: str, cfg, served_s
     return total
 
 
+# ------------------------------------------------ NaN clouds, quality, attribution
+
+NAN_BATCHES = (1, 5, 16)  # kNN's: serving's batches, the candidates split 4 ways at 1
+NAN_FILTER_BATCHES = (1, 8, 16)
+NAN_POINT = 5  # the NaN point of the NaN cloud (also the NaN centre whose row is checked)
+QUALITY_SMOKE = ('--smoke', '--epochs-cls', '2', '--epochs-ae', '2', '--epochs-wae', '2', '--n-train', '32',
+                 '--n-test', '16')
+QUALITY_FLAGSHIP = ('--epochs-cls', '1', '--epochs-ae', '1', '--epochs-wae', '1', '--n-train', '64',
+                    '--n-test', '32')
+QUALITY_KERNELS = ('knn', 'chamfer_match_cost', 'cvae_cf', 'pcgen_mix', 'graph_filter')  # the flagship run's
+FLIP_CASE = dict(epochs=200, beta_z1=2.0, beta_z2=4.0, lr=5e-3, n_per_class=32, anneal_frac=0.4, seed=0)
+FLIP_RATE_MIN, FLIP_MSE_MAX = 0.6, 60.0  # tests/test_flip_probe.py's asserts
+MARGINAL_AGREEMENT = 0.10  # the knn step's marginal time against time_ms, relative
+
+
+def nan_grid(rng: np.random.Generator, b: int, c: int, n: int, dev: torch.device, cloud: int,
+             points: tuple[int, ...] = (NAN_POINT,)) -> torch.Tensor:
+    """``(B, N, C)`` integer coordinates in [-8, 8], whose squared distances
+    the kernels and the plain product compute exactly (3xTF32 splits an
+    integer below 2^11 with a zero small part), so the lists of the two are
+    comparable index for index, ties included; cloud ``cloud`` has NaN
+    points at ``points``."""
+    x = torch.from_numpy(rng.integers(-8, 9, (b, n, c)).astype(np.float32))
+    x[cloud, list(points), 0] = float('nan')
+    return x.to(dev)
+
+
+@torch.inference_mode()
+def nan_cloud_phase(seed: int, check, dev: torch.device, n: int) -> None:
+    """kNN and graph filtering on batches where one cloud holds a NaN point:
+    every list equal to the plain version's index for index (the NaN after
+    every number; the NaN centre's list 0 .. k-1), the other clouds' lists
+    those they get without the NaN cloud; graph filtering's NaN cloud NaN as
+    the plain version's, the others within FILTER_REL_MAX.  Kernel checks, no
+    path: their launches count nowhere."""
+    from pccf_torch.kernels import graph_filter, knn, ops
+
+    rng = np.random.default_rng(seed + 24)
+    for b in NAN_BATCHES:
+        for c in (3, 64, 128):
+            for k in (4, 25):
+                bad = b // 2
+                x = nan_grid(rng, b, c, n, dev, bad)
+                got, want = knn.knn_cuda(x, k), knn.plain(x, k)
+                same = torch.equal(got, want)
+                centre = got[bad, NAN_POINT].tolist() == list(range(k))
+                absent = not bool((got[bad, :NAN_POINT] == NAN_POINT).any())
+                rest = b == 1 or torch.equal(torch.cat([got[:bad], got[bad + 1:]]),
+                                             knn.knn_cuda(torch.cat([x[:bad], x[bad + 1:]]).contiguous(), k))
+                split_same = b > 1 or torch.equal(got, knn.knn_cuda(x, k, n_splits=1))
+                check(same and centre and absent and rest and split_same,
+                      f'knn NaN cloud B={b} C={c} k={k} ({knn.splits(b, n)} split(s)): lists equal the plain '
+                      f'version\'s {same}, the NaN centre\'s row 0..{k - 1} {centre}, the NaN point in no finite '
+                      f'list {absent}, the other clouds as without it {rest}, equal unsplit {split_same}')
+    # NaN points either side of the batch-1 split boundaries (4 splits of 512 candidates)
+    x = nan_grid(rng, 1, 64, n, dev, 0, points=(0, 511, 512, 1024, 2047))
+    ok = all(torch.equal(knn.knn_cuda(x, k, n_splits=s), knn.plain(x, k)) for k in (4, 25) for s in (None, 1, 4, 16))
+    check(ok, 'knn NaN points at 0, 511, 512, 1024, 2047 (split boundaries), B=1 C=64, k 4 and 25, 1/4/16 splits: '
+              f'equal to the plain version\'s {ok}')
+    for b in NAN_FILTER_BATCHES:
+        x = nan_grid(rng, b, 3, n, dev, b - 1, points=(NAN_POINT, n - 1))
+        out, idx, mean = graph_filter.graph_filter_cuda(x)
+        want = ops.graph_filtering_with_idx(x, knn.plain(x, 4))
+        same = torch.equal(idx, knn.plain(x, 4)) and torch.equal(idx, knn.knn_cuda(x, 4))
+        nan_out = bool(torch.isnan(out[b - 1]).all()) and bool(torch.isnan(want[b - 1]).all()) \
+            and bool(mean[b - 1].isnan())
+        err = rel_max(out[:-1], want[:-1]) if b > 1 else 0.0
+        rest = b == 1 or torch.equal(idx[:-1], graph_filter.graph_filter_cuda(x[:-1].contiguous())[1])
+        check(same and nan_out and err <= FILTER_REL_MAX and rest and idx[b - 1, NAN_POINT].tolist() == [0, 1, 2, 3],
+              f'graph_filter NaN cloud B={b}: indices equal the plain kNN\'s and knn_cuda(x, 4)\'s {same}, the NaN '
+              f'centre\'s 0..3, the NaN cloud\'s output and mean NaN as the plain version\'s {nan_out}, the others '
+              f'rel max diff {err:.2e} <= {FILTER_REL_MAX}, their lists as without it {rest}')
+
+
+def quality_phase(seed: int, check, dev: torch.device, root: str) -> dict[str, int]:
+    """The quality tools on the card through ``python -m``'s ``main``s:
+    ``quality_run --smoke`` (every record key), a run at the flagship widths
+    with epochs cut to 1 / 1 / 1 on 64 train and 32 test clouds (its launches:
+    every kernel of QUALITY_KERNELS), ``cf_anatomy`` on that run's checkpoints
+    (its ``full`` mode against the served counterfactual: the stacks one by
+    one against the fused chain), and ``flip_probe``'s regression case.
+    Returns the launches of the flagship run, cf_anatomy and flip_probe."""
+    from pccf_torch.data.dataset import get_datasets
+    from pccf_torch import cli
+    from pccf_torch.data.protocols import Singleton
+    from pccf_torch.experiment import Experiment
+    from pccf_torch.kernels import api
+    from pccf_torch.tools import cf_anatomy, flip_probe, quality_run
+    from pccf_torch.train.runners import Loader
+    from pccf_torch.train.w_autoencoder import load_models
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    saved_env = {k: os.environ.get(k) for k in ('ROOT_EXP_DIR', 'DATASET_DIR')}
+    try:
+        os.environ['DATASET_DIR'] = os.path.join(root, 'quality_data')
+        for name, flags in (('smoke', QUALITY_SMOKE), ('flagship', QUALITY_FLAGSHIP)):
+            os.environ['ROOT_EXP_DIR'] = os.path.join(root, 'quality_' + name)
+            api.reset_launch_counts()
+            t0 = time.perf_counter()
+            rec = quality_run.main([*flags, '--tag', name, '--out', os.path.join(root, f'quality_{name}.json')])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = api.launch_counts()
+            missing = quality_run.missing_keys(rec)
+            ev = rec['stages']['evaluate']
+            ok = not missing and math.isfinite(rec['stages']['autoencoder']['final_test_chamfer']) \
+                and 0.0 <= ev['counterfeit_overall']['Accuracy'] <= 1.0
+            if name == 'flagship':
+                for k, v in counts.items():
+                    total[k] += v
+                absent = [k for k in QUALITY_KERNELS if not counts[k]]
+                ok = ok and not absent and rec['config']['points'] == 2048
+            else:
+                absent = []
+            check(ok, f'quality_run {" ".join(flags)} on the card: {seconds:.1f} s (stages '
+                      f'{json.dumps({s: v["wall_s"] for s, v in rec["stages"].items()})}), record keys missing '
+                      f'{missing}, counterfeit overall {ev["counterfeit_overall"]["Accuracy"]:.4f}, reconstructed '
+                      f'{ev["suites"]["ClassificationReconstructed"]["Accuracy"]:.4f}, final KLDs '
+                      f'{json.dumps(rec["stages"]["w_autoencoder"]["final_klds"])}; launches '
+                      f'{json.dumps({k: v for k, v in counts.items() if v})}, none of {QUALITY_KERNELS} missing '
+                      f'{absent}')
+
+        # cf_anatomy on the flagship run's checkpoints, then its full mode
+        # against the served counterfactual (the fused chain) on one batch
+        os.environ['ROOT_EXP_DIR'] = os.path.join(root, 'quality_flagship')
+        api.reset_launch_counts()
+        t0 = time.perf_counter()
+        anat = cf_anatomy.main(['--tag', 'flagship', '--n-train', '64', '--n-test', '32',
+                                '--out', os.path.join(root, 'cf_anatomy.json')])
+        seconds = time.perf_counter() - t0
+        Singleton.reset_all()
+        cfg, tree = cli.get_config(cf_anatomy.overrides(64, 32, False))
+        with Experiment(cfg, tree, name='flagship').create_run(record=False), torch.no_grad():
+            judge, vq = load_models(cfg, dev)
+            inputs, _ = next(iter(Loader(get_datasets(cfg, dev)[1], cf_anatomy.BATCH).batches()))
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            inputs = cf_anatomy.with_sampling(vq, inputs, gen)
+            logits = judge(inputs)
+            variant = cf_anatomy.cf_variant(vq, inputs, logits, 1, 1.0, 0)
+            served = vq.generate_counterfactual(inputs, logits, 1, 1.0)
+        counts = api.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        agree = float((variant.idx == served.idx).float().mean())
+        same = (variant.idx == served.idx).all(dim=1)
+        r = rel_l2(variant.recon[same], served.recon[same]) if same.any() else float('inf')
+        modes = anat['modes']
+        check(set(modes) == set(cf_anatomy.MODES) and agree >= CODE_AGREEMENT and r <= RECON_REL_L2
+              and counts['cvae_cf'] >= 1 and counts['wformer_encoder'] >= 1,
+              f'cf_anatomy on the flagship run ({seconds:.1f} s): overall '
+              + ', '.join(f'{m} {modes[m]["overall"]:.4f}' for m in cf_anatomy.MODES)
+              + f'; full mode against generate_counterfactual (the nets one by one against the fused chain) on '
+                f'{inputs.cloud.shape[0]} clouds: code agreement {agree:.4f} >= {CODE_AGREEMENT}, recon rel L2 '
+                f'{r:.2e} <= {RECON_REL_L2} over {int(same.sum())}')
+
+        api.reset_launch_counts()
+        t0 = time.perf_counter()
+        flip = flip_probe.run(**FLIP_CASE, quiet=True, device=dev)
+        seconds = time.perf_counter() - t0
+        for k, v in api.launch_counts().items():
+            total[k] += v
+        check(flip['flip_rate'] >= FLIP_RATE_MIN and flip['final_mse'] < FLIP_MSE_MAX,
+              f'flip_probe {json.dumps(FLIP_CASE)} on the card ({seconds:.1f} s): flip rate {flip["flip_rate"]:.4f} '
+              f'>= {FLIP_RATE_MIN} (per target {json.dumps(flip["per_target"])}), final MSE '
+              f'{flip["final_mse"]:.3f} < {FLIP_MSE_MAX}, final KLD1 / KLD2 {flip["final_kld1"]:.4f} / '
+              f'{flip["final_kld2"]:.4f}')
+    finally:
+        Singleton.reset_all()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return total
+
+
+def attribution_phase(check, dev: torch.device) -> dict[str, int]:
+    """The four stage-attribution scripts at the JAX scripts' sizes on the
+    card (every marginal positive: each raises otherwise), their lines
+    printed; then the knn step of ``profile_enc`` at C = 128 timed by both
+    ``marginal_time`` and ``time_ms`` in this run, within
+    MARGINAL_AGREEMENT.  Returns the scripts' launches."""
+    from pccf_torch import profile_cf, profile_enc, profile_wae
+    from pccf_torch.kernels import api
+    from pccf_torch.tools import profile_train
+    from pccf_torch.utils.timing import marginal_time
+
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    for name, run in (('profile_cf', profile_cf.main), ('profile_enc', profile_enc.main),
+                      ('profile_wae', profile_wae.main), ('profile_train', profile_train.main)):
+        api.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        counts = api.launch_counts()
+        for k, v in counts.items():
+            total[k] += v
+        check(all(v > 0 for k, v in out.items() if k != 'derived_decoder_loss_bwd_ms'),
+              f'{name} at its default sizes ({time.perf_counter() - t0:.1f} s): every time positive, '
+              + ', '.join(f'{k} {v * (1 if name == "profile_train" else 1e3):.4f} ms' for k, v in out.items())
+              + f'; launches {json.dumps({k: v for k, v in counts.items() if v})}')
+    rng = np.random.default_rng(0)
+    with torch.inference_mode():
+        x = torch.from_numpy(rng.standard_normal((16, 2048, 128)).astype(np.float32)).to(dev)
+        step = profile_enc.knn_step(25)
+        marginal = 1e3 * marginal_time(step, (x,), 1, 9, 2)
+        direct = time_ms(lambda: step((x,)), REPS)
+    gap = abs(marginal - direct) / direct
+    check(gap <= MARGINAL_AGREEMENT, f'profile_enc\'s knn step at (16, 2048, 128) k=25: marginal_time {marginal:.4f} '
+                                     f'ms against time_ms {direct:.4f} ms, {gap:.2%} apart <= '
+                                     f'{MARGINAL_AGREEMENT:.0%}')
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -3250,6 +3490,7 @@ def main() -> int:
                           'library_ms': None, 'shape': '(16, 2048, 128) k=25'}
         print('knn ms by (B, C, k): ' + json.dumps({f'{bb},{c},{k}': round(v[0], 4) for (bb, c, k), v in
                                                     knn_ms.items()}), flush=True)
+        nan_cloud_phase(args.seed, check, dev, n)
 
         # every (B, F, k) the main path gives max-pool: F = 64, 128, 256 at
         # the encoder's k=25 and the classifier's k=20, at serving's batch 1,
@@ -5217,6 +5458,12 @@ def main() -> int:
         tep_launches = tp_ep_pp_phase(args.seed, check, dev, root, cfg,
                                       {k: v.cpu() for k, v in vqvae.state_dict().items()}, kernels)
         print(f'TP/EP/PP phase: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        quality_launches = quality_phase(args.seed, check, dev, root)
+        print(f'quality phase: {time.perf_counter() - t0:.1f} s', flush=True)
+        t0 = time.perf_counter()
+        attribution_launches = attribution_phase(check, dev)
+        print(f'attribution phase: {time.perf_counter() - t0:.1f} s', flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5232,14 +5479,17 @@ def main() -> int:
           f'{json.dumps({k: v for k, v in sp_launches.items() if v})}; wide heads '
           f'{json.dumps({k: v for k, v in wide_launches.items() if v})}; TP/EP/PP '
           f'{json.dumps({k: v for k, v in tep_launches.items() if v})}; export '
-          f'{json.dumps({k: v for k, v in export_launches.items() if v})}', flush=True)
+          f'{json.dumps({k: v for k, v in export_launches.items() if v})}; quality '
+          f'{json.dumps({k: v for k, v in quality_launches.items() if v})}; attribution '
+          f'{json.dumps({k: v for k, v in attribution_launches.items() if v})}', flush=True)
     paths = (launches, train_launches, stage2_launches, objective_launches, classifier_launches, suite_launches,
              gen_launches, *variant_launches.values(), cli_launches, tune_launches, reader_launches, cast_launches,
-             dp_launches, sp_launches, wide_launches, tep_launches, export_launches)
+             dp_launches, sp_launches, wide_launches, tep_launches, export_launches, quality_launches,
+             attribution_launches)
     print('kernel | headline shape | ms | plain ms | library ms | bound ms (by) | share of bound | launches '
           'serving / stage 1 / stage 2 / stage-1 Chamfer and ChamferSinkhorn / classifier / suites / generation / '
           'variants A / B / C / D / E / CLI pipeline / tuning / readers / bf16 cast serving / data-parallel / '
-          'auction and SP / wide heads / TP/EP/PP / export',
+          'auction and SP / wide heads / TP/EP/PP / export / quality / attribution',
           flush=True)
     for name in KERNEL_INFO:
         k = kernels[name]

@@ -43,7 +43,13 @@
 //   candidate can be among the centre's 4 nearest.  The lanes' lists then
 //   meet in a butterfly of shuffles, each step keeping the 4 smallest of two
 //   sorted lists by the lexicographic (distance, index) order, so the result
-//   does not depend on S.  The distances are knn.cu's FMA path exactly (the
+//   does not depend on S.  A list holds knn.cu's ordering keys (dist_key: the
+//   clamped distance's bits, every NaN one key above +inf, an empty slot
+//   above that), so a NaN point ranks after every number, as in knn.cu and
+//   the plain version's sort; a NaN centre's list is 0 .. 3.  A NaN passes
+//   every float threshold test (!(v >= thr)) and is then judged on its key;
+//   the threshold and the bound are NaN, which marks every candidate, while
+//   no lane holds four finite distances.  The distances are knn.cu's FMA path exactly (the
 //   norms as its fmaf chain, the product as its fmaf chain from 0, then
 //   max(fmaf(-2, dot, |x_i|^2 + |x_j|^2), 0)), so the lists equal
 //   knn_cuda(x, 4)'s index for index.  S, and so the grid, is the plan's
@@ -100,7 +106,7 @@ constexpr float kEps = 1e-12f;
 constexpr float kMinSigma = 0.005f;
 
 struct List {
-  float d[kK];
+  uint32_t d[kK];  // keys (dist_key)
   int i[kK];
 };
 
@@ -124,18 +130,37 @@ Plan filter_plan(int b, int n, int sms) {
 
 // -------------------------------------------------------------- search
 
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+constexpr uint32_t kNanKey = 0x7fffffffu;  // every NaN distance: after +inf (0x7f800000)
+constexpr uint32_t kNone = 0xffffffffu;    // an empty slot: after every distance
+
+// csrc/knn.cu's ordering key of a squared distance, as an unsigned integer:
+// the bits of max(v, 0), a NaN kept as the canonical NaN, kNanKey (PTX
+// max.NaN)
+__device__ __forceinline__ uint32_t dist_key(float v) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(v), "f"(0.f));
+  return __float_as_uint(d);
+}
+
+// the distance a key stands for as a threshold: the value while finite, else
+// NaN, which lets every candidate through a threshold test and drops out of
+// fminf
+__device__ __forceinline__ float limit(uint32_t key) {
+  return key < 0x7f800000u ? __uint_as_float(key) : __uint_as_float(kNanKey);
+}
+
+__device__ __forceinline__ bool before(uint32_t da, int ia, uint32_t db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
 // |x|^2 as csrc/knn.cu's knn_norms_fma_kernel: fmaf over the channels from 0
 __device__ __forceinline__ float norm2(float a, float b, float c) { return fmaf(c, c, fmaf(b, b, fmaf(a, a, 0.f))); }
 
-// enter (d, j) into the sorted list; j is above every listed index, so ties
-// keep the listed entry.  thr: the value a candidate's expanded distance must
-// be below to enter: the list's fourth best (-inf once that is 0), at most
-// the bound the centre's lanes share
-__device__ __forceinline__ void insert(List& l, float& thr, float bound, float d, int j) {
+// enter key d of candidate j into the sorted list; j is above every listed
+// index, so ties keep the listed entry.  thr: the value a candidate's
+// expanded distance must be below to enter: the list's fourth best (-inf once
+// that is 0), at most the bound the centre's lanes share
+__device__ __forceinline__ void insert(List& l, float& thr, float bound, uint32_t d, int j) {
   if (!(d < l.d[3])) return;
   if (d < l.d[2]) {
     l.d[3] = l.d[2];
@@ -160,12 +185,12 @@ __device__ __forceinline__ void insert(List& l, float& thr, float bound, float d
     l.d[3] = d;
     l.i[3] = j;
   }
-  thr = fminf(l.d[3] > 0.f ? l.d[3] : -INFINITY, bound);
+  thr = l.d[3] == 0u ? -INFINITY : fminf(limit(l.d[3]), bound);
 }
 
 __device__ __forceinline__ void swap_if(List& l, int a, int b) {
   if (before(l.d[b], l.i[b], l.d[a], l.i[a])) {
-    const float d = l.d[a];
+    const uint32_t d = l.d[a];
     const int i = l.i[a];
     l.d[a] = l.d[b];
     l.i[a] = l.i[b];
@@ -178,7 +203,7 @@ __device__ __forceinline__ void swap_if(List& l, int a, int b) {
 // the element-wise minimum of one and the other reversed holds them as a
 // bitonic sequence, which two compare-exchange steps sort
 __device__ __forceinline__ void merge_lane(List& l, int mask) {
-  float od[kK];
+  uint32_t od[kK];
   int oi[kK];
 #pragma unroll
   for (int q = 0; q < kK; ++q) {
@@ -224,7 +249,8 @@ __device__ __forceinline__ float expanded(const float (&c)[kC], float csq, float
 
 // the smallest of the centre's lanes' values d, just above: no candidate past
 // a lane's fourth best distance is among the centre's 4 nearest, and one at
-// it may be (a lower index)
+// it may be (a lower index).  A lane's NaN (no four finite distances) bounds
+// nothing; NaN when no lane bounds
 __device__ __forceinline__ float group_bound(float d, int splits) {
   for (int mask = 1; mask < splits; mask <<= 1) d = fminf(d, __shfl_xor_sync(FULL, d, mask));
   return nextafterf(d, INFINITY);
@@ -260,7 +286,7 @@ __device__ __forceinline__ void search(const float* __restrict__ xb, int n, int 
   const float csq = norm2(ci[0], ci[1], ci[2]);
 #pragma unroll
   for (int q = 0; q < kK; ++q) {
-    best.d[q] = INFINITY;
+    best.d[q] = kNone;
     best.i[q] = 0x7fffffff;
   }
   float thr = INFINITY, bound = INFINITY;
@@ -281,17 +307,23 @@ __device__ __forceinline__ void search(const float* __restrict__ xb, int n, int 
     __syncthreads();
     if (t0 == 0) {
       // the first threshold: the bound from the 4th smallest distance among
-      // each lane's first 8 candidates
+      // each lane's first 8 candidates, a NaN counted as +inf (no bound
+      // unless four are finite)
       float v[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) v[u] = fmaxf(expanded(ci, csq, cand[st.split + u * splits]), 0.f);
-      thr = bound = group_bound(fourth_of_8(v), splits);
+      for (int u = 0; u < 8; ++u) {
+        const float e = expanded(ci, csq, cand[st.split + u * splits]);
+        v[u] = e == e ? fmaxf(e, 0.f) : INFINITY;
+      }
+      const float f4 = fourth_of_8(v);
+      thr = bound = group_bound(f4 < INFINITY ? f4 : __uint_as_float(kNanKey), splits);
     }
     for (int p0 = st.split; p0 < padded; p0 += span) {
       // a batch of the lane's next 32 candidates: mark those below the
       // threshold (predicated, no branch), then enter the marked ones in
       // rising index, each checked again against the threshold as it
-      // tightens; then the centre's lanes share their fourth best distances
+      // tightens (the padding past the stage's points never); then the
+      // centre's lanes share their fourth best distances
       unsigned marked = 0;
 #pragma unroll
       for (int u = 0; u < kBatch; ++u)
@@ -299,9 +331,9 @@ __device__ __forceinline__ void search(const float* __restrict__ xb, int n, int 
       for (; marked; marked &= marked - 1) {
         const int p = p0 + (__ffs(marked) - 1) * splits;
         const float v = expanded(ci, csq, cand[p]);
-        if (!(v >= thr)) insert(best, thr, bound, fmaxf(v, 0.f), t0 + p);
+        if (!(v >= thr) && p < cnt) insert(best, thr, bound, dist_key(v), t0 + p);
       }
-      bound = fminf(bound, group_bound(best.d[3], splits));
+      bound = fminf(bound, group_bound(limit(best.d[3]), splits));
       thr = fminf(thr, bound);
     }
   }

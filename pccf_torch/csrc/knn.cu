@@ -4,6 +4,9 @@
 // out[b, i, :] holds the k nearest points of cloud b to point i, self
 // included, ordered by (squared distance, index): the lowest index wins a
 // tie, the rule of the plain version (a stable sort, pccf_torch/kernels/ops.py).
+// A NaN distance (a NaN coordinate in either point) ranks after every number,
+// +inf included, as that sort puts it: a NaN point is in no finite point's
+// list while it has k nearer candidates, and a NaN centre's list is 0 .. k-1.
 //
 // What bounds it: the distance sweep, B*N*N*C multiply-adds (16*2048*2048*128
 // at the largest call), and the selection of k of N candidates per centre, a
@@ -14,7 +17,13 @@
 //   per call by the arithmetic of the products below (the same fmaf chain, or
 //   the diagonal of the same 3xTF32 tensor-core product), so d(i, i) is
 //   exactly 0 and exact duplicates tie at the same distance.  A distance is
-//   max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0).
+//   max(|x_i|^2 + |x_j|^2 - 2 x_i.x_j, 0), or NaN.
+// - Keys.  The producers store each distance as its ordering key
+//   (dist_key: the clamp at 0 that keeps a NaN, as the canonical NaN): the
+//   bits of a non-negative float order as the float does, so the selectors
+//   compare the bits as unsigned integers, with every NaN one key above +inf
+//   and an empty slot above that.  One instruction a distance and one
+//   compare a pair, as with floats, and the order is total.
 // - Distances.  A block owns 64 centres of one cloud, staged once in shared
 //   memory, and walks its candidates in tiles of 64.  For C > 16 four
 //   producer warps compute each 64x64 tile with mma.sync m16n8k8 in 3xTF32
@@ -23,7 +32,7 @@
 //   for C <= 16 (the clouds' C = 3) in fp32 FMA.
 // - Selection off the critical path.  Eight selector warps own 8 centres
 //   each and keep a sorted list per centre across the lanes (lane r holds the
-//   r-th best), comparing (distance, index) pairs everywhere, so ties stay
+//   r-th best), comparing (key, index) pairs everywhere, so ties stay
 //   exact.  A tile's candidates that beat the k-th best are inserted at their
 //   rank, one shuffle and two compares deep each; when more than 20 of the 64
 //   enter (the first tiles), they are sorted by two interleaved warp-wide
@@ -66,8 +75,20 @@ constexpr int kMaxSplits = 16;
 constexpr int kSortMin = 20;  // above this many entrants a tile, sort and merge rather than insert
 constexpr int kBarProducers = 1;  // named barrier of the producer warps (0 is __syncthreads)
 constexpr unsigned kAll = 0xffffffffu;
+constexpr uint32_t kNone = 0xffffffffu;  // an empty slot: after every distance, NaN's 0x7fffffff included
+constexpr int kNoIndex = 0x7fffffff;
 
-__device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
+// the ordering key of a squared distance, as a float's bits: max(v, 0), a
+// NaN kept as the canonical NaN 0x7fffffff, one key above +inf (PTX
+// max.NaN, one instruction as fmaxf).  A -0 does not arise: the norms' sum
+// is +0 or more
+__device__ __forceinline__ float dist_key(float v) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(v), "f"(0.f));
+  return d;
+}
+
+__device__ __forceinline__ bool before(uint32_t da, int ia, uint32_t db, int ib) {
   return da < db || (da == db && ia < ib);
 }
 
@@ -91,8 +112,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // compare-exchange with the lane `mask` away, keeping the smaller (d, i) pair
 // when keep_min, else the larger
-__device__ __forceinline__ void cmpx(float& d, int& i, int mask, bool keep_min) {
-  const float pd = __shfl_xor_sync(kAll, d, mask);
+__device__ __forceinline__ void cmpx(uint32_t& d, int& i, int mask, bool keep_min) {
+  const uint32_t pd = __shfl_xor_sync(kAll, d, mask);
   const int pi = __shfl_xor_sync(kAll, i, mask);
   if (keep_min ? before(pd, pi, d, i) : before(d, i, pd, pi)) {
     d = pd;
@@ -101,7 +122,7 @@ __device__ __forceinline__ void cmpx(float& d, int& i, int mask, bool keep_min) 
 }
 
 // two ascending bitonic sorts of one (d, i) pair per lane, interleaved
-__device__ __forceinline__ void sort32x2(float& d0, int& i0, float& d1, int& i1, int lane) {
+__device__ __forceinline__ void sort32x2(uint32_t& d0, int& i0, uint32_t& d1, int& i1, int lane) {
 #pragma unroll
   for (int size = 2; size <= 32; size <<= 1)
 #pragma unroll
@@ -114,8 +135,8 @@ __device__ __forceinline__ void sort32x2(float& d0, int& i0, float& d1, int& i1,
 
 // (d, i) <- the 32 smallest of two ascending lists, ascending: the element-wise
 // minimum of one list and the other reversed is bitonic, then a bitonic merge
-__device__ __forceinline__ void merge_lists(float& d, int& i, float od, int oi, int lane) {
-  const float rd = __shfl_sync(kAll, od, 31 - lane);
+__device__ __forceinline__ void merge_lists(uint32_t& d, int& i, uint32_t od, int oi, int lane) {
+  const uint32_t rd = __shfl_sync(kAll, od, 31 - lane);
   const int ri = __shfl_sync(kAll, oi, 31 - lane);
   if (before(rd, ri, d, i)) {
     d = rd;
@@ -128,8 +149,8 @@ __device__ __forceinline__ void merge_lists(float& d, int& i, float od, int oi, 
 // insert (nd, ni) into the ascending list (bd, bi) at its rank; the last
 // entry falls off.  The shuffle up does not wait for the new entry, so a run
 // of insertions is one shuffle and two compares deep each
-__device__ __forceinline__ void insert(float& bd, int& bi, float nd, int ni, int lane) {
-  const float ud = __shfl_up_sync(kAll, bd, 1);
+__device__ __forceinline__ void insert(uint32_t& bd, int& bi, uint32_t nd, int ni, int lane) {
+  const uint32_t ud = __shfl_up_sync(kAll, bd, 1);
   const int ui = __shfl_up_sync(kAll, bi, 1);
   if (before(nd, ni, bd, bi)) {
     const bool here = lane == 0 || before(ud, ui, nd, ni);
@@ -310,8 +331,8 @@ __global__ void __launch_bounds__(kThreads, 2) knn_kernel(const KnnArgs a) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const float si = sq_row[h][0];
-            const float d0 = fmaxf(fmaf(-2.f, acc[nt][2 * h], si + s0), 0.f);
-            const float d1 = fmaxf(fmaf(-2.f, acc[nt][2 * h + 1], si + s1), 0.f);
+            const float d0 = dist_key(fmaf(-2.f, acc[nt][2 * h], si + s0));
+            const float d1 = dist_key(fmaf(-2.f, acc[nt][2 * h + 1], si + s1));
             *reinterpret_cast<float2*>(dt + (warp * 16 + g + 8 * h) * kDl + col) = make_float2(d0, d1);
           }
         }
@@ -341,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 2) knn_kernel(const KnnArgs a) {
           const float si = sq_row[i >> 2][i & 3];
           float dv[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) dv[j] = fmaxf(fmaf(-2.f, acc[i][j], si + tsq[cx + j]), 0.f);
+          for (int j = 0; j < 4; ++j) dv[j] = dist_key(fmaf(-2.f, acc[i][j], si + tsq[cx + j]));
           *reinterpret_cast<float4*>(dt + (ry + i) * kDl + cx) = make_float4(dv[0], dv[1], dv[2], dv[3]);
         }
       }
@@ -352,12 +373,12 @@ __global__ void __launch_bounds__(kThreads, 2) knn_kernel(const KnnArgs a) {
 
   // ---- selectors: 8 centres per warp, 64 candidates a tile each ---------
   const int sw = warp - kProducers;
-  float best_d[kPerWarp], worst_d[kPerWarp];
+  uint32_t best_d[kPerWarp], worst_d[kPerWarp];
   int best_i[kPerWarp], worst_i[kPerWarp];
 #pragma unroll
   for (int q = 0; q < kPerWarp; ++q) {
-    best_d[q] = worst_d[q] = INFINITY;
-    best_i[q] = worst_i[q] = 0x7fffffff;
+    best_d[q] = worst_d[q] = kNone;
+    best_i[q] = worst_i[q] = kNoIndex;
   }
   const int k = a.k, count = t1 - t0;
   for (int tile = t0, it = 0; tile < t1; ++tile, ++it) {
@@ -367,15 +388,15 @@ __global__ void __launch_bounds__(kThreads, 2) knn_kernel(const KnnArgs a) {
 #pragma unroll
     for (int q = 0; q < kPerWarp; ++q) {
       const float* drow = dt + (sw * kPerWarp + q) * kDl;
-      float d0 = drow[lane], d1 = drow[32 + lane];
+      uint32_t d0 = __float_as_uint(drow[lane]), d1 = __float_as_uint(drow[32 + lane]);
       const bool p0 = j0 < n && before(d0, j0, worst_d[q], worst_i[q]);
       const bool p1 = j1 < n && before(d1, j1, worst_d[q], worst_i[q]);
       const unsigned m0 = __ballot_sync(kAll, p0), m1 = __ballot_sync(kAll, p1);
       if (__popc(m0) + __popc(m1) > kSortMin) {
         // many enter (the first tiles): sort the tile's entrants and merge
-        int i0 = p0 ? j0 : 0x7fffffff, i1 = p1 ? j1 : 0x7fffffff;
-        d0 = p0 ? d0 : INFINITY;
-        d1 = p1 ? d1 : INFINITY;
+        int i0 = p0 ? j0 : kNoIndex, i1 = p1 ? j1 : kNoIndex;
+        d0 = p0 ? d0 : kNone;
+        d1 = p1 ? d1 : kNone;
         sort32x2(d0, i0, d1, i1, lane);
         merge_lists(d0, i0, d1, i1, lane);
         merge_lists(best_d[q], best_i[q], d0, i0, lane);
@@ -404,13 +425,13 @@ __global__ void __launch_bounds__(kThreads, 2) knn_kernel(const KnnArgs a) {
       a.out[((size_t)b * n + centre) * k + lane] = best_i[q];
     } else {
       const size_t at = (((size_t)b * a.splits + split) * n + centre) * k + lane;
-      a.part_d[at] = best_d[q];
+      a.part_d[at] = __uint_as_float(best_d[q]);  // the key's bits
       a.part_i[at] = best_i[q];
     }
   }
 }
 
-// one warp per centre: merge its S sorted partial lists of k into the k best
+// one warp per centre: merge its S sorted partial lists of k (keys) into the k best
 __global__ void knn_merge_kernel(const float* __restrict__ part_d, const int* __restrict__ part_i,
                                  int* __restrict__ out, int points, int n, int k, int splits) {
   const int gw = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -418,11 +439,11 @@ __global__ void knn_merge_kernel(const float* __restrict__ part_d, const int* __
   const int b = gw / n, i = gw - b * n;
   const size_t stride = (size_t)n * k;
   const size_t base = ((size_t)b * splits * n + i) * k;
-  float d = lane < k ? part_d[base + lane] : INFINITY;
-  int id = lane < k ? part_i[base + lane] : 0x7fffffff;
+  uint32_t d = lane < k ? __float_as_uint(part_d[base + lane]) : kNone;
+  int id = lane < k ? part_i[base + lane] : kNoIndex;
   for (int s = 1; s < splits; ++s) {
-    const float od = lane < k ? part_d[base + s * stride + lane] : INFINITY;
-    const int oi = lane < k ? part_i[base + s * stride + lane] : 0x7fffffff;
+    const uint32_t od = lane < k ? __float_as_uint(part_d[base + s * stride + lane]) : kNone;
+    const int oi = lane < k ? part_i[base + s * stride + lane] : kNoIndex;
     merge_lists(d, id, od, oi, lane);
   }
   if (lane < k) out[(size_t)gw * k + lane] = id;
@@ -436,7 +457,7 @@ size_t knn_smem(int c) {
 }  // namespace
 
 // out (B, N, k) int32 from x (B, N, C) fp32; sq (B, N) fp32 scratch; with
-// splits > 1, part_d / part_i (B, splits, N, k) scratch.  1 <= k <= min(32, N),
+// splits > 1, part_d / part_i (B, splits, N, k) scratch (part_d holds keys).  1 <= k <= min(32, N),
 // 1 <= C <= 256, 1 <= splits <= min(16, ceil(N / 64)).
 extern "C" int pccf_knn(const float* x, float* sq, float* part_d, int* part_i, int* out, int b, int n, int c, int k,
                         int splits, cudaStream_t stream) {

@@ -33,7 +33,8 @@ def knn(x: Tensor, k: int) -> Tensor:
     """Indices of the k nearest neighbours of each point, self included,
     sorted by distance with the lowest index first on ties (``jax.lax.top_k``
     order, ``pccf/kernels/ops.py:64``).  A stable sort, not ``torch.topk``,
-    whose tie order is unspecified."""
+    whose tie order is unspecified; a NaN distance sorts after every number,
+    NaNs by rising index, as the card's kernel orders them."""
     d = self_square_distance(x)
     order = torch.sort(d, dim=-1, stable=True).indices
     return order[..., :k].to(torch.int32)

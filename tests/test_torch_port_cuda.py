@@ -9,7 +9,9 @@ conftest helpers, so it runs on a machine that has only PyTorch:
 Tolerances: kNN neighbour sets equal up to near-ties (a differing neighbour
 must be as near, in float64, within 1e-5 of the squared distance scale),
 with the lowest index first on exact duplicates, and the same lists index for
-index whatever the candidate split or the batch; max-pool bit-exact; pcgen_mix
+index whatever the candidate split or the batch; on clouds with NaN points
+(a NaN after every number) index for index the plain version's on integer
+coordinates, which every route's distances hold exactly; max-pool bit-exact; pcgen_mix
 rel-L2 2e-3 (fp16 weights and product inputs, ~3e-4 at the flagship, where
 a bf16 version read ~4e-3), and 1e-2 (RECON_REL_L2) where the activations
 pass fp16's range and the kernel scales its operands; both PCGen kernels'
@@ -177,6 +179,70 @@ def test_knn_lists_do_not_depend_on_the_batch(dev, c):
     batched = knn.knn_cuda(x, 25)
     for i in (0, 7, 15):
         assert knn.knn_cuda(x[i:i + 1].contiguous(), 25).equal(batched[i:i + 1])
+
+
+# ------------------------------------------------------------- NaN clouds
+#
+# The lists are compared with the plain version's index for index on clouds
+# of integer coordinates, whose squared distances every route computes
+# exactly (3xTF32 splits an integer below 2^11 with a zero small part), so
+# the order is the sort's, ties included; a random cloud's near-ties round
+# apart between the kernel and the plain product.
+
+
+def _nan_grid(b, n, c, seed, dev, cloud=0, points=(5,)):
+    """``(B, N, C)`` integer coordinates in [-8, 8] with NaN points of cloud
+    ``cloud`` at ``points``."""
+    x = torch.from_numpy(np.random.default_rng(seed).integers(-8, 9, (b, n, c)).astype(np.float32))
+    x[cloud, list(points), 0] = float('nan')
+    return x.to(dev)
+
+
+@pytest.mark.parametrize('k', [4, 25])
+@pytest.mark.parametrize('c', [3, 64, 128])
+@pytest.mark.parametrize('b', [1, 5, 16])
+def test_knn_nan_cloud_matches_plain(dev, b, c, k):
+    """A NaN point of one cloud ranks after every number in every list of
+    that cloud, and its own list is 0 .. k-1 (the plain version's stable sort
+    puts NaN last); the other clouds get the lists they get without it."""
+    x = _nan_grid(b, 2048, c, 300 + 10 * b + c, dev, cloud=b // 2)
+    got = knn.knn_cuda(x, k)
+    assert torch.equal(got.cpu(), knn.plain(x.cpu(), k))
+    assert got[b // 2, 5].tolist() == list(range(k)) and not bool((got[b // 2, :5] == 5).any())
+    if b > 1:
+        rest = torch.cat([x[:b // 2], x[b // 2 + 1:]]).contiguous()
+        assert torch.equal(torch.cat([got[:b // 2], got[b // 2 + 1:]]), knn.knn_cuda(rest, k))
+
+
+@pytest.mark.parametrize('n_splits', [None, 1, 2, 4, 16])
+@pytest.mark.parametrize('where', [(511,), (512,), (0, 1, 2047), (64, 65, 66, 67, 1024)])
+def test_knn_nan_at_split_boundaries(dev, where, n_splits):
+    """NaN points either side of a split boundary at batch 1 (4 splits of 512
+    candidates by default, 16 of 128), several NaN centres, and a run of NaNs
+    longer than k = 4: index for index the plain version's, whatever the
+    split."""
+    for c in (3, 64):
+        x = _nan_grid(1, 2048, c, 7 + c, dev, points=where)
+        for k in (4, 25):
+            got = knn.knn_cuda(x, k, n_splits=n_splits)
+            assert torch.equal(got.cpu(), knn.plain(x.cpu(), k))
+            for i in where:
+                assert got[0, i].tolist() == list(range(k))
+
+
+def test_knn_nan_random_cloud(dev):
+    """A random cloud of one NaN point: the point is in no other list, its
+    own list is 0 .. k-1, and the other lists are the plain version's up to
+    near-ties."""
+    x = _randn((2, 2048, 64), 61, dev)
+    x[1, 700, 3] = float('nan')
+    got = knn.knn_cuda(x, 25)
+    assert got[1, 700].tolist() == list(range(25))
+    others = torch.ones(2048, dtype=torch.bool)
+    others[700] = False
+    assert not bool((got[1, others] == 700).any())
+    assert _knn_agrees(x[:1], got[:1], knn.plain(x[:1], 25), 25)
+    assert torch.equal(got[1, others], knn.knn_cuda(x[1:], 25)[0, others])
 
 
 def test_graph_max_pool_bit_exact(dev):
@@ -782,6 +848,26 @@ def test_graph_filter_matches_plain(dev, b, n, duplicates):
     assert _max_rel(mean, dist[:, :, 0].mean(1)) <= FILTER_REL_MAX
     again = graph_filter.graph_filter_cuda(x)  # fixed-order sums: the same bits on every call
     assert all(torch.equal(a, c) for a, c in zip((out, idx, mean), again))
+
+
+@pytest.mark.parametrize('b', [1, 8, 16])
+def test_graph_filter_nan_cloud(dev, b):
+    """Graph filtering with one NaN point in one cloud: its indices are the
+    plain kNN's and ``knn_cuda(x, 4)``'s index for index (integer
+    coordinates), the NaN cloud's output and mean NaN as the plain version's,
+    the other clouds' lists as without it and their output within the
+    filter's tolerance of it (the mean's partials may add in another order)."""
+    x = _nan_grid(b, 2048, 3, 90 + b, dev, cloud=b - 1, points=(5, 1500))
+    out, idx, mean = graph_filter.graph_filter_cuda(x)
+    assert torch.equal(idx, knn.knn_cuda(x, 4)) and torch.equal(idx.cpu(), knn.plain(x.cpu(), 4))
+    assert idx[b - 1, 5].tolist() == [0, 1, 2, 3]
+    want = ops.graph_filtering_with_idx(x, idx)
+    assert bool(torch.isnan(out[b - 1]).all()) and bool(torch.isnan(want[b - 1]).all()) and bool(mean[b - 1].isnan())
+    if b > 1:
+        assert _max_rel(out[:-1], want[:-1]) <= FILTER_REL_MAX
+        alone = graph_filter.graph_filter_cuda(x[:-1].contiguous())
+        assert torch.equal(idx[:-1], alone[1])
+        assert _max_rel(out[:-1], alone[0]) <= FILTER_REL_MAX and _max_rel(mean[:-1], alone[2]) <= FILTER_REL_MAX
 
 
 @pytest.mark.parametrize('b,n,scale', [(8, 2048, 0.5), (8, 2048, 0.002), (2, 512, 0.5), (3, 300, 0.5)])
